@@ -1,0 +1,207 @@
+"""Engine configuration dataclasses (counterpart of
+aphrodite_tpu/common/config.py, trimmed to what the offline bf16 Llama
+path reads). Parallelism, LoRA, prompt adapters, speculative decoding and
+quantization come with the slices that port them.
+"""
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+from aphrodite_tpu_torch.common.logger import init_logger
+
+logger = init_logger(__name__)
+
+_SUPPORTED_DTYPES = ("bfloat16", "float32")
+
+
+def _read_hf_config(model: str) -> Dict[str, Any]:
+    path = os.path.join(model, "config.json")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"Could not find config.json under {model!r}. Only local model "
+            "directories are supported (no network).")
+    with open(path) as f:
+        return json.load(f)
+
+
+@dataclass
+class ModelConfig:
+    """Model architecture + checkpoint description."""
+
+    model: str
+    tokenizer: Optional[str] = None
+    dtype: str = "bfloat16"
+    seed: int = 0
+    max_model_len: Optional[int] = None
+    trust_remote_code: bool = False
+    # Skip tokenizer loading; requests must pass prompt_token_ids.
+    skip_tokenizer_init: bool = False
+    # Populated from config.json:
+    hf_config: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.tokenizer is None:
+            self.tokenizer = self.model
+        if not self.hf_config:
+            self.hf_config = _read_hf_config(self.model)
+        if self.dtype == "auto":
+            self.dtype = str(self.hf_config.get("torch_dtype", "bfloat16"))
+            if self.dtype.startswith("torch."):
+                self.dtype = self.dtype[len("torch."):]
+            if self.dtype == "float16":
+                # As in the JAX package: fp16 checkpoints run as bf16.
+                self.dtype = "bfloat16"
+        if self.dtype not in _SUPPORTED_DTYPES:
+            raise ValueError(f"unsupported dtype {self.dtype!r}")
+        derived_max = int(
+            self.hf_config.get("max_position_embeddings")
+            or self.hf_config.get("n_positions")
+            or self.hf_config.get("max_seq_len")
+            or self.hf_config.get("seq_length") or 2048)
+        if self.max_model_len is None:
+            self.max_model_len = derived_max
+        elif (self.max_model_len > derived_max
+              and not self.hf_config.get("rope_scaling")):
+            logger.warning(
+                "max_model_len %d exceeds the model's "
+                "max_position_embeddings %d", self.max_model_len,
+                derived_max)
+        if self.hf_config.get("quantization_config"):
+            raise NotImplementedError(
+                "quantized checkpoints are not ported to the PyTorch "
+                "package yet")
+
+    @property
+    def architecture(self) -> str:
+        archs = self.hf_config.get("architectures") or ["LlamaForCausalLM"]
+        return archs[0]
+
+    def get_hidden_size(self) -> int:
+        return int(self.hf_config["hidden_size"])
+
+    def get_num_layers(self) -> int:
+        return int(self.hf_config["num_hidden_layers"])
+
+    def get_num_attention_heads(self) -> int:
+        return int(self.hf_config["num_attention_heads"])
+
+    def get_total_num_kv_heads(self) -> int:
+        return int(
+            self.hf_config.get("num_key_value_heads",
+                               self.get_num_attention_heads()))
+
+    def get_head_size(self) -> int:
+        if self.hf_config.get("head_dim"):
+            return int(self.hf_config["head_dim"])
+        return self.get_hidden_size() // self.get_num_attention_heads()
+
+    def get_vocab_size(self) -> int:
+        return int(self.hf_config["vocab_size"])
+
+    def get_sliding_window(self) -> Optional[int]:
+        if self.hf_config.get("use_sliding_window") is False:
+            return None
+        return self.hf_config.get("sliding_window")
+
+
+@dataclass
+class CacheConfig:
+    """Paged KV cache configuration."""
+
+    block_size: int = 16
+    # Share of the card's memory the weights, activations and KV cache
+    # may take together.
+    hbm_utilization: float = 0.9
+    num_device_blocks: Optional[int] = None  # set after memory profiling
+    enable_prefix_caching: bool = False
+    # Override the profiled block count (tests / CPU runs).
+    num_device_blocks_override: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.block_size <= 0:
+            raise ValueError("block_size must be positive")
+        if not 0.0 < self.hbm_utilization <= 1.0:
+            raise ValueError("hbm_utilization must be in (0, 1]")
+
+
+@dataclass
+class SchedulerConfig:
+    """Continuous-batching policy knobs (same fields as the JAX package;
+    the scheduler is a copy)."""
+
+    max_num_batched_tokens: Optional[int] = None
+    max_num_seqs: int = 256
+    max_model_len: int = 2048
+    enable_chunked_prefill: bool = True
+    # Upper bound of scheduler steps executed per schedule() call
+    # (multi-step decoding). 1 = classic per-token scheduling.
+    num_scheduler_steps: int = 1
+    preemption_mode: str = "recompute"
+    # Prefill admission hold-off: a waiting prompt is admitted only once
+    # its age exceeds delay_factor x the last prompt iteration's latency.
+    delay_factor: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.max_num_batched_tokens is None:
+            if self.enable_chunked_prefill:
+                self.max_num_batched_tokens = max(512, self.max_num_seqs)
+            else:
+                self.max_num_batched_tokens = max(self.max_model_len, 2048)
+        if not self.enable_chunked_prefill:
+            # Without chunked prefill, a whole prompt must fit in a step.
+            self.max_num_batched_tokens = max(self.max_num_batched_tokens,
+                                              self.max_model_len)
+        if self.max_num_batched_tokens < self.max_num_seqs:
+            logger.warning(
+                "max_num_batched_tokens (%d) < max_num_seqs (%d); decode "
+                "batches will be capped by the token budget",
+                self.max_num_batched_tokens, self.max_num_seqs)
+        if self.preemption_mode != "recompute":
+            raise ValueError("only preemption_mode='recompute' is supported")
+
+
+@dataclass
+class DeviceConfig:
+    """Target device: "cuda" (the card) or "cpu" (tests). Never probed:
+    the caller names it, and "cuda" without a card raises."""
+
+    device: str = "cuda"
+
+    def __post_init__(self) -> None:
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(
+                f"device must be 'cuda' or 'cpu', got {self.device!r}")
+        if self.device == "cuda":
+            import torch
+
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "device='cuda' but no CUDA device is available; pass "
+                    "device='cpu' to run on the CPU")
+
+
+@dataclass
+class LoadConfig:
+    """Weight-loading strategy."""
+
+    load_format: str = "auto"  # auto|safetensors|dummy
+
+    def __post_init__(self) -> None:
+        if self.load_format not in ("auto", "safetensors", "dummy"):
+            raise ValueError(f"unknown load_format {self.load_format!r}")
+
+
+@dataclass
+class EngineConfig:
+    model_config: ModelConfig
+    cache_config: CacheConfig
+    scheduler_config: SchedulerConfig
+    device_config: DeviceConfig
+    load_config: LoadConfig
+
+    def __post_init__(self) -> None:
+        self.scheduler_config.max_model_len = min(
+            self.scheduler_config.max_model_len,
+            self.model_config.max_model_len)

@@ -1,0 +1,256 @@
+// Paged decode attention (q_len == 1 per sequence) for Hopper, sm_90a.
+//
+// Replaces the TPU kernel aphrodite_tpu/ops/decode_attention.py:
+// paged_decode_attention -> _decode_kernel. The TPU kernel groups G
+// sequences into one block-diagonal score matmul because the MXU wants
+// wide tiles; that layout is a TPU choice and is not carried over. Here
+// one block serves one (sequence, kv head): the QG = QH / KV query heads
+// of that kv head share every K/V tile the block stages in shared memory.
+//
+// Bound on the H100: bytes. Each step reads every live K/V row once
+// (2 * kv_len * D bf16 per kv head) and does 4 * QG * D FLOPs per key,
+// about QG operations per byte, far below the ~295 FLOP/byte ridge.
+// The design reads each K/V row from device memory exactly once per
+// (sequence, kv head), with 16-byte coalesced loads (one warp moves one
+// token's adjacent K and V rows, 2 * D * 2 bytes, per instruction), and
+// skips everything outside [max(0, kv_len - window), kv_len). Tiles are
+// loaded, then consumed, with no overlap; split-KV and a cp.async/TMA
+// pipeline are later work.
+//
+// Semantics (same as the plain version in ops/decode_attention.py):
+//   out[s, h] = softmax_j(cap(q[s, h] . k[s, j] * sm_scale)) . v[s, j]
+// over j in [kv_lo, kv_len), kv head h / QG; rows with kv_len == 0 are
+// dead padding and get zeros. Nothing past kv_len is ever loaded: the
+// shared-memory slots of such keys are zero-filled and their
+// probabilities are exactly 0, so stale or NaN bytes in unwritten page
+// slots cannot reach the output.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kTileKeys = 128;  // keys per tile: one per thread in the QK pass
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The one shape the kernel is built for: Llama-3 8B/70B attention, head_dim
+// 128 with 4 query heads per kv head. The wrapper raises for any other.
+constexpr int D = 128;
+constexpr int QG = 4;
+
+struct DecodeSmem {
+  static constexpr int kKPad = D + 8;  // bf16 row stride: an odd number of 16-byte units
+  static constexpr size_t k_tile = size_t(kTileKeys) * kKPad * 2;
+  static constexpr size_t v_tile = size_t(kTileKeys) * D * 2;
+  static constexpr size_t q = size_t(QG) * D * 4;
+  static constexpr size_t p = size_t(QG) * kTileKeys * 4;
+  static constexpr size_t stats = size_t(3) * QG * 4;
+  static constexpr size_t bytes = k_tile + v_tile + q + p + stats;
+};
+static_assert(D == kThreads, "the PV pass gives each thread one output dim");
+
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ kv,
+                    const int* __restrict__ kv_lens,
+                    const int* __restrict__ page_indices,
+                    __nv_bfloat16* __restrict__ out, int num_kv_heads,
+                    int page_size, int pages_per_seq, float sm_scale,
+                    int sliding_window, float soft_cap) {
+  using L = DecodeSmem;
+  constexpr int kKPad = L::kKPad;
+  constexpr int kChunks = D / 8;  // 16-byte chunks per K (or V) row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* k_tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* v_tile = reinterpret_cast<__nv_bfloat16*>(smem + L::k_tile);
+  float* q_s = reinterpret_cast<float*>(smem + L::k_tile + L::v_tile);
+  float* p_s = q_s + QG * D;
+  float* m_s = p_s + QG * kTileKeys;
+  float* l_s = m_s + QG;
+  float* alpha_s = l_s + QG;
+
+  const int seq = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int num_q_heads = num_kv_heads * QG;
+  const int ckv = 2 * num_kv_heads;
+
+  const size_t head0 = size_t(seq) * num_q_heads + size_t(kvh) * QG;
+  __nv_bfloat16* out_base = out + head0 * D;
+  const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
+  if (kv_len <= 0) {
+    for (int i = tid; i < QG * D; i += kThreads) out_base[i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int kv_lo = sliding_window > 0 ? max(0, kv_len - sliding_window) : 0;
+  const int* pages = page_indices + size_t(seq) * pages_per_seq;
+
+  const __nv_bfloat16* q_base = q + head0 * D;
+  for (int i = tid; i < QG * D; i += kThreads) q_s[i] = __bfloat162float(q_base[i]) * sm_scale;
+  if (tid < QG) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+
+  float acc[QG];  // output dim tid of each head
+#pragma unroll
+  for (int h = 0; h < QG; ++h) acc[h] = 0.f;
+
+  for (int tile0 = kv_lo; tile0 < kv_len; tile0 += kTileKeys) {
+    // Stage K and V rows of keys [tile0, tile0 + kTileKeys); zeros past kv_len.
+    for (int c = tid; c < kTileKeys * 2 * kChunks; c += kThreads) {
+      const int key = c / (2 * kChunks);
+      const int rem = c % (2 * kChunks);
+      const int is_v = rem / kChunks;
+      const int part = rem % kChunks;
+      const int pos = tile0 + key;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (pos < kv_len) {
+        const int page = pages[pos / page_size];
+        const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
+        val = *reinterpret_cast<const uint4*>(kv + row * D + part * 8);
+      }
+      __nv_bfloat16* dst = is_v ? v_tile + key * D + part * 8 : k_tile + key * kKPad + part * 8;
+      *reinterpret_cast<uint4*>(dst) = val;
+    }
+    __syncthreads();
+
+    // Scores: thread tid owns key tile0 + tid for all QG heads.
+    {
+      const bool valid = tile0 + tid < kv_len;
+      float s[QG];
+#pragma unroll
+      for (int h = 0; h < QG; ++h) s[h] = 0.f;
+      const __nv_bfloat16* krow = k_tile + tid * kKPad;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 8) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
+        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float kf[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(k2[i]);
+          kf[2 * i] = f.x;
+          kf[2 * i + 1] = f.y;
+        }
+#pragma unroll
+        for (int h = 0; h < QG; ++h) {
+          const float4 qa = *reinterpret_cast<const float4*>(q_s + h * D + d);
+          const float4 qb = *reinterpret_cast<const float4*>(q_s + h * D + d + 4);
+          s[h] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                  qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < QG; ++h) {
+        float v = s[h];
+        if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+        p_s[h * kTileKeys + tid] = valid ? v : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per head. Key tile0 is always valid, so
+    // every tile has a finite maximum.
+    for (int h = warp; h < QG; h += kThreads / 32) {
+      float* row = p_s + h * kTileKeys;
+      float mx = -INFINITY;
+      for (int k = lane; k < kTileKeys; k += 32) mx = fmaxf(mx, row[k]);
+      mx = warp_max(mx);
+      const float m_old = m_s[h];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int k = lane; k < kTileKeys; k += 32) {
+        const float v = row[k];
+        const float p = v == -INFINITY ? 0.f : __expf(v - m_new);
+        row[k] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = m_old == -INFINITY ? 0.f : __expf(m_old - m_new);
+        alpha_s[h] = alpha;
+        l_s[h] = l_s[h] * alpha + sum;
+        m_s[h] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P . V over this tile's valid keys.
+    {
+#pragma unroll
+      for (int h = 0; h < QG; ++h) acc[h] *= alpha_s[h];
+      const int n_valid = min(kTileKeys, kv_len - tile0);
+      for (int k = 0; k < n_valid; ++k) {
+        const float v = __bfloat162float(v_tile[k * D + tid]);
+#pragma unroll
+        for (int h = 0; h < QG; ++h) acc[h] += p_s[h * kTileKeys + k] * v;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < QG; ++h) {
+    const float l = l_s[h];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    out_base[h * D + tid] = __float2bfloat16(acc[h] * inv);
+  }
+}
+
+cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
+                   void* out, int num_seqs, int num_kv_heads, int page_size, int pages_per_seq,
+                   float sm_scale, int sliding_window, float soft_cap, cudaStream_t stream) {
+  const size_t smem = DecodeSmem::bytes;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(num_seqs, num_kv_heads);
+  paged_decode_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv), kv_lens,
+      page_indices, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size, pages_per_seq,
+      sm_scale, sliding_window, soft_cap);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q bf16[S, QH, D] with D = 128 and QH = 4 * KV, kv_pages bf16[P,
+// page_size, 2 * KV, D] (K at even and V at odd combined heads), kv_lens
+// i32[S], page_indices i32[S, pages_per_seq], out bf16[S, QH, D].
+// sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA error
+// of the launch (cudaErrorInvalidValue for any other D or QH / KV).
+extern "C" int paged_decode_attention_bf16(const void* q, const void* kv_pages, const void* kv_lens,
+                                           const void* page_indices, void* out, int num_seqs,
+                                           int num_q_heads, int num_kv_heads, int head_dim,
+                                           int page_size, int pages_per_seq, float sm_scale,
+                                           int sliding_window, float soft_cap, void* stream) {
+  if (num_seqs <= 0) return int(cudaSuccess);
+  if (head_dim != D || num_kv_heads <= 0 || num_q_heads != QG * num_kv_heads)
+    return int(cudaErrorInvalidValue);
+  return int(launch(q, kv_pages, static_cast<const int*>(kv_lens),
+                    static_cast<const int*>(page_indices), out, num_seqs, num_kv_heads,
+                    page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,
+                    static_cast<cudaStream_t>(stream)));
+}

@@ -1,0 +1,32 @@
+"""Model <-> runner interface types."""
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class ForwardBatch(NamedTuple):
+    """Flat inputs for one step (T padded tokens, S padded sequences), as
+    device tensors. Counterpart of aphrodite_tpu/models/interface.py
+    without the LoRA, multimodal, encoder-decoder and M-RoPE fields, which
+    later slices bring."""
+
+    # [T] token ids (padding: 0).
+    token_ids: torch.Tensor
+    # [T] absolute position of each token in its sequence (padding: 0).
+    positions: torch.Tensor
+    # [T] flat KV slot (= page * page_size + offset); padding rows point
+    # into the reserved trash page.
+    slot_mapping: torch.Tensor
+    # [S] post-step KV length per sequence (padding: 0).
+    kv_lens: torch.Tensor
+    # [S, pages_per_seq] physical page ids per sequence (padding: 0).
+    page_indices: torch.Tensor
+    # [S+1] cumulative query lengths (padding: repeated last value), or
+    # None for a pure-decode batch (q_len == 1 per row).
+    cu_q_lens: Optional[torch.Tensor]
+    # [1] actual number of sequences.
+    num_seqs: torch.Tensor
+    # [S] index into [T] of the last token of each sequence (for logits
+    # extraction; padding: 0).
+    logits_indices: torch.Tensor

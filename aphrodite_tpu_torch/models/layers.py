@@ -1,0 +1,77 @@
+"""Functional model layers (counterpart of aphrodite_tpu/models/layers.py).
+
+Plain PyTorch on tensors: RMSNorm, SiLU-and-mul, and rotary position
+embedding with the default and Llama-3 frequency tables, NeoX
+(rotate-half) style. The other RoPE scalings come with the models that
+use them.
+"""
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm computed in f32, returned in x's dtype."""
+    xf = x.float()
+    var = xf.pow(2).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def silu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def compute_rope_tables(
+    head_dim: int,
+    max_position: int,
+    base: float = 10000.0,
+    rope_scaling: Optional[Dict[str, Any]] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) tables of shape [max_position, head_dim // 2] in f32,
+    computed in float64 on the host. Handles no scaling ("default") and
+    "llama3" frequency-band rescaling."""
+    inv_freq = 1.0 / (base**(
+        np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    positions = np.arange(max_position, dtype=np.float64)
+    if rope_scaling:
+        rope_type = rope_scaling.get("rope_type",
+                                     rope_scaling.get("type", "default"))
+        if rope_type == "llama3":
+            factor = float(rope_scaling.get("factor", 1.0))
+            low_freq_factor = float(rope_scaling.get("low_freq_factor", 1.0))
+            high_freq_factor = float(
+                rope_scaling.get("high_freq_factor", 4.0))
+            orig_max = int(
+                rope_scaling.get("original_max_position_embeddings", 8192))
+            low_freq_wavelen = orig_max / low_freq_factor
+            high_freq_wavelen = orig_max / high_freq_factor
+            wavelen = 2 * math.pi / inv_freq
+            smooth = ((orig_max / wavelen - low_freq_factor) /
+                      (high_freq_factor - low_freq_factor))
+            inv_freq = np.where(
+                wavelen < high_freq_wavelen, inv_freq,
+                np.where(wavelen > low_freq_wavelen, inv_freq / factor,
+                         (1 - smooth) * (inv_freq / factor)
+                         + smooth * inv_freq))
+        elif rope_type not in ("default", None):
+            raise ValueError(f"unsupported rope scaling type {rope_type!r}")
+    freqs = np.einsum("p,f->pf", positions, inv_freq)
+    cos = torch.tensor(np.cos(freqs), dtype=torch.float32, device=device)
+    sin = torch.tensor(np.sin(freqs), dtype=torch.float32, device=device)
+    return cos, sin
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """NeoX rotate-half RoPE. x [T, heads, head_dim]; cos/sin [T, D/2]."""
+    xf = x.float()
+    half = cos.shape[-1]
+    c = cos[:, None, :]
+    s = sin[:, None, :]
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)

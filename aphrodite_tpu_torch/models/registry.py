@@ -1,0 +1,24 @@
+"""Model registry (counterpart of aphrodite_tpu/models/registry.py).
+
+Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
+one architecture so far; any other raises.
+"""
+
+from typing import Dict, Type
+
+from aphrodite_tpu_torch.common.config import ModelConfig
+from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
+
+_MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
+    "LlamaForCausalLM": LlamaForCausalLM,
+}
+
+
+def get_model_class(model_config: ModelConfig) -> Type[LlamaForCausalLM]:
+    arch = model_config.architecture
+    if arch not in _MODEL_REGISTRY:
+        raise ValueError(
+            f"architecture {arch!r} is not ported to the PyTorch package "
+            f"yet; it serves {sorted(_MODEL_REGISTRY)}. The JAX package "
+            "(aphrodite_tpu) serves the others.")
+    return _MODEL_REGISTRY[arch]

@@ -1,0 +1,121 @@
+"""Ragged paged attention.
+
+Counterpart of aphrodite_tpu/ops/attention.py: one flat stream of query
+tokens (prefill chunks and decode tokens, split by ``cu_q_lens``) over the
+paged KV cache.
+
+- ``ref_ragged_paged_attention``: the plain PyTorch version. The CPU path
+  and the reference the CUDA kernel is held against.
+- ``ragged_paged_attention``: the dispatching wrapper. ``cu_q_lens=None``
+  marks a pure-decode batch and goes to ``paged_decode_attention``. Else
+  CPU tensors take the plain version, and CUDA tensors launch the
+  hand-written Hopper kernel ``csrc/ragged_paged_attention.cu`` (which
+  replaces the TPU kernel behind aphrodite_tpu/ops/attention.py:
+  _kernel_attention) or raise. At prefill shapes the kernel is bound by
+  operations; its source says what its design does about that.
+
+Cache layout: [num_pages, page_size, 2 * num_kv_heads, head_dim], K at
+even and V at odd combined-head indices.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops.decode_attention import (attend,
+                                                      check_kernel_inputs,
+                                                      gather_kv,
+                                                      paged_decode_attention)
+
+
+def ref_ragged_paged_attention(
+    q: torch.Tensor,  # [T, QH, D]
+    kv_pages: torch.Tensor,  # [P, page_size, 2*KV, D]
+    kv_lens: torch.Tensor,  # i32[S] post-write kv length
+    page_indices: torch.Tensor,  # i32[S, pages_per_seq]
+    cu_q_lens: torch.Tensor,  # i32[S+1]
+    num_seqs: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: float = 1.0,
+    sliding_window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain ragged paged attention, one sequence at a time.
+
+    Token i of sequence s sits at absolute position kv_len - q_len + i.
+    Tokens past cu_q_lens[S] (padding) get zeros; the JAX reference
+    leaves garbage there, which callers ignore either way.
+    """
+    del num_seqs
+    out = torch.zeros_like(q)
+    cu = cu_q_lens.tolist()
+    for s, kv_len in enumerate(kv_lens.tolist()):
+        q_len = cu[s + 1] - cu[s]
+        if q_len <= 0 or kv_len <= 0:
+            continue
+        k, v = gather_kv(kv_pages, page_indices[s], kv_len)
+        pos = torch.arange(kv_len - q_len, kv_len, device=q.device)
+        out[cu[s]:cu[s + 1]] = attend(
+            q[cu[s]:cu[s + 1]], k, v, pos, sm_scale=sm_scale,
+            sliding_window=sliding_window, soft_cap=soft_cap).to(q.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = cuda_build.load("ragged_paged_attention").ragged_paged_attention_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,
+    kv_pages: torch.Tensor,
+    kv_lens: torch.Tensor,
+    page_indices: torch.Tensor,
+    cu_q_lens: Optional[torch.Tensor],
+    num_seqs: torch.Tensor,
+    *,
+    sm_scale: float = 1.0,
+    sliding_window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    kwargs = dict(sm_scale=sm_scale, sliding_window=sliding_window,
+                  soft_cap=soft_cap)
+    if cu_q_lens is None:
+        return paged_decode_attention(q, kv_pages, kv_lens, page_indices,
+                                      num_seqs, **kwargs)
+    if q.device.type == "cpu":
+        return ref_ragged_paged_attention(q, kv_pages, kv_lens,
+                                          page_indices, cu_q_lens, **kwargs)
+    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices, cu_q_lens))
+    num_tokens, num_q_heads, head_dim = q.shape
+    num_seqs_padded = kv_lens.shape[0]
+    if (cu_q_lens.shape != (num_seqs_padded + 1,)
+            or page_indices.shape[0] != num_seqs_padded):
+        raise ValueError("cu_q_lens needs S+1 entries and page_indices S "
+                         "rows for S = len(kv_lens)")
+    _, page_size, ckv, _ = kv_pages.shape
+    # Tokens past cu_q_lens[S] belong to no sequence; the kernel leaves
+    # them alone.
+    out = torch.zeros_like(q)
+    err = _kernel()(
+        q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
+        page_indices.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
+        num_tokens, num_seqs_padded, num_q_heads, ckv // 2, head_dim,
+        page_size, page_indices.shape[1], float(sm_scale),
+        int(sliding_window or 0), float(soft_cap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0

@@ -1,0 +1,170 @@
+"""Paged decode attention: one query token per sequence.
+
+Counterpart of aphrodite_tpu/ops/decode_attention.py. The fused
+multi-step decode window sends every step here (``cu_q_lens=None`` in
+``ops/attention.ragged_paged_attention``).
+
+- ``ref_paged_decode_attention``: the plain PyTorch version. The CPU path
+  and the reference the CUDA kernel is held against.
+- ``paged_decode_attention``: the dispatching wrapper. CPU tensors take
+  the plain version; CUDA tensors launch the hand-written Hopper kernel
+  ``csrc/paged_decode_attention.cu`` (which replaces the TPU kernel
+  aphrodite_tpu/ops/decode_attention.py: paged_decode_attention ->
+  _decode_kernel) or raise. The kernel is bound by bytes (each live K/V
+  row is read once per step); its source says how it keeps to that.
+
+Cache layout (shared with the TPU package and both kernels):
+  kv_pages: [num_pages, page_size, 2 * num_kv_heads, head_dim],
+  K at even and V at odd combined-head indices.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from aphrodite_tpu_torch.ops import cuda_build
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# The one shape both CUDA kernels are built for (Llama-3 8B and 70B).
+KERNEL_HEAD_DIM = 128
+KERNEL_QUERIES_PER_KV = 4
+
+
+def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
+    """The first kv_len K and V rows of one sequence: f32 [kv_len, KV, D]
+    each. Reads nothing past kv_len."""
+    _, page_size, ckv, head_dim = kv_pages.shape
+    n_pages = -(-kv_len // page_size)
+    rows = kv_pages[pages[:n_pages].long()].reshape(-1, ckv, head_dim)
+    rows = rows[:kv_len].float()
+    return rows[:, 0::2], rows[:, 1::2]
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_pos: torch.Tensor, *, sm_scale: float,
+           sliding_window: Optional[int], soft_cap: Optional[float]
+           ) -> torch.Tensor:
+    """Attention of n query rows q [n, QH, D] at absolute positions q_pos
+    over keys k/v [L, KV, D] at positions 0..L-1 (f32 result).
+
+    Query head h reads kv head h // (QH / KV). Key j is visible to the row
+    at position p iff j <= p and, with a window w, j > p - w. Masked
+    scores take MASK_VALUE (as in the JAX reference), not -inf.
+    """
+    n, num_q_heads, head_dim = q.shape
+    num_kv_heads = k.shape[1]
+    qg = num_q_heads // num_kv_heads
+    qf = q.float().reshape(n, num_kv_heads, qg, head_dim) * sm_scale
+    scores = torch.einsum("ngkd,lgd->gknl", qf, k)  # [KV, QG, n, L]
+    if soft_cap is not None:
+        scores = soft_cap * torch.tanh(scores / soft_cap)
+    kv_pos = torch.arange(k.shape[0], device=q.device)
+    mask = kv_pos[None, :] <= q_pos[:, None]
+    if sliding_window is not None:
+        mask &= kv_pos[None, :] > (q_pos[:, None] - sliding_window)
+    scores = torch.where(mask, scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("gknl,lgd->ngkd", probs, v)
+    return out.reshape(n, num_q_heads, head_dim)
+
+
+def ref_paged_decode_attention(
+    q: torch.Tensor,  # [S, QH, D]: row s = the one new token of sequence s
+    kv_pages: torch.Tensor,  # [P, page_size, 2*KV, D]
+    kv_lens: torch.Tensor,  # i32[S] post-write kv length (0 = dead row)
+    page_indices: torch.Tensor,  # i32[S, pages_per_seq]
+    *,
+    sm_scale: float = 1.0,
+    sliding_window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain decode attention; dead rows (kv_len == 0) get zeros, as the
+    TPU kernel writes them."""
+    out = torch.zeros_like(q)
+    for s, kv_len in enumerate(kv_lens.tolist()):
+        if kv_len <= 0:
+            continue
+        k, v = gather_kv(kv_pages, page_indices[s], kv_len)
+        pos = torch.tensor([kv_len - 1], device=q.device)
+        out[s] = attend(q[s:s + 1], k, v, pos, sm_scale=sm_scale,
+                        sliding_window=sliding_window,
+                        soft_cap=soft_cap)[0].to(q.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = cuda_build.load("paged_decode_attention").paged_decode_attention_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_kernel_inputs(q, kv_pages, index_tensors):
+    """Raise unless the tensors are what the CUDA attention kernels take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
+    if q.dtype != torch.bfloat16 or kv_pages.dtype != torch.bfloat16:
+        raise ValueError(
+            "attention kernel takes bf16 q and bf16 kv pages, got "
+            f"{q.dtype} and {kv_pages.dtype}")
+    num_q_heads, head_dim = q.shape[1], q.shape[2]
+    num_kv_heads = kv_pages.shape[2] // 2
+    if (head_dim != KERNEL_HEAD_DIM or kv_pages.shape[3] != head_dim
+            or num_q_heads != KERNEL_QUERIES_PER_KV * num_kv_heads):
+        raise ValueError(
+            f"attention kernel takes head_dim {KERNEL_HEAD_DIM} and QH/KV "
+            f"{KERNEL_QUERIES_PER_KV}; got q {tuple(q.shape)}, kv pages "
+            f"{tuple(kv_pages.shape)}")
+    for t in (q, kv_pages):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("attention kernel needs contiguous, 16-byte "
+                             "aligned q and kv pages")
+    for t in index_tensors:
+        if t.device != q.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError("attention kernel needs contiguous int32 "
+                             "index tensors on the same device as q")
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    kv_pages: torch.Tensor,
+    kv_lens: torch.Tensor,
+    page_indices: torch.Tensor,
+    num_seqs: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: float = 1.0,
+    sliding_window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention over the paged cache. num_seqs is unused:
+    kv_lens == 0 marks the dead padded rows."""
+    del num_seqs
+    if q.device.type == "cpu":
+        return ref_paged_decode_attention(
+            q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
+            sliding_window=sliding_window, soft_cap=soft_cap)
+    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices))
+    num_seqs, num_q_heads, head_dim = q.shape
+    if kv_lens.shape != (num_seqs,) or page_indices.shape[0] != num_seqs:
+        raise ValueError("kv_lens and page_indices need one row per query")
+    _, page_size, ckv, _ = kv_pages.shape
+    out = torch.empty_like(q)
+    err = _kernel()(
+        q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
+        page_indices.data_ptr(), out.data_ptr(), num_seqs, num_q_heads,
+        ckv // 2, head_dim, page_size, page_indices.shape[1],
+        float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
