@@ -1,7 +1,7 @@
 """Engine configuration dataclasses (counterpart of
-aphrodite_tpu/common/config.py, trimmed to what the offline bf16 Llama
-path reads). Parallelism, LoRA, prompt adapters, speculative decoding and
-quantization come with the slices that port them.
+aphrodite_tpu/common/config.py, trimmed to what the offline Llama path
+reads). Parallelism, LoRA, prompt adapters and speculative decoding come
+with the slices that port them.
 """
 
 import json
@@ -38,6 +38,9 @@ class ModelConfig:
     trust_remote_code: bool = False
     # Skip tokenizer loading; requests must pass prompt_token_ids.
     skip_tokenizer_init: bool = False
+    # Weight quantization method; None = read the checkpoint's
+    # quantization_config (dense when it has none).
+    quantization: Optional[str] = None
     # Populated from config.json:
     hf_config: Dict[str, Any] = field(default_factory=dict)
 
@@ -68,10 +71,22 @@ class ModelConfig:
                 "max_model_len %d exceeds the model's "
                 "max_position_embeddings %d", self.max_model_len,
                 derived_max)
-        if self.hf_config.get("quantization_config"):
-            raise NotImplementedError(
-                "quantized checkpoints are not ported to the PyTorch "
-                "package yet")
+        qcfg = self.hf_config.get("quantization_config") or {}
+        if self.quantization is None and qcfg:
+            self.quantization = str(qcfg.get("quant_method", "")) or None
+        if self.quantization is not None:
+            from aphrodite_tpu_torch.quantization import \
+                get_quantization_method
+
+            self.quantization = self.quantization.lower()
+            if (qcfg.get("checkpoint_format") in ("marlin", "marlin_24")
+                    or qcfg.get("is_marlin_format", False)):
+                raise NotImplementedError(
+                    "checkpoints serialized in Marlin's own tile format "
+                    "are not ported yet (ROADMAP.md, module queue: the "
+                    "other loaders)")
+            # Raises for a method that is unknown or not ported.
+            get_quantization_method(self.quantization)
 
     @property
     def architecture(self) -> str:

@@ -17,7 +17,10 @@ from aphrodite_tpu_torch.engine.engine import AphroditeEngine
 class LLM:
     def __init__(self, model: str, **kwargs) -> None:
         """kwargs are the fields of ``EngineArgs`` (dtype, block_size,
-        max_num_seqs, num_scheduler_steps, device, ...)."""
+        max_num_seqs, num_scheduler_steps, device, quantization, ...).
+        ``quantization="gptq"`` or ``"awq"`` serves int4 weights: a
+        checkpoint in that format is loaded as it is, a dense or dummy one
+        is quantized at load."""
         self.engine = AphroditeEngine.from_engine_args(
             EngineArgs(model=model, **kwargs))
         # Offline generation reads text only at finish: skip per-step

@@ -1,6 +1,6 @@
 """EngineArgs: flat user-facing knobs -> typed config objects
 (counterpart of aphrodite_tpu/engine/args.py, trimmed to the knobs the
-offline dense path reads)."""
+offline path reads)."""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -20,6 +20,7 @@ class EngineArgs:
     trust_remote_code: bool = False
     skip_tokenizer_init: bool = False
     load_format: str = "auto"
+    quantization: Optional[str] = None
     # KV cache.
     block_size: int = 16
     hbm_utilization: float = 0.9
@@ -43,6 +44,7 @@ class EngineArgs:
             max_model_len=self.max_model_len,
             trust_remote_code=self.trust_remote_code,
             skip_tokenizer_init=self.skip_tokenizer_init,
+            quantization=self.quantization,
         )
         return EngineConfig(
             model_config=model_config,

@@ -1,5 +1,5 @@
 """Checkpoint loading (counterpart of aphrodite_tpu/loader/weights.py,
-dense Llama path).
+dense and int4 Llama paths).
 
 The model declares (hf_name -> our_path, transpose) mappings; per-layer
 tensors are stacked on a leading [L] axis and kept in the JAX package's
@@ -9,6 +9,12 @@ tree over by copying values, with no transposes.
 Formats: safetensors (single file or indexed shards) and ``dummy``
 (random weights generated on the device from the model seed, in the
 magnitudes of the JAX package's dummy weights).
+
+With a GPTQ/AWQ quantization method, a checkpoint that carries packed
+``qweight`` tensors is parsed into int4 containers
+(quantization/int4.py); a dense or dummy one is quantized at load.
+Container members keep their own dtypes (int8 nibbles, f32 scale and
+zero); only dense float leaves take the model dtype.
 """
 
 import json
@@ -20,6 +26,9 @@ import torch
 
 from aphrodite_tpu_torch.common.config import LoadConfig, ModelConfig
 from aphrodite_tpu_torch.common.logger import init_logger
+from aphrodite_tpu_torch.ops.quant_matmul import unpack_int4_rows
+from aphrodite_tpu_torch.quantization import get_quantization_method
+from aphrodite_tpu_torch.quantization import int4 as int4_mod
 
 logger = init_logger(__name__)
 
@@ -53,6 +62,30 @@ def _set_path(tree: Dict[str, Any], path: str, value) -> None:
     node[keys[-1]] = value
 
 
+def _get_path(tree: Dict[str, Any], path: str):
+    node = tree
+    for k in path.split("."):
+        node = node[k]
+    return node
+
+
+def _is_container(v) -> bool:
+    """A quantized weight: a dict of tensors in place of one tensor."""
+    return isinstance(v, dict) and "scale" in v and (
+        "q4p" in v or "q4" in v)
+
+
+def _logical_shape(w) -> Tuple[int, ...]:
+    """The [.., K, N] shape of the weight a tensor or container stands
+    for."""
+    if not isinstance(w, dict):
+        return tuple(w.shape)
+    if "q4p" in w:
+        *lead, kh, n = w["q4p"].shape
+        return (*lead, 2 * kh, n)
+    return tuple(w["q4"].shape)
+
+
 def _check_shapes(expected: Dict[str, Any], got: Dict[str, Any],
                   prefix: str = "") -> None:
     for k, v in expected.items():
@@ -61,9 +94,9 @@ def _check_shapes(expected: Dict[str, Any], got: Dict[str, Any],
             raise ValueError(f"missing param {path}")
         if isinstance(v, dict):
             _check_shapes(v, got[k], prefix=path + ".")
-        elif tuple(got[k].shape) != tuple(v):
+        elif _logical_shape(got[k]) != tuple(v):
             raise ValueError(f"param {path}: checkpoint shape "
-                             f"{tuple(got[k].shape)} != expected {v}")
+                             f"{_logical_shape(got[k])} != expected {v}")
 
 
 def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
@@ -102,21 +135,148 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
     return params
 
 
-def dummy_params(model, seed: int, device: torch.device,
-                 dtype: torch.dtype) -> Dict[str, Any]:
+def _checkpoint_has_packed_tensors(model_dir: str) -> bool:
+    """True when the safetensors files carry GPTQ/AWQ packed tensors."""
+    from safetensors import safe_open
+
+    index_path = os.path.join(model_dir, "model.safetensors.index.json")
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            names = json.load(f)["weight_map"].keys()
+        return any(n.endswith(".qweight") for n in names)
+    for fn in os.listdir(model_dir):
+        if fn.endswith(".safetensors"):
+            with safe_open(os.path.join(model_dir, fn),
+                           framework="pt") as f:
+                if any(n.endswith(".qweight") for n in f.keys()):
+                    return True
+    return False
+
+
+def load_quantized_hf_params_to_host(model, model_dir: str,
+                                     quant_method: str) -> Dict[str, Any]:
+    """Load a GPTQ/AWQ checkpoint: packed int32 tensors -> containers.
+
+    GPTQ/AWQ store Linear tensors as `<prefix>.qweight/.qzeros/.scales`
+    (+ optional `g_idx`) already laid out [in, out]: no transpose, unlike
+    dense HF Linear weights. Per-layer containers are unpacked, then
+    stacked on the leading layer axis.
+    """
+    is_awq = quant_method.startswith("awq")
+    num_layers = model.num_layers
+    per_layer_maps = model.hf_param_mappings()
+    quantizable = set(model.quantizable_weights())
+
+    linear_prefix: Dict[str, str] = {}  # our_path -> hf prefix template
+    dense_lookup: Dict[str, Tuple[str, bool, Optional[int]]] = {}
+    for template, our_path, transpose in per_layer_maps:
+        if our_path in quantizable:
+            if not template.endswith(".weight"):
+                raise ValueError(f"quantizable weight {our_path} maps to "
+                                 f"{template}, not a Linear weight")
+            linear_prefix[our_path] = template[:-len(".weight")]
+        else:
+            for i in range(num_layers):
+                dense_lookup[template.format(i=i)] = (our_path, transpose, i)
+    for hf_name, our_path, transpose in model.hf_global_mappings():
+        dense_lookup[hf_name] = (our_path, transpose, None)
+
+    raw: Dict[str, np.ndarray] = {}
+    params: Dict[str, Any] = {}
+    pieces: Dict[str, List[Optional[torch.Tensor]]] = {
+        our_path: [None] * num_layers
+        for _, our_path, _ in per_layer_maps if our_path not in quantizable
+    }
+    for name, arr in safetensors_weight_iterator(model_dir):
+        info = dense_lookup.get(name)
+        if info is None:
+            if name.endswith((".qweight", ".qzeros", ".scales", ".g_idx")):
+                raw[name] = arr.numpy()
+            continue
+        our_path, transpose, layer_idx = info
+        if transpose:
+            arr = arr.t()
+        if layer_idx is None:
+            _set_path(params, our_path, arr.contiguous())
+        else:
+            pieces[our_path][layer_idx] = arr
+    for our_path, layer_list in pieces.items():
+        missing = [i for i, a in enumerate(layer_list) if a is None]
+        if missing:
+            raise ValueError(f"missing layers {missing[:4]} for {our_path}")
+        _set_path(params, our_path, torch.stack(layer_list, dim=0))
+
+    for our_path, prefix_t in linear_prefix.items():
+        containers = []
+        for i in range(num_layers):
+            prefix = prefix_t.format(i=i)
+            try:
+                qweight = raw[f"{prefix}.qweight"]
+                qzeros = raw[f"{prefix}.qzeros"]
+                scales = raw[f"{prefix}.scales"]
+            except KeyError as e:
+                raise ValueError(
+                    f"quantized checkpoint is missing {e} for {prefix}")
+            if is_awq:
+                c = int4_mod.load_awq_tensors(qweight, qzeros, scales)
+            else:
+                c = int4_mod.load_gptq_tensors(
+                    qweight, qzeros, scales, raw.get(f"{prefix}.g_idx"))
+            containers.append(c)
+        if len({frozenset(c) for c in containers}) > 1:
+            # Mixed packed/unpacked layers (e.g. one desc_act layer):
+            # normalize to the unpacked q4 form so stacking is uniform.
+            containers = [
+                {"q4": unpack_int4_rows(c.pop("q4p")), **c}
+                if "q4p" in c else c for c in containers
+            ]
+        _set_path(params, our_path, {
+            k: torch.from_numpy(np.stack([c[k] for c in containers], axis=0))
+            for k in containers[0]
+        })
+    _check_shapes(model.param_shapes(), params)
+    return params
+
+
+def quantize_params_int4(model, params: Dict[str, Any]) -> Dict[str, Any]:
+    """4-bit group quantization of a full-precision params tree, where
+    its tensors lie (int4 asked for on a dense checkpoint)."""
+    for path in model.quantizable_weights():
+        _set_path(params, path,
+                  int4_mod.quantize_from_float(_get_path(params, path)))
+    return params
+
+
+def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
+                 quantize: bool = False) -> Dict[str, Any]:
     """Random weights generated on the device: norms are ones, every other
     weight is normal with std 1/sqrt(last dim), the magnitudes of the JAX
-    package's LlamaForCausalLM.random_params."""
+    package's LlamaForCausalLM.random_params.
+
+    With ``quantize`` the model's quantizable weights are drawn in f32 and
+    quantized to int4 containers one layer of one matrix at a time, so the
+    peak stays near the size of the packed model."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    quantizable = set(model.quantizable_weights()) if quantize else set()
 
-    def walk(shapes):
+    def quantized(shape):
+        layers = []
+        for _ in range(shape[0]):
+            w = torch.empty(shape[1:], dtype=torch.float32, device=device)
+            w.normal_(0.0, shape[-1]**-0.5, generator=gen)
+            layers.append(int4_mod.quantize_from_float(w))
+        return {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+
+    def walk(shapes, prefix=""):
         out = {}
         for k, shape in shapes.items():
             if isinstance(shape, dict):
-                out[k] = walk(shape)
+                out[k] = walk(shape, f"{prefix}{k}.")
             elif "norm" in k:
                 out[k] = torch.ones(shape, dtype=dtype, device=device)
+            elif prefix + k in quantizable:
+                out[k] = quantized(shape)
             else:
                 w = torch.empty(shape, dtype=dtype, device=device)
                 out[k] = w.normal_(0.0, shape[-1]**-0.5, generator=gen)
@@ -128,18 +288,32 @@ def dummy_params(model, seed: int, device: torch.device,
 def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's parameter tree (nested dicts of numpy arrays,
     after fuse_projections) as the port's parameters: the same nesting,
-    the same [in, out] layout and [L] stacking, values copied into f32
-    CPU tensors."""
-    return {k: (params_from_jax(v) if isinstance(v, dict) else
-                torch.from_numpy(np.array(v, dtype=np.float32, copy=True)))
+    the same [in, out] layout and [L] stacking, values copied into CPU
+    tensors: float leaves as f32, the integer members of quantized
+    containers (int8 nibbles) in their own dtype."""
+    def leaf(v):
+        v = np.asarray(v)
+        if np.issubdtype(v.dtype, np.integer):
+            return torch.from_numpy(v.copy())
+        return torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+
+    return {k: (params_from_jax(v) if isinstance(v, dict) else leaf(v))
             for k, v in np_params.items()}
 
 
 def _to_device(tree: Dict[str, Any], device: torch.device,
                dtype: torch.dtype) -> Dict[str, Any]:
-    return {k: (_to_device(v, device, dtype) if isinstance(v, dict)
-                else v.to(device=device, dtype=dtype))
-            for k, v in tree.items()}
+    """Move the tree to the device. Dense float leaves take the model
+    dtype; the members of a quantized container keep theirs."""
+    out = {}
+    for k, v in tree.items():
+        if _is_container(v):
+            out[k] = {ck: cv.to(device=device) for ck, cv in v.items()}
+        elif isinstance(v, dict):
+            out[k] = _to_device(v, device, dtype)
+        else:
+            out[k] = v.to(device=device, dtype=dtype)
+    return out
 
 
 def load_model_params(model, model_config: ModelConfig,
@@ -147,13 +321,24 @@ def load_model_params(model, model_config: ModelConfig,
                       device: torch.device) -> Dict[str, Any]:
     dtype = model.dtype
     fmt = load_config.load_format
+    quant = model_config.quantization
+    # Only the int4 family is registered; any other method raises there.
+    int4 = get_quantization_method(quant) is not None
     if fmt == "auto":
         has_st = any(fn.endswith(".safetensors")
                      for fn in os.listdir(model_config.model))
         fmt = "safetensors" if has_st else "dummy"
     if fmt == "dummy":
         logger.info("using dummy (random) weights")
-        return dummy_params(model, model_config.seed, device, dtype)
+        return dummy_params(model, model_config.seed, device, dtype,
+                            quantize=int4)
     logger.info("loading weights from %s", model_config.model)
-    host = load_hf_params_to_host(model, model_config.model)
+    if int4 and _checkpoint_has_packed_tensors(model_config.model):
+        host = load_quantized_hf_params_to_host(model, model_config.model,
+                                                quant)
+    else:
+        host = load_hf_params_to_host(model, model_config.model)
+        if int4:
+            # int4 asked for on a dense checkpoint: quantize at load.
+            host = quantize_params_int4(model, host)
     return _to_device(host, device, dtype)

@@ -1,13 +1,15 @@
-"""Llama causal LM, dense path (counterpart of
+"""Llama causal LM, dense and int4 weights (counterpart of
 aphrodite_tpu/models/llama.py: LlamaForCausalLM).
 
 The parameters keep the JAX package's layout: a plain dict of tensors,
 matmul weights stored [in, out], per-layer weights stacked on a leading
 [L] axis, q|k|v fused into ``wqkv`` and gate|up into ``w13`` at load
 (``fuse_projections``). The JAX forward is one ``lax.scan`` over the
-stacked layers; here it is a Python loop that indexes them. Plain
-projections are ``torch.matmul``, as XLA computes them in the JAX package;
-attention is ops/attention.py, which holds the two hand-written kernels.
+stacked layers; here it is a Python loop that indexes them. Every
+projection goes through ``qmatmul`` (quantization/qlinear.py): a plain
+tensor is ``torch.matmul``, as XLA computes it in the JAX package, and a
+packed int4 container is the hand-written kernel of ops/quant_matmul.py.
+Attention is ops/attention.py, which holds the two attention kernels.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -21,6 +23,7 @@ from aphrodite_tpu_torch.models.layers import (apply_rope,
                                                silu_and_mul)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
+from aphrodite_tpu_torch.quantization.qlinear import qmatmul
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -90,14 +93,43 @@ class LlamaForCausalLM:
     def fuse_projections(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Concatenate wq|wk|wv -> wqkv and gate|up -> w13 along the
         output axis (all share their input): 4 matmuls per layer, not 7.
-        Same layout as the JAX package's fuse_projections."""
+        Same layout as the JAX package's fuse_projections. Quantized
+        containers fuse member by member, and only when all parts are of
+        one kind with one K and one group size; otherwise the parts stay
+        apart and the forward multiplies each."""
         lp = params["layers"]
-        if "wqkv" not in lp:
-            lp["wqkv"] = torch.cat([lp.pop("wq"), lp.pop("wk"),
-                                    lp.pop("wv")], dim=-1)
-        if "w13" not in lp:
-            lp["w13"] = torch.cat([lp.pop("gate"), lp.pop("up")], dim=-1)
+
+        def kind(w):
+            if not isinstance(w, dict):
+                return ("dense", w.shape[-2], 0)
+            if "q4p" in w:
+                rows = w["q4p"].shape[-2]
+                return ("q4p", rows, 2 * rows // w["scale"].shape[-2])
+            if "q4" in w:
+                rows = w["q4"].shape[-2]
+                return ("q4", rows, rows // w["scale"].shape[-2])
+            raise NotImplementedError(
+                "int8 and fp8 weight containers are not ported yet")
+
+        def fuse(names, out):
+            if out in lp or len({kind(lp[n]) for n in names}) != 1:
+                return
+            ws = [lp.pop(n) for n in names]
+            if isinstance(ws[0], dict):
+                lp[out] = {k: torch.cat([w[k] for w in ws], dim=-1)
+                           for k in ws[0]}
+            else:
+                lp[out] = torch.cat(ws, dim=-1)
+
+        fuse(("wq", "wk", "wv"), "wqkv")
+        fuse(("gate", "up"), "w13")
         return params
+
+    def quantizable_weights(self) -> List[str]:
+        """Param paths eligible for weight quantization (the Linear
+        layers; embeddings, norms and lm_head stay full precision)."""
+        return ["layers.wq", "layers.wk", "layers.wv", "layers.wo",
+                "layers.gate", "layers.up", "layers.down"]
 
     def hf_param_mappings(self) -> List[Tuple[str, str, bool]]:
         """(hf_template, our_path, transpose) for per-layer weights.
@@ -142,12 +174,23 @@ class LlamaForCausalLM:
         the final-normed hidden states [T, H]."""
         NH, NKV, D = self.num_heads, self.num_kv_heads, self.head_dim
         lp = params["layers"]
+
+        def proj(h, names, layer):
+            """h @ the fused weight names[0], or, where the parts could
+            not be fused, the concatenation of h @ each part. A quantized
+            product comes back in f32 and is cast to the model dtype, so
+            the layer goes on in the dtype the dense path holds."""
+            if names[0] in lp:
+                return qmatmul(h, lp[names[0]], layer).to(self.dtype)
+            return torch.cat([qmatmul(h, lp[n], layer) for n in names[1:]],
+                             dim=-1).to(self.dtype)
+
         x = params["embed"][batch.token_ids].to(self.dtype)
         cos = self._cos[batch.positions]
         sin = self._sin[batch.positions]
         for layer in range(self.num_layers):
             h = rms_norm(x, lp["input_norm"][layer], self.rms_eps)
-            qkv = torch.matmul(h, lp["wqkv"][layer])
+            qkv = proj(h, ("wqkv", "wq", "wk", "wv"), layer)
             q = qkv[:, :NH * D].reshape(-1, NH, D)
             k = qkv[:, NH * D:(NH + NKV) * D].reshape(-1, NKV, D)
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
@@ -158,12 +201,12 @@ class LlamaForCausalLM:
                 q, pages, batch.kv_lens, batch.page_indices,
                 batch.cu_q_lens, batch.num_seqs, sm_scale=self.sm_scale,
                 sliding_window=self.sliding_window)
-            x = x + torch.matmul(attn.reshape(-1, NH * D), lp["wo"][layer])
+            x = x + proj(attn.reshape(-1, NH * D), ("wo",), layer)
             h = rms_norm(x, lp["post_norm"][layer], self.rms_eps)
-            g13 = torch.matmul(h, lp["w13"][layer])
+            g13 = proj(h, ("w13", "gate", "up"), layer)
             F = g13.shape[-1] // 2
-            x = x + torch.matmul(silu_and_mul(g13[:, :F], g13[:, F:]),
-                                 lp["down"][layer])
+            x = x + proj(silu_and_mul(g13[:, :F], g13[:, F:]), ("down",),
+                         layer)
         return rms_norm(x, params["final_norm"], self.rms_eps)
 
     def compute_logits(self, params: Dict[str, Any],

@@ -8,29 +8,43 @@ Phases, each of which must pass or the script exits non-zero:
 1. Build every CUDA kernel of the main path from aphrodite_tpu_torch/csrc
    (one nvcc per source, in parallel) and print the build seconds.
 2. Print the card's name and power limit as nvidia-smi reports them.
-3. Hold each kernel against its plain PyTorch version in bf16 at the
-   Llama-3.1-8B attention geometry (32 query heads, 8 kv heads, head_dim
+3. Hold each kernel against its plain PyTorch version. Attention, in
+   bf16 at the Llama-3.1-8B attention geometry (32 query heads, 8 kv heads, head_dim
    128, 16-token pages): a mixed prefill and decode batch, a chunked
    prefill on a cached prefix, a decode batch with dead padded rows, and
    sliding window with soft cap. Cache slots past each sequence's length
-   hold NaN, so a kernel that reads past kv_len fails the check.
+   hold NaN, so a kernel that reads past kv_len fails the check. The
+   packed-int4 matmul, at the four projection sites of a Llama-3.1-8B
+   layer (wqkv, wo, w13, down; group 128) on layer-stacked weights with a
+   layer index, for T in (1, 8, 32, 64, 100, 2048), against its plain
+   version and against the exact f32 dequantized product.
 4. Time each kernel at the main path's shapes beside its plain version,
    one PyTorch library call on pre-gathered contiguous K/V
    (scaled_dot_product_attention; the gather is not timed, and the port
    never calls it) and the bound: the larger of the bytes the call must
    move over 3.35 TB/s and its FLOPs over 989 TFLOP/s (H100 SXM bf16).
-5. Run the main path: ``LLM.generate`` on a Llama-3.1-8B-geometry model
+   The int4 matmul is timed at T = 32 and T = 2048 at each site; its
+   library call is one torch.matmul of x with the pre-dequantized bf16
+   weight (four times the weight bytes; the port never calls it).
+5. Run the main paths: first the bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model
    (full width, 32 layers, random bf16 weights from a seed) for 16
    greedy requests with prompts of 16-1024 tokens and 64 new tokens each,
    so chunked prefill mixes with fused 8-step decode windows. Both kernel
    launch counters must be > 0 and every output 64 tokens long. Then one
    prefill and one decode forward are run with kernel attention and with
    plain attention on the same inputs, and their logits compared.
+   Then, with that engine freed, the int4 one: the same model and
+   requests with ``quantization="gptq"`` (random weights quantized to
+   packed int4 at load). All three launch counters must be > 0, the int4
+   matmul must have been launched 4 times per layer and forward, and the
+   logits of a prefill and a decode forward with the int4 kernel must
+   agree with those of the plain int4 product.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times; the last line is
    {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -71,13 +85,30 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 ATTN_TOL = 2.0**-6
 Q_STD = 3.0
 KV_STD = 0.5
-# Logits of one forward with kernel attention against plain attention,
-# row by row: |diff| <= LOGIT_TOL * max|plain row|, and the argmax of
+# Logits of one forward with a kernel (attention, or the int4 matmul)
+# against the same forward with its plain version, row by row: |diff| <= LOGIT_TOL * max|plain row|, and the argmax of
 # every row must agree. One-ulp bf16 differences in each layer's attention
 # output propagate through 32 layers of bf16 matmuls.
 LOGIT_TOL = 5e-2
 NUM_REQUESTS = 16
 MAX_TOKENS = 64
+# The int4 projections of one Llama-3.1-8B layer: name -> (K, N).
+INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
+              "w13": (4096, 28672), "down": (14336, 4096)}
+INT4_GROUP = 128
+INT4_CHECK_T = (1, 8, 32, 64, 100, 2048)
+INT4_TIME_T = (32, 2048)
+# int4 matmul outputs are compared row by row (the N outputs of one
+# token): |kernel - other| <= tol * max|other row|, x at std 1, against
+# two products. The exact one, with f32 weights: the kernel multiplies raw
+# nibbles and scales f32 partial sums per group, so it differs only in the
+# order of its f32 sums (tensor-core fragments and split K against one
+# cuBLAS f32 product), about sqrt(K) * 2^-24 of the row's largest element:
+# INT4_TOL_SAME. And the plain version, which rounds the dequantized weight
+# to bf16, up to 2^-9 relative per term, adding up as a random walk over K:
+# INT4_TOL_ROUNDED, which also holds the plain version to the exact one.
+INT4_TOL_SAME = 2.0**-14
+INT4_TOL_ROUNDED = 2.0**-6
 
 
 def fail(msg: str) -> None:
@@ -86,14 +117,23 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over `iters` calls, after one
-    warm-up call, from CUDA events."""
+    """Mean device milliseconds per call over `iters` calls, after warm-up
+    calls, from CUDA events. The timed launches are queued behind a spin
+    kernel that outlasts their enqueueing, so a call that the host enqueues
+    more slowly than the card runs it is still timed on the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # Cycles at up to 2 GHz for 1.5 times the expected enqueue time.
+    torch.cuda._sleep(int(host_s * iters * 1.5 * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -401,34 +441,230 @@ def kernel_timings(device, geometry, prompt_lens, iters, errs):
     return out
 
 
+# ----------------------------------------------------------------------
+# int4 matmul
+# ----------------------------------------------------------------------
+
+
+def make_int4_case(K, N, layers, device, seed, wide_zero=False):
+    """A layer-stacked packed container [layers, K/2, N] with group
+    INT4_GROUP, made on the device from a seed: nibbles uniform in 0..15,
+    scale in 0.001..0.021, zero an integer in 0..15 (or -3..19 with
+    wide_zero: GPTQ stores zero + 1 up to 16, and quantize_from_float
+    does not clip it)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    groups = K // INT4_GROUP
+    q4p = torch.randint(0, 256, (layers, K // 2, N), generator=gen,
+                        device=device, dtype=torch.uint8).view(torch.int8)
+    scale = torch.rand((layers, groups, N), generator=gen,
+                       device=device) * 0.02 + 0.001
+    lo, hi = (-3, 20) if wide_zero else (0, 16)
+    zero = torch.randint(lo, hi, (layers, groups, N), generator=gen,
+                         device=device).float()
+    return q4p, scale, zero
+
+
+def make_x(T, K, device, seed):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((T, K), generator=gen, device=device).to(
+        torch.bfloat16)
+
+
+def int4_checks(device):
+    """The int4 kernel against its plain version and the exact f32
+    product, at every site and T; returns the max abs error against the
+    plain version."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4p_matmul,
+                                                      int4p_matmul_ref,
+                                                      unpack_int4_rows)
+
+    worst_abs = 0.0
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        wide = site == "wo"
+        q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 40 + i,
+                                          wide_zero=wide)
+        w_exact = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
+                                  zero[1], INT4_GROUP)
+        for T in INT4_CHECK_T:
+            x = make_x(T, K, device, SEED + 50 + T)
+            got = int4p_matmul(x, q4p, scale, zero, INT4_GROUP, layer_idx=1)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
+                fail(f"int4p_matmul [{site} T={T}]: output {got.shape} "
+                     f"{got.dtype}")
+            if not bool(got.isfinite().all()):
+                fail(f"int4p_matmul [{site} T={T}]: non-finite output")
+            plain = int4p_matmul_ref(x, q4p[1], scale[1], zero[1],
+                                     INT4_GROUP)
+            exact = x.float() @ w_exact
+            pairs = (("kernel", got, "plain", plain, INT4_TOL_ROUNDED),
+                     ("kernel", got, "exact f32", exact, INT4_TOL_SAME),
+                     ("plain", plain, "exact f32", exact, INT4_TOL_ROUNDED))
+            ratios = []
+            for name, a, label, other, tol in pairs:
+                err = (a - other).abs().amax(-1)
+                bound = other.abs().amax(-1)
+                ratios.append(float((err / bound).max()))
+                if not bool((err <= tol * bound).all()):
+                    fail(f"int4p_matmul [{site} T={T}"
+                         f"{' wide zero' if wide else ''}]: {name} disagrees "
+                         f"with the {label} product: worst row err / "
+                         f"max|row| {ratios[-1]:.3e} (tolerance {tol:.3e})")
+            abs_err = float((got - plain).abs().max())
+            worst_abs = max(worst_abs, abs_err)
+            print(f"check int4p_matmul [{site} {K}x{N} T={T}"
+                  f"{' wide zero' if wide else ''}]: max_abs_err against plain {abs_err:.3e}; worst row err "
+                  f"/ max|row|: kernel vs plain {ratios[0]:.3e} (tolerance "
+                  f"{pairs[0][4]:.3e}), kernel vs exact {ratios[1]:.3e} "
+                  f"(tolerance {pairs[1][4]:.3e}), plain vs exact "
+                  f"{ratios[2]:.3e} (tolerance {pairs[2][4]:.3e})",
+                  flush=True)
+        del q4p, scale, zero, w_exact
+    return worst_abs
+
+
+def int4_work(T, K, N):
+    """(bytes, flops) of one call: x, the packed weights, f32 scale and
+    zero and the f32 output once each; 2 * T * K * N FLOPs."""
+    nbytes = (T * K * 2 + K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+              + T * N * 4)
+    return nbytes, 2 * T * K * N
+
+
+def int4_timings(device, iters):
+    """Times of the int4 kernel at every (site, T) of INT4_TIME_T beside
+    its plain version, the library call and the bound; each timed launch
+    takes the next layer of a stack that holds more bytes than the 50 MB
+    L2. Returns a list of per-point dicts."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4p_matmul,
+                                                      int4p_matmul_ref,
+                                                      unpack_int4_rows)
+
+    points = []
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        layer_bytes = K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+        layers = -(-100_000_000 // layer_bytes) + 1
+        q4p, scale, zero = make_int4_case(K, N, layers, device,
+                                          SEED + 60 + i)
+        dense = torch.stack([
+            dequantize_int4(unpack_int4_rows(q4p[l]), scale[l], zero[l],
+                            INT4_GROUP).to(torch.bfloat16)
+            for l in range(layers)])
+        for T in INT4_TIME_T:
+            x = make_x(T, K, device, SEED + 70 + T)
+            state = {"layer": 0}
+
+            def nxt():
+                state["layer"] = (state["layer"] + 1) % layers
+                return state["layer"]
+
+            n = iters if T <= 64 else max(4, iters // 10)
+            ms = time_ms(lambda: int4p_matmul(x, q4p, scale, zero,
+                                              INT4_GROUP, layer_idx=nxt()),
+                         n)
+
+            def plain():
+                l = nxt()
+                return int4p_matmul_ref(x, q4p[l], scale[l], zero[l],
+                                        INT4_GROUP)
+
+            plain_ms = time_ms(plain, max(2, n // 20))
+            library_ms = time_ms(lambda: torch.matmul(x, dense[nxt()]), n)
+            nbytes, flops = int4_work(T, K, N)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            pt = dict(site=site, K=K, N=N, T=T, ms=ms, plain_ms=plain_ms,
+                      library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+            points.append(pt)
+            print(f"time int4p_matmul [{site} {K}x{N} T={T}, {layers} "
+                  f"layers in turn]: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
+                  f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
+                  f"({pt['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
+                  flush=True)
+        del q4p, scale, zero, dense
+        torch.cuda.empty_cache()
+    return points
+
+
+def int4_block_sweep(device, iters):
+    """Rows of x per block, 16 against 32, each with the split of K the
+    wrapper gives it. The wrapper's choice by T (kernel_plan) comes from
+    these times."""
+    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
+
+    for site in ("wqkv", "down"):
+        K, N = INT4_SITES[site]
+        layers = 8
+        q4p, scale, zero = make_int4_case(K, N, layers, device, SEED + 80)
+        for T in (8, 16, 32, 2048):
+            x = make_x(T, K, device, SEED + 90 + T)
+            state = {"layer": 0}
+
+            def nxt():
+                state["layer"] = (state["layer"] + 1) % layers
+                return state["layer"]
+
+            times = {bm: time_ms(
+                lambda: int4p_matmul(x, q4p, scale, zero, INT4_GROUP,
+                                     layer_idx=nxt(), block_m=bm),
+                iters) for bm in (16, 32)}
+            print(f"sweep int4p_matmul [{site} T={T}]: 16-row blocks "
+                  f"{times[16]:.4f} ms, 32-row blocks {times[32]:.4f} ms",
+                  flush=True)
+        del q4p, scale, zero
+
+
 def write_model_dir(path: str, config: dict) -> str:
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
     return path
 
 
-def main_path(device, model_config, prompt_lens, num_scheduler_steps=8):
-    """LLM.generate through the port's entry point; returns the launch
-    counts, tokens/s and the logits comparison."""
+def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
+              quantization=None):
+    """LLM.generate through the port's entry point, with bf16 weights or
+    (quantization="gptq") packed int4 ones; returns the launch counts of
+    the path's kernels and the rates."""
     import torch
 
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
+    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
 
+    wrappers = {"ragged_paged_attention": ragged_paged_attention,
+                "paged_decode_attention": paged_decode_attention}
+    if quantization is not None:
+        wrappers["int4p_matmul"] = int4p_matmul
+    label = f"main path ({quantization or 'bf16'})"
     vocab = model_config["vocab_size"]
     with tempfile.TemporaryDirectory() as td:
         t0 = time.monotonic()
         llm = LLM(model=write_model_dir(td, model_config),
                   load_format="dummy", dtype="bfloat16", seed=SEED,
+                  quantization=quantization,
                   num_scheduler_steps=num_scheduler_steps, block_size=16,
                   max_num_batched_tokens=2048, skip_tokenizer_init=True,
                   device=device)
         if device == "cuda":
             torch.cuda.synchronize()
-        print(f"main path: engine up in {time.monotonic() - t0:.1f} s, "
-              f"{llm.engine.runner.num_pages} KV pages", flush=True)
+        print(f"{label}: engine up in {time.monotonic() - t0:.1f} s, "
+              f"{llm.engine.runner.num_pages} KV pages, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS,
                         ignore_eos=True, detokenize=False)
@@ -439,43 +675,67 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8):
     for k in llm.engine.phase_timings:
         llm.engine.phase_timings[k] = 0 if isinstance(
             llm.engine.phase_timings[k], int) else 0.0
-    ragged_paged_attention.launches = 0
-    paged_decode_attention.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.monotonic()
     outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
-                "paged_decode_attention": paged_decode_attention.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
-    print(f"main path: {len(outs)} requests, {sum(prompt_lens)} prompt "
+    rates = dict(
+        prefill_tok_s=pt["prefill_tokens"] / max(pt["prefill_s"], 1e-9),
+        decode_tok_s=pt["decode_tokens"] / max(pt["decode_s"], 1e-9))
+    print(f"{label}: {len(outs)} requests, {sum(prompt_lens)} prompt "
           f"tokens, {sum(lens)} generated tokens in {wall:.2f} s; "
           f"{pt['prefill_iterations']} prefill/mixed steps "
-          f"({pt['prefill_tokens'] / max(pt['prefill_s'], 1e-9):.1f} "
-          f"prefill tok/s), {pt['decode_iterations']} decode steps "
-          f"({pt['decode_tokens'] / max(pt['decode_s'], 1e-9):.1f} "
-          f"decode tok/s); launches {launches}", flush=True)
+          f"({rates['prefill_tok_s']:.1f} prefill tok/s, "
+          f"{pt['prefill_s'] / max(pt['prefill_iterations'], 1) * 1e3:.1f} "
+          f"ms per step), {pt['decode_iterations']} decode steps "
+          f"({rates['decode_tok_s']:.1f} decode tok/s, "
+          f"{pt['decode_s'] / max(pt['decode_iterations'], 1) * 1e3:.1f} ms "
+          f"per step); launches {launches}", flush=True)
     if any(n != MAX_TOKENS for n in lens):
         fail(f"outputs with other than {MAX_TOKENS} tokens: {lens}")
     for name, n in launches.items():
         if n <= 0:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on the {label}")
+    if quantization is not None:
+        # Every forward launches one attention kernel and four int4
+        # matmuls (wqkv, wo, w13, down) per layer.
+        layers = model_config["num_hidden_layers"]
+        attention = (launches["ragged_paged_attention"]
+                     + launches["paged_decode_attention"])
+        forwards = attention // layers
+        if (attention % layers
+                or launches["int4p_matmul"] != 4 * layers * forwards):
+            fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
+                 f"not 4 x {layers} layers x {forwards} forwards")
+        print(f"{label}: {forwards} forwards, int4p_matmul launched "
+              f"{4 * layers} times in each", flush=True)
     for o in outs:
         if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
             fail("generated token id out of the vocabulary")
-    logit_err = compare_logits(llm, device, rng, vocab)
-    return launches, logit_err
+    if quantization is None:
+        compare_logits(llm, device, rng, vocab, "attention")
+    else:
+        compare_logits(llm, device, rng, vocab, "int4")
+    return launches, rates
 
 
-def compare_logits(llm, device, rng, vocab):
+def compare_logits(llm, device, rng, vocab, what):
     """One prefill forward (ragged kernel) and one decode forward (decode
-    kernel) with kernel attention, then the same with plain attention on
-    the same inputs and the same starting cache; logits compared."""
+    kernel) with every kernel, then the same with the plain version of one
+    of them on the same inputs and the same starting cache; logits
+    compared. `what` names the kernels swapped for their plain versions:
+    "attention" (both attention kernels) or "int4" (the int4 matmul)."""
     import torch
 
     import aphrodite_tpu_torch.models.llama as llama_mod
+    import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
+    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul_ref
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
@@ -541,15 +801,26 @@ def compare_logits(llm, device, rng, vocab):
         return ref_ragged_paged_attention(q, kv_pages, kv_lens, page_indices,
                                           cu_q_lens, num_seqs, **kw)
 
+    def plain_int4(x, q4p, scale, zero, group, layer_idx=None):
+        # On f32 x the plain version keeps the dequantized weight in f32,
+        # as the kernel's arithmetic does; on bf16 x it would round it to
+        # bf16, which moves a logit by about 1 % of the row's largest and
+        # can swap two near-equal logits of a random-weight model.
+        return int4p_matmul_ref(x.float(), q4p[layer_idx], scale[layer_idx],
+                                zero[layer_idx], group)
+
+    module, attr, plain = {
+        "attention": (llama_mod, "ragged_paged_attention", plain_attention),
+        "int4": (qlinear_mod, "int4p_matmul", plain_int4)}[what]
     got = run()
-    kernel_attention = llama_mod.ragged_paged_attention
-    llama_mod.ragged_paged_attention = plain_attention
+    kernel = getattr(module, attr)
+    setattr(module, attr, plain)
     try:
         want = run()
     finally:
-        llama_mod.ragged_paged_attention = kernel_attention
+        setattr(module, attr, kernel)
     worst = 0.0
-    for label, g, w in zip(("prefill", "decode"), got, want):
+    for label, g, w in zip((f"{what} prefill", f"{what} decode"), got, want):
         if not bool(g.isfinite().all()):
             fail(f"{label} logits are not finite")
         err = (g - w).abs().amax(-1)
@@ -560,11 +831,11 @@ def compare_logits(llm, device, rng, vocab):
               f"(tolerance {LOGIT_TOL:.1e}), argmax agreement {agree:.2f}",
               flush=True)
         if not bool((err <= LOGIT_TOL * scale).all()):
-            fail(f"{label} logits with kernel attention disagree with "
-                 "plain attention")
+            fail(f"{label} logits with the kernel disagree with the "
+                 "plain version's")
         if agree < 1.0:
-            fail(f"{label} logits with kernel attention pick another "
-                 "token than with plain attention")
+            fail(f"{label} logits with the kernel pick another token "
+                 "than with the plain version")
         worst = max(worst, float(err.max()))
     return worst
 
@@ -583,12 +854,22 @@ def main() -> None:
     geometry = (LLAMA_8B["num_attention_heads"],
                 LLAMA_8B["num_key_value_heads"], LLAMA_8B["head_dim"])
     errs = kernel_checks("cuda", geometry)
+    errs["int4p_matmul"] = int4_checks("cuda")
     prompt_lens = np.random.default_rng(SEED).integers(
         16, 1025, size=NUM_REQUESTS)
     times = kernel_timings("cuda", geometry, prompt_lens, iters=200,
                            errs=errs)
+    int4_points = int4_timings("cuda", iters=200)
+    int4_block_sweep("cuda", iters=50)
+    gc.collect()
     torch.cuda.empty_cache()
     launches, _ = main_path("cuda", LLAMA_8B, prompt_lens)
+    # Both engines size their KV cache from the free memory: free the
+    # bf16 one (main_path holds the only reference) before the int4 one.
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches, _ = main_path("cuda", LLAMA_8B, prompt_lens,
+                                 quantization="gptq")
     sources = {
         "paged_decode_attention": (
             "aphrodite_tpu_torch/csrc/paged_decode_attention.cu",
@@ -599,9 +880,27 @@ def main() -> None:
     }
     kernels = []
     for name, (src, replaces) in sources.items():
+        # Launches of both main paths: each was read right after its run,
+        # with the counts set to 0 just before it.
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
+                            replaces=replaces,
+                            launches=launches[name] + int4_launches[name],
+                            launches_by_path={"bf16": launches[name],
+                                              "gptq": int4_launches[name]},
                             max_abs_err=errs[name], **times[name]))
+    # The int4 kernel's headline times are those of the largest site at
+    # the decode step's size; every (site, T) point follows in "points".
+    head = next(p for p in int4_points
+                if p["site"] == "w13" and p["T"] == 32)
+    kernels.append(dict(
+        name="int4p_matmul", route="cuda",
+        source="aphrodite_tpu_torch/csrc/int4p_matmul.cu",
+        replaces="aphrodite_tpu/ops/quant_matmul.py:528",
+        launches=int4_launches["int4p_matmul"],
+        max_abs_err=errs["int4p_matmul"],
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        shape="w13 4096x28672 T=32", points=int4_points))
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                ref_ragged_paged_attention)
 from aphrodite_tpu_torch.ops.decode_attention import (
     paged_decode_attention, ref_paged_decode_attention)
+from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                  int4p_matmul,
+                                                  int4p_matmul_ref,
+                                                  pack_int4_rows,
+                                                  unpack_int4_rows)
+from aphrodite_tpu_torch.quantization import int4
 from aphrodite_tpu_torch.sampling.metadata import (SamplerInputRow,
                                                    build_sampling_tensors)
 from aphrodite_tpu_torch.sampling.sampler import sample, tensors_to_device
@@ -157,3 +163,120 @@ def test_bf16_logits_and_logprobs_match_f32_on_card():
     torch.testing.assert_close(out.topk_logprobs.double(),
                                want_lp.topk(5, dim=-1).values, rtol=0,
                                atol=5e-4)
+
+
+# ----------------------------------------------------------------------
+# int4 weights
+# ----------------------------------------------------------------------
+
+
+def _int4_case(rng, L, K, N, group, T, wide_zero=False):
+    """Random packed container [L, K/2, N] and x [T, K] at std 1."""
+    q = rng.integers(0, 16, size=(L, K, N), dtype=np.int8)
+    scale = (rng.random((L, K // group, N), dtype=np.float32) * 0.02 + 0.001)
+    zero = rng.integers(-3 if wide_zero else 0, 20 if wide_zero else 16,
+                        size=(L, K // group, N)).astype(np.float32)
+    x = rng.standard_normal((T, K), dtype=np.float32)
+    return (torch.from_numpy(x).cuda().to(torch.bfloat16),
+            torch.from_numpy(pack_int4_rows(q)).cuda(),
+            torch.from_numpy(scale).cuda(), torch.from_numpy(zero).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 2048])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
+def test_int4p_kernel_matches_plain_on_card(T, K, N):
+    """Llama-3.1-8B wqkv and down sites, stacked weights with a layer
+    index, zeros outside 0..15. Row by row against the exact f32
+    dequantized product (the kernel multiplies raw nibbles and scales f32
+    partial sums, so only the order of the sums differs: 2^-14 of the
+    row's largest element) and against the plain version (which rounds w
+    to bf16, 2^-9 relative per term, adding up as a random walk over K:
+    far inside ROW_TOL)."""
+    _card_or_skip()
+    rng = np.random.default_rng(K + T)
+    x, q4p, scale, zero = _int4_case(rng, 2, K, N, 128, T, wide_zero=True)
+    before = int4p_matmul.launches
+    got = int4p_matmul(x, q4p, scale, zero, 128, layer_idx=1)
+    torch.cuda.synchronize()
+    assert int4p_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (T, N)
+    want = int4p_matmul_ref(x, q4p[1], scale[1], zero[1], 128)
+    exact = x.float() @ dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
+                                        zero[1], 128)
+    assert got.isfinite().all()
+    for ref, tol in ((want, ROW_TOL), (exact, 2.0**-14)):
+        err = (got - ref).abs().amax(-1)
+        bound = tol * ref.abs().amax(-1)
+        assert (err <= bound).all(), float((err / bound).max())
+    # The other layer of the stack gives another product.
+    other = int4p_matmul(x, q4p, scale, zero, 128, layer_idx=0)
+    assert not torch.equal(other, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,K", [(32, 1024), (64, 1920), (128, 1024)])
+def test_int4p_kernel_group_sizes_on_card(group, K):
+    """Groups of 32 (every k tile closes a group), 64 and 128, at T below
+    and above one row block; at K 1920 the split of K ends inside a
+    group. Against the exact f32-weight product."""
+    _card_or_skip()
+    rng = np.random.default_rng(group)
+    for T in (5, 40):
+        x, q4p, scale, zero = _int4_case(rng, 1, K, 256, group, T,
+                                         wide_zero=True)
+        got = int4p_matmul(x, q4p[0], scale[0], zero[0], group)
+        exact = x.float() @ dequantize_int4(unpack_int4_rows(q4p[0]),
+                                            scale[0], zero[0], group)
+        err = (got - exact).abs().amax(-1)
+        bound = 2.0**-14 * exact.abs().amax(-1)
+        assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.cuda
+def test_int4p_kernel_refuses_what_it_does_not_take():
+    _card_or_skip()
+    rng = np.random.default_rng(0)
+    x, q4p, scale, zero = _int4_case(rng, 1, 256, 256, 64, 4)
+    args = (q4p[0], scale[0], zero[0], 64)
+    int4p_matmul(x, *args)  # group 64, T 4: taken
+    with pytest.raises(ValueError, match="bf16"):
+        int4p_matmul(x.float(), *args)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4p_matmul(x, q4p[0, :, :192].contiguous(),
+                     scale[0, :, :192].contiguous(),
+                     zero[0, :, :192].contiguous(), 64)
+    with pytest.raises(ValueError, match="group"):
+        int4p_matmul(x, q4p[0], scale[0].repeat_interleave(4, 0),
+                     zero[0].repeat_interleave(4, 0), 16)
+    with pytest.raises(ValueError, match="layer_idx"):
+        int4p_matmul(x, q4p, scale, zero, 64)
+
+
+@pytest.mark.cuda
+def test_int4_containers_other_than_packed_raise_on_card():
+    from aphrodite_tpu_torch.quantization.qlinear import qmatmul
+
+    _card_or_skip()
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device="cuda")
+    q4 = {"q4": torch.zeros((64, 128), dtype=torch.int8, device="cuda"),
+          "scale": torch.ones((1, 128), device="cuda"),
+          "zero": torch.zeros((1, 128), device="cuda")}
+    with pytest.raises(NotImplementedError, match="unpacked"):
+        qmatmul(x, q4)
+    with pytest.raises(NotImplementedError, match="int8"):
+        qmatmul(x, {"q": q4["q4"], "scale": q4["scale"]})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [128, 64])
+def test_quantize_from_float_on_card_matches_numpy(group):
+    _card_or_skip()
+    w = np.random.default_rng(6).standard_normal((2, 512, 256)).astype(
+        np.float32)
+    want = int4.quantize_from_float(w, group)
+    got = int4.quantize_from_float(torch.from_numpy(w).cuda(), group)
+    assert set(got) == set(want) == {"q4p", "scale", "zero"}
+    for k in want:
+        assert got[k].device.type == "cuda"
+        np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])

@@ -213,6 +213,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((REPO / "aphrodite_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    covered = {str(path.relative_to(REPO)) for path in files}
+    assert {"aphrodite_tpu_torch/ops/quant_matmul.py",
+            "aphrodite_tpu_torch/quantization/__init__.py",
+            "aphrodite_tpu_torch/quantization/int4.py",
+            "aphrodite_tpu_torch/quantization/qlinear.py"} <= covered
     bad = []
     for path in files:
         for mod in _imports(path):
