@@ -14,6 +14,10 @@ from aphrodite_tpu_torch.common.logger import init_logger
 logger = init_logger(__name__)
 
 _SUPPORTED_DTYPES = ("bfloat16", "float32")
+# KV-cache dtypes, by the JAX package's names: "auto" is the model dtype,
+# "fp8" is E4M3.
+_SUPPORTED_KV_DTYPES = ("auto", "bfloat16", "fp8", "fp8_e4m3", "fp8_e5m2",
+                        "int8")
 
 
 def _read_hf_config(model: str) -> Dict[str, Any]:
@@ -129,8 +133,12 @@ class CacheConfig:
     # Share of the card's memory the weights, activations and KV cache
     # may take together.
     hbm_utilization: float = 0.9
+    cache_dtype: str = "auto"
     num_device_blocks: Optional[int] = None  # set after memory profiling
     enable_prefix_caching: bool = False
+    # JSON file of per-layer KV scales for a narrow cache dtype
+    # ({"kv_cache": {"scaling_factor": {tp_rank: {layer: scale}}}}).
+    quantization_param_path: Optional[str] = None
     # Override the profiled block count (tests / CPU runs).
     num_device_blocks_override: Optional[int] = None
 
@@ -139,6 +147,10 @@ class CacheConfig:
             raise ValueError("block_size must be positive")
         if not 0.0 < self.hbm_utilization <= 1.0:
             raise ValueError("hbm_utilization must be in (0, 1]")
+        if self.cache_dtype not in _SUPPORTED_KV_DTYPES:
+            raise ValueError(
+                f"unsupported kv cache dtype {self.cache_dtype!r}; choose "
+                f"from {_SUPPORTED_KV_DTYPES}")
 
 
 @dataclass

@@ -24,11 +24,22 @@
 // shared-memory slots of such keys are zero-filled and their
 // probabilities are exactly 0, so stale or NaN bytes in unwritten page
 // slots cannot reach the output.
+//
+// Page types: the kernel is a template over the cache's element type
+// (kv_page_types.cuh), with one entry point each for bf16, E4M3, E5M2 and
+// int8 pages. A narrow row is 128 bytes, not 256: the staging loop loads
+// 16 values per 16-byte load and widens them to bf16 as it stores them
+// into the same shared-memory tiles, so all that follows the staging is
+// the bf16 kernel's, and the result equals, bit for bit, the bf16
+// kernel's on those pages widened beforehand. The narrow variants read
+// half the K/V bytes; their byte bound is half the bf16 one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kv_page_types.cuh"
 
 namespace {
 
@@ -63,9 +74,10 @@ struct DecodeSmem {
 };
 static_assert(D == kThreads, "the PV pass gives each thread one output dim");
 
+template <class Page>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kv,
+                    const unsigned char* __restrict__ kv,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ page_indices,
                     __nv_bfloat16* __restrict__ out, int num_kv_heads,
@@ -73,7 +85,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     int sliding_window, float soft_cap) {
   using L = DecodeSmem;
   constexpr int kKPad = L::kKPad;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per K (or V) row
+  constexpr int kVals = Page::kValues;  // values per 16-byte load
+  constexpr int kChunks = D / kVals;    // 16-byte loads per K (or V) row
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_tile = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -125,10 +138,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       if (pos < kv_len) {
         const int page = pages[pos / page_size];
         const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
-        val = *reinterpret_cast<const uint4*>(kv + row * D + part * 8);
+        val = *reinterpret_cast<const uint4*>(kv + (row * kChunks + part) * 16);
       }
-      __nv_bfloat16* dst = is_v ? v_tile + key * D + part * 8 : k_tile + key * kKPad + part * 8;
-      *reinterpret_cast<uint4*>(dst) = val;
+      __nv_bfloat16* dst =
+          is_v ? v_tile + key * D + part * kVals : k_tile + key * kKPad + part * kVals;
+      kv_page::store_chunk_bf16<Page>(val, dst);
     }
     __syncthreads();
 
@@ -215,6 +229,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <class Page>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    void* out, int num_seqs, int num_kv_heads, int page_size, int pages_per_seq,
                    float sm_scale, int sliding_window, float soft_cap, cudaStream_t stream) {
@@ -222,35 +237,52 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        paged_decode_kernel<Page>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(num_seqs, num_kv_heads);
-  paged_decode_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv), kv_lens,
+  paged_decode_kernel<Page><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
       page_indices, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size, pages_per_seq,
       sm_scale, sliding_window, soft_cap);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q bf16[S, QH, D] with D = 128 and QH = 4 * KV, kv_pages bf16[P,
-// page_size, 2 * KV, D] (K at even and V at odd combined heads), kv_lens
-// i32[S], page_indices i32[S, pages_per_seq], out bf16[S, QH, D].
-// sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA error
-// of the launch (cudaErrorInvalidValue for any other D or QH / KV).
-extern "C" int paged_decode_attention_bf16(const void* q, const void* kv_pages, const void* kv_lens,
-                                           const void* page_indices, void* out, int num_seqs,
-                                           int num_q_heads, int num_kv_heads, int head_dim,
-                                           int page_size, int pages_per_seq, float sm_scale,
-                                           int sliding_window, float soft_cap, void* stream) {
+// Checks the one shape the kernel is built for and launches the variant
+// for pages of type Page.
+template <class Page>
+int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
+        void* out, int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size,
+        int pages_per_seq, float sm_scale, int sliding_window, float soft_cap, void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
   if (head_dim != D || num_kv_heads <= 0 || num_q_heads != QG * num_kv_heads)
     return int(cudaErrorInvalidValue);
-  return int(launch(q, kv_pages, static_cast<const int*>(kv_lens),
-                    static_cast<const int*>(page_indices), out, num_seqs, num_kv_heads,
-                    page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,
-                    static_cast<cudaStream_t>(stream)));
+  return int(launch<Page>(q, kv_pages, static_cast<const int*>(kv_lens),
+                          static_cast<const int*>(page_indices), out, num_seqs, num_kv_heads,
+                          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,
+                          static_cast<cudaStream_t>(stream)));
 }
+
+}  // namespace
+
+// One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
+// int8}. q bf16[S, QH, D] with D = 128 and QH = 4 * KV, kv_pages [P,
+// page_size, 2 * KV, D] of the named type (K at even and V at odd combined
+// heads), kv_lens i32[S], page_indices i32[S, pages_per_seq], out bf16[S,
+// QH, D]. sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA
+// error of the launch (cudaErrorInvalidValue for any other D or QH / KV).
+#define PAGED_DECODE_ENTRY(suffix, Page)                                                       \
+  extern "C" int paged_decode_attention_##suffix(                                              \
+      const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,      \
+      void* out, int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size, \
+      int pages_per_seq, float sm_scale, int sliding_window, float soft_cap, void* stream) {   \
+    return run<Page>(q, kv_pages, kv_lens, page_indices, out, num_seqs, num_q_heads,           \
+                     num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale,               \
+                     sliding_window, soft_cap, stream);                                        \
+  }
+
+PAGED_DECODE_ENTRY(bf16, kv_page::Bf16)
+PAGED_DECODE_ENTRY(e4m3, kv_page::E4m3)
+PAGED_DECODE_ENTRY(e5m2, kv_page::E5m2)
+PAGED_DECODE_ENTRY(int8, kv_page::Int8)

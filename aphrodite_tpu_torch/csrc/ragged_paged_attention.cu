@@ -30,11 +30,23 @@
 // scores cap(q . k * sm_scale). Nothing at or past kv_len is loaded;
 // such slots are zero-filled and get probability exactly 0. Tokens past
 // cu_q_lens[S] are not written here: the caller zero-fills the output.
+//
+// Page types: the kernel is a template over the cache's element type
+// (kv_page_types.cuh), with one entry point each for bf16, E4M3, E5M2 and
+// int8 pages. With fp8 pages it stands for the fp8 path of the vendored
+// fork (the JAX package sends fp8 prefill there for its fast fp8 -> bf16
+// conversion), with int8 pages for the bundled kernel. A narrow row is
+// 128 bytes: the staging loop loads 16 values per 16-byte load and widens
+// them to f32 as it stores them into the same shared-memory tiles, so all
+// that follows the staging is unchanged and the result equals, bit for
+// bit, the bf16 entry point's on those pages widened beforehand.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kv_page_types.cuh"
 
 namespace {
 
@@ -69,19 +81,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float* dst) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
+template <class Page>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ kv,
+                              const unsigned char* __restrict__ kv,
                               const int* __restrict__ kv_lens,
                               const int* __restrict__ page_indices,
                               const int* __restrict__ cu_q_lens,
@@ -91,7 +94,9 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   using L = RaggedSmem;
   constexpr int kKPad = L::kKPad;
   constexpr int kTokens = kRows / QG;  // query tokens per tile
-  constexpr int kChunks = D / 8;       // 16-byte chunks per K (or V) row
+  constexpr int kQChunks = D / 8;           // 16-byte loads per (bf16) q row
+  constexpr int kVals = Page::kValues;      // K/V values per 16-byte load
+  constexpr int kChunks = D / kVals;        // 16-byte loads per K (or V) row
   constexpr int kDimsPerLane = D / 32;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -131,15 +136,15 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
 
   // Query rows: row r = token (r / QG), head kvh * QG + r % QG; pre-scaled.
-  for (int i = tid; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int part = i % kChunks;
+  for (int i = tid; i < kRows * kQChunks; i += kThreads) {
+    const int r = i / kQChunks;
+    const int part = i % kQChunks;
     const int t = r / QG;
     float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (t < n_tok) {
       const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * QG + r % QG;
       const uint4 raw = *reinterpret_cast<const uint4*>(q + head * D + part * 8);
-      bf16x8_to_f32(raw, vals);
+      kv_page::chunk_to_f32<kv_page::Bf16>(raw, vals);
 #pragma unroll
       for (int e = 0; e < 8; ++e) vals[e] *= sm_scale;
     }
@@ -171,16 +176,14 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int is_v = rem / kChunks;
       const int part = rem % kChunks;
       const int pos = tile0 + key;
-      float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // zeros in every page type
       if (pos < kv_hi) {
         const int page = pages[pos / page_size];
         const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
-        const uint4 raw = *reinterpret_cast<const uint4*>(kv + row * D + part * 8);
-        bf16x8_to_f32(raw, vals);
+        raw = *reinterpret_cast<const uint4*>(kv + (row * kChunks + part) * 16);
       }
-      float* dst = is_v ? v_s + key * D + part * 8 : k_s + key * kKPad + part * 8;
-      reinterpret_cast<float4*>(dst)[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
-      reinterpret_cast<float4*>(dst)[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
+      float* dst = is_v ? v_s + key * D + part * kVals : k_s + key * kKPad + part * kVals;
+      kv_page::store_chunk_f32<Page>(raw, dst);
     }
     __syncthreads();
 
@@ -243,6 +246,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <class Page>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    const int* cu_q_lens, void* out, int num_tokens, int num_seqs,
                    int num_kv_heads, int page_size, int pages_per_seq, float sm_scale,
@@ -250,7 +254,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
   const size_t smem = RaggedSmem::bytes;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel,
+    const cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<Page>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  int(smem));
     if (err != cudaSuccess) return err;
@@ -258,32 +262,51 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
   }
   constexpr int kTokens = kRows / QG;
   const dim3 grid((num_tokens + kTokens - 1) / kTokens + num_seqs, num_kv_heads);
-  ragged_paged_attention_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv), kv_lens,
+  ragged_paged_attention_kernel<Page><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
       page_indices, cu_q_lens, static_cast<__nv_bfloat16*>(out), num_seqs, num_kv_heads,
       page_size, pages_per_seq, sm_scale, sliding_window, soft_cap);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q bf16[T, QH, D] with D = 128 and QH = 4 * KV, kv_pages bf16[P,
-// page_size, 2 * KV, D], kv_lens i32[S], page_indices i32[S,
-// pages_per_seq], cu_q_lens i32[S + 1], out bf16[T, QH, D] (zero-filled
-// by the caller). sliding_window <= 0 and soft_cap <= 0 mean off. Returns
-// the CUDA error of the launch (cudaErrorInvalidValue for any other D or
-// QH / KV).
-extern "C" int ragged_paged_attention_bf16(const void* q, const void* kv_pages, const void* kv_lens,
-                                           const void* page_indices, const void* cu_q_lens,
-                                           void* out, int num_tokens, int num_seqs,
-                                           int num_q_heads, int num_kv_heads, int head_dim,
-                                           int page_size, int pages_per_seq, float sm_scale,
-                                           int sliding_window, float soft_cap, void* stream) {
+// Checks the one shape the kernel is built for and launches the variant
+// for pages of type Page.
+template <class Page>
+int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
+        const void* cu_q_lens, void* out, int num_tokens, int num_seqs, int num_q_heads,
+        int num_kv_heads, int head_dim, int page_size, int pages_per_seq, float sm_scale,
+        int sliding_window, float soft_cap, void* stream) {
   if (num_tokens <= 0 || num_seqs <= 0) return int(cudaSuccess);
   if (head_dim != D || num_kv_heads <= 0 || num_q_heads != QG * num_kv_heads)
     return int(cudaErrorInvalidValue);
-  return int(launch(q, kv_pages, static_cast<const int*>(kv_lens),
-                    static_cast<const int*>(page_indices), static_cast<const int*>(cu_q_lens),
-                    out, num_tokens, num_seqs, num_kv_heads, page_size, pages_per_seq, sm_scale,
-                    sliding_window, soft_cap, static_cast<cudaStream_t>(stream)));
+  return int(launch<Page>(q, kv_pages, static_cast<const int*>(kv_lens),
+                          static_cast<const int*>(page_indices),
+                          static_cast<const int*>(cu_q_lens), out, num_tokens, num_seqs,
+                          num_kv_heads, page_size, pages_per_seq, sm_scale, sliding_window,
+                          soft_cap, static_cast<cudaStream_t>(stream)));
 }
+
+}  // namespace
+
+// One entry point per page type: ragged_paged_attention_{bf16, e4m3, e5m2,
+// int8}. q bf16[T, QH, D] with D = 128 and QH = 4 * KV, kv_pages [P,
+// page_size, 2 * KV, D] of the named type, kv_lens i32[S], page_indices
+// i32[S, pages_per_seq], cu_q_lens i32[S + 1], out bf16[T, QH, D]
+// (zero-filled by the caller). sliding_window <= 0 and soft_cap <= 0 mean
+// off. Returns the CUDA error of the launch (cudaErrorInvalidValue for any
+// other D or QH / KV).
+#define RAGGED_ENTRY(suffix, Page)                                                             \
+  extern "C" int ragged_paged_attention_##suffix(                                              \
+      const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,      \
+      const void* cu_q_lens, void* out, int num_tokens, int num_seqs, int num_q_heads,         \
+      int num_kv_heads, int head_dim, int page_size, int pages_per_seq, float sm_scale,        \
+      int sliding_window, float soft_cap, void* stream) {                                      \
+    return run<Page>(q, kv_pages, kv_lens, page_indices, cu_q_lens, out, num_tokens, num_seqs, \
+                     num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale,  \
+                     sliding_window, soft_cap, stream);                                        \
+  }
+
+RAGGED_ENTRY(bf16, kv_page::Bf16)
+RAGGED_ENTRY(e4m3, kv_page::E4m3)
+RAGGED_ENTRY(e5m2, kv_page::E5m2)
+RAGGED_ENTRY(int8, kv_page::Int8)

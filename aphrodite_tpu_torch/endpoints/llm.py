@@ -17,10 +17,16 @@ from aphrodite_tpu_torch.engine.engine import AphroditeEngine
 class LLM:
     def __init__(self, model: str, **kwargs) -> None:
         """kwargs are the fields of ``EngineArgs`` (dtype, block_size,
-        max_num_seqs, num_scheduler_steps, device, quantization, ...).
+        max_num_seqs, num_scheduler_steps, device, quantization,
+        kv_cache_dtype, quantization_param_path, ...).
         ``quantization="gptq"`` or ``"awq"`` serves int4 weights: a
         checkpoint in that format is loaded as it is, a dense or dummy one
-        is quantized at load."""
+        is quantized at load. ``kv_cache_dtype`` ("auto", "bfloat16",
+        "fp8" = "fp8_e4m3", "fp8_e5m2", "int8") stores the KV cache in 8
+        bits, quantized on write with the per-layer scales of the JSON
+        file ``quantization_param_path`` names (tools/kv_calibrate.py
+        makes one), else of the checkpoint's ``k_scale``/``v_scale``
+        tensors, else ones; int8 pages need calibrated scales."""
         self.engine = AphroditeEngine.from_engine_args(
             EngineArgs(model=model, **kwargs))
         # Offline generation reads text only at finish: skip per-step

@@ -22,6 +22,8 @@ class EngineArgs:
     load_format: str = "auto"
     quantization: Optional[str] = None
     # KV cache.
+    kv_cache_dtype: str = "auto"
+    quantization_param_path: Optional[str] = None
     block_size: int = 16
     hbm_utilization: float = 0.9
     num_device_blocks_override: Optional[int] = None
@@ -51,6 +53,8 @@ class EngineArgs:
             cache_config=CacheConfig(
                 block_size=self.block_size,
                 hbm_utilization=self.hbm_utilization,
+                cache_dtype=self.kv_cache_dtype,
+                quantization_param_path=self.quantization_param_path,
                 enable_prefix_caching=self.enable_prefix_caching,
                 num_device_blocks_override=self.num_device_blocks_override,
             ),

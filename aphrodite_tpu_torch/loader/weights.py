@@ -1,5 +1,5 @@
 """Checkpoint loading (counterpart of aphrodite_tpu/loader/weights.py,
-dense and int4 Llama paths).
+dense and int4 Llama paths, KV-cache scales).
 
 The model declares (hf_name -> our_path, transpose) mappings; per-layer
 tensors are stacked on a leading [L] axis and kept in the JAX package's
@@ -15,6 +15,9 @@ With a GPTQ/AWQ quantization method, a checkpoint that carries packed
 (quantization/int4.py); a dense or dummy one is quantized at load.
 Container members keep their own dtypes (int8 nibbles, f32 scale and
 zero); only dense float leaves take the model dtype.
+
+``load_kv_cache_scales`` reads the per-layer scales of a quantized KV
+cache (a JSON file, else checkpoint tensors, else ones).
 """
 
 import json
@@ -247,6 +250,51 @@ def quantize_params_int4(model, params: Dict[str, Any]) -> Dict[str, Any]:
     return params
 
 
+def load_kv_cache_scales(
+    model_dir: str,
+    num_layers: int,
+    quantization_param_path: Optional[str] = None,
+    tp_rank: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-layer (k_scale[L], v_scale[L]), f32, for a quantized KV cache.
+
+    Sources, in this order:
+    1. the JSON file ``quantization_param_path``: {"kv_cache":
+       {"scaling_factor": {tp_rank: {layer: scale}}}}, one scale per
+       layer for both K and V;
+    2. checkpoint tensors ``model.layers.{i}.self_attn.{k,v}_scale``
+       (fp8 checkpoints);
+    3. ones (right for fp8_e5m2; e4m3 gains from calibrated scales, and
+       int8 needs them).
+    """
+    k_scales = np.ones((num_layers,), np.float32)
+    v_scales = np.ones((num_layers,), np.float32)
+    if quantization_param_path:
+        with open(quantization_param_path) as f:
+            schema = json.load(f)
+        factors = schema["kv_cache"]["scaling_factor"]
+        layer_map = factors.get(str(tp_rank), factors.get(tp_rank, {}))
+        for layer_str, scale in layer_map.items():
+            idx = int(layer_str)
+            if 0 <= idx < num_layers:
+                k_scales[idx] = float(scale)
+                v_scales[idx] = float(scale)
+        return k_scales, v_scales
+    try:
+        for name, arr in safetensors_weight_iterator(model_dir):
+            if name.endswith(".k_scale") or name.endswith(".v_scale"):
+                parts = name.split(".")
+                try:
+                    idx = int(parts[parts.index("layers") + 1])
+                except (ValueError, IndexError):
+                    continue
+                target = k_scales if name.endswith(".k_scale") else v_scales
+                target[idx] = float(arr.reshape(()))
+    except FileNotFoundError:
+        pass
+    return k_scales, v_scales
+
+
 def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
                  quantize: bool = False) -> Dict[str, Any]:
     """Random weights generated on the device: norms are ones, every other
@@ -299,6 +347,17 @@ def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, Any]:
 
     return {k: (params_from_jax(v) if isinstance(v, dict) else leaf(v))
             for k, v in np_params.items()}
+
+
+def kv_scales_from_jax(
+        np_scales: Tuple[Any, Any],
+        device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (k_scale[L], v_scale[L]) pair as the JAX runner and
+    ``load_kv_cache_scales`` hold it (numpy) as the port's: two f32
+    tensors on the device, which the forward indexes by layer."""
+    k, v = (torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+            .to(device) for a in np_scales)
+    return k, v
 
 
 def _to_device(tree: Dict[str, Any], device: torch.device,

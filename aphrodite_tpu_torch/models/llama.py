@@ -12,7 +12,7 @@ packed int4 container is the hand-written kernel of ops/quant_matmul.py.
 Attention is ops/attention.py, which holds the two attention kernels.
 """
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -167,13 +167,25 @@ class LlamaForCausalLM:
     # Forward
     # ------------------------------------------------------------------
 
-    def forward(self, params: Dict[str, Any], kv_cache: torch.Tensor,
-                batch: ForwardBatch) -> torch.Tensor:
+    def forward(
+        self, params: Dict[str, Any], kv_cache: torch.Tensor,
+        batch: ForwardBatch,
+        kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> torch.Tensor:
         """Run the decoder over the batch; writes the new tokens' K/V into
         kv_cache [L, num_pages, page_size, 2*KV, D] in place and returns
-        the final-normed hidden states [T, H]."""
+        the final-normed hidden states [T, H].
+
+        kv_scales: per-layer (k_scale[L], v_scale[L]) f32 tensors for a
+        narrow cache type. The cache stores value / scale; neither scale
+        enters an attention kernel: k_scale folds into q
+        (q . (s * K) == (s * q) . K) and v_scale into the attention
+        output, each rounded to the model dtype first, as in the JAX
+        package."""
         NH, NKV, D = self.num_heads, self.num_kv_heads, self.head_dim
         lp = params["layers"]
+        k_scales, v_scales = kv_scales if kv_scales is not None else (None,
+                                                                      None)
 
         def proj(h, names, layer):
             """h @ the fused weight names[0], or, where the parts could
@@ -196,11 +208,18 @@ class LlamaForCausalLM:
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-            pages = write_kv(kv_cache[layer], k, v, batch.slot_mapping)
+            k_scale = None if k_scales is None else k_scales[layer]
+            v_scale = None if v_scales is None else v_scales[layer]
+            pages = write_kv(kv_cache[layer], k, v, batch.slot_mapping,
+                             k_scale, v_scale)
+            if k_scale is not None:
+                q = q * k_scale.to(q.dtype)
             attn = ragged_paged_attention(
                 q, pages, batch.kv_lens, batch.page_indices,
                 batch.cu_q_lens, batch.num_seqs, sm_scale=self.sm_scale,
                 sliding_window=self.sliding_window)
+            if v_scale is not None:
+                attn = attn * v_scale.to(attn.dtype)
             x = x + proj(attn.reshape(-1, NH * D), ("wo",), layer)
             h = rms_norm(x, lp["post_norm"][layer], self.rms_eps)
             g13 = proj(h, ("w13", "gate", "up"), layer)

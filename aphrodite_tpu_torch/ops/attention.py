@@ -12,7 +12,12 @@ paged KV cache.
   hand-written Hopper kernel ``csrc/ragged_paged_attention.cu`` (which
   replaces the TPU kernel behind aphrodite_tpu/ops/attention.py:
   _kernel_attention) or raise. At prefill shapes the kernel is bound by
-  operations; its source says what its design does about that.
+  operations; its source says what its design does about that. With
+  float8 pages it also stands for the fp8 path of the vendored fork
+  aphrodite_tpu/ops/rpa_alibi_kernel.py: ragged_paged_attention_alibi,
+  where the JAX package sends fp8 prefill; int8 pages go to the bundled
+  kernel there and to the same source here. Page types and their entry
+  points: ops/decode_attention.py.
 
 Cache layout: [num_pages, page_size, 2 * num_kv_heads, head_dim], K at
 even and V at odd combined-head indices.
@@ -25,8 +30,10 @@ from typing import Optional
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.decode_attention import (attend,
+from aphrodite_tpu_torch.ops.decode_attention import (KERNEL_PAGE_TYPES,
+                                                      attend,
                                                       check_kernel_inputs,
+                                                      count_launch,
                                                       gather_kv,
                                                       paged_decode_attention)
 
@@ -65,8 +72,9 @@ def ref_ragged_paged_attention(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("ragged_paged_attention").ragged_paged_attention_bf16
+def _kernel(page_type: str):
+    fn = getattr(cuda_build.load("ragged_paged_attention"),
+                 f"ragged_paged_attention_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
@@ -105,7 +113,8 @@ def ragged_paged_attention(
     # Tokens past cu_q_lens[S] belong to no sequence; the kernel leaves
     # them alone.
     out = torch.zeros_like(q)
-    err = _kernel()(
+    page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
+    err = _kernel(page_type)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
         num_tokens, num_seqs_padded, num_q_heads, ckv // 2, head_dim,
@@ -114,8 +123,10 @@ def ragged_paged_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
-    ragged_paged_attention.launches += 1
+    count_launch(ragged_paged_attention, page_type)
     return out
 
 
+# Launches of the kernel: the total, and per page type.
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_by_dtype = {}

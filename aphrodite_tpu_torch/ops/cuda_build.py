@@ -3,8 +3,9 @@
 Every kernel lives in one source, ``aphrodite_tpu_torch/csrc/<name>.cu``,
 with a plain C interface. ``nvcc`` compiles each source for sm_90a into
 its own shared library under ``build/kernels/`` at the repository root
-(listed in .gitignore), named by a hash of the source so an edited kernel
-is never served from a stale build. Nothing is built when a module is
+(listed in .gitignore), named by a hash of the source and of the headers
+beside it (``csrc/*.cuh``) so an edited kernel is never served from a
+stale build. Nothing is built when a module is
 imported: the first launch builds what it needs, and ``build`` builds
 several sources at once, one ``nvcc`` process each, all started together.
 """
@@ -40,9 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    sha = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{sha.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:

@@ -16,6 +16,12 @@ multi-step decode window sends every step here (``cu_q_lens=None`` in
 Cache layout (shared with the TPU package and both kernels):
   kv_pages: [num_pages, page_size, 2 * num_kv_heads, head_dim],
   K at even and V at odd combined-head indices.
+
+Pages are bf16 or one of three narrow types (float8_e4m3fn, float8_e5m2,
+int8). Narrow pages are read raw, one byte per value, and widened to bf16
+inside the kernel (every such value is exact in bf16); each page type has
+its own entry point of the same source. Scales never enter: the model
+folds k_scale into q and v_scale into the output (models/llama.py).
 """
 
 import ctypes
@@ -30,6 +36,10 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The one shape both CUDA kernels are built for (Llama-3 8B and 70B).
 KERNEL_HEAD_DIM = 128
 KERNEL_QUERIES_PER_KV = 4
+# Page types the CUDA kernels read, and the suffix of each one's entry
+# point (also its key in ``launches_by_dtype``).
+KERNEL_PAGE_TYPES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
+                     torch.float8_e5m2: "e5m2", torch.int8: "int8"}
 
 
 def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
@@ -37,8 +47,12 @@ def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
     each. Reads nothing past kv_len."""
     _, page_size, ckv, head_dim = kv_pages.shape
     n_pages = -(-kv_len // page_size)
-    rows = kv_pages[pages[:n_pages].long()].reshape(-1, ckv, head_dim)
-    rows = rows[:kv_len].float()
+    # One-byte page types are gathered as bytes: indexing has no fp8
+    # kernel on every device.
+    narrow = kv_pages.dtype.itemsize == 1
+    raw = kv_pages.view(torch.uint8) if narrow else kv_pages
+    rows = raw[pages[:n_pages].long()].reshape(-1, ckv, head_dim)[:kv_len]
+    rows = rows.view(kv_pages.dtype).float()
     return rows[:, 0::2], rows[:, 1::2]
 
 
@@ -95,8 +109,9 @@ def ref_paged_decode_attention(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("paged_decode_attention").paged_decode_attention_bf16
+def _kernel(page_type: str):
+    fn = getattr(cuda_build.load("paged_decode_attention"),
+                 f"paged_decode_attention_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
@@ -108,9 +123,10 @@ def check_kernel_inputs(q, kv_pages, index_tensors):
     """Raise unless the tensors are what the CUDA attention kernels take."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
-    if q.dtype != torch.bfloat16 or kv_pages.dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16 or kv_pages.dtype not in KERNEL_PAGE_TYPES:
         raise ValueError(
-            "attention kernel takes bf16 q and bf16 kv pages, got "
+            "attention kernel takes bf16 q and kv pages of bfloat16, "
+            "float8_e4m3fn, float8_e5m2 or int8, got "
             f"{q.dtype} and {kv_pages.dtype}")
     num_q_heads, head_dim = q.shape[1], q.shape[2]
     num_kv_heads = kv_pages.shape[2] // 2
@@ -155,7 +171,8 @@ def paged_decode_attention(
         raise ValueError("kv_lens and page_indices need one row per query")
     _, page_size, ckv, _ = kv_pages.shape
     out = torch.empty_like(q)
-    err = _kernel()(
+    page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
+    err = _kernel(page_type)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), out.data_ptr(), num_seqs, num_q_heads,
         ckv // 2, head_dim, page_size, page_indices.shape[1],
@@ -163,8 +180,17 @@ def paged_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention, page_type)
     return out
 
 
+def count_launch(wrapper, page_type: str) -> None:
+    """One kernel launch of `wrapper` on pages of `page_type`."""
+    wrapper.launches += 1
+    by_dtype = wrapper.launches_by_dtype
+    by_dtype[page_type] = by_dtype.get(page_type, 0) + 1
+
+
+# Launches of the kernel: the total, and per page type.
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_dtype = {}

@@ -3,12 +3,14 @@ aphrodite_tpu/worker/model_runner.py for the offline dense path).
 
 The runner owns the parameters, the paged KV cache
 [L, num_pages + 1, page_size, 2*KV, D] (the last page of every layer is
-the trash page that padding tokens write to) and a ``torch.Generator``
-for sampling. Prefill and mixed steps run one forward over the flat
-token stream; pure-decode steps run the multi-step window: a Python loop
-over steps that advances tokens, positions and slots on the device,
-routes attention through ``cu_q_lens=None`` to the decode kernel, and
-brings each window's results to the host in one packed fetch.
+the trash page that padding tokens write to; its element type is the
+model's, or with ``kv_cache_dtype`` an 8-bit one written through
+per-layer scales) and a ``torch.Generator`` for sampling. Prefill and
+mixed steps run one forward over the flat token stream; pure-decode
+steps run the multi-step window: a Python loop over steps that advances
+tokens, positions and slots on the device, routes attention through
+``cu_q_lens=None`` to the decode kernel, and brings each window's
+results to the host in one packed fetch.
 
 Token and sequence counts are padded to the JAX package's buckets, so
 the shapes stay few and fixed, ready for CUDA-graph capture.
@@ -25,7 +27,9 @@ from aphrodite_tpu_torch.common.logger import init_logger
 from aphrodite_tpu_torch.common.sequence import (ScheduledSequence,
                                                  SchedulerOutputs)
 from aphrodite_tpu_torch.common.utils import cdiv
-from aphrodite_tpu_torch.loader.weights import load_model_params
+from aphrodite_tpu_torch.loader.weights import (kv_scales_from_jax,
+                                                load_kv_cache_scales,
+                                                load_model_params)
 from aphrodite_tpu_torch.models.interface import ForwardBatch
 from aphrodite_tpu_torch.models.registry import get_model_class
 from aphrodite_tpu_torch.sampling.metadata import (SamplerInputRow,
@@ -36,6 +40,15 @@ from aphrodite_tpu_torch.sampling.sampler import (SamplerOutput, sample,
                                                   tensors_to_device)
 
 logger = init_logger(__name__)
+
+_KV_DTYPES = {
+    "auto": None,  # the model dtype
+    "bfloat16": torch.bfloat16,
+    "fp8": torch.float8_e4m3fn,
+    "fp8_e4m3": torch.float8_e4m3fn,
+    "fp8_e5m2": torch.float8_e5m2,
+    "int8": torch.int8,
+}
 
 
 def _buckets(max_value: int, start: int, step: int = 2) -> List[int]:
@@ -141,6 +154,16 @@ class ModelRunner:
             step=2)
         self.seq_buckets = _buckets(
             max(8, self.scheduler_config.max_num_seqs), 8, step=4)
+        self.kv_dtype = (_KV_DTYPES[self.cache_config.cache_dtype]
+                         or self.model.dtype)
+        # Per-layer (k_scale[L], v_scale[L]) on the device, only for the
+        # narrow cache types.
+        self.kv_scales = None
+        if self.kv_dtype.itemsize == 1:
+            self.kv_scales = kv_scales_from_jax(
+                load_kv_cache_scales(
+                    self.model_config.model, self.model.num_layers,
+                    self.cache_config.quantization_param_path), self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.model_config.seed)
 
@@ -157,8 +180,8 @@ class ModelRunner:
 
     def _kv_page_bytes(self) -> int:
         ckv, d = self.model.kv_cache_shape_suffix
-        itemsize = torch.finfo(self.model.dtype).bits // 8
-        return self.model.num_layers * self.block_size * ckv * d * itemsize
+        return (self.model.num_layers * self.block_size * ckv * d
+                * self.kv_dtype.itemsize)
 
     def determine_num_pages(self) -> int:
         """Size the KV cache from the card's free memory."""
@@ -191,7 +214,7 @@ class ModelRunner:
         ckv, d = self.model.kv_cache_shape_suffix
         self.kv_cache = torch.zeros(
             (self.model.num_layers, num_pages + 1, self.block_size, ckv, d),
-            dtype=self.model.dtype, device=self.device)
+            dtype=self.kv_dtype, device=self.device)
 
     @property
     def trash_slot_base(self) -> int:
@@ -276,7 +299,9 @@ class ModelRunner:
         """Copy-on-write block copies, in every layer of the cache."""
         src = torch.tensor([p[0] for p in pairs], device=self.device)
         dst = torch.tensor([p[1] for p in pairs], device=self.device)
-        self.kv_cache[:, dst] = self.kv_cache[:, src]
+        # Pages are copied as bytes, whatever the cache's element type.
+        raw = self.kv_cache.view(torch.uint8)
+        raw[:, dst] = raw[:, src]
 
     @torch.inference_mode()
     def execute(self, outputs: SchedulerOutputs,
@@ -294,7 +319,8 @@ class ModelRunner:
         total_tokens = sum(ss.num_tokens for ss in scheduled)
         T = _pad_to_bucket(total_tokens, self.token_buckets)
         batch = self.build_forward_batch(scheduled, T, S)
-        hidden = self.model.forward(self.params, self.kv_cache, batch)
+        hidden = self.model.forward(self.params, self.kv_cache, batch,
+                                    self.kv_scales)
         logits = self.model.compute_logits(
             self.params, hidden[batch.logits_indices])
         out = sample(logits, tensors, flags, self.generator)
@@ -348,7 +374,7 @@ class ModelRunner:
                     logits_indices=rows,
                 )
                 hidden = self.model.forward(self.params, self.kv_cache,
-                                            batch)
+                                            batch, self.kv_scales)
                 logits = self.model.compute_logits(self.params, hidden)
                 out = sample(logits, tensors, flags, self.generator)
                 outs.append(out)

@@ -8,39 +8,58 @@ Phases, each of which must pass or the script exits non-zero:
 1. Build every CUDA kernel of the main path from aphrodite_tpu_torch/csrc
    (one nvcc per source, in parallel) and print the build seconds.
 2. Print the card's name and power limit as nvidia-smi reports them.
-3. Hold each kernel against its plain PyTorch version. Attention, in
-   bf16 at the Llama-3.1-8B attention geometry (32 query heads, 8 kv heads, head_dim
-   128, 16-token pages): a mixed prefill and decode batch, a chunked
-   prefill on a cached prefix, a decode batch with dead padded rows, and
-   sliding window with soft cap. Cache slots past each sequence's length
-   hold NaN, so a kernel that reads past kv_len fails the check. The
-   packed-int4 matmul, at the four projection sites of a Llama-3.1-8B
-   layer (wqkv, wo, w13, down; group 128) on layer-stacked weights with a
-   layer index, for T in (1, 8, 32, 64, 100, 2048), against its plain
-   version and against the exact f32 dequantized product.
-4. Time each kernel at the main path's shapes beside its plain version,
-   one PyTorch library call on pre-gathered contiguous K/V
-   (scaled_dot_product_attention; the gather is not timed, and the port
-   never calls it) and the bound: the larger of the bytes the call must
-   move over 3.35 TB/s and its FLOPs over 989 TFLOP/s (H100 SXM bf16).
-   The int4 matmul is timed at T = 32 and T = 2048 at each site; its
-   library call is one torch.matmul of x with the pre-dequantized bf16
-   weight (four times the weight bytes; the port never calls it).
-5. Run the main paths: first the bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model
-   (full width, 32 layers, random bf16 weights from a seed) for 16
-   greedy requests with prompts of 16-1024 tokens and 64 new tokens each,
-   so chunked prefill mixes with fused 8-step decode windows. Both kernel
-   launch counters must be > 0 and every output 64 tokens long. Then one
-   prefill and one decode forward are run with kernel attention and with
-   plain attention on the same inputs, and their logits compared.
-   Then, with that engine freed, the int4 one: the same model and
-   requests with ``quantization="gptq"`` (random weights quantized to
-   packed int4 at load). All three launch counters must be > 0, the int4
-   matmul must have been launched 4 times per layer and forward, and the
-   logits of a prefill and a decode forward with the int4 kernel must
-   agree with those of the plain int4 product.
+3. Hold each kernel against its plain PyTorch version. Attention, on
+   bf16 pages and on each narrow page type (float8_e4m3fn, float8_e5m2,
+   int8: pages that hold value / 0.02, read raw by that type's variant of
+   the kernel, which must also equal, bit for bit, the bf16 variant on
+   the same pages widened to bf16), at the Llama-3.1-8B attention
+   geometry (32 query heads, 8 kv heads, head_dim 128, 16-token pages):
+   a mixed prefill and decode batch, a chunked prefill on a cached
+   prefix, a decode batch with dead padded rows, and sliding window with
+   soft cap. Cache slots past each sequence's length hold NaN (bf16, and
+   byte 0x7f in the fp8 types) or 127 (int8), so a kernel that reads past
+   kv_len fails the check. The packed-int4 matmul, at the four projection
+   sites of a Llama-3.1-8B layer (wqkv, wo, w13, down; group 128) on
+   layer-stacked weights with a layer index, for T in (1, 8, 32, 64, 100,
+   2048), against its plain version and against the exact f32
+   dequantized product.
+4. Time each kernel, on every page type, at the main path's shapes
+   beside its plain version, one PyTorch library call on pre-gathered
+   contiguous K/V (scaled_dot_product_attention; the gather is not timed,
+   and the port never calls it) and the bound: the larger of the bytes
+   the call must move (K/V rows at the page type's size) over 3.35 TB/s
+   and its FLOPs over 989 TFLOP/s (H100 SXM bf16). The int4 matmul is
+   timed at T = 32 and T = 2048 at each site; its library call is one
+   torch.matmul of x with the pre-dequantized bf16 weight (four times the
+   weight bytes; the port never calls it).
+5. Run the main paths, each with the engine before it freed. First the
+   bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model (full
+   width, 32 layers, random bf16 weights from a seed) for 16 greedy
+   requests with prompts of 16-1024 tokens and 64 new tokens each, so
+   chunked prefill mixes with fused 8-step decode windows. Every output
+   must be 64 tokens long. Forwards are counted at ``model.forward``:
+   the attention launches must be one per layer and forward, all on the
+   cache's page type (the ragged kernel in prefill and mixed steps, the
+   decode kernel in the fused window), so no forward can have taken a
+   plain version. Then one prefill and one decode forward are run with
+   kernel attention and with plain attention on the same inputs, and
+   their logits compared.
+   Then the int4 one: the same model and requests with
+   ``quantization="gptq"`` (random weights quantized to packed int4 at
+   load). The int4 matmul must have been launched 4 times per layer and
+   forward, and the logits of a prefill and a decode forward with the
+   int4 kernel must agree with those of the plain int4 product.
+   Then the int4 + fp8 one, the JAX package's north-star configuration:
+   ``quantization="gptq"`` and ``kv_cache_dtype="fp8_e4m3"`` (32 layers,
+   scales of ones). It gets twice the KV pages of a bf16 cache; every
+   attention launch must be of the E4M3 variant, and the logits with the
+   attention kernels must agree with those of the plain attention
+   versions on the same narrow cache. Then the other two narrow types,
+   cut to 4 layers: fp8_e5m2, and int8 with scales of 0.05 from a JSON
+   file.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
-   its error against the plain version and its times; the last line is
+   its error against the plain version and its times (each attention
+   kernel once per page type); the last line is
    {"ok": true, "device": {...}}.
 """
 
@@ -85,6 +104,13 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 ATTN_TOL = 2.0**-6
 Q_STD = 3.0
 KV_STD = 0.5
+# Narrow pages hold value / KV_SCALE (K/V at std 25: int8 uses its range,
+# the fp8 types their mantissas), and the checks fold the scale into
+# sm_scale, as the model folds k_scale into q. Unwritten slots hold the
+# byte 0x7f: NaN in both fp8 types, 127 in int8.
+KV_SCALE = 0.02
+NARROW_POISON = 0x7f
+PAGE_TYPES = ("bf16", "e4m3", "e5m2", "int8")
 # Logits of one forward with a kernel (attention, or the int4 matmul)
 # against the same forward with its plain version, row by row: |diff| <= LOGIT_TOL * max|plain row|, and the argmax of
 # every row must agree. One-ulp bf16 differences in each layer's attention
@@ -149,16 +175,22 @@ def time_ms(fn, iters: int) -> float:
 
 def make_attention_case(seqs, num_q_heads, num_kv_heads, head_dim, *,
                         padded_seqs, padded_tokens, device, seed,
-                        num_layers=1):
-    """A ragged batch over a bf16 paged cache.
+                        num_layers=1, page_type="bf16"):
+    """A ragged batch over a paged cache of the given page type.
 
     seqs: (q_len, kv_len) per live sequence. Each sequence's pages are a
     random permutation of the cache's pages; slots past kv_len, and every
-    page nobody owns, hold NaN. With num_layers > 1 the cache holds that
+    page nobody owns, hold NaN (127 in int8 pages). A narrow cache holds
+    the same values as the bf16 one, divided by KV_SCALE and rounded to
+    its type; case["kv_scale"] is the factor to fold into sm_scale. With
+    num_layers > 1 the cache holds that
     many independent layers ([L, P, ...]) so timed launches can rotate
     through more bytes than the L2 cache holds.
     """
     import torch
+
+    from aphrodite_tpu_torch.ops.decode_attention import KERNEL_PAGE_TYPES
+    from aphrodite_tpu_torch.ops.kv_cache import quantize_kv
 
     rng = np.random.default_rng(seed)
     pps = max(-(-kv // PAGE_SIZE) for _, kv in seqs) + 1
@@ -184,8 +216,17 @@ def make_attention_case(seqs, num_q_heads, num_kv_heads, head_dim, *,
         raise ValueError("padded_tokens is smaller than the tokens")
     gen = torch.Generator(device="cpu").manual_seed(seed)
     shape = (num_layers, num_pages, PAGE_SIZE, 2 * num_kv_heads, head_dim)
-    kv = (torch.randn(shape, generator=gen) * KV_STD).to(torch.bfloat16)
-    kv[:, torch.from_numpy(~live)] = float("nan")
+    kv = torch.randn(shape, generator=gen) * KV_STD
+    dead = torch.from_numpy(~live)
+    if page_type == "bf16":
+        kv = kv.to(torch.bfloat16)
+        kv[:, dead] = float("nan")
+        kv_scale = 1.0
+    else:
+        dtype = {v: k for k, v in KERNEL_PAGE_TYPES.items()}[page_type]
+        kv = quantize_kv(kv, torch.tensor(KV_SCALE), dtype)
+        kv.view(torch.uint8)[:, dead] = NARROW_POISON
+        kv_scale = KV_SCALE
     q = (torch.randn((padded_tokens, num_q_heads, head_dim), generator=gen)
          * Q_STD).to(torch.bfloat16)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
@@ -193,14 +234,17 @@ def make_attention_case(seqs, num_q_heads, num_kv_heads, head_dim, *,
                 page_indices=t(page_indices), cu_q_lens=t(cu),
                 num_seqs=t(np.asarray([len(seqs)], np.int32)))
     case["seqs"] = list(seqs)
+    case["kv_scale"] = kv_scale
     return case
 
 
 def attention_work(case, num_q_heads, num_kv_heads, head_dim, decode):
     """(bytes, flops) the call needs on this data: q and out of the live
-    tokens once, each live K/V row once, the index tensors the kernel
-    takes; 4 * D FLOPs per visible (query head, key) pair."""
+    tokens once (bf16), each live K/V row once at the page type's size,
+    the index tensors the kernel takes; 4 * D FLOPs per visible (query
+    head, key) pair."""
     itemsize = 2
+    kv_itemsize = case["kv"].dtype.itemsize
     tokens = sum(q for q, _ in case["seqs"])
     kv_rows = sum(kv for _, kv in case["seqs"])
     pairs = 0
@@ -211,7 +255,7 @@ def attention_work(case, num_q_heads, num_kv_heads, head_dim, decode):
     if not decode:
         index.append(case["cu_q_lens"])
     nbytes = (2 * tokens * num_q_heads * head_dim * itemsize
-              + kv_rows * 2 * num_kv_heads * head_dim * itemsize
+              + kv_rows * 2 * num_kv_heads * head_dim * kv_itemsize
               + sum(t.numel() * 4 for t in index))
     flops = 4 * pairs * num_q_heads * head_dim
     return nbytes, flops
@@ -306,16 +350,40 @@ def check_close(errs, name, label, got, want, rows):
     errs[name] = max(errs[name], float(err.max()))
 
 
+def variant_name(kernel: str, page_type: str) -> str:
+    """The name a kernel's variant for one page type goes by in this
+    script's output: the bf16 one keeps the kernel's name."""
+    return kernel if page_type == "bf16" else f"{kernel}_{page_type}"
+
+
+def check_equals_bf16_kernel(name, label, got, fn, case, args, kw):
+    """Fail unless the narrow-page result `got` equals, bit for bit, the
+    bf16 variant's on the same pages widened to bf16 beforehand."""
+    import torch
+
+    widened = case["kv"][0].to(torch.bfloat16)
+    if not torch.equal(widened.float().nan_to_num(),
+                       case["kv"][0].float().nan_to_num()):
+        fail(f"{name} [{label}]: pages are not exact in bf16")
+    same = fn(case["q"], widened, *args, **kw)
+    if not torch.equal(got, same):
+        diff = float((got.float() - same.float()).abs().max())
+        fail(f"{name} [{label}]: differs from the bf16 kernel on the "
+             f"widened pages (max abs {diff:.3e})")
+    print(f"check {name} [{label}]: equal, bit for bit, to the bf16 kernel "
+          "on the widened pages", flush=True)
+
+
 def kernel_checks(device, geometry):
-    """Each kernel against its plain version; returns the max abs error
-    per kernel."""
+    """Each kernel, on every page type, against its plain version (and
+    the narrow variants against the bf16 one); returns the max abs error
+    per kernel variant."""
     from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                    ref_ragged_paged_attention)
     from aphrodite_tpu_torch.ops.decode_attention import (
         paged_decode_attention, ref_paged_decode_attention)
 
     qh, kvh, d = geometry
-    scale = d**-0.5
     # Every case holds rows that see more than 1000 keys.
     ragged_cases = [
         ("mixed prefill+decode", [(1, 300), (200, 200), (1, 17), (77, 77),
@@ -331,42 +399,62 @@ def kernel_checks(device, geometry):
         ("decode window 100 + soft cap 30", 16,
          dict(sliding_window=100, soft_cap=30.0)),
     ]
-    errs = {"ragged_paged_attention": 0.0, "paged_decode_attention": 0.0}
-    for i, (label, seqs, kw) in enumerate(ragged_cases):
-        tokens = sum(q for q, _ in seqs)
-        case = make_attention_case(seqs, qh, kvh, d, padded_seqs=8,
-                                   padded_tokens=tokens + 13, device=device,
-                                   seed=SEED + i)
-        args = (case["q"], case["kv"][0], case["kv_lens"],
-                case["page_indices"], case["cu_q_lens"], case["num_seqs"])
-        got = ragged_paged_attention(*args, sm_scale=scale, **kw)
-        want = ref_ragged_paged_attention(*args, sm_scale=scale, **kw)
-        check_close(errs, "ragged_paged_attention", label, got, want, tokens)
-        # Padding tokens belong to no sequence and must be zeros.
-        if float(got[tokens:].float().abs().max()) != 0.0:
-            fail(f"ragged_paged_attention [{label}]: padding rows not zero")
-    for i, (label, live, kw) in enumerate(decode_cases):
-        rng = np.random.default_rng(SEED + 10 + i)
-        lens = rng.integers(1, 1100, size=live)
-        lens[:2] = (1500, 1025)
-        seqs = [(1, int(n)) for n in lens]
-        case = make_attention_case(seqs, qh, kvh, d, padded_seqs=16,
-                                   padded_tokens=16, device=device,
-                                   seed=SEED + 10 + i)
-        args = (case["q"], case["kv"][0], case["kv_lens"],
-                case["page_indices"])
-        got = paged_decode_attention(*args, case["num_seqs"], sm_scale=scale,
-                                     **kw)
-        want = ref_paged_decode_attention(*args, sm_scale=scale, **kw)
-        check_close(errs, "paged_decode_attention", label, got, want, 16)
+    errs = {}
+    for page_type in PAGE_TYPES:
+        ragged = variant_name("ragged_paged_attention", page_type)
+        decode = variant_name("paged_decode_attention", page_type)
+        errs[ragged] = errs[decode] = 0.0
+        for i, (label, seqs, kw) in enumerate(ragged_cases):
+            tokens = sum(q for q, _ in seqs)
+            case = make_attention_case(seqs, qh, kvh, d, padded_seqs=8,
+                                       padded_tokens=tokens + 13,
+                                       device=device, seed=SEED + i,
+                                       page_type=page_type)
+            kw = dict(kw, sm_scale=d**-0.5 * case["kv_scale"])
+            args = (case["kv_lens"], case["page_indices"], case["cu_q_lens"],
+                    case["num_seqs"])
+            got = ragged_paged_attention(case["q"], case["kv"][0], *args,
+                                         **kw)
+            want = ref_ragged_paged_attention(case["q"], case["kv"][0],
+                                              *args, **kw)
+            check_close(errs, ragged, label, got, want, tokens)
+            # Padding tokens belong to no sequence and must be zeros.
+            if float(got[tokens:].float().abs().max()) != 0.0:
+                fail(f"{ragged} [{label}]: padding rows not zero")
+            if page_type != "bf16":
+                check_equals_bf16_kernel(ragged, label, got,
+                                         ragged_paged_attention, case, args,
+                                         kw)
+        for i, (label, live, kw) in enumerate(decode_cases):
+            rng = np.random.default_rng(SEED + 10 + i)
+            lens = rng.integers(1, 1100, size=live)
+            lens[:2] = (1500, 1025)
+            seqs = [(1, int(n)) for n in lens]
+            case = make_attention_case(seqs, qh, kvh, d, padded_seqs=16,
+                                       padded_tokens=16, device=device,
+                                       seed=SEED + 10 + i,
+                                       page_type=page_type)
+            kw = dict(kw, sm_scale=d**-0.5 * case["kv_scale"])
+            args = (case["kv_lens"], case["page_indices"])
+            got = paged_decode_attention(case["q"], case["kv"][0], *args,
+                                         case["num_seqs"], **kw)
+            want = ref_paged_decode_attention(case["q"], case["kv"][0],
+                                              *args, **kw)
+            check_close(errs, decode, label, got, want, 16)
+            if page_type != "bf16":
+                check_equals_bf16_kernel(decode, label, got,
+                                         paged_decode_attention, case, args,
+                                         kw)
     return errs
 
 
 def kernel_timings(device, geometry, prompt_lens, iters, errs):
     """Checks and times at the main path's shapes: a full 2048-token
     prefill step (prompts in arrival order, the last one chunked) and a
-    decode step of all requests mid-generation in their 32-row bucket.
-    Returns per-kernel dicts of ms, plain_ms, library_ms, bound_ms,
+    decode step of all requests mid-generation in their 32-row bucket,
+    on every page type in turn (the same sequences and page tables; the
+    narrow caches hold the bf16 one's values over KV_SCALE). Returns, per
+    kernel variant, a dict of ms, plain_ms, library_ms, bound_ms,
     bound_by."""
     import torch
 
@@ -376,7 +464,6 @@ def kernel_timings(device, geometry, prompt_lens, iters, errs):
         paged_decode_attention, ref_paged_decode_attention)
 
     qh, kvh, d = geometry
-    scale = d**-0.5
     layers = 16  # rotate through more K/V bytes than the 50 MB L2 holds
     prefill, budget = [], 2048
     for n in prompt_lens:
@@ -391,23 +478,27 @@ def kernel_timings(device, geometry, prompt_lens, iters, errs):
         "paged_decode_attention": (decode, 32, 32),
     }
     out = {}
-    for name, (seqs, padded_seqs, padded_tokens) in shapes.items():
+    for kernel, page_type in ((k, p) for k in shapes for p in PAGE_TYPES):
+        seqs, padded_seqs, padded_tokens = shapes[kernel]
+        name = variant_name(kernel, page_type)
         case = make_attention_case(seqs, qh, kvh, d, padded_seqs=padded_seqs,
                                    padded_tokens=padded_tokens, device=device,
-                                   seed=SEED + 20, num_layers=layers)
-        decode_kernel = name == "paged_decode_attention"
+                                   seed=SEED + 20, num_layers=layers,
+                                   page_type=page_type)
+        scale = d**-0.5 * case["kv_scale"]
+        decode_kernel = kernel == "paged_decode_attention"
         state = {"layer": 0}
 
-        def call(kernel):
+        def call(use_kernel):
             layer = state["layer"] = (state["layer"] + 1) % layers
             kv = case["kv"][layer]
             if decode_kernel:
-                fn = (paged_decode_attention if kernel
+                fn = (paged_decode_attention if use_kernel
                       else ref_paged_decode_attention)
-                extra = ((case["num_seqs"],) if kernel else ())
+                extra = ((case["num_seqs"],) if use_kernel else ())
                 return fn(case["q"], kv, case["kv_lens"],
                           case["page_indices"], *extra, sm_scale=scale)
-            fn = (ragged_paged_attention if kernel
+            fn = (ragged_paged_attention if use_kernel
                   else ref_ragged_paged_attention)
             return fn(case["q"], kv, case["kv_lens"], case["page_indices"],
                       case["cu_q_lens"], case["num_seqs"], sm_scale=scale)
@@ -430,11 +521,14 @@ def kernel_timings(device, geometry, prompt_lens, iters, errs):
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else
                          "operations")
+        beside = ("" if page_type == "bf16" else
+                  f" (bf16 pages, same case: {out[kernel]['ms']:.4f} ms)")
         print(f"time {name}: {len(seqs)} seqs, "
               f"{sum(q for q, _ in seqs)} query tokens, "
-              f"{sum(kv for _, kv in seqs)} kv rows: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (sdpa, gather excluded) "
-              f"{library_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
+              f"{sum(kv for _, kv in seqs)} kv rows: kernel {ms:.4f} ms"
+              f"{beside}, plain {plain_ms:.4f} ms, library (sdpa on the "
+              f"rows widened to bf16, gather excluded) {library_ms:.4f} ms, "
+              f"bound {out[name]['bound_ms']:.4f} ms "
               f"({out[name]['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
               flush=True)
         del case, qq, kk, vv, mask
@@ -632,11 +726,18 @@ def write_model_dir(path: str, config: dict) -> str:
     return path
 
 
+# kv_cache_dtype -> the page type its attention launches must be of.
+CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
+                    "int8": "int8"}
+
+
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
-              quantization=None):
+              quantization=None, kv_cache_dtype="auto", kv_scale=None):
     """LLM.generate through the port's entry point, with bf16 weights or
-    (quantization="gptq") packed int4 ones; returns the launch counts of
-    the path's kernels and the rates."""
+    (quantization="gptq") packed int4 ones, and a bf16 KV cache or
+    (kv_cache_dtype) a narrow one, whose per-layer scales are ones or
+    (kv_scale) come from a JSON file; returns the launch counts of the
+    path's kernels, by variant name, and the rates."""
     import torch
 
     from aphrodite_tpu_torch import LLM, SamplingParams
@@ -649,20 +750,32 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                 "paged_decode_attention": paged_decode_attention}
     if quantization is not None:
         wrappers["int4p_matmul"] = int4p_matmul
-    label = f"main path ({quantization or 'bf16'})"
+    page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
+    layers = model_config["num_hidden_layers"]
+    label = (f"main path ({quantization or 'bf16'} weights, "
+             f"{kv_cache_dtype if page_type != 'bf16' else 'bf16'} cache, "
+             f"{layers} layers)")
     vocab = model_config["vocab_size"]
     with tempfile.TemporaryDirectory() as td:
+        scales_path = None
+        if kv_scale is not None:
+            scales_path = os.path.join(td, "kv_scales.json")
+            with open(scales_path, "w") as f:
+                json.dump({"kv_cache": {"scaling_factor": {"0": {
+                    str(i): kv_scale for i in range(layers)}}}}, f)
         t0 = time.monotonic()
         llm = LLM(model=write_model_dir(td, model_config),
                   load_format="dummy", dtype="bfloat16", seed=SEED,
-                  quantization=quantization,
+                  quantization=quantization, kv_cache_dtype=kv_cache_dtype,
+                  quantization_param_path=scales_path,
                   num_scheduler_steps=num_scheduler_steps, block_size=16,
                   max_num_batched_tokens=2048, skip_tokenizer_init=True,
                   device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         print(f"{label}: engine up in {time.monotonic() - t0:.1f} s, "
-              f"{llm.engine.runner.num_pages} KV pages, "
+              f"{llm.engine.runner.num_pages} KV pages of "
+              f"{llm.engine.runner.kv_cache.dtype}, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
               flush=True)
     rng = np.random.default_rng(SEED)
@@ -675,14 +788,32 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     for k in llm.engine.phase_timings:
         llm.engine.phase_timings[k] = 0 if isinstance(
             llm.engine.phase_timings[k], int) else 0.0
+    # Forwards are counted where the runner calls the model, so that the
+    # attention launches can be held to one per layer and forward.
+    model = llm.engine.runner.model
+    forwards = [0]
+    model_forward = model.forward
+
+    def counted_forward(*args, **kwargs):
+        forwards[0] += 1
+        return model_forward(*args, **kwargs)
+
+    model.forward = counted_forward
     for fn in wrappers.values():
         fn.launches = 0
+    for fn in (ragged_paged_attention, paged_decode_attention):
+        fn.launches_by_dtype = {}
     t0 = time.monotonic()
     outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    by_dtype = {name: dict(wrappers[name].launches_by_dtype)
+                for name in ("ragged_paged_attention",
+                             "paged_decode_attention")}
+    model.forward = model_forward
+    forwards = forwards[0]
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
@@ -696,40 +827,55 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
           f"ms per step), {pt['decode_iterations']} decode steps "
           f"({rates['decode_tok_s']:.1f} decode tok/s, "
           f"{pt['decode_s'] / max(pt['decode_iterations'], 1) * 1e3:.1f} ms "
-          f"per step); launches {launches}", flush=True)
+          f"per step); launches {launches}, attention launches by page "
+          f"type {by_dtype}", flush=True)
     if any(n != MAX_TOKENS for n in lens):
         fail(f"outputs with other than {MAX_TOKENS} tokens: {lens}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was never launched on the {label}")
+    # Every forward launches one attention kernel per layer, of the
+    # cache's page type: the ragged one in prefill and mixed steps, the
+    # decode one in the fused window. A forward that took a plain version
+    # would leave the sum short.
+    for name, counts in by_dtype.items():
+        if counts != {page_type: launches[name]}:
+            fail(f"{name} on the {label} was launched on page types "
+                 f"{counts}, not only on {page_type}")
+    attention = (launches["ragged_paged_attention"]
+                 + launches["paged_decode_attention"])
+    if attention != layers * forwards:
+        fail(f"{attention} attention launches on the {label} are not "
+             f"{layers} layers x {forwards} forwards")
+    print(f"{label}: {forwards} forwards, each with {layers} attention "
+          f"launches on {page_type} pages", flush=True)
     if quantization is not None:
-        # Every forward launches one attention kernel and four int4
-        # matmuls (wqkv, wo, w13, down) per layer.
-        layers = model_config["num_hidden_layers"]
-        attention = (launches["ragged_paged_attention"]
-                     + launches["paged_decode_attention"])
-        forwards = attention // layers
-        if (attention % layers
-                or launches["int4p_matmul"] != 4 * layers * forwards):
+        # And four int4 matmuls (wqkv, wo, w13, down) per layer.
+        if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
-        print(f"{label}: {forwards} forwards, int4p_matmul launched "
-              f"{4 * layers} times in each", flush=True)
+        print(f"{label}: int4p_matmul launched {4 * layers} times in each "
+              "forward", flush=True)
     for o in outs:
         if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
             fail("generated token id out of the vocabulary")
-    if quantization is None:
-        compare_logits(llm, device, rng, vocab, "attention")
-    else:
-        compare_logits(llm, device, rng, vocab, "int4")
+    # What this path adds is compared: the attention kernels (on its page
+    # type) unless the cache is bf16 and the weights int4, then the int4
+    # matmul.
+    what = ("int4" if quantization is not None and page_type == "bf16"
+            else "attention")
+    compare_logits(llm, device, rng, vocab, what)
+    launches = {variant_name(name, page_type) if name in by_dtype else name: n
+                for name, n in launches.items()}
     return launches, rates
 
 
 def compare_logits(llm, device, rng, vocab, what):
     """One prefill forward (ragged kernel) and one decode forward (decode
     kernel) with every kernel, then the same with the plain version of one
-    of them on the same inputs and the same starting cache; logits
-    compared. `what` names the kernels swapped for their plain versions:
+    of them on the same inputs and the same starting cache (of the
+    engine's page type, written through its scales); logits compared.
+    `what` names the kernels swapped for their plain versions:
     "attention" (both attention kernels) or "int4" (the int4 matmul)."""
     import torch
 
@@ -786,9 +932,11 @@ def compare_logits(llm, device, rng, vocab, what):
     def run():
         runner.kv_cache[:, :next_page] = base
         with torch.inference_mode():
-            h = model.forward(params, runner.kv_cache, prefill)
+            h = model.forward(params, runner.kv_cache, prefill,
+                              runner.kv_scales)
             lp = model.compute_logits(params, h[prefill.logits_indices])
-            h = model.forward(params, runner.kv_cache, decode)
+            h = model.forward(params, runner.kv_cache, decode,
+                              runner.kv_scales)
             ld = model.compute_logits(params, h)
         n = len(lens)
         return lp[:n], ld[:n]
@@ -861,42 +1009,74 @@ def main() -> None:
                            errs=errs)
     int4_points = int4_timings("cuda", iters=200)
     int4_block_sweep("cuda", iters=50)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches, _ = main_path("cuda", LLAMA_8B, prompt_lens)
-    # Both engines size their KV cache from the free memory: free the
-    # bf16 one (main_path holds the only reference) before the int4 one.
-    gc.collect()
-    torch.cuda.empty_cache()
-    int4_launches, _ = main_path("cuda", LLAMA_8B, prompt_lens,
-                                 quantization="gptq")
+    # Every engine sizes its KV cache from the free memory, so each is
+    # freed (main_path holds the only reference) before the next starts.
+    # The last two cover the page types the north-star path does not use,
+    # cut to 4 layers.
+    short = dict(LLAMA_8B, num_hidden_layers=4)
+    paths = {
+        "bf16": dict(model_config=LLAMA_8B),
+        "gptq": dict(model_config=LLAMA_8B, quantization="gptq"),
+        "gptq+fp8_e4m3": dict(model_config=LLAMA_8B, quantization="gptq",
+                              kv_cache_dtype="fp8_e4m3"),
+        "gptq+fp8_e5m2, 4 layers": dict(model_config=short,
+                                        quantization="gptq",
+                                        kv_cache_dtype="fp8_e5m2"),
+        "gptq+int8, 4 layers": dict(model_config=short, quantization="gptq",
+                                    kv_cache_dtype="int8", kv_scale=0.05),
+    }
+    launches = {}
+    for path, kw in paths.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[path], _ = main_path("cuda", prompt_lens=prompt_lens, **kw)
+
+    def on_paths(name):
+        """Launches of one kernel variant on each main path that ran it:
+        each was read right after its run, with the counts set to 0 just
+        before it."""
+        return {path: counts[name] for path, counts in launches.items()
+                if name in counts}
+
     sources = {
         "paged_decode_attention": (
             "aphrodite_tpu_torch/csrc/paged_decode_attention.cu",
-            "aphrodite_tpu/ops/decode_attention.py:95"),
+            dict.fromkeys(PAGE_TYPES,
+                          "aphrodite_tpu/ops/decode_attention.py:95")),
         "ragged_paged_attention": (
             "aphrodite_tpu_torch/csrc/ragged_paged_attention.cu",
-            "aphrodite_tpu/ops/attention.py:336"),
+            # The JAX package sends fp8 prefill to its vendored fork and
+            # bf16 and int8 prefill to the kernel bundled with JAX.
+            {"bf16": "aphrodite_tpu/ops/attention.py:336",
+             "e4m3": "aphrodite_tpu/ops/rpa_alibi_kernel.py:832",
+             "e5m2": "aphrodite_tpu/ops/rpa_alibi_kernel.py:832",
+             "int8": "aphrodite_tpu/ops/attention.py:336"}),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
-        # Launches of both main paths: each was read right after its run,
-        # with the counts set to 0 just before it.
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            launches=launches[name] + int4_launches[name],
-                            launches_by_path={"bf16": launches[name],
-                                              "gptq": int4_launches[name]},
-                            max_abs_err=errs[name], **times[name]))
+    for kernel, (src, replaces) in sources.items():
+        for page_type in PAGE_TYPES:
+            name = variant_name(kernel, page_type)
+            by_path = on_paths(name)
+            if not sum(by_path.values()):
+                fail(f"{name} was launched on no main path")
+            entry = dict(name=name, route="cuda", source=src,
+                         replaces=replaces[page_type], page_type=page_type,
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path, max_abs_err=errs[name],
+                         **times[name])
+            if page_type != "bf16":
+                entry["bf16_ms"] = times[kernel]["ms"]
+            kernels.append(entry)
     # The int4 kernel's headline times are those of the largest site at
     # the decode step's size; every (site, T) point follows in "points".
     head = next(p for p in int4_points
                 if p["site"] == "w13" and p["T"] == 32)
+    by_path = on_paths("int4p_matmul")
     kernels.append(dict(
         name="int4p_matmul", route="cuda",
         source="aphrodite_tpu_torch/csrc/int4p_matmul.cu",
         replaces="aphrodite_tpu/ops/quant_matmul.py:528",
-        launches=int4_launches["int4p_matmul"],
+        launches=sum(by_path.values()), launches_by_path=by_path,
         max_abs_err=errs["int4p_matmul"],
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},

@@ -17,6 +17,7 @@ from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                ref_ragged_paged_attention)
 from aphrodite_tpu_torch.ops.decode_attention import (
     paged_decode_attention, ref_paged_decode_attention)
+from aphrodite_tpu_torch.ops.kv_cache import quantize_kv, write_kv
 from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
                                                   int4p_matmul,
                                                   int4p_matmul_ref,
@@ -120,6 +121,111 @@ def test_decode_kernel_matches_plain_on_card(kw):
     torch.cuda.synchronize()
     assert_rows_close(got[:12], want[:12])
     assert not got[12:].float().any()  # dead rows: zeros
+
+
+NARROW = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
+          "int8": torch.int8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+@pytest.mark.parametrize("name", sorted(NARROW))
+def test_narrow_page_kernels_match_plain_and_bf16_kernel_on_card(name, op):
+    """Each variant that reads 8-bit pages against its plain version on
+    the same pages (row by row, ROW_TOL) and against the bf16 kernel on
+    those pages widened to bf16 beforehand: the variants widen while they
+    stage and share everything after, so the bits are equal."""
+    _card_or_skip()
+    rng = np.random.default_rng(7)
+    if op == "ragged":
+        seqs = [(1, 90), (70, 70), (33, 150), (1, 17), (1, 1300), (40, 1040)]
+        rows = sum(q for q, _ in seqs)
+        padded_seqs, padded_tokens = 8, rows + 5
+    else:
+        lens = rng.integers(1, 400, size=12)
+        lens[:2] = (1200, 1030)
+        seqs = [(1, int(n)) for n in lens]
+        rows, padded_seqs, padded_tokens = 12, 16, 16
+    arrays = paged_batch(rng, seqs, 32, 8, 128, padded_seqs=padded_seqs,
+                         padded_tokens=padded_tokens)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    # K/V at std 0.5 stored as value / 0.02: int8 uses its whole range
+    # (and clips a few values), the fp8 types their mantissas.
+    scale = torch.tensor(0.02, device="cuda")
+    pages = quantize_kv(torch.from_numpy(arrays[1]).cuda(), scale,
+                        NARROW[name])
+    widened = pages.to(torch.bfloat16)
+    assert torch.equal(widened.float(), pages.float())  # exact in bf16
+    kv_lens, page_idx, cu = (torch.from_numpy(a).cuda() for a in arrays[2:])
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    kw = dict(sm_scale=0.09 * 0.02, sliding_window=900)
+    if op == "ragged":
+        fn, ref = ragged_paged_attention, ref_ragged_paged_attention
+        args = (kv_lens, page_idx, cu, ns)
+    else:
+        fn, ref = paged_decode_attention, ref_paged_decode_attention
+        args = (kv_lens, page_idx)
+    before = (fn.launches, fn.launches_by_dtype.get(name, 0))
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_by_dtype[name]) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert torch.equal(got, fn(q, widened, *args, **kw))
+    assert not got[rows:].float().any()  # padding tokens, dead rows: zeros
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_do_not_take():
+    _card_or_skip()
+    idx = torch.ones((4,), dtype=torch.int32, device="cuda")
+    table = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    q = torch.zeros((4, 32, 128), dtype=torch.bfloat16, device="cuda")
+    for bad in (torch.float16, torch.uint8, torch.float32):
+        pages = torch.zeros((3, PS, 16, 128), device="cuda").to(bad)
+        with pytest.raises(ValueError, match="float8_e4m3fn"):
+            paged_decode_attention(q, pages, idx, table)
+    pages = torch.zeros((3, PS, 16, 128), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="bf16 q"):
+        paged_decode_attention(q.float(), pages, idx, table)
+    with pytest.raises(ValueError, match="QH/KV"):  # 8 query heads per kv
+        paged_decode_attention(q, pages[:, :, :8].contiguous(), idx, table)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q[..., :64].contiguous(),
+                               pages[..., :64].contiguous(), idx, table)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_attention(q, pages.view(-1)[8:8 + 2 * PS * 16 * 128]
+                               .view(2, PS, 16, 128), idx, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(NARROW))
+def test_write_kv_bytes_on_card_equal_the_cpu(name, in_dtype):
+    """Quantize-on-write on the card gives the CPU's bytes (which the CPU
+    tests hold to the JAX package's): the scale is a 0-dim tensor, so
+    the division is a true one on both, and values past the format's
+    range saturate on both."""
+    _card_or_skip()
+    rng = np.random.default_rng(8)
+    num_pages, kvh, d, T = 40, 8, 128, 300
+    k, v = (torch.from_numpy(rng.standard_normal((T, kvh, d))
+                             .astype(np.float32) * 4).to(in_dtype)
+            for _ in range(2))
+    k[0, 0, :4] = torch.tensor([1e6, -1e6, 30.0, -30.0])  # overflow at /0.05
+    slots = torch.from_numpy(rng.permutation(num_pages * PS)[:T]
+                             .astype(np.int32))
+    caches = []
+    for device in ("cpu", "cuda"):
+        cache = torch.zeros((num_pages + 1, PS, 2 * kvh, d),
+                            dtype=NARROW[name], device=device)
+        scales = [torch.tensor(s, device=device) for s in (0.05, 0.03)]
+        write_kv(cache, k.to(device), v.to(device), slots.to(device),
+                 *scales)
+        caches.append(cache.view(torch.uint8).cpu())
+    assert torch.equal(*caches)
+    assert caches[0].any()
+    assert caches[0].view(NARROW[name]).float().isfinite().all()
 
 
 @pytest.mark.cuda

@@ -215,6 +215,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 20
     covered = {str(path.relative_to(REPO)) for path in files}
     assert {"aphrodite_tpu_torch/ops/quant_matmul.py",
+            "aphrodite_tpu_torch/ops/kv_cache.py",
+            "aphrodite_tpu_torch/tools/__init__.py",
+            "aphrodite_tpu_torch/tools/kv_calibrate.py",
             "aphrodite_tpu_torch/quantization/__init__.py",
             "aphrodite_tpu_torch/quantization/int4.py",
             "aphrodite_tpu_torch/quantization/qlinear.py"} <= covered
