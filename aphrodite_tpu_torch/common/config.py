@@ -21,6 +21,12 @@ _SUPPORTED_KV_DTYPES = ("auto", "bfloat16", "fp8", "fp8_e4m3", "fp8_e5m2",
 
 
 def _read_hf_config(model: str) -> Dict[str, Any]:
+    """The checkpoint's config.json, or, for a .gguf file, an HF-style
+    config made from its metadata."""
+    if model.endswith(".gguf"):
+        from aphrodite_tpu_torch.loader.gguf import gguf_to_hf_config
+
+        return gguf_to_hf_config(model)
     path = os.path.join(model, "config.json")
     if not os.path.isfile(path):
         raise FileNotFoundError(
@@ -76,7 +82,10 @@ class ModelConfig:
                 "max_position_embeddings %d", self.max_model_len,
                 derived_max)
         qcfg = self.hf_config.get("quantization_config") or {}
-        if self.quantization is None and qcfg:
+        # A GGUF file names no method: its tensors carry their own block
+        # types and the loader makes containers of them.
+        if (self.quantization is None and qcfg
+                and not self.model.endswith(".gguf")):
             self.quantization = str(qcfg.get("quant_method", "")) or None
         if self.quantization is not None:
             from aphrodite_tpu_torch.quantization import \
@@ -213,10 +222,10 @@ class DeviceConfig:
 class LoadConfig:
     """Weight-loading strategy."""
 
-    load_format: str = "auto"  # auto|safetensors|dummy
+    load_format: str = "auto"  # auto|safetensors|gguf|dummy
 
     def __post_init__(self) -> None:
-        if self.load_format not in ("auto", "safetensors", "dummy"):
+        if self.load_format not in ("auto", "safetensors", "gguf", "dummy"):
             raise ValueError(f"unknown load_format {self.load_format!r}")
 
 

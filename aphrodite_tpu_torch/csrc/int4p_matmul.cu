@@ -59,9 +59,7 @@
 // (K / 2) % G == 0, x bf16 with unit stride in its last axis and a row
 // stride that is a multiple of 8, all pointers 16-byte aligned.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "matmul_common.cuh"
 
 namespace {
 
@@ -85,31 +83,6 @@ constexpr int STAGES = 4;
 constexpr int Q_LD = BN + 16;  // bytes per packed row in shared memory
 constexpr int X_LD = BK + 8;   // bf16 per x row in shared memory
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int FM>  // 16-row tiles of x per block
 __global__ void __launch_bounds__(THREADS)
@@ -325,23 +298,6 @@ void launch(const void* x, const void* q4p, const void* scale, const void* zero,
       x_stride, tiles_per_split);
 }
 
-// out[i] = partial[0][i] + partial[1][i] + ... in that order.
-__global__ void __launch_bounds__(256)
-split_reduce_kernel(const float4* __restrict__ partial, float4* __restrict__ out,
-                    size_t count4, int splits) {
-  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count4) return;
-  float4 s = partial[i];
-  for (int p = 1; p < splits; ++p) {
-    const float4 v = partial[size_t(p) * count4 + i];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  out[i] = s;
-}
-
 }  // namespace
 
 // block_m: rows of x per block, 16 or 32. splits: how many blocks share the k
@@ -375,12 +331,6 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1) {
-    const size_t count4 = size_t(T) * N / 4;
-    const unsigned blocks = static_cast<unsigned>((count4 + 255) / 256);
-    split_reduce_kernel<<<blocks, 256, 0, stream>>>(
-        static_cast<const float4*>(partial), static_cast<float4*>(out), count4, splits);
-    err = cudaGetLastError();
-  }
+  if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);
 }

@@ -18,7 +18,12 @@ class LLM:
     def __init__(self, model: str, **kwargs) -> None:
         """kwargs are the fields of ``EngineArgs`` (dtype, block_size,
         max_num_seqs, num_scheduler_steps, device, quantization,
-        kv_cache_dtype, quantization_param_path, ...).
+        kv_cache_dtype, quantization_param_path, ...). ``model`` is a
+        checkpoint directory, or one ``.gguf`` file (Llama architecture)
+        with ``tokenizer=<directory of an HF tokenizer>`` or
+        ``skip_tokenizer_init=True``: its quantized tensors are served as
+        int4 containers, packed where the levels fit a nibble and one
+        level per byte otherwise (Q5, Q6, Q8 and the IQ types).
         ``quantization="gptq"`` or ``"awq"`` serves int4 weights: a
         checkpoint in that format is loaded as it is, a dense or dummy one
         is quantized at load. ``kv_cache_dtype`` ("auto", "bfloat16",

@@ -42,6 +42,10 @@ class AphroditeEngine:
         if self.model_config.skip_tokenizer_init:
             self.tokenizer = None
             self.eos_token_id = None
+        elif self.model_config.tokenizer.endswith(".gguf"):
+            raise ValueError(
+                "GGUF models need an HF tokenizer: pass tokenizer=<dir> "
+                "(or skip_tokenizer_init=True for token-id-only usage)")
         else:
             self.tokenizer = get_tokenizer(
                 self.model_config.tokenizer,
@@ -80,6 +84,10 @@ class AphroditeEngine:
         return cls(engine_args.create_engine_config())
 
     def _load_generation_config(self) -> Dict[str, Any]:
+        """generation_config.json of a model directory; a single-file
+        checkpoint (.gguf) has none."""
+        if not os.path.isdir(self.model_config.model):
+            return {}
         path = os.path.join(self.model_config.model,
                             "generation_config.json")
         if os.path.isfile(path):

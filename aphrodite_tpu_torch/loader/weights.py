@@ -6,9 +6,10 @@ tensors are stacked on a leading [L] axis and kept in the JAX package's
 [in, out] matmul layout, so ``params_from_jax`` carries a JAX parameter
 tree over by copying values, with no transposes.
 
-Formats: safetensors (single file or indexed shards) and ``dummy``
-(random weights generated on the device from the model seed, in the
-magnitudes of the JAX package's dummy weights).
+Formats: safetensors (single file or indexed shards), GGUF (one ``.gguf``
+file, loader/gguf.py: quantized tensors become int4 containers) and
+``dummy`` (random weights generated on the device from the model seed, in
+the magnitudes of the JAX package's dummy weights).
 
 With a GPTQ/AWQ quantization method, a checkpoint that carries packed
 ``qweight`` tensors is parsed into int4 containers
@@ -280,6 +281,8 @@ def load_kv_cache_scales(
                 k_scales[idx] = float(scale)
                 v_scales[idx] = float(scale)
         return k_scales, v_scales
+    if not os.path.isdir(model_dir):
+        return k_scales, v_scales  # a single-file checkpoint carries none
     try:
         for name, arr in safetensors_weight_iterator(model_dir):
             if name.endswith(".k_scale") or name.endswith(".v_scale"):
@@ -384,13 +387,23 @@ def load_model_params(model, model_config: ModelConfig,
     # Only the int4 family is registered; any other method raises there.
     int4 = get_quantization_method(quant) is not None
     if fmt == "auto":
-        has_st = any(fn.endswith(".safetensors")
-                     for fn in os.listdir(model_config.model))
-        fmt = "safetensors" if has_st else "dummy"
+        if model_config.model.endswith(".gguf"):
+            fmt = "gguf"
+        else:
+            has_st = any(fn.endswith(".safetensors")
+                         for fn in os.listdir(model_config.model))
+            fmt = "safetensors" if has_st else "dummy"
     if fmt == "dummy":
         logger.info("using dummy (random) weights")
         return dummy_params(model, model_config.seed, device, dtype,
                             quantize=int4)
+    if fmt == "gguf":
+        from aphrodite_tpu_torch.loader.gguf import load_gguf_params_to_host
+
+        logger.info("loading GGUF weights from %s", model_config.model)
+        return _to_device(
+            load_gguf_params_to_host(model, model_config.model), device,
+            dtype)
     logger.info("loading weights from %s", model_config.model)
     if int4 and _checkpoint_has_packed_tensors(model_config.model):
         host = load_quantized_hf_params_to_host(model, model_config.model,

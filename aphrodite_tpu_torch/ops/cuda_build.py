@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("paged_decode_attention", "ragged_paged_attention",
-                  "int4p_matmul")
+                  "int4p_matmul", "int4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -8,7 +8,9 @@ quantized checkpoints share the model code.
 
 Kinds (implied by which keys are present):
 - dense:              torch.Tensor
-- int4 grouped:       {q4: int8[.., K, N] (values in [0, 15]),
+- int4 grouped:       {q4: int8[.., K, N] (one level per byte: 0..15 of
+                       an act-order GPTQ checkpoint, or any int8 level of
+                       a GGUF Q5/Q6/Q8/IQ tensor),
                        scale: f32[.., K/G, N], zero: f32[.., K/G, N]}
 - int4 packed:        {q4p: int8[.., K/2, N], scale, zero} (half-split
                       rows, ops/quant_matmul.py)
@@ -24,8 +26,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
-                                                  int4_matmul_ref,
-                                                  int4p_matmul,
+                                                  int4_matmul, int4p_matmul,
                                                   unpack_int4_rows)
 
 WeightLike = Union[torch.Tensor, Dict[str, Any]]
@@ -50,17 +51,10 @@ def qmatmul(x: torch.Tensor, w: WeightLike,
         return int4p_matmul(x, q4p, w["scale"], w["zero"], group,
                             layer_idx=layer)
     if "q4" in w:
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "unpacked int4 containers (K/2 not a multiple of the group, "
-                "desc_act, or full-byte levels) have no CUDA kernel yet "
-                "(ROADMAP.md, kernel queue: int4_matmul_pallas_stacked, "
-                "int4_matmul_pallas, int4_matmul_pallas_groupwise)")
-        q4, scale, zero = w["q4"], w["scale"], w["zero"]
-        if layer is not None:
-            q4, scale, zero = q4[layer], scale[layer], zero[layer]
-        return int4_matmul_ref(x, q4, scale, zero,
-                               q4.shape[-2] // scale.shape[-2])
+        q4 = w["q4"]
+        group = q4.shape[-2] // w["scale"].shape[-2]
+        return int4_matmul(x, q4, w["scale"], w["zero"], group,
+                           layer_idx=layer)
     raise NotImplementedError(
         "int8 and fp8 weight containers are not ported yet (ROADMAP.md, "
         "module queue: the other qmatmul paths)")

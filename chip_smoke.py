@@ -22,7 +22,13 @@ Phases, each of which must pass or the script exits non-zero:
    sites of a Llama-3.1-8B layer (wqkv, wo, w13, down; group 128) on
    layer-stacked weights with a layer index, for T in (1, 8, 32, 64, 100,
    2048), against its plain version and against the exact f32
-   dequantized product.
+   dequantized product. The unpacked int4 matmul (one int8 level per
+   byte), both of its bodies, at the same sites and T on layer-stacked
+   levels with a layer index, for three containers (Q4_CONTAINERS):
+   Q6_K-like (levels 0..63, group 16, zero 32, signed scales; at one site
+   with groups of scale 2^-20 and a large zero), Q8_0-like (signed bytes,
+   group 32) and act-order GPTQ (nibbles, one scale and zero row per
+   weight row: the dense body only), against the same two products.
 4. Time each kernel, on every page type, at the main path's shapes
    beside its plain version, one PyTorch library call on pre-gathered
    contiguous K/V (scaled_dot_product_attention; the gather is not timed,
@@ -31,7 +37,11 @@ Phases, each of which must pass or the script exits non-zero:
    and its FLOPs over 989 TFLOP/s (H100 SXM bf16). The int4 matmul is
    timed at T = 32 and T = 2048 at each site; its library call is one
    torch.matmul of x with the pre-dequantized bf16 weight (four times the
-   weight bytes; the port never calls it).
+   weight bytes; the port never calls it). Both bodies of the unpacked
+   matmul are timed the same way on the Q6_K-like and Q8_0-like
+   containers, beside the same library call and a bound that counts one
+   byte per level and eight per group and column of scale and zero; a
+   sweep of rows per block follows for each.
 5. Run the main paths, each with the engine before it freed. First the
    bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model (full
    width, 32 layers, random bf16 weights from a seed) for 16 greedy
@@ -57,12 +67,24 @@ Phases, each of which must pass or the script exits non-zero:
    versions on the same narrow cache. Then the other two narrow types,
    cut to 4 layers: fp8_e5m2, and int8 with scales of 0.05 from a JSON
    file.
+   Then two GGUF paths: ``LLM(model=<file>.gguf, tokenizer=None,
+   skip_tokenizer_init=True)`` on a file of the same geometry that
+   ``write_gguf_llama`` writes from the seed into a temporary directory
+   (deleted once the engine is up): Q6_K blocks at GGUF_Q6K_LAYERS
+   layers, then Q8_0 blocks at 4 layers. The loader decodes the blocks on
+   the host into one-level-per-byte containers (group 16, group 32); the
+   unpacked int4 matmul must count 4 launches per layer and forward and
+   the packed one none, and the logits with the kernel must agree with
+   those of the plain product. Between them the two paths launch both
+   bodies (printed per path).
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times (each attention
-   kernel once per page type); the last line is
+   kernel once per page type, the unpacked int4 matmul once per body);
+   the last line is
    {"ok": true, "device": {...}}.
 """
 
+import functools
 import gc
 import json
 import os
@@ -135,6 +157,46 @@ INT4_TIME_T = (32, 2048)
 # INT4_TOL_ROUNDED, which also holds the plain version to the exact one.
 INT4_TOL_SAME = 2.0**-14
 INT4_TOL_ROUNDED = 2.0**-6
+# The unpacked int4 matmul (one int8 level per byte), by container:
+# levels [low, high), zero [low, high), group, whether scales are signed,
+# and the bodies that take it (a group under 16 rows is dense only).
+# q6_k: GGUF Q6_K (levels 0..63, zero 32, int8 sub-scales); q8_0: GGUF Q8_0
+# (signed bytes, zero 0); act_order: GPTQ with desc_act (nibbles, one scale
+# and zero row per weight row); gptq_g128: a GPTQ group of 128 that does
+# not pack (K/2 not a multiple of the group at other widths).
+Q4_CONTAINERS = {
+    "q6_k": dict(levels=(0, 64), zero=(32, 33), group=16, signed=True,
+                 bodies=("groupwise", "dense")),
+    "q8_0": dict(levels=(-128, 128), zero=(0, 1), group=32, signed=False,
+                 bodies=("groupwise", "dense")),
+    "act_order": dict(levels=(0, 16), zero=(0, 17), group=1, signed=False,
+                      bodies=("dense",)),
+    "gptq_g128": dict(levels=(0, 16), zero=(0, 17), group=128, signed=False,
+                      bodies=("groupwise", "dense")),
+}
+Q4_TIMED = ("q6_k", "q8_0")
+Q4_SWEPT = ("q6_k", "q8_0", "gptq_g128")
+# Its two bodies against the same two products as the packed kernel, with
+# the roles swapped for the dense body: it forms (q - zero) * scale in f32
+# and rounds it to bf16 exactly as the plain version does, so it differs
+# from the plain version only in the order of the f32 sums (INT4_TOL_SAME)
+# and from the exact product by that rounding (INT4_TOL_ROUNDED); the
+# group-wise body multiplies raw levels and applies scale and zero to f32
+# partial sums, so it follows the exact product (INT4_TOL_SAME) and differs
+# from the plain version by the rounding (INT4_TOL_ROUNDED). In the
+# group-wise form s * (x_g @ q_g) and (s * z) * rowsum(x_g) partly cancel
+# (Q6_K: zero 32 against levels 0..63); both are f32 sums of exact bf16
+# products over one group, so the loss is a few f32 ulps of terms a few
+# times the result, well inside 2^-14 of the row's largest output. One case
+# holds groups whose scale is 2^-20 and whose zero is offset * 2^20 (a GGUF
+# min offset under a zero group scale): there w is -offset to 2^-15 and
+# s * z is formed once in f32.
+Q4_TOLS = {"dense": dict(plain=INT4_TOL_SAME, exact=INT4_TOL_ROUNDED),
+           "groupwise": dict(plain=INT4_TOL_ROUNDED, exact=INT4_TOL_SAME)}
+# Depth of the Q6_K GGUF main path (full width; the other GGUF path runs 4
+# layers).
+GGUF_Q6K_LAYERS = 32
+GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q6_K = 0, 1, 8, 14
 
 
 def fail(msg: str) -> None:
@@ -720,6 +782,334 @@ def int4_block_sweep(device, iters):
         del q4p, scale, zero
 
 
+# ----------------------------------------------------------------------
+# unpacked int4 matmul (one level per byte)
+# ----------------------------------------------------------------------
+
+
+def make_q4_case(K, N, layers, device, seed, kind, tiny_scale=False):
+    """A layer-stacked unpacked container [layers, K, N] of one of
+    Q4_CONTAINERS, made on the device from a seed: levels uniform in their
+    range, scale in 0.001..0.021 (of either sign where the format's are
+    signed), zero an integer in its range. With tiny_scale every seventh
+    group row has scale 2^-20 and zero = offset * 2^20, offset in 0..0.5."""
+    import torch
+
+    spec = Q4_CONTAINERS[kind]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    groups = K // spec["group"]
+    q4 = torch.randint(*spec["levels"], (layers, K, N), generator=gen,
+                       device=device, dtype=torch.int8)
+    scale = torch.rand((layers, groups, N), generator=gen,
+                       device=device) * 0.02 + 0.001
+    if spec["signed"]:
+        scale *= torch.randint(0, 2, scale.shape, generator=gen,
+                               device=device).float() * 2 - 1
+    zero = torch.randint(*spec["zero"], (layers, groups, N), generator=gen,
+                         device=device).float()
+    if tiny_scale:
+        offset = torch.rand((layers, -(-groups // 7), N), generator=gen,
+                            device=device) * 0.5
+        scale[:, ::7] = 2.0**-20
+        zero[:, ::7] = offset * 2.0**20
+    return q4, scale, zero
+
+
+def q4_checks(device):
+    """Both bodies of the unpacked kernel, for every container, site and
+    T, against the plain version and the exact f32 product; returns the
+    max abs error against the plain version per body."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4_matmul,
+                                                      int4_matmul_ref)
+
+    worst_abs = {"groupwise": 0.0, "dense": 0.0}
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        for c, (kind, spec) in enumerate(Q4_CONTAINERS.items()):
+            tiny = kind == "q6_k" and site == "wo"
+            group = spec["group"]
+            q4, scale, zero = make_q4_case(K, N, 2, device,
+                                           SEED + 100 + 10 * i + c, kind,
+                                           tiny_scale=tiny)
+            w_exact = dequantize_int4(q4[1], scale[1], zero[1], group)
+            label = f"{kind} g{group}{' with 2^-20 scale groups' if tiny else ''}"
+            for T in INT4_CHECK_T:
+                x = make_x(T, K, device, SEED + 50 + T)
+                plain = int4_matmul_ref(x, q4[1], scale[1], zero[1], group)
+                exact = x.float() @ w_exact
+                line = []
+                for body in spec["bodies"]:
+                    got = int4_matmul(x, q4, scale, zero, group, layer_idx=1,
+                                      body=body)
+                    torch.cuda.synchronize()
+                    where = f"int4_matmul {body} [{site} T={T} {label}]"
+                    if (tuple(got.shape) != (T, N)
+                            or got.dtype != torch.float32):
+                        fail(f"{where}: output {got.shape} {got.dtype}")
+                    if not bool(got.isfinite().all()):
+                        fail(f"{where}: non-finite output")
+                    for name, other in (("plain", plain), ("exact", exact)):
+                        tol = Q4_TOLS[body][name]
+                        err = (got - other).abs().amax(-1)
+                        bound = other.abs().amax(-1)
+                        ratio = float((err / bound).max())
+                        line.append(f"{body} vs {name} {ratio:.3e} "
+                                    f"(tolerance {tol:.3e})")
+                        if not bool((err <= tol * bound).all()):
+                            fail(f"{where} disagrees with the {name} "
+                                 f"product: worst row err / max|row| "
+                                 f"{ratio:.3e} (tolerance {tol:.3e})")
+                    worst_abs[body] = max(worst_abs[body],
+                                          float((got - plain).abs().max()))
+                err = (plain - exact).abs().amax(-1)
+                bound = exact.abs().amax(-1)
+                if not bool((err <= INT4_TOL_ROUNDED * bound).all()):
+                    fail(f"int4_matmul_ref [{site} T={T} {label}] disagrees "
+                         "with the exact f32 product")
+                print(f"check int4_matmul [{site} {K}x{N} T={T} {label}]: "
+                      "worst row err / max|row|: " + ", ".join(line),
+                      flush=True)
+            del q4, scale, zero, w_exact
+            torch.cuda.empty_cache()
+    return worst_abs
+
+
+def q4_work(T, K, N, group):
+    """(bytes, flops) of one call: x, one byte per level, f32 scale and
+    zero and the f32 output once each; 2 * T * K * N FLOPs."""
+    nbytes = T * K * 2 + K * N + 2 * (K // group) * N * 4 + T * N * 4
+    return nbytes, 2 * T * K * N
+
+
+def q4_timings(device, iters):
+    """Times of both bodies at every (container, site, T) of Q4_TIMED and
+    INT4_TIME_T beside the plain version, the library call (torch.matmul
+    on the pre-dequantized bf16 weight) and the bound; each timed launch
+    takes the next layer of a stack that holds more bytes than the 50 MB
+    L2. Returns a list of per-point dicts, one per body."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      INT4_BODY,
+                                                      int4_matmul,
+                                                      int4_matmul_ref)
+
+    points = []
+    for c, kind in enumerate(Q4_TIMED):
+        group = Q4_CONTAINERS[kind]["group"]
+        for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+            layer_bytes = K * N + 2 * (K // group) * N * 4
+            layers = -(-100_000_000 // layer_bytes) + 1
+            q4, scale, zero = make_q4_case(K, N, layers, device,
+                                           SEED + 200 + 10 * i + c, kind)
+            dense = torch.stack([
+                dequantize_int4(q4[l], scale[l], zero[l], group).to(
+                    torch.bfloat16) for l in range(layers)])
+            for T in INT4_TIME_T:
+                x = make_x(T, K, device, SEED + 70 + T)
+                state = {"layer": 0}
+
+                def nxt():
+                    state["layer"] = (state["layer"] + 1) % layers
+                    return state["layer"]
+
+                n = iters if T <= 64 else max(4, iters // 10)
+                ms = {body: time_ms(
+                    lambda: int4_matmul(x, q4, scale, zero, group,
+                                        layer_idx=nxt(), body=body), n)
+                    for body in ("groupwise", "dense")}
+
+                def plain():
+                    l = nxt()
+                    return int4_matmul_ref(x, q4[l], scale[l], zero[l], group)
+
+                plain_ms = time_ms(plain, max(2, n // 20))
+                library_ms = time_ms(lambda: torch.matmul(x, dense[nxt()]), n)
+                nbytes, flops = q4_work(T, K, N, group)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / BF16_FLOPS * 1e3
+                routed = INT4_BODY
+                for body in ("groupwise", "dense"):
+                    points.append(dict(
+                        body=body, container=kind, group=group, site=site,
+                        K=K, N=N, T=T, ms=ms[body], plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                        bound_by=("bytes" if t_bytes >= t_ops
+                                  else "operations"),
+                        routed=body == routed))
+                print(f"time int4_matmul [{kind} g{group} {site} {K}x{N} "
+                      f"T={T}, {layers} layers in turn]: group-wise "
+                      f"{ms['groupwise']:.4f} ms, dense {ms['dense']:.4f} ms "
+                      f"(the wrapper takes {routed}), plain {plain_ms:.4f} "
+                      f"ms, library (matmul on bf16 weights) "
+                      f"{library_ms:.4f} ms, bound "
+                      f"{points[-1]['bound_ms']:.4f} ms "
+                      f"({points[-1]['bound_by']}: {nbytes} bytes, {flops} "
+                      "FLOPs)", flush=True)
+            del q4, scale, zero, dense
+            torch.cuda.empty_cache()
+    return points
+
+
+def q4_block_sweep(device, iters):
+    """Rows of x per block for both bodies of the unpacked kernel, each
+    with the split of K the wrapper gives it. The wrapper's choice by T
+    (int4_kernel_plan) comes from these times."""
+    from aphrodite_tpu_torch.ops.quant_matmul import int4_matmul
+
+    for kind in Q4_SWEPT:
+        group = Q4_CONTAINERS[kind]["group"]
+        for site in ("wqkv", "down"):
+            K, N = INT4_SITES[site]
+            layers = 6
+            q4, scale, zero = make_q4_case(K, N, layers, device, SEED + 300,
+                                           kind)
+            for T in (8, 32, 2048):
+                x = make_x(T, K, device, SEED + 90 + T)
+                state = {"layer": 0}
+
+                def nxt():
+                    state["layer"] = (state["layer"] + 1) % layers
+                    return state["layer"]
+
+                out = []
+                for body in ("groupwise", "dense"):
+                    for bm in (16, 32, 64):
+                        if bm < 32 and T > 32:
+                            continue
+                        t = time_ms(lambda: int4_matmul(
+                            x, q4, scale, zero, group, layer_idx=nxt(),
+                            body=body, block_m=bm),
+                            iters if T <= 64 else max(4, iters // 5))
+                        out.append(f"{body} {bm}-row {t:.4f} ms")
+                print(f"sweep int4_matmul [{kind} g{group} {site} T={T}]: "
+                      + ", ".join(out), flush=True)
+            del q4, scale, zero
+
+
+# ----------------------------------------------------------------------
+# A GGUF file from a seed
+# ----------------------------------------------------------------------
+
+
+def _gguf_blocks(rng, rows, row_len, quant):
+    """Raw blocks uint8 [rows * row_len / block, block bytes] of a tensor
+    whose dequantized values have std near row_len ** -0.5 (as the dummy
+    weights): every level byte random, the scales chosen for that std."""
+    std = row_len**-0.5
+    if quant == "q6_k":
+        # 210 bytes per 256 values: ql[128], qh[64] (any bytes: levels
+        # uniform in 0..63, so q - 32 has std 18.47), 16 int8 sub-scales
+        # (here +-(4..11), rms 7.84), d f16.
+        n = rows * row_len // 256
+        blk = rng.integers(0, 256, size=(n, 210), dtype=np.uint8)
+        b = blk[:, 192:208]
+        mag = (4 + (b & 7)).astype(np.int8)
+        blk[:, 192:208] = np.where(b & 0x80, -mag, mag).view(np.uint8)
+        d = std / (18.47 * 7.84) * (0.75 + 0.5 * rng.random(n))
+        blk[:, 208:210] = d.astype(np.float16).view(np.uint8).reshape(n, 2)
+        return blk
+    if quant == "q8_0":
+        # 34 bytes per 32 values: d f16, 32 int8 (uniform: std 73.9).
+        n = rows * row_len // 32
+        blk = rng.integers(0, 256, size=(n, 34), dtype=np.uint8)
+        d = std / 73.9 * (0.75 + 0.5 * rng.random(n))
+        blk[:, 0:2] = d.astype(np.float16).view(np.uint8).reshape(n, 2)
+        return blk
+    raise ValueError(quant)
+
+
+def write_gguf_llama(path, config, quant, seed):
+    """Write a GGUF v3 file of a Llama of `config`'s geometry from a seed
+    with numpy, whole tensors at a time: the seven projections of every
+    layer as `quant` blocks ("q6_k" or "q8_0"), norms as F32 ones, and
+    token_embd and output as F16 (uniform values of std hidden ** -0.5 and
+    vocab ** -0.5 by table lookup: the loader widens both to the model
+    dtype whatever their type, and F16 costs it one cast where a Q6_K
+    tensor of that size costs a block decode). Returns the file's bytes."""
+    import struct
+
+    H, F = config["hidden_size"], config["intermediate_size"]
+    V, L = config["vocab_size"], config["num_hidden_layers"]
+    D = config["head_dim"]
+    NH, NKV = config["num_attention_heads"], config["num_key_value_heads"]
+    qtype, per, bbytes = {"q6_k": (GGML_Q6_K, 256, 210),
+                          "q8_0": (GGML_Q8_0, 32, 34)}[quant]
+    # (name, [row length, rows], type)
+    tensors = [("token_embd.weight", [H, V], GGML_F16),
+               ("output_norm.weight", [H], GGML_F32),
+               ("output.weight", [H, V], GGML_F16)]
+    for i in range(L):
+        b = f"blk.{i}."
+        tensors += [(b + "attn_norm.weight", [H], GGML_F32),
+                    (b + "attn_q.weight", [H, NH * D], qtype),
+                    (b + "attn_k.weight", [H, NKV * D], qtype),
+                    (b + "attn_v.weight", [H, NKV * D], qtype),
+                    (b + "attn_output.weight", [NH * D, H], qtype),
+                    (b + "ffn_norm.weight", [H], GGML_F32),
+                    (b + "ffn_gate.weight", [H, F], qtype),
+                    (b + "ffn_up.weight", [H, F], qtype),
+                    (b + "ffn_down.weight", [F, H], qtype)]
+
+    def nbytes(dims, gtype):
+        n = int(np.prod(dims))
+        return {GGML_F32: 4 * n, GGML_F16: 2 * n}.get(gtype,
+                                                      n // per * bbytes)
+
+    def w_str(out, text):
+        raw = text.encode()
+        out += struct.pack("<Q", len(raw)) + raw
+
+    meta = {"general.alignment": 32, "general.architecture": "llama",
+            "llama.embedding_length": H, "llama.block_count": L,
+            "llama.attention.head_count": NH,
+            "llama.attention.head_count_kv": NKV,
+            "llama.feed_forward_length": F,
+            "llama.context_length": config["max_position_embeddings"],
+            "llama.attention.layer_norm_rms_epsilon":
+                float(config["rms_norm_eps"]),
+            "llama.rope.freq_base": float(config["rope_theta"]),
+            "llama.attention.key_length": D}
+    head = bytearray(struct.pack("<IIQQ", 0x46554747, 3, len(tensors),
+                                 len(meta)))
+    for key, value in meta.items():
+        w_str(head, key)
+        if isinstance(value, str):
+            head += struct.pack("<I", 8)
+            w_str(head, value)
+        elif isinstance(value, float):
+            head += struct.pack("<If", 6, value)
+        else:
+            head += struct.pack("<II", 4, value)
+    offset = 0
+    for name, dims, gtype in tensors:
+        w_str(head, name)
+        head += struct.pack(f"<I{len(dims)}QIQ", len(dims), *dims, gtype,
+                            offset)
+        offset += -(-nbytes(dims, gtype) // 32) * 32
+    head += b"\x00" * (-len(head) % 32)
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        f.write(head)
+        for name, dims, gtype in tensors:
+            if gtype == GGML_F32:
+                data = np.ones(dims, "<f4")
+            elif gtype == GGML_F16:
+                std = (H if name == "token_embd.weight" else V)**-0.5
+                table = ((np.arange(256) - 127.5) / 73.9 * std).astype("<f2")
+                data = table[rng.integers(0, 256, size=dims[0] * dims[1],
+                                          dtype=np.uint8)]
+            else:
+                data = _gguf_blocks(rng, dims[1], dims[0], quant)
+            raw = data.tobytes()
+            f.write(raw)
+            f.write(b"\x00" * (-len(raw) % 32))
+    return len(head) + offset
+
+
+
 def write_model_dir(path: str, config: dict) -> str:
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -732,27 +1122,38 @@ CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
 
 
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
-              quantization=None, kv_cache_dtype="auto", kv_scale=None):
-    """LLM.generate through the port's entry point, with bf16 weights or
-    (quantization="gptq") packed int4 ones, and a bf16 KV cache or
+              quantization=None, kv_cache_dtype="auto", kv_scale=None,
+              gguf=None, q4_body=None):
+    """LLM.generate through the port's entry point, with bf16 weights,
+    (quantization="gptq") packed int4 ones or (gguf="q6_k" or "q8_0") a
+    GGUF file of that block type written from the seed, whose projections
+    load as unpacked one-level-per-byte containers; and a bf16 KV cache or
     (kv_cache_dtype) a narrow one, whose per-layer scales are ones or
-    (kv_scale) come from a JSON file; returns the launch counts of the
-    path's kernels, by variant name, and the rates."""
+    (kv_scale) come from a JSON file. q4_body sends every unpacked matmul
+    of the path to that body of the kernel and not to the one the wrapper
+    would choose: the projections' reference to the wrapper is replaced,
+    for this path only, by one that names the body. Returns the launch
+    counts of the path's kernels, by variant name, and the rates."""
     import torch
 
+    import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
-    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
+    from aphrodite_tpu_torch.ops.quant_matmul import (INT4_BODY,
+                                                      int4_matmul,
+                                                      int4p_matmul)
 
     wrappers = {"ragged_paged_attention": ragged_paged_attention,
                 "paged_decode_attention": paged_decode_attention}
     if quantization is not None:
         wrappers["int4p_matmul"] = int4p_matmul
+    if gguf is not None:
+        wrappers["int4_matmul"] = int4_matmul
     page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
     layers = model_config["num_hidden_layers"]
-    label = (f"main path ({quantization or 'bf16'} weights, "
+    label = (f"main path ({quantization or (gguf and gguf + ' gguf') or 'bf16'} weights, "
              f"{kv_cache_dtype if page_type != 'bf16' else 'bf16'} cache, "
              f"{layers} layers)")
     vocab = model_config["vocab_size"]
@@ -763,10 +1164,21 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             with open(scales_path, "w") as f:
                 json.dump({"kv_cache": {"scaling_factor": {"0": {
                     str(i): kv_scale for i in range(layers)}}}}, f)
+        if gguf is None:
+            source = dict(model=write_model_dir(td, model_config),
+                          load_format="dummy", quantization=quantization)
+        else:
+            # The file goes with the temporary directory when the engine
+            # is up: the loader has decoded it by then.
+            path = os.path.join(td, f"llama-{gguf}.gguf")
+            t0 = time.monotonic()
+            size = write_gguf_llama(path, model_config, gguf, SEED)
+            print(f"{label}: wrote {size / 1e9:.2f} GB to {path} in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            source = dict(model=path, tokenizer=None)
         t0 = time.monotonic()
-        llm = LLM(model=write_model_dir(td, model_config),
-                  load_format="dummy", dtype="bfloat16", seed=SEED,
-                  quantization=quantization, kv_cache_dtype=kv_cache_dtype,
+        llm = LLM(**source, dtype="bfloat16", seed=SEED,
+                  kv_cache_dtype=kv_cache_dtype,
                   quantization_param_path=scales_path,
                   num_scheduler_steps=num_scheduler_steps, block_size=16,
                   max_num_batched_tokens=2048, skip_tokenizer_init=True,
@@ -799,10 +1211,15 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         return model_forward(*args, **kwargs)
 
     model.forward = counted_forward
-    for fn in wrappers.values():
+    for fn in (*wrappers.values(), int4_matmul, int4p_matmul):
         fn.launches = 0
     for fn in (ragged_paged_attention, paged_decode_attention):
         fn.launches_by_dtype = {}
+    int4_matmul.launches_by_body = {}
+    if q4_body is not None:
+        # Until this path's logits are compared; a failure ends the script.
+        qlinear_mod.int4_matmul = functools.partial(int4_matmul,
+                                                    body=q4_body)
     t0 = time.monotonic()
     outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     if device == "cuda":
@@ -812,6 +1229,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     by_dtype = {name: dict(wrappers[name].launches_by_dtype)
                 for name in ("ragged_paged_attention",
                              "paged_decode_attention")}
+    by_body = dict(int4_matmul.launches_by_body)
+    other_int4 = int4p_matmul.launches if gguf else int4_matmul.launches
     model.forward = model_forward
     forwards = forwards[0]
     pt = llm.engine.get_phase_timings()
@@ -856,32 +1275,48 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                  f"not 4 x {layers} layers x {forwards} forwards")
         print(f"{label}: int4p_matmul launched {4 * layers} times in each "
               "forward", flush=True)
+    if gguf is not None:
+        # And four unpacked matmuls (wqkv, wo, w13, down) per layer, none
+        # through the packed kernel.
+        if launches["int4_matmul"] != 4 * layers * forwards:
+            fail(f"int4_matmul launches {launches['int4_matmul']} are "
+                 f"not 4 x {layers} layers x {forwards} forwards")
+        print(f"{label}: int4_matmul launched {4 * layers} times in each "
+              f"forward, by body {by_body}", flush=True)
+    if other_int4:
+        fail(f"{other_int4} launches of the other int4 kernel on the {label}")
     for o in outs:
         if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
             fail("generated token id out of the vocabulary")
     # What this path adds is compared: the attention kernels (on its page
-    # type) unless the cache is bf16 and the weights int4, then the int4
+    # type) unless the cache is bf16 and the weights quantized, then their
     # matmul.
-    what = ("int4" if quantization is not None and page_type == "bf16"
-            else "attention")
-    compare_logits(llm, device, rng, vocab, what)
+    what = "attention"
+    if page_type == "bf16" and (quantization or gguf):
+        what = "int4" if quantization else "q4"
+    compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY)
+    qlinear_mod.int4_matmul = int4_matmul
     launches = {variant_name(name, page_type) if name in by_dtype else name: n
                 for name, n in launches.items()}
+    for body, n in by_body.items():
+        launches[f"int4_matmul_{body}"] = n
     return launches, rates
 
 
-def compare_logits(llm, device, rng, vocab, what):
+def compare_logits(llm, device, rng, vocab, what, q4_body):
     """One prefill forward (ragged kernel) and one decode forward (decode
     kernel) with every kernel, then the same with the plain version of one
     of them on the same inputs and the same starting cache (of the
     engine's page type, written through its scales); logits compared.
     `what` names the kernels swapped for their plain versions:
-    "attention" (both attention kernels) or "int4" (the int4 matmul)."""
+    "attention" (both attention kernels), "int4" (the packed int4 matmul)
+    or "q4" (the unpacked one, which runs its body q4_body)."""
     import torch
 
     import aphrodite_tpu_torch.models.llama as llama_mod
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
-    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul_ref
+    from aphrodite_tpu_torch.ops.quant_matmul import (int4_matmul_ref,
+                                                      int4p_matmul_ref)
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
@@ -957,9 +1392,19 @@ def compare_logits(llm, device, rng, vocab, what):
         return int4p_matmul_ref(x.float(), q4p[layer_idx], scale[layer_idx],
                                 zero[layer_idx], group)
 
+    def plain_q4(x, q4, scale, zero, group, layer_idx=None):
+        # Where the kernel runs its dense body, which rounds the
+        # dequantized weight to bf16 as the plain version does on bf16 x,
+        # x stays bf16; for the group-wise body f32 x, as above.
+        if q4_body != "dense":
+            x = x.float()
+        return int4_matmul_ref(x, q4[layer_idx], scale[layer_idx],
+                               zero[layer_idx], group)
+
     module, attr, plain = {
         "attention": (llama_mod, "ragged_paged_attention", plain_attention),
-        "int4": (qlinear_mod, "int4p_matmul", plain_int4)}[what]
+        "int4": (qlinear_mod, "int4p_matmul", plain_int4),
+        "q4": (qlinear_mod, "int4_matmul", plain_q4)}[what]
     got = run()
     kernel = getattr(module, attr)
     setattr(module, attr, plain)
@@ -982,8 +1427,17 @@ def compare_logits(llm, device, rng, vocab, what):
             fail(f"{label} logits with the kernel disagree with the "
                  "plain version's")
         if agree < 1.0:
+            # For whoever reads the failure: how far below its own best
+            # the plain version holds the token the kernel run picked,
+            # beside the gap between the plain version's best two.
+            behind = w.amax(-1) - w.gather(
+                -1, g.argmax(-1, keepdim=True))[:, 0]
+            top2 = w.topk(2, dim=-1).values
             fail(f"{label} logits with the kernel pick another token "
-                 "than with the plain version")
+                 "than with the plain version (the pick lies "
+                 f"{float(behind.max()):.3e} under the plain version's "
+                 f"best; its best two lie {(top2[:, 0] - top2[:, 1]).tolist()}"
+                 " apart)")
         worst = max(worst, float(err.max()))
     return worst
 
@@ -1003,16 +1457,22 @@ def main() -> None:
                 LLAMA_8B["num_key_value_heads"], LLAMA_8B["head_dim"])
     errs = kernel_checks("cuda", geometry)
     errs["int4p_matmul"] = int4_checks("cuda")
+    q4_errs = q4_checks("cuda")
     prompt_lens = np.random.default_rng(SEED).integers(
         16, 1025, size=NUM_REQUESTS)
     times = kernel_timings("cuda", geometry, prompt_lens, iters=200,
                            errs=errs)
     int4_points = int4_timings("cuda", iters=200)
     int4_block_sweep("cuda", iters=50)
+    q4_points = q4_timings("cuda", iters=200)
+    q4_block_sweep("cuda", iters=50)
     # Every engine sizes its KV cache from the free memory, so each is
     # freed (main_path holds the only reference) before the next starts.
-    # The last two cover the page types the north-star path does not use,
-    # cut to 4 layers.
+    # Two cover the page types the north-star path does not use, cut to 4
+    # layers. The last two serve GGUF files: Q6_K at GGUF_Q6K_LAYERS
+    # through the body the wrapper chooses (the dense one, at every T),
+    # and Q8_0 at 4 layers with every unpacked matmul forced to the
+    # group-wise body, which no call would reach otherwise.
     short = dict(LLAMA_8B, num_hidden_layers=4)
     paths = {
         "bf16": dict(model_config=LLAMA_8B),
@@ -1024,12 +1484,18 @@ def main() -> None:
                                         kv_cache_dtype="fp8_e5m2"),
         "gptq+int8, 4 layers": dict(model_config=short, quantization="gptq",
                                     kv_cache_dtype="int8", kv_scale=0.05),
+        f"q6_k gguf, {GGUF_Q6K_LAYERS} layers": dict(
+            model_config=dict(LLAMA_8B, num_hidden_layers=GGUF_Q6K_LAYERS),
+            gguf="q6_k"),
+        "q8_0 gguf, 4 layers, group-wise body": dict(
+            model_config=short, gguf="q8_0", q4_body="groupwise"),
     }
-    launches = {}
+    launches, rates = {}, {}
     for path, kw in paths.items():
         gc.collect()
         torch.cuda.empty_cache()
-        launches[path], _ = main_path("cuda", prompt_lens=prompt_lens, **kw)
+        launches[path], rates[path] = main_path(
+            "cuda", prompt_lens=prompt_lens, **kw)
 
     def on_paths(name):
         """Launches of one kernel variant on each main path that ran it:
@@ -1081,6 +1547,37 @@ def main() -> None:
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
         shape="w13 4096x28672 T=32", points=int4_points))
+    # The unpacked kernel, one entry per body: the headline times are
+    # those of the largest site at the decode step's size on the container
+    # whose T = 32 calls the wrapper sends to that body; every (container,
+    # site, T) point follows in "points". Each body replaces one 2-D TPU
+    # kernel and one body of the layer-stacked one.
+    q4_bodies = {
+        "groupwise": ("q8_0", "aphrodite_tpu/ops/quant_matmul.py:178"),
+        "dense": ("q6_k", "aphrodite_tpu/ops/quant_matmul.py:81")}
+    for body, (kind, replaces) in q4_bodies.items():
+        name = f"int4_matmul_{body}"
+        by_path = on_paths(name)
+        if not sum(by_path.values()):
+            fail(f"{name} was launched on no main path")
+        points = [p for p in q4_points if p["body"] == body]
+        head = next(p for p in points if p["container"] == kind
+                    and p["site"] == "w13" and p["T"] == 32)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aphrodite_tpu_torch/csrc/int4_matmul.cu",
+            replaces=replaces,
+            also_replaces="aphrodite_tpu/ops/quant_matmul.py:694",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=q4_errs[body],
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            shape=f"w13 4096x28672 T=32, {kind} container",
+            on_main_path=("the wrapper's choice" if body == "dense" else
+                          "named on the q8_0 gguf path (body=, bound "
+                          "into the projections' reference to the wrapper)"),
+            points=points))
+    print("rates: " + json.dumps(rates), flush=True)
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from aphrodite_tpu_torch.ops.decode_attention import (
     paged_decode_attention, ref_paged_decode_attention)
 from aphrodite_tpu_torch.ops.kv_cache import quantize_kv, write_kv
 from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                  int4_matmul,
+                                                  int4_matmul_ref,
                                                   int4p_matmul,
                                                   int4p_matmul_ref,
                                                   pack_int4_rows,
@@ -359,19 +361,143 @@ def test_int4p_kernel_refuses_what_it_does_not_take():
         int4p_matmul(x, q4p, scale, zero, 64)
 
 
+# The unpacked form (one int8 level per byte). Against the exact
+# f32-weight product only the order of the f32 sums differs for the
+# group-wise body: 2^-14 of the row's largest element. The dense body
+# rounds w to bf16 exactly as the plain version does, so it is held to the
+# plain version at that tolerance, and to the exact product at ROW_TOL
+# (2^-9 relative per term, adding up as a random walk over K); the
+# group-wise body to the plain version at ROW_TOL.
+SAME_TOL = 2.0**-14
+# (levels low, high (exclusive), zero low, high (exclusive), signed scales)
+LEVELS = {"q6_k": (0, 64, 32, 33, True), "q8_0": (-128, 128, 0, 1, False),
+          "q5_k": (0, 32, -3, 40, False), "gptq": (0, 16, 0, 17, False)}
+
+
+def _q4_case(rng, L, K, N, group, T, kind):
+    """Random unpacked container [L, K, N] and x [T, K] at std 1."""
+    lo, hi, zlo, zhi, signed = LEVELS[kind]
+    q = rng.integers(lo, hi, size=(L, K, N)).astype(np.int8)
+    scale = (rng.random((L, K // group, N), dtype=np.float32) * 0.02 + 0.001)
+    if signed:
+        scale *= rng.choice(np.float32([-1.0, 1.0]), size=scale.shape)
+    zero = rng.integers(zlo, zhi, size=scale.shape).astype(np.float32)
+    x = rng.standard_normal((T, K), dtype=np.float32)
+    return (torch.from_numpy(x).cuda().to(torch.bfloat16),
+            torch.from_numpy(q).cuda(), torch.from_numpy(scale).cuda(),
+            torch.from_numpy(zero).cuda())
+
+
+def _assert_int4_close(got, x, q4, scale, zero, group, body):
+    want = int4_matmul_ref(x, q4, scale, zero, group)
+    exact = x.float() @ dequantize_int4(q4, scale, zero, group)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.isfinite().all()
+    tols = ((want, SAME_TOL), (exact, ROW_TOL)) if body == "dense" else \
+        ((want, ROW_TOL), (exact, SAME_TOL))
+    for ref, tol in tols:
+        err = (got - ref).abs().amax(-1)
+        bound = tol * ref.abs().amax(-1)
+        assert (err <= bound).all(), (body, tol, float((err / bound).max()))
+
+
 @pytest.mark.cuda
-def test_int4_containers_other_than_packed_raise_on_card():
+@pytest.mark.parametrize("T", [1, 8, 64, 2048])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
+def test_int4_kernel_bodies_match_plain_on_card(T, K, N):
+    """Llama-3.1-8B wqkv and down sites, stacked levels with a layer
+    index, both bodies: Q6_K-like (0..63, group 16, zero 32, signed
+    scales) and Q8_0-like (signed bytes, group 32)."""
+    _card_or_skip()
+    rng = np.random.default_rng(K + T)
+    for kind, group in (("q6_k", 16), ("q8_0", 32)):
+        x, q4, scale, zero = _q4_case(rng, 2, K, N, group, T, kind)
+        for body in ("groupwise", "dense"):
+            before = int4_matmul.launches
+            got = int4_matmul(x, q4, scale, zero, group, layer_idx=1,
+                              body=body)
+            torch.cuda.synchronize()
+            assert int4_matmul.launches == before + 1
+            _assert_int4_close(got, x, q4[1], scale[1], zero[1], group, body)
+            other = int4_matmul(x, q4, scale, zero, group, layer_idx=0,
+                                body=body)
+            assert not torch.equal(other, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(LEVELS))
+@pytest.mark.parametrize("group,K", [(1, 1024), (8, 1024), (16, 1024),
+                                     (32, 1024), (64, 1920), (128, 1024),
+                                     (1920, 1920)])
+def test_int4_kernel_group_sizes_on_card(group, K, kind):
+    """Groups from one row (act-order GPTQ) to a whole column, signed and
+    unsigned levels, 2-D containers, T below and above one row block; at K
+    1920 the split of K ends inside a group. Groups under 16 rows take
+    the dense body only; the wrapper's own choice of body runs too."""
+    _card_or_skip()
+    rng = np.random.default_rng(group)
+    for T in (5, 70):
+        x, q4, scale, zero = _q4_case(rng, 1, K, 256, group, T, kind)
+        args = (q4[0], scale[0], zero[0], group)
+        bodies = ("dense",) if group < 16 else ("groupwise", "dense")
+        for body in bodies:
+            got = int4_matmul(x, *args, body=body)
+            _assert_int4_close(got, x, *args, body)
+        counts = dict(int4_matmul.launches_by_body)
+        got = int4_matmul(x, *args)
+        (body,) = [b for b, n in int4_matmul.launches_by_body.items()
+                   if n != counts.get(b, 0)]
+        _assert_int4_close(got, x, *args, body)
+
+
+@pytest.mark.cuda
+def test_int4_kernel_large_zero_with_tiny_scale_on_card():
+    """A group whose scale is 2^-20 and whose zero is offset * 2^20 (how a
+    GGUF min offset with a zero group scale is stored): w is -offset to
+    within 2^-15. In the group-wise form s * part and (s * z) * rowsum
+    are far apart in size; s * z is formed once in f32, so the result
+    still follows the exact product."""
+    _card_or_skip()
+    rng = np.random.default_rng(3)
+    x, q4, scale, zero = _q4_case(rng, 1, 1024, 256, 32, 20, "q5_k")
+    offset = torch.from_numpy(
+        rng.random((8, 256), dtype=np.float32)).cuda() * 0.5
+    scale[0, ::4] = 2.0**-20
+    zero[0, ::4] = offset * 2.0**20
+    for body in ("groupwise", "dense"):
+        got = int4_matmul(x, q4[0], scale[0], zero[0], 32, body=body)
+        _assert_int4_close(got, x, q4[0], scale[0], zero[0], 32, body)
+
+
+@pytest.mark.cuda
+def test_int4_kernel_refuses_what_it_does_not_take():
     from aphrodite_tpu_torch.quantization.qlinear import qmatmul
 
     _card_or_skip()
-    x = torch.zeros((4, 64), dtype=torch.bfloat16, device="cuda")
-    q4 = {"q4": torch.zeros((64, 128), dtype=torch.int8, device="cuda"),
-          "scale": torch.ones((1, 128), device="cuda"),
-          "zero": torch.zeros((1, 128), device="cuda")}
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        qmatmul(x, q4)
+    rng = np.random.default_rng(0)
+    x, q4, scale, zero = _q4_case(rng, 2, 256, 256, 64, 4, "q8_0")
+    args = (q4[0], scale[0], zero[0], 64)
+    before = int4_matmul.launches
+    qmatmul(x, {"q4": q4, "scale": scale, "zero": zero}, layer=1)
+    assert int4_matmul.launches == before + 1  # the kernel, not the plain
+    with pytest.raises(ValueError, match="bf16"):
+        int4_matmul(x.float(), *args)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4_matmul(x, q4[0, :, :192].contiguous(),
+                    scale[0, :, :192].contiguous(),
+                    zero[0, :, :192].contiguous(), 64)
+    with pytest.raises(ValueError, match="group-wise body"):
+        int4_matmul(x, q4[0], scale[0].repeat_interleave(8, 0),
+                    zero[0].repeat_interleave(8, 0), 8, body="groupwise")
+    with pytest.raises(ValueError, match="straddle"):
+        int4_matmul(x[:, :192].contiguous(), q4[0, :192],
+                    scale[0, :2], zero[0, :2], 96)
+    with pytest.raises(ValueError, match="layer_idx"):
+        int4_matmul(x, q4, scale, zero, 64)
+    with pytest.raises(ValueError, match="body"):
+        int4_matmul(x, *args, body="wmma")
     with pytest.raises(NotImplementedError, match="int8"):
-        qmatmul(x, {"q": q4["q4"], "scale": q4["scale"]})
+        qmatmul(x, {"q": q4[0], "scale": scale[0]})
 
 
 @pytest.mark.cuda

@@ -218,6 +218,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "aphrodite_tpu_torch/ops/kv_cache.py",
             "aphrodite_tpu_torch/tools/__init__.py",
             "aphrodite_tpu_torch/tools/kv_calibrate.py",
+            "aphrodite_tpu_torch/loader/gguf.py",
             "aphrodite_tpu_torch/quantization/__init__.py",
             "aphrodite_tpu_torch/quantization/int4.py",
             "aphrodite_tpu_torch/quantization/qlinear.py"} <= covered

@@ -292,8 +292,11 @@ def test_unpacked_container_raises_off_the_cpu():
     q4 = {"q4": torch.empty((64, 128), dtype=torch.int8, device="meta"),
           "scale": torch.empty((1, 128), device="meta"),
           "zero": torch.empty((1, 128), device="meta")}
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        qlinear.qmatmul(torch.empty((4, 64), device="meta"), q4)
+    # Off the CPU an unpacked container goes to its CUDA kernel's wrapper,
+    # which launches or raises and never takes the plain version.
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qlinear.qmatmul(torch.empty((4, 64), dtype=torch.bfloat16,
+                                    device="meta"), q4)
 
 
 @pytest.mark.parametrize("name", ["gptq", "awq", "awq_marlin", "gptq_marlin",
@@ -498,10 +501,12 @@ def test_gptq_on_a_dense_checkpoint_generates_like_jax(dense_dir):
         assert g.outputs[0].token_ids == w.outputs[0].token_ids
 
 
-def _write_quantized_checkpoint(path, fmt, seed):
+def _write_quantized_checkpoint(path, fmt, seed, act_order=False):
     """A tiny checkpoint in GPTQ or AWQ format at the packable geometry:
     random nibbles, zeros and f16 scales packed with numpy; dense f32
-    embeddings, norms and lm_head."""
+    embeddings, norms and lm_head. With act_order (GPTQ) every g_idx is a
+    random assignment of rows to groups (desc_act) and the scales vary by
+    group, so the assignment shows in the weights."""
     from safetensors.numpy import save_file
 
     rng = np.random.default_rng(seed)
@@ -529,11 +534,15 @@ def _write_quantized_checkpoint(path, fmt, seed):
             # Weights centred on zero with std near 1/sqrt(K).
             zeros[:] = 8
             scales = (scales * 0 + K**-0.5 / 4).astype(np.float16)
+            g_idx = np.arange(K, dtype=np.int32) // G
+            if act_order:
+                g_idx = rng.permutation(g_idx)
+                scales = (scales * (1 + rng.random((K // G, 1)))).astype(
+                    np.float16)
             if fmt == "gptq":
                 tensors[f"{base}.{name}.qweight"] = _pack_rows_int4(q)
                 tensors[f"{base}.{name}.qzeros"] = _pack_cols_int4(zeros - 1)
-                tensors[f"{base}.{name}.g_idx"] = (
-                    np.arange(K, dtype=np.int32) // G)
+                tensors[f"{base}.{name}.g_idx"] = g_idx
             else:
                 tensors[f"{base}.{name}.qweight"] = _awq_pack(q)
                 tensors[f"{base}.{name}.qzeros"] = _awq_pack(zeros)
