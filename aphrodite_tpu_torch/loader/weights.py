@@ -1,5 +1,5 @@
 """Checkpoint loading (counterpart of aphrodite_tpu/loader/weights.py,
-dense and int4 Llama paths, KV-cache scales).
+dense and quantized Llama paths, KV-cache scales).
 
 The model declares (hf_name -> our_path, transpose) mappings; per-layer
 tensors are stacked on a leading [L] axis and kept in the JAX package's
@@ -13,9 +13,11 @@ the magnitudes of the JAX package's dummy weights).
 
 With a GPTQ/AWQ quantization method, a checkpoint that carries packed
 ``qweight`` tensors is parsed into int4 containers
-(quantization/int4.py); a dense or dummy one is quantized at load.
-Container members keep their own dtypes (int8 nibbles, f32 scale and
-zero); only dense float leaves take the model dtype.
+(quantization/int4.py); a dense or dummy one is quantized at load, as it
+is for the int8 and fp8 methods (quantization/{int8,fp8}.py), by the
+method's ``quantize_from_float``. Container members keep their own dtypes
+(int8 levels, e4m3, f32 scale and zero); only dense float leaves take the
+model dtype.
 
 ``load_kv_cache_scales`` reads the per-layer scales of a quantized KV
 cache (a JSON file, else checkpoint tensors, else ones).
@@ -76,7 +78,7 @@ def _get_path(tree: Dict[str, Any], path: str):
 def _is_container(v) -> bool:
     """A quantized weight: a dict of tensors in place of one tensor."""
     return isinstance(v, dict) and "scale" in v and (
-        "q4p" in v or "q4" in v)
+        "q4p" in v or "q4" in v or "q" in v)
 
 
 def _logical_shape(w) -> Tuple[int, ...]:
@@ -87,7 +89,7 @@ def _logical_shape(w) -> Tuple[int, ...]:
     if "q4p" in w:
         *lead, kh, n = w["q4p"].shape
         return (*lead, 2 * kh, n)
-    return tuple(w["q4"].shape)
+    return tuple(w["q4" if "q4" in w else "q"].shape)
 
 
 def _check_shapes(expected: Dict[str, Any], got: Dict[str, Any],
@@ -242,12 +244,15 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     return params
 
 
-def quantize_params_int4(model, params: Dict[str, Any]) -> Dict[str, Any]:
-    """4-bit group quantization of a full-precision params tree, where
-    its tensors lie (int4 asked for on a dense checkpoint)."""
+def quantize_params_at_load(model, params: Dict[str, Any],
+                            method) -> Dict[str, Any]:
+    """Quantize the quantizable weights of a full-precision params tree,
+    where its tensors lie, with the method's ``quantize_from_float``
+    (int4 at group 128, int8 or fp8 per channel)."""
     for path in model.quantizable_weights():
         _set_path(params, path,
-                  int4_mod.quantize_from_float(_get_path(params, path)))
+                  method.quantize_from_float(_get_path(params, path)))
+        logger.info("quantized %s at load (%s)", path, method.NAME)
     return params
 
 
@@ -299,24 +304,26 @@ def load_kv_cache_scales(
 
 
 def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
-                 quantize: bool = False) -> Dict[str, Any]:
+                 method=None) -> Dict[str, Any]:
     """Random weights generated on the device: norms are ones, every other
     weight is normal with std 1/sqrt(last dim), the magnitudes of the JAX
     package's LlamaForCausalLM.random_params.
 
-    With ``quantize`` the model's quantizable weights are drawn in f32 and
-    quantized to int4 containers one layer of one matrix at a time, so the
-    peak stays near the size of the packed model."""
+    With a quantization ``method`` (quantization/int4, int8 or fp8) the
+    model's quantizable weights are drawn in f32 and quantized by its
+    ``quantize_from_float`` one layer of one matrix at a time, so the peak
+    stays near the size of the quantized model."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    quantizable = set(model.quantizable_weights()) if quantize else set()
+    quantizable = (set(model.quantizable_weights()) if method is not None
+                   else set())
 
     def quantized(shape):
         layers = []
         for _ in range(shape[0]):
             w = torch.empty(shape[1:], dtype=torch.float32, device=device)
             w.normal_(0.0, shape[-1]**-0.5, generator=gen)
-            layers.append(int4_mod.quantize_from_float(w))
+            layers.append(method.quantize_from_float(w))
         return {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
 
     def walk(shapes, prefix=""):
@@ -341,9 +348,14 @@ def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, Any]:
     after fuse_projections) as the port's parameters: the same nesting,
     the same [in, out] layout and [L] stacking, values copied into CPU
     tensors: float leaves as f32, the integer members of quantized
-    containers (int8 nibbles) in their own dtype."""
+    containers (int8 levels) in their own dtype, e4m3 weights (numpy
+    arrays of ml_dtypes' float8_e4m3fn, read by their bytes) as
+    float8_e4m3fn."""
     def leaf(v):
         v = np.asarray(v)
+        if v.dtype.name == "float8_e4m3fn":
+            return torch.from_numpy(v.view(np.uint8).copy()).view(
+                torch.float8_e4m3fn)
         if np.issubdtype(v.dtype, np.integer):
             return torch.from_numpy(v.copy())
         return torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
@@ -383,9 +395,9 @@ def load_model_params(model, model_config: ModelConfig,
                       device: torch.device) -> Dict[str, Any]:
     dtype = model.dtype
     fmt = load_config.load_format
-    quant = model_config.quantization
-    # Only the int4 family is registered; any other method raises there.
-    int4 = get_quantization_method(quant) is not None
+    # int4, int8, fp8 or None; a method that is not ported raised in
+    # ModelConfig.
+    method = get_quantization_method(model_config.quantization)
     if fmt == "auto":
         if model_config.model.endswith(".gguf"):
             fmt = "gguf"
@@ -396,7 +408,7 @@ def load_model_params(model, model_config: ModelConfig,
     if fmt == "dummy":
         logger.info("using dummy (random) weights")
         return dummy_params(model, model_config.seed, device, dtype,
-                            quantize=int4)
+                            method=method)
     if fmt == "gguf":
         from aphrodite_tpu_torch.loader.gguf import load_gguf_params_to_host
 
@@ -405,12 +417,14 @@ def load_model_params(model, model_config: ModelConfig,
             load_gguf_params_to_host(model, model_config.model), device,
             dtype)
     logger.info("loading weights from %s", model_config.model)
-    if int4 and _checkpoint_has_packed_tensors(model_config.model):
+    if (method is not None and not method.RUNTIME_QUANTIZE
+            and _checkpoint_has_packed_tensors(model_config.model)):
+        # The checkpoint itself is quantized (GPTQ/AWQ packed tensors).
         host = load_quantized_hf_params_to_host(model, model_config.model,
-                                                quant)
+                                                model_config.quantization)
     else:
         host = load_hf_params_to_host(model, model_config.model)
-        if int4:
-            # int4 asked for on a dense checkpoint: quantize at load.
-            host = quantize_params_int4(model, host)
+        if method is not None:
+            # int8/fp8, or int4 on a dense checkpoint: quantize at load.
+            host = quantize_params_at_load(model, host, method)
     return _to_device(host, device, dtype)

@@ -1,4 +1,4 @@
-"""Llama causal LM, dense and int4 weights (counterpart of
+"""Llama causal LM, dense and quantized weights (counterpart of
 aphrodite_tpu/models/llama.py: LlamaForCausalLM).
 
 The parameters keep the JAX package's layout: a plain dict of tensors,
@@ -8,7 +8,7 @@ matmul weights stored [in, out], per-layer weights stacked on a leading
 stacked layers; here it is a Python loop that indexes them. Every
 projection goes through ``qmatmul`` (quantization/qlinear.py): a plain
 tensor is ``torch.matmul``, as XLA computes it in the JAX package, and a
-packed int4 container is the hand-written kernel of ops/quant_matmul.py.
+quantized container one of the products of ops/quant_matmul.py.
 Attention is ops/attention.py, which holds the two attention kernels.
 """
 
@@ -23,6 +23,7 @@ from aphrodite_tpu_torch.models.layers import (apply_rope,
                                                silu_and_mul)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
+from aphrodite_tpu_torch.quantization.fp8 import kernel_layout
 from aphrodite_tpu_torch.quantization.qlinear import qmatmul
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -96,7 +97,8 @@ class LlamaForCausalLM:
         Same layout as the JAX package's fuse_projections. Quantized
         containers fuse member by member, and only when all parts are of
         one kind with one K and one group size; otherwise the parts stay
-        apart and the forward multiplies each."""
+        apart and the forward multiplies each. Every weight then takes the
+        layout its product reads (fp8: column-major)."""
         lp = params["layers"]
 
         def kind(w):
@@ -108,8 +110,7 @@ class LlamaForCausalLM:
             if "q4" in w:
                 rows = w["q4"].shape[-2]
                 return ("q4", rows, rows // w["scale"].shape[-2])
-            raise NotImplementedError(
-                "int8 and fp8 weight containers are not ported yet")
+            return ("q", w["q"].shape[-2], 0)
 
         def fuse(names, out):
             if out in lp or len({kind(lp[n]) for n in names}) != 1:
@@ -123,6 +124,8 @@ class LlamaForCausalLM:
 
         fuse(("wq", "wk", "wv"), "wqkv")
         fuse(("gate", "up"), "w13")
+        for name in lp:
+            lp[name] = kernel_layout(lp[name])
         return params
 
     def quantizable_weights(self) -> List[str]:

@@ -36,6 +36,20 @@ needs (K/2) % G == 0.
   weight to bf16 as the plain version does: it agrees with the exact
   f32-weight product to the order of the sums, and with the plain version
   to that rounding (2^-9 relative per term).
+- ``int4p_matmul_w4a8``: the same packed container times per-token int8
+  activations (``quantize_activations_int8``); the plain version is
+  ``int4p_matmul_w4a8_ref``. CUDA tensors launch the activation quantizer
+  and the W4A8 kernel of ``csrc/int4p_matmul_w4a8.cu`` (which replaces
+  the TPU kernel int4p_matmul_w4a8_pallas) or raise.
+- ``int8_matmul``: int8 per-channel weight-only, ``{q, scale}``. On the
+  card it is the unpacked container at G = K with zero 0 and launches the
+  group-wise body of ``csrc/int4_matmul.cu``.
+- ``fp8_w8a8_matmul``: e4m3 weights times per-token e4m3 activations. On
+  the card the quantizer kernel, then one ``torch._scaled_mm``: the
+  JAX package leaves this product to XLA, outside any Pallas kernel.
+- ``quantize_activations``: the per-token quantizer of both activation
+  formats, one kernel launch on the card, bit-equal to its plain
+  versions ``quantize_activations_int8`` and ``quantize_activations_e4m3``.
 """
 
 import ctypes
@@ -174,10 +188,10 @@ def _check_layout(name, x, q, scale, zero):
                              "aligned levels, scale and zero on x's device")
 
 
-def check_kernel_inputs(x, q4p, scale, zero, group):
-    """Raise unless the tensors are what the packed CUDA int4 kernel
-    takes."""
-    _check_device("int4p_matmul", x)
+def check_kernel_inputs(x, q4p, scale, zero, group, name="int4p_matmul"):
+    """Raise unless the tensors are what the packed CUDA int4 kernels
+    (W4A16 and W4A8, which share their tiles) take."""
+    _check_device(name, x)
     T, K = x.shape
     Kh = q4p.shape[0]
     if T < 1 or 2 * Kh != K:
@@ -185,11 +199,11 @@ def check_kernel_inputs(x, q4p, scale, zero, group):
                          f"{tuple(q4p.shape)} (K/2 packed rows)")
     if group % KERNEL_GROUP_MULTIPLE or Kh % group:
         raise ValueError(
-            f"int4p_matmul kernel takes a group that is a multiple of "
+            f"{name} kernel takes a group that is a multiple of "
             f"{KERNEL_GROUP_MULTIPLE} and divides K/2; got group {group}, "
             f"K {K}")
-    _check_types_and_shapes("int4p_matmul", x, q4p, scale, zero, K, group)
-    _check_layout("int4p_matmul", x, q4p, scale, zero)
+    _check_types_and_shapes(name, x, q4p, scale, zero, K, group)
+    _check_layout(name, x, q4p, scale, zero)
 
 
 def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
@@ -349,3 +363,235 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
 
 int4_matmul.launches = 0
 int4_matmul.launches_by_body = {}
+
+
+# ----------------------------------------------------------------------
+# Per-token activation quantization, W4A8, and the {q, scale} kinds
+# ----------------------------------------------------------------------
+
+# The activation formats of the quantizer kernel, by the number its C entry
+# point takes, and the dtype of each one's output.
+ACT_FORMATS = {"int8": 0, "e4m3": 1}
+_ACT_DTYPES = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+E4M3_MAX = 448.0  # largest finite float8_e4m3fn
+
+
+def f32_scalar(value: float, device) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``device``. Dividing by it is IEEE
+    division: on the card, a division by a Python scalar multiplies by the
+    reciprocal, which rounds differently from the JAX package."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def quantize_activations_int8(
+        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 (the JAX package's
+    quantize_activations_int8): (xq int8 [T, K], sx f32 [T, 1]) with
+    sx = max(amax, 1e-8) / 127 and xq = round(x / sx), half to even,
+    clipped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    sx = amax.clamp_min(1e-8) / f32_scalar(127.0, x.device)
+    return torch.round(xf / sx).clamp_(-127, 127).to(torch.int8), sx
+
+
+def quantize_activations_e4m3(
+        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token e4m3 of the JAX package's _fp8_w8a8_matmul: (xq
+    float8_e4m3fn [T, K], act_scale f32 [T, 1]) with act_scale =
+    max(absmax / 448, 1e-12) and xq = x / act_scale rounded to nearest
+    even (|x / act_scale| <= 448 by construction, so no cast
+    overflows)."""
+    xf = x.float()
+    absmax = xf.abs().amax(-1, keepdim=True)
+    act_scale = (absmax / f32_scalar(E4M3_MAX, x.device)).clamp_min(1e-12)
+    return (xf / act_scale).to(torch.float8_e4m3fn), act_scale
+
+
+@functools.lru_cache(maxsize=None)
+def _w4a8_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("int4p_matmul_w4a8")
+    lib.quantize_rows_bf16.argtypes = ([ctypes.c_void_p] * 3
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p])
+    lib.quantize_rows_bf16.restype = ctypes.c_int
+    lib.int4p_matmul_w4a8.argtypes = ([ctypes.c_void_p] * 7
+                                      + [ctypes.c_int] * 6
+                                      + [ctypes.c_void_p])
+    lib.int4p_matmul_w4a8.restype = ctypes.c_int
+    return lib
+
+
+def quantize_activations(x: torch.Tensor,
+                         fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, K] per token to ``fmt`` ("int8" for W4A8, "e4m3" for FP8
+    W8A8): (xq [T, K], scale f32 [T, 1]). CPU tensors take the plain
+    version of the format; CUDA tensors launch the quantizer kernel of
+    csrc/int4p_matmul_w4a8.cu, one launch per call and bit-equal to the
+    plain version, or raise."""
+    if fmt not in ACT_FORMATS:
+        raise ValueError(f"activation format must be one of "
+                         f"{sorted(ACT_FORMATS)}, got {fmt!r}")
+    if x.device.type == "cpu":
+        plain = (quantize_activations_int8 if fmt == "int8"
+                 else quantize_activations_e4m3)
+        return plain(x)
+    _check_device("quantize_activations", x)
+    if x.dim() != 2 or x.dtype != torch.bfloat16:
+        raise ValueError(f"quantize_activations kernel takes bf16 x [T, K], "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    T, K = x.shape
+    if (T < 1 or K % 8 or x.stride(1) != 1 or x.stride(0) % 8
+            or x.data_ptr() % 16):
+        raise ValueError(
+            "quantize_activations kernel takes K that is a multiple of 8 and "
+            "x contiguous in its last axis with 16-byte aligned rows; got "
+            f"{tuple(x.shape)} with strides {x.stride()}")
+    xq = torch.empty((T, K), dtype=_ACT_DTYPES[fmt], device=x.device)
+    scale = torch.empty((T, 1), dtype=torch.float32, device=x.device)
+    err = _w4a8_lib().quantize_rows_bf16(
+        x.data_ptr(), xq.data_ptr(), scale.data_ptr(), T, K, x.stride(0),
+        ACT_FORMATS[fmt], torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_activations kernel: error {err} "
+                           f"(T {T}, K {K}, format {fmt})")
+    quantize_activations.launches += 1
+    quantize_activations.launches_by_format[fmt] = \
+        quantize_activations.launches_by_format.get(fmt, 0) + 1
+    return xq, scale
+
+
+quantize_activations.launches = 0
+quantize_activations.launches_by_format = {}
+
+
+def int4p_matmul_w4a8_ref(x: torch.Tensor, q4p: torch.Tensor,
+                          scale: torch.Tensor, zero: torch.Tensor,
+                          group: int) -> torch.Tensor:
+    """The plain W4A8 product (the JAX package's int4p_matmul_w4a8_ref):
+    the per-token int8 quantization of x, an exact f32 product with the
+    dequantized weight, times sx. f32 [T, N]."""
+    xq, sx = quantize_activations_int8(x)
+    w = dequantize_int4(unpack_int4_rows(q4p), scale, zero, group)
+    return torch.matmul(xq.float(), w) * sx
+
+
+def int4p_matmul_w4a8(x: torch.Tensor, q4p: torch.Tensor,
+                      scale: torch.Tensor, zero: torch.Tensor, group: int,
+                      layer_idx: Optional[int] = None) -> torch.Tensor:
+    """quantize(x)[T, K] @ dequant(q4p) * sx -> f32 [T, N].
+
+    The container is the one ``int4p_matmul`` takes: int8 [K/2, N], or
+    layer-stacked [L, K/2, N] with ``layer_idx``. CPU tensors take the
+    plain version. CUDA tensors launch two kernels or raise: the
+    activation quantizer (counted on ``quantize_activations``) and the
+    W4A8 product, with the tiles, split of K (``kernel_plan``) and shape
+    rules of the W4A16 kernel."""
+    if q4p.dim() == 3:
+        if layer_idx is None:
+            raise ValueError("layer-stacked q4p needs layer_idx")
+        q4p, scale, zero = q4p[layer_idx], scale[layer_idx], zero[layer_idx]
+    if x.device.type == "cpu":
+        return int4p_matmul_w4a8_ref(x, q4p, scale, zero, group)
+    check_kernel_inputs(x, q4p, scale, zero, group, "int4p_matmul_w4a8")
+    T, K = x.shape
+    N = q4p.shape[1]
+    xq, sx = quantize_activations(x, "int8")
+    block_m, splits = kernel_plan(T, K, N)
+    out = torch.empty((T, N), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, T, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    err = _w4a8_lib().int4p_matmul_w4a8(
+        xq.data_ptr(), sx.data_ptr(), q4p.data_ptr(), scale.data_ptr(),
+        zero.data_ptr(), out.data_ptr(), partial.data_ptr(), T, K, N, group,
+        block_m, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"int4p_matmul_w4a8 kernel: error {err} (T {T}, K {K}, N {N}, "
+            f"group {group}, block_m {block_m}, splits {splits})")
+    int4p_matmul_w4a8.launches += 1
+    return out
+
+
+int4p_matmul_w4a8.launches = 0
+
+
+def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's _int8_matmul: f32 x @ q (exact products: an int8
+    level is exact in x's dtype), then * scale [1, N]."""
+    return torch.matmul(x.float(), q.float()) * scale
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_row(n: int, device: torch.device) -> torch.Tensor:
+    return torch.zeros((1, n), dtype=torch.float32, device=device)
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                layer_idx: Optional[int] = None) -> torch.Tensor:
+    """x [T, K] @ (q [K, N] * scale [1, N]) -> f32 [T, N], int8
+    per-channel weight-only (q and scale may be layer-stacked, with
+    ``layer_idx``). CPU tensors take the plain version. An int8
+    per-channel container is the unpacked grouped container at G = K with
+    zero 0, so CUDA tensors go to the group-wise body of ``int4_matmul``
+    (raw levels on the tensor cores, f32 sums, the scale applied to the
+    f32 sum: the JAX package's arithmetic), counted there, with a zero
+    row made once per (N, device). Nothing is dequantized to a bf16
+    copy."""
+    if q.dim() == 3:
+        if layer_idx is None:
+            raise ValueError("layer-stacked q needs layer_idx")
+        q, scale = q[layer_idx], scale[layer_idx]
+    if x.device.type == "cpu":
+        return int8_matmul_ref(x, q, scale)
+    K, N = q.shape
+    return int4_matmul(x, q, scale, _zero_row(N, q.device), K,
+                       body="groupwise")
+
+
+def fp8_w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's _fp8_w8a8_matmul: per-token e4m3 activations, an
+    f32 product of the e4m3 operands (exact products), then
+    out * act_scale * scale in that order."""
+    xq, act_scale = quantize_activations_e4m3(x)
+    return torch.matmul(xq.float(), q.float()) * act_scale * scale
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_scale(device: torch.device) -> torch.Tensor:
+    return torch.ones((), dtype=torch.float32, device=device)
+
+
+def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    layer_idx: Optional[int] = None) -> torch.Tensor:
+    """x [T, K] @ (q [K, N] e4m3 * scale [1, N]) with x quantized per
+    token to e4m3 -> f32 [T, N] (q and scale may be layer-stacked, with
+    ``layer_idx``). CPU tensors take the plain version. CUDA tensors
+    launch the quantizer kernel, then one ``torch._scaled_mm`` with unit
+    scales and an f32 result (counted in ``launches``): the JAX package
+    leaves this product to XLA, outside any Pallas kernel. Both scales are
+    applied after, in f32, as there. The card's fp8 product reads its
+    second operand column-major, as quantization/fp8.py: kernel_layout
+    stores q; any other layout raises (no copy is made per call)."""
+    if q.dim() == 3:
+        if layer_idx is None:
+            raise ValueError("layer-stacked q needs layer_idx")
+        q, scale = q[layer_idx], scale[layer_idx]
+    if x.device.type == "cpu":
+        return fp8_w8a8_matmul_ref(x, q, scale)
+    _check_device("fp8_w8a8_matmul", x)
+    if q.dtype != torch.float8_e4m3fn or q.stride(0) != 1:
+        raise ValueError(
+            "fp8_w8a8_matmul takes a float8_e4m3fn weight stored "
+            f"column-major, got {q.dtype} with strides {q.stride()}")
+    xq, act_scale = quantize_activations(x, "e4m3")
+    one = _unit_scale(x.device)
+    out = torch._scaled_mm(xq, q, scale_a=one, scale_b=one,
+                           out_dtype=torch.float32)
+    fp8_w8a8_matmul.launches += 1
+    return out * act_scale * scale
+
+
+fp8_w8a8_matmul.launches = 0

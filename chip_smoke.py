@@ -29,6 +29,18 @@ Phases, each of which must pass or the script exits non-zero:
    with groups of scale 2^-20 and a large zero), Q8_0-like (signed bytes,
    group 32) and act-order GPTQ (nibbles, one scale and zero row per
    weight row: the dense body only), against the same two products.
+   The W4A8 matmul (per-token int8 activations x the packed container),
+   at the same sites and T on layer-stacked weights with a layer index
+   (wide zeros at wo), against its plain version and, within the JAX
+   package's a8 bound, the exact W4A16 product. The activation quantizer,
+   int8 and e4m3, byte for byte against its plain version on rows with an
+   all-zero row, one large value and exact .5 steps. int8 per-channel
+   containers through the unpacked kernel's group-wise body at G = K. The
+   FP8 W8A8 product (quantizer and torch._scaled_mm) at the same sites and
+   T against its plain version at FP8_TOL, beside a witness of the plain
+   version held at INT4_TOL_SAME (the e4m3 operands widened to bf16 with
+   f32 sums) and, printed, _scaled_mm over 128-wide slices of K summed in
+   f32.
 4. Time each kernel, on every page type, at the main path's shapes
    beside its plain version, one PyTorch library call on pre-gathered
    contiguous K/V (scaled_dot_product_attention; the gather is not timed,
@@ -41,7 +53,12 @@ Phases, each of which must pass or the script exits non-zero:
    matmul are timed the same way on the Q6_K-like and Q8_0-like
    containers, beside the same library call and a bound that counts one
    byte per level and eight per group and column of scale and zero; a
-   sweep of rows per block follows for each.
+   sweep of rows per block follows for each. W4A8 (quantizer and kernel)
+   at the same sites and T beside its plain version, torch._int_mm on the
+   unpacked int8 levels (no group fix-ups), torch.matmul on bf16 weights
+   and a bound with operations over 1979 TOPS int8; the quantizer at T 32
+   and 2048, K 4096 and 14336; the FP8 W8A8 product (quantizer and
+   torch._scaled_mm) at the four sites.
 5. Run the main paths, each with the engine before it freed. First the
    bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model (full
    width, 32 layers, random bf16 weights from a seed) for 16 greedy
@@ -77,9 +94,24 @@ Phases, each of which must pass or the script exits non-zero:
    the packed one none, and the logits with the kernel must agree with
    those of the plain product. Between them the two paths launch both
    bodies (printed per path).
+   Then slice 5's three: ``gptq w4a8`` (32 layers, APHRODITE_W4_A8=1 for
+   this path only): forwards are counted by their tokens; every forward of
+   16 tokens or more must launch the W4A8 kernel and the int8 quantizer 4
+   times per layer, every other one the W4A16 kernel; its logits (a
+   prefill and a 16-row decode forward, which take W4A8, and an 8-row
+   decode forward, which takes W4A16, each forward's launches held to its
+   route) against the plain W4A8 and W4A16 products, and its rates
+   printed beside the gptq path's. ``int8`` and ``fp8`` (4 layers,
+   quantized at load on the card): the group-wise body (G = K), or the
+   e4m3 quantizer and one torch._scaled_mm, 4 launches per layer and
+   forward, logits against the plain product; on the fp8 path once with
+   the plain quantizer (bit-equal) and once with the whole plain product,
+   each site's product held at FP8_TOL on that run's inputs and the
+   logits at FP8_LOGIT_TOL.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times (each attention
-   kernel once per page type, the unpacked int4 matmul once per body);
+   kernel once per page type, the unpacked int4 matmul once per body,
+   W4A8 and the activation quantizer);
    the last line is
    {"ok": true, "device": {...}}.
 """
@@ -193,6 +225,35 @@ Q4_SWEPT = ("q6_k", "q8_0", "gptq_g128")
 # s * z is formed once in f32.
 Q4_TOLS = {"dense": dict(plain=INT4_TOL_SAME, exact=INT4_TOL_ROUNDED),
            "groupwise": dict(plain=INT4_TOL_ROUNDED, exact=INT4_TOL_SAME)}
+# W4A8 (int8 activations x packed int4) against its plain version: the int8
+# activations are bit-equal on both sides and each group's product is an
+# exact int32, so only the order of the f32 sums differs (INT4_TOL_SAME).
+# Against the W4A16 product with f32 weights (no a8 rounding) the JAX
+# package's own bound on a8 error (tests/test_quantization.py:257-276):
+# under A8_BOUND of the output's largest value.
+A8_BOUND = 0.02
+INT8_OPS = 1979e12  # H100 SXM dense int8 (and fp8) tensor-core peak
+# The FP8 W8A8 product (the quantizer kernel and torch._scaled_mm) against
+# its plain version: the e4m3 operands are equal on both sides and every
+# product is exact, but the card's fp8 tensor cores keep fewer bits in
+# their sums than f32 between cuBLAS's promotions, about 1.4e-4 of a row's
+# largest output at K = 4096 (ROADMAP.md section 3): FP8_TOL, per row. A
+# witness on the same e4m3 operands, widened to bf16 (exactly) through a
+# bf16 product with f32 sums, sides with the plain version at
+# INT4_TOL_SAME; _scaled_mm over FP8_CHUNK-wide slices of K summed in f32
+# is printed beside it, to show whether the loss lies within such slices.
+FP8_TOL = 2.0**-10
+FP8_CHUNK = 128
+# The fp8 main path's logits against the same forwards with the plain
+# product at every site: each next layer's e4m3 rounding of its
+# activations turns those differences into whole e4m3 steps, which read
+# 7.1e-2 to 8.2e-2 of a logits row after 4 layers at this seed on an H100.
+# Held at about twice that; each site's product is held at FP8_TOL on the
+# same forwards, and the argmax agreement is printed.
+FP8_LOGIT_TOL = 0.15
+# The activation quantizer, (T, K) of its checks and timings.
+ACT_CHECK_T = (1, 33, 2048)
+ACT_TIME = ((32, 4096), (32, 14336), (2048, 4096), (2048, 14336))
 # Depth of the Q6_K GGUF main path (full width; the other GGUF path runs 4
 # layers).
 GGUF_Q6K_LAYERS = 32
@@ -783,6 +844,359 @@ def int4_block_sweep(device, iters):
 
 
 # ----------------------------------------------------------------------
+# W4A8, the activation quantizer, int8 weight-only and FP8 W8A8
+# ----------------------------------------------------------------------
+
+
+def row_ratio(got, want):
+    """The worst row's max|got - want| / max|want row|."""
+    err = (got - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def w4a8_checks(device):
+    """The W4A8 kernel against its plain version (INT4_TOL_SAME) and the
+    exact W4A16 product (A8_BOUND of its largest value) at every site and
+    T, on a layer-stacked container with a layer index (wide zeros at wo);
+    returns the max abs error against the plain version."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4p_matmul_w4a8,
+                                                      int4p_matmul_w4a8_ref,
+                                                      unpack_int4_rows)
+
+    worst_abs = 0.0
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        wide = site == "wo"
+        q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 400 + i,
+                                          wide_zero=wide)
+        w_exact = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
+                                  zero[1], INT4_GROUP)
+        for T in INT4_CHECK_T:
+            x = make_x(T, K, device, SEED + 50 + T)
+            got = int4p_matmul_w4a8(x, q4p, scale, zero, INT4_GROUP,
+                                    layer_idx=1)
+            torch.cuda.synchronize()
+            where = (f"int4p_matmul_w4a8 [{site} T={T}"
+                     f"{' wide zero' if wide else ''}]")
+            if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
+                fail(f"{where}: output {got.shape} {got.dtype}")
+            if not bool(got.isfinite().all()):
+                fail(f"{where}: non-finite output")
+            plain = int4p_matmul_w4a8_ref(x, q4p[1], scale[1], zero[1],
+                                          INT4_GROUP)
+            ratio = row_ratio(got, plain)
+            if ratio > INT4_TOL_SAME:
+                fail(f"{where} disagrees with its plain version: worst row "
+                     f"err / max|row| {ratio:.3e} (tolerance "
+                     f"{INT4_TOL_SAME:.3e})")
+            a16 = x.float() @ w_exact
+            a8 = float((got - a16).abs().max() / a16.abs().max())
+            if a8 >= A8_BOUND:
+                fail(f"{where}: a8 error {a8:.3e} of max|W4A16| (bound "
+                     f"{A8_BOUND})")
+            abs_err = float((got - plain).abs().max())
+            worst_abs = max(worst_abs, abs_err)
+            print(f"check {where}: max_abs_err against plain {abs_err:.3e}, "
+                  f"worst row err / max|row| {ratio:.3e} (tolerance "
+                  f"{INT4_TOL_SAME:.3e}); against exact W4A16 max|diff| / "
+                  f"max|W4A16| {a8:.3e} (bound {A8_BOUND})", flush=True)
+        del q4p, scale, zero, w_exact
+    return worst_abs
+
+
+def make_act_rows(T, K, device, seed):
+    """bf16 rows at scales e^-8 to e^6, with (T >= 3) an all-zero row
+    (sx = 1e-8 / 127), a row with one large value, and a row of exact .5
+    steps of its own sx = 1 (round half to even)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, K), generator=gen, device=device)
+    x *= torch.exp(torch.rand((T, 1), generator=gen, device=device) * 14 - 8)
+    if T >= 3:
+        x[0] = 0.0
+        x[1] *= 1e-3
+        x[1, K // 2] = 300.0
+        x[2] = (torch.arange(K, device=device) % 255 - 127).float() * 0.5
+        x[2, 0] = 127.0
+    return x.to(torch.bfloat16)
+
+
+def quantizer_checks(device):
+    """The activation quantizer, both formats, byte for byte against its
+    plain version; returns the max abs difference of values and scales
+    (0.0 when every byte is equal)."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        quantize_activations, quantize_activations_e4m3,
+        quantize_activations_int8)
+
+    plain = {"int8": quantize_activations_int8,
+             "e4m3": quantize_activations_e4m3}
+    worst = 0.0
+    for fmt, fn in plain.items():
+        for K in (4096, 14336):
+            for T in ACT_CHECK_T:
+                x = make_act_rows(T, K, device, SEED + 500 + T)
+                got_q, got_s = quantize_activations(x, fmt)
+                want_q, want_s = fn(x)
+                torch.cuda.synchronize()
+                same = (torch.equal(got_q.view(torch.uint8),
+                                    want_q.view(torch.uint8))
+                        and torch.equal(got_s, want_s))
+                diff = max(float((got_q.float() - want_q.float()).abs().max()),
+                           float((got_s - want_s).abs().max()))
+                print(f"check quantize_activations [{fmt} T={T} K={K}]: "
+                      f"{'bytes equal' if same else 'bytes differ'} to the "
+                      f"plain version (max abs diff {diff:.3e})", flush=True)
+                if not same:
+                    fail(f"quantize_activations [{fmt} T={T} K={K}] is not "
+                         "bit-equal to its plain version")
+                worst = max(worst, diff)
+    return worst
+
+
+def int8_checks(device):
+    """int8 per-channel containers (G = K, zero 0) through the group-wise
+    body of int4_matmul at every site and T, against the plain version at
+    INT4_TOL_SAME (exact products, f32 sums in another order)."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                      int8_matmul_ref)
+    from aphrodite_tpu_torch.quantization import int8
+
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        gen = torch.Generator(device=device).manual_seed(SEED + 600 + i)
+        w = torch.randn((2, K, N), generator=gen, device=device) * K**-0.5
+        c = int8.quantize_from_float(w)
+        del w
+        for T in INT4_CHECK_T:
+            x = make_x(T, K, device, SEED + 50 + T)
+            got = int8_matmul(x, c["q"], c["scale"], layer_idx=1)
+            torch.cuda.synchronize()
+            ratio = row_ratio(got, int8_matmul_ref(x, c["q"][1],
+                                                   c["scale"][1]))
+            print(f"check int8_matmul (group-wise body, G = K) [{site} T={T}]"
+                  f": worst row err / max|row| {ratio:.3e} (tolerance "
+                  f"{INT4_TOL_SAME:.3e})", flush=True)
+            if not got.isfinite().all() or ratio > INT4_TOL_SAME:
+                fail(f"int8_matmul [{site} T={T}] disagrees with its plain "
+                     "version")
+        del c
+
+
+def fp8_checks(device):
+    """The FP8 W8A8 product (quantizer kernel and torch._scaled_mm) at
+    every site and T, on a layer-stacked container with a layer index,
+    against its plain version at FP8_TOL; the witness of the plain version
+    (bf16 operands with f32 sums) against it at INT4_TOL_SAME, and
+    FP8_CHUNK-wide _scaled_mm slices summed in f32, printed. Returns the
+    max abs error of the product against its plain version."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        fp8_w8a8_matmul, fp8_w8a8_matmul_ref, quantize_activations_e4m3)
+    from aphrodite_tpu_torch.quantization import fp8
+
+    worst_abs = 0.0
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        gen = torch.Generator(device=device).manual_seed(SEED + 650 + i)
+        c = fp8.kernel_layout(fp8.quantize_from_float(
+            torch.randn((2, K, N), generator=gen, device=device) * K**-0.5))
+        q, scale = c["q"][1], c["scale"][1]
+        one = torch.ones((), device=device)
+        for T in INT4_CHECK_T:
+            x = make_x(T, K, device, SEED + 50 + T)
+            got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=1)
+            plain = fp8_w8a8_matmul_ref(x, q, scale)
+            xq, act_scale = quantize_activations_e4m3(x)
+            # Slices of K: xq's stay row-major, q's column-major.
+            chunked = sum(torch._scaled_mm(
+                xq[:, k:k + FP8_CHUNK], q[k:k + FP8_CHUNK], scale_a=one,
+                scale_b=one, out_dtype=torch.float32)
+                for k in range(0, K, FP8_CHUNK)) * act_scale * scale
+            widened = torch.mm(xq.to(torch.bfloat16), q.to(torch.bfloat16),
+                               out_dtype=torch.float32) * act_scale * scale
+            torch.cuda.synchronize()
+            where = f"fp8_w8a8_matmul [{site} T={T}]"
+            if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
+                fail(f"{where}: output {got.shape} {got.dtype}")
+            if not bool(got.isfinite().all()):
+                fail(f"{where}: non-finite output")
+            ratios = {name: row_ratio(v, plain) for name, v in (
+                ("product", got), ("chunked", chunked),
+                ("widened", widened))}
+            abs_err = float((got - plain).abs().max())
+            worst_abs = max(worst_abs, abs_err)
+            print(f"check {where}: max_abs_err against plain {abs_err:.3e}, "
+                  f"worst row err / max|row| {ratios['product']:.3e} "
+                  f"(tolerance {FP8_TOL:.3e}); witness, bf16 operands "
+                  f"with f32 sums {ratios['widened']:.3e} (tolerance "
+                  f"{INT4_TOL_SAME:.3e}); _scaled_mm over {FP8_CHUNK}-wide "
+                  f"K slices summed in f32 {ratios['chunked']:.3e}",
+                  flush=True)
+            if ratios["product"] > FP8_TOL:
+                fail(f"{where} disagrees with its plain version")
+            if ratios["widened"] > INT4_TOL_SAME:
+                fail(f"{where}: the witness disagrees with the plain version")
+        del c, q, scale
+        torch.cuda.empty_cache()
+    return worst_abs
+
+
+def rotation(layers):
+    """A function that returns the next layer index, round robin."""
+    state = {"layer": 0}
+
+    def nxt():
+        state["layer"] = (state["layer"] + 1) % layers
+        return state["layer"]
+
+    return nxt
+
+
+def w4a8_timings(device, iters):
+    """Times of the W4A8 wrapper (quantizer + kernel) at every (site, T)
+    of INT4_TIME_T beside its plain version, torch._int_mm on the unpacked
+    int8 levels (the int8 product without the group fix-ups, which the
+    port never calls), torch.matmul on bf16 weights and the bound (bytes
+    over 3.35 TB/s, operations over 1979 TOPS int8); each timed launch
+    takes the next layer of a stack larger than the 50 MB L2."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        dequantize_int4, int4p_matmul_w4a8, int4p_matmul_w4a8_ref,
+        quantize_activations_int8, unpack_int4_rows)
+
+    points = []
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        layer_bytes = K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+        layers = -(-100_000_000 // layer_bytes) + 1
+        q4p, scale, zero = make_int4_case(K, N, layers, device,
+                                          SEED + 60 + i)
+        q8 = torch.stack([unpack_int4_rows(q4p[l]) for l in range(layers)])
+        dense = torch.stack([
+            dequantize_int4(q8[l], scale[l], zero[l],
+                            INT4_GROUP).to(torch.bfloat16)
+            for l in range(layers)])
+        for T in INT4_TIME_T:
+            x = make_x(T, K, device, SEED + 70 + T)
+            xq, _ = quantize_activations_int8(x)
+            nxt = rotation(layers)
+            n = iters if T <= 64 else max(4, iters // 10)
+            ms = time_ms(lambda: int4p_matmul_w4a8(
+                x, q4p, scale, zero, INT4_GROUP, layer_idx=nxt()), n)
+
+            def plain():
+                l = nxt()
+                return int4p_matmul_w4a8_ref(x, q4p[l], scale[l], zero[l],
+                                             INT4_GROUP)
+
+            plain_ms = time_ms(plain, max(2, n // 20))
+            library_ms = time_ms(lambda: torch._int_mm(xq, q8[nxt()]), n)
+            bf16_ms = time_ms(lambda: torch.matmul(x, dense[nxt()]), n)
+            nbytes, ops = int4_work(T, K, N)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT8_OPS * 1e3
+            pt = dict(site=site, K=K, N=N, T=T, ms=ms, plain_ms=plain_ms,
+                      library_ms=library_ms, bf16_library_ms=bf16_ms,
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+            points.append(pt)
+            print(f"time int4p_matmul_w4a8 [{site} {K}x{N} T={T}, {layers} "
+                  f"layers in turn]: quantizer + kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (torch._int_mm on int8 levels, "
+                  f"no group fix-ups) {library_ms:.4f} ms, bf16 library "
+                  f"(matmul on bf16 weights) {bf16_ms:.4f} ms, bound "
+                  f"{pt['bound_ms']:.4f} ms ({pt['bound_by']}: {nbytes} "
+                  f"bytes, {ops} int8 operations)", flush=True)
+        del q4p, scale, zero, q8, dense
+        torch.cuda.empty_cache()
+    return points
+
+
+def quantizer_timings(device, iters):
+    """Times of the activation quantizer, both formats, at ACT_TIME beside
+    its plain version and its byte bound (2 bytes read and 1 written per
+    value); no one PyTorch call computes it (library_ms null)."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        quantize_activations, quantize_activations_e4m3,
+        quantize_activations_int8)
+
+    plain = {"int8": quantize_activations_int8,
+             "e4m3": quantize_activations_e4m3}
+    points = []
+    for T, K in ACT_TIME:
+        x = make_act_rows(T, K, device, SEED + 700 + T)
+        for fmt, fn in plain.items():
+            ms = time_ms(lambda: quantize_activations(x, fmt), iters)
+            plain_ms = time_ms(lambda: fn(x), max(2, iters // 10))
+            nbytes = T * K * 3 + T * 4
+            pt = dict(format=fmt, T=T, K=K, ms=ms, plain_ms=plain_ms,
+                      library_ms=None,
+                      bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                      bound_by="bytes")
+            points.append(pt)
+            print(f"time quantize_activations [{fmt} T={T} K={K}]: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{pt['bound_ms']:.4f} ms (bytes: {nbytes})", flush=True)
+    return points
+
+
+def fp8_timings(device, iters):
+    """Times of the FP8 W8A8 product at every (site, T): the wrapper
+    (quantizer kernel, torch._scaled_mm, two f32 scalings) and the
+    _scaled_mm call alone beside the plain version and the bound (bytes:
+    x bf16, 1 byte a weight, f32 scale and output; operations over 1979
+    TFLOP/s fp8)."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        fp8_w8a8_matmul, fp8_w8a8_matmul_ref, quantize_activations_e4m3)
+    from aphrodite_tpu_torch.quantization import fp8
+
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        layers = -(-100_000_000 // (K * N)) + 1
+        gen = torch.Generator(device=device).manual_seed(SEED + 800 + i)
+        c = fp8.kernel_layout(fp8.quantize_from_float(torch.randn(
+            (layers, K, N), generator=gen, device=device) * K**-0.5))
+        one = torch.ones((), device=device)
+        for T in INT4_TIME_T:
+            x = make_x(T, K, device, SEED + 70 + T)
+            xq, _ = quantize_activations_e4m3(x)
+            nxt = rotation(layers)
+            n = iters if T <= 64 else max(4, iters // 10)
+            ms = time_ms(lambda: fp8_w8a8_matmul(x, c["q"], c["scale"],
+                                                 layer_idx=nxt()), n)
+            mm_ms = time_ms(lambda: torch._scaled_mm(
+                xq, c["q"][nxt()], scale_a=one, scale_b=one,
+                out_dtype=torch.float32), n)
+
+            def plain():
+                l = nxt()
+                return fp8_w8a8_matmul_ref(x, c["q"][l], c["scale"][l])
+
+            plain_ms = time_ms(plain, max(2, n // 20))
+            nbytes = T * K * 2 + K * N + N * 4 + T * N * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * T * K * N / INT8_OPS * 1e3
+            print(f"time fp8_w8a8_matmul [{site} {K}x{N} T={T}, {layers} "
+                  f"layers in turn]: quantizer + _scaled_mm + scaling "
+                  f"{ms:.4f} ms, _scaled_mm alone {mm_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
+                  flush=True)
+        del c
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
 # unpacked int4 matmul (one level per byte)
 # ----------------------------------------------------------------------
 
@@ -1123,17 +1537,20 @@ CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
 
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
-              gguf=None, q4_body=None):
+              gguf=None, q4_body=None, w4a8=False):
     """LLM.generate through the port's entry point, with bf16 weights,
-    (quantization="gptq") packed int4 ones or (gguf="q6_k" or "q8_0") a
-    GGUF file of that block type written from the seed, whose projections
-    load as unpacked one-level-per-byte containers; and a bf16 KV cache or
+    (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
+    8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
+    of that block type written from the seed, whose projections load as
+    unpacked one-level-per-byte containers; and a bf16 KV cache or
     (kv_cache_dtype) a narrow one, whose per-layer scales are ones or
     (kv_scale) come from a JSON file. q4_body sends every unpacked matmul
     of the path to that body of the kernel and not to the one the wrapper
     would choose: the projections' reference to the wrapper is replaced,
-    for this path only, by one that names the body. Returns the launch
-    counts of the path's kernels, by variant name, and the rates."""
+    for this path only, by one that names the body. w4a8 sets
+    APHRODITE_W4_A8=1 for this path only (packed int4 weights take W4A8 in
+    forwards of 16 tokens or more). Returns the launch counts of the path's
+    kernels, by variant name, and the rates."""
     import torch
 
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
@@ -1142,20 +1559,36 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
     from aphrodite_tpu_torch.ops.quant_matmul import (INT4_BODY,
+                                                      fp8_w8a8_matmul,
                                                       int4_matmul,
-                                                      int4p_matmul)
+                                                      int4p_matmul,
+                                                      int4p_matmul_w4a8,
+                                                      quantize_activations)
 
     wrappers = {"ragged_paged_attention": ragged_paged_attention,
                 "paged_decode_attention": paged_decode_attention}
-    if quantization is not None:
+    if quantization == "gptq" and w4a8:
+        wrappers["int4p_matmul_w4a8"] = int4p_matmul_w4a8
+        wrappers["quantize_activations"] = quantize_activations
+    elif quantization == "gptq":
         wrappers["int4p_matmul"] = int4p_matmul
-    if gguf is not None:
+    elif quantization == "fp8":
+        wrappers["fp8_w8a8_matmul"] = fp8_w8a8_matmul
+        wrappers["quantize_activations"] = quantize_activations
+    if gguf is not None or quantization == "int8":
         wrappers["int4_matmul"] = int4_matmul
     page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
     layers = model_config["num_hidden_layers"]
-    label = (f"main path ({quantization or (gguf and gguf + ' gguf') or 'bf16'} weights, "
+    weights = (quantization or (gguf and gguf + ' gguf') or 'bf16') + (
+        " w4a8" if w4a8 else "")
+    label = (f"main path ({weights} weights, "
              f"{kv_cache_dtype if page_type != 'bf16' else 'bf16'} cache, "
              f"{layers} layers)")
+    if w4a8:
+        # Restored once this path's logits are compared; a failure ends the
+        # script.
+        saved_switch = os.environ.get("APHRODITE_W4_A8")
+        os.environ["APHRODITE_W4_A8"] = "1"
     vocab = model_config["vocab_size"]
     with tempfile.TemporaryDirectory() as td:
         scales_path = None
@@ -1203,19 +1636,21 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # Forwards are counted where the runner calls the model, so that the
     # attention launches can be held to one per layer and forward.
     model = llm.engine.runner.model
-    forwards = [0]
+    forward_tokens = []  # T of each forward, in order
     model_forward = model.forward
 
-    def counted_forward(*args, **kwargs):
-        forwards[0] += 1
-        return model_forward(*args, **kwargs)
+    def counted_forward(params, kv_cache, batch, *args, **kwargs):
+        forward_tokens.append(int(batch.token_ids.shape[0]))
+        return model_forward(params, kv_cache, batch, *args, **kwargs)
 
     model.forward = counted_forward
-    for fn in (*wrappers.values(), int4_matmul, int4p_matmul):
+    for fn in (*wrappers.values(), int4_matmul, int4p_matmul,
+               int4p_matmul_w4a8, quantize_activations, fp8_w8a8_matmul):
         fn.launches = 0
     for fn in (ragged_paged_attention, paged_decode_attention):
         fn.launches_by_dtype = {}
     int4_matmul.launches_by_body = {}
+    quantize_activations.launches_by_format = {}
     if q4_body is not None:
         # Until this path's logits are compared; a failure ends the script.
         qlinear_mod.int4_matmul = functools.partial(int4_matmul,
@@ -1230,9 +1665,14 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                 for name in ("ragged_paged_attention",
                              "paged_decode_attention")}
     by_body = dict(int4_matmul.launches_by_body)
-    other_int4 = int4p_matmul.launches if gguf else int4_matmul.launches
+    by_format = dict(quantize_activations.launches_by_format)
+    w4a16 = int4p_matmul.launches
+    other_int4 = (int4p_matmul.launches if gguf or quantization == "int8"
+                  else int4_matmul.launches)
     model.forward = model_forward
-    forwards = forwards[0]
+    forwards = len(forward_tokens)
+    # Forwards of 16 tokens or more, which W4A8 takes with the switch.
+    wide = sum(1 for t in forward_tokens if t >= 16)
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
@@ -1268,12 +1708,50 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
              f"{layers} layers x {forwards} forwards")
     print(f"{label}: {forwards} forwards, each with {layers} attention "
           f"launches on {page_type} pages", flush=True)
-    if quantization is not None:
+    if quantization == "gptq" and not w4a8:
         # And four int4 matmuls (wqkv, wo, w13, down) per layer.
         if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
         print(f"{label}: int4p_matmul launched {4 * layers} times in each "
+              "forward", flush=True)
+    if w4a8:
+        # Four W4A8 products (and activation quantizations) per layer in
+        # every forward of 16 tokens or more, four W4A16 ones in every
+        # other.
+        want = {"int4p_matmul_w4a8": 4 * layers * wide,
+                "quantize_activations": 4 * layers * wide,
+                "int4p_matmul": 4 * layers * (forwards - wide)}
+        got = {"int4p_matmul_w4a8": launches["int4p_matmul_w4a8"],
+               "quantize_activations": by_format.get("int8", 0),
+               "int4p_matmul": w4a16}
+        if got != want or set(by_format) - {"int8"}:
+            fail(f"W4A8 path launches {got}, by format {by_format}, are not "
+                 f"{want} for {wide} forwards of 16 tokens or more and "
+                 f"{forwards - wide} under")
+        print(f"{label}: {wide} forwards of 16 tokens or more, each with "
+              f"{4 * layers} int4p_matmul_w4a8 and int8 quantize_activations "
+              f"launches; {forwards - wide} under, each with {4 * layers} "
+              f"int4p_matmul launches; tokens per forward "
+              f"{sorted(set(forward_tokens))}", flush=True)
+        launches["int4p_matmul"] = w4a16
+    if quantization == "int8":
+        # Four group-wise body launches (G = K) per layer and forward.
+        if by_body != {"groupwise": 4 * layers * forwards}:
+            fail(f"int4_matmul launches by body {by_body} on the {label} "
+                 f"are not groupwise: 4 x {layers} layers x {forwards} "
+                 "forwards")
+        print(f"{label}: int4_matmul (group-wise body, G = K) launched "
+              f"{4 * layers} times in each forward", flush=True)
+    if quantization == "fp8":
+        # Four e4m3 quantizations and _scaled_mm products per layer.
+        n = 4 * layers * forwards
+        if (launches["fp8_w8a8_matmul"] != n or by_format != {"e4m3": n}):
+            fail(f"fp8 path: {launches['fp8_w8a8_matmul']} _scaled_mm and "
+                 f"{by_format} quantizer launches are not 4 x {layers} "
+                 f"layers x {forwards} forwards")
+        print(f"{label}: fp8_w8a8_matmul (_scaled_mm) and e4m3 "
+              f"quantize_activations launched {4 * layers} times in each "
               "forward", flush=True)
     if gguf is not None:
         # And four unpacked matmuls (wqkv, wo, w13, down) per layer, none
@@ -1293,9 +1771,22 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # matmul.
     what = "attention"
     if page_type == "bf16" and (quantization or gguf):
-        what = "int4" if quantization else "q4"
+        what = ("q4" if gguf else "w4a8" if w4a8 else
+                {"gptq": "int4", "int8": "int8", "fp8": "fp8"}[quantization])
     compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY)
+    if quantization == "fp8":
+        # The check above holds the port's kernel on this path (the
+        # quantizer) with torch._scaled_mm on both sides; this one the
+        # whole product against its exact f32 plain version, at every
+        # site (FP8_TOL) and in the logits (FP8_LOGIT_TOL; ROADMAP.md
+        # section 3).
+        compare_logits(llm, device, rng, vocab, "fp8 exact", INT4_BODY)
     qlinear_mod.int4_matmul = int4_matmul
+    if w4a8:
+        if saved_switch is None:
+            del os.environ["APHRODITE_W4_A8"]
+        else:
+            os.environ["APHRODITE_W4_A8"] = saved_switch
     launches = {variant_name(name, page_type) if name in by_dtype else name: n
                 for name, n in launches.items()}
     for body, n in by_body.items():
@@ -1307,16 +1798,28 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
     """One prefill forward (ragged kernel) and one decode forward (decode
     kernel) with every kernel, then the same with the plain version of one
     of them on the same inputs and the same starting cache (of the
-    engine's page type, written through its scales); logits compared.
-    `what` names the kernels swapped for their plain versions:
-    "attention" (both attention kernels), "int4" (the packed int4 matmul)
-    or "q4" (the unpacked one, which runs its body q4_body)."""
+    engine's page type, written through its scales); logits compared
+    within LOGIT_TOL of a row, argmax equal. `what` names the kernels
+    swapped for their plain versions: "attention" (both attention
+    kernels), "int4" (the packed int4 matmul), "q4" (the unpacked one,
+    which runs its body q4_body), "w4a8" (both packed products: the decode
+    forward has 16 rows, so that it takes W4A8 too, and a third forward,
+    a decode of 8 rows, takes W4A16; each forward's launches are held to
+    that route), "int8" (int8 weight-only), "fp8" (the activation
+    quantizer of FP8 W8A8; torch._scaled_mm on both sides) or "fp8 exact"
+    (the whole FP8 W8A8 product against its exact f32 plain version: the
+    plain run also launches the product at every site on that run's own
+    inputs and holds it at FP8_TOL; the logits are held at FP8_LOGIT_TOL
+    and their argmax agreement is printed, not held)."""
     import torch
 
     import aphrodite_tpu_torch.models.llama as llama_mod
+    import aphrodite_tpu_torch.ops.quant_matmul as quant_matmul_mod
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
-    from aphrodite_tpu_torch.ops.quant_matmul import (int4_matmul_ref,
-                                                      int4p_matmul_ref)
+    from aphrodite_tpu_torch.ops.quant_matmul import (
+        fp8_w8a8_matmul_ref, int4_matmul_ref, int4p_matmul,
+        int4p_matmul_ref, int4p_matmul_w4a8, int4p_matmul_w4a8_ref,
+        int8_matmul_ref, quantize_activations_e4m3, quantize_activations_int8)
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
@@ -1325,7 +1828,7 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
     runner = llm.engine.runner
     model, params = runner.model, runner.params
     lens = [300, 17, 129]
-    S, T = 8, 512
+    S, T = (16 if what == "w4a8" else 8), 512
     pps = runner.pages_per_seq
     ids = np.zeros((T,), np.int32)
     pos = np.zeros((T,), np.int32)
@@ -1362,19 +1865,30 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
                           t(dslots), t(dlens), t(pages), None,
                           t(np.asarray([len(lens)], np.int32)),
                           t(np.arange(S, dtype=np.int32)))
+    forwards = {"prefill": prefill, "decode": decode}
+    if what == "w4a8":
+        # The first 8 rows of the decode batch: under 16 tokens the switch
+        # keeps the W4A16 product.
+        forwards["decode T=8"] = ForwardBatch(
+            *(None if v is None else v[:8] for v in decode[:6]),
+            decode.num_seqs, decode.logits_indices[:8])
     base = runner.kv_cache[:, :next_page].clone()
+    # Launches of the two packed products in each forward of a run.
+    routed = {}
 
     def run():
         runner.kv_cache[:, :next_page] = base
+        logits = []
         with torch.inference_mode():
-            h = model.forward(params, runner.kv_cache, prefill,
-                              runner.kv_scales)
-            lp = model.compute_logits(params, h[prefill.logits_indices])
-            h = model.forward(params, runner.kv_cache, decode,
-                              runner.kv_scales)
-            ld = model.compute_logits(params, h)
-        n = len(lens)
-        return lp[:n], ld[:n]
+            for name, batch in forwards.items():
+                before = (int4p_matmul_w4a8.launches, int4p_matmul.launches)
+                h = model.forward(params, runner.kv_cache, batch,
+                                  runner.kv_scales)
+                logits.append(model.compute_logits(
+                    params, h[batch.logits_indices])[:len(lens)])
+                routed[name] = (int4p_matmul_w4a8.launches - before[0],
+                                int4p_matmul.launches - before[1])
+        return logits
 
     def plain_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens,
                         num_seqs, **kw):
@@ -1401,19 +1915,65 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
         return int4_matmul_ref(x, q4[layer_idx], scale[layer_idx],
                                zero[layer_idx], group)
 
-    module, attr, plain = {
-        "attention": (llama_mod, "ragged_paged_attention", plain_attention),
-        "int4": (qlinear_mod, "int4p_matmul", plain_int4),
-        "q4": (qlinear_mod, "int4_matmul", plain_q4)}[what]
+    def plain_w4a8(x, q4p, scale, zero, group, layer_idx=None):
+        return int4p_matmul_w4a8_ref(x, q4p[layer_idx], scale[layer_idx],
+                                     zero[layer_idx], group)
+
+    def plain_int8(x, q, scale, layer_idx=None):
+        return int8_matmul_ref(x, q[layer_idx], scale[layer_idx])
+
+    site_ratios = []
+
+    def plain_fp8(x, q, scale, layer_idx=None):
+        # The product at this site on the plain run's own inputs, held
+        # after the run.
+        want = fp8_w8a8_matmul_ref(x, q[layer_idx], scale[layer_idx])
+        site_ratios.append(row_ratio(
+            kernels[0](x, q, scale, layer_idx=layer_idx), want))
+        return want
+
+    def plain_quantizer(x, fmt):
+        return (quantize_activations_int8 if fmt == "int8"
+                else quantize_activations_e4m3)(x)
+
+    swaps = {
+        "attention": [(llama_mod, "ragged_paged_attention", plain_attention)],
+        "int4": [(qlinear_mod, "int4p_matmul", plain_int4)],
+        "q4": [(qlinear_mod, "int4_matmul", plain_q4)],
+        "w4a8": [(qlinear_mod, "int4p_matmul_w4a8", plain_w4a8),
+                 (qlinear_mod, "int4p_matmul", plain_int4)],
+        "int8": [(qlinear_mod, "int8_matmul", plain_int8)],
+        "fp8": [(quant_matmul_mod, "quantize_activations", plain_quantizer)],
+        "fp8 exact": [(qlinear_mod, "fp8_w8a8_matmul", plain_fp8)]}[what]
     got = run()
-    kernel = getattr(module, attr)
-    setattr(module, attr, plain)
+    if what == "w4a8":
+        # Four products per layer, by the route of the forward's T.
+        n = 4 * model.num_layers
+        want_routes = {"prefill": (n, 0), "decode": (n, 0),
+                       "decode T=8": (0, n)}
+        print(f"w4a8 routes (W4A8, W4A16 launches) by forward: {routed}",
+              flush=True)
+        if routed != want_routes:
+            fail(f"W4A8 switch routed {routed}, not {want_routes}")
+    kernels = [getattr(module, attr) for module, attr, _ in swaps]
+    for module, attr, plain in swaps:
+        setattr(module, attr, plain)
     try:
         want = run()
     finally:
-        setattr(module, attr, kernel)
+        for (module, attr, _), kernel in zip(swaps, kernels):
+            setattr(module, attr, kernel)
+    tol = FP8_LOGIT_TOL if what == "fp8 exact" else LOGIT_TOL
+    if what == "fp8 exact":
+        print(f"fp8 exact: {len(site_ratios)} products on the plain run's "
+              f"inputs, worst row err / max|row| {max(site_ratios):.3e} "
+              f"(tolerance {FP8_TOL:.3e})", flush=True)
+        if max(site_ratios) > FP8_TOL:
+            fail("an fp8 product of the main path disagrees with its plain "
+                 "version")
     worst = 0.0
-    for label, g, w in zip((f"{what} prefill", f"{what} decode"), got, want):
+    for name, g, w in zip(forwards, got, want):
+        label = f"{what} {name}"
         if not bool(g.isfinite().all()):
             fail(f"{label} logits are not finite")
         err = (g - w).abs().amax(-1)
@@ -1421,12 +1981,12 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
         agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
         print(f"logits {label}: max_abs_err {float(err.max()):.3e}, worst "
               f"row err / max|row| {float((err / scale).max()):.3e} "
-              f"(tolerance {LOGIT_TOL:.1e}), argmax agreement {agree:.2f}",
+              f"(tolerance {tol:.1e}), argmax agreement {agree:.2f}",
               flush=True)
-        if not bool((err <= LOGIT_TOL * scale).all()):
+        if not bool((err <= tol * scale).all()):
             fail(f"{label} logits with the kernel disagree with the "
                  "plain version's")
-        if agree < 1.0:
+        if agree < 1.0 and what != "fp8 exact":
             # For whoever reads the failure: how far below its own best
             # the plain version holds the token the kernel run picked,
             # beside the gap between the plain version's best two.
@@ -1457,12 +2017,19 @@ def main() -> None:
                 LLAMA_8B["num_key_value_heads"], LLAMA_8B["head_dim"])
     errs = kernel_checks("cuda", geometry)
     errs["int4p_matmul"] = int4_checks("cuda")
+    errs["int4p_matmul_w4a8"] = w4a8_checks("cuda")
+    errs["quantize_activations"] = quantizer_checks("cuda")
+    int8_checks("cuda")
+    fp8_checks("cuda")
     q4_errs = q4_checks("cuda")
     prompt_lens = np.random.default_rng(SEED).integers(
         16, 1025, size=NUM_REQUESTS)
     times = kernel_timings("cuda", geometry, prompt_lens, iters=200,
                            errs=errs)
     int4_points = int4_timings("cuda", iters=200)
+    w4a8_points = w4a8_timings("cuda", iters=200)
+    act_points = quantizer_timings("cuda", iters=200)
+    fp8_timings("cuda", iters=200)
     int4_block_sweep("cuda", iters=50)
     q4_points = q4_timings("cuda", iters=200)
     q4_block_sweep("cuda", iters=50)
@@ -1489,6 +2056,12 @@ def main() -> None:
             gguf="q6_k"),
         "q8_0 gguf, 4 layers, group-wise body": dict(
             model_config=short, gguf="q8_0", q4_body="groupwise"),
+        # Slice 5: W4A8 (the switch set for this path only), then the two
+        # 8-bit weight kinds quantized at load, cut to 4 layers.
+        "gptq w4a8": dict(model_config=LLAMA_8B, quantization="gptq",
+                          w4a8=True),
+        "int8, 4 layers": dict(model_config=short, quantization="int8"),
+        "fp8, 4 layers": dict(model_config=short, quantization="fp8"),
     }
     launches, rates = {}, {}
     for path, kw in paths.items():
@@ -1577,6 +2150,48 @@ def main() -> None:
                           "named on the q8_0 gguf path (body=, bound "
                           "into the projections' reference to the wrapper)"),
             points=points))
+    # W4A8 and the quantizer. The W4A8 headline times are those of the
+    # largest site at the decode step's size (the wrapper: quantizer and
+    # kernel); every (site, T) point follows in "points".
+    head = next(p for p in w4a8_points
+                if p["site"] == "w13" and p["T"] == 32)
+    by_path = on_paths("int4p_matmul_w4a8")
+    if not sum(by_path.values()):
+        fail("int4p_matmul_w4a8 was launched on no main path")
+    kernels.append(dict(
+        name="int4p_matmul_w4a8", route="cuda",
+        source="aphrodite_tpu_torch/csrc/int4p_matmul_w4a8.cu",
+        replaces="aphrodite_tpu/ops/quant_matmul.py:434",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=errs["int4p_matmul_w4a8"],
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                "bf16_library_ms", "bound_ms", "bound_by")},
+        library="torch._int_mm on the unpacked int8 levels (no group "
+                "fix-ups)",
+        shape="w13 4096x28672 T=32", points=w4a8_points))
+    head = next(p for p in act_points
+                if p["format"] == "int8" and p["T"] == 32 and p["K"] == 4096)
+    by_path = on_paths("quantize_activations")
+    if not sum(by_path.values()):
+        fail("quantize_activations was launched on no main path")
+    kernels.append(dict(
+        name="quantize_activations", route="cuda",
+        source="aphrodite_tpu_torch/csrc/int4p_matmul_w4a8.cu",
+        replaces=("aphrodite_tpu/ops/quant_matmul.py:424 "
+                  "quantize_activations_int8 and "
+                  "aphrodite_tpu/quantization/qlinear.py:72 "
+                  "_fp8_w8a8_matmul's activation cast (XLA code)"),
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=errs["quantize_activations"],
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        shape="int8, T=32, K=4096", points=act_points))
+    for a, b in (("gptq w4a8", "gptq"),):
+        print(f"rates {a} against {b} (this run): decode "
+              f"{rates[a]['decode_tok_s']:.1f} against "
+              f"{rates[b]['decode_tok_s']:.1f} tok/s, prefill "
+              f"{rates[a]['prefill_tok_s']:.1f} against "
+              f"{rates[b]['prefill_tok_s']:.1f} tok/s", flush=True)
     print("rates: " + json.dumps(rates), flush=True)
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,8 @@ the card it runs without them:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,13 +21,22 @@ from aphrodite_tpu_torch.ops.decode_attention import (
     paged_decode_attention, ref_paged_decode_attention)
 from aphrodite_tpu_torch.ops.kv_cache import quantize_kv, write_kv
 from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                  fp8_w8a8_matmul,
+                                                  fp8_w8a8_matmul_ref,
                                                   int4_matmul,
                                                   int4_matmul_ref,
                                                   int4p_matmul,
                                                   int4p_matmul_ref,
+                                                  int4p_matmul_w4a8,
+                                                  int4p_matmul_w4a8_ref,
+                                                  int8_matmul,
+                                                  int8_matmul_ref,
                                                   pack_int4_rows,
+                                                  quantize_activations,
+                                                  quantize_activations_e4m3,
+                                                  quantize_activations_int8,
                                                   unpack_int4_rows)
-from aphrodite_tpu_torch.quantization import int4
+from aphrodite_tpu_torch.quantization import fp8, int4, int8
 from aphrodite_tpu_torch.sampling.metadata import (SamplerInputRow,
                                                    build_sampling_tensors)
 from aphrodite_tpu_torch.sampling.sampler import sample, tensors_to_device
@@ -496,8 +507,10 @@ def test_int4_kernel_refuses_what_it_does_not_take():
         int4_matmul(x, q4, scale, zero, 64)
     with pytest.raises(ValueError, match="body"):
         int4_matmul(x, *args, body="wmma")
-    with pytest.raises(NotImplementedError, match="int8"):
-        qmatmul(x, {"q": q4[0], "scale": scale[0]})
+    # An int8 per-channel container launches the group-wise body at G = K.
+    groupwise = int4_matmul.launches_by_body.get("groupwise", 0)
+    qmatmul(x, {"q": q4[0], "scale": scale[0, :1]})
+    assert int4_matmul.launches_by_body["groupwise"] == groupwise + 1
 
 
 @pytest.mark.cuda
@@ -512,3 +525,173 @@ def test_quantize_from_float_on_card_matches_numpy(group):
     for k in want:
         assert got[k].device.type == "cuda"
         np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+
+
+# ----------------------------------------------------------------------
+# W4A8, the activation quantizer, int8 weight-only and FP8 W8A8
+# ----------------------------------------------------------------------
+
+
+def _assert_rows_within(got, want, tol):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.isfinite().all()
+    err = (got - want).abs().amax(-1)
+    bound = tol * want.abs().amax(-1)
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,N,group", [
+    (1, 4096, 256, 128), (16, 4096, 6144, 128), (33, 1024, 128, 32),
+    (100, 14336, 512, 128), (2048, 4096, 256, 64)])
+def test_w4a8_kernel_matches_plain_on_card(T, K, N, group):
+    """Stacked container with a layer index, wide zeros; T = 1 and 33
+    leave a row block partly dead, K = 14336 at small T splits K. The
+    int8 activations are bit-equal on both sides and every group's product
+    is an exact int32, so only the order of the f32 sums differs."""
+    _card_or_skip()
+    rng = np.random.default_rng(T + K)
+    x, q4p, scale, zero = _int4_case(rng, 2, K, N, group, T, wide_zero=True)
+    before = int4p_matmul_w4a8.launches, quantize_activations.launches
+    got = int4p_matmul_w4a8(x, q4p, scale, zero, group, layer_idx=1)
+    torch.cuda.synchronize()
+    assert (int4p_matmul_w4a8.launches, quantize_activations.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = int4p_matmul_w4a8_ref(x, q4p[1], scale[1], zero[1], group)
+    _assert_rows_within(got, want, SAME_TOL)
+    # And within the JAX package's bound on a8 error against the W4A16
+    # product (tests/test_quantization.py: under 2 % of the largest).
+    a16 = int4p_matmul_ref(x.float(), q4p[1], scale[1], zero[1], group)
+    assert float((got - a16).abs().max() / a16.abs().max()) < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "e4m3"])
+@pytest.mark.parametrize("K", [8, 4096, 14336])
+def test_quantize_activations_kernel_bytes_equal_the_plain_on_card(fmt, K):
+    """bf16 rows at scales from e^-8 to e^6, an all-zero row, a row with
+    one large value, and a row of exact .5 steps (sx = 1): the kernel's
+    bytes and scales equal the plain version's, on the card and on the
+    CPU."""
+    _card_or_skip()
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((70, K)).astype(np.float32)
+    x *= np.exp(rng.uniform(-8, 6, (70, 1))).astype(np.float32)
+    x[0] = 0.0
+    x[1] *= 1e-3
+    x[1, K // 2] = 300.0
+    x[2] = (np.arange(K) % 255 - 127).astype(np.float32) * 0.5
+    x[2, 0] = 127.0
+    xc = torch.from_numpy(x).to(torch.bfloat16)
+    plain = (quantize_activations_int8 if fmt == "int8"
+             else quantize_activations_e4m3)
+    before = quantize_activations.launches
+    got_q, got_s = quantize_activations(xc.cuda(), fmt)
+    torch.cuda.synchronize()
+    assert quantize_activations.launches == before + 1
+    for want_q, want_s in (plain(xc), plain(xc.cuda())):
+        assert got_q.dtype == want_q.dtype
+        assert torch.equal(got_q.view(torch.uint8).cpu(),
+                           want_q.view(torch.uint8).cpu())
+        assert torch.equal(got_s.cpu(), want_s.cpu())
+
+
+@pytest.mark.cuda
+def test_w4a8_kernel_refuses_what_it_does_not_take():
+    from aphrodite_tpu_torch.quantization.qlinear import qmatmul
+
+    _card_or_skip()
+    rng = np.random.default_rng(0)
+    x, q4p, scale, zero = _int4_case(rng, 2, 512, 256, 64, 16)
+    int4p_matmul_w4a8(x, q4p, scale, zero, 64, layer_idx=0)  # taken
+    with pytest.raises(ValueError, match="bf16"):
+        int4p_matmul_w4a8(x.float(), q4p, scale, zero, 64, layer_idx=0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4p_matmul_w4a8(x, q4p[..., :192].contiguous(),
+                          scale[..., :192].contiguous(),
+                          zero[..., :192].contiguous(), 64, layer_idx=0)
+    with pytest.raises(ValueError, match="group"):
+        int4p_matmul_w4a8(x, q4p, scale.repeat_interleave(4, 1),
+                          zero.repeat_interleave(4, 1), 16, layer_idx=0)
+    with pytest.raises(ValueError, match="layer_idx"):
+        int4p_matmul_w4a8(x, q4p, scale, zero, 64)
+    # With the switch, a stacked container at T >= 16 launches W4A8; at
+    # T < 16, or with no layer, W4A16.
+    w = {"q4p": q4p, "scale": scale, "zero": zero}
+    old = os.environ.get("APHRODITE_W4_A8")
+    os.environ["APHRODITE_W4_A8"] = "1"
+    try:
+        counts = lambda: (int4p_matmul_w4a8.launches,  # noqa: E731
+                          int4p_matmul.launches)
+        start = counts()
+        qmatmul(x, w, layer=1)
+        qmatmul(x[:15], w, layer=1)
+        qmatmul(x, {k: v[0] for k, v in w.items()})
+        assert counts() == (start[0] + 1, start[1] + 2)
+    finally:
+        if old is None:
+            del os.environ["APHRODITE_W4_A8"]
+        else:
+            os.environ["APHRODITE_W4_A8"] = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 32, 300])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
+def test_int8_container_groupwise_body_on_card(T, K, N):
+    """int8 per-channel weights through the group-wise body at G = K: the
+    group spans the split-K partitions at small T. Against the plain
+    version (the JAX package's arithmetic: exact products, f32 sums, the
+    scale on the sum), the order of the sums differs only."""
+    _card_or_skip()
+    rng = np.random.default_rng(T + K)
+    w = torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
+    c = {k: v.cuda() for k, v in int8.quantize_from_float(w).items()}
+    x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    before = int4_matmul.launches_by_body.get("groupwise", 0)
+    got = int8_matmul(x, c["q"], c["scale"], layer_idx=1)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches_by_body["groupwise"] == before + 1
+    _assert_rows_within(got, int8_matmul_ref(x, c["q"][1], c["scale"][1]),
+                        SAME_TOL)
+
+
+# The fp8 product against its plain version: the e4m3 operands are equal
+# and every product exact, but the card's fp8 tensor cores keep fewer bits
+# in their sums than f32 between cuBLAS's promotions (measured on the H100:
+# 1.4e-4 of a row's largest output at K = 4096). A witness on the same
+# operands, widened to bf16 through a bf16 product with f32 sums, sides
+# with the plain version at SAME_TOL.
+FP8_TOL = 2.0**-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 32, 2048])
+def test_fp8_w8a8_matches_plain_on_card(T):
+    """The quantizer kernel and one _scaled_mm against the plain version
+    (the same e4m3 operands; FP8_TOL), on a stacked weight made on the
+    card in the kernel's column-major layout; the witness of the plain
+    version at SAME_TOL."""
+    _card_or_skip()
+    rng = np.random.default_rng(T)
+    K, N = 4096, 6144
+    w = torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
+    c = fp8.kernel_layout(fp8.quantize_from_float(w.cuda()))
+    q, scale = c["q"][1], c["scale"][1]
+    assert q.stride() == (1, K)
+    x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    before = fp8_w8a8_matmul.launches, quantize_activations.launches
+    got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=1)
+    torch.cuda.synchronize()
+    assert (fp8_w8a8_matmul.launches, quantize_activations.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fp8_w8a8_matmul_ref(x, q, scale)
+    _assert_rows_within(got, want, FP8_TOL)
+    xq, act_scale = quantize_activations_e4m3(x)
+    widened = torch.mm(xq.to(torch.bfloat16), q.to(torch.bfloat16),
+                       out_dtype=torch.float32)
+    _assert_rows_within(widened * act_scale * scale, want, SAME_TOL)
+    with pytest.raises(ValueError, match="column-major"):
+        fp8_w8a8_matmul(x, c["q"][1].contiguous(), c["scale"][1])

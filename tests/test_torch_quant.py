@@ -280,12 +280,16 @@ def test_qmatmul_and_dequantize_match_jax():
     assert not qlinear.is_quantized(torch.from_numpy(w))
     np.testing.assert_array_equal(
         qlinear.dequantize(torch.from_numpy(w), torch.float32).numpy(), w)
-    int8 = {"q": torch.zeros((256, 128), dtype=torch.int8),
-            "scale": torch.ones((1, 128))}
-    with pytest.raises(NotImplementedError, match="int8"):
-        qlinear.qmatmul(torch.from_numpy(x), int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        qlinear.dequantize(int8)
+    # An int8 per-channel container multiplies and dequantizes like the
+    # JAX package's (tests/test_torch_w4a8.py holds both {q, scale} kinds).
+    int8 = jax_method("int8").quantize_from_float(w)
+    np.testing.assert_array_equal(
+        qlinear.dequantize(_t(int8), torch.float32).numpy(),
+        np.asarray(jqlinear.dequantize(_j(int8), jnp.float32)))
+    np.testing.assert_allclose(
+        qlinear.qmatmul(torch.from_numpy(x), _t(int8)).numpy(),
+        np.asarray(jqlinear.qmatmul(jnp.asarray(x), _j(int8))), rtol=2e-3,
+        atol=2e-3)
 
 
 def test_unpacked_container_raises_off_the_cpu():
@@ -307,8 +311,18 @@ def test_registry_maps_int4_methods(name):
     assert get_quantization_method(None) is None
 
 
-@pytest.mark.parametrize("name", ["int8", "fp8", "eetq", "bitsandbytes",
-                                  "marlin", "quip"])
+@pytest.mark.parametrize("name,module", [
+    ("int8", "int8"), ("tpu_int8", "int8"), ("eetq", "int8"),
+    ("fp8", "fp8"), ("fbgemm_fp8", "fp8"), ("FP8", "fp8")])
+def test_registry_maps_8bit_methods(name, module):
+    got = get_quantization_method(name)
+    assert got.__name__ == f"aphrodite_tpu_torch.quantization.{module}"
+    assert got.NAME == jax_method(name).NAME == module
+    assert got.RUNTIME_QUANTIZE and jax_method(name).RUNTIME_QUANTIZE
+
+
+@pytest.mark.parametrize("name", ["experts_int8", "modelopt", "deepspeedfp",
+                                  "bitsandbytes", "marlin", "quip"])
 def test_registry_raises_for_methods_not_ported(name):
     jax_method(name)  # the JAX package knows it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -338,8 +352,11 @@ def test_model_config_reads_the_quantization_method():
         HF, quantization_config=marlin)).quantization == "marlin"
     with pytest.raises(NotImplementedError, match="Marlin"):
         make(ModelConfig, hf_config=dict(HF, quantization_config=marlin))
-    with pytest.raises(NotImplementedError, match="fp8"):
-        make(ModelConfig, hf_config=dict(HF), quantization="fp8")
+    for name in ("fp8", "int8"):
+        assert make(ModelConfig, hf_config=dict(HF),
+                    quantization=name).quantization == name
+    with pytest.raises(NotImplementedError, match="bitsandbytes"):
+        make(ModelConfig, hf_config=dict(HF), quantization="bitsandbytes")
     with pytest.raises(ValueError, match="int3"):
         make(ModelConfig, hf_config=dict(HF), quantization="int3")
 
@@ -384,7 +401,7 @@ def test_fuse_projections_on_containers_matches_jax():
 def test_fuse_projections_keeps_mixed_kinds_apart():
     _, model = _models()
     params = dummy_params(model, 0, torch.device("cpu"), torch.float32,
-                          quantize=True)
+                          method=int4)
     lp = params["layers"]
     fused = model.fuse_projections(
         {**params, "layers": dict(params["layers"])})
@@ -581,7 +598,7 @@ def test_quantized_checkpoint_loads_like_jax_and_generates(tmp_path, fmt):
 def test_dummy_int4_params_are_packed_and_seeded():
     _, model = _models()
     cpu = torch.device("cpu")
-    params = dummy_params(model, 0, cpu, torch.float32, quantize=True)
+    params = dummy_params(model, 0, cpu, torch.float32, method=int4)
     shapes = model.param_shapes()["layers"]
     for path in model.quantizable_weights():
         name = path.split(".")[1]
@@ -592,6 +609,6 @@ def test_dummy_int4_params_are_packed_and_seeded():
         w = qlinear.dequantize(c, torch.float32)
         assert abs(w.std().item() * np.sqrt(N) - 1) < 0.1
     assert params["embed"].dtype == torch.float32  # dense leaves stay dense
-    again = dummy_params(model, 0, cpu, torch.float32, quantize=True)
+    again = dummy_params(model, 0, cpu, torch.float32, method=int4)
     assert torch.equal(again["layers"]["down"]["q4p"],
                        params["layers"]["down"]["q4p"])
