@@ -53,6 +53,28 @@
 // Shape rules (checked by the wrapper): N % 128 == 0, K % 64 == 0, G as
 // above, x bf16 with unit stride in its last axis and a row stride that is a
 // multiple of 8, all pointers 16-byte aligned.
+//
+// A third body, e4m3, is the FP8 W8A8 product of
+// aphrodite_tpu/quantization/qlinear.py: _fp8_w8a8_matmul, which the JAX
+// package leaves to XLA (no Pallas kernel): x is the per-token e4m3
+// quantizer's output (one byte a value, [T, K]) and q the e4m3 weight [K,
+// N], row-major like every other container here; the result is the f32
+// sum of the e4m3 products, and the wrapper multiplies act_scale and scale
+// after, in f32, as the JAX package does. Both operands are widened from
+// e4m3 to f16 in registers, one cvt per two values (every e4m3 value is
+// exact in f16, as in bf16), and go to the f16 mma.sync with f32
+// accumulators: each product of two 4-bit significands is exact, so the
+// result differs from the JAX package's only in the order of its f32
+// sums. Hopper's fp8 tensor cores (torch._scaled_mm) keep fewer bits than
+// f32 inside each k step; that loss is what this body exists to avoid. It
+// reads the same bytes per weight as the level bodies, x at one byte a
+// value, and stages no scale or zero rows.
+//
+// Shape rules of the e4m3 body: N % 128 == 0, K % 64 == 0, x's row stride
+// a multiple of 16.
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include "matmul_common.cuh"
 
@@ -65,6 +87,7 @@ constexpr int SZ_LD = 2 * BN + 4; // floats per staged group row: scale, zero, p
 
 constexpr int GROUPWISE = 0;
 constexpr int DENSE = 1;
+constexpr int E4M3 = 2;
 
 // A warp owns 32 columns as four 8-column tiles, interleaved: tile j holds
 // columns 4 * i + j, so the four level bytes a thread loads as one word
@@ -87,6 +110,22 @@ __device__ __forceinline__ float component(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// Two e4m3 values, the first in the low byte, as two f16 values (exact).
+__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
+  return uint32_t(h.x) | (uint32_t(h.y) << 16);
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t dequant_pair(uint32_t w_even, uint32_t w_odd, int j, float s0,
                                                  float z0, float s1, float z1) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(__fmul_rn(__fsub_rn(level(w_even, j), z0), s0),
@@ -96,14 +135,17 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t w_even, uint32_t w_odd
 
 template <int FM, int BK, int STAGES, int BODY>
 __global__ void __launch_bounds__(THREADS)
-int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+int4_matmul_kernel(const void* __restrict__ x, const uint8_t* __restrict__ q,
                    const float* __restrict__ scale, const float* __restrict__ zero,
                    float* __restrict__ out, int T, int K, int N, int group, int x_stride,
                    int tiles_per_split, int sz_rows) {
   constexpr int BM = 16 * FM;
-  constexpr int X_LD = BK + 8;  // bf16 per x row in shared memory
+  constexpr bool FP8 = BODY == E4M3;
+  constexpr int X_SIZE = FP8 ? 1 : 2;      // bytes per x value
+  constexpr int X_VEC = 16 / X_SIZE;       // x values per 16-byte copy
+  constexpr int X_LD = BK + 16 / X_SIZE;   // x values per row in shared memory
   constexpr int Q_BYTES = BK * Q_LD;
-  constexpr int X_BYTES = BM * X_LD * 2;
+  constexpr int X_BYTES = BM * X_LD * X_SIZE;
   constexpr int STEPS = BK / 16;
   // Scale and zero rows differ inside one 16-row mma step.
   constexpr bool PER_ROW = BODY == DENSE && BK == 32;
@@ -139,15 +181,17 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restric
       const int ch = c % (BN / 16);
       cp_async16(base + row * Q_LD + ch * 16, q + size_t(k0 + row) * N + n0 + ch * 16, 16);
     }
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int row = c / (BK / 8);
-      const int ch = c % (BK / 8);
+    const unsigned char* xb = static_cast<const unsigned char*>(x);
+    for (int c = tid; c < BM * (BK / X_VEC); c += THREADS) {
+      const int row = c / (BK / X_VEC);
+      const int ch = c % (BK / X_VEC);
       const bool live = m0 + row < T;
       // A row at or past T is zero-filled: no byte of it is read.
-      cp_async16(base + Q_BYTES + (row * X_LD + ch * 8) * 2,
-                 x + size_t(live ? m0 + row : 0) * x_stride + k0 + ch * 8, live ? 16 : 0);
+      cp_async16(base + Q_BYTES + (row * X_LD + ch * X_VEC) * X_SIZE,
+                 xb + (size_t(live ? m0 + row : 0) * x_stride + k0 + ch * X_VEC) * X_SIZE,
+                 live ? 16 : 0);
     }
-    if (BODY == DENSE || small_group || closes_group(tile)) {
+    if (!FP8 && (BODY == DENSE || small_group || closes_group(tile))) {
       const int grow0 = k0 / group;
       for (int c = tid; c < sz_rows * (2 * BN / 4); c += THREADS) {
         const int row = c / (2 * BN / 4);
@@ -203,6 +247,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restric
     const unsigned char* base = smem + (it % STAGES) * stage_bytes;
     const unsigned char* qs = base;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base + Q_BYTES);
+    const unsigned char* xs8 = base + Q_BYTES;
     const float* sz = reinterpret_cast<const float*>(base + Q_BYTES + X_BYTES);
     const bool tile_closes = BODY == GROUPWISE && !small_group && closes_group(tile);
 
@@ -217,16 +262,35 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restric
       uint32_t a[FM][4];
 #pragma unroll
       for (int i = 0; i < FM; ++i) {
-        const __nv_bfloat16* xr = xs + (i * 16 + g) * X_LD + 16 * s + tig * 2;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(xr);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(xr + 8 * X_LD);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(xr + 8 * X_LD + 8);
+        if constexpr (FP8) {
+          // Two consecutive k of one row per register, widened to f16.
+          const unsigned char* xr = xs8 + (i * 16 + g) * X_LD + 16 * s + tig * 2;
+          a[i][0] = e4m3x2_to_f16x2(*reinterpret_cast<const uint16_t*>(xr));
+          a[i][1] = e4m3x2_to_f16x2(*reinterpret_cast<const uint16_t*>(xr + 8 * X_LD));
+          a[i][2] = e4m3x2_to_f16x2(*reinterpret_cast<const uint16_t*>(xr + 8));
+          a[i][3] = e4m3x2_to_f16x2(*reinterpret_cast<const uint16_t*>(xr + 8 * X_LD + 8));
+        } else {
+          const __nv_bfloat16* xr = xs + (i * 16 + g) * X_LD + 16 * s + tig * 2;
+          a[i][0] = *reinterpret_cast<const uint32_t*>(xr);
+          a[i][1] = *reinterpret_cast<const uint32_t*>(xr + 8 * X_LD);
+          a[i][2] = *reinterpret_cast<const uint32_t*>(xr + 8);
+          a[i][3] = *reinterpret_cast<const uint32_t*>(xr + 8 * X_LD + 8);
+        }
       }
       // The staged scale and zero row of this step's group.
       const int srow = small_group ? (16 * s) >> group_shift : 0;
 
-      if constexpr (BODY == GROUPWISE) {
+      if constexpr (FP8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // Byte j of rows k and k + 1, low byte first.
+          const uint32_t sel = j | ((4 + j) << 4);
+          const uint32_t b0 = e4m3x2_to_f16x2(__byte_perm(w0, w1, sel));
+          const uint32_t b1 = e4m3x2_to_f16x2(__byte_perm(w8, w9, sel));
+#pragma unroll
+          for (int i = 0; i < FM; ++i) mma_f16(acc[i][j], a[i], b0, b1);
+        }
+      } else if constexpr (BODY == GROUPWISE) {
 #pragma unroll
         for (int i = 0; i < FM; ++i) mma_bf16(rsum[i], a[i], kOnes, kOnes);
 #pragma unroll
@@ -319,8 +383,9 @@ cudaError_t launch(const void* x, const void* q, const void* scale, const void* 
   const int num_tiles = K / BK;
   if (splits > num_tiles) return cudaErrorInvalidValue;
   const int tiles_per_split = (num_tiles + splits - 1) / splits;
-  const int sz_rows = group >= BK ? 1 : BK / group;
-  const int smem = STAGES * (BK * Q_LD + BM * (BK + 8) * 2 + sz_rows * SZ_LD * 4);
+  const int sz_rows = BODY == E4M3 ? 0 : group >= BK ? 1 : BK / group;
+  constexpr int X_SIZE = BODY == E4M3 ? 1 : 2;
+  const int smem = STAGES * (BK * Q_LD + BM * (BK + 16 / X_SIZE) * X_SIZE + sz_rows * SZ_LD * 4);
   auto kernel = int4_matmul_kernel<FM, BK, STAGES, BODY>;
   // The shared memory grows with the scale rows per tile (smaller groups):
   // the limit of this instantiation is raised only when a launch needs more.
@@ -333,7 +398,7 @@ cudaError_t launch(const void* x, const void* q, const void* scale, const void* 
   }
   dim3 grid(N / BN, (T + BM - 1) / BM, splits);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      x, static_cast<const uint8_t*>(q),
       static_cast<const float*>(scale), static_cast<const float*>(zero), dst, T, K, N, group,
       x_stride, tiles_per_split, sz_rows);
   return cudaGetLastError();
@@ -388,6 +453,24 @@ extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* scale,
     err = launch_rows<32, 3, DENSE>(block_m, x, q, scale, zero, dst, T, K, N, group, x_stride,
                                     splits, stream);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
+  return static_cast<int>(err);
+}
+
+// The e4m3 body: out (f32 [T, N]) = the f32 sum of the products of x
+// (e4m3 [T, K], row stride x_stride) and q (e4m3 [K, N], row-major), with
+// no scale applied. block_m and splits as above, in k tiles of 64 rows.
+// Returns the CUDA error code of the launches (0 = success), or -1 for
+// arguments the kernel does not take.
+extern "C" int fp8_w8a8_matmul_e4m3(const void* x, const void* q, void* out, void* partial, int T,
+                                    int K, int N, int x_stride, int block_m, int splits,
+                                    void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % 64 != 0 || x_stride % 16 != 0 || splits < 1) return -1;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float* dst = static_cast<float*>(splits > 1 ? partial : out);
+  cudaError_t err = launch_rows<64, 4, E4M3>(block_m, x, q, nullptr, nullptr, dst, T, K, N, K,
+                                             x_stride, splits, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);

@@ -6,6 +6,9 @@
 // wide tiles; that layout is a TPU choice and is not carried over. Here
 // one block serves one (sequence, kv head): the QG = QH / KV query heads
 // of that kv head share every K/V tile the block stages in shared memory.
+// QG is a template parameter, instantiated for 1, 2, 4 and 8 (MHA such as
+// Baichuan-13B, 2:1 GQA, Llama-3 8B, Llama-3 70B); the query, score and
+// softmax state, the accumulators and the softmax warps scale with it.
 //
 // Bound on the H100: bytes. Each step reads every live K/V row once
 // (2 * kv_len * D bf16 per kv head) and does 4 * QG * D FLOPs per key,
@@ -18,8 +21,12 @@
 // pipeline are later work.
 //
 // Semantics (same as the plain version in ops/decode_attention.py):
-//   out[s, h] = softmax_j(cap(q[s, h] . k[s, j] * sm_scale)) . v[s, j]
-// over j in [kv_lo, kv_len), kv head h / QG; rows with kv_len == 0 are
+//   out[s, h] = softmax_j(cap(q[s, h] . k[s, j] * sm_scale)
+//                         + slope[h] * (j - (kv_len - 1))) . v[s, j]
+// over j in [kv_lo, kv_len), kv head h / QG; the ALiBi term is there only
+// when a slope table is given (f32[QH], global query head h), and is
+// formed as the JAX kernel forms it: the slope times the f32 distance,
+// rounded, then added, after the soft cap. Rows with kv_len == 0 are
 // dead padding and get zeros. Nothing past kv_len is ever loaded: the
 // shared-memory slots of such keys are zero-filled and their
 // probabilities are exactly 0, so stale or NaN bytes in unwritten page
@@ -58,11 +65,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The one shape the kernel is built for: Llama-3 8B/70B attention, head_dim
-// 128 with 4 query heads per kv head. The wrapper raises for any other.
+// head_dim: the one the kernel is built for. The wrapper raises for any
+// other, and for a QH / KV that no instantiation takes.
 constexpr int D = 128;
-constexpr int QG = 4;
 
+template <int QG>
 struct DecodeSmem {
   static constexpr int kKPad = D + 8;  // bf16 row stride: an odd number of 16-byte units
   static constexpr size_t k_tile = size_t(kTileKeys) * kKPad * 2;
@@ -74,16 +81,17 @@ struct DecodeSmem {
 };
 static_assert(D == kThreads, "the PV pass gives each thread one output dim");
 
-template <class Page>
+template <class Page, int QG>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ kv,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ page_indices,
+                    const float* __restrict__ alibi_slopes,
                     __nv_bfloat16* __restrict__ out, int num_kv_heads,
                     int page_size, int pages_per_seq, float sm_scale,
                     int sliding_window, float soft_cap) {
-  using L = DecodeSmem;
+  using L = DecodeSmem<QG>;
   constexpr int kKPad = L::kKPad;
   constexpr int kVals = Page::kValues;  // values per 16-byte load
   constexpr int kChunks = D / kVals;    // 16-byte loads per K (or V) row
@@ -125,6 +133,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   float acc[QG];  // output dim tid of each head
 #pragma unroll
   for (int h = 0; h < QG; ++h) acc[h] = 0.f;
+  // ALiBi: one slope per head of the group (a branch uniform across the
+  // grid: without a table no slope is read and no bias is added).
+  const bool alibi = alibi_slopes != nullptr;
+  float slope[QG];
+#pragma unroll
+  for (int h = 0; h < QG; ++h) slope[h] = alibi ? alibi_slopes[kvh * QG + h] : 0.f;
 
   for (int tile0 = kv_lo; tile0 < kv_len; tile0 += kTileKeys) {
     // Stage K and V rows of keys [tile0, tile0 + kTileKeys); zeros past kv_len.
@@ -172,10 +186,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                   qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
         }
       }
+      // The key's distance back from the query token, exact in f32.
+      const float dist = float(tile0 + tid - (kv_len - 1));
 #pragma unroll
       for (int h = 0; h < QG; ++h) {
         float v = s[h];
         if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+        if (alibi) v = __fadd_rn(v, __fmul_rn(slope[h], dist));
         p_s[h * kTileKeys + tid] = valid ? v : -INFINITY;
       }
     }
@@ -229,57 +246,77 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <class Page>
+template <class Page, int QG>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
-                   void* out, int num_seqs, int num_kv_heads, int page_size, int pages_per_seq,
-                   float sm_scale, int sliding_window, float soft_cap, cudaStream_t stream) {
-  const size_t smem = DecodeSmem::bytes;
+                   const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads,
+                   int page_size, int pages_per_seq, float sm_scale, int sliding_window,
+                   float soft_cap, cudaStream_t stream) {
+  const size_t smem = DecodeSmem<QG>::bytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<Page>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        paged_decode_kernel<Page, QG>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(num_seqs, num_kv_heads);
-  paged_decode_kernel<Page><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<Page, QG><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
-      page_indices, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size, pages_per_seq,
-      sm_scale, sliding_window, soft_cap);
+      page_indices, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size,
+      pages_per_seq, sm_scale, sliding_window, soft_cap);
   return cudaGetLastError();
 }
 
-// Checks the one shape the kernel is built for and launches the variant
-// for pages of type Page.
+// Checks the shape and launches the variant for pages of type Page and
+// QG = num_q_heads / num_kv_heads query heads per kv head.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
-        void* out, int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size,
-        int pages_per_seq, float sm_scale, int sliding_window, float soft_cap, void* stream) {
+        const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,
+        int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,
+        float soft_cap, void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
-  if (head_dim != D || num_kv_heads <= 0 || num_q_heads != QG * num_kv_heads)
+  if (head_dim != D || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0)
     return int(cudaErrorInvalidValue);
-  return int(launch<Page>(q, kv_pages, static_cast<const int*>(kv_lens),
-                          static_cast<const int*>(page_indices), out, num_seqs, num_kv_heads,
-                          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,
-                          static_cast<cudaStream_t>(stream)));
+  const int* lens = static_cast<const int*>(kv_lens);
+  const int* pages = static_cast<const int*>(page_indices);
+  const float* slopes = static_cast<const float*>(alibi_slopes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_DECODE_LAUNCH(qg)                                                               \
+  launch<Page, qg>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads, page_size, \
+                   pages_per_seq, sm_scale, sliding_window, soft_cap, s)
+  switch (num_q_heads / num_kv_heads) {
+    case 1:
+      return int(PAGED_DECODE_LAUNCH(1));
+    case 2:
+      return int(PAGED_DECODE_LAUNCH(2));
+    case 4:
+      return int(PAGED_DECODE_LAUNCH(4));
+    case 8:
+      return int(PAGED_DECODE_LAUNCH(8));
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+#undef PAGED_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
-// int8}. q bf16[S, QH, D] with D = 128 and QH = 4 * KV, kv_pages [P,
-// page_size, 2 * KV, D] of the named type (K at even and V at odd combined
-// heads), kv_lens i32[S], page_indices i32[S, pages_per_seq], out bf16[S,
-// QH, D]. sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA
+// int8}. q bf16[S, QH, D] with D = 128 and QH = QG * KV for QG in {1, 2,
+// 4, 8}, kv_pages [P, page_size, 2 * KV, D] of the named type (K at even
+// and V at odd combined heads), kv_lens i32[S], page_indices i32[S,
+// pages_per_seq], alibi_slopes f32[QH] or null (no ALiBi), out bf16[S, QH,
+// D]. sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA
 // error of the launch (cudaErrorInvalidValue for any other D or QH / KV).
-#define PAGED_DECODE_ENTRY(suffix, Page)                                                       \
-  extern "C" int paged_decode_attention_##suffix(                                              \
-      const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,      \
-      void* out, int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size, \
-      int pages_per_seq, float sm_scale, int sliding_window, float soft_cap, void* stream) {   \
-    return run<Page>(q, kv_pages, kv_lens, page_indices, out, num_seqs, num_q_heads,           \
-                     num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale,               \
-                     sliding_window, soft_cap, stream);                                        \
+#define PAGED_DECODE_ENTRY(suffix, Page)                                                     \
+  extern "C" int paged_decode_attention_##suffix(                                            \
+      const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,    \
+      const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,  \
+      int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,    \
+      float soft_cap, void* stream) {                                                        \
+    return run<Page>(q, kv_pages, kv_lens, page_indices, alibi_slopes, out, num_seqs,        \
+                     num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale, \
+                     sliding_window, soft_cap, stream);                                      \
   }
 
 PAGED_DECODE_ENTRY(bf16, kv_page::Bf16)

@@ -106,8 +106,15 @@ def _check_shapes(expected: Dict[str, Any], got: Dict[str, Any],
 
 
 def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
-    """The model's params tree from an HF checkpoint, as CPU tensors."""
-    lookup: Dict[str, Tuple[str, str, bool, Optional[int]]] = {}
+    """The model's params tree from an HF checkpoint, as CPU tensors.
+
+    Per-layer tensors come from ``hf_param_mappings``, layer-independent
+    ones from ``hf_global_mappings``, and fused per-layer tensors from
+    ``hf_split_mappings``: (template, [(our_path, start, end)], transpose),
+    each part a slice of the (transposed) tensor's output dim. Then
+    ``finalize_params`` post-processes the tree, as in the JAX package (HF
+    checkpoints only: dummy weights skip it there too)."""
+    lookup: Dict[str, Tuple[str, Any, bool, Optional[int]]] = {}
     for template, our_path, transpose in model.hf_param_mappings():
         for i in range(model.num_layers):
             lookup[template.format(i=i)] = ("layer", our_path, transpose, i)
@@ -117,6 +124,11 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
         our_path: [None] * model.num_layers
         for _, our_path, _ in model.hf_param_mappings()
     }
+    for template, slices, transpose in model.hf_split_mappings():
+        for i in range(model.num_layers):
+            lookup[template.format(i=i)] = ("split", slices, transpose, i)
+        for our_path, _, _ in slices:
+            pieces[our_path] = [None] * model.num_layers
     params: Dict[str, Any] = {}
     for name, arr in safetensors_weight_iterator(model_dir):
         info = lookup.get(name)
@@ -129,6 +141,9 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
             arr = arr.t()
         if kind == "global":
             _set_path(params, target, arr.contiguous())
+        elif kind == "split":
+            for our_path, start, end in target:
+                pieces[our_path][idx] = arr[..., start:end]
         else:
             pieces[target][idx] = arr
     for our_path, layer_list in pieces.items():
@@ -137,6 +152,7 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
             raise ValueError(f"checkpoint is missing layers {missing[:4]}"
                              f"... for {our_path}")
         _set_path(params, our_path, torch.stack(layer_list, dim=0))
+    model.finalize_params(params)
     _check_shapes(model.param_shapes(), params)
     return params
 
@@ -168,6 +184,11 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     dense HF Linear weights. Per-layer containers are unpacked, then
     stacked on the leading layer axis.
     """
+    if model.hf_split_mappings():
+        raise NotImplementedError(
+            f"{type(model).__name__} stores fused tensors (hf_split_mappings)"
+            "; quantized checkpoints of such models are not ported yet "
+            "(ROADMAP.md, module queue item 1)")
     is_awq = quant_method.startswith("awq")
     num_layers = model.num_layers
     per_layer_maps = model.hf_param_mappings()

@@ -3,7 +3,8 @@
 Plain PyTorch on tensors: RMSNorm, SiLU-and-mul, and rotary position
 embedding with the default and Llama-3 frequency tables, NeoX
 (rotate-half) style. The other RoPE scalings come with the models that
-use them.
+use them. Also the ALiBi slope schedule (a copy of
+aphrodite_tpu/models/bloom.py: get_alibi_slopes).
 """
 
 import math
@@ -75,3 +76,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     s = sin[:, None, :]
     x1, x2 = xf[..., :half], xf[..., half:]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def get_alibi_slopes(num_heads: int) -> np.ndarray:
+    """HF/reference ALiBi slope schedule (geometric, with the
+    non-power-of-2 head-count correction): f32[num_heads], the same bytes
+    as the JAX package's."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        n_extra = min(closest, num_heads - closest)
+        slopes += [extra_base ** i for i in range(1, 2 * n_extra + 1, 2)]
+    return np.asarray(slopes, dtype=np.float32)

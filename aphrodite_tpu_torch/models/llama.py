@@ -10,6 +10,11 @@ projection goes through ``qmatmul`` (quantization/qlinear.py): a plain
 tensor is ``torch.matmul``, as XLA computes it in the JAX package, and a
 quantized container one of the products of ops/quant_matmul.py.
 Attention is ops/attention.py, which holds the two attention kernels.
+
+Two hooks serve the subclasses that change the position encoding, as in
+the JAX package: ``use_rope`` (False: no rotary tables, no rotation) and
+``alibi_slopes`` (an f32[QH] tensor on the model's device, handed to both
+attention kernels, or None).
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -23,7 +28,6 @@ from aphrodite_tpu_torch.models.layers import (apply_rope,
                                                silu_and_mul)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
-from aphrodite_tpu_torch.quantization.fp8 import kernel_layout
 from aphrodite_tpu_torch.quantization.qlinear import qmatmul
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -31,6 +35,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class LlamaForCausalLM:
     """Functional Llama over a params dict; see ``param_shapes``."""
+
+    # Rotary positions; a subclass with ALiBi sets it False before
+    # __init__ and fills alibi_slopes after.
+    use_rope: bool = True
 
     def __init__(self, model_config: ModelConfig,
                  device: torch.device = torch.device("cpu")) -> None:
@@ -60,9 +68,11 @@ class LlamaForCausalLM:
             raise ValueError(
                 f"q heads ({self.num_heads}) must be a multiple of kv "
                 f"heads ({self.num_kv_heads})")
-        self._cos, self._sin = compute_rope_tables(
-            self.head_dim, self.max_position, base=self.rope_theta,
-            rope_scaling=hf.get("rope_scaling"), device=device)
+        self.alibi_slopes: Optional[torch.Tensor] = None
+        if self.use_rope:
+            self._cos, self._sin = compute_rope_tables(
+                self.head_dim, self.max_position, base=self.rope_theta,
+                rope_scaling=hf.get("rope_scaling"), device=device)
 
     # ------------------------------------------------------------------
     # Params
@@ -97,8 +107,7 @@ class LlamaForCausalLM:
         Same layout as the JAX package's fuse_projections. Quantized
         containers fuse member by member, and only when all parts are of
         one kind with one K and one group size; otherwise the parts stay
-        apart and the forward multiplies each. Every weight then takes the
-        layout its product reads (fp8: column-major)."""
+        apart and the forward multiplies each."""
         lp = params["layers"]
 
         def kind(w):
@@ -124,8 +133,6 @@ class LlamaForCausalLM:
 
         fuse(("wq", "wk", "wv"), "wqkv")
         fuse(("gate", "up"), "w13")
-        for name in lp:
-            lp[name] = kernel_layout(lp[name])
         return params
 
     def quantizable_weights(self) -> List[str]:
@@ -152,6 +159,16 @@ class LlamaForCausalLM:
             ("model.layers.{i}.mlp.up_proj.weight", "layers.up", True),
             ("model.layers.{i}.mlp.down_proj.weight", "layers.down", True),
         ]
+
+    def hf_split_mappings(
+            self) -> List[Tuple[str, List[Tuple[str, int, int]], bool]]:
+        """(hf_template, [(our_path, start, end)], transpose) for fused
+        per-layer tensors split along the output dim; Llama has none."""
+        return []
+
+    def finalize_params(self, params: Dict[str, Any]) -> None:
+        """Post-process a params tree loaded from an HF checkpoint, in
+        place; Llama needs nothing."""
 
     def hf_global_mappings(self) -> List[Tuple[str, str, bool]]:
         maps = [
@@ -201,16 +218,22 @@ class LlamaForCausalLM:
                              dim=-1).to(self.dtype)
 
         x = params["embed"][batch.token_ids].to(self.dtype)
-        cos = self._cos[batch.positions]
-        sin = self._sin[batch.positions]
+        if self.use_rope:
+            cos = self._cos[batch.positions]
+            sin = self._sin[batch.positions]
         for layer in range(self.num_layers):
             h = rms_norm(x, lp["input_norm"][layer], self.rms_eps)
             qkv = proj(h, ("wqkv", "wq", "wk", "wv"), layer)
             q = qkv[:, :NH * D].reshape(-1, NH, D)
             k = qkv[:, NH * D:(NH + NKV) * D].reshape(-1, NKV, D)
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
+            if self.use_rope:
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+            else:
+                # The attention kernels read q contiguous; where there is
+                # a rotation, it makes the copy.
+                q = q.contiguous()
             k_scale = None if k_scales is None else k_scales[layer]
             v_scale = None if v_scales is None else v_scales[layer]
             pages = write_kv(kv_cache[layer], k, v, batch.slot_mapping,
@@ -220,7 +243,8 @@ class LlamaForCausalLM:
             attn = ragged_paged_attention(
                 q, pages, batch.kv_lens, batch.page_indices,
                 batch.cu_q_lens, batch.num_seqs, sm_scale=self.sm_scale,
-                sliding_window=self.sliding_window)
+                sliding_window=self.sliding_window,
+                alibi_slopes=self.alibi_slopes)
             if v_scale is not None:
                 attn = attn * v_scale.to(attn.dtype)
             x = x + proj(attn.reshape(-1, NH * D), ("wo",), layer)

@@ -1,16 +1,20 @@
 """Model registry (counterpart of aphrodite_tpu/models/registry.py).
 
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
-one architecture so far; any other raises.
+Llama and Baichuan so far; any other architecture raises.
 """
 
 from typing import Dict, Type
 
 from aphrodite_tpu_torch.common.config import ModelConfig
+from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
+                                                 BaichuanForCausalLM)
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
 
 _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "LlamaForCausalLM": LlamaForCausalLM,
+    "BaiChuanForCausalLM": BaiChuanForCausalLM,
+    "BaichuanForCausalLM": BaichuanForCausalLM,
 }
 
 

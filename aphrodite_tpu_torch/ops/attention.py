@@ -9,7 +9,7 @@ paged KV cache.
 - ``ragged_paged_attention``: the dispatching wrapper. ``cu_q_lens=None``
   marks a pure-decode batch and goes to ``paged_decode_attention``. Else
   CPU tensors take the plain version, and CUDA tensors launch the
-  hand-written Hopper kernel ``csrc/ragged_paged_attention.cu`` (which
+  hand-written Hopper kernel ``csrc/ragged_paged_attention.cuh`` (which
   replaces the TPU kernel behind aphrodite_tpu/ops/attention.py:
   _kernel_attention) or raise. At prefill shapes the kernel is bound by
   operations; its source says what its design does about that. With
@@ -18,6 +18,11 @@ paged KV cache.
   where the JAX package sends fp8 prefill; int8 pages go to the bundled
   kernel there and to the same source here. Page types and their entry
   points: ops/decode_attention.py.
+
+With an ALiBi slope table both this kernel and the decode one add the
+distance bias in their loops; the JAX package sends ALiBi prefill to its
+vendored fork (ragged_paged_attention_alibi), whose ALiBi option this
+source also stands for.
 
 Cache layout: [num_pages, page_size, 2 * num_kv_heads, head_dim], K at
 even and V at odd combined-head indices.
@@ -35,7 +40,9 @@ from aphrodite_tpu_torch.ops.decode_attention import (KERNEL_PAGE_TYPES,
                                                       check_kernel_inputs,
                                                       count_launch,
                                                       gather_kv,
-                                                      paged_decode_attention)
+                                                      launch_shape,
+                                                      paged_decode_attention,
+                                                      slopes_ptr)
 
 
 def ref_ragged_paged_attention(
@@ -49,6 +56,7 @@ def ref_ragged_paged_attention(
     sm_scale: float = 1.0,
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # f32[QH]
 ) -> torch.Tensor:
     """Plain ragged paged attention, one sequence at a time.
 
@@ -67,15 +75,18 @@ def ref_ragged_paged_attention(
         pos = torch.arange(kv_len - q_len, kv_len, device=q.device)
         out[cu[s]:cu[s + 1]] = attend(
             q[cu[s]:cu[s + 1]], k, v, pos, sm_scale=sm_scale,
-            sliding_window=sliding_window, soft_cap=soft_cap).to(q.dtype)
+            sliding_window=sliding_window, soft_cap=soft_cap,
+            alibi_slopes=alibi_slopes).to(q.dtype)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(page_type: str):
-    fn = getattr(cuda_build.load("ragged_paged_attention"),
-                 f"ragged_paged_attention_{page_type}")
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+def _kernel(page_type: str, alibi: bool):
+    # The variants with ALiBi are a library of their own (built in
+    # parallel with the one without).
+    name = "ragged_paged_attention" + ("_alibi" if alibi else "")
+    fn = getattr(cuda_build.load(name), f"{name}_{page_type}")
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -93,16 +104,18 @@ def ragged_paged_attention(
     sm_scale: float = 1.0,
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     kwargs = dict(sm_scale=sm_scale, sliding_window=sliding_window,
-                  soft_cap=soft_cap)
+                  soft_cap=soft_cap, alibi_slopes=alibi_slopes)
     if cu_q_lens is None:
         return paged_decode_attention(q, kv_pages, kv_lens, page_indices,
                                       num_seqs, **kwargs)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(q, kv_pages, kv_lens,
                                           page_indices, cu_q_lens, **kwargs)
-    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices, cu_q_lens))
+    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices, cu_q_lens),
+                        alibi_slopes)
     num_tokens, num_q_heads, head_dim = q.shape
     num_seqs_padded = kv_lens.shape[0]
     if (cu_q_lens.shape != (num_seqs_padded + 1,)
@@ -114,19 +127,23 @@ def ragged_paged_attention(
     # them alone.
     out = torch.zeros_like(q)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
-    err = _kernel(page_type)(
+    err = _kernel(page_type, alibi_slopes is not None)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_indices.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
-        num_tokens, num_seqs_padded, num_q_heads, ckv // 2, head_dim,
-        page_size, page_indices.shape[1], float(sm_scale),
+        page_indices.data_ptr(), cu_q_lens.data_ptr(),
+        slopes_ptr(alibi_slopes), out.data_ptr(), num_tokens,
+        num_seqs_padded, num_q_heads, ckv // 2, head_dim, page_size,
+        page_indices.shape[1], float(sm_scale),
         int(sliding_window or 0), float(soft_cap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
-    count_launch(ragged_paged_attention, page_type)
+    count_launch(ragged_paged_attention, page_type,
+                 launch_shape(num_q_heads, ckv // 2, alibi_slopes))
     return out
 
 
-# Launches of the kernel: the total, and per page type.
+# Launches of the kernel: the total, per page type, and per QH / KV with
+# or without ALiBi.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_dtype = {}
+ragged_paged_attention.launches_by_shape = {}

@@ -22,6 +22,11 @@ int8). Narrow pages are read raw, one byte per value, and widened to bf16
 inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
+
+Both kernels take head_dim 128 with 1, 2, 4 or 8 query heads per kv head
+(one instantiation each, chosen at the launch), and an optional ALiBi
+slope table f32[QH]: score + slope[h] * (key position - query position),
+added after the soft cap and before the mask, as the JAX package adds it.
 """
 
 import ctypes
@@ -33,9 +38,11 @@ import torch
 from aphrodite_tpu_torch.ops import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# The one shape both CUDA kernels are built for (Llama-3 8B and 70B).
+# The shapes both CUDA kernels are built for: head_dim 128 with QH / KV of
+# 1 (MHA: Baichuan-13B), 2 (bench.py's 1.4B), 4 (Llama-3 8B) or 8 (Llama-3
+# 70B), one instantiation each.
 KERNEL_HEAD_DIM = 128
-KERNEL_QUERIES_PER_KV = 4
+KERNEL_QUERIES_PER_KV = (1, 2, 4, 8)
 # Page types the CUDA kernels read, and the suffix of each one's entry
 # point (also its key in ``launches_by_dtype``).
 KERNEL_PAGE_TYPES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
@@ -58,14 +65,16 @@ def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, *, sm_scale: float,
-           sliding_window: Optional[int], soft_cap: Optional[float]
-           ) -> torch.Tensor:
+           sliding_window: Optional[int], soft_cap: Optional[float],
+           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of n query rows q [n, QH, D] at absolute positions q_pos
     over keys k/v [L, KV, D] at positions 0..L-1 (f32 result).
 
     Query head h reads kv head h // (QH / KV). Key j is visible to the row
-    at position p iff j <= p and, with a window w, j > p - w. Masked
-    scores take MASK_VALUE (as in the JAX reference), not -inf.
+    at position p iff j <= p and, with a window w, j > p - w. With ALiBi
+    slopes (f32[QH]) the capped score of head h gains slope[h] * (j - p),
+    the product rounded to f32 before the sum. Masked scores take
+    MASK_VALUE (as in the JAX reference), not -inf.
     """
     n, num_q_heads, head_dim = q.shape
     num_kv_heads = k.shape[1]
@@ -75,6 +84,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if soft_cap is not None:
         scores = soft_cap * torch.tanh(scores / soft_cap)
     kv_pos = torch.arange(k.shape[0], device=q.device)
+    if alibi_slopes is not None:
+        rel = (kv_pos[None, :] - q_pos[:, None]).float()  # [n, L]
+        slopes = alibi_slopes.float().reshape(num_kv_heads, qg, 1, 1)
+        scores = scores + slopes * rel
     mask = kv_pos[None, :] <= q_pos[:, None]
     if sliding_window is not None:
         mask &= kv_pos[None, :] > (q_pos[:, None] - sliding_window)
@@ -93,6 +106,7 @@ def ref_paged_decode_attention(
     sm_scale: float = 1.0,
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # f32[QH]
 ) -> torch.Tensor:
     """Plain decode attention; dead rows (kv_len == 0) get zeros, as the
     TPU kernel writes them."""
@@ -103,8 +117,8 @@ def ref_paged_decode_attention(
         k, v = gather_kv(kv_pages, page_indices[s], kv_len)
         pos = torch.tensor([kv_len - 1], device=q.device)
         out[s] = attend(q[s:s + 1], k, v, pos, sm_scale=sm_scale,
-                        sliding_window=sliding_window,
-                        soft_cap=soft_cap)[0].to(q.dtype)
+                        sliding_window=sliding_window, soft_cap=soft_cap,
+                        alibi_slopes=alibi_slopes)[0].to(q.dtype)
     return out
 
 
@@ -112,14 +126,14 @@ def ref_paged_decode_attention(
 def _kernel(page_type: str):
     fn = getattr(cuda_build.load("paged_decode_attention"),
                  f"paged_decode_attention_{page_type}")
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_kernel_inputs(q, kv_pages, index_tensors):
+def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None):
     """Raise unless the tensors are what the CUDA attention kernels take."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
@@ -131,11 +145,22 @@ def check_kernel_inputs(q, kv_pages, index_tensors):
     num_q_heads, head_dim = q.shape[1], q.shape[2]
     num_kv_heads = kv_pages.shape[2] // 2
     if (head_dim != KERNEL_HEAD_DIM or kv_pages.shape[3] != head_dim
-            or num_q_heads != KERNEL_QUERIES_PER_KV * num_kv_heads):
+            or num_kv_heads < 1 or num_q_heads % num_kv_heads
+            or num_q_heads // num_kv_heads not in KERNEL_QUERIES_PER_KV):
         raise ValueError(
             f"attention kernel takes head_dim {KERNEL_HEAD_DIM} and QH/KV "
-            f"{KERNEL_QUERIES_PER_KV}; got q {tuple(q.shape)}, kv pages "
+            f"in {KERNEL_QUERIES_PER_KV}; got q {tuple(q.shape)}, kv pages "
             f"{tuple(kv_pages.shape)}")
+    if alibi_slopes is not None and (
+            alibi_slopes.device != q.device
+            or alibi_slopes.dtype != torch.float32
+            or alibi_slopes.shape != (num_q_heads,)
+            or not alibi_slopes.is_contiguous()):
+        raise ValueError(
+            "attention kernel takes ALiBi slopes as a contiguous f32 "
+            f"[{num_q_heads}] tensor on q's device, got "
+            f"{alibi_slopes.dtype} {tuple(alibi_slopes.shape)} on "
+            f"{alibi_slopes.device}")
     for t in (q, kv_pages):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel needs contiguous, 16-byte "
@@ -157,6 +182,7 @@ def paged_decode_attention(
     sm_scale: float = 1.0,
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over the paged cache. num_seqs is unused:
     kv_lens == 0 marks the dead padded rows."""
@@ -164,8 +190,9 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
-            sliding_window=sliding_window, soft_cap=soft_cap)
-    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices))
+            sliding_window=sliding_window, soft_cap=soft_cap,
+            alibi_slopes=alibi_slopes)
+    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices), alibi_slopes)
     num_seqs, num_q_heads, head_dim = q.shape
     if kv_lens.shape != (num_seqs,) or page_indices.shape[0] != num_seqs:
         raise ValueError("kv_lens and page_indices need one row per query")
@@ -174,23 +201,43 @@ def paged_decode_attention(
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
     err = _kernel(page_type)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_indices.data_ptr(), out.data_ptr(), num_seqs, num_q_heads,
+        page_indices.data_ptr(), slopes_ptr(alibi_slopes), out.data_ptr(),
+        num_seqs, num_q_heads,
         ckv // 2, head_dim, page_size, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
-    count_launch(paged_decode_attention, page_type)
+    count_launch(paged_decode_attention, page_type,
+                 launch_shape(num_q_heads, ckv // 2, alibi_slopes))
     return out
 
 
-def count_launch(wrapper, page_type: str) -> None:
-    """One kernel launch of `wrapper` on pages of `page_type`."""
+def slopes_ptr(alibi_slopes: Optional[torch.Tensor]) -> Optional[int]:
+    """The slope table's address for a kernel, or None (NULL: no ALiBi)."""
+    return None if alibi_slopes is None else alibi_slopes.data_ptr()
+
+
+def launch_shape(num_q_heads: int, num_kv_heads: int,
+                 alibi_slopes: Optional[torch.Tensor]) -> str:
+    """The instantiation a launch takes and whether it adds ALiBi, as the
+    key of ``launches_by_shape``: "qg<QH/KV>", then " alibi" with a slope
+    table."""
+    qg = num_q_heads // num_kv_heads
+    return f"qg{qg}" + (" alibi" if alibi_slopes is not None else "")
+
+
+def count_launch(wrapper, page_type: str, shape: str) -> None:
+    """One kernel launch of `wrapper` on pages of `page_type`, of the
+    instantiation and ALiBi option `shape` (``launch_shape``)."""
     wrapper.launches += 1
-    by_dtype = wrapper.launches_by_dtype
-    by_dtype[page_type] = by_dtype.get(page_type, 0) + 1
+    for counts, key in ((wrapper.launches_by_dtype, page_type),
+                        (wrapper.launches_by_shape, shape)):
+        counts[key] = counts.get(key, 0) + 1
 
 
-# Launches of the kernel: the total, and per page type.
+# Launches of the kernel: the total, per page type, and per QH / KV with
+# or without ALiBi.
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
+paged_decode_attention.launches_by_shape = {}

@@ -45,8 +45,10 @@ needs (K/2) % G == 0.
   card it is the unpacked container at G = K with zero 0 and launches the
   group-wise body of ``csrc/int4_matmul.cu``.
 - ``fp8_w8a8_matmul``: e4m3 weights times per-token e4m3 activations. On
-  the card the quantizer kernel, then one ``torch._scaled_mm``: the
-  JAX package leaves this product to XLA, outside any Pallas kernel.
+  the card the quantizer kernel, then the e4m3 body of
+  ``csrc/int4_matmul.cu`` (both operands widened to f16 in registers, f32
+  sums, as the JAX package's XLA product sums them; it leaves this product
+  outside any Pallas kernel).
 - ``quantize_activations``: the per-token quantizer of both activation
   formats, one kernel launch on the card, bit-equal to its plain
   versions ``quantize_activations_int8`` and ``quantize_activations_e4m3``.
@@ -560,8 +562,12 @@ def fp8_w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _unit_scale(device: torch.device) -> torch.Tensor:
-    return torch.ones((), dtype=torch.float32, device=device)
+def _fp8_kernel():
+    fn = cuda_build.load("int4_matmul").fp8_w8a8_matmul_e4m3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -569,12 +575,12 @@ def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """x [T, K] @ (q [K, N] e4m3 * scale [1, N]) with x quantized per
     token to e4m3 -> f32 [T, N] (q and scale may be layer-stacked, with
     ``layer_idx``). CPU tensors take the plain version. CUDA tensors
-    launch the quantizer kernel, then one ``torch._scaled_mm`` with unit
-    scales and an f32 result (counted in ``launches``): the JAX package
-    leaves this product to XLA, outside any Pallas kernel. Both scales are
-    applied after, in f32, as there. The card's fp8 product reads its
-    second operand column-major, as quantization/fp8.py: kernel_layout
-    stores q; any other layout raises (no copy is made per call)."""
+    launch the quantizer kernel, then the e4m3 body of csrc/int4_matmul.cu
+    (counted in ``launches``), which sums the exact e4m3 products in f32;
+    both scales are applied after, in f32, in the JAX package's order.
+    The tiles and the split of K are ``int4_kernel_plan``'s at one group
+    per column. Raises for what the kernel does not take: N % 128, K % 64, a weight
+    that is not contiguous e4m3, non-bf16 x."""
     if q.dim() == 3:
         if layer_idx is None:
             raise ValueError("layer-stacked q needs layer_idx")
@@ -582,14 +588,37 @@ def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return fp8_w8a8_matmul_ref(x, q, scale)
     _check_device("fp8_w8a8_matmul", x)
-    if q.dtype != torch.float8_e4m3fn or q.stride(0) != 1:
+    T, K = x.shape
+    N = q.shape[1]
+    if (q.dtype != torch.float8_e4m3fn or q.shape[0] != K
+            or not q.is_contiguous() or q.data_ptr() % 16
+            or q.device != x.device):
         raise ValueError(
-            "fp8_w8a8_matmul takes a float8_e4m3fn weight stored "
-            f"column-major, got {q.dtype} with strides {q.stride()}")
+            "fp8_w8a8_matmul kernel takes a contiguous, 16-byte aligned "
+            f"float8_e4m3fn weight [K, N] on x's device for x "
+            f"{tuple(x.shape)}, got {q.dtype} {tuple(q.shape)} with strides "
+            f"{q.stride()}")
+    if N % KERNEL_N_MULTIPLE or K % INT4_K_MULTIPLE:
+        raise ValueError(
+            f"fp8_w8a8_matmul kernel takes N that is a multiple of "
+            f"{KERNEL_N_MULTIPLE} and K that is a multiple of "
+            f"{INT4_K_MULTIPLE}, got K {K}, N {N}")
+    if scale.dtype != torch.float32 or scale.shape != (1, N):
+        raise ValueError(f"fp8_w8a8_matmul takes an f32 scale [1, {N}], got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
     xq, act_scale = quantize_activations(x, "e4m3")
-    one = _unit_scale(x.device)
-    out = torch._scaled_mm(xq, q, scale_a=one, scale_b=one,
-                           out_dtype=torch.float32)
+    block_m, splits = int4_kernel_plan(T, K, N, K, "groupwise")
+    out = torch.empty((T, N), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, T, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    err = _fp8_kernel()(
+        xq.data_ptr(), q.data_ptr(), out.data_ptr(), partial.data_ptr(), T,
+        K, N, xq.stride(0), block_m, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fp8_w8a8_matmul kernel: error {err} (T {T}, K {K}, N {N}, "
+            f"block_m {block_m}, splits {splits})")
     fp8_w8a8_matmul.launches += 1
     return out * act_scale * scale
 

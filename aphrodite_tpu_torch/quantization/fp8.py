@@ -2,9 +2,9 @@
 aphrodite_tpu/quantization/fp8.py that casts with torch.float8_e4m3fn).
 
 Weights are quantized at load from a full-precision checkpoint (or dummy
-weights) and stored column-major for the card (``kernel_layout``, the one
-place that knows this layout); activations are quantized per token at every product
-(ops/quant_matmul.py: fp8_w8a8_matmul). Loading checkpoints that are
+weights) and stored row-major [K, N] like every other weight; activations
+are quantized per token at every product (ops/quant_matmul.py:
+fp8_w8a8_matmul). Loading checkpoints that are
 already fp8 (``weight_scale`` tensors) is not ported yet.
 """
 
@@ -28,8 +28,7 @@ def quantize_from_float(w) -> Dict[str, Any]:
     1e-12) by IEEE division, and q = w / scale cast to nearest even: the
     values lie within +-448 by construction, so the bytes equal those of
     the JAX package's ml_dtypes cast. No marker key: the kind is read from
-    q's dtype, as in the JAX package. q is stored as any weight is, until
-    ``kernel_layout``."""
+    q's dtype, as in the JAX package."""
     if not isinstance(w, torch.Tensor):
         w = torch.from_numpy(np.asarray(w, dtype=np.float32))
     w = w.float()
@@ -37,14 +36,3 @@ def quantize_from_float(w) -> Dict[str, Any]:
     scale = (absmax / f32_scalar(E4M3_MAX, w.device)).clamp_min(1e-12)
     return {"q": (w / scale).to(torch.float8_e4m3fn), "scale": scale}
 
-
-def kernel_layout(w):
-    """The weight as the card's fp8 product reads it: for an fp8 container,
-    the same values with q [..., K, N] stored column-major (N rows of K);
-    any other weight as it is. Applied once, after the projections are
-    fused (models/llama.py: fuse_projections); on a column-major q it
-    copies nothing."""
-    if not (isinstance(w, dict) and "q" in w
-            and w["q"].dtype == torch.float8_e4m3fn):
-        return w
-    return dict(w, q=w["q"].mT.contiguous().mT)

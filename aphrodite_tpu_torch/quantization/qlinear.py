@@ -16,10 +16,8 @@ Kinds (implied by which keys are present):
                       rows, ops/quant_matmul.py); with APHRODITE_W4_A8=1
                       a layer-stacked one may take the W4A8 product
 - int8 per-channel:   {q: int8[.., K, N], scale: f32[.., 1, N]}
-- fp8 w8a8:           {q: float8_e4m3fn[.., K, N] (stored column-major
-                       once fused: quantization/fp8.py: kernel_layout),
-                       scale: f32[.., 1, N]}; activations quantized per
-                       token at every product
+- fp8 w8a8:           {q: float8_e4m3fn[.., K, N], scale: f32[.., 1, N]};
+                       activations quantized per token at every product
 
 The group size G derives from the shapes (K // scale rows), so a container
 holds tensors only. A layer-stacked container [L, ...] is indexed by

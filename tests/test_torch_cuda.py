@@ -14,6 +14,7 @@ import torch
 
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+from aphrodite_tpu_torch.models.layers import get_alibi_slopes
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
 from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                ref_ragged_paged_attention)
@@ -189,6 +190,66 @@ def test_narrow_page_kernels_match_plain_and_bf16_kernel_on_card(name, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
+@pytest.mark.parametrize("qg", [1, 2, 4, 8])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
+    """Each kernel at 1, 2, 4 and 8 query heads per kv head (4 kv heads),
+    with and without the model's slope table, on each page type, against
+    its plain version row by row (ROW_TOL), over rows of 1000+ keys where
+    the distance bias of the steep heads reaches -1000. The narrow variants
+    equal the bf16 kernel on the widened pages, all-zero slopes equal no
+    ALiBi (bit for bit), and each launch is counted under its shape."""
+    _card_or_skip()
+    rng = np.random.default_rng(40 + qg)
+    kvh = 4
+    if op == "ragged":
+        seqs = [(1, 90), (70, 70), (33, 150), (1, 17), (1, 1300), (40, 1040)]
+        rows = sum(q for q, _ in seqs)
+        padded_seqs, padded_tokens = 8, rows + 5
+        fn, ref = ragged_paged_attention, ref_ragged_paged_attention
+    else:
+        lens = rng.integers(1, 400, size=12)
+        lens[:2] = (1200, 1030)
+        seqs = [(1, int(n)) for n in lens]
+        rows, padded_seqs, padded_tokens = 12, 16, 16
+        fn, ref = paged_decode_attention, ref_paged_decode_attention
+    arrays = paged_batch(rng, seqs, qg * kvh, kvh, 128,
+                         padded_seqs=padded_seqs, padded_tokens=padded_tokens)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(sm_scale=0.09, soft_cap=30.0)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    kv_lens, page_idx, cu = (torch.from_numpy(a).cuda() for a in arrays[2:])
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    args = (kv_lens, page_idx, cu, ns) if op == "ragged" else (kv_lens,
+                                                                page_idx)
+    if alibi:
+        kw["alibi_slopes"] = torch.from_numpy(
+            get_alibi_slopes(qg * kvh)).cuda()
+    shape = f"qg{qg}" + (" alibi" if alibi else "")
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert not got[rows:].float().any()  # padding tokens, dead rows: zeros
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
+    if alibi:
+        zero = dict(kw, alibi_slopes=torch.zeros_like(kw["alibi_slopes"]))
+        off = {k: v for k, v in kw.items() if k != "alibi_slopes"}
+        assert torch.equal(fn(q, pages, *args, **zero),
+                           fn(q, pages, *args, **off))
+
+
+@pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take():
     _card_or_skip()
     idx = torch.ones((4,), dtype=torch.int32, device="cuda")
@@ -201,8 +262,13 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     pages = torch.zeros((3, PS, 16, 128), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="bf16 q"):
         paged_decode_attention(q.float(), pages, idx, table)
-    with pytest.raises(ValueError, match="QH/KV"):  # 8 query heads per kv
-        paged_decode_attention(q, pages[:, :, :8].contiguous(), idx, table)
+    with pytest.raises(ValueError, match="QH/KV"):  # 3 query heads per kv
+        paged_decode_attention(q[:, :24].contiguous(), pages, idx, table)
+    for slopes in (torch.ones(32, dtype=torch.bfloat16, device="cuda"),
+                   torch.ones(16, device="cuda"),
+                   torch.ones(64, device="cuda")[::2]):
+        with pytest.raises(ValueError, match="ALiBi"):
+            paged_decode_attention(q, pages, idx, table, alibi_slopes=slopes)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention(q[..., :64].contiguous(),
                                pages[..., :64].contiguous(), idx, table)
@@ -657,29 +723,21 @@ def test_int8_container_groupwise_body_on_card(T, K, N):
                         SAME_TOL)
 
 
-# The fp8 product against its plain version: the e4m3 operands are equal
-# and every product exact, but the card's fp8 tensor cores keep fewer bits
-# in their sums than f32 between cuBLAS's promotions (measured on the H100:
-# 1.4e-4 of a row's largest output at K = 4096). A witness on the same
-# operands, widened to bf16 through a bf16 product with f32 sums, sides
-# with the plain version at SAME_TOL.
-FP8_TOL = 2.0**-10
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 32, 2048])
 def test_fp8_w8a8_matches_plain_on_card(T):
-    """The quantizer kernel and one _scaled_mm against the plain version
-    (the same e4m3 operands; FP8_TOL), on a stacked weight made on the
-    card in the kernel's column-major layout; the witness of the plain
-    version at SAME_TOL."""
+    """The quantizer kernel and the e4m3 body of the unpacked kernel
+    against the plain version: the same e4m3 operands, exact products and
+    f32 sums in another order (SAME_TOL), on a stacked row-major weight
+    made on the card; a witness of the plain version (the operands widened
+    to bf16, a bf16 product with f32 sums) at the same tolerance."""
     _card_or_skip()
     rng = np.random.default_rng(T)
     K, N = 4096, 6144
     w = torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
-    c = fp8.kernel_layout(fp8.quantize_from_float(w.cuda()))
+    c = fp8.quantize_from_float(w.cuda())
     q, scale = c["q"][1], c["scale"][1]
-    assert q.stride() == (1, K)
+    assert q.is_contiguous()
     x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
         torch.bfloat16).cuda()
     before = fp8_w8a8_matmul.launches, quantize_activations.launches
@@ -688,10 +746,12 @@ def test_fp8_w8a8_matches_plain_on_card(T):
     assert (fp8_w8a8_matmul.launches, quantize_activations.launches) == (
         before[0] + 1, before[1] + 1)
     want = fp8_w8a8_matmul_ref(x, q, scale)
-    _assert_rows_within(got, want, FP8_TOL)
+    _assert_rows_within(got, want, SAME_TOL)
     xq, act_scale = quantize_activations_e4m3(x)
     widened = torch.mm(xq.to(torch.bfloat16), q.to(torch.bfloat16),
                        out_dtype=torch.float32)
     _assert_rows_within(widened * act_scale * scale, want, SAME_TOL)
-    with pytest.raises(ValueError, match="column-major"):
-        fp8_w8a8_matmul(x, c["q"][1].contiguous(), c["scale"][1])
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_w8a8_matmul(x, q.mT.contiguous().mT, scale)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fp8_w8a8_matmul(x, q[:, :200].contiguous(), scale[:, :200])
