@@ -55,8 +55,18 @@
 // half). Rows at and past T are zero-filled on load and masked on store, so
 // any T >= 1 works.
 //
-// Shape rules (checked by the wrapper): N % 128 == 0, G % 32 == 0,
-// (K / 2) % G == 0, x bf16 with unit stride in its last axis and a row
+// Groups shorter than a k tile: a group whose length is an odd multiple of
+// 16 (GGUF Q2_K and Q3_K pack at 16) closes inside a tile, after one of its
+// two 16-row mma steps. Such groups take the kernel's HALF instantiation:
+// the partial sums and row sums are folded after every 16-row step whose
+// rows end a group, and each tile fetches the scale and zero rows of both
+// steps (two per half of K, not one), in a ring of three stages instead of
+// four to stay within 48 KB of static shared memory. Groups that are
+// multiples of 32 take the other instantiation, whose arithmetic is the
+// same as before HALF came in, so their results are unchanged bit for bit.
+//
+// Shape rules (checked by the wrapper): N % 128 == 0, G % 16 == 0,
+// (K / 2) % G == 0, (K / 2) % 32 == 0, x bf16 with unit stride in its last axis and a row
 // stride that is a multiple of 8, all pointers 16-byte aligned.
 
 #include "matmul_common.cuh"
@@ -79,21 +89,70 @@ constexpr int BK = 2 * BKP;  // k values per tile: low half, then high half
 // Packed bytes, x and (with the last tile of a group) scale and zero arrive
 // by cp.async through a ring of STAGES tiles in shared memory.
 
-constexpr int STAGES = 4;
 constexpr int Q_LD = BN + 16;  // bytes per packed row in shared memory
 constexpr int X_LD = BK + 8;   // bf16 per x row in shared memory
 constexpr int THREADS = 128;
+constexpr int STEPS = BKP / 16;  // 16-row mma steps per k tile
 
-template <int FM>  // 16-row tiles of x per block
+// Folds one group's partial sums into acc with its scale and zero rows `sz`
+// (scale lo, zero lo, scale hi, zero hi, BN floats each), then clears the
+// partial sums and row sums for the next group.
+template <int FM>
+__device__ __forceinline__ void fold_group(float (&acc)[FM][4][4], float (&p_lo)[FM][4][4],
+                                           float (&p_hi)[FM][4][4], float (&r_lo)[FM][4],
+                                           float (&r_hi)[FM][4], const float* sz, int warp,
+                                           int tig) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float* col = sz + warp * 32 + 4 * (tig * 2 + e);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float s_lo = col[j];
+      const float c_lo = 128.0f + col[BN + j];
+      const float s_hi = col[2 * BN + j];
+      const float c_hi = 128.0f + col[3 * BN + j];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int f = 2 * h + e;  // fragment element: row g + 8h, column pair e
+          acc[i][j][f] += s_lo * (p_lo[i][j][f] - c_lo * r_lo[i][2 * h]) +
+                          s_hi * (p_hi[i][j][f] - c_hi * r_hi[i][2 * h]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < FM; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      r_lo[i][e] = 0.0f;
+      r_hi[i][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p_lo[i][j][e] = 0.0f;
+        p_hi[i][j][e] = 0.0f;
+      }
+    }
+  }
+}
+
+// FM: 16-row tiles of x per block. HALF: the group is an odd multiple of 16
+// rows, so groups close after 16-row steps and not only at tile ends.
+template <int FM, bool HALF>
 __global__ void __launch_bounds__(THREADS)
 int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q4p,
                        const float* __restrict__ scale, const float* __restrict__ zero,
                        float* __restrict__ out, int T, int K, int N, int group, int x_stride,
                        int tiles_per_split) {
+  constexpr int STAGES = HALF ? 3 : 4;
   constexpr int BM = 16 * FM;
   constexpr int Q_BYTES = BKP * Q_LD;
   constexpr int X_BYTES = BM * X_LD * 2;
-  constexpr int SZ_BYTES = 4 * BN * 4;  // scale lo, zero lo, scale hi, zero hi
+  // Scale lo, zero lo, scale hi, zero hi: of the tile's closing group, or
+  // (HALF) of the group of each 16-row step.
+  constexpr int SZ_SETS = HALF ? STEPS : 1;
+  constexpr int SZ_BYTES = SZ_SETS * 4 * BN * 4;
   constexpr int STAGE_BYTES = Q_BYTES + X_BYTES + SZ_BYTES;
   static_assert(STAGES * STAGE_BYTES <= 48 * 1024, "static shared memory");
   __shared__ __align__(16) unsigned char smem[STAGES * STAGE_BYTES];
@@ -116,6 +175,11 @@ int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
   // group's scale and zero and folds the partial sums into the output.
   auto closes_group = [&](int tile) {
     return ((tile + 1) * BKP) % group == 0 || tile == tile_end - 1;
+  };
+  // HALF: the same after 16-row step `step` of the tile.
+  auto closes_at_step = [&](int tile, int step) {
+    return (tile * BKP + 16 * (step + 1)) % group == 0 ||
+           (tile == tile_end - 1 && step == STEPS - 1);
   };
 
   auto fetch = [&](int tile, int slot) {
@@ -140,7 +204,16 @@ int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
       cp_async16(base + Q_BYTES + (row * X_LD + ch * 8) * 2,
                  x + size_t(live ? m0 + row : 0) * x_stride + col, live ? 16 : 0);
     }
-    if (closes_group(tile)) {
+    if constexpr (HALF) {
+      // The group rows of both 16-row steps, whether or not they close.
+#pragma unroll
+      for (int step = 0; step < STEPS; ++step) {
+        const int arr = tid / 32;  // scale lo, zero lo, scale hi, zero hi
+        const int grow = (kp0 + 16 * step) / group + (arr >= 2 ? half_groups : 0);
+        const float* src = (arr % 2 == 0 ? scale : zero) + size_t(grow) * N + n0 + lane * 4;
+        cp_async16(base + Q_BYTES + X_BYTES + ((step * 4 + arr) * BN + lane * 4) * 4, src, 16);
+      }
+    } else if (closes_group(tile)) {
       const int arr = tid / 32;  // scale lo, zero lo, scale hi, zero hi
       const int grow = kp0 / group + (arr >= 2 ? half_groups : 0);
       const float* src = (arr % 2 == 0 ? scale : zero) + size_t(grow) * N + n0 + lane * 4;
@@ -189,9 +262,10 @@ int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
     const unsigned char* base = smem + (it % STAGES) * STAGE_BYTES;
     const unsigned char* qs = base;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base + Q_BYTES);
+    const float* sz = reinterpret_cast<const float*>(base + Q_BYTES + X_BYTES);
 
 #pragma unroll
-    for (int s = 0; s < BKP / 16; ++s) {
+    for (int s = 0; s < STEPS; ++s) {
       // The four packed rows this thread's B fragments take, four tiles wide.
       const unsigned char* qrow = qs + (16 * s + tig * 2) * Q_LD + warp * 32 + g * 4;
       const uint32_t w0 = *reinterpret_cast<const uint32_t*>(qrow);
@@ -229,43 +303,14 @@ int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
           mma_bf16(p_hi[i][j], a_hi[i], b_hi0, b_hi1);
         }
       }
+      if constexpr (HALF) {
+        if (closes_at_step(tile, s))
+          fold_group<FM>(acc, p_lo, p_hi, r_lo, r_hi, sz + s * 4 * BN, warp, tig);
+      }
     }
 
-    if (closes_group(tile)) {
-      const float* sz = reinterpret_cast<const float*>(base + Q_BYTES + X_BYTES);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float* col = sz + warp * 32 + 4 * (tig * 2 + e);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float s_lo = col[j];
-          const float c_lo = 128.0f + col[BN + j];
-          const float s_hi = col[2 * BN + j];
-          const float c_hi = 128.0f + col[3 * BN + j];
-#pragma unroll
-          for (int i = 0; i < FM; ++i) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int f = 2 * h + e;  // fragment element: row g + 8h, column pair e
-              acc[i][j][f] += s_lo * (p_lo[i][j][f] - c_lo * r_lo[i][2 * h]) +
-                              s_hi * (p_hi[i][j][f] - c_hi * r_hi[i][2 * h]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          r_lo[i][e] = 0.0f;
-          r_hi[i][e] = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            p_lo[i][j][e] = 0.0f;
-            p_hi[i][j][e] = 0.0f;
-          }
-        }
-      }
+    if constexpr (!HALF) {
+      if (closes_group(tile)) fold_group<FM>(acc, p_lo, p_hi, r_lo, r_hi, sz, warp, tig);
     }
   }
 
@@ -287,12 +332,12 @@ int4p_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
   }
 }
 
-template <int FM>
+template <int FM, bool HALF>
 void launch(const void* x, const void* q4p, const void* scale, const void* zero,
                       float* dst, int T, int K, int N, int group, int x_stride, int splits,
                       int tiles_per_split, cudaStream_t stream) {
   dim3 grid(N / BN, (T + 16 * FM - 1) / (16 * FM), splits);
-  int4p_matmul_kernel<FM><<<grid, THREADS, 0, stream>>>(
+  int4p_matmul_kernel<FM, HALF><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q4p),
       static_cast<const float*>(scale), static_cast<const float*>(zero), dst, T, K, N, group,
       x_stride, tiles_per_split);
@@ -309,7 +354,7 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
                                  const void* zero, void* out, void* partial, int T,
                                  int K, int N, int group, int x_stride, int block_m,
                                  int splits, void* stream_ptr) {
-  if (T < 1 || N % BN != 0 || K % 2 != 0 || group % BKP != 0 ||
+  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % BKP != 0 || group % 16 != 0 ||
       (K / 2) % group != 0 || x_stride % 8 != 0 || splits < 1)
     return -1;
   const int num_tiles = K / 2 / BKP;
@@ -317,18 +362,27 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
   const int tiles_per_split = (num_tiles + splits - 1) / splits;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* dst = static_cast<float*>(splits > 1 ? partial : out);
-  switch (block_m) {
-    case 16:
-      launch<1>(x, q4p, scale, zero, dst, T, K, N, group, x_stride, splits,
-                          tiles_per_split, stream);
-      break;
+  const bool half = group % BKP != 0;
+#define INT4P_LAUNCH(fm, h)                                                                   \
+  launch<fm, h>(x, q4p, scale, zero, dst, T, K, N, group, x_stride, splits, tiles_per_split, \
+                stream)
+  switch (block_m * 2 + int(half)) {
     case 32:
-      launch<2>(x, q4p, scale, zero, dst, T, K, N, group, x_stride, splits,
-                          tiles_per_split, stream);
+      INT4P_LAUNCH(1, false);
+      break;
+    case 33:
+      INT4P_LAUNCH(1, true);
+      break;
+    case 64:
+      INT4P_LAUNCH(2, false);
+      break;
+    case 65:
+      INT4P_LAUNCH(2, true);
       break;
     default:
       return -1;
   }
+#undef INT4P_LAUNCH
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);

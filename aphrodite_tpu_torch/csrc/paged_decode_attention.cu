@@ -32,6 +32,22 @@
 // probabilities are exactly 0, so stale or NaN bytes in unwritten page
 // slots cannot reach the output.
 //
+// Blocksparse (Phi-3-Small's local + vertical-stride mask, blocksparse.cuh,
+// the blocksparse option of the TPU kernel), with the query's block bq =
+// (kv_len - 1) / bsz, ANDed with the window. It is a template flag,
+// BS, so that the instantiations without it are the code they were; the
+// wrapper sends a layer whose gate is off to those. The QG heads of one
+// block share its K/V tiles but not their phases: each head masks its own
+// dead keys (probability exactly 0), and a key is staged only if it is
+// visible to some head of the block. When bsz is a multiple of the page
+// size, keys whose block no head of the block can see are never loaded:
+// a tile with none to load is skipped before it touches the softmax
+// state, and such keys in a live tile are zero-filled. The TPU kernel
+// skips a page only when no query head at all hits it; here the test is
+// per kv head, so on Phi-3-Small (QG 4, vert 8, phases 0..31) half the
+// 64-key blocks past the local window are never read. When bsz is not a
+// multiple of the page size the kernel masks only, as the TPU does.
+//
 // Page types: the kernel is a template over the cache's element type
 // (kv_page_types.cuh), with one entry point each for bf16, E4M3, E5M2 and
 // int8 pages. A narrow row is 128 bytes, not 256: the staging loop loads
@@ -46,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "blocksparse.cuh"
 #include "kv_page_types.cuh"
 
 namespace {
@@ -69,7 +86,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // other, and for a QH / KV that no instantiation takes.
 constexpr int D = 128;
 
-template <int QG>
+template <int QG, bool BS>
 struct DecodeSmem {
   static constexpr int kKPad = D + 8;  // bf16 row stride: an odd number of 16-byte units
   static constexpr size_t k_tile = size_t(kTileKeys) * kKPad * 2;
@@ -77,11 +94,12 @@ struct DecodeSmem {
   static constexpr size_t q = size_t(QG) * D * 4;
   static constexpr size_t p = size_t(QG) * kTileKeys * 4;
   static constexpr size_t stats = size_t(3) * QG * 4;
-  static constexpr size_t bytes = k_tile + v_tile + q + p + stats;
+  static constexpr size_t live = BS ? size_t(kTileKeys) : 0;  // blocksparse: key staged?
+  static constexpr size_t bytes = k_tile + v_tile + q + p + stats + live;
 };
 static_assert(D == kThreads, "the PV pass gives each thread one output dim");
 
-template <class Page, int QG>
+template <class Page, int QG, bool BS>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ kv,
@@ -90,8 +108,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ alibi_slopes,
                     __nv_bfloat16* __restrict__ out, int num_kv_heads,
                     int page_size, int pages_per_seq, float sm_scale,
-                    int sliding_window, float soft_cap) {
-  using L = DecodeSmem<QG>;
+                    int sliding_window, float soft_cap, Blocksparse bs) {
+  using L = DecodeSmem<QG, BS>;
   constexpr int kKPad = L::kKPad;
   constexpr int kVals = Page::kValues;  // values per 16-byte load
   constexpr int kChunks = D / kVals;    // 16-byte loads per K (or V) row
@@ -104,6 +122,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   float* m_s = p_s + QG * kTileKeys;
   float* l_s = m_s + QG;
   float* alpha_s = l_s + QG;
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(alpha_s + QG);  // BS only
 
   const int seq = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -139,9 +158,36 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   float slope[QG];
 #pragma unroll
   for (int h = 0; h < QG; ++h) slope[h] = alibi ? alibi_slopes[kvh * QG + h] : 0.f;
-
+  // Blocksparse: the query's block, each head's phase, and whether dead
+  // keys are skipped (blocks of whole pages) or only masked.
+  int bq = 0;
+  int phase[QG];
+  bool skip_dead = false;
+  if constexpr (BS) {
+    bq = (kv_len - 1) / bs.block;
+#pragma unroll
+    for (int h = 0; h < QG; ++h) phase[h] = bs.offsets[kvh * QG + h];
+    skip_dead = bs.block % page_size == 0;
+  }
   for (int tile0 = kv_lo; tile0 < kv_len; tile0 += kTileKeys) {
-    // Stage K and V rows of keys [tile0, tile0 + kTileKeys); zeros past kv_len.
+    if constexpr (BS) {
+      if (skip_dead) {
+        // Thread tid's key is staged iff some head of this block may see
+        // it. A tile with no such key is never loaded and never touches
+        // the softmax state; the test is uniform across the block, and
+        // its barrier publishes live_s to the staging loop.
+        const int pos = tile0 + tid;
+        bool live = false;
+#pragma unroll
+        for (int h = 0; h < QG; ++h)
+          live = live || block_visible(bs, bq, pos / bs.block, phase[h]);
+        live = live && pos < kv_len;
+        live_s[tid] = live;
+        if (!__syncthreads_or(live)) continue;
+      }
+    }
+    // Stage K and V rows of keys [tile0, tile0 + kTileKeys); zeros past
+    // kv_len (and, with blocksparse on whole pages, at keys no head sees).
     for (int c = tid; c < kTileKeys * 2 * kChunks; c += kThreads) {
       const int key = c / (2 * kChunks);
       const int rem = c % (2 * kChunks);
@@ -149,7 +195,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int part = rem % kChunks;
       const int pos = tile0 + key;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (pos < kv_len) {
+      bool load = pos < kv_len;
+      if constexpr (BS) load = load && (!skip_dead || live_s[key]);
+      if (load) {
         const int page = pages[pos / page_size];
         const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
         val = *reinterpret_cast<const uint4*>(kv + (row * kChunks + part) * 16);
@@ -193,13 +241,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         float v = s[h];
         if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
         if (alibi) v = __fadd_rn(v, __fmul_rn(slope[h], dist));
-        p_s[h * kTileKeys + tid] = valid ? v : -INFINITY;
+        bool visible = valid;
+        if constexpr (BS)
+          visible = visible && block_visible(bs, bq, (tile0 + tid) / bs.block, phase[h]);
+        p_s[h * kTileKeys + tid] = visible ? v : -INFINITY;
       }
     }
     __syncthreads();
 
-    // Online softmax: one warp per head. Key tile0 is always valid, so
-    // every tile has a finite maximum.
+    // Online softmax: one warp per head. Without blocksparse key tile0 is
+    // always valid, so every tile has a finite maximum; with it a head may
+    // see no key of a tile (nor of any tile before), and then its maximum
+    // stays -inf, every p is 0 and nothing is rescaled.
     for (int h = warp; h < QG; h += kThreads / 32) {
       float* row = p_s + h * kTileKeys;
       float mx = -INFINITY;
@@ -246,44 +299,55 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <class Page, int QG>
+template <class Page, int QG, bool BS>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads,
                    int page_size, int pages_per_seq, float sm_scale, int sliding_window,
-                   float soft_cap, cudaStream_t stream) {
-  const size_t smem = DecodeSmem<QG>::bytes;
+                   float soft_cap, Blocksparse bs, cudaStream_t stream) {
+  const size_t smem = DecodeSmem<QG, BS>::bytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<Page, QG>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        paged_decode_kernel<Page, QG, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(num_seqs, num_kv_heads);
-  paged_decode_kernel<Page, QG><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<Page, QG, BS><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
       page_indices, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size,
-      pages_per_seq, sm_scale, sliding_window, soft_cap);
+      pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
   return cudaGetLastError();
 }
 
-// Checks the shape and launches the variant for pages of type Page and
-// QG = num_q_heads / num_kv_heads query heads per kv head.
+// Checks the shape and launches the variant for pages of type Page, QG =
+// num_q_heads / num_kv_heads query heads per kv head and blocksparse (a
+// phase table given) or not.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,
         int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,
-        float soft_cap, void* stream) {
+        float soft_cap, const void* bs_offsets, int bs_block, int bs_local, int bs_vert,
+        void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
   if (head_dim != D || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0)
+    return int(cudaErrorInvalidValue);
+  const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
+  if (bs.offsets != nullptr && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0))
     return int(cudaErrorInvalidValue);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* pages = static_cast<const int*>(page_indices);
   const float* slopes = static_cast<const float*>(alibi_slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_DECODE_LAUNCH(qg)                                                               \
-  launch<Page, qg>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads, page_size, \
-                   pages_per_seq, sm_scale, sliding_window, soft_cap, s)
+#define PAGED_DECODE_LAUNCH(qg)                                                                 \
+  (bs.offsets != nullptr                                                                        \
+       ? launch<Page, qg, true>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads,  \
+                                page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,   \
+                                bs, s)                                                          \
+       : launch<Page, qg, false>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads, \
+                                 page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,  \
+                                 bs, s))
   switch (num_q_heads / num_kv_heads) {
     case 1:
       return int(PAGED_DECODE_LAUNCH(1));
@@ -306,17 +370,22 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 // 4, 8}, kv_pages [P, page_size, 2 * KV, D] of the named type (K at even
 // and V at odd combined heads), kv_lens i32[S], page_indices i32[S,
 // pages_per_seq], alibi_slopes f32[QH] or null (no ALiBi), out bf16[S, QH,
-// D]. sliding_window <= 0 and soft_cap <= 0 mean off. Returns the CUDA
-// error of the launch (cudaErrorInvalidValue for any other D or QH / KV).
+// D]. sliding_window <= 0 and soft_cap <= 0 mean off. bs_offsets i32[QH]
+// (each query head's vertical phase) with bs_block, bs_local and bs_vert
+// turns blocksparse on; null means off (the others are then unread).
+// Returns the CUDA error of the launch (cudaErrorInvalidValue for any other
+// D or QH / KV, or blocksparse parameters that are not positive).
 #define PAGED_DECODE_ENTRY(suffix, Page)                                                     \
   extern "C" int paged_decode_attention_##suffix(                                            \
       const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,    \
       const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,  \
       int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,    \
-      float soft_cap, void* stream) {                                                        \
+      float soft_cap, const void* bs_offsets, int bs_block, int bs_local, int bs_vert,       \
+      void* stream) {                                                                        \
     return run<Page>(q, kv_pages, kv_lens, page_indices, alibi_slopes, out, num_seqs,        \
                      num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale, \
-                     sliding_window, soft_cap, stream);                                      \
+                     sliding_window, soft_cap, bs_offsets, bs_block, bs_local, bs_vert,      \
+                     stream);                                                                \
   }
 
 PAGED_DECODE_ENTRY(bf16, kv_page::Bf16)

@@ -5,7 +5,7 @@
 
 #include "ragged_paged_attention.cuh"
 
-RAGGED_ENTRY(ragged_paged_attention_bf16, kv_page::Bf16, false)
-RAGGED_ENTRY(ragged_paged_attention_e4m3, kv_page::E4m3, false)
-RAGGED_ENTRY(ragged_paged_attention_e5m2, kv_page::E5m2, false)
-RAGGED_ENTRY(ragged_paged_attention_int8, kv_page::Int8, false)
+RAGGED_ENTRY(ragged_paged_attention_bf16, kv_page::Bf16, false, false)
+RAGGED_ENTRY(ragged_paged_attention_e4m3, kv_page::E4m3, false, false)
+RAGGED_ENTRY(ragged_paged_attention_e5m2, kv_page::E5m2, false, false)
+RAGGED_ENTRY(ragged_paged_attention_int8, kv_page::Int8, false, false)

@@ -10,12 +10,15 @@
 // kRows = 64 query rows = 64 / QG consecutive tokens of ONE sequence times
 // the QG query heads that share the kv head, so a tile never straddles
 // two sequences. QG = QH / KV is a template parameter, instantiated for 1,
-// 2, 4 and 8: a tile is 64, 32, 16 or 8 tokens. So is ALiBi, so that the
-// variant without it is the code it was before ALiBi came in: a runtime
-// branch in the unrolled row loop slowed that variant on the H100. The
-// variants without ALiBi are built from ragged_paged_attention.cu, those
-// with it from ragged_paged_attention_alibi.cu: two libraries that nvcc
-// builds in parallel, each half the instantiations. Each block finds its (sequence, first token) by walking
+// 2, 4 and 8: a tile is 64, 32, 16 or 8 tokens. So are ALiBi and
+// blocksparse, so that the variant without either is the code it was
+// before they came in: a runtime branch in the unrolled row loop slowed
+// that variant on the H100. The plain variants are built from
+// ragged_paged_attention.cu, those with ALiBi from
+// ragged_paged_attention_alibi.cu and those with blocksparse from
+// ragged_paged_attention_blocksparse.cu: three libraries that nvcc builds
+// in parallel (no model has both options; the wrapper raises for the
+// pair). Each block finds its (sequence, first token) by walking
 // cu_q_lens on the device: the grid is an upper bound on the tile count
 // (ceil(T / tokens) + S) and surplus blocks exit, so the launch needs no
 // host-side value and no synchronisation.
@@ -36,8 +39,15 @@
 // scores cap(q . k * sm_scale), plus, with a slope table (f32[QH], the
 // ALiBi option of the vendored fork aphrodite_tpu/ops/rpa_alibi_kernel.py),
 // slope[h] * (j - p): the slope times the f32 distance, rounded, then
-// added after the soft cap, as the fork does. Nothing at or past kv_len is loaded;
-// such slots are zero-filled and get probability exactly 0. Tokens past
+// added after the soft cap, as the fork does. With blocksparse (the fork's
+// blocksparse option, the mask of blocksparse.cuh) each row also masks,
+// with its own block p / bsz and its head's phase, the keys that mask
+// hides, as the fork does (which masks only and loads every page). Here a
+// 32-key tile that no row and head of the query tile can see is skipped
+// before it is staged; that leaves every result unchanged, bit for bit,
+// since such a tile adds probability 0 and rescales by exactly 1. Nothing
+// at or past kv_len is loaded; such slots are zero-filled and get
+// probability exactly 0. Tokens past
 // cu_q_lens[S] are not written here: the caller zero-fills the output.
 //
 // Page types: the kernel is a template over the cache's element type
@@ -57,6 +67,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "blocksparse.cuh"
 #include "kv_page_types.cuh"
 
 namespace {
@@ -91,7 +102,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <class Page, int QG, bool ALIBI>
+template <class Page, int QG, bool ALIBI, bool BLOCKSPARSE>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const unsigned char* __restrict__ kv,
@@ -101,7 +112,8 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const float* __restrict__ alibi_slopes,
                               __nv_bfloat16* __restrict__ out, int num_seqs,
                               int num_kv_heads, int page_size, int pages_per_seq,
-                              float sm_scale, int sliding_window, float soft_cap) {
+                              float sm_scale, int sliding_window, float soft_cap,
+                              Blocksparse bs) {
   using L = RaggedSmem;
   constexpr int kKPad = L::kKPad;
   constexpr int kTokens = kRows / QG;  // query tokens per tile
@@ -179,7 +191,26 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kDimsPerLane; ++j) acc[i][j] = 0.f;
   }
 
+  // Blocksparse: the phases of this kv head's query heads, for the test of
+  // whether any row of the tile may see a key tile.
+  int group_phase[QG];
+  if constexpr (BLOCKSPARSE) {
+#pragma unroll
+    for (int h = 0; h < QG; ++h) group_phase[h] = bs.offsets[kvh * QG + h];
+  }
+
   for (int tile0 = kv_lo; tile0 < kv_hi; tile0 += kKeys) {
+    if constexpr (BLOCKSPARSE) {
+      // Lane l's key against the tile's first row (the lowest query block,
+      // which sees the most local keys) and every head's phase. The same
+      // in every warp, so the whole block skips or none of it.
+      const int key = tile0 + lane;
+      bool live = false;
+#pragma unroll
+      for (int h = 0; h < QG; ++h)
+        live = live || block_visible(bs, pos0 / bs.block, key / bs.block, group_phase[h]);
+      if (!__any_sync(0xffffffffu, live && key < kv_hi)) continue;
+    }
     __syncthreads();  // previous tile fully consumed (and q_s written)
     for (int c = tid; c < kKeys * 2 * kChunks; c += kThreads) {
       const int key = c / (2 * kChunks);
@@ -208,6 +239,11 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int pos = pos0 + t;
       bool valid = key_pos < kv_hi && key_pos <= pos;
       if (sliding_window > 0) valid = valid && key_pos > pos - sliding_window;
+      if constexpr (BLOCKSPARSE) {
+        // This row's block and its head's phase (one cached load per warp).
+        const int phase = __ldg(bs.offsets + kvh * QG + r % QG);
+        valid = valid && block_visible(bs, pos / bs.block, key_pos / bs.block, phase);
+      }
       const float* qrow = q_s + r * D;
       float s = 0.f;
 #pragma unroll 8
@@ -262,50 +298,54 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <class Page, int QG, bool ALIBI>
+template <class Page, int QG, bool ALIBI, bool BLOCKSPARSE>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    const int* cu_q_lens, const float* alibi_slopes, void* out, int num_tokens,
                    int num_seqs, int num_kv_heads, int page_size, int pages_per_seq,
-                   float sm_scale, int sliding_window, float soft_cap, cudaStream_t stream) {
+                   float sm_scale, int sliding_window, float soft_cap, Blocksparse bs,
+                   cudaStream_t stream) {
   const size_t smem = RaggedSmem::bytes;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<Page, QG, ALIBI>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 int(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        ragged_paged_attention_kernel<Page, QG, ALIBI, BLOCKSPARSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   constexpr int kTokens = kRows / QG;
   const dim3 grid((num_tokens + kTokens - 1) / kTokens + num_seqs, num_kv_heads);
-  ragged_paged_attention_kernel<Page, QG, ALIBI><<<grid, kThreads, smem, stream>>>(
+  ragged_paged_attention_kernel<Page, QG, ALIBI, BLOCKSPARSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
       page_indices, cu_q_lens, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_seqs,
-      num_kv_heads, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap);
+      num_kv_heads, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
   return cudaGetLastError();
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// QG = num_q_heads / num_kv_heads query heads per kv head and ALiBi (a
-// slope table given) or not.
-template <class Page, bool ALIBI>
+// QG = num_q_heads / num_kv_heads query heads per kv head, ALiBi (a slope
+// table given) or not and blocksparse (a phase table given) or not.
+template <class Page, bool ALIBI, bool BLOCKSPARSE>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* cu_q_lens, const void* alibi_slopes, void* out, int num_tokens,
         int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size,
-        int pages_per_seq, float sm_scale, int sliding_window, float soft_cap, void* stream) {
+        int pages_per_seq, float sm_scale, int sliding_window, float soft_cap,
+        const void* bs_offsets, int bs_block, int bs_local, int bs_vert, void* stream) {
   if (num_tokens <= 0 || num_seqs <= 0) return int(cudaSuccess);
   if (head_dim != D || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 ||
-      ALIBI != (alibi_slopes != nullptr))
+      ALIBI != (alibi_slopes != nullptr) || BLOCKSPARSE != (bs_offsets != nullptr) ||
+      (BLOCKSPARSE && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0)))
     return int(cudaErrorInvalidValue);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* pages = static_cast<const int*>(page_indices);
   const int* cu = static_cast<const int*>(cu_q_lens);
   const float* slopes = static_cast<const float*>(alibi_slopes);
+  const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAGGED_LAUNCH(qg)                                                                  \
-  launch<Page, qg, ALIBI>(q, kv_pages, lens, pages, cu, slopes, out, num_tokens, num_seqs, \
-                          num_kv_heads, page_size, pages_per_seq, sm_scale, sliding_window, \
-                          soft_cap, s)
+#define RAGGED_LAUNCH(qg)                                                                     \
+  launch<Page, qg, ALIBI, BLOCKSPARSE>(q, kv_pages, lens, pages, cu, slopes, out, num_tokens, \
+                                       num_seqs, num_kv_heads, page_size, pages_per_seq,      \
+                                       sm_scale, sliding_window, soft_cap, bs, s)
   switch (num_q_heads / num_kv_heads) {
     case 1:
       return int(RAGGED_LAUNCH(1));
@@ -323,23 +363,26 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 
 }  // namespace
 
-// One entry point: `name`, for pages of type Page, with ALiBi or not. q
-// bf16[T, QH, D] with D = 128 and QH = QG * KV for QG in {1, 2, 4, 8},
-// kv_pages [P, page_size, 2 * KV, D] of the named type, kv_lens i32[S],
-// page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1], alibi_slopes
-// f32[QH] (the ALiBi entry points) or null (the others), out bf16[T, QH, D]
-// (zero-filled by the caller). sliding_window <= 0 and soft_cap <= 0 mean
-// off. Returns the CUDA error of the launch (cudaErrorInvalidValue for any
-// other D or QH / KV, or a slope table that does not match the entry).
-#define RAGGED_ENTRY(name, Page, alibi)                                                     \
-  extern "C" int name(const void* q, const void* kv_pages, const void* kv_lens,            \
-                      const void* page_indices, const void* cu_q_lens,                     \
-                      const void* alibi_slopes, void* out, int num_tokens, int num_seqs,   \
-                      int num_q_heads, int num_kv_heads, int head_dim, int page_size,      \
-                      int pages_per_seq, float sm_scale, int sliding_window,               \
-                      float soft_cap, void* stream) {                                      \
-    return run<Page, alibi>(q, kv_pages, kv_lens, page_indices, cu_q_lens, alibi_slopes,   \
-                            out, num_tokens, num_seqs, num_q_heads, num_kv_heads,          \
-                            head_dim, page_size, pages_per_seq, sm_scale, sliding_window, \
-                            soft_cap, stream);                                             \
+// One entry point: `name`, for pages of type Page, with ALiBi or not and
+// blocksparse or not. q bf16[T, QH, D] with D = 128 and QH = QG * KV for QG
+// in {1, 2, 4, 8}, kv_pages [P, page_size, 2 * KV, D] of the named type,
+// kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],
+// alibi_slopes f32[QH] (the ALiBi entry points) or null (the others), out
+// bf16[T, QH, D] (zero-filled by the caller). sliding_window <= 0 and
+// soft_cap <= 0 mean off. bs_offsets i32[QH] with bs_block, bs_local and
+// bs_vert (the blocksparse entry points) or null (the others). Returns the
+// CUDA error of the launch (cudaErrorInvalidValue for any other D or QH /
+// KV, or a slope or phase table that does not match the entry).
+#define RAGGED_ENTRY(name, Page, alibi, blocksparse)                                          \
+  extern "C" int name(const void* q, const void* kv_pages, const void* kv_lens,              \
+                      const void* page_indices, const void* cu_q_lens,                       \
+                      const void* alibi_slopes, void* out, int num_tokens, int num_seqs,     \
+                      int num_q_heads, int num_kv_heads, int head_dim, int page_size,        \
+                      int pages_per_seq, float sm_scale, int sliding_window,                 \
+                      float soft_cap, const void* bs_offsets, int bs_block, int bs_local,    \
+                      int bs_vert, void* stream) {                                           \
+    return run<Page, alibi, blocksparse>(                                                    \
+        q, kv_pages, kv_lens, page_indices, cu_q_lens, alibi_slopes, out, num_tokens,        \
+        num_seqs, num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale,   \
+        sliding_window, soft_cap, bs_offsets, bs_block, bs_local, bs_vert, stream);          \
   }

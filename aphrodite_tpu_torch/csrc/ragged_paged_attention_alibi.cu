@@ -5,7 +5,7 @@
 
 #include "ragged_paged_attention.cuh"
 
-RAGGED_ENTRY(ragged_paged_attention_alibi_bf16, kv_page::Bf16, true)
-RAGGED_ENTRY(ragged_paged_attention_alibi_e4m3, kv_page::E4m3, true)
-RAGGED_ENTRY(ragged_paged_attention_alibi_e5m2, kv_page::E5m2, true)
-RAGGED_ENTRY(ragged_paged_attention_alibi_int8, kv_page::Int8, true)
+RAGGED_ENTRY(ragged_paged_attention_alibi_bf16, kv_page::Bf16, true, false)
+RAGGED_ENTRY(ragged_paged_attention_alibi_e4m3, kv_page::E4m3, true, false)
+RAGGED_ENTRY(ragged_paged_attention_alibi_e5m2, kv_page::E5m2, true, false)
+RAGGED_ENTRY(ragged_paged_attention_alibi_int8, kv_page::Int8, true, false)

@@ -184,11 +184,11 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     dense HF Linear weights. Per-layer containers are unpacked, then
     stacked on the leading layer axis.
     """
-    if model.hf_split_mappings():
+    if model.hf_split_mappings() or model.splits_fused_tensors:
         raise NotImplementedError(
-            f"{type(model).__name__} stores fused tensors (hf_split_mappings)"
-            "; quantized checkpoints of such models are not ported yet "
-            "(ROADMAP.md, module queue item 1)")
+            f"{type(model).__name__} stores fused tensors (hf_split_mappings"
+            " or finalize_params); quantized checkpoints of such models are "
+            "not ported yet (ROADMAP.md, module queue item 1)")
     is_awq = quant_method.startswith("awq")
     num_layers = model.num_layers
     per_layer_maps = model.hf_param_mappings()

@@ -1,10 +1,10 @@
 """Functional model layers (counterpart of aphrodite_tpu/models/layers.py).
 
-Plain PyTorch on tensors: RMSNorm, SiLU-and-mul, and rotary position
-embedding with the default and Llama-3 frequency tables, NeoX
-(rotate-half) style. The other RoPE scalings come with the models that
-use them. Also the ALiBi slope schedule (a copy of
-aphrodite_tpu/models/bloom.py: get_alibi_slopes).
+Plain PyTorch on tensors: RMSNorm, LayerNorm, SiLU-and-mul, and rotary
+position embedding with the default, linear (position interpolation) and
+Llama-3 frequency tables, NeoX (rotate-half) style. The other RoPE
+scalings come with the models that use them. Also the ALiBi slope
+schedule (a copy of aphrodite_tpu/models/bloom.py: get_alibi_slopes).
 """
 
 import math
@@ -22,6 +22,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in f32 (mean-centred, rsqrt(var + eps), then
+    weight and bias), returned in x's dtype: the JAX package's
+    arithmetic."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 def silu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
 
@@ -34,15 +49,18 @@ def compute_rope_tables(
     device: Optional[torch.device] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables of shape [max_position, head_dim // 2] in f32,
-    computed in float64 on the host. Handles no scaling ("default") and
-    "llama3" frequency-band rescaling."""
+    computed in float64 on the host. Handles no scaling ("default"),
+    "linear" (positions divided by the factor) and "llama3"
+    frequency-band rescaling."""
     inv_freq = 1.0 / (base**(
         np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
     positions = np.arange(max_position, dtype=np.float64)
     if rope_scaling:
         rope_type = rope_scaling.get("rope_type",
                                      rope_scaling.get("type", "default"))
-        if rope_type == "llama3":
+        if rope_type == "linear":
+            positions = positions / float(rope_scaling.get("factor", 1.0))
+        elif rope_type == "llama3":
             factor = float(rope_scaling.get("factor", 1.0))
             low_freq_factor = float(rope_scaling.get("low_freq_factor", 1.0))
             high_freq_factor = float(

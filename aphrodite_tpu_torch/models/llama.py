@@ -11,10 +11,23 @@ tensor is ``torch.matmul``, as XLA computes it in the JAX package, and a
 quantized container one of the products of ops/quant_matmul.py.
 Attention is ops/attention.py, which holds the two attention kernels.
 
-Two hooks serve the subclasses that change the position encoding, as in
-the JAX package: ``use_rope`` (False: no rotary tables, no rotation) and
-``alibi_slopes`` (an f32[QH] tensor on the model's device, handed to both
-attention kernels, or None).
+Hooks serve the subclasses, as in the JAX package:
+- position encoding: ``use_rope`` (False: no rotary tables, no rotation)
+  and ``alibi_slopes`` (an f32[QH] tensor on the model's device, handed to
+  both attention kernels, or None);
+- blocksparse attention: ``blocksparse_params`` (block size, local blocks,
+  vertical stride), ``bs_head_offsets`` (each query head's vertical phase,
+  an i32[QH] tensor on the model's device) and ``bs_layer_mask`` (one bool
+  per layer, False for a dense layer; None: every layer sparse);
+- bias terms: ``attention_bias`` (q|k|v, fused into ``bqkv`` with the
+  weights), ``o_proj_bias`` (``bo``) and ``mlp_bias`` (``gate_b``,
+  ``up_b``, fused into ``b13``, and ``down_b``);
+- ``norm_type`` "rms" or "layernorm" (with ``input_norm_b``,
+  ``post_norm_b`` and ``final_norm_b``), ``embedding_multiplier``
+  (applied in the model dtype), ``logit_scale`` (f32, after the f32
+  product) and ``tie_word_embeddings_default``;
+- ``mlp(lp, h, layer)``, which a subclass may replace; ``gate`` and
+  ``up`` then stay apart at load.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -24,7 +37,8 @@ import torch
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.interface import ForwardBatch
 from aphrodite_tpu_torch.models.layers import (apply_rope,
-                                               compute_rope_tables, rms_norm,
+                                               compute_rope_tables,
+                                               layer_norm, rms_norm,
                                                silu_and_mul)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
@@ -39,6 +53,20 @@ class LlamaForCausalLM:
     # Rotary positions; a subclass with ALiBi sets it False before
     # __init__ and fills alibi_slopes after.
     use_rope: bool = True
+    # Bias terms (q|k|v bias may also come from the config's
+    # "attention_bias", as in the JAX package).
+    attention_bias: bool = False
+    o_proj_bias: bool = False
+    mlp_bias: bool = False
+    # "rms" or "layernorm" (mean-centred, with bias).
+    norm_type: str = "rms"
+    tie_word_embeddings_default: bool = False
+    # muP-style scales (1.0 and None: off).
+    embedding_multiplier: float = 1.0
+    logit_scale: Optional[float] = None
+    # Set by a subclass whose finalize_params splits fused checkpoint
+    # tensors: its quantized checkpoints are not loaded.
+    splits_fused_tensors: bool = False
 
     def __init__(self, model_config: ModelConfig,
                  device: torch.device = torch.device("cpu")) -> None:
@@ -54,14 +82,15 @@ class LlamaForCausalLM:
         self.rms_eps = float(hf.get("rms_norm_eps", 1e-6))
         self.rope_theta = float(hf.get("rope_theta", 10000.0))
         self.max_position = model_config.max_model_len
-        self.tie_word_embeddings = bool(hf.get("tie_word_embeddings", False))
+        tie = hf.get("tie_word_embeddings")
+        self.tie_word_embeddings = bool(
+            self.tie_word_embeddings_default if tie is None else tie)
+        # The config's mlp_bias is not read, as in the JAX package.
+        self.attention_bias = bool(
+            hf.get("attention_bias", self.attention_bias))
         self.sliding_window = model_config.get_sliding_window()
         self.dtype = _DTYPES[model_config.dtype]
         self.sm_scale = self.head_dim**-0.5
-        for key in ("attention_bias", "mlp_bias"):
-            if hf.get(key):
-                raise NotImplementedError(
-                    f"{key} Llama variants are not ported yet")
         if float(hf.get("partial_rotary_factor") or 1.0) != 1.0:
             raise NotImplementedError("partial rotary is not ported yet")
         if self.num_heads % self.num_kv_heads:
@@ -69,6 +98,9 @@ class LlamaForCausalLM:
                 f"q heads ({self.num_heads}) must be a multiple of kv "
                 f"heads ({self.num_kv_heads})")
         self.alibi_slopes: Optional[torch.Tensor] = None
+        self.blocksparse_params: Optional[Tuple[int, int, int]] = None
+        self.bs_head_offsets: Optional[torch.Tensor] = None
+        self.bs_layer_mask: Optional[List[bool]] = None
         if self.use_rope:
             self._cos, self._sin = compute_rope_tables(
                 self.head_dim, self.max_position, base=self.rope_theta,
@@ -97,17 +129,29 @@ class LlamaForCausalLM:
                 "down": (L, F, H),
             },
         }
+        lay = shapes["layers"]
+        if self.mlp_bias:
+            lay.update(gate_b=(L, F), up_b=(L, F), down_b=(L, H))
+        if self.attention_bias:
+            lay.update(bq=(L, NH * D), bk=(L, NKV * D), bv=(L, NKV * D))
+        if self.o_proj_bias:
+            lay["bo"] = (L, H)
+        if self.norm_type == "layernorm":
+            lay.update(input_norm_b=(L, H), post_norm_b=(L, H))
+            shapes["final_norm_b"] = (H,)
         if not self.tie_word_embeddings:
             shapes["lm_head"] = (H, V)
         return shapes
 
     def fuse_projections(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Concatenate wq|wk|wv -> wqkv and gate|up -> w13 along the
-        output axis (all share their input): 4 matmuls per layer, not 7.
-        Same layout as the JAX package's fuse_projections. Quantized
-        containers fuse member by member, and only when all parts are of
-        one kind with one K and one group size; otherwise the parts stay
-        apart and the forward multiplies each."""
+        output axis (all share their input): 4 matmuls per layer, not 7,
+        and their biases with them (bqkv, b13). Same layout and rules as
+        the JAX package's fuse_projections: a subclass with its own
+        ``mlp`` keeps gate and up apart. Quantized containers fuse member
+        by member, and only when all parts are of one kind with one K and
+        one group size; otherwise the parts stay apart and the forward
+        multiplies each."""
         lp = params["layers"]
 
         def kind(w):
@@ -121,7 +165,7 @@ class LlamaForCausalLM:
                 return ("q4", rows, rows // w["scale"].shape[-2])
             return ("q", w["q"].shape[-2], 0)
 
-        def fuse(names, out):
+        def fuse(names, out, biases, bias_out):
             if out in lp or len({kind(lp[n]) for n in names}) != 1:
                 return
             ws = [lp.pop(n) for n in names]
@@ -130,9 +174,12 @@ class LlamaForCausalLM:
                            for k in ws[0]}
             else:
                 lp[out] = torch.cat(ws, dim=-1)
+            if biases[0] in lp:
+                lp[bias_out] = torch.cat([lp.pop(b) for b in biases], dim=-1)
 
-        fuse(("wq", "wk", "wv"), "wqkv")
-        fuse(("gate", "up"), "w13")
+        fuse(("wq", "wk", "wv"), "wqkv", ("bq", "bk", "bv"), "bqkv")
+        if type(self).mlp is LlamaForCausalLM.mlp:
+            fuse(("gate", "up"), "w13", ("gate_b", "up_b"), "b13")
         return params
 
     def quantizable_weights(self) -> List[str]:
@@ -145,20 +192,34 @@ class LlamaForCausalLM:
         """(hf_template, our_path, transpose) for per-layer weights.
 
         HF stores Linear weights [out, in]; ours are [in, out] (transpose).
+        The bias terms are the JAX package's: o_proj, LayerNorm and q|k|v
+        biases by their flags; MLP biases of a gated MLP have no mapping
+        here (a subclass maps its own).
         """
-        return [
-            ("model.layers.{i}.input_layernorm.weight",
-             "layers.input_norm", False),
-            ("model.layers.{i}.self_attn.q_proj.weight", "layers.wq", True),
-            ("model.layers.{i}.self_attn.k_proj.weight", "layers.wk", True),
-            ("model.layers.{i}.self_attn.v_proj.weight", "layers.wv", True),
-            ("model.layers.{i}.self_attn.o_proj.weight", "layers.wo", True),
-            ("model.layers.{i}.post_attention_layernorm.weight",
-             "layers.post_norm", False),
-            ("model.layers.{i}.mlp.gate_proj.weight", "layers.gate", True),
-            ("model.layers.{i}.mlp.up_proj.weight", "layers.up", True),
-            ("model.layers.{i}.mlp.down_proj.weight", "layers.down", True),
+        la = "model.layers.{i}."
+        maps = [
+            (la + "input_layernorm.weight", "layers.input_norm", False),
+            (la + "self_attn.q_proj.weight", "layers.wq", True),
+            (la + "self_attn.k_proj.weight", "layers.wk", True),
+            (la + "self_attn.v_proj.weight", "layers.wv", True),
+            (la + "self_attn.o_proj.weight", "layers.wo", True),
+            (la + "post_attention_layernorm.weight", "layers.post_norm",
+             False),
+            (la + "mlp.gate_proj.weight", "layers.gate", True),
+            (la + "mlp.up_proj.weight", "layers.up", True),
+            (la + "mlp.down_proj.weight", "layers.down", True),
         ]
+        if self.o_proj_bias:
+            maps.append((la + "self_attn.o_proj.bias", "layers.bo", False))
+        if self.norm_type == "layernorm":
+            maps += [(la + "input_layernorm.bias", "layers.input_norm_b",
+                      False),
+                     (la + "post_attention_layernorm.bias",
+                      "layers.post_norm_b", False)]
+        if self.attention_bias:
+            maps += [(la + f"self_attn.{n}_proj.bias", f"layers.b{n}", False)
+                     for n in "qkv"]
+        return maps
 
     def hf_split_mappings(
             self) -> List[Tuple[str, List[Tuple[str, int, int]], bool]]:
@@ -175,6 +236,8 @@ class LlamaForCausalLM:
             ("model.embed_tokens.weight", "embed", False),
             ("model.norm.weight", "final_norm", False),
         ]
+        if self.norm_type == "layernorm":
+            maps.append(("model.norm.bias", "final_norm_b", False))
         if not self.tie_word_embeddings:
             maps.append(("lm_head.weight", "lm_head", True))
         return maps
@@ -206,24 +269,19 @@ class LlamaForCausalLM:
         lp = params["layers"]
         k_scales, v_scales = kv_scales if kv_scales is not None else (None,
                                                                       None)
-
-        def proj(h, names, layer):
-            """h @ the fused weight names[0], or, where the parts could
-            not be fused, the concatenation of h @ each part. A quantized
-            product comes back in f32 and is cast to the model dtype, so
-            the layer goes on in the dtype the dense path holds."""
-            if names[0] in lp:
-                return qmatmul(h, lp[names[0]], layer).to(self.dtype)
-            return torch.cat([qmatmul(h, lp[n], layer) for n in names[1:]],
-                             dim=-1).to(self.dtype)
-
         x = params["embed"][batch.token_ids].to(self.dtype)
+        if self.embedding_multiplier != 1.0:
+            x = x * torch.tensor(self.embedding_multiplier, dtype=self.dtype,
+                                 device=x.device)
         if self.use_rope:
             cos = self._cos[batch.positions]
             sin = self._sin[batch.positions]
         for layer in range(self.num_layers):
-            h = rms_norm(x, lp["input_norm"][layer], self.rms_eps)
-            qkv = proj(h, ("wqkv", "wq", "wk", "wv"), layer)
+            h = self._norm(x, lp["input_norm"][layer],
+                           self._layer_bias(lp, "input_norm_b", layer))
+            qkv = self._linear(lp, h, ("wqkv", "wq", "wk", "wv"),
+                               ("bqkv", "bq", "bk", "bv"),
+                               layer).to(self.dtype)
             q = qkv[:, :NH * D].reshape(-1, NH, D)
             k = qkv[:, NH * D:(NH + NKV) * D].reshape(-1, NKV, D)
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
@@ -244,16 +302,60 @@ class LlamaForCausalLM:
                 q, pages, batch.kv_lens, batch.page_indices,
                 batch.cu_q_lens, batch.num_seqs, sm_scale=self.sm_scale,
                 sliding_window=self.sliding_window,
-                alibi_slopes=self.alibi_slopes)
+                alibi_slopes=self.alibi_slopes,
+                blocksparse=self.blocksparse_params,
+                bs_head_offsets=self.bs_head_offsets,
+                bs_on=(self.bs_layer_mask is None
+                       or self.bs_layer_mask[layer]))
             if v_scale is not None:
                 attn = attn * v_scale.to(attn.dtype)
-            x = x + proj(attn.reshape(-1, NH * D), ("wo",), layer)
-            h = rms_norm(x, lp["post_norm"][layer], self.rms_eps)
-            g13 = proj(h, ("w13", "gate", "up"), layer)
-            F = g13.shape[-1] // 2
-            x = x + proj(silu_and_mul(g13[:, :F], g13[:, F:]), ("down",),
-                         layer)
-        return rms_norm(x, params["final_norm"], self.rms_eps)
+            x = x + self._linear(lp, attn.reshape(-1, NH * D), ("wo",),
+                                 ("bo",), layer).to(self.dtype)
+            h = self._norm(x, lp["post_norm"][layer],
+                           self._layer_bias(lp, "post_norm_b", layer))
+            x = x + self.mlp(lp, h, layer).to(self.dtype)
+        return self._norm(x, params["final_norm"], params.get("final_norm_b"))
+
+    @staticmethod
+    def _layer_bias(lp: Dict[str, Any], name: str,
+                    layer: int) -> Optional[torch.Tensor]:
+        return lp[name][layer] if name in lp else None
+
+    def _norm(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.norm_type == "layernorm":
+            return layer_norm(x, weight, bias, self.rms_eps)
+        return rms_norm(x, weight, self.rms_eps)
+
+    def _linear(self, lp: Dict[str, Any], h: torch.Tensor,
+                names: Tuple[str, ...], biases: Tuple[str, ...],
+                layer: int) -> torch.Tensor:
+        """h @ the fused weight names[0] plus its bias biases[0], or, where
+        the parts could not be fused, the concatenation of h @ each part
+        plus its bias. Not cast: a quantized product comes back in f32, and
+        its bias is added there, as in the JAX package; the caller casts
+        to the model dtype."""
+        if names[0] in lp:
+            pairs = [(names[0], biases[0])]
+        else:
+            pairs = list(zip(names[1:], biases[1:]))
+        parts = []
+        for name, bias in pairs:
+            y = qmatmul(h, lp[name], layer)
+            if bias in lp:
+                y = y + lp[bias][layer]
+            parts.append(y)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    def mlp(self, lp: Dict[str, Any], h: torch.Tensor,
+            layer: int) -> torch.Tensor:
+        """The gated SiLU MLP of one layer (gate and up in the model
+        dtype, as the JAX package casts them)."""
+        g13 = self._linear(lp, h, ("w13", "gate", "up"),
+                           ("b13", "gate_b", "up_b"), layer).to(self.dtype)
+        F = g13.shape[-1] // 2
+        return self._linear(lp, silu_and_mul(g13[:, :F], g13[:, F:]),
+                            ("down",), ("down_b",), layer)
 
     def compute_logits(self, params: Dict[str, Any],
                        hidden: torch.Tensor) -> torch.Tensor:
@@ -264,9 +366,15 @@ class LlamaForCausalLM:
         head = (params["embed"][:self.vocab_size].t()
                 if self.tie_word_embeddings else params["lm_head"])
         if hidden.dtype == torch.float32:
-            return torch.matmul(hidden, head)
-        if hidden.device.type == "cuda":
-            return torch.mm(hidden, head, out_dtype=torch.float32)
-        # The CPU has no mixed-dtype mm; a product of two bf16 values is
-        # exact in f32, so upcasting first gives the same sums.
-        return torch.matmul(hidden.float(), head.float())
+            logits = torch.matmul(hidden, head)
+        elif hidden.device.type == "cuda":
+            logits = torch.mm(hidden, head, out_dtype=torch.float32)
+        else:
+            # The CPU has no mixed-dtype mm; a product of two bf16 values
+            # is exact in f32, so upcasting first gives the same sums.
+            logits = torch.matmul(hidden.float(), head.float())
+        if self.logit_scale:
+            logits = logits * torch.tensor(self.logit_scale,
+                                           dtype=torch.float32,
+                                           device=logits.device)
+        return logits

@@ -1,7 +1,7 @@
 """Model registry (counterpart of aphrodite_tpu/models/registry.py).
 
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
-Llama and Baichuan so far; any other architecture raises.
+Llama, Baichuan and Phi-3-Small so far; any other architecture raises.
 """
 
 from typing import Dict, Type
@@ -10,11 +10,13 @@ from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
                                                  BaichuanForCausalLM)
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
+from aphrodite_tpu_torch.models.phi3small import Phi3SmallForCausalLM
 
 _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "LlamaForCausalLM": LlamaForCausalLM,
     "BaiChuanForCausalLM": BaiChuanForCausalLM,
     "BaichuanForCausalLM": BaichuanForCausalLM,
+    "Phi3SmallForCausalLM": Phi3SmallForCausalLM,
 }
 
 

@@ -22,7 +22,10 @@ paged KV cache.
 With an ALiBi slope table both this kernel and the decode one add the
 distance bias in their loops; the JAX package sends ALiBi prefill to its
 vendored fork (ragged_paged_attention_alibi), whose ALiBi option this
-source also stands for.
+source also stands for. So is it with blocksparse (Phi-3-Small's mask,
+ops/decode_attention.py): the JAX package sends blocksparse prefill to
+the fork, whose blocksparse option this source's third library stands
+for.
 
 Cache layout: [num_pages, page_size, 2 * num_kv_heads, head_dim], K at
 even and V at odd combined-head indices.
@@ -30,13 +33,15 @@ even and V at odd combined-head indices.
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.decode_attention import (KERNEL_PAGE_TYPES,
+from aphrodite_tpu_torch.ops.decode_attention import (BLOCKSPARSE_ARGTYPES,
+                                                      KERNEL_PAGE_TYPES,
                                                       attend,
+                                                      blocksparse_args,
                                                       check_kernel_inputs,
                                                       count_launch,
                                                       gather_kv,
@@ -57,6 +62,9 @@ def ref_ragged_paged_attention(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # f32[QH]
+    blocksparse: Optional[Tuple[int, int, int]] = None,
+    bs_head_offsets: Optional[torch.Tensor] = None,  # i32[QH]
+    bs_on: bool = True,
 ) -> torch.Tensor:
     """Plain ragged paged attention, one sequence at a time.
 
@@ -65,6 +73,8 @@ def ref_ragged_paged_attention(
     leaves garbage there, which callers ignore either way.
     """
     del num_seqs
+    if not bs_on:
+        blocksparse = None
     out = torch.zeros_like(q)
     cu = cu_q_lens.tolist()
     for s, kv_len in enumerate(kv_lens.tolist()):
@@ -76,19 +86,21 @@ def ref_ragged_paged_attention(
         out[cu[s]:cu[s + 1]] = attend(
             q[cu[s]:cu[s + 1]], k, v, pos, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
-            alibi_slopes=alibi_slopes).to(q.dtype)
+            alibi_slopes=alibi_slopes, blocksparse=blocksparse,
+            bs_head_offsets=bs_head_offsets).to(q.dtype)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(page_type: str, alibi: bool):
-    # The variants with ALiBi are a library of their own (built in
-    # parallel with the one without).
-    name = "ragged_paged_attention" + ("_alibi" if alibi else "")
+def _kernel(page_type: str, alibi: bool, blocksparse: bool):
+    # The variants with ALiBi and those with blocksparse are libraries of
+    # their own (built in parallel with the plain one).
+    name = ("ragged_paged_attention" + ("_alibi" if alibi else "")
+            + ("_blocksparse" if blocksparse else ""))
     fn = getattr(cuda_build.load(name), f"{name}_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+                   + BLOCKSPARSE_ARGTYPES + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,17 +117,24 @@ def ragged_paged_attention(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    blocksparse: Optional[Tuple[int, int, int]] = None,
+    bs_head_offsets: Optional[torch.Tensor] = None,
+    bs_on: bool = True,
 ) -> torch.Tensor:
     kwargs = dict(sm_scale=sm_scale, sliding_window=sliding_window,
-                  soft_cap=soft_cap, alibi_slopes=alibi_slopes)
+                  soft_cap=soft_cap, alibi_slopes=alibi_slopes,
+                  blocksparse=blocksparse, bs_head_offsets=bs_head_offsets,
+                  bs_on=bs_on)
     if cu_q_lens is None:
         return paged_decode_attention(q, kv_pages, kv_lens, page_indices,
                                       num_seqs, **kwargs)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(q, kv_pages, kv_lens,
                                           page_indices, cu_q_lens, **kwargs)
+    bs = blocksparse_args(blocksparse, bs_head_offsets, bs_on)
     check_kernel_inputs(q, kv_pages, (kv_lens, page_indices, cu_q_lens),
-                        alibi_slopes)
+                        alibi_slopes,
+                        None if bs[0] is None else bs_head_offsets)
     num_tokens, num_q_heads, head_dim = q.shape
     num_seqs_padded = kv_lens.shape[0]
     if (cu_q_lens.shape != (num_seqs_padded + 1,)
@@ -127,23 +146,24 @@ def ragged_paged_attention(
     # them alone.
     out = torch.zeros_like(q)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
-    err = _kernel(page_type, alibi_slopes is not None)(
+    err = _kernel(page_type, alibi_slopes is not None, bs[0] is not None)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(),
         slopes_ptr(alibi_slopes), out.data_ptr(), num_tokens,
         num_seqs_padded, num_q_heads, ckv // 2, head_dim, page_size,
         page_indices.shape[1], float(sm_scale),
-        int(sliding_window or 0), float(soft_cap or 0.0),
+        int(sliding_window or 0), float(soft_cap or 0.0), *bs,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
     count_launch(ragged_paged_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, alibi_slopes))
+                 launch_shape(num_q_heads, ckv // 2, alibi_slopes,
+                              bs[0] is not None))
     return out
 
 
 # Launches of the kernel: the total, per page type, and per QH / KV with
-# or without ALiBi.
+# ALiBi, blocksparse or neither.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_dtype = {}
 ragged_paged_attention.launches_by_shape = {}

@@ -27,11 +27,19 @@ Both kernels take head_dim 128 with 1, 2, 4 or 8 query heads per kv head
 (one instantiation each, chosen at the launch), and an optional ALiBi
 slope table f32[QH]: score + slope[h] * (key position - query position),
 added after the soft cap and before the mask, as the JAX package adds it.
+Or, instead of ALiBi, Phi-3-Small's blocksparse mask: ``blocksparse=
+(block_size, local_blocks, vert_stride)`` with ``bs_head_offsets`` (a
+contiguous i32[QH] tensor on q's device, each global query head's
+vertical phase) and ``bs_on`` (a Python bool, the layer's gate; False
+launches the instantiation without blocksparse). With b(x) = x //
+block_size, key j is visible to a query at position p for head h iff
+b(p) - b(j) < local_blocks or (b(j) + offsets[h] + 1) % vert_stride == 0,
+ANDed with the causal mask and the window.
 """
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,15 +74,20 @@ def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, *, sm_scale: float,
            sliding_window: Optional[int], soft_cap: Optional[float],
-           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+           alibi_slopes: Optional[torch.Tensor] = None,
+           blocksparse: Optional[Tuple[int, int, int]] = None,
+           bs_head_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of n query rows q [n, QH, D] at absolute positions q_pos
     over keys k/v [L, KV, D] at positions 0..L-1 (f32 result).
 
     Query head h reads kv head h // (QH / KV). Key j is visible to the row
-    at position p iff j <= p and, with a window w, j > p - w. With ALiBi
-    slopes (f32[QH]) the capped score of head h gains slope[h] * (j - p),
-    the product rounded to f32 before the sum. Masked scores take
-    MASK_VALUE (as in the JAX reference), not -inf.
+    at position p iff j <= p and, with a window w, j > p - w, and, with
+    blocksparse (block_size, local, vert) and phases bs_head_offsets
+    (i32[QH]), p // block_size - j // block_size < local or
+    (j // block_size + offsets[h] + 1) % vert == 0. With ALiBi slopes
+    (f32[QH]) the capped score of head h gains slope[h] * (j - p), the
+    product rounded to f32 before the sum. Masked scores take MASK_VALUE
+    (as in the JAX reference), not -inf.
     """
     n, num_q_heads, head_dim = q.shape
     num_kv_heads = k.shape[1]
@@ -91,6 +104,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = kv_pos[None, :] <= q_pos[:, None]
     if sliding_window is not None:
         mask &= kv_pos[None, :] > (q_pos[:, None] - sliding_window)
+    if blocksparse is not None:
+        block, local, vert = blocksparse
+        bk = kv_pos // block  # [L]
+        local_ok = (q_pos[:, None] // block - bk[None, :]) < local  # [n, L]
+        offsets = bs_head_offsets.to(q.device).long().reshape(
+            num_kv_heads, qg, 1, 1)
+        vert_ok = (bk + offsets + 1) % vert == 0  # [KV, QG, 1, L]
+        mask = mask & (local_ok | vert_ok)  # [KV, QG, n, L]
     scores = torch.where(mask, scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("gknl,lgd->ngkd", probs, v)
@@ -107,9 +128,14 @@ def ref_paged_decode_attention(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # f32[QH]
+    blocksparse: Optional[Tuple[int, int, int]] = None,
+    bs_head_offsets: Optional[torch.Tensor] = None,  # i32[QH]
+    bs_on: bool = True,
 ) -> torch.Tensor:
     """Plain decode attention; dead rows (kv_len == 0) get zeros, as the
     TPU kernel writes them."""
+    if not bs_on:
+        blocksparse = None
     out = torch.zeros_like(q)
     for s, kv_len in enumerate(kv_lens.tolist()):
         if kv_len <= 0:
@@ -118,8 +144,14 @@ def ref_paged_decode_attention(
         pos = torch.tensor([kv_len - 1], device=q.device)
         out[s] = attend(q[s:s + 1], k, v, pos, sm_scale=sm_scale,
                         sliding_window=sliding_window, soft_cap=soft_cap,
-                        alibi_slopes=alibi_slopes)[0].to(q.dtype)
+                        alibi_slopes=alibi_slopes, blocksparse=blocksparse,
+                        bs_head_offsets=bs_head_offsets)[0].to(q.dtype)
     return out
+
+
+# The blocksparse arguments of both kernels' entry points: the phase table
+# (NULL: off), block size, local blocks, vertical stride.
+BLOCKSPARSE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,14 +159,26 @@ def _kernel(page_type: str):
     fn = getattr(cuda_build.load("paged_decode_attention"),
                  f"paged_decode_attention_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+                   + BLOCKSPARSE_ARGTYPES + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None):
-    """Raise unless the tensors are what the CUDA attention kernels take."""
+def blocksparse_args(blocksparse: Optional[Tuple[int, int, int]],
+                     bs_head_offsets: Optional[torch.Tensor],
+                     bs_on: bool) -> Tuple[Optional[int], int, int, int]:
+    """The blocksparse arguments of one launch: the phase table's address
+    and the three sizes, or None (NULL) and zeros where it is off."""
+    if blocksparse is None or not bs_on:
+        return None, 0, 0, 0
+    return (bs_head_offsets.data_ptr(), *(int(n) for n in blocksparse))
+
+
+def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
+                        bs_head_offsets=None):
+    """Raise unless the tensors are what the CUDA attention kernels take.
+    bs_head_offsets: the phase table of a launch with blocksparse on."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype != torch.bfloat16 or kv_pages.dtype not in KERNEL_PAGE_TYPES:
@@ -161,6 +205,19 @@ def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None):
             f"[{num_q_heads}] tensor on q's device, got "
             f"{alibi_slopes.dtype} {tuple(alibi_slopes.shape)} on "
             f"{alibi_slopes.device}")
+    if bs_head_offsets is not None:
+        if alibi_slopes is not None:
+            raise ValueError("attention kernels take ALiBi or blocksparse, "
+                             "not both")
+        if (bs_head_offsets.device != q.device
+                or bs_head_offsets.dtype != torch.int32
+                or bs_head_offsets.shape != (num_q_heads,)
+                or not bs_head_offsets.is_contiguous()):
+            raise ValueError(
+                "attention kernel takes blocksparse head offsets as a "
+                f"contiguous int32 [{num_q_heads}] tensor on q's device, got "
+                f"{bs_head_offsets.dtype} {tuple(bs_head_offsets.shape)} on "
+                f"{bs_head_offsets.device}")
     for t in (q, kv_pages):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel needs contiguous, 16-byte "
@@ -183,6 +240,9 @@ def paged_decode_attention(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    blocksparse: Optional[Tuple[int, int, int]] = None,
+    bs_head_offsets: Optional[torch.Tensor] = None,
+    bs_on: bool = True,
 ) -> torch.Tensor:
     """Decode attention over the paged cache. num_seqs is unused:
     kv_lens == 0 marks the dead padded rows."""
@@ -191,8 +251,11 @@ def paged_decode_attention(
         return ref_paged_decode_attention(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
-            alibi_slopes=alibi_slopes)
-    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices), alibi_slopes)
+            alibi_slopes=alibi_slopes, blocksparse=blocksparse,
+            bs_head_offsets=bs_head_offsets, bs_on=bs_on)
+    bs = blocksparse_args(blocksparse, bs_head_offsets, bs_on)
+    check_kernel_inputs(q, kv_pages, (kv_lens, page_indices), alibi_slopes,
+                        None if bs[0] is None else bs_head_offsets)
     num_seqs, num_q_heads, head_dim = q.shape
     if kv_lens.shape != (num_seqs,) or page_indices.shape[0] != num_seqs:
         raise ValueError("kv_lens and page_indices need one row per query")
@@ -205,11 +268,12 @@ def paged_decode_attention(
         num_seqs, num_q_heads,
         ckv // 2, head_dim, page_size, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *bs, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
     count_launch(paged_decode_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, alibi_slopes))
+                 launch_shape(num_q_heads, ckv // 2, alibi_slopes,
+                              bs[0] is not None))
     return out
 
 
@@ -219,17 +283,19 @@ def slopes_ptr(alibi_slopes: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def launch_shape(num_q_heads: int, num_kv_heads: int,
-                 alibi_slopes: Optional[torch.Tensor]) -> str:
-    """The instantiation a launch takes and whether it adds ALiBi, as the
-    key of ``launches_by_shape``: "qg<QH/KV>", then " alibi" with a slope
-    table."""
+                 alibi_slopes: Optional[torch.Tensor],
+                 blocksparse: bool = False) -> str:
+    """The instantiation a launch takes, as the key of
+    ``launches_by_shape``: "qg<QH/KV>", then " alibi" with a slope table
+    or " blocksparse" with blocksparse on."""
     qg = num_q_heads // num_kv_heads
-    return f"qg{qg}" + (" alibi" if alibi_slopes is not None else "")
+    return (f"qg{qg}" + (" alibi" if alibi_slopes is not None else "")
+            + (" blocksparse" if blocksparse else ""))
 
 
 def count_launch(wrapper, page_type: str, shape: str) -> None:
     """One kernel launch of `wrapper` on pages of `page_type`, of the
-    instantiation and ALiBi option `shape` (``launch_shape``)."""
+    instantiation and option `shape` (``launch_shape``)."""
     wrapper.launches += 1
     for counts, key in ((wrapper.launches_by_dtype, page_type),
                         (wrapper.launches_by_shape, shape)):
@@ -237,7 +303,7 @@ def count_launch(wrapper, page_type: str, shape: str) -> None:
 
 
 # Launches of the kernel: the total, per page type, and per QH / KV with
-# or without ALiBi.
+# ALiBi, blocksparse or neither.
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
 paged_decode_attention.launches_by_shape = {}

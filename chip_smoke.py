@@ -12,18 +12,23 @@ Phases, each of which must pass or the script exits non-zero:
    bf16 pages and on each narrow page type (float8_e4m3fn, float8_e5m2,
    int8: pages that hold value / 0.02, read raw by that type's variant of
    the kernel, which must also equal, bit for bit, the bf16 variant on
-   the same pages widened to bf16), at four geometries (ATTN_GEOMETRIES,
+   the same pages widened to bf16), at five geometries (ATTN_GEOMETRIES,
    head_dim 128, 16-token pages): Baichuan2-13B's 40 query and 40 kv
    heads with its 40 ALiBi slopes, bench.py's 1.4B 16 / 8, Llama-3.1-8B's
    32 / 8 and Llama-3-70B's 64 / 8: a mixed prefill and decode batch, a
    chunked prefill on a cached prefix, a decode batch with dead padded
    rows, and sliding window with soft cap, every case with rows of 1000+
    keys (where ALiBi's bias reaches hundreds); with ALiBi, all-zero
-   slopes must also equal no ALiBi bit for bit. Cache slots past each
+   slopes must also equal no ALiBi bit for bit. The fifth is Phi-3-Small's
+   blocksparse mask at 32 / 8 heads (block 64, 16 local blocks, stride 8,
+   a phase per query head) over kv lengths of 1024-6144, where the gate
+   off must equal the kernel without blocksparse bit for bit. Cache slots
+   past each
    sequence's length hold NaN (bf16, and byte 0x7f in the fp8 types) or
    127 (int8), so a kernel that reads past kv_len fails the check. The
    packed-int4 matmul, at the four projection sites of a Llama-3.1-8B
-   layer (wqkv, wo, w13, down; group 128) on
+   layer (wqkv, wo, w13, down; group 128, and group 16 as GGUF Q2_K and
+   Q3_K pack) on
    layer-stacked weights with a layer index, for T in (1, 8, 32, 64, 100,
    2048), against its plain version and against the exact f32
    dequantized product. The unpacked int4 matmul (one int8 level per
@@ -50,8 +55,13 @@ Phases, each of which must pass or the script exits non-zero:
    the call must move (K/V rows at the page type's size) over 3.35 TB/s
    and its FLOPs over 989 TFLOP/s (H100 SXM bf16); both attention kernels
    also at the Baichuan2-13B geometry with ALiBi on bf16 and E4M3 pages
-   (the library call then takes the bias as a float attn_mask). The int4
-   matmul is timed at T = 32 and T = 2048 at each site; its library call is one
+   (the library call then takes the bias as a float attn_mask), and with
+   Phi-3-Small's blocksparse mask on bf16 and E4M3 pages (decode of 16
+   rows of 1056-6176 keys, a prefill step of the last 2048 tokens of the
+   longest prompt; the library call takes the mask as a bool attn_mask,
+   the bound counts the K/V rows some query head sees). The int4
+   matmul is timed at T = 32 and T = 2048 at each site (and at w13 at
+   group 16); its library call is one
    torch.matmul of x with the pre-dequantized bf16 weight (four times the
    weight bytes; the port never calls it). Both bodies of the unpacked
    matmul are timed the same way on the Q6_K-like and Q8_0-like
@@ -117,16 +127,26 @@ Phases, each of which must pass or the script exits non-zero:
    MHA with ALiBi), the same with an E4M3 cache at 4 layers, and
    ``bench-1.4b gptq+fp8_e4m3`` (bench.py's default 1.4B geometry, 24
    layers, 16 q / 8 kv heads, the packed int4 kernel at its four sites).
+   Then slice 7's three: ``phi-3-small`` (Phi3SmallForCausalLM from the
+   published Phi-3-small-8k-instruct values, bf16, full width and all 32
+   layers, 16 requests with prompts of 1024-6144 tokens), the same with an
+   E4M3 cache at 4 layers, and ``q2_k gguf, 4 layers`` (a GGUF file of
+   Q2_K projections with a Q3_K down projection at the Llama-3.1-8B
+   width, which loads packed at group 16: 4 int4p_matmul launches per
+   layer and forward, logits against the plain product).
    Every attention launch of every path is counted by its instantiation
-   (query heads per kv head) and ALiBi option and must be the model's:
+   (query heads per kv head) and option and must be the model's:
    QG 1 with ALiBi on the Baichuan paths, QG 2 on the 1.4B one, QG 4 on
-   the Llama-3.1-8B ones.
+   the Llama-3.1-8B ones, and on the Phi-3-Small ones QG 4 with
+   blocksparse on the layers whose gate is on (every other one) and QG 4
+   without it on the rest.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times (each attention
    kernel once per page type, with its launches by shape and, on bf16
-   and E4M3 pages, its times at the Baichuan2-13B geometry, the unpacked
-   int4 matmul once per body, W4A8, the activation quantizer and the FP8
-   W8A8 product);
+   and E4M3 pages, its times at the Baichuan2-13B geometry; each kernel's
+   blocksparse instantiation on bf16 and E4M3 pages, with its times at
+   Phi-3-Small's geometry; the unpacked int4 matmul once per body, W4A8,
+   the activation quantizer and the FP8 W8A8 product);
    the last line is
    {"ok": true, "device": {...}}.
 """
@@ -190,6 +210,43 @@ BENCH_1P4B = {
     "tie_word_embeddings": False,
     "torch_dtype": "bfloat16",
 }
+# Phi-3-small-8k-instruct (Phi3SmallForCausalLM), the published config's
+# values, with two changes. The published file names the MLP width
+# ff_intermediate_size; HF derives intermediate_size from it in the
+# model's own config class, and both packages read intermediate_size
+# (ROADMAP.md §3 records the gap of the reference), so it is written here.
+# Its dummy_token_indices (tokens never to be sampled) are a list of ids
+# at the top of the vocabulary; the list here stands in for the published
+# one. Blocksparse: 64-key blocks, 16 local, vertical stride 8, a phase per
+# query head (hetero), every 2nd layer dense; muP 10 / 8 / 1; tied head.
+PHI3_SMALL = {
+    "architectures": ["Phi3SmallForCausalLM"],
+    "hidden_size": 4096,
+    "intermediate_size": 14336,
+    "ff_intermediate_size": 14336,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "vocab_size": 100352,
+    "max_position_embeddings": 8192,
+    "layer_norm_epsilon": 1e-5,
+    "rope_embedding_base": 1000000,
+    "rope_position_scale": 1.0,
+    "rope_scaling": None,
+    "blocksparse_block_size": 64,
+    "blocksparse_num_local_blocks": 16,
+    "blocksparse_vert_stride": 8,
+    "blocksparse_homo_head_pattern": False,
+    "dense_attention_every_n_layers": 2,
+    "gegelu_limit": 20.0,
+    "hidden_act": "gegelu",
+    "mup_use_scaling": True,
+    "mup_attn_multiplier": 1.0,
+    "mup_embedding_multiplier": 10.0,
+    "mup_width_multiplier": 8.0,
+    "dummy_token_indices": list(range(100256, 100352, 3)),
+    "torch_dtype": "bfloat16",
+}
 # The attention kernels' checks: (query heads, kv heads, head_dim, ALiBi)
 # of Baichuan2-13B (QH/KV 1), bench.py's 1.4B (2), Llama-3.1-8B (4) and
 # Llama-3-70B (8).
@@ -199,6 +256,10 @@ ATTN_GEOMETRIES = {
     "llama-3.1-8b 32/8": (32, 8, 128, False),
     "llama-3-70b 64/8": (64, 8, 128, False),
 }
+# And with Phi-3-Small's blocksparse mask: (block size, local blocks,
+# vertical stride); query head h has phase h * max(1, stride // QH).
+BLOCKSPARSE_GEOMETRY = "phi-3-small 32/8 blocksparse"
+PHI3_BLOCKSPARSE = (64, 16, 8)
 PAGE_SIZE = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -307,7 +368,12 @@ ACT_TIME = ((32, 4096), (32, 14336), (2048, 4096), (2048, 14336))
 # Depth of the Q6_K GGUF main path (full width; the other GGUF path runs 4
 # layers).
 GGUF_Q6K_LAYERS = 32
-GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q6_K = 0, 1, 8, 14
+GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q2_K, GGML_Q3_K, GGML_Q6_K = (
+    0, 1, 8, 10, 11, 14)
+# (ggml type, values per block, bytes per block) of each block type the
+# script writes.
+GGUF_BLOCKS = {"q6_k": (GGML_Q6_K, 256, 210), "q8_0": (GGML_Q8_0, 32, 34),
+               "q2_k": (GGML_Q2_K, 256, 84), "q3_k": (GGML_Q3_K, 256, 110)}
 
 
 def fail(msg: str) -> None:
@@ -497,6 +563,88 @@ def sdpa_inputs(case, layer, num_q_heads, num_kv_heads, head_dim,
     return qq, k, v, mask
 
 
+def phi3_offsets(num_q_heads, device):
+    """Phi-3-Small's hetero phases: query head h at h * max(1, vert //
+    QH), an int32 tensor on the device."""
+    import torch
+
+    vert = PHI3_BLOCKSPARSE[2]
+    return (torch.arange(num_q_heads, dtype=torch.int32, device=device)
+            * max(1, vert // num_q_heads))
+
+
+def visible_keys(q_pos, kv_len, offsets):
+    """bool [QH, n, kv_len]: which keys each query head at positions q_pos
+    sees under the causal and Phi-3-Small's blocksparse masks."""
+    import torch
+
+    block, local, vert = PHI3_BLOCKSPARSE
+    keys = torch.arange(kv_len, device=q_pos.device)
+    causal = keys[None, :] <= q_pos[:, None]
+    bk = keys // block
+    local_ok = (q_pos[:, None] // block - bk[None, :]) < local
+    vert_ok = (bk[None, :] + offsets.long()[:, None] + 1) % vert == 0
+    return causal[None] & (local_ok[None] | vert_ok[:, None, :])
+
+
+def blocksparse_work(case, num_q_heads, num_kv_heads, head_dim, decode):
+    """(bytes, flops) of a blocksparse call on this data: q and out of the
+    live tokens once (bf16), each K/V row that some query head of its kv
+    head can see once (at the page type's size), the index tensors and the
+    phase table; 4 * D FLOPs per visible (query head, key) pair."""
+    import torch
+
+    kv_itemsize = case["kv"].dtype.itemsize
+    offsets = phi3_offsets(num_q_heads, case["q"].device)
+    qg = num_q_heads // num_kv_heads
+    tokens = pairs = live_rows = 0
+    for q_len, kv_len in case["seqs"]:
+        q_pos = torch.arange(kv_len - q_len, kv_len, device=case["q"].device)
+        vis = visible_keys(q_pos, kv_len, offsets)  # [QH, n, L]
+        pairs += int(vis.sum())
+        live_rows += int(vis.reshape(num_kv_heads, qg, q_len, kv_len)
+                         .any(1).any(1).sum())
+        tokens += q_len
+        del vis
+    index = [case["kv_lens"], case["page_indices"]]
+    if not decode:
+        index.append(case["cu_q_lens"])
+    nbytes = (2 * tokens * num_q_heads * head_dim * 2
+              + live_rows * 2 * head_dim * kv_itemsize
+              + sum(t.numel() * 4 for t in index) + num_q_heads * 4)
+    return nbytes, 4 * head_dim * pairs
+
+
+def blocksparse_sdpa_inputs(case, layer, num_q_heads, num_kv_heads,
+                            head_dim, decode):
+    """sdpa_inputs with Phi-3-Small's blocksparse mask: a bool mask per
+    query head."""
+    import torch
+
+    qq, kk, vv, mask = sdpa_inputs(case, layer, num_q_heads, num_kv_heads,
+                                   head_dim, decode)
+    offsets = phi3_offsets(num_q_heads, qq.device)
+    dev = qq.device
+    if decode:
+        n = len(case["seqs"])
+        full = torch.zeros((n, num_q_heads, 1, kk.shape[2]), dtype=torch.bool,
+                           device=dev)
+        for s, (_, kv_len) in enumerate(case["seqs"]):
+            full[s, :, :, :kv_len] = visible_keys(
+                torch.tensor([kv_len - 1], device=dev), kv_len, offsets)
+        return qq, kk, vv, full
+    cu = case["cu_q_lens"].tolist()
+    full = torch.zeros((1, num_q_heads, qq.shape[2], kk.shape[2]),
+                       dtype=torch.bool, device=dev)
+    key0 = 0
+    for s, (q_len, kv_len) in enumerate(case["seqs"]):
+        full[0, :, cu[s]:cu[s + 1], key0:key0 + kv_len] = visible_keys(
+            torch.arange(kv_len - q_len, kv_len, device=dev), kv_len,
+            offsets)
+        key0 += kv_len
+    return qq, kk, vv, full
+
+
 # ----------------------------------------------------------------------
 # Phases
 # ----------------------------------------------------------------------
@@ -542,10 +690,12 @@ def check_close(errs, name, label, got, want, rows):
     errs[name] = max(errs[name], float(err.max()))
 
 
-def variant_name(kernel: str, page_type: str) -> str:
+def variant_name(kernel: str, page_type: str, blocksparse=False) -> str:
     """The name a kernel's variant for one page type goes by in this
-    script's output: the bf16 one keeps the kernel's name."""
-    return kernel if page_type == "bf16" else f"{kernel}_{page_type}"
+    script's output: the bf16 one keeps the kernel's name; the blocksparse
+    instantiations add "_blocksparse"."""
+    name = kernel + ("_blocksparse" if blocksparse else "")
+    return name if page_type == "bf16" else f"{name}_{page_type}"
 
 
 def check_equals_bf16_kernel(name, label, got, fn, case, args, kw):
@@ -670,8 +820,76 @@ def kernel_checks(device, name, geometry, errs):
                                   case, args, kw)
 
 
+def blocksparse_checks(device, errs):
+    """Both kernels with Phi-3-Small's blocksparse mask at its geometry
+    (32 / 8 heads: QG 4), on every page type, over kv lengths of 1024 to
+    6144 (the local window is 1024 keys, and at kv head 0 the first 128
+    keys are dead for all four of its heads), against their plain versions
+    row by row; the narrow variants against the bf16 one on the widened
+    pages, bit for bit; and the layer gate off (bs_on=False) against the
+    kernel without blocksparse, bit for bit. Keeps the max abs error per
+    blocksparse variant in `errs`."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
+                                                   ref_ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        paged_decode_attention, ref_paged_decode_attention)
+
+    qh, kvh, d, _ = ATTN_GEOMETRIES["llama-3.1-8b 32/8"]
+    bs_kw = dict(blocksparse=PHI3_BLOCKSPARSE,
+                 bs_head_offsets=phi3_offsets(qh, device))
+    name = BLOCKSPARSE_GEOMETRY
+    ragged_seqs = [(512, 6144), (300, 2500), (64, 1100), (1, 1024),
+                   (1, 3001), (200, 200)]
+    rng = np.random.default_rng(SEED + 30)
+    lens = rng.integers(1024, 6145, size=14)
+    decode_seqs = [(1, int(n)) for n in lens]
+    cases = (
+        ("ragged_paged_attention", "long prefill chunks and decode rows",
+         ragged_seqs, 8, sum(q for q, _ in ragged_seqs) + 13,
+         ragged_paged_attention, ref_ragged_paged_attention),
+        ("paged_decode_attention", "decode with dead rows", decode_seqs,
+         16, 16, paged_decode_attention, ref_paged_decode_attention))
+    for page_type in PAGE_TYPES:
+        for i, (kernel, label, seqs, padded_seqs, padded_tokens, fn,
+                ref) in enumerate(cases):
+            variant = variant_name(kernel, page_type, blocksparse=True)
+            errs.setdefault(variant, 0.0)
+            label = f"{name}: {label}"
+            case = make_attention_case(seqs, qh, kvh, d,
+                                       padded_seqs=padded_seqs,
+                                       padded_tokens=padded_tokens,
+                                       device=device, seed=SEED + 31 + i,
+                                       page_type=page_type)
+            kw = dict(bs_kw, sm_scale=d**-0.5 * case["kv_scale"])
+            args = (case["kv_lens"], case["page_indices"])
+            if kernel == "ragged_paged_attention":
+                args += (case["cu_q_lens"], case["num_seqs"])
+                rows = sum(q for q, _ in seqs)
+            else:
+                rows = len(seqs)
+            got = fn(case["q"], case["kv"][0], *args, **kw)
+            want = ref(case["q"], case["kv"][0], *args, **kw)
+            check_close(errs, variant, label, got, want, rows)
+            if float(got[rows:].float().abs().max()) != 0.0:
+                fail(f"{variant} [{label}]: padding rows not zero")
+            if page_type != "bf16":
+                check_equals_bf16_kernel(variant, label, got, fn, case, args,
+                                         kw)
+            dense = {k: v for k, v in kw.items() if k not in bs_kw}
+            if not torch.equal(fn(case["q"], case["kv"][0], *args,
+                                  bs_on=False, **kw),
+                               fn(case["q"], case["kv"][0], *args, **dense)):
+                fail(f"{variant} [{label}]: the gate off differs from the "
+                     "kernel without blocksparse")
+            print(f"check {variant} [{label}]: gate off equal, bit for bit, "
+                  "to the kernel without blocksparse", flush=True)
+            del case, got, want
+
+
 def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
-                   page_types=PAGE_TYPES, layers=16):
+                   page_types=PAGE_TYPES, layers=16, blocksparse=False):
     """Checks and times at the main path's shapes, at one geometry of
     ATTN_GEOMETRIES (`name`; with ALiBi, the model's slopes): a full
     2048-token prefill step (prompts in arrival order, the last one
@@ -679,8 +897,12 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     32-row bucket, on each of `page_types` in turn (the same sequences and
     page tables; the narrow caches hold the bf16 one's values over
     KV_SCALE), each timed launch on the next of `layers` cache layers
-    (more K/V bytes than the 50 MB L2 holds). Returns, per kernel
-    variant, a dict of shape, ms, plain_ms, library_ms, bound_ms,
+    (more K/V bytes than the 50 MB L2 holds). With blocksparse, Phi-3-
+    Small's mask on every call, and the prefill step is the last 2048
+    tokens of the longest prompt (where the mask hides the most); the
+    library call takes the mask as a bool tensor, and the bound counts the
+    K/V rows some query head can see and the visible pairs. Returns, per
+    kernel variant, a dict of shape, ms, plain_ms, library_ms, bound_ms,
     bound_by."""
     import torch
 
@@ -693,6 +915,10 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     qh, kvh, d, alibi = geometry
     slopes = (torch.from_numpy(get_alibi_slopes(qh)).to(device) if alibi
               else None)
+    bs_kw = {}
+    if blocksparse:
+        bs_kw = dict(blocksparse=PHI3_BLOCKSPARSE,
+                     bs_head_offsets=phi3_offsets(qh, device))
     prefill, budget = [], 2048
     for n in prompt_lens:
         take = min(int(n), budget)
@@ -700,6 +926,8 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
         budget -= take
         if budget == 0:
             break
+    if blocksparse:
+        prefill = [(2048, int(max(prompt_lens)))]
     decode = [(1, int(n) + MAX_TOKENS // 2) for n in prompt_lens]
     shapes = {
         "ragged_paged_attention": (prefill, 32, 2048),
@@ -708,7 +936,7 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     out = {}
     for kernel, page_type in ((k, p) for k in shapes for p in page_types):
         seqs, padded_seqs, padded_tokens = shapes[kernel]
-        variant = variant_name(kernel, page_type)
+        variant = variant_name(kernel, page_type, blocksparse)
         case = make_attention_case(seqs, qh, kvh, d, padded_seqs=padded_seqs,
                                    padded_tokens=padded_tokens, device=device,
                                    seed=SEED + 20, num_layers=layers,
@@ -717,7 +945,7 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
         decode_kernel = kernel == "paged_decode_attention"
         state = {"layer": 0}
 
-        def call(use_kernel):
+        def call(use_kernel, bs_on=True):
             layer = state["layer"] = (state["layer"] + 1) % layers
             kv = case["kv"][layer]
             if decode_kernel:
@@ -726,12 +954,12 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
                 extra = ((case["num_seqs"],) if use_kernel else ())
                 return fn(case["q"], kv, case["kv_lens"],
                           case["page_indices"], *extra, sm_scale=scale,
-                          alibi_slopes=slopes)
+                          alibi_slopes=slopes, bs_on=bs_on, **bs_kw)
             fn = (ragged_paged_attention if use_kernel
                   else ref_ragged_paged_attention)
             return fn(case["q"], kv, case["kv_lens"], case["page_indices"],
                       case["cu_q_lens"], case["num_seqs"], sm_scale=scale,
-                      alibi_slopes=slopes)
+                      alibi_slopes=slopes, bs_on=bs_on, **bs_kw)
 
         state["layer"] = layers - 1  # the next call reads layer 0
         got = call(True)
@@ -741,13 +969,18 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
                     call(False), rows)
         ms = time_ms(lambda: call(True), iters)
         plain_ms = time_ms(lambda: call(False), max(1, iters // 20))
-        qq, kk, vv, mask = sdpa_inputs(case, 0, qh, kvh, d, decode_kernel,
-                                       slopes)
+        if blocksparse:
+            qq, kk, vv, mask = blocksparse_sdpa_inputs(case, 0, qh, kvh, d,
+                                                       decode_kernel)
+            nbytes, flops = blocksparse_work(case, qh, kvh, d, decode_kernel)
+        else:
+            qq, kk, vv, mask = sdpa_inputs(case, 0, qh, kvh, d,
+                                           decode_kernel, slopes)
+            nbytes, flops = attention_work(case, qh, kvh, d, decode_kernel,
+                                           alibi)
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask, scale=scale), iters)
-        nbytes, flops = attention_work(case, qh, kvh, d, decode_kernel,
-                                       alibi)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         rows_label = (f"decode {len(seqs)} rows" if decode_kernel else
@@ -757,14 +990,26 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
                             bound_ms=max(t_bytes, t_ops),
                             bound_by="bytes" if t_bytes >= t_ops else
                             "operations")
+        if blocksparse:
+            # The same launch with the layer's gate off: dense attention in
+            # the kernel without blocksparse, which reads every K/V row.
+            out[variant]["gate_off_ms"] = time_ms(
+                lambda: call(True, bs_on=False), iters)
+            print(f"time {variant} [{name}]: the same call with the gate off "
+                  f"(the kernel without blocksparse) "
+                  f"{out[variant]['gate_off_ms']:.4f} ms", flush=True)
+        bf16_variant = variant_name(kernel, "bf16", blocksparse)
         beside = ("" if page_type == "bf16" else
-                  f" (bf16 pages, same case: {out[kernel]['ms']:.4f} ms)")
+                  f" (bf16 pages, same case: {out[bf16_variant]['ms']:.4f} "
+                  "ms)")
         print(f"time {variant} [{name}]: {len(seqs)} seqs, "
               f"{sum(q for q, _ in seqs)} query tokens, "
               f"{sum(kv for _, kv in seqs)} kv rows: kernel {ms:.4f} ms"
               f"{beside}, plain {plain_ms:.4f} ms, library (sdpa on the "
               f"rows widened to bf16, gather excluded"
-              f"{', ALiBi as a bf16 bias mask' if alibi else ''}) "
+              f"{', ALiBi as a bf16 bias mask' if alibi else ''}"
+              f"{', the blocksparse mask as a bool mask' if blocksparse else ''}"
+              ") "
               f"{library_ms:.4f} ms, bound {out[variant]['bound_ms']:.4f} ms "
               f"({out[variant]['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
               flush=True)
@@ -777,16 +1022,18 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
 # ----------------------------------------------------------------------
 
 
-def make_int4_case(K, N, layers, device, seed, wide_zero=False):
-    """A layer-stacked packed container [layers, K/2, N] with group
-    INT4_GROUP, made on the device from a seed: nibbles uniform in 0..15,
+def make_int4_case(K, N, layers, device, seed, wide_zero=False,
+                   group=INT4_GROUP):
+    """A layer-stacked packed container [layers, K/2, N] with `group`
+    (INT4_GROUP unless given), made on the device from a seed: nibbles
+    uniform in 0..15,
     scale in 0.001..0.021, zero an integer in 0..15 (or -3..19 with
     wide_zero: GPTQ stores zero + 1 up to 16, and quantize_from_float
     does not clip it)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    groups = K // INT4_GROUP
+    groups = K // group
     q4p = torch.randint(0, 256, (layers, K // 2, N), generator=gen,
                         device=device, dtype=torch.uint8).view(torch.int8)
     scale = torch.rand((layers, groups, N), generator=gen,
@@ -805,9 +1052,10 @@ def make_x(T, K, device, seed):
         torch.bfloat16)
 
 
-def int4_checks(device):
+def int4_checks(device, group=INT4_GROUP):
     """The int4 kernel against its plain version and the exact f32
-    product, at every site and T; returns the max abs error against the
+    product, at every site and T, at `group` (INT4_GROUP unless given;
+    16 for GGUF Q2_K and Q3_K); returns the max abs error against the
     plain version."""
     import torch
 
@@ -820,20 +1068,20 @@ def int4_checks(device):
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 40 + i,
-                                          wide_zero=wide)
+                                          wide_zero=wide, group=group)
         w_exact = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
-                                  zero[1], INT4_GROUP)
+                                  zero[1], group)
+        where = f"{site} {K}x{N} group {group}"
         for T in INT4_CHECK_T:
             x = make_x(T, K, device, SEED + 50 + T)
-            got = int4p_matmul(x, q4p, scale, zero, INT4_GROUP, layer_idx=1)
+            got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=1)
             torch.cuda.synchronize()
             if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
-                fail(f"int4p_matmul [{site} T={T}]: output {got.shape} "
+                fail(f"int4p_matmul [{where} T={T}]: output {got.shape} "
                      f"{got.dtype}")
             if not bool(got.isfinite().all()):
-                fail(f"int4p_matmul [{site} T={T}]: non-finite output")
-            plain = int4p_matmul_ref(x, q4p[1], scale[1], zero[1],
-                                     INT4_GROUP)
+                fail(f"int4p_matmul [{where} T={T}]: non-finite output")
+            plain = int4p_matmul_ref(x, q4p[1], scale[1], zero[1], group)
             exact = x.float() @ w_exact
             pairs = (("kernel", got, "plain", plain, INT4_TOL_ROUNDED),
                      ("kernel", got, "exact f32", exact, INT4_TOL_SAME),
@@ -844,13 +1092,13 @@ def int4_checks(device):
                 bound = other.abs().amax(-1)
                 ratios.append(float((err / bound).max()))
                 if not bool((err <= tol * bound).all()):
-                    fail(f"int4p_matmul [{site} T={T}"
+                    fail(f"int4p_matmul [{where} T={T}"
                          f"{' wide zero' if wide else ''}]: {name} disagrees "
                          f"with the {label} product: worst row err / "
                          f"max|row| {ratios[-1]:.3e} (tolerance {tol:.3e})")
             abs_err = float((got - plain).abs().max())
             worst_abs = max(worst_abs, abs_err)
-            print(f"check int4p_matmul [{site} {K}x{N} T={T}"
+            print(f"check int4p_matmul [{where} T={T}"
                   f"{' wide zero' if wide else ''}]: max_abs_err against plain {abs_err:.3e}; worst row err "
                   f"/ max|row|: kernel vs plain {ratios[0]:.3e} (tolerance "
                   f"{pairs[0][4]:.3e}), kernel vs exact {ratios[1]:.3e} "
@@ -861,19 +1109,19 @@ def int4_checks(device):
     return worst_abs
 
 
-def int4_work(T, K, N):
+def int4_work(T, K, N, group=INT4_GROUP):
     """(bytes, flops) of one call: x, the packed weights, f32 scale and
     zero and the f32 output once each; 2 * T * K * N FLOPs."""
-    nbytes = (T * K * 2 + K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+    nbytes = (T * K * 2 + K * N // 2 + 2 * (K // group) * N * 4
               + T * N * 4)
     return nbytes, 2 * T * K * N
 
 
-def int4_timings(device, iters):
-    """Times of the int4 kernel at every (site, T) of INT4_TIME_T beside
-    its plain version, the library call and the bound; each timed launch
-    takes the next layer of a stack that holds more bytes than the 50 MB
-    L2. Returns a list of per-point dicts."""
+def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
+    """Times of the int4 kernel at every (site, T) of INT4_TIME_T, at
+    `group`, beside its plain version, the library call and the bound;
+    each timed launch takes the next layer of a stack that holds more
+    bytes than the 50 MB L2. Returns a list of per-point dicts."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -882,14 +1130,15 @@ def int4_timings(device, iters):
                                                       unpack_int4_rows)
 
     points = []
-    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
-        layer_bytes = K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+    for i, site in enumerate(sites):
+        K, N = INT4_SITES[site]
+        layer_bytes = K * N // 2 + 2 * (K // group) * N * 4
         layers = -(-100_000_000 // layer_bytes) + 1
         q4p, scale, zero = make_int4_case(K, N, layers, device,
-                                          SEED + 60 + i)
+                                          SEED + 60 + i, group=group)
         dense = torch.stack([
             dequantize_int4(unpack_int4_rows(q4p[l]), scale[l], zero[l],
-                            INT4_GROUP).to(torch.bfloat16)
+                            group).to(torch.bfloat16)
             for l in range(layers)])
         for T in INT4_TIME_T:
             x = make_x(T, K, device, SEED + 70 + T)
@@ -901,24 +1150,25 @@ def int4_timings(device, iters):
 
             n = iters if T <= 64 else max(4, iters // 10)
             ms = time_ms(lambda: int4p_matmul(x, q4p, scale, zero,
-                                              INT4_GROUP, layer_idx=nxt()),
+                                              group, layer_idx=nxt()),
                          n)
 
             def plain():
                 l = nxt()
-                return int4p_matmul_ref(x, q4p[l], scale[l], zero[l],
-                                        INT4_GROUP)
+                return int4p_matmul_ref(x, q4p[l], scale[l], zero[l], group)
 
             plain_ms = time_ms(plain, max(2, n // 20))
             library_ms = time_ms(lambda: torch.matmul(x, dense[nxt()]), n)
-            nbytes, flops = int4_work(T, K, N)
+            nbytes, flops = int4_work(T, K, N, group)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS * 1e3
-            pt = dict(site=site, K=K, N=N, T=T, ms=ms, plain_ms=plain_ms,
+            pt = dict(site=site, K=K, N=N, T=T, group=group, ms=ms,
+                      plain_ms=plain_ms,
                       library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
             points.append(pt)
-            print(f"time int4p_matmul [{site} {K}x{N} T={T}, {layers} "
+            print(f"time int4p_matmul [{site} {K}x{N} T={T} group {group}, "
+                  f"{layers} "
                   f"layers in turn]: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
                   f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
@@ -1535,13 +1785,37 @@ def _gguf_blocks(rng, rows, row_len, quant):
         d = std / 73.9 * (0.75 + 0.5 * rng.random(n))
         blk[:, 0:2] = d.astype(np.float16).view(np.uint8).reshape(n, 2)
         return blk
+    if quant == "q2_k":
+        # 84 bytes per 256 values: 16 bytes of 4-bit scale | 4-bit min (a
+        # scale of 1..15 here), qs[64] (2-bit levels, std 1.118), d and
+        # dmin f16. w = d * sc * q - dmin * m: with dmin = d, the scales
+        # (rms 9.5) and the group offsets d * (1.5 sc - m) give rms ~12.5 d.
+        n = rows * row_len // 256
+        blk = rng.integers(0, 256, size=(n, 84), dtype=np.uint8)
+        sc = blk[:, 0:16]
+        blk[:, 0:16] = (sc & 0xF0) | np.maximum(sc & 0x0F, 1)
+        d = (std / 12.5 * (0.75 + 0.5 * rng.random(n))).astype(np.float16)
+        blk[:, 80:82] = d.view(np.uint8).reshape(n, 2)
+        blk[:, 82:84] = d.view(np.uint8).reshape(n, 2)
+        return blk
+    if quant == "q3_k":
+        # 110 bytes per 256 values: hmask[32] and qs[64] (3-bit levels,
+        # zero 4, std 2.29), 12 bytes of 6-bit scales (sc - 32: rms 18.5),
+        # d f16.
+        n = rows * row_len // 256
+        blk = rng.integers(0, 256, size=(n, 110), dtype=np.uint8)
+        d = std / (2.29 * 18.5) * (0.75 + 0.5 * rng.random(n))
+        blk[:, 108:110] = d.astype(np.float16).view(np.uint8).reshape(n, 2)
+        return blk
     raise ValueError(quant)
 
 
 def write_gguf_llama(path, config, quant, seed):
     """Write a GGUF v3 file of a Llama of `config`'s geometry from a seed
     with numpy, whole tensors at a time: the seven projections of every
-    layer as `quant` blocks ("q6_k" or "q8_0"), norms as F32 ones, and
+    layer as `quant` blocks ("q6_k", "q8_0", or "q2_k": Q2_K with a Q3_K
+    down projection, as llama.cpp's Q2_K files mix them), norms as F32
+    ones, and
     token_embd and output as F16 (uniform values of std hidden ** -0.5 and
     vocab ** -0.5 by table lookup: the loader widens both to the model
     dtype whatever their type, and F16 costs it one cast where a Q6_K
@@ -1552,8 +1826,10 @@ def write_gguf_llama(path, config, quant, seed):
     V, L = config["vocab_size"], config["num_hidden_layers"]
     D = config["head_dim"]
     NH, NKV = config["num_attention_heads"], config["num_key_value_heads"]
-    qtype, per, bbytes = {"q6_k": (GGML_Q6_K, 256, 210),
-                          "q8_0": (GGML_Q8_0, 32, 34)}[quant]
+    qtype = GGUF_BLOCKS[quant][0]
+    down_type = GGUF_BLOCKS["q3_k" if quant == "q2_k" else quant][0]
+    block_of = {t: (per, nb) for t, per, nb in GGUF_BLOCKS.values()}
+    quant_of = {t: q for q, (t, _, _) in GGUF_BLOCKS.items()}
     # (name, [row length, rows], type)
     tensors = [("token_embd.weight", [H, V], GGML_F16),
                ("output_norm.weight", [H], GGML_F32),
@@ -1568,12 +1844,14 @@ def write_gguf_llama(path, config, quant, seed):
                     (b + "ffn_norm.weight", [H], GGML_F32),
                     (b + "ffn_gate.weight", [H, F], qtype),
                     (b + "ffn_up.weight", [H, F], qtype),
-                    (b + "ffn_down.weight", [F, H], qtype)]
+                    (b + "ffn_down.weight", [F, H], down_type)]
 
     def nbytes(dims, gtype):
         n = int(np.prod(dims))
-        return {GGML_F32: 4 * n, GGML_F16: 2 * n}.get(gtype,
-                                                      n // per * bbytes)
+        if gtype in (GGML_F32, GGML_F16):
+            return (4 if gtype == GGML_F32 else 2) * n
+        per, bbytes = block_of[gtype]
+        return n // per * bbytes
 
     def w_str(out, text):
         raw = text.encode()
@@ -1619,7 +1897,7 @@ def write_gguf_llama(path, config, quant, seed):
                 data = table[rng.integers(0, 256, size=dims[0] * dims[1],
                                           dtype=np.uint8)]
             else:
-                data = _gguf_blocks(rng, dims[1], dims[0], quant)
+                data = _gguf_blocks(rng, dims[1], dims[0], quant_of[gtype])
             raw = data.tobytes()
             f.write(raw)
             f.write(b"\x00" * (-len(raw) % 32))
@@ -1645,7 +1923,9 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
     of that block type written from the seed, whose projections load as
-    unpacked one-level-per-byte containers; and a bf16 KV cache or
+    unpacked one-level-per-byte containers, or (gguf="q2_k") one of Q2_K
+    and Q3_K blocks, which load as packed containers at group 16; and a
+    bf16 KV cache or
     (kv_cache_dtype) a narrow one, whose per-layer scales are ones or
     (kv_scale) come from a JSON file. q4_body sends every unpacked matmul
     of the path to that body of the kernel and not to the one the wrapper
@@ -1678,7 +1958,11 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     elif quantization == "fp8":
         wrappers["fp8_w8a8_matmul"] = fp8_w8a8_matmul
         wrappers["quantize_activations"] = quantize_activations
-    if gguf is not None or quantization == "int8":
+    # GGUF Q2_K / Q3_K load packed; the other GGUF types one level a byte.
+    packed_gguf = gguf == "q2_k"
+    if packed_gguf:
+        wrappers["int4p_matmul"] = int4p_matmul
+    elif gguf is not None or quantization == "int8":
         wrappers["int4_matmul"] = int4_matmul
     page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
     layers = model_config["num_hidden_layers"]
@@ -1773,7 +2057,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     by_body = dict(int4_matmul.launches_by_body)
     by_format = dict(quantize_activations.launches_by_format)
     w4a16 = int4p_matmul.launches
-    other_int4 = (int4p_matmul.launches if gguf or quantization == "int8"
+    other_int4 = (int4p_matmul.launches
+                  if (gguf and not packed_gguf) or quantization == "int8"
                   else int4_matmul.launches)
     model.forward = model_forward
     forwards = len(forward_tokens)
@@ -1813,16 +2098,23 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         fail(f"{attention} attention launches on the {label} are not "
              f"{layers} layers x {forwards} forwards")
     # And every one of the instantiation of the model's QH / KV, with ALiBi
-    # exactly where the model has slopes.
+    # exactly where the model has slopes, and blocksparse on exactly the
+    # layers whose gate is on.
     qg = model.num_heads // model.num_kv_heads
     shape = f"qg{qg}" + (" alibi" if model.alibi_slopes is not None else "")
+    per_forward = {shape: layers}
+    if model.blocksparse_params is not None:
+        sparse = sum(model.bs_layer_mask or [True] * layers)
+        per_forward = {f"{shape} blocksparse": sparse, shape: layers - sparse}
     for name, counts in by_shape.items():
-        if counts != {shape: launches[name]}:
-            fail(f"{name} on the {label} was launched as {counts}, not only "
-                 f"as {shape}")
+        want = {k: n * launches[name] // layers
+                for k, n in per_forward.items() if n and launches[name]}
+        if counts != want:
+            fail(f"{name} on the {label} was launched as {counts}, not as "
+                 f"{want}")
     print(f"{label}: {forwards} forwards, each with {layers} attention "
-          f"launches on {page_type} pages, all {shape}", flush=True)
-    if quantization == "gptq" and not w4a8:
+          f"launches on {page_type} pages: {per_forward}", flush=True)
+    if (quantization == "gptq" and not w4a8) or packed_gguf:
         # And four int4 matmuls (wqkv, wo, w13, down) per layer.
         if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
@@ -1867,7 +2159,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         print(f"{label}: fp8_w8a8_matmul (e4m3 body) and e4m3 "
               f"quantize_activations launched {4 * layers} times in each "
               "forward", flush=True)
-    if gguf is not None:
+    if gguf is not None and not packed_gguf:
         # And four unpacked matmuls (wqkv, wo, w13, down) per layer, none
         # through the packed kernel.
         if launches["int4_matmul"] != 4 * layers * forwards:
@@ -1877,17 +2169,25 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               f"forward, by body {by_body}", flush=True)
     if other_int4:
         fail(f"{other_int4} launches of the other int4 kernel on the {label}")
+    dummy = set(getattr(model, "dummy_token_ids", []))
     for o in outs:
         if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
             fail("generated token id out of the vocabulary")
+        if dummy & set(o.outputs[0].token_ids):
+            fail(f"a dummy token was generated on the {label}")
     # What this path adds is compared: the attention kernels (on its page
     # type) unless the cache is bf16 and the weights quantized, then their
     # matmul.
     what = "attention"
     if page_type == "bf16" and (quantization or gguf):
-        what = ("q4" if gguf else "w4a8" if w4a8 else
+        what = ("int4" if packed_gguf else "q4" if gguf else
+                "w4a8" if w4a8 else
                 {"gptq": "int4", "int8": "int8", "fp8": "fp8"}[quantization])
-    compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY)
+    # With blocksparse, contexts past the local window of 16 64-key blocks.
+    lens = ([1500, 1100, 300] if model.blocksparse_params is not None
+            else [300, 17, 129])
+    compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY,
+                   lens)
     if quantization == "fp8":
         # The check above holds the quantizer kernel with the e4m3 product
         # on both sides; this one the whole product against its plain
@@ -1908,9 +2208,11 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     return launches, rates
 
 
-def compare_logits(llm, device, rng, vocab, what, q4_body):
-    """One prefill forward (ragged kernel) and one decode forward (decode
-    kernel) with every kernel, then the same with the plain version of one
+def compare_logits(llm, device, rng, vocab, what, q4_body,
+                   lens=(300, 17, 129)):
+    """One prefill forward (ragged kernel) of sequences of `lens` tokens
+    and one decode forward (decode kernel) with every kernel, then the same
+    with the plain version of one
     of them on the same inputs and the same starting cache (of the
     engine's page type, written through its scales); logits compared
     within LOGIT_TOL of a row, argmax equal. `what` names the kernels
@@ -1935,13 +2237,12 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
         int8_matmul_ref, quantize_activations_e4m3, quantize_activations_int8)
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
-    from aphrodite_tpu_torch.ops.decode_attention import \
-        ref_paged_decode_attention
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        MASK_VALUE, ref_paged_decode_attention)
 
     runner = llm.engine.runner
     model, params = runner.model, runner.params
-    lens = [300, 17, 129]
-    S, T = (16 if what == "w4a8" else 8), 512
+    S, T = (16 if what == "w4a8" else 8), -(-sum(lens) // 512) * 512
     pps = runner.pages_per_seq
     ids = np.zeros((T,), np.int32)
     pos = np.zeros((T,), np.int32)
@@ -2087,6 +2388,22 @@ def compare_logits(llm, device, rng, vocab, what, q4_body):
     finally:
         for (module, attr, _), kernel in zip(swaps, kernels):
             setattr(module, attr, kernel)
+    dummy = list(getattr(model, "dummy_token_ids", []))
+    if dummy:
+        # Tokens the model never samples carry the mask value on both
+        # sides; the comparison holds the other columns, whose largest
+        # entry is then the row's scale.
+        for g, w in zip(got, want):
+            if not (bool((g[:, dummy] == MASK_VALUE).all())
+                    and bool((w[:, dummy] == MASK_VALUE).all())):
+                fail(f"{what}: dummy tokens' logits are not the mask value")
+        keep = torch.ones(got[0].shape[-1], dtype=torch.bool,
+                          device=got[0].device)
+        keep[dummy] = False
+        got = [g[:, keep] for g in got]
+        want = [w[:, keep] for w in want]
+        print(f"logits {what}: {len(dummy)} dummy tokens at the mask value "
+              "on both sides, left out of the comparison", flush=True)
     tol = LOGIT_TOL
     # Rows whose argmax is held: all, or (fp8) those the floor decides.
     decided = [None] * len(forwards)
@@ -2161,8 +2478,9 @@ def main() -> None:
     errs = {}
     for name, geometry in ATTN_GEOMETRIES.items():
         kernel_checks("cuda", name, geometry, errs)
+    blocksparse_checks("cuda", errs)
     stamp("attention checks")
-    errs["int4p_matmul"] = int4_checks("cuda")
+    errs["int4p_matmul"] = max(int4_checks("cuda"), int4_checks("cuda", 16))
     errs["int4p_matmul_w4a8"] = w4a8_checks("cuda")
     errs["quantize_activations"] = quantizer_checks("cuda")
     int8_checks("cuda")
@@ -2180,7 +2498,17 @@ def main() -> None:
     alibi_times = kernel_timings("cuda", baichuan, ATTN_GEOMETRIES[baichuan],
                                  prompt_lens, iters=200, errs=errs,
                                  page_types=("bf16", "e4m3"), layers=4)
+    # Phi-3-Small's prompts: 1024 to 6144 tokens, so that most keys lie past
+    # the local window of 1024.
+    phi_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 6145, size=NUM_REQUESTS)
+    bs_times = kernel_timings("cuda", BLOCKSPARSE_GEOMETRY,
+                              ATTN_GEOMETRIES[llama], phi_prompt_lens,
+                              iters=100, errs=errs,
+                              page_types=("bf16", "e4m3"), layers=4,
+                              blocksparse=True)
     int4_points = int4_timings("cuda", iters=200)
+    int4_points += int4_timings("cuda", iters=200, group=16, sites=("w13",))
     w4a8_points = w4a8_timings("cuda", iters=200)
     act_points = quantizer_timings("cuda", iters=200)
     fp8_points = fp8_timings("cuda", iters=200)
@@ -2227,13 +2555,22 @@ def main() -> None:
         "bench-1.4b gptq+fp8_e4m3": dict(model_config=BENCH_1P4B,
                                          quantization="gptq",
                                          kv_cache_dtype="fp8_e4m3"),
+        # Slice 7: Phi-3-Small (blocksparse on every other layer) at full
+        # width and depth on prompts of 1024-6144 tokens, the same on E4M3
+        # pages at 4 layers, and a GGUF Q2_K file (packed at group 16).
+        "phi-3-small": dict(model_config=PHI3_SMALL,
+                            prompt_lens=phi_prompt_lens),
+        "phi-3-small+fp8_e4m3, 4 layers": dict(
+            model_config=dict(PHI3_SMALL, num_hidden_layers=4),
+            kv_cache_dtype="fp8_e4m3", prompt_lens=phi_prompt_lens),
+        "q2_k gguf, 4 layers": dict(model_config=short, gguf="q2_k"),
     }
     launches, rates = {}, {}
     for path, kw in paths.items():
         gc.collect()
         torch.cuda.empty_cache()
         launches[path], rates[path] = main_path(
-            "cuda", prompt_lens=prompt_lens, **kw)
+            "cuda", **{"prompt_lens": prompt_lens, **kw})
         stamp(f"main path {path}")
 
     def on_paths(name):
@@ -2285,10 +2622,35 @@ def main() -> None:
             if name in alibi_times:
                 entry["baichuan2-13b"] = alibi_times[name]
             kernels.append(entry)
+    # The blocksparse instantiations on the pages the main paths gave them
+    # (bf16 and E4M3; the others are held in the checks above), timed at
+    # Phi-3-Small's geometry.
+    bs_sources = {
+        "paged_decode_attention": (
+            "aphrodite_tpu_torch/csrc/paged_decode_attention.cu",
+            "aphrodite_tpu/ops/decode_attention.py:95"),
+        "ragged_paged_attention": (
+            "aphrodite_tpu_torch/csrc/ragged_paged_attention_blocksparse.cu",
+            "aphrodite_tpu/ops/rpa_alibi_kernel.py:832")}
+    for kernel, (src, replaces) in bs_sources.items():
+        for page_type in ("bf16", "e4m3"):
+            name = variant_name(kernel, page_type, blocksparse=True)
+            by_shape = on_paths(f"{variant_name(kernel, page_type)} by shape")
+            by_path = {path: counts["qg4 blocksparse"]
+                       for path, counts in by_shape.items()
+                       if counts.get("qg4 blocksparse")}
+            if not sum(by_path.values()):
+                fail(f"{name} was launched on no main path")
+            kernels.append(dict(
+                name=name, route="cuda", source=src, replaces=replaces,
+                option="blocksparse", page_type=page_type,
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=errs[name], **bs_times[name]))
     # The int4 kernel's headline times are those of the largest site at
-    # the decode step's size; every (site, T) point follows in "points".
+    # the decode step's size (group 128); every (site, T, group) point
+    # follows in "points", group 16 (GGUF Q2_K and Q3_K) at w13.
     head = next(p for p in int4_points
-                if p["site"] == "w13" and p["T"] == 32)
+                if p["site"] == "w13" and p["T"] == 32 and p["group"] == 128)
     by_path = on_paths("int4p_matmul")
     kernels.append(dict(
         name="int4p_matmul", route="cuda",

@@ -249,6 +249,80 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
                            fn(q, pages, *args, **off))
 
 
+# Phi-3-Small's blocksparse parameters (block 64, 16 local blocks, stride
+# 8) cut to 4 local blocks so that rows of 1000+ keys reach far past the
+# window, and a block under a page (the kernels then mask only).
+BLOCKSPARSE = {"block64": (64, 4, 8), "block8": (8, 3, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", sorted(BLOCKSPARSE))
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("qg", [1, 2, 4, 8])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_attention_kernels_blocksparse_on_card(op, qg, name, block):
+    """Each kernel with blocksparse at 1, 2, 4 and 8 query heads per kv
+    head (4 kv heads, Phi-3-Small's hetero phases: arange(QH) * max(1,
+    vert // QH)), on each page type, against its plain version row by row
+    (ROW_TOL), over rows of 1000+ keys, far past the local window; at QG 1
+    and 2 the first 128-key tile of some kv heads is dead for all of their
+    heads. The narrow variants equal the bf16 kernel on the widened pages,
+    each launch is counted under its shape, and the gate off equals, bit
+    for bit, the kernel without blocksparse."""
+    _card_or_skip()
+    rng = np.random.default_rng(60 + qg)
+    kvh = 4
+    bs = BLOCKSPARSE[block]
+    if op == "ragged":
+        seqs = [(1, 90), (70, 70), (33, 150), (1, 17), (1, 1300), (40, 1040),
+                (300, 1500)]
+        rows = sum(q for q, _ in seqs)
+        padded_seqs, padded_tokens = 8, rows + 5
+        fn, ref = ragged_paged_attention, ref_ragged_paged_attention
+    else:
+        lens = rng.integers(1, 900, size=12)
+        lens[:3] = (1200, 1030, 2100)
+        seqs = [(1, int(n)) for n in lens]
+        rows, padded_seqs, padded_tokens = 12, 16, 16
+        fn, ref = paged_decode_attention, ref_paged_decode_attention
+    qh = qg * kvh
+    arrays = paged_batch(rng, seqs, qh, kvh, 128, padded_seqs=padded_seqs,
+                         padded_tokens=padded_tokens)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(sm_scale=0.09)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    kv_lens, page_idx, cu = (torch.from_numpy(a).cuda() for a in arrays[2:])
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    args = (kv_lens, page_idx, cu, ns) if op == "ragged" else (kv_lens,
+                                                                page_idx)
+    offsets = (torch.arange(qh, dtype=torch.int32, device="cuda")
+               * max(1, bs[2] // qh))
+    sparse = dict(kw, blocksparse=bs, bs_head_offsets=offsets)
+    shape = f"qg{qg} blocksparse"
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **sparse)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    want = ref(q, pages, *args, **sparse)
+    assert_rows_close(got[:rows], want[:rows])
+    assert not got[rows:].float().any()  # padding tokens, dead rows: zeros
+    # The mask moves the result: dense attention lands far off.
+    dense = fn(q, pages, *args, **kw)
+    assert (dense[:rows].float() - want[:rows].float()).abs().max() > 0.1
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args,
+                                   **sparse))
+    before = fn.launches_by_shape.get(f"qg{qg}", 0)
+    assert torch.equal(fn(q, pages, *args, bs_on=False, **sparse), dense)
+    assert fn.launches_by_shape[f"qg{qg}"] == before + 1
+
+
 @pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take():
     _card_or_skip()
@@ -275,6 +349,15 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="aligned"):
         paged_decode_attention(q, pages.view(-1)[8:8 + 2 * PS * 16 * 128]
                                .view(2, PS, 16, 128), idx, table)
+    offsets = torch.zeros(32, dtype=torch.int32, device="cuda")
+    for bad in (offsets.long(), offsets[:16], offsets.cpu()):
+        with pytest.raises(ValueError, match="blocksparse"):
+            paged_decode_attention(q, pages, idx, table, blocksparse=(64, 4, 8),
+                                   bs_head_offsets=bad)
+    with pytest.raises(ValueError, match="not both"):
+        paged_decode_attention(q, pages, idx, table, blocksparse=(64, 4, 8),
+                               bs_head_offsets=offsets,
+                               alibi_slopes=torch.ones(32, device="cuda"))
 
 
 @pytest.mark.cuda
@@ -400,11 +483,43 @@ def test_int4p_kernel_matches_plain_on_card(T, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group,K", [(32, 1024), (64, 1920), (128, 1024)])
+@pytest.mark.parametrize("T", [1, 16, 33, 2048])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 28672)])
+def test_int4p_kernel_group16_on_card(T, K, N):
+    """Group 16 (GGUF Q2_K and Q3_K): each 16-row mma step closes a group.
+    At Llama-3.1-8B's wqkv and w13 sites, T from one token to a prefill
+    step, with split K (wqkv at T <= 33) and without (w13, and T 2048):
+    against the plain version at ROW_TOL and the exact f32-weight product
+    at 2^-14 of a row."""
+    from aphrodite_tpu_torch.ops.quant_matmul import kernel_plan
+
+    _card_or_skip()
+    rng = np.random.default_rng(T + N)
+    x, q4p, scale, zero = _int4_case(rng, 1, K, N, 16, T, wide_zero=True)
+    before = int4p_matmul.launches
+    got = int4p_matmul(x, q4p[0], scale[0], zero[0], 16)
+    torch.cuda.synchronize()
+    assert int4p_matmul.launches == before + 1
+    split = kernel_plan(T, K, N)[1] > 1
+    assert split == (N == 6144 and T <= 33)
+    want = int4p_matmul_ref(x, q4p[0], scale[0], zero[0], 16)
+    exact = x.float() @ dequantize_int4(unpack_int4_rows(q4p[0]), scale[0],
+                                        zero[0], 16)
+    assert got.isfinite().all()
+    for ref, tol in ((want, ROW_TOL), (exact, 2.0**-14)):
+        err = (got - ref).abs().amax(-1)
+        bound = tol * ref.abs().amax(-1)
+        assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,K", [(32, 1024), (64, 1920), (128, 1024),
+                                     (16, 1024), (48, 1536)])
 def test_int4p_kernel_group_sizes_on_card(group, K):
-    """Groups of 32 (every k tile closes a group), 64 and 128, at T below
-    and above one row block; at K 1920 the split of K ends inside a
-    group. Against the exact f32-weight product."""
+    """Groups of 32 (every k tile closes a group), 64 and 128, and of 16
+    and 48 (groups close after 16-row steps inside a tile), at T below and
+    above one row block; at K 1920 the split of K ends inside a group.
+    Against the exact f32-weight product."""
     _card_or_skip()
     rng = np.random.default_rng(group)
     for T in (5, 40):
@@ -431,9 +546,9 @@ def test_int4p_kernel_refuses_what_it_does_not_take():
         int4p_matmul(x, q4p[0, :, :192].contiguous(),
                      scale[0, :, :192].contiguous(),
                      zero[0, :, :192].contiguous(), 64)
-    with pytest.raises(ValueError, match="group"):
-        int4p_matmul(x, q4p[0], scale[0].repeat_interleave(4, 0),
-                     zero[0].repeat_interleave(4, 0), 16)
+    with pytest.raises(ValueError, match="group"):  # under 16 rows
+        int4p_matmul(x, q4p[0], scale[0].repeat_interleave(8, 0),
+                     zero[0].repeat_interleave(8, 0), 8)
     with pytest.raises(ValueError, match="layer_idx"):
         int4p_matmul(x, q4p, scale, zero, 64)
 
