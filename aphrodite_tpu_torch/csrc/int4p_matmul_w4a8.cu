@@ -55,9 +55,19 @@
 // k32 mma step per plane. Rows at and past T are zero-filled on load and
 // masked on store, so any T >= 1 works.
 //
+// Groups shorter than a k tile: a group whose length is an odd multiple of 16
+// (GGUF Q2_K and Q3_K pack at 16) closes inside a tile. Such groups take the
+// kernel's HALF instantiation, as in the W4A16 kernel: each plane's k32 step
+// is issued as its two k16 halves (mma.sync m16n8k16, s8; the halves of the
+// k32 A and B fragments are the k16 fragments as they are), the int32 sums
+// are folded into f32 after every 16-row half whose rows end a group, and
+// each tile fetches the scale and zero rows of both halves. Groups that are
+// multiples of 32 take the other instantiation, whose code is the same as
+// before HALF came in, so their results are unchanged bit for bit.
+//
 // Shape rules (checked by the wrapper, and again here): N % 128 == 0,
-// G % 32 == 0, (K / 2) % G == 0, xq contiguous [T, K], all pointers 16-byte
-// aligned.
+// G % 16 == 0, (K / 2) % G == 0, (K / 2) % 32 == 0, xq contiguous [T, K], all
+// pointers 16-byte aligned.
 //
 // The quantizer: one block per token row, two passes over the row (the second
 // from L1/L2): amax in f32, then
@@ -92,6 +102,16 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The k16 half of the same product: A rows g and g + 8 at k 4 * tig .. + 3,
+// B column g at the same k.
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -99,7 +119,9 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 // A warp owns 32 columns as four 8-column tiles, interleaved as in the W4A16
 // kernel: tile j holds columns 4 * i + j, so the four packed bytes a thread
 // loads as one word belong to its four tiles.
-template <int FM>  // 16-row tiles of xq per block
+// FM: 16-row tiles of xq per block. HALF: the group is an odd multiple of 16
+// rows (see above).
+template <int FM, bool HALF>
 __global__ void __launch_bounds__(THREADS)
 int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                          const uint8_t* __restrict__ q4p, const float* __restrict__ scale,
@@ -108,7 +130,11 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
   constexpr int BM = 16 * FM;
   constexpr int Q_BYTES = BKP * Q_LD;
   constexpr int X_BYTES = BM * X_LD;
-  constexpr int SZ_BYTES = 4 * BN * 4;  // scale lo, zero lo, scale hi, zero hi
+  constexpr int STEPS = BKP / 16;       // 16-row halves per k tile
+  // Scale lo, zero lo, scale hi, zero hi: of the group that the tile closes,
+  // or (HALF) of the group of each 16-row half.
+  constexpr int SZ_SETS = HALF ? STEPS : 1;
+  constexpr int SZ_BYTES = SZ_SETS * 4 * BN * 4;
   constexpr int STAGE_BYTES = Q_BYTES + X_BYTES + SZ_BYTES;
   static_assert(STAGES * STAGE_BYTES <= 48 * 1024, "static shared memory");
   __shared__ __align__(16) unsigned char smem[STAGES * STAGE_BYTES];
@@ -132,6 +158,11 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
   auto closes_group = [&](int tile) {
     return ((tile + 1) * BKP) % group == 0 || tile == tile_end - 1;
   };
+  // HALF: the same after 16-row half `step` of the tile.
+  auto closes_at_step = [&](int tile, int step) {
+    return (tile * BKP + 16 * (step + 1)) % group == 0 ||
+           (tile == tile_end - 1 && step == STEPS - 1);
+  };
 
   auto fetch = [&](int tile, int slot) {
     unsigned char* base = smem + slot * STAGE_BYTES;
@@ -152,7 +183,16 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
       cp_async16(base + Q_BYTES + row * X_LD + ch * 16,
                  xq + size_t(live ? m0 + row : 0) * K + col, live ? 16 : 0);
     }
-    if (closes_group(tile)) {
+    if constexpr (HALF) {
+      // The group rows of both 16-row halves, whether or not they close.
+#pragma unroll
+      for (int step = 0; step < STEPS; ++step) {
+        const int arr = tid / 32;  // scale lo, zero lo, scale hi, zero hi
+        const int grow = (kp0 + 16 * step) / group + (arr >= 2 ? half_groups : 0);
+        const float* src = (arr % 2 == 0 ? scale : zero) + size_t(grow) * N + n0 + lane * 4;
+        cp_async16(base + Q_BYTES + X_BYTES + ((step * 4 + arr) * BN + lane * 4) * 4, src, 16);
+      }
+    } else if (closes_group(tile)) {
       const int arr = tid / 32;  // scale lo, zero lo, scale hi, zero hi
       const int grow = kp0 / group + (arr >= 2 ? half_groups : 0);
       const float* src = (arr % 2 == 0 ? scale : zero) + size_t(grow) * N + n0 + lane * 4;
@@ -189,6 +229,33 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
     }
   }
   clear_group();
+  // Folds the group's int32 sums into acc with its scale and zero rows `sz`
+  // (scale lo, zero lo, scale hi, zero hi) and clears them for the next one.
+  auto fold = [&](const float* sz) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float* col = sz + warp * 32 + 4 * (tig * 2 + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s_lo = col[j];
+        const float sz_lo = s_lo * col[BN + j];
+        const float s_hi = col[2 * BN + j];
+        const float sz_hi = s_hi * col[3 * BN + j];
+#pragma unroll
+        for (int i = 0; i < FM; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = 2 * h + e;  // fragment element: row g + 8h, column pair e
+            acc[i][j][f] = acc[i][j][f] + s_lo * static_cast<float>(p_lo[i][j][f]) -
+                           sz_lo * static_cast<float>(r_lo[i][2 * h]) +
+                           s_hi * static_cast<float>(p_hi[i][j][f]) -
+                           sz_hi * static_cast<float>(r_hi[i][2 * h]);
+          }
+        }
+      }
+    }
+    clear_group();
+  };
 
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
@@ -226,8 +293,10 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
       a_hi[i][1] = lds32(xr + BKP + 8 * X_LD);
       a_hi[i][2] = lds32(xr + BKP + 16);
       a_hi[i][3] = lds32(xr + BKP + 8 * X_LD + 16);
-      mma_s8(r_lo[i], a_lo[i], kOnes, kOnes);
-      mma_s8(r_hi[i], a_hi[i], kOnes, kOnes);
+      if constexpr (!HALF) {
+        mma_s8(r_lo[i], a_lo[i], kOnes, kOnes);
+        mma_s8(r_hi[i], a_hi[i], kOnes, kOnes);
+      }
     }
 
     // B fragments (col): register 0 holds k 4 * tig .. + 3 of column g,
@@ -251,44 +320,44 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
       cols[h][2] = __byte_perm(t01h, t23h, 0x5410);
       cols[h][3] = __byte_perm(t01h, t23h, 0x7632);
     }
+    const float* sz = reinterpret_cast<const float*>(base + Q_BYTES + X_BYTES);
+    if constexpr (HALF) {
+      // Each plane's k32 step as its two k16 halves: registers 0, 1 of the
+      // A fragment and 0 of B, then 2, 3 and 1. A group may close after
+      // either.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t b_lo0 = cols[0][j] & kLow;
-      const uint32_t b_lo1 = cols[1][j] & kLow;
-      const uint32_t b_hi0 = (cols[0][j] >> 4) & kLow;
-      const uint32_t b_hi1 = (cols[1][j] >> 4) & kLow;
+      for (int s = 0; s < STEPS; ++s) {
 #pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        mma_s8(p_lo[i][j], a_lo[i], b_lo0, b_lo1);
-        mma_s8(p_hi[i][j], a_hi[i], b_hi0, b_hi1);
-      }
-    }
-
-    if (closes_group(tile)) {
-      const float* sz = reinterpret_cast<const float*>(base + Q_BYTES + X_BYTES);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float* col = sz + warp * 32 + 4 * (tig * 2 + e);
+        for (int i = 0; i < FM; ++i) {
+          mma_s8_k16(r_lo[i], a_lo[i][2 * s], a_lo[i][2 * s + 1], kOnes);
+          mma_s8_k16(r_hi[i], a_hi[i][2 * s], a_hi[i][2 * s + 1], kOnes);
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float s_lo = col[j];
-          const float sz_lo = s_lo * col[BN + j];
-          const float s_hi = col[2 * BN + j];
-          const float sz_hi = s_hi * col[3 * BN + j];
+          const uint32_t b_lo = cols[s][j] & kLow;
+          const uint32_t b_hi = (cols[s][j] >> 4) & kLow;
 #pragma unroll
           for (int i = 0; i < FM; ++i) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int f = 2 * h + e;  // fragment element: row g + 8h, column pair e
-              acc[i][j][f] = acc[i][j][f] + s_lo * static_cast<float>(p_lo[i][j][f]) -
-                             sz_lo * static_cast<float>(r_lo[i][2 * h]) +
-                             s_hi * static_cast<float>(p_hi[i][j][f]) -
-                             sz_hi * static_cast<float>(r_hi[i][2 * h]);
-            }
+            mma_s8_k16(p_lo[i][j], a_lo[i][2 * s], a_lo[i][2 * s + 1], b_lo);
+            mma_s8_k16(p_hi[i][j], a_hi[i][2 * s], a_hi[i][2 * s + 1], b_hi);
           }
         }
+        if (closes_at_step(tile, s)) fold(sz + s * 4 * BN);
       }
-      clear_group();
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t b_lo0 = cols[0][j] & kLow;
+        const uint32_t b_lo1 = cols[1][j] & kLow;
+        const uint32_t b_hi0 = (cols[0][j] >> 4) & kLow;
+        const uint32_t b_hi1 = (cols[1][j] >> 4) & kLow;
+#pragma unroll
+        for (int i = 0; i < FM; ++i) {
+          mma_s8(p_lo[i][j], a_lo[i], b_lo0, b_lo1);
+          mma_s8(p_hi[i][j], a_hi[i], b_hi0, b_hi1);
+        }
+      }
+      if (closes_group(tile)) fold(sz);
     }
   }
 
@@ -311,12 +380,12 @@ int4p_matmul_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict_
   }
 }
 
-template <int FM>
+template <int FM, bool HALF>
 void launch(const void* xq, const void* sx, const void* q4p, const void* scale, const void* zero,
             float* dst, int T, int K, int N, int group, int splits, int tiles_per_split,
             cudaStream_t stream) {
   dim3 grid(N / BN, (T + 16 * FM - 1) / (16 * FM), splits);
-  int4p_matmul_w4a8_kernel<FM><<<grid, THREADS, 0, stream>>>(
+  int4p_matmul_w4a8_kernel<FM, HALF><<<grid, THREADS, 0, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
       static_cast<const uint8_t*>(q4p), static_cast<const float*>(scale),
       static_cast<const float*>(zero), dst, T, K, N, group, tiles_per_split);
@@ -398,24 +467,34 @@ extern "C" int int4p_matmul_w4a8(const void* xq, const void* sx, const void* q4p
                                  const void* scale, const void* zero, void* out, void* partial,
                                  int T, int K, int N, int group, int block_m, int splits,
                                  void* stream_ptr) {
-  if (T < 1 || N % BN != 0 || K % 2 != 0 || group % BKP != 0 || (K / 2) % group != 0 ||
-      splits < 1)
+  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % BKP != 0 || group % 16 != 0 ||
+      (K / 2) % group != 0 || splits < 1)
     return -1;
   const int num_tiles = K / 2 / BKP;
   if (splits > num_tiles) return -1;
   const int tiles_per_split = (num_tiles + splits - 1) / splits;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* dst = static_cast<float*>(splits > 1 ? partial : out);
-  switch (block_m) {
-    case 16:
-      launch<1>(xq, sx, q4p, scale, zero, dst, T, K, N, group, splits, tiles_per_split, stream);
-      break;
+  const bool half = group % BKP != 0;
+#define W4A8_LAUNCH(fm, h) \
+  launch<fm, h>(xq, sx, q4p, scale, zero, dst, T, K, N, group, splits, tiles_per_split, stream)
+  switch (block_m * 2 + int(half)) {
     case 32:
-      launch<2>(xq, sx, q4p, scale, zero, dst, T, K, N, group, splits, tiles_per_split, stream);
+      W4A8_LAUNCH(1, false);
+      break;
+    case 33:
+      W4A8_LAUNCH(1, true);
+      break;
+    case 64:
+      W4A8_LAUNCH(2, false);
+      break;
+    case 65:
+      W4A8_LAUNCH(2, true);
       break;
     default:
       return -1;
   }
+#undef W4A8_LAUNCH
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);

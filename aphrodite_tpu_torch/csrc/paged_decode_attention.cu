@@ -6,9 +6,21 @@
 // wide tiles; that layout is a TPU choice and is not carried over. Here
 // one block serves one (sequence, kv head): the QG = QH / KV query heads
 // of that kv head share every K/V tile the block stages in shared memory.
-// QG is a template parameter, instantiated for 1, 2, 4 and 8 (MHA such as
-// Baichuan-13B, 2:1 GQA, Llama-3 8B, Llama-3 70B); the query, score and
-// softmax state, the accumulators and the softmax warps scale with it.
+// The instantiations are by QG_MAX, a power of two (1, 2, 4, 8, 16), and
+// take any QG up to it at run time: QG 1-16 covers MHA (Baichuan-13B),
+// Llama-3's 4 and 8, Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3. The
+// query, score and softmax state, the accumulators and the softmax warps
+// are sized by QG_MAX; the heads past QG are padding: their query rows are
+// zeros, they run through every loop as the real ones do (so the loops are
+// the code of the exact QG = QG_MAX instantiation, and at QG = QG_MAX the
+// results are those of the kernel that was built for QG alone), and
+// nothing of them is written. At QG 3, 5, 6 and 7 that wastes 1/4, 3/8,
+// 1/4 and 1/8 of the score and P.V work; the bytes read are unchanged.
+//
+// head_dim D is a template parameter too, 64 or 128. The block has D
+// threads: in the QK pass each owns one key of a D-key tile, in the P.V
+// pass one output dimension of each head. At D = 64 that is two warps and
+// 64-key tiles.
 //
 // Bound on the H100: bytes. Each step reads every live K/V row once
 // (2 * kv_len * D bf16 per kv head) and does 4 * QG * D FLOPs per key,
@@ -67,9 +79,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileKeys = 128;  // keys per tile: one per thread in the QK pass
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -82,12 +91,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// head_dim: the one the kernel is built for. The wrapper raises for any
-// other, and for a QH / KV that no instantiation takes.
-constexpr int D = 128;
+// The largest QH / KV the kernel takes (the wrapper raises above it, and
+// for a head_dim other than 64 and 128).
+constexpr int kMaxQG = 16;
 
-template <int QG, bool BS>
+// D threads a block, D keys a tile: one key per thread in the QK pass,
+// one output dimension per thread in the P.V pass.
+template <int D, int QG, bool BS>
 struct DecodeSmem {
+  static constexpr int kThreads = D;
+  static constexpr int kTileKeys = D;
   static constexpr int kKPad = D + 8;  // bf16 row stride: an odd number of 16-byte units
   static constexpr size_t k_tile = size_t(kTileKeys) * kKPad * 2;
   static constexpr size_t v_tile = size_t(kTileKeys) * D * 2;
@@ -97,19 +110,22 @@ struct DecodeSmem {
   static constexpr size_t live = BS ? size_t(kTileKeys) : 0;  // blocksparse: key staged?
   static constexpr size_t bytes = k_tile + v_tile + q + p + stats + live;
 };
-static_assert(D == kThreads, "the PV pass gives each thread one output dim");
 
-template <class Page, int QG, bool BS>
-__global__ void __launch_bounds__(kThreads)
+// QG: QG_MAX, the heads the block's state is sized for; qg (<= QG): the
+// model's QH / KV.
+template <class Page, int D, int QG, bool BS>
+__global__ void __launch_bounds__(D)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ kv,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ page_indices,
                     const float* __restrict__ alibi_slopes,
-                    __nv_bfloat16* __restrict__ out, int num_kv_heads,
+                    __nv_bfloat16* __restrict__ out, int num_kv_heads, int qg,
                     int page_size, int pages_per_seq, float sm_scale,
                     int sliding_window, float soft_cap, Blocksparse bs) {
-  using L = DecodeSmem<QG, BS>;
+  using L = DecodeSmem<D, QG, BS>;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kTileKeys = L::kTileKeys;
   constexpr int kKPad = L::kKPad;
   constexpr int kVals = Page::kValues;  // values per 16-byte load
   constexpr int kChunks = D / kVals;    // 16-byte loads per K (or V) row
@@ -129,21 +145,23 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int num_q_heads = num_kv_heads * QG;
+  const int num_q_heads = num_kv_heads * qg;
   const int ckv = 2 * num_kv_heads;
 
-  const size_t head0 = size_t(seq) * num_q_heads + size_t(kvh) * QG;
+  const size_t head0 = size_t(seq) * num_q_heads + size_t(kvh) * qg;
   __nv_bfloat16* out_base = out + head0 * D;
   const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
   if (kv_len <= 0) {
-    for (int i = tid; i < QG * D; i += kThreads) out_base[i] = __float2bfloat16(0.f);
+    for (int i = tid; i < qg * D; i += kThreads) out_base[i] = __float2bfloat16(0.f);
     return;
   }
   const int kv_lo = sliding_window > 0 ? max(0, kv_len - sliding_window) : 0;
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
 
+  // The padding heads past qg get zero query rows.
   const __nv_bfloat16* q_base = q + head0 * D;
-  for (int i = tid; i < QG * D; i += kThreads) q_s[i] = __bfloat162float(q_base[i]) * sm_scale;
+  for (int i = tid; i < QG * D; i += kThreads)
+    q_s[i] = i < qg * D ? __bfloat162float(q_base[i]) * sm_scale : 0.f;
   if (tid < QG) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -157,7 +175,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const bool alibi = alibi_slopes != nullptr;
   float slope[QG];
 #pragma unroll
-  for (int h = 0; h < QG; ++h) slope[h] = alibi ? alibi_slopes[kvh * QG + h] : 0.f;
+  for (int h = 0; h < QG; ++h) slope[h] = alibi && h < qg ? alibi_slopes[kvh * qg + h] : 0.f;
   // Blocksparse: the query's block, each head's phase, and whether dead
   // keys are skipped (blocks of whole pages) or only masked.
   int bq = 0;
@@ -166,7 +184,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   if constexpr (BS) {
     bq = (kv_len - 1) / bs.block;
 #pragma unroll
-    for (int h = 0; h < QG; ++h) phase[h] = bs.offsets[kvh * QG + h];
+    for (int h = 0; h < QG; ++h) phase[h] = bs.offsets[kvh * qg + h];  // qg == QG
     skip_dead = bs.block % page_size == 0;
   }
   for (int tile0 = kv_lo; tile0 < kv_len; tile0 += kTileKeys) {
@@ -293,37 +311,90 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int h = 0; h < QG; ++h) {
+    if (h >= qg) break;
     const float l = l_s[h];
     const float inv = l > 0.f ? 1.f / l : 0.f;
     out_base[h * D + tid] = __float2bfloat16(acc[h] * inv);
   }
 }
 
-template <class Page, int QG, bool BS>
+template <class Page, int D, int QG, bool BS>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
-                   const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads,
+                   const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads, int qg,
                    int page_size, int pages_per_seq, float sm_scale, int sliding_window,
                    float soft_cap, Blocksparse bs, cudaStream_t stream) {
-  const size_t smem = DecodeSmem<QG, BS>::bytes;
+  using L = DecodeSmem<D, QG, BS>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<Page, QG, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+        paged_decode_kernel<Page, D, QG, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(L::bytes));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(num_seqs, num_kv_heads);
-  paged_decode_kernel<Page, QG, BS><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<Page, D, QG, BS><<<grid, L::kThreads, L::bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
-      page_indices, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_kv_heads, page_size,
-      pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
+      page_indices, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_kv_heads, qg,
+      page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
   return cudaGetLastError();
 }
 
-// Checks the shape and launches the variant for pages of type Page, QG =
-// num_q_heads / num_kv_heads query heads per kv head and blocksparse (a
-// phase table given) or not.
+// The smallest power of two at or above qg (qg in 1..kMaxQG): the QG_MAX
+// bucket whose instantiation serves it.
+inline int qg_bucket(int qg) {
+  int b = 1;
+  while (b < qg) b *= 2;
+  return b;
+}
+
+// Launches the instantiation for head_dim D and QG_MAX = the bucket of
+// qg, without blocksparse, or with it (D 128 and QG 1, 2, 4 or 8 only:
+// the shapes blocksparse is built for).
+template <class Page, int D>
+cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
+                     const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads,
+                     int qg, int page_size, int pages_per_seq, float sm_scale,
+                     int sliding_window, float soft_cap, Blocksparse bs, cudaStream_t stream) {
+#define PAGED_DECODE_LAUNCH(qgm, b)                                                           \
+  launch<Page, D, qgm, b>(q, kv, kv_lens, page_indices, alibi_slopes, out, num_seqs,         \
+                          num_kv_heads, qg, page_size, pages_per_seq, sm_scale, sliding_window, \
+                          soft_cap, bs, stream)
+  if (bs.offsets != nullptr) {
+    if constexpr (D == 128) {
+      switch (qg) {
+        case 1:
+          return PAGED_DECODE_LAUNCH(1, true);
+        case 2:
+          return PAGED_DECODE_LAUNCH(2, true);
+        case 4:
+          return PAGED_DECODE_LAUNCH(4, true);
+        case 8:
+          return PAGED_DECODE_LAUNCH(8, true);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  switch (qg_bucket(qg)) {
+    case 1:
+      return PAGED_DECODE_LAUNCH(1, false);
+    case 2:
+      return PAGED_DECODE_LAUNCH(2, false);
+    case 4:
+      return PAGED_DECODE_LAUNCH(4, false);
+    case 8:
+      return PAGED_DECODE_LAUNCH(8, false);
+    case 16:
+      return PAGED_DECODE_LAUNCH(16, false);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PAGED_DECODE_LAUNCH
+}
+
+// Checks the shape and launches the variant for pages of type Page,
+// head_dim 64 or 128, QG = num_q_heads / num_kv_heads query heads per kv
+// head (1 to 16) and blocksparse (a phase table given) or not.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,
@@ -331,8 +402,9 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
         float soft_cap, const void* bs_offsets, int bs_block, int bs_local, int bs_vert,
         void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
-  if (head_dim != D || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0)
-    return int(cudaErrorInvalidValue);
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return int(cudaErrorInvalidValue);
+  const int qg = num_q_heads / num_kv_heads;
+  if (qg < 1 || qg > kMaxQG) return int(cudaErrorInvalidValue);
   const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
   if (bs.offsets != nullptr && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0))
     return int(cudaErrorInvalidValue);
@@ -340,41 +412,33 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   const int* pages = static_cast<const int*>(page_indices);
   const float* slopes = static_cast<const float*>(alibi_slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_DECODE_LAUNCH(qg)                                                                 \
-  (bs.offsets != nullptr                                                                        \
-       ? launch<Page, qg, true>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads,  \
-                                page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,   \
-                                bs, s)                                                          \
-       : launch<Page, qg, false>(q, kv_pages, lens, pages, slopes, out, num_seqs, num_kv_heads, \
-                                 page_size, pages_per_seq, sm_scale, sliding_window, soft_cap,  \
-                                 bs, s))
-  switch (num_q_heads / num_kv_heads) {
-    case 1:
-      return int(PAGED_DECODE_LAUNCH(1));
-    case 2:
-      return int(PAGED_DECODE_LAUNCH(2));
-    case 4:
-      return int(PAGED_DECODE_LAUNCH(4));
-    case 8:
-      return int(PAGED_DECODE_LAUNCH(8));
+  switch (head_dim) {
+    case 64:
+      return int(launch_d<Page, 64>(q, kv_pages, lens, pages, slopes, out, num_seqs,
+                                    num_kv_heads, qg, page_size, pages_per_seq, sm_scale,
+                                    sliding_window, soft_cap, bs, s));
+    case 128:
+      return int(launch_d<Page, 128>(q, kv_pages, lens, pages, slopes, out, num_seqs,
+                                     num_kv_heads, qg, page_size, pages_per_seq, sm_scale,
+                                     sliding_window, soft_cap, bs, s));
     default:
       return int(cudaErrorInvalidValue);
   }
-#undef PAGED_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
-// int8}. q bf16[S, QH, D] with D = 128 and QH = QG * KV for QG in {1, 2,
-// 4, 8}, kv_pages [P, page_size, 2 * KV, D] of the named type (K at even
+// int8}. q bf16[S, QH, D] with D = 64 or 128 and QH = QG * KV for QG in 1
+// to 16 (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size, 2 * KV, D] of the named type (K at even
 // and V at odd combined heads), kv_lens i32[S], page_indices i32[S,
 // pages_per_seq], alibi_slopes f32[QH] or null (no ALiBi), out bf16[S, QH,
 // D]. sliding_window <= 0 and soft_cap <= 0 mean off. bs_offsets i32[QH]
 // (each query head's vertical phase) with bs_block, bs_local and bs_vert
 // turns blocksparse on; null means off (the others are then unread).
 // Returns the CUDA error of the launch (cudaErrorInvalidValue for any other
-// D or QH / KV, or blocksparse parameters that are not positive).
+// D or QH / KV, or blocksparse parameters that are not positive or at a
+// shape it is not built for).
 #define PAGED_DECODE_ENTRY(suffix, Page)                                                     \
   extern "C" int paged_decode_attention_##suffix(                                            \
       const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,    \

@@ -7,13 +7,22 @@
 // aphrodite_tpu/ops/rpa_alibi_kernel.py: ragged_paged_attention_alibi).
 //
 // Work split: one block per (query tile, kv head). A query tile holds
-// kRows = 64 query rows = 64 / QG consecutive tokens of ONE sequence times
-// the QG query heads that share the kv head, so a tile never straddles
-// two sequences. QG = QH / KV is a template parameter, instantiated for 1,
-// 2, 4 and 8: a tile is 64, 32, 16 or 8 tokens. So are ALiBi and
-// blocksparse, so that the variant without either is the code it was
-// before they came in: a runtime branch in the unrolled row loop slowed
-// that variant on the H100. The plain variants are built from
+// kRows = 64 query rows = floor(64 / QG) consecutive tokens of ONE
+// sequence times the QG query heads that share the kv head, so a tile
+// never straddles two sequences; where QG does not divide 64 (3, 5, 6, 7,
+// 9-15) the last 64 mod QG rows of every tile are idle. QG = QH / KV is a
+// template parameter, instantiated at head_dim 128 for 1, 2, 4 and 8 (a
+// tile of 64, 32, 16 or 8 tokens), and 0, which reads QG at run time and
+// serves every other QG up to 16, and every QG at head_dim 64: its
+// row-to-(token, head) divisions are by a runtime value, the rest is the
+// same code. (Each instantiation adds about two seconds of nvcc to every
+// build; exact ones for the other shapes would add a minute.) head_dim D
+// (64 or 128) is a template parameter too. So are ALiBi and blocksparse,
+// so that the
+// variant without either is the code it was before they came in: a
+// runtime branch in the unrolled row loop slowed that variant on the
+// H100. The variants with ALiBi or blocksparse are built for D 128 and QG
+// 1, 2, 4 and 8 only, the shapes of the models that use them. The plain variants are built from
 // ragged_paged_attention.cu, those with ALiBi from
 // ragged_paged_attention_alibi.cu and those with blocksparse from
 // ragged_paged_attention_blocksparse.cu: three libraries that nvcc builds
@@ -77,11 +86,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;                   // query rows per block
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kKeys = 32;                   // keys per K/V tile: one per lane
+// The largest QH / KV the kernel takes (the wrapper raises above it, and
+// for a head_dim other than 64 and 128).
+constexpr int kMaxQG = 16;
 
-// head_dim: the one the kernel is built for. The wrapper raises for any
-// other, and for a QH / KV that no instantiation takes.
-constexpr int D = 128;
-
+template <int D>
 struct RaggedSmem {
   static constexpr int kKPad = D + 4;  // f32 row stride of the K tile
   static constexpr size_t q = size_t(kRows) * D * 4;
@@ -102,7 +111,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <class Page, int QG, bool ALIBI, bool BLOCKSPARSE>
+// QG: QH / KV, or 0 for the variant that reads it from qg_rt.
+template <class Page, int D, int QG, bool ALIBI, bool BLOCKSPARSE>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const unsigned char* __restrict__ kv,
@@ -111,12 +121,14 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const int* __restrict__ cu_q_lens,
                               const float* __restrict__ alibi_slopes,
                               __nv_bfloat16* __restrict__ out, int num_seqs,
-                              int num_kv_heads, int page_size, int pages_per_seq,
-                              float sm_scale, int sliding_window, float soft_cap,
-                              Blocksparse bs) {
-  using L = RaggedSmem;
+                              int num_kv_heads, int qg_rt, int page_size,
+                              int pages_per_seq, float sm_scale, int sliding_window,
+                              float soft_cap, Blocksparse bs) {
+  static_assert(QG > 0 || !(ALIBI || BLOCKSPARSE), "options are built for a fixed QG");
+  using L = RaggedSmem<D>;
   constexpr int kKPad = L::kKPad;
-  constexpr int kTokens = kRows / QG;  // query tokens per tile
+  const int qg = QG > 0 ? QG : qg_rt;
+  const int kTokens = kRows / qg;         // query tokens per tile
   constexpr int kQChunks = D / 8;           // 16-byte loads per (bf16) q row
   constexpr int kVals = Page::kValues;      // K/V values per 16-byte load
   constexpr int kChunks = D / kVals;        // 16-byte loads per K (or V) row
@@ -149,7 +161,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int num_q_heads = num_kv_heads * QG;
+  const int num_q_heads = num_kv_heads * qg;
   const int ckv = 2 * num_kv_heads;
   const int q_start = cu_q_lens[seq];
   const int q_len = cu_q_lens[seq + 1] - q_start;
@@ -158,14 +170,15 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int pos0 = kv_len - q_len + tile_t0;  // absolute position of the tile's first token
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
 
-  // Query rows: row r = token (r / QG), head kvh * QG + r % QG; pre-scaled.
+  // Query rows: row r = token (r / qg), head kvh * qg + r % qg; pre-scaled.
+  // Rows past kTokens * qg are idle (t >= kTokens >= n_tok): zeros.
   for (int i = tid; i < kRows * kQChunks; i += kThreads) {
     const int r = i / kQChunks;
     const int part = i % kQChunks;
-    const int t = r / QG;
+    const int t = r / qg;
     float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (t < n_tok) {
-      const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * QG + r % QG;
+      const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
       const uint4 raw = *reinterpret_cast<const uint4*>(q + head * D + part * 8);
       kv_page::chunk_to_f32<kv_page::Bf16>(raw, vals);
 #pragma unroll
@@ -193,7 +206,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Blocksparse: the phases of this kv head's query heads, for the test of
   // whether any row of the tile may see a key tile.
-  int group_phase[QG];
+  int group_phase[QG > 0 ? QG : 1];
   if constexpr (BLOCKSPARSE) {
 #pragma unroll
     for (int h = 0; h < QG; ++h) group_phase[h] = bs.offsets[kvh * QG + h];
@@ -234,14 +247,14 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp * kRowsPerWarp + i;
-      const int t = r / QG;
+      const int t = r / qg;
       if (t >= n_tok) continue;  // warp-uniform
       const int pos = pos0 + t;
       bool valid = key_pos < kv_hi && key_pos <= pos;
       if (sliding_window > 0) valid = valid && key_pos > pos - sliding_window;
       if constexpr (BLOCKSPARSE) {
         // This row's block and its head's phase (one cached load per warp).
-        const int phase = __ldg(bs.offsets + kvh * QG + r % QG);
+        const int phase = __ldg(bs.offsets + kvh * qg + r % qg);
         valid = valid && block_visible(bs, pos / bs.block, key_pos / bs.block, phase);
       }
       const float* qrow = q_s + r * D;
@@ -255,7 +268,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
       if constexpr (ALIBI) {
         // One cached load for the whole warp, where the bias is added.
-        const float slope = __ldg(alibi_slopes + kvh * QG + r % QG);
+        const float slope = __ldg(alibi_slopes + kvh * qg + r % qg);
         s = __fadd_rn(s, __fmul_rn(slope, float(key_pos - pos)));
       }
       const float mx = warp_max(valid ? s : -INFINITY);
@@ -271,13 +284,19 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int k = 0; k < kKeys; ++k) {
         const float pk = __shfl_sync(0xffffffffu, p, k);
         const float* vrow = v_s + k * D + lane * kDimsPerLane;
+        if constexpr (kDimsPerLane % 4 == 0) {
 #pragma unroll
-        for (int j = 0; j < kDimsPerLane; j += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(vrow + j);
-          acc[i][j] += pk * v.x;
-          acc[i][j + 1] += pk * v.y;
-          acc[i][j + 2] += pk * v.z;
-          acc[i][j + 3] += pk * v.w;
+          for (int j = 0; j < kDimsPerLane; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(vrow + j);
+            acc[i][j] += pk * v.x;
+            acc[i][j + 1] += pk * v.y;
+            acc[i][j + 2] += pk * v.z;
+            acc[i][j + 3] += pk * v.w;
+          }
+        } else {  // D = 64: two dims per lane
+          const float2 v = *reinterpret_cast<const float2*>(vrow);
+          acc[i][0] += pk * v.x;
+          acc[i][1] += pk * v.y;
         }
       }
     }
@@ -286,9 +305,9 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp * kRowsPerWarp + i;
-    const int t = r / QG;
+    const int t = r / qg;
     if (t >= n_tok) continue;
-    const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * QG + r % QG;
+    const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     __nv_bfloat16* dst = out + head * D + lane * kDimsPerLane;
 #pragma unroll
@@ -298,33 +317,71 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <class Page, int QG, bool ALIBI, bool BLOCKSPARSE>
+template <class Page, int D, int QG, bool ALIBI, bool BLOCKSPARSE>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    const int* cu_q_lens, const float* alibi_slopes, void* out, int num_tokens,
-                   int num_seqs, int num_kv_heads, int page_size, int pages_per_seq,
+                   int num_seqs, int num_kv_heads, int qg, int page_size, int pages_per_seq,
                    float sm_scale, int sliding_window, float soft_cap, Blocksparse bs,
                    cudaStream_t stream) {
-  const size_t smem = RaggedSmem::bytes;
+  const size_t smem = RaggedSmem<D>::bytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ragged_paged_attention_kernel<Page, QG, ALIBI, BLOCKSPARSE>,
+        ragged_paged_attention_kernel<Page, D, QG, ALIBI, BLOCKSPARSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  constexpr int kTokens = kRows / QG;
-  const dim3 grid((num_tokens + kTokens - 1) / kTokens + num_seqs, num_kv_heads);
-  ragged_paged_attention_kernel<Page, QG, ALIBI, BLOCKSPARSE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
-      page_indices, cu_q_lens, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_seqs,
-      num_kv_heads, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
+  const int tokens = kRows / qg;  // per tile; the kernel maps rows with the same qg
+  const dim3 grid((num_tokens + tokens - 1) / tokens + num_seqs, num_kv_heads);
+  ragged_paged_attention_kernel<Page, D, QG, ALIBI, BLOCKSPARSE>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
+          page_indices, cu_q_lens, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_seqs,
+          num_kv_heads, qg, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
   return cudaGetLastError();
 }
 
+// Launches the instantiation for head_dim D: at D 128 QG 1, 2, 4 and 8
+// have their own, every other QG up to 16 (and every QG at D 64) the one
+// that reads it at run time. With ALiBi or blocksparse only D 128 and QG
+// 1, 2, 4 and 8 are built.
+template <class Page, int D, bool ALIBI, bool BLOCKSPARSE>
+cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
+                     const int* cu_q_lens, const float* alibi_slopes, void* out,
+                     int num_tokens, int num_seqs, int num_kv_heads, int qg, int page_size,
+                     int pages_per_seq, float sm_scale, int sliding_window, float soft_cap,
+                     Blocksparse bs, cudaStream_t stream) {
+#define RAGGED_LAUNCH(qgt)                                                                    \
+  launch<Page, D, qgt, ALIBI, BLOCKSPARSE>(q, kv, kv_lens, page_indices, cu_q_lens,          \
+                                           alibi_slopes, out, num_tokens, num_seqs,          \
+                                           num_kv_heads, qg, page_size, pages_per_seq,       \
+                                           sm_scale, sliding_window, soft_cap, bs, stream)
+  constexpr bool kOption = ALIBI || BLOCKSPARSE;
+  if constexpr (D != 128) {
+    if constexpr (kOption) return cudaErrorInvalidValue;
+    else return RAGGED_LAUNCH(0);
+  } else {
+    switch (qg) {
+      case 1:
+        return RAGGED_LAUNCH(1);
+      case 2:
+        return RAGGED_LAUNCH(2);
+      case 4:
+        return RAGGED_LAUNCH(4);
+      case 8:
+        return RAGGED_LAUNCH(8);
+    }
+    if constexpr (kOption) return cudaErrorInvalidValue;
+    else return RAGGED_LAUNCH(0);
+  }
+#undef RAGGED_LAUNCH
+}
+
 // Checks the shape and launches the variant for pages of type Page,
-// QG = num_q_heads / num_kv_heads query heads per kv head, ALiBi (a slope
-// table given) or not and blocksparse (a phase table given) or not.
+// head_dim 64 or 128, QG = num_q_heads / num_kv_heads query heads per kv
+// head (1 to 16), ALiBi (a slope table given) or not and blocksparse (a
+// phase table given) or not.
 template <class Page, bool ALIBI, bool BLOCKSPARSE>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* cu_q_lens, const void* alibi_slopes, void* out, int num_tokens,
@@ -332,40 +389,38 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
         int pages_per_seq, float sm_scale, int sliding_window, float soft_cap,
         const void* bs_offsets, int bs_block, int bs_local, int bs_vert, void* stream) {
   if (num_tokens <= 0 || num_seqs <= 0) return int(cudaSuccess);
-  if (head_dim != D || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 ||
-      ALIBI != (alibi_slopes != nullptr) || BLOCKSPARSE != (bs_offsets != nullptr) ||
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 ||
+      num_q_heads / num_kv_heads > kMaxQG || ALIBI != (alibi_slopes != nullptr) ||
+      BLOCKSPARSE != (bs_offsets != nullptr) ||
       (BLOCKSPARSE && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0)))
     return int(cudaErrorInvalidValue);
+  const int qg = num_q_heads / num_kv_heads;
   const int* lens = static_cast<const int*>(kv_lens);
   const int* pages = static_cast<const int*>(page_indices);
   const int* cu = static_cast<const int*>(cu_q_lens);
   const float* slopes = static_cast<const float*>(alibi_slopes);
   const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAGGED_LAUNCH(qg)                                                                     \
-  launch<Page, qg, ALIBI, BLOCKSPARSE>(q, kv_pages, lens, pages, cu, slopes, out, num_tokens, \
-                                       num_seqs, num_kv_heads, page_size, pages_per_seq,      \
-                                       sm_scale, sliding_window, soft_cap, bs, s)
-  switch (num_q_heads / num_kv_heads) {
-    case 1:
-      return int(RAGGED_LAUNCH(1));
-    case 2:
-      return int(RAGGED_LAUNCH(2));
-    case 4:
-      return int(RAGGED_LAUNCH(4));
-    case 8:
-      return int(RAGGED_LAUNCH(8));
+  switch (head_dim) {
+    case 64:
+      return int(launch_d<Page, 64, ALIBI, BLOCKSPARSE>(
+          q, kv_pages, lens, pages, cu, slopes, out, num_tokens, num_seqs, num_kv_heads, qg,
+          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs, s));
+    case 128:
+      return int(launch_d<Page, 128, ALIBI, BLOCKSPARSE>(
+          q, kv_pages, lens, pages, cu, slopes, out, num_tokens, num_seqs, num_kv_heads, qg,
+          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs, s));
     default:
       return int(cudaErrorInvalidValue);
   }
-#undef RAGGED_LAUNCH
 }
 
 }  // namespace
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
-// blocksparse or not. q bf16[T, QH, D] with D = 128 and QH = QG * KV for QG
-// in {1, 2, 4, 8}, kv_pages [P, page_size, 2 * KV, D] of the named type,
+// blocksparse or not. q bf16[T, QH, D] with D = 64 or 128 and QH = QG * KV
+// for QG in 1 to 16 (with ALiBi or blocksparse: D = 128 and QG in {1, 2, 4,
+// 8}), kv_pages [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],
 // alibi_slopes f32[QH] (the ALiBi entry points) or null (the others), out
 // bf16[T, QH, D] (zero-filled by the caller). sliding_window <= 0 and

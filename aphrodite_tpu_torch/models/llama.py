@@ -27,7 +27,10 @@ Hooks serve the subclasses, as in the JAX package:
   (applied in the model dtype), ``logit_scale`` (f32, after the f32
   product) and ``tie_word_embeddings_default``;
 - ``mlp(lp, h, layer)``, which a subclass may replace; ``gate`` and
-  ``up`` then stay apart at load.
+  ``up`` then stay apart at load;
+- ``qk_norm(q, k, lp, layer)``: a per-head normalization of q [T, QH, D]
+  and k [T, KV, D] after the reshape to heads and before RoPE (identity
+  here; Qwen3 normalizes over head_dim).
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -285,6 +288,7 @@ class LlamaForCausalLM:
             q = qkv[:, :NH * D].reshape(-1, NH, D)
             k = qkv[:, NH * D:(NH + NKV) * D].reshape(-1, NKV, D)
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
+            q, k = self.qk_norm(q, k, lp, layer)
             if self.use_rope:
                 q = apply_rope(q, cos, sin)
                 k = apply_rope(k, cos, sin)
@@ -315,6 +319,12 @@ class LlamaForCausalLM:
                            self._layer_bias(lp, "post_norm_b", layer))
             x = x + self.mlp(lp, h, layer).to(self.dtype)
         return self._norm(x, params["final_norm"], params.get("final_norm_b"))
+
+    def qk_norm(self, q: torch.Tensor, k: torch.Tensor, lp: Dict[str, Any],
+                layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-head query/key normalization hook: identity for Llama
+        (Qwen3 overrides it with an RMSNorm over head_dim)."""
+        return q, k
 
     @staticmethod
     def _layer_bias(lp: Dict[str, Any], name: str,

@@ -1,7 +1,10 @@
 """Model registry (counterpart of aphrodite_tpu/models/registry.py).
 
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
-Llama, Baichuan and Phi-3-Small so far; any other architecture raises.
+Llama (and the checkpoints that reuse its graph: Mistral, Qwen2 and
+Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan and
+Phi-3-Small so far; any other architecture raises. The embedding aliases
+(``MistralModel``, ``LlamaModel``) wait for the pooling runner.
 """
 
 from typing import Dict, Type
@@ -11,9 +14,33 @@ from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
                                                  BaichuanForCausalLM)
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
 from aphrodite_tpu_torch.models.phi3small import Phi3SmallForCausalLM
+from aphrodite_tpu_torch.models.qwen3 import Qwen3ForCausalLM
+
+
+class Qwen2ForCausalLM(LlamaForCausalLM):
+    """Qwen2 / Qwen2.5: the Llama topology with q|k|v bias; the small
+    variants tie the embeddings (the config's tie_word_embeddings)."""
+
+    attention_bias = True
+
+
+class MistralForCausalLM(LlamaForCausalLM):
+    """Mistral: the Llama topology with the config's sliding window."""
+
 
 _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "LlamaForCausalLM": LlamaForCausalLM,
+    "MistralForCausalLM": MistralForCausalLM,
+    "Qwen2ForCausalLM": Qwen2ForCausalLM,
+    "Qwen3ForCausalLM": Qwen3ForCausalLM,
+    # Checkpoints that reuse the Llama graph and names (Aquila /
+    # AquilaChat2, InternLM v1, decapoda LLaMA, XVERSE), as in the JAX
+    # registry.
+    "AquilaModel": LlamaForCausalLM,
+    "AquilaForCausalLM": LlamaForCausalLM,
+    "InternLMForCausalLM": LlamaForCausalLM,
+    "LLaMAForCausalLM": LlamaForCausalLM,
+    "XverseForCausalLM": LlamaForCausalLM,
     "BaiChuanForCausalLM": BaiChuanForCausalLM,
     "BaichuanForCausalLM": BaichuanForCausalLM,
     "Phi3SmallForCausalLM": Phi3SmallForCausalLM,

@@ -157,13 +157,13 @@ def ragged_paged_attention(
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
     count_launch(ragged_paged_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, alibi_slopes,
+                 launch_shape(num_q_heads, ckv // 2, head_dim, alibi_slopes,
                               bs[0] is not None))
     return out
 
 
-# Launches of the kernel: the total, per page type, and per QH / KV with
-# ALiBi, blocksparse or neither.
+# Launches of the kernel: the total, per page type, and per QH / KV and
+# head_dim with ALiBi, blocksparse or neither.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_dtype = {}
 ragged_paged_attention.launches_by_shape = {}

@@ -8,8 +8,15 @@ beside it (``csrc/*.cuh``) so an edited kernel is never served from a
 stale build. Nothing is built when a module is
 imported: the first launch builds what it needs, and ``build`` builds
 several sources at once, one ``nvcc`` process each, all started together.
+
+    python -m aphrodite_tpu_torch.ops.cuda_build NAME [NAME ...]
+
+compiles the named sources once more with ``-Xptxas -v`` and prints what
+ptxas reports for each kernel instantiation: registers, shared memory,
+spills.
 """
 
+import argparse
 import ctypes
 import functools
 import hashlib
@@ -25,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("paged_decode_attention", "ragged_paged_attention",
                   "ragged_paged_attention_alibi",
                   "ragged_paged_attention_blocksparse", "int4p_matmul",
-                  "int4_matmul", "int4p_matmul_w4a8")
+                  "int4_matmul", "int4p_matmul_w4a8", "gather_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -87,3 +94,39 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas says (-v) for every kernel of ``csrc/<name>.cu``, one
+    line per kernel: its mangled name, then registers, shared memory and
+    spills. The library built here is thrown away."""
+    target = BUILD_DIR / f"{name}.ptxas.{os.getpid()}.tmp"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(target),
+           str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    target.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    lines, kernel = [], None
+    for line in proc.stdout.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif kernel and ("Used" in line or "spill" in line):
+            lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return "\n".join(lines)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(
+        description="Print ptxas -v for sources of csrc/ (registers, shared "
+                    "memory, spills of each kernel).")
+    parser.add_argument("names", nargs="+", metavar="NAME")
+    for name in parser.parse_args().names:
+        print(f"== {name}.cu", flush=True)
+        print(ptxas_report(name), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,18 +23,19 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 128 with 1, 2, 4 or 8 query heads per kv head
-(one instantiation each, chosen at the launch), and an optional ALiBi
-slope table f32[QH]: score + slope[h] * (key position - query position),
-added after the soft cap and before the mask, as the JAX package adds it.
-Or, instead of ALiBi, Phi-3-Small's blocksparse mask: ``blocksparse=
-(block_size, local_blocks, vert_stride)`` with ``bs_head_offsets`` (a
-contiguous i32[QH] tensor on q's device, each global query head's
-vertical phase) and ``bs_on`` (a Python bool, the layer's gate; False
-launches the instantiation without blocksparse). With b(x) = x //
-block_size, key j is visible to a query at position p for head h iff
-b(p) - b(j) < local_blocks or (b(j) + offsets[h] + 1) % vert_stride == 0,
-ANDed with the causal mask and the window.
+Both kernels take head_dim 64 or 128 with 1 to 16 query heads per kv
+head (the instantiation is chosen at the launch), and, at head_dim 128
+with 1, 2, 4 or 8 query heads per kv head, an optional ALiBi slope table
+f32[QH]: score + slope[h] * (key position - query position), added after
+the soft cap and before the mask, as the JAX package adds it. Or, at
+those shapes and instead of ALiBi, Phi-3-Small's blocksparse mask:
+``blocksparse=(block_size, local_blocks, vert_stride)`` with
+``bs_head_offsets`` (a contiguous i32[QH] tensor on q's device, each
+global query head's vertical phase) and ``bs_on`` (a Python bool, the
+layer's gate; False launches the instantiation without blocksparse).
+With b(x) = x // block_size, key j is visible to a query at position p
+for head h iff b(p) - b(j) < local_blocks or (b(j) + offsets[h] + 1) %
+vert_stride == 0, ANDed with the causal mask and the window.
 """
 
 import ctypes
@@ -46,11 +47,15 @@ import torch
 from aphrodite_tpu_torch.ops import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# The shapes both CUDA kernels are built for: head_dim 128 with QH / KV of
-# 1 (MHA: Baichuan-13B), 2 (bench.py's 1.4B), 4 (Llama-3 8B) or 8 (Llama-3
-# 70B), one instantiation each.
-KERNEL_HEAD_DIM = 128
-KERNEL_QUERIES_PER_KV = (1, 2, 4, 8)
+# The shapes both CUDA kernels are built for: head_dim 64 or 128 with QH /
+# KV from 1 (MHA: Baichuan-13B) to 16, which covers Llama-3's 4 and 8,
+# Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3. Falcon-7B's 71 is above it.
+# ALiBi and blocksparse are built for head_dim 128 at QH / KV 1, 2, 4 or 8
+# only (Baichuan, bench.py's 1.4B, Phi-3-Small).
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_MAX_QUERIES_PER_KV = 16
+OPTION_HEAD_DIM = 128
+OPTION_QUERIES_PER_KV = (1, 2, 4, 8)
 # Page types the CUDA kernels read, and the suffix of each one's entry
 # point (also its key in ``launches_by_dtype``).
 KERNEL_PAGE_TYPES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
@@ -188,13 +193,26 @@ def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
             f"{q.dtype} and {kv_pages.dtype}")
     num_q_heads, head_dim = q.shape[1], q.shape[2]
     num_kv_heads = kv_pages.shape[2] // 2
-    if (head_dim != KERNEL_HEAD_DIM or kv_pages.shape[3] != head_dim
-            or num_kv_heads < 1 or num_q_heads % num_kv_heads
-            or num_q_heads // num_kv_heads not in KERNEL_QUERIES_PER_KV):
+    if (head_dim not in KERNEL_HEAD_DIMS or kv_pages.shape[3] != head_dim
+            or num_kv_heads < 1 or num_q_heads % num_kv_heads):
         raise ValueError(
-            f"attention kernel takes head_dim {KERNEL_HEAD_DIM} and QH/KV "
-            f"in {KERNEL_QUERIES_PER_KV}; got q {tuple(q.shape)}, kv pages "
+            f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS} and QH "
+            f"a multiple of KV; got q {tuple(q.shape)}, kv pages "
             f"{tuple(kv_pages.shape)}")
+    qg = num_q_heads // num_kv_heads
+    if qg > KERNEL_MAX_QUERIES_PER_KV:
+        raise ValueError(
+            f"attention kernel takes QH/KV up to {KERNEL_MAX_QUERIES_PER_KV}; "
+            f"got {num_q_heads} query heads over {num_kv_heads} kv heads "
+            f"(QH/KV {qg})")
+    option = ("ALiBi" if alibi_slopes is not None else
+              "blocksparse" if bs_head_offsets is not None else None)
+    if option and (head_dim != OPTION_HEAD_DIM
+                   or qg not in OPTION_QUERIES_PER_KV):
+        raise ValueError(
+            f"attention kernel takes {option} at head_dim {OPTION_HEAD_DIM} "
+            f"and QH/KV in {OPTION_QUERIES_PER_KV}; got head_dim {head_dim}, "
+            f"QH/KV {qg}")
     if alibi_slopes is not None and (
             alibi_slopes.device != q.device
             or alibi_slopes.dtype != torch.float32
@@ -272,7 +290,7 @@ def paged_decode_attention(
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
     count_launch(paged_decode_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, alibi_slopes,
+                 launch_shape(num_q_heads, ckv // 2, head_dim, alibi_slopes,
                               bs[0] is not None))
     return out
 
@@ -282,14 +300,15 @@ def slopes_ptr(alibi_slopes: Optional[torch.Tensor]) -> Optional[int]:
     return None if alibi_slopes is None else alibi_slopes.data_ptr()
 
 
-def launch_shape(num_q_heads: int, num_kv_heads: int,
+def launch_shape(num_q_heads: int, num_kv_heads: int, head_dim: int,
                  alibi_slopes: Optional[torch.Tensor],
                  blocksparse: bool = False) -> str:
-    """The instantiation a launch takes, as the key of
-    ``launches_by_shape``: "qg<QH/KV>", then " alibi" with a slope table
-    or " blocksparse" with blocksparse on."""
+    """The shape and option of a launch, as the key of
+    ``launches_by_shape``: "qg<QH/KV> d<head_dim>", then " alibi" with a
+    slope table or " blocksparse" with blocksparse on."""
     qg = num_q_heads // num_kv_heads
-    return (f"qg{qg}" + (" alibi" if alibi_slopes is not None else "")
+    return (f"qg{qg} d{head_dim}"
+            + (" alibi" if alibi_slopes is not None else "")
             + (" blocksparse" if blocksparse else ""))
 
 
@@ -302,8 +321,8 @@ def count_launch(wrapper, page_type: str, shape: str) -> None:
         counts[key] = counts.get(key, 0) + 1
 
 
-# Launches of the kernel: the total, per page type, and per QH / KV with
-# ALiBi, blocksparse or neither.
+# Launches of the kernel: the total, per page type, and per QH / KV and
+# head_dim with ALiBi, blocksparse or neither.
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
 paged_decode_attention.launches_by_shape = {}

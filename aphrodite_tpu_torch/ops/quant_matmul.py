@@ -65,10 +65,9 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 # What the CUDA kernels take (see csrc/int4p_matmul.cu, csrc/int4_matmul.cu).
 KERNEL_N_MULTIPLE = 128
-# Packed groups: W4A16 folds a group after any 16-row mma step (GGUF Q2_K
-# and Q3_K pack at 16); W4A8's m16n8k32 step spans 32 rows of k.
+# Packed groups: both packed kernels (W4A16 and W4A8) fold a group after
+# any 16-row mma step (GGUF Q2_K and Q3_K pack at 16).
 KERNEL_GROUP_MULTIPLE = 16
-W4A8_GROUP_MULTIPLE = 32
 _KERNEL_K_TILE = 32  # packed rows per k tile
 _NUM_SMS = 132  # H100 SXM
 # The unpacked kernel: k rows per tile, and its two bodies by the number
@@ -193,8 +192,7 @@ def _check_layout(name, x, q, scale, zero):
                              "aligned levels, scale and zero on x's device")
 
 
-def check_kernel_inputs(x, q4p, scale, zero, group, name="int4p_matmul",
-                        group_multiple=KERNEL_GROUP_MULTIPLE):
+def check_kernel_inputs(x, q4p, scale, zero, group, name="int4p_matmul"):
     """Raise unless the tensors are what the packed CUDA int4 kernels
     (W4A16 and W4A8, which share their 32-row k tiles) take."""
     _check_device(name, x)
@@ -203,10 +201,10 @@ def check_kernel_inputs(x, q4p, scale, zero, group, name="int4p_matmul",
     if T < 1 or 2 * Kh != K:
         raise ValueError(f"x {tuple(x.shape)} does not match q4p "
                          f"{tuple(q4p.shape)} (K/2 packed rows)")
-    if group % group_multiple or Kh % group or Kh % _KERNEL_K_TILE:
+    if group % KERNEL_GROUP_MULTIPLE or Kh % group or Kh % _KERNEL_K_TILE:
         raise ValueError(
             f"{name} kernel takes a group that is a multiple of "
-            f"{group_multiple} and divides K/2, and K/2 a multiple of "
+            f"{KERNEL_GROUP_MULTIPLE} and divides K/2, and K/2 a multiple of "
             f"{_KERNEL_K_TILE}; got group {group}, K {K}")
     _check_types_and_shapes(name, x, q4p, scale, zero, K, group)
     _check_layout(name, x, q4p, scale, zero)
@@ -499,8 +497,7 @@ def int4p_matmul_w4a8(x: torch.Tensor, q4p: torch.Tensor,
         q4p, scale, zero = q4p[layer_idx], scale[layer_idx], zero[layer_idx]
     if x.device.type == "cpu":
         return int4p_matmul_w4a8_ref(x, q4p, scale, zero, group)
-    check_kernel_inputs(x, q4p, scale, zero, group, "int4p_matmul_w4a8",
-                        W4A8_GROUP_MULTIPLE)
+    check_kernel_inputs(x, q4p, scale, zero, group, "int4p_matmul_w4a8")
     T, K = x.shape
     N = q4p.shape[1]
     xq, sx = quantize_activations(x, "int8")

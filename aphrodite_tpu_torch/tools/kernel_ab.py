@@ -1,21 +1,27 @@
 """Hold this checkout's CUDA kernels against another checkout's, on one card.
 
-Runs a fixed set of seeded calls through the public kernel wrappers that
-both checkouts have (``paged_decode_attention`` and
-``ragged_paged_attention`` on every page type, QH / KV 1, 2, 4 and 8, with
-window and soft cap, and with ALiBi; ``int4p_matmul`` at groups 32, 64 and
-128 at the Llama-3.1-8B sites), records a SHA-256 of each output's bytes
-and times a few main-path shapes. Each run imports the package of the
-checkout it is started from, so to compare two checkouts, copy this file
-into the other one's ``aphrodite_tpu_torch/tools/`` and run, in turns:
+Runs a fixed set of seeded calls through the public kernel wrappers
+(``paged_decode_attention`` and ``ragged_paged_attention`` on every page
+type, QH / KV 1, 2, 4 and 8 at head_dim 128, with window and soft cap,
+with ALiBi and with blocksparse, and the shapes slice 8 brought in: QH / KV
+3, 5, 6, 7 and 16 at head_dim 128 and 1 to 16 at head_dim 64;
+``int4p_matmul`` at groups 32, 64 and 128 and ``int4p_matmul_w4a8`` at
+groups 16, 32, 64 and 128 at the Llama-3.1-8B sites; the page-gather
+probe), records a SHA-256 of each output's bytes and times a few
+main-path shapes. A call that the checkout does not take (a shape or a
+group it raises for, a module it lacks) is left out of its run. Each run
+imports the package of the checkout it is started from, so to compare two
+checkouts, copy this file into the other one's
+``aphrodite_tpu_torch/tools/`` and run, in turns:
 
     python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_A   # here
     (cd OTHER && python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_B)
     python -m aphrodite_tpu_torch.tools.kernel_ab compare DIR_A DIR_B ...
 
-``compare`` fails unless every output is equal bit for bit across the
-runs, and prints each timed shape's mean time per run directory. Needs a
-card; nothing falls back to the CPU.
+``compare`` fails unless every output that all runs have is equal bit for
+bit across them (it counts those only some runs have), and prints each
+timed shape's mean time per run directory. Needs a card; nothing falls
+back to the CPU.
 """
 
 import argparse
@@ -59,7 +65,7 @@ def time_ms(fn, iters: int) -> float:
 
 
 def attention_case(seqs, qh, kvh, page_type, seed, padded_seqs,
-                   padded_tokens, layers=1):
+                   padded_tokens, layers=1, head_dim=128):
     """q, pages (K/V at std 0.5, narrow types holding value / 0.02), the
     index tensors, on the card; unwritten slots hold NaN or 0x7f."""
     from aphrodite_tpu_torch.ops.kv_cache import quantize_kv
@@ -83,7 +89,7 @@ def attention_case(seqs, qh, kvh, page_type, seed, padded_seqs,
         kv_lens[i] = kv_len
         cu[i + 1] = cu[i] + q_len
     cu[len(seqs) + 1:] = cu[len(seqs)]
-    kv = torch.randn((layers, num_pages, PAGE_SIZE, 2 * kvh, 128),
+    kv = torch.randn((layers, num_pages, PAGE_SIZE, 2 * kvh, head_dim),
                      generator=gen) * 0.5
     dead = torch.from_numpy(~live)
     scale = 1.0
@@ -94,8 +100,8 @@ def attention_case(seqs, qh, kvh, page_type, seed, padded_seqs,
         scale = 0.02
         kv = quantize_kv(kv, torch.tensor(scale), PAGE_TYPES[page_type])
         kv.view(torch.uint8)[:, dead] = 0x7F
-    q = (torch.randn((padded_tokens, qh, 128), generator=gen) * 3.0).to(
-        torch.bfloat16)
+    q = (torch.randn((padded_tokens, qh, head_dim), generator=gen)
+         * 3.0).to(torch.bfloat16)
     t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
     return dict(q=q.cuda(), kv=kv.cuda(), kv_lens=t(kv_lens),
                 pages=t(pages), cu=t(cu),
@@ -119,31 +125,49 @@ def attention_outputs() -> Dict[str, str]:
     lens = np.random.default_rng(3).integers(1, 1100, size=12)
     lens[:2] = (1500, 1025)
     decode_seqs = [(1, int(n)) for n in lens]
+    # (QG, head_dim, variants): the shapes before slice 8 with every
+    # option, then the new ones without ALiBi or blocksparse.
+    shapes = [(qg, 128, ("plain", "window_cap", "alibi", "blocksparse"))
+              for qg in (1, 2, 4, 8)]
+    shapes += [(qg, 128, ("plain", "window_cap")) for qg in (3, 5, 6, 7, 16)]
+    shapes += [(qg, 64, ("plain", "window_cap"))
+               for qg in (1, 2, 3, 4, 5, 6, 7, 8, 16)]
     for page_type in PAGE_TYPES:
-        for qg in (1, 2, 4, 8):
+        for qg, head_dim, names in shapes:
             kvh = 32 // qg if qg > 1 else 16
             qh = qg * kvh
             slopes = torch.from_numpy(get_alibi_slopes(qh)).cuda()
+            phases = (torch.arange(qh, dtype=torch.int32, device="cuda")
+                      * max(1, 8 // qh))
             for op, seqs, padded in (
                     ("ragged", ragged_seqs, (8, 660)),
                     ("decode", decode_seqs, (16, 16))):
                 c = attention_case(seqs, qh, kvh, page_type, qg + 7,
-                                   *padded)
+                                   *padded, head_dim=head_dim)
                 variants = {"plain": {},
                             "window_cap": dict(sliding_window=100,
                                                soft_cap=30.0),
-                            "alibi": dict(alibi_slopes=slopes)}
-                for name, kw in variants.items():
-                    kw = dict(kw, sm_scale=128**-0.5 * c["scale"])
-                    if op == "ragged":
-                        got = ragged_paged_attention(
-                            c["q"], c["kv"][0], c["kv_lens"], c["pages"],
-                            c["cu"], c["ns"], **kw)
-                    else:
-                        got = paged_decode_attention(
-                            c["q"], c["kv"][0], c["kv_lens"], c["pages"],
-                            c["ns"], **kw)
-                    out[f"{op} {page_type} qg{qg} {name}"] = digest(got)
+                            "alibi": dict(alibi_slopes=slopes),
+                            "blocksparse": dict(blocksparse=(64, 4, 8),
+                                                bs_head_offsets=phases)}
+                for name in names:
+                    kw = dict(variants[name],
+                              sm_scale=head_dim**-0.5 * c["scale"])
+                    try:
+                        if op == "ragged":
+                            got = ragged_paged_attention(
+                                c["q"], c["kv"][0], c["kv_lens"], c["pages"],
+                                c["cu"], c["ns"], **kw)
+                        else:
+                            got = paged_decode_attention(
+                                c["q"], c["kv"][0], c["kv_lens"], c["pages"],
+                                c["ns"], **kw)
+                    except ValueError:  # a shape this checkout raises for
+                        continue
+                    key = f"{op} {page_type} qg{qg} {name}"
+                    if head_dim != 128:
+                        key += f" d{head_dim}"
+                    out[key] = digest(got)
     return out
 
 
@@ -159,25 +183,60 @@ def int4_case(K, N, group, layers, seed):
 
 
 def int4_outputs() -> Dict[str, str]:
-    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
+    """The packed product at groups 32-128 (W4A16) and 16-128 (W4A8) at
+    the four sites and every T; the W4A8 product at group 16 only where
+    the checkout takes it."""
+    from aphrodite_tpu_torch.ops.quant_matmul import (int4p_matmul,
+                                                      int4p_matmul_w4a8)
 
     out = {}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
-        for group in (32, 64, 128):
+        for group in (16, 32, 64, 128):
             q4p, scale, zero = int4_case(K, N, group, 1, 40 + i)
             for T in (1, 8, 32, 64, 100, 2048):
                 gen = torch.Generator(device="cuda").manual_seed(T)
                 x = torch.randn((T, K), generator=gen, device="cuda").to(
                     torch.bfloat16)
-                got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=0)
-                out[f"int4p {site} group{group} T{T}"] = digest(got)
+                if group != 16:
+                    got = int4p_matmul(x, q4p, scale, zero, group,
+                                       layer_idx=0)
+                    out[f"int4p {site} group{group} T{T}"] = digest(got)
+                try:
+                    got = int4p_matmul_w4a8(x, q4p, scale, zero, group,
+                                            layer_idx=0)
+                except ValueError:  # a group this checkout raises for
+                    continue
+                out[f"w4a8 {site} group{group} T{T}"] = digest(got)
+    return out
+
+
+def probe_outputs() -> Dict[str, str]:
+    """The page-gather probe at its defaults, random and sequential page
+    ids, where the checkout has it."""
+    try:
+        from aphrodite_tpu_torch.tools import probe_gather_bw as probe
+    except ImportError:
+        return {}
+    out = {}
+    saved = os.environ.get("PROBE_SEQ")
+    for sequential in ("0", "1"):
+        os.environ["PROBE_SEQ"] = sequential
+        kv_lens, pages, kv, _ = probe.make_inputs("cuda", 0)
+        out[f"gather_probe seq{sequential}"] = digest(
+            probe.gather(kv_lens, pages, kv))
+    if saved is None:
+        del os.environ["PROBE_SEQ"]
+    else:
+        os.environ["PROBE_SEQ"] = saved
     return out
 
 
 def timings() -> Dict[str, float]:
     """Main-path shapes: decode of 16 rows and a 2048-token prefill step
-    at 32 / 8 heads on bf16 and E4M3 pages, each launch on the next of 16
-    cache layers; the packed int4 product at w13, group 128."""
+    at 32 / 8 heads on bf16 and E4M3 pages, and (where the checkout takes
+    them) at Qwen2.5-7B's 28 / 4 and Qwen2.5-0.5B's 14 / 2 at head_dim 64,
+    each launch on the next of 16 cache layers; the packed int4 product
+    at w13, group 128."""
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
@@ -193,11 +252,14 @@ def timings() -> Dict[str, float]:
             break
     decode = [(1, int(n) + 32) for n in lens]
     out = {}
-    for page_type in ("bf16", "e4m3"):
+    geometries = (("32/8", 32, 8, 128), ("28/4", 28, 4, 128),
+                  ("14/2 d64", 14, 2, 64))
+    for (label, qh, kvh, head_dim), page_type in (
+            (g, p) for g in geometries for p in ("bf16", "e4m3")):
         for op, seqs, padded in (("decode", decode, (32, 32)),
                                  ("ragged", prefill, (32, 2048))):
-            c = attention_case(seqs, 32, 8, page_type, 20, *padded,
-                               layers=16)
+            c = attention_case(seqs, qh, kvh, page_type, 20, *padded,
+                               layers=16, head_dim=head_dim)
             state = {"layer": 0}
 
             def call():
@@ -211,7 +273,11 @@ def timings() -> Dict[str, float]:
                     c["q"], kv, c["kv_lens"], c["pages"], c["cu"], c["ns"],
                     sm_scale=0.088 * c["scale"])
 
-            out[f"{op} {page_type} 32/8"] = time_ms(call, 200)
+            try:
+                call()
+            except ValueError:  # a shape this checkout raises for
+                continue
+            out[f"{op} {page_type} {label}"] = time_ms(call, 200)
             del c
     K, N = INT4_SITES["w13"]
     layers = 10
@@ -233,7 +299,8 @@ def run(out_dir: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: needs a card")
     os.makedirs(out_dir, exist_ok=True)
-    result = {"digests": {**attention_outputs(), **int4_outputs()},
+    result = {"digests": {**attention_outputs(), **int4_outputs(),
+                          **probe_outputs()},
               "ms": timings(), "device": torch.cuda.get_device_name(0)}
     with open(os.path.join(out_dir, "kernel_ab.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -246,18 +313,25 @@ def compare(dirs: List[str]) -> None:
     for d in dirs:
         with open(os.path.join(d, "kernel_ab.json")) as f:
             runs.append(json.load(f))
+    keys = [set(r["digests"]) for r in runs]
+    common = sorted(set.intersection(*keys))
+    some = sorted(set.union(*keys) - set(common))
     first = runs[0]["digests"]
-    differ = [k for k in first
-              if any(r["digests"].get(k) != first[k] for r in runs[1:])]
-    for key in runs[0]["ms"]:
+    differ = [k for k in common
+              if any(r["digests"][k] != first[k] for r in runs[1:])]
+    for key in sorted(set.union(*(set(r["ms"]) for r in runs))):
         print(f"time {key}: " + ", ".join(
-            f"{d} {r['ms'][key]:.4f} ms" for d, r in zip(dirs, runs)),
-            flush=True)
+            f"{d} {r['ms'][key]:.4f} ms" if key in r["ms"] else f"{d} -"
+            for d, r in zip(dirs, runs)), flush=True)
+    if some:
+        print(f"kernel_ab: {len(some)} outputs only some runs have (a "
+              f"shape, group or module the others lack), e.g. {some[:3]}",
+              flush=True)
     if differ:
-        sys.exit(f"kernel_ab: {len(differ)} of {len(first)} outputs differ, "
-                 f"first {differ[:5]}")
-    print(f"kernel_ab: all {len(first)} outputs equal, bit for bit, across "
-          f"{len(dirs)} runs", flush=True)
+        sys.exit(f"kernel_ab: {len(differ)} of {len(common)} outputs "
+                 f"differ, first {differ[:5]}")
+    print(f"kernel_ab: all {len(common)} outputs that every run has are "
+          f"equal, bit for bit, across {len(dirs)} runs", flush=True)
 
 
 def main() -> None:

@@ -134,19 +134,35 @@ Phases, each of which must pass or the script exits non-zero:
    Q2_K projections with a Q3_K down projection at the Llama-3.1-8B
    width, which loads packed at group 16: 4 int4p_matmul launches per
    layer and forward, logits against the plain product).
-   Every attention launch of every path is counted by its instantiation
-   (query heads per kv head) and option and must be the model's:
+   Then slice 8's five: ``qwen2.5-7b`` (Qwen2ForCausalLM from the
+   published Qwen2.5-7B values: QG 7, q|k|v bias, bf16, full width and
+   all 28 layers, 16 requests with prompts of 1024-4096 tokens),
+   ``qwen2.5-0.5b+fp8_e4m3`` (head_dim 64, QG 7, tied, all 24 layers, an
+   E4M3 cache), ``qwen3-14b, 4 layers`` (QG 5, the per-head q/k
+   RMSNorm), ``mistral-7b, 4 layers`` (a sliding window of 4096 keys,
+   one prompt of 4500 tokens, so that the window bites in both kernels;
+   its logits are compared on a prefill of 4500 tokens too) and ``q2_k
+   gguf w4a8, 4 layers`` (the Q2_K file with APHRODITE_W4_A8=1: W4A8 at
+   group 16, held as the gptq w4a8 path is).
+   Every attention launch of every path is counted by its shape (query
+   heads per kv head and head_dim) and option and must be the model's:
    QG 1 with ALiBi on the Baichuan paths, QG 2 on the 1.4B one, QG 4 on
    the Llama-3.1-8B ones, and on the Phi-3-Small ones QG 4 with
    blocksparse on the layers whose gate is on (every other one) and QG 4
-   without it on the rest.
+   without it on the rest; QG 7 at head_dim 128 on qwen2.5-7b, QG 7 at
+   head_dim 64 on qwen2.5-0.5b, QG 5 on qwen3-14b, QG 4 on mistral-7b.
+   Last, the page-gather probe's own entry point
+   (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
+   which times the probe kernel; its kernel was held beforehand against
+   its plain version, which it must equal bit for bit.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times (each attention
    kernel once per page type, with its launches by shape and, on bf16
    and E4M3 pages, its times at the Baichuan2-13B geometry; each kernel's
    blocksparse instantiation on bf16 and E4M3 pages, with its times at
    Phi-3-Small's geometry; the unpacked int4 matmul once per body, W4A8,
-   the activation quantizer and the FP8 W8A8 product);
+   the activation quantizer, the FP8 W8A8 product and the page-gather
+   probe);
    the last line is
    {"ok": true, "device": {...}}.
 """
@@ -247,14 +263,96 @@ PHI3_SMALL = {
     "dummy_token_indices": list(range(100256, 100352, 3)),
     "torch_dtype": "bfloat16",
 }
+# Qwen2.5-7B (Qwen2ForCausalLM), the published config's values: 28 query
+# and 4 kv heads (QH/KV 7), q|k|v bias, untied, the window off.
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"],
+    "hidden_size": 3584,
+    "intermediate_size": 18944,
+    "num_hidden_layers": 28,
+    "num_attention_heads": 28,
+    "num_key_value_heads": 4,
+    "vocab_size": 152064,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "sliding_window": 131072,
+    "use_sliding_window": False,
+    "max_window_layers": 28,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+# Qwen2.5-0.5B: 14 / 2 heads of 64 (QH/KV 7, head_dim 64), tied embeddings.
+QWEN25_05B = {
+    "architectures": ["Qwen2ForCausalLM"],
+    "hidden_size": 896,
+    "intermediate_size": 4864,
+    "num_hidden_layers": 24,
+    "num_attention_heads": 14,
+    "num_key_value_heads": 2,
+    "vocab_size": 151936,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "sliding_window": 32768,
+    "use_sliding_window": False,
+    "max_window_layers": 21,
+    "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16",
+}
+# Qwen3-14B (Qwen3ForCausalLM): 40 / 8 heads (QH/KV 5) of 128, the per-head
+# q/k RMSNorm, no attention bias.
+QWEN3_14B = {
+    "architectures": ["Qwen3ForCausalLM"],
+    "hidden_size": 5120,
+    "intermediate_size": 17408,
+    "num_hidden_layers": 40,
+    "num_attention_heads": 40,
+    "num_key_value_heads": 8,
+    "head_dim": 128,
+    "vocab_size": 151936,
+    "max_position_embeddings": 40960,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "attention_bias": False,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+# Mistral-7B-v0.1 (MistralForCausalLM): 32 / 8 heads, a sliding window of
+# 4096 keys.
+MISTRAL_7B = {
+    "architectures": ["MistralForCausalLM"],
+    "hidden_size": 4096,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "vocab_size": 32000,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
 # The attention kernels' checks: (query heads, kv heads, head_dim, ALiBi)
 # of Baichuan2-13B (QH/KV 1), bench.py's 1.4B (2), Llama-3.1-8B (4) and
-# Llama-3-70B (8).
+# Llama-3-70B (8); and the shapes slice 8 brought in: Qwen2.5-7B (QH/KV 7),
+# Qwen2.5-0.5B (7 at head_dim 64), Qwen3-14B (5), Llama-3.2-3B (3),
+# Qwen2.5-1.5B (6), Llama-3.2-1B (4 at head_dim 64) and QH/KV 16 at head_dim
+# 64 (the largest the kernels take).
 ATTN_GEOMETRIES = {
     "baichuan2-13b 40/40 alibi": (40, 40, 128, True),
     "bench-1.4b 16/8": (16, 8, 128, False),
     "llama-3.1-8b 32/8": (32, 8, 128, False),
     "llama-3-70b 64/8": (64, 8, 128, False),
+    "qwen2.5-7b 28/4": (28, 4, 128, False),
+    "qwen2.5-0.5b 14/2 d64": (14, 2, 64, False),
+    "qwen3-14b 40/8": (40, 8, 128, False),
+    "llama-3.2-3b 24/8": (24, 8, 128, False),
+    "qwen2.5-1.5b 12/2": (12, 2, 128, False),
+    "llama-3.2-1b 32/8 d64": (32, 8, 64, False),
+    "qg16 32/2 d64": (32, 2, 64, False),
 }
 # And with Phi-3-Small's blocksparse mask: (block size, local blocks,
 # vertical stride); query head h has phase h * max(1, stride // QH).
@@ -365,7 +463,7 @@ FP8_FLOOR_FACTOR = 1.5
 # The activation quantizer, (T, K) of its checks and timings.
 ACT_CHECK_T = (1, 33, 2048)
 ACT_TIME = ((32, 4096), (32, 14336), (2048, 4096), (2048, 14336))
-# Depth of the Q6_K GGUF main path (full width; the other GGUF path runs 4
+# Depth of the Q6_K GGUF main path (full width; the other GGUF paths run 4
 # layers).
 GGUF_Q6K_LAYERS = 32
 GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q2_K, GGML_Q3_K, GGML_Q6_K = (
@@ -1218,11 +1316,12 @@ def row_ratio(got, want):
     return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def w4a8_checks(device):
+def w4a8_checks(device, group=INT4_GROUP):
     """The W4A8 kernel against its plain version (INT4_TOL_SAME) and the
     exact W4A16 product (A8_BOUND of its largest value) at every site and
-    T, on a layer-stacked container with a layer index (wide zeros at wo);
-    returns the max abs error against the plain version."""
+    T, on a layer-stacked container with a layer index (wide zeros at wo),
+    at `group` (16: GGUF Q2_K / Q3_K); returns the max abs error against
+    the plain version."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -1234,22 +1333,22 @@ def w4a8_checks(device):
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 400 + i,
-                                          wide_zero=wide)
+                                          wide_zero=wide, group=group)
         w_exact = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
-                                  zero[1], INT4_GROUP)
+                                  zero[1], group)
         for T in INT4_CHECK_T:
             x = make_x(T, K, device, SEED + 50 + T)
-            got = int4p_matmul_w4a8(x, q4p, scale, zero, INT4_GROUP,
+            got = int4p_matmul_w4a8(x, q4p, scale, zero, group,
                                     layer_idx=1)
             torch.cuda.synchronize()
-            where = (f"int4p_matmul_w4a8 [{site} T={T}"
+            where = (f"int4p_matmul_w4a8 [{site} T={T} group {group}"
                      f"{' wide zero' if wide else ''}]")
             if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
                 fail(f"{where}: output {got.shape} {got.dtype}")
             if not bool(got.isfinite().all()):
                 fail(f"{where}: non-finite output")
             plain = int4p_matmul_w4a8_ref(x, q4p[1], scale[1], zero[1],
-                                          INT4_GROUP)
+                                          group)
             ratio = row_ratio(got, plain)
             if ratio > INT4_TOL_SAME:
                 fail(f"{where} disagrees with its plain version: worst row "
@@ -1402,9 +1501,9 @@ def rotation(layers):
     return nxt
 
 
-def w4a8_timings(device, iters):
+def w4a8_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
     """Times of the W4A8 wrapper (quantizer + kernel) at every (site, T)
-    of INT4_TIME_T beside its plain version, torch._int_mm on the unpacked
+    of INT4_TIME_T (at `group`, on `sites`) beside its plain version, torch._int_mm on the unpacked
     int8 levels (the int8 product without the group fix-ups, which the
     port never calls), torch.matmul on bf16 weights and the bound (bytes
     over 3.35 TB/s, operations over 1979 TOPS int8); each timed launch
@@ -1417,14 +1516,16 @@ def w4a8_timings(device, iters):
 
     points = []
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
-        layer_bytes = K * N // 2 + 2 * (K // INT4_GROUP) * N * 4
+        if site not in sites:
+            continue
+        layer_bytes = K * N // 2 + 2 * (K // group) * N * 4
         layers = -(-100_000_000 // layer_bytes) + 1
         q4p, scale, zero = make_int4_case(K, N, layers, device,
-                                          SEED + 60 + i)
+                                          SEED + 60 + i, group=group)
         q8 = torch.stack([unpack_int4_rows(q4p[l]) for l in range(layers)])
         dense = torch.stack([
             dequantize_int4(q8[l], scale[l], zero[l],
-                            INT4_GROUP).to(torch.bfloat16)
+                            group).to(torch.bfloat16)
             for l in range(layers)])
         for T in INT4_TIME_T:
             x = make_x(T, K, device, SEED + 70 + T)
@@ -1432,26 +1533,28 @@ def w4a8_timings(device, iters):
             nxt = rotation(layers)
             n = iters if T <= 64 else max(4, iters // 10)
             ms = time_ms(lambda: int4p_matmul_w4a8(
-                x, q4p, scale, zero, INT4_GROUP, layer_idx=nxt()), n)
+                x, q4p, scale, zero, group, layer_idx=nxt()), n)
 
             def plain():
                 l = nxt()
                 return int4p_matmul_w4a8_ref(x, q4p[l], scale[l], zero[l],
-                                             INT4_GROUP)
+                                             group)
 
             plain_ms = time_ms(plain, max(2, n // 20))
             library_ms = time_ms(lambda: torch._int_mm(xq, q8[nxt()]), n)
             bf16_ms = time_ms(lambda: torch.matmul(x, dense[nxt()]), n)
-            nbytes, ops = int4_work(T, K, N)
+            nbytes, ops = int4_work(T, K, N, group)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / INT8_OPS * 1e3
-            pt = dict(site=site, K=K, N=N, T=T, ms=ms, plain_ms=plain_ms,
+            pt = dict(site=site, K=K, N=N, T=T, group=group, ms=ms,
+                      plain_ms=plain_ms,
                       library_ms=library_ms, bf16_library_ms=bf16_ms,
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
             points.append(pt)
-            print(f"time int4p_matmul_w4a8 [{site} {K}x{N} T={T}, {layers} "
-                  f"layers in turn]: quantizer + kernel {ms:.4f} ms, plain "
+            print(f"time int4p_matmul_w4a8 [{site} {K}x{N} T={T} group "
+                  f"{group}, {layers} layers in turn]: quantizer + kernel "
+                  f"{ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library (torch._int_mm on int8 levels, "
                   f"no group fix-ups) {library_ms:.4f} ms, bf16 library "
                   f"(matmul on bf16 weights) {bf16_ms:.4f} ms, bound "
@@ -1918,7 +2021,7 @@ CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
 
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
-              gguf=None, q4_body=None, w4a8=False):
+              gguf=None, q4_body=None, w4a8=False, compare_lens=None):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -1931,9 +2034,11 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     of the path to that body of the kernel and not to the one the wrapper
     would choose: the projections' reference to the wrapper is replaced,
     for this path only, by one that names the body. w4a8 sets
-    APHRODITE_W4_A8=1 for this path only (packed int4 weights take W4A8 in
-    forwards of 16 tokens or more). Returns the launch counts of the path's
-    kernels, by variant name, and the rates."""
+    APHRODITE_W4_A8=1 for this path only (packed int4 weights, from gptq or
+    the q2_k file, take W4A8 in forwards of 16 tokens or more).
+    compare_lens: the sequence lengths of the forwards whose logits are
+    compared (default: as compare_logits chooses). Returns the launch
+    counts of the path's kernels, by variant name, and the rates."""
     import torch
 
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
@@ -1950,19 +2055,18 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
 
     wrappers = {"ragged_paged_attention": ragged_paged_attention,
                 "paged_decode_attention": paged_decode_attention}
-    if quantization == "gptq" and w4a8:
+    # GGUF Q2_K / Q3_K load packed; the other GGUF types one level a byte.
+    packed_gguf = gguf == "q2_k"
+    packed = quantization == "gptq" or packed_gguf
+    if packed and w4a8:
         wrappers["int4p_matmul_w4a8"] = int4p_matmul_w4a8
         wrappers["quantize_activations"] = quantize_activations
-    elif quantization == "gptq":
+    elif packed:
         wrappers["int4p_matmul"] = int4p_matmul
     elif quantization == "fp8":
         wrappers["fp8_w8a8_matmul"] = fp8_w8a8_matmul
         wrappers["quantize_activations"] = quantize_activations
-    # GGUF Q2_K / Q3_K load packed; the other GGUF types one level a byte.
-    packed_gguf = gguf == "q2_k"
-    if packed_gguf:
-        wrappers["int4p_matmul"] = int4p_matmul
-    elif gguf is not None or quantization == "int8":
+    if (gguf is not None and not packed_gguf) or quantization == "int8":
         wrappers["int4_matmul"] = int4_matmul
     page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
     layers = model_config["num_hidden_layers"]
@@ -2101,7 +2205,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # exactly where the model has slopes, and blocksparse on exactly the
     # layers whose gate is on.
     qg = model.num_heads // model.num_kv_heads
-    shape = f"qg{qg}" + (" alibi" if model.alibi_slopes is not None else "")
+    shape = (f"qg{qg} d{model.head_dim}"
+             + (" alibi" if model.alibi_slopes is not None else ""))
     per_forward = {shape: layers}
     if model.blocksparse_params is not None:
         sparse = sum(model.bs_layer_mask or [True] * layers)
@@ -2114,7 +2219,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                  f"{want}")
     print(f"{label}: {forwards} forwards, each with {layers} attention "
           f"launches on {page_type} pages: {per_forward}", flush=True)
-    if (quantization == "gptq" and not w4a8) or packed_gguf:
+    if packed and not w4a8:
         # And four int4 matmuls (wqkv, wo, w13, down) per layer.
         if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
@@ -2180,12 +2285,13 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # matmul.
     what = "attention"
     if page_type == "bf16" and (quantization or gguf):
-        what = ("int4" if packed_gguf else "q4" if gguf else
-                "w4a8" if w4a8 else
+        what = ("w4a8" if w4a8 else "int4" if packed_gguf else
+                "q4" if gguf else
                 {"gptq": "int4", "int8": "int8", "fp8": "fp8"}[quantization])
     # With blocksparse, contexts past the local window of 16 64-key blocks.
-    lens = ([1500, 1100, 300] if model.blocksparse_params is not None
-            else [300, 17, 129])
+    lens = compare_lens or ([1500, 1100, 300]
+                            if model.blocksparse_params is not None
+                            else [300, 17, 129])
     compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY,
                    lens)
     if quantization == "fp8":
@@ -2459,6 +2565,51 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     return worst
 
 
+def probe_check():
+    """The page-gather probe's kernel against its plain version at the
+    probe's shapes, random and sequential page ids: equal, bit for bit
+    (both sum each row exactly in f64 and the waves in f32 in one order).
+    Returns the max abs error (0)."""
+    import torch
+
+    from aphrodite_tpu_torch.tools import probe_gather_bw as probe
+
+    saved = os.environ.get("PROBE_SEQ")
+    for sequential in ("0", "1"):
+        os.environ["PROBE_SEQ"] = sequential
+        kv_lens, pages, kv, _ = probe.make_inputs("cuda", SEED)
+        got = probe.gather(kv_lens, pages, kv)
+        want = probe.ref_gather(kv_lens, pages, kv)
+        torch.cuda.synchronize()
+        if not bool(got.isfinite().all()) or not torch.equal(got, want):
+            fail(f"gather_probe (PROBE_SEQ={sequential}) differs from its "
+                 "plain version")
+        print(f"check gather_probe [PROBE_SEQ={sequential}, S {probe.S}, "
+              f"kv_len {probe.KV_LEN}]: equal, bit for bit, to its plain "
+              "version", flush=True)
+        del kv
+    if saved is None:
+        del os.environ["PROBE_SEQ"]
+    else:
+        os.environ["PROBE_SEQ"] = saved
+    return 0.0
+
+
+def probe_path():
+    """The probe's entry point (tools/probe_gather_bw.py: main) as a user
+    runs it, with its launch count set to 0 just before and read just
+    after. Returns the launches and the times main measured."""
+    from aphrodite_tpu_torch.tools import probe_gather_bw as probe
+
+    probe.gather.launches = 0
+    times = probe.main()
+    launches = probe.gather.launches
+    if launches <= 0:
+        fail("gather_probe was never launched on its entry point")
+    print(f"probe path: gather_probe launched {launches} times", flush=True)
+    return launches, times
+
+
 def main() -> None:
     import torch
 
@@ -2481,12 +2632,14 @@ def main() -> None:
     blocksparse_checks("cuda", errs)
     stamp("attention checks")
     errs["int4p_matmul"] = max(int4_checks("cuda"), int4_checks("cuda", 16))
-    errs["int4p_matmul_w4a8"] = w4a8_checks("cuda")
+    errs["int4p_matmul_w4a8"] = max(w4a8_checks("cuda"),
+                                    w4a8_checks("cuda", 16))
     errs["quantize_activations"] = quantizer_checks("cuda")
     int8_checks("cuda")
     errs["fp8_w8a8_matmul"] = fp8_checks("cuda")
     q4_errs = q4_checks("cuda")
-    stamp("matmul checks")
+    errs["gather_probe"] = probe_check()
+    stamp("matmul and probe checks")
     prompt_lens = np.random.default_rng(SEED).integers(
         16, 1025, size=NUM_REQUESTS)
     llama = "llama-3.1-8b 32/8"
@@ -2507,9 +2660,21 @@ def main() -> None:
                               iters=100, errs=errs,
                               page_types=("bf16", "e4m3"), layers=4,
                               blocksparse=True)
+    # Slice 8's shapes at their main paths' prompts (1024-4096 tokens):
+    # Qwen2.5-7B (QH/KV 7) on bf16 pages, Qwen2.5-0.5B (QH/KV 7, head_dim
+    # 64) on bf16 and E4M3 pages.
+    qwen_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 4097, size=NUM_REQUESTS)
+    qwen_times = {}
+    for geometry, page_types in (("qwen2.5-7b 28/4", ("bf16",)),
+                                 ("qwen2.5-0.5b 14/2 d64", ("bf16", "e4m3"))):
+        qwen_times[geometry] = kernel_timings(
+            "cuda", geometry, ATTN_GEOMETRIES[geometry], qwen_prompt_lens,
+            iters=100, errs=errs, page_types=page_types)
     int4_points = int4_timings("cuda", iters=200)
     int4_points += int4_timings("cuda", iters=200, group=16, sites=("w13",))
     w4a8_points = w4a8_timings("cuda", iters=200)
+    w4a8_points += w4a8_timings("cuda", iters=200, group=16, sites=("w13",))
     act_points = quantizer_timings("cuda", iters=200)
     fp8_points = fp8_timings("cuda", iters=200)
     int4_block_sweep("cuda", iters=50)
@@ -2564,6 +2729,23 @@ def main() -> None:
             model_config=dict(PHI3_SMALL, num_hidden_layers=4),
             kv_cache_dtype="fp8_e4m3", prompt_lens=phi_prompt_lens),
         "q2_k gguf, 4 layers": dict(model_config=short, gguf="q2_k"),
+        # Slice 8: W4A8 on the Q2_K file (group 16); Qwen2.5-7B (QH/KV 7,
+        # q|k|v bias) at full width and depth on prompts of 1024-4096
+        # tokens; Qwen2.5-0.5B (head_dim 64, tied) on E4M3 pages at full
+        # depth; Qwen3-14B (QH/KV 5, q/k norm) and Mistral-7B (a window of
+        # 4096 keys, one prompt of 4500 tokens) at 4 layers.
+        "q2_k gguf w4a8, 4 layers": dict(model_config=short, gguf="q2_k",
+                                         w4a8=True),
+        "qwen2.5-7b": dict(model_config=QWEN25_7B,
+                           prompt_lens=qwen_prompt_lens),
+        "qwen2.5-0.5b+fp8_e4m3": dict(model_config=QWEN25_05B,
+                                      kv_cache_dtype="fp8_e4m3"),
+        "qwen3-14b, 4 layers": dict(
+            model_config=dict(QWEN3_14B, num_hidden_layers=4)),
+        "mistral-7b, 4 layers": dict(
+            model_config=dict(MISTRAL_7B, num_hidden_layers=4),
+            prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 4500],
+            compare_lens=[4500, 17, 129]),
     }
     launches, rates = {}, {}
     for path, kw in paths.items():
@@ -2572,6 +2754,10 @@ def main() -> None:
         launches[path], rates[path] = main_path(
             "cuda", **{"prompt_lens": prompt_lens, **kw})
         stamp(f"main path {path}")
+
+    # The page-gather probe's own entry point, at its defaults.
+    probe_launches, probe_times = probe_path()
+    stamp("probe path")
 
     def on_paths(name):
         """Launches of one kernel variant on each main path that ran it:
@@ -2621,6 +2807,9 @@ def main() -> None:
                 entry["bf16_ms"] = times[kernel]["ms"]
             if name in alibi_times:
                 entry["baichuan2-13b"] = alibi_times[name]
+            for geometry, got in qwen_times.items():
+                if name in got:
+                    entry[geometry.split()[0]] = got[name]
             kernels.append(entry)
     # The blocksparse instantiations on the pages the main paths gave them
     # (bf16 and E4M3; the others are held in the checks above), timed at
@@ -2636,9 +2825,9 @@ def main() -> None:
         for page_type in ("bf16", "e4m3"):
             name = variant_name(kernel, page_type, blocksparse=True)
             by_shape = on_paths(f"{variant_name(kernel, page_type)} by shape")
-            by_path = {path: counts["qg4 blocksparse"]
+            by_path = {path: counts["qg4 d128 blocksparse"]
                        for path, counts in by_shape.items()
-                       if counts.get("qg4 blocksparse")}
+                       if counts.get("qg4 d128 blocksparse")}
             if not sum(by_path.values()):
                 fail(f"{name} was launched on no main path")
             kernels.append(dict(
@@ -2746,6 +2935,18 @@ def main() -> None:
         library="torch._scaled_mm on the same e4m3 operands",
         shape="w13 4096x28672 T=32 (quantizer and scaling included)",
         points=fp8_points))
+    # The page-gather probe (TPU kernel row 9), on its own entry point.
+    kernels.append(dict(
+        name="gather_probe", route="cuda",
+        source="aphrodite_tpu_torch/csrc/gather_probe.cu",
+        replaces="tools/probe_gather_bw.py:84",
+        launches=probe_launches,
+        launches_by_path={"probe_gather_bw main": probe_launches},
+        max_abs_err=errs["gather_probe"],
+        **{k: probe_times[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        library="index_select of the same pages, then a sum",
+        shape=probe_times["shape"]))
     for a, b in (("gptq w4a8", "gptq"),):
         print(f"rates {a} against {b} (this run): decode "
               f"{rates[a]['decode_tok_s']:.1f} against "

@@ -233,7 +233,7 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
     if alibi:
         kw["alibi_slopes"] = torch.from_numpy(
             get_alibi_slopes(qg * kvh)).cuda()
-    shape = f"qg{qg}" + (" alibi" if alibi else "")
+    shape = f"qg{qg} d128" + (" alibi" if alibi else "")
     before = fn.launches_by_shape.get(shape, 0)
     got = fn(q, pages, *args, **kw)
     torch.cuda.synchronize()
@@ -247,6 +247,61 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
         off = {k: v for k, v in kw.items() if k != "alibi_slopes"}
         assert torch.equal(fn(q, pages, *args, **zero),
                            fn(q, pages, *args, **off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("qg", [1, 3, 5, 6, 7, 8, 12, 16])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
+                                                        name):
+    """Each kernel at head_dim 64 and 128 and QH/KV from 1 to 16 (2 kv
+    heads), among them Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3, which
+    the decode kernel serves from the instantiation of the next power of
+    two and the ragged one from its runtime-QG instantiation with idle
+    rows, on each page type, with a window and a soft cap, against its
+    plain version row by row (ROW_TOL); the narrow variants equal the
+    bf16 kernel on the widened pages, and each launch is counted under its
+    shape."""
+    _card_or_skip()
+    rng = np.random.default_rng(400 + 10 * qg + head_dim)
+    kvh = 2
+    if op == "ragged":
+        seqs = [(1, 90), (70, 70), (33, 150), (1, 17), (1, 1300), (40, 1040)]
+        rows = sum(q for q, _ in seqs)
+        padded_seqs, padded_tokens = 8, rows + 5
+        fn, ref = ragged_paged_attention, ref_ragged_paged_attention
+    else:
+        lens = rng.integers(1, 400, size=12)
+        lens[:2] = (1200, 1030)
+        seqs = [(1, int(n)) for n in lens]
+        rows, padded_seqs, padded_tokens = 12, 16, 16
+        fn, ref = paged_decode_attention, ref_paged_decode_attention
+    arrays = paged_batch(rng, seqs, qg * kvh, kvh, head_dim,
+                         padded_seqs=padded_seqs, padded_tokens=padded_tokens)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(sm_scale=head_dim**-0.5, sliding_window=700, soft_cap=30.0)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    kv_lens, page_idx, cu = (torch.from_numpy(a).cuda() for a in arrays[2:])
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    args = (kv_lens, page_idx, cu, ns) if op == "ragged" else (kv_lens,
+                                                                page_idx)
+    shape = f"qg{qg} d{head_dim}"
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert not got[rows:].float().any()  # padding tokens, dead rows: zeros
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
 
 
 # Phi-3-Small's blocksparse parameters (block 64, 16 local blocks, stride
@@ -304,7 +359,7 @@ def test_attention_kernels_blocksparse_on_card(op, qg, name, block):
     offsets = (torch.arange(qh, dtype=torch.int32, device="cuda")
                * max(1, bs[2] // qh))
     sparse = dict(kw, blocksparse=bs, bs_head_offsets=offsets)
-    shape = f"qg{qg} blocksparse"
+    shape = f"qg{qg} d128 blocksparse"
     before = fn.launches_by_shape.get(shape, 0)
     got = fn(q, pages, *args, **sparse)
     torch.cuda.synchronize()
@@ -318,9 +373,9 @@ def test_attention_kernels_blocksparse_on_card(op, qg, name, block):
     if name != "bf16":
         assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args,
                                    **sparse))
-    before = fn.launches_by_shape.get(f"qg{qg}", 0)
+    before = fn.launches_by_shape.get(f"qg{qg} d128", 0)
     assert torch.equal(fn(q, pages, *args, bs_on=False, **sparse), dense)
-    assert fn.launches_by_shape[f"qg{qg}"] == before + 1
+    assert fn.launches_by_shape[f"qg{qg} d128"] == before + 1
 
 
 @pytest.mark.cuda
@@ -336,16 +391,32 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     pages = torch.zeros((3, PS, 16, 128), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="bf16 q"):
         paged_decode_attention(q.float(), pages, idx, table)
-    with pytest.raises(ValueError, match="QH/KV"):  # 3 query heads per kv
-        paged_decode_attention(q[:, :24].contiguous(), pages, idx, table)
+    with pytest.raises(ValueError, match="QH/KV up to 16"):  # 17 per kv head
+        paged_decode_attention(
+            torch.zeros((4, 17, 128), dtype=torch.bfloat16, device="cuda"),
+            pages[:, :, :2].contiguous(), idx, table)
+    with pytest.raises(ValueError, match="multiple of KV"):  # 3 heads over 8
+        paged_decode_attention(q[:, :3].contiguous(), pages, idx, table)
     for slopes in (torch.ones(32, dtype=torch.bfloat16, device="cuda"),
                    torch.ones(16, device="cuda"),
                    torch.ones(64, device="cuda")[::2]):
         with pytest.raises(ValueError, match="ALiBi"):
             paged_decode_attention(q, pages, idx, table, alibi_slopes=slopes)
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention(q[..., :64].contiguous(),
-                               pages[..., :64].contiguous(), idx, table)
+    for d in (96, 256):  # head_dims no instantiation takes
+        with pytest.raises(ValueError, match="head_dim"):
+            paged_decode_attention(
+                torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda"),
+                torch.zeros((3, PS, 16, d), dtype=torch.int8, device="cuda"),
+                idx, table)
+    # ALiBi and blocksparse are built for head_dim 128 at QH/KV 1, 2, 4, 8.
+    with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
+        paged_decode_attention(q[:, :24].contiguous(), pages, idx, table,
+                               alibi_slopes=torch.ones(24, device="cuda"))
+    with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
+        paged_decode_attention(
+            q[..., :64].contiguous(), pages[..., :64].contiguous(), idx,
+            table, blocksparse=(64, 4, 8),
+            bs_head_offsets=torch.zeros(32, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="aligned"):
         paged_decode_attention(q, pages.view(-1)[8:8 + 2 * PS * 16 * 128]
                                .view(2, PS, 16, 128), idx, table)
@@ -724,10 +795,13 @@ def _assert_rows_within(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,K,N,group", [
     (1, 4096, 256, 128), (16, 4096, 6144, 128), (33, 1024, 128, 32),
-    (100, 14336, 512, 128), (2048, 4096, 256, 64)])
+    (100, 14336, 512, 128), (2048, 4096, 256, 64), (1, 4096, 256, 16),
+    (33, 1024, 128, 16), (100, 14336, 512, 16), (2048, 4096, 256, 16),
+    (64, 3072, 256, 48)])
 def test_w4a8_kernel_matches_plain_on_card(T, K, N, group):
     """Stacked container with a layer index, wide zeros; T = 1 and 33
-    leave a row block partly dead, K = 14336 at small T splits K. The
+    leave a row block partly dead, K = 14336 at small T splits K; groups
+    of 16 and 48 close inside a k tile (the HALF instantiation). The
     int8 activations are bit-equal on both sides and every group's product
     is an exact int32, so only the order of the f32 sums differs."""
     _card_or_skip()
@@ -791,9 +865,15 @@ def test_w4a8_kernel_refuses_what_it_does_not_take():
         int4p_matmul_w4a8(x, q4p[..., :192].contiguous(),
                           scale[..., :192].contiguous(),
                           zero[..., :192].contiguous(), 64, layer_idx=0)
+    # Group 16 (GGUF Q2_K / Q3_K) is taken and equals the plain version as
+    # every group does; group 8 is not.
+    s16, z16 = scale.repeat_interleave(4, 1), zero.repeat_interleave(4, 1)
+    _assert_rows_within(
+        int4p_matmul_w4a8(x, q4p, s16, z16, 16, layer_idx=0),
+        int4p_matmul_w4a8_ref(x, q4p[0], s16[0], z16[0], 16), SAME_TOL)
     with pytest.raises(ValueError, match="group"):
-        int4p_matmul_w4a8(x, q4p, scale.repeat_interleave(4, 1),
-                          zero.repeat_interleave(4, 1), 16, layer_idx=0)
+        int4p_matmul_w4a8(x, q4p, scale.repeat_interleave(8, 1),
+                          zero.repeat_interleave(8, 1), 8, layer_idx=0)
     with pytest.raises(ValueError, match="layer_idx"):
         int4p_matmul_w4a8(x, q4p, scale, zero, 64)
     # With the switch, a stacked container at T >= 16 launches W4A8; at
@@ -870,3 +950,43 @@ def test_fp8_w8a8_matches_plain_on_card(T):
         fp8_w8a8_matmul(x, q.mT.contiguous().mT, scale)
     with pytest.raises(ValueError, match="multiple of 128"):
         fp8_w8a8_matmul(x, q[:, :200].contiguous(), scale[:, :200])
+
+
+# ----------------------------------------------------------------------
+# The page-gather probe (tools/probe_gather_bw.py)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len,sequential", [(192, False), (192, True),
+                                               (1, False), (1000, False)])
+def test_gather_probe_equals_plain_on_card(kv_len, sequential):
+    """The probe's kernel against its plain version at the probe's shapes
+    (S 128, 8 kv heads, D 128, page 16, 4096 pages): equal, bit for bit
+    (each row sum is exact in f64 on both sides, and the waves add up in
+    f32 in the same order), with the launch counted; a page-sized kv
+    length and one that spans eight waves."""
+    from aphrodite_tpu_torch.tools import probe_gather_bw as probe
+
+    _card_or_skip()
+    old = probe.KV_LEN, os.environ.get("PROBE_SEQ")
+    probe.KV_LEN = kv_len
+    os.environ["PROBE_SEQ"] = "1" if sequential else "0"
+    try:
+        kv_lens, pages, kv, _ = probe.make_inputs("cuda", seed=kv_len)
+    finally:
+        probe.KV_LEN = old[0]
+        if old[1] is None:
+            del os.environ["PROBE_SEQ"]
+        else:
+            os.environ["PROBE_SEQ"] = old[1]
+    before = probe.gather.launches
+    got = probe.gather(kv_lens, pages, kv)
+    torch.cuda.synchronize()
+    assert probe.gather.launches == before + 1
+    want = probe.ref_gather(kv_lens, pages, kv)
+    assert got.shape == (probe.S // 8, 8, 128)
+    assert torch.equal(got, want)
+    assert want.abs().max() > 0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        probe.gather(kv_lens[:12], pages[:12], kv)
