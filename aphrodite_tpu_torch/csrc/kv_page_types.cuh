@@ -1,5 +1,6 @@
 // Element types of the paged KV cache, and how the two attention kernels
-// widen one 16-byte load of K or V values while they stage a tile.
+// widen one 16-byte load of narrow K or V values into bf16 once a tile is
+// staged.
 //
 // The TPU kernels read 8-bit pages raw and rebuild bf16 values by placing
 // bits (aphrodite_tpu/ops/decode_attention.py: extract_seq,
@@ -103,16 +104,6 @@ __device__ __forceinline__ void store_chunk_bf16(const uint4& raw, __nv_bfloat16
     reinterpret_cast<uint4*>(dst)[0] = out[0];
     reinterpret_cast<uint4*>(dst)[1] = out[1];
   }
-}
-
-// The values of `raw` as f32 at dst (16-byte aligned).
-template <class P>
-__device__ __forceinline__ void store_chunk_f32(const uint4& raw, float* dst) {
-  float f[P::kValues];
-  chunk_to_f32<P>(raw, f);
-#pragma unroll
-  for (int j = 0; j < P::kValues; j += 4)
-    *reinterpret_cast<float4*>(dst + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
 }
 
 }  // namespace kv_page

@@ -1,147 +1,169 @@
-// Paged decode attention (q_len == 1 per sequence) for Hopper, sm_90a.
+// Paged decode attention (q_len == 1 per sequence) for Hopper, sm_90a:
+// split-KV (flash-decoding) with a cp.async-pipelined K/V ring and a
+// deterministic second pass.
 //
 // Replaces the TPU kernel aphrodite_tpu/ops/decode_attention.py:
 // paged_decode_attention -> _decode_kernel. The TPU kernel groups G
 // sequences into one block-diagonal score matmul because the MXU wants
-// wide tiles; that layout is a TPU choice and is not carried over. Here
-// one block serves one (sequence, kv head): the QG = QH / KV query heads
-// of that kv head share every K/V tile the block stages in shared memory.
-// The instantiations are by QG_MAX, a power of two (1, 2, 4, 8, 16), and
-// take any QG up to it at run time: QG 1-16 covers MHA (Baichuan-13B),
-// Llama-3's 4 and 8, Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3. The
-// query, score and softmax state, the accumulators and the softmax warps
-// are sized by QG_MAX; the heads past QG are padding: their query rows are
-// zeros, they run through every loop as the real ones do (so the loops are
-// the code of the exact QG = QG_MAX instantiation, and at QG = QG_MAX the
-// results are those of the kernel that was built for QG alone), and
-// nothing of them is written. At QG 3, 5, 6 and 7 that wastes 1/4, 3/8,
-// 1/4 and 1/8 of the score and P.V work; the bytes read are unchanged.
+// wide tiles; that layout is a TPU choice and is not carried over.
 //
-// head_dim D is a template parameter too, 64 or 128. The block has D
-// threads: in the QK pass each owns one key of a D-key tile, in the P.V
-// pass one output dimension of each head. At D = 64 that is two warps and
-// 64-key tiles.
+// Work split: the keys of each row are cut into splits, fixed ranges of
+// split_keys keys (a multiple of the 64-key tile, so of every page size
+// that divides 64), and the grid is (sequence, kv head, slot): the block
+// of slot z takes splits z, z + slots, z + 2 slots, ... of its row that
+// hold a key of [kv_lo, kv_len), in turn, carrying one online softmax
+// from split to split, and writes one partial. The host chooses split_keys
+// and the number of slots from host values alone (ops/decode_attention.py:
+// plan_decode_splits): the slots so that the grid holds about eight blocks
+// an SM, and never more slots than the page table has splits. So the
+// longest row no longer sets the time of its (sequence, kv head): at
+// Qwen2.5-7B's decode (16 rows of up to 4128 keys, 4 kv heads) the grid
+// holds about a thousand blocks for 132 SMs, where one block per
+// (sequence, kv head) gave 64. A page table far wider than the rows (the
+// engine's spans max_model_len) adds no blocks and no work: a block visits
+// only its live splits, and one with none exits at once. A row whose live
+// keys all lie in one slot's splits (one split, or one slot) writes its
+// output directly; every other row writes one f32 partial per live slot
+// (the unnormalised acc[QG, D], the row maximum m and the sum l) to a
+// scratch the wrapper allocates, [slots, S, QH], bounded by the grid and
+// not by the page table, and the second kernel of this source,
+// paged_decode_combine_kernel, merges the live slots of each (sequence,
+// query head) in slot order: the same merge as the JAX package's
+// merge_attention_partials (aphrodite_tpu/ops/decode_attention.py),
+// deterministic from run to run. Both kernels are one call of the entry
+// point (one counted launch of the wrapper).
+//
+// Inside a split the block's four warps share each 64-key K/V tile of a
+// two-stage cp.async ring (attention_mma.cuh: tile i + 1 loads while tile
+// i is used; narrow pages are copied raw and widened to bf16 in one pass);
+// warp w takes keys 16 w .. 16 w + 15 of every tile, with its own online
+// softmax, and the four warps' states are merged in shared memory after
+// the block's last split. (A ring that runs on from one split to the next
+// ran 9-14 % slower on bf16 pages at the timed shapes, where most blocks
+// take one split.) The QG = QH / KV query heads of the kv head are the
+// 16 rows of one mma.sync m16n8k16 tile (rows past QG are zero padding,
+// never written), so one instantiation takes every QG from 1 to 16; both
+// products run on the tensor cores, Q . K^T and P . V as in the ragged
+// kernel, with Q's fragments held in registers.
 //
 // Bound on the H100: bytes. Each step reads every live K/V row once
-// (2 * kv_len * D bf16 per kv head) and does 4 * QG * D FLOPs per key,
-// about QG operations per byte, far below the ~295 FLOP/byte ridge.
-// The design reads each K/V row from device memory exactly once per
-// (sequence, kv head), with 16-byte coalesced loads (one warp moves one
-// token's adjacent K and V rows, 2 * D * 2 bytes, per instruction), and
-// skips everything outside [max(0, kv_len - window), kv_len). Tiles are
-// loaded, then consumed, with no overlap; split-KV and a cp.async/TMA
-// pipeline are later work.
+// (2 * kv_len * D values per kv head) and does 4 * QG * D FLOPs per key,
+// about QG operations per bf16 byte, far below the ~295 FLOP/byte ridge;
+// on the tensor cores the products cost a few percent of the time the
+// bytes take, and the split and the ring keep enough loads in flight on
+// every SM (up to three blocks of two 16 or 32 KB stages each). What is
+// left after the split: the page-gather reads themselves (16-byte loads,
+// a 64-key tile = four pages), each split's prologue (its first tile is
+// not overlapped) and, with more than one slot, the partials (about
+// 4 * (D + 2) bytes per slot and query head, written and read once).
 //
 // Semantics (same as the plain version in ops/decode_attention.py):
-//   out[s, h] = softmax_j(cap(q[s, h] . k[s, j] * sm_scale)
+//   out[s, h] = softmax_j(cap((q[s, h] . k[s, j]) * sm_scale)
 //                         + slope[h] * (j - (kv_len - 1))) . v[s, j]
-// over j in [kv_lo, kv_len), kv head h / QG; the ALiBi term is there only
-// when a slope table is given (f32[QH], global query head h), and is
-// formed as the JAX kernel forms it: the slope times the f32 distance,
-// rounded, then added, after the soft cap. Rows with kv_len == 0 are
-// dead padding and get zeros. Nothing past kv_len is ever loaded: the
-// shared-memory slots of such keys are zero-filled and their
-// probabilities are exactly 0, so stale or NaN bytes in unwritten page
-// slots cannot reach the output.
+// over j in [kv_lo, kv_len), kv_lo = max(0, kv_len - window) with a window,
+// kv head h / QG; the dot product of the bf16 values is summed in f32 and
+// then scaled; the ALiBi term is there only when a slope table is given
+// (f32[QH], global query head h), and is formed as the JAX kernel forms it:
+// the slope times the f32 distance, rounded, then added, after the soft
+// cap. The probabilities enter P . V as the sum of two bf16 parts (about
+// 2^-17 of each; the second product costs nothing a byte-bound kernel
+// notices). Rows with kv_len == 0
+// are dead padding and get zeros. Nothing past kv_len is ever loaded: the
+// shared-memory slots of such keys are zero-filled and their probabilities
+// are exactly 0, so stale or NaN bytes in unwritten page slots cannot
+// reach the output.
 //
 // Blocksparse (Phi-3-Small's local + vertical-stride mask, blocksparse.cuh,
 // the blocksparse option of the TPU kernel), with the query's block bq =
-// (kv_len - 1) / bsz, ANDed with the window. It is a template flag,
-// BS, so that the instantiations without it are the code they were; the
-// wrapper sends a layer whose gate is off to those. The QG heads of one
-// block share its K/V tiles but not their phases: each head masks its own
-// dead keys (probability exactly 0), and a key is staged only if it is
-// visible to some head of the block. When bsz is a multiple of the page
-// size, keys whose block no head of the block can see are never loaded:
-// a tile with none to load is skipped before it touches the softmax
-// state, and such keys in a live tile are zero-filled. The TPU kernel
-// skips a page only when no query head at all hits it; here the test is
-// per kv head, so on Phi-3-Small (QG 4, vert 8, phases 0..31) half the
-// 64-key blocks past the local window are never read. When bsz is not a
-// multiple of the page size the kernel masks only, as the TPU does.
+// (kv_len - 1) / bsz, ANDed with the window. It is a template flag, BS,
+// so that the instantiations without it carry no test for it; the wrapper
+// sends a layer whose gate is off to those. The QG heads share the K/V
+// tiles but not their phases: each head masks its own dead keys
+// (probability exactly 0), and a 64-key tile that no head of the kv head
+// can see is skipped before it is loaded (at Phi-3-Small's block of 64 a
+// tile is a block); that leaves every result
+// unchanged. The TPU kernel skips a page only when no query head at all
+// hits it; here the test is per kv head, so on Phi-3-Small (QG 4, vert 8,
+// phases 0..31) half the 64-key blocks past the local window are never
+// read.
 //
 // Page types: the kernel is a template over the cache's element type
 // (kv_page_types.cuh), with one entry point each for bf16, E4M3, E5M2 and
-// int8 pages. A narrow row is 128 bytes, not 256: the staging loop loads
-// 16 values per 16-byte load and widens them to bf16 as it stores them
-// into the same shared-memory tiles, so all that follows the staging is
-// the bf16 kernel's, and the result equals, bit for bit, the bf16
-// kernel's on those pages widened beforehand. The narrow variants read
-// half the K/V bytes; their byte bound is half the bf16 one.
+// int8 pages. A narrow row is D bytes, not 2 D: the ring holds the raw
+// bytes and one pass widens them into the same bf16 tiles the bf16 pages
+// are copied into, so all that follows is the bf16 kernel's, and the
+// result equals, bit for bit, the bf16 kernel's on those pages widened
+// beforehand. The narrow variants read half the K/V bytes; their byte
+// bound is half the bf16 one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
 #include "blocksparse.cuh"
 #include "kv_page_types.cuh"
 
 namespace {
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The largest QH / KV the kernel takes (the wrapper raises above it, and
-// for a head_dim other than 64 and 128).
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// The cp.async ring: two stages (on the H100, three or four stages, or a
+// register cap for three blocks an SM, ran slower on bf16 pages).
+constexpr int kStages = 2;
+constexpr int kKeys = attn::kTileKeys;
+constexpr int kWarpKeys = kKeys / kWarps;  // keys of each tile a warp takes
+// The largest QH / KV the kernel takes: the rows of one mma tile (the
+// wrapper raises above it, and for a head_dim other than 64 and 128).
 constexpr int kMaxQG = 16;
 
-// D threads a block, D keys a tile: one key per thread in the QK pass,
-// one output dimension per thread in the P.V pass.
-template <int D, int QG, bool BS>
+// Dynamic shared memory: the ring (two stages; for narrow pages also the
+// bf16 tiles they are widened into), reused after the last tile for the
+// four warps' states (o [16, D], m [16], l [16] each).
+template <class Page, int D>
 struct DecodeSmem {
-  static constexpr int kThreads = D;
-  static constexpr int kTileKeys = D;
-  static constexpr int kKPad = D + 8;  // bf16 row stride: an odd number of 16-byte units
-  static constexpr size_t k_tile = size_t(kTileKeys) * kKPad * 2;
-  static constexpr size_t v_tile = size_t(kTileKeys) * D * 2;
-  static constexpr size_t q = size_t(QG) * D * 4;
-  static constexpr size_t p = size_t(QG) * kTileKeys * 4;
-  static constexpr size_t stats = size_t(3) * QG * 4;
-  static constexpr size_t live = BS ? size_t(kTileKeys) : 0;  // blocksparse: key staged?
-  static constexpr size_t bytes = k_tile + v_tile + q + p + stats + live;
+  static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
+  static constexpr size_t wide = kNarrow ? 2 * attn::Tile<D>::kBytes : 0;
+  static constexpr size_t stage = attn::Stage<Page, D>::kBytes;
+  static constexpr size_t ring = wide + kStages * stage;
+  static constexpr size_t merge = size_t(kWarps) * 16 * (D + 2) * 4;
+  static constexpr size_t bytes = ring > merge ? ring : merge;
 };
 
-// QG: QG_MAX, the heads the block's state is sized for; qg (<= QG): the
-// model's QH / KV.
-template <class Page, int D, int QG, bool BS>
-__global__ void __launch_bounds__(D)
+// The first split at or after `first` that slot `slot` of `slots` takes
+// (slot, slot + slots, ...).
+__device__ __forceinline__ int first_split(int slot, int first, int slots) {
+  return slot >= first ? slot : slot + (first - slot + slots - 1) / slots * slots;
+}
+
+template <class Page, int D, bool BS>
+__global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ kv,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ page_indices,
                     const float* __restrict__ alibi_slopes,
-                    __nv_bfloat16* __restrict__ out, int num_kv_heads, int qg,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int num_kv_heads, int qg,
                     int page_size, int pages_per_seq, float sm_scale,
-                    int sliding_window, float soft_cap, Blocksparse bs) {
-  using L = DecodeSmem<D, QG, BS>;
-  constexpr int kThreads = L::kThreads;
-  constexpr int kTileKeys = L::kTileKeys;
-  constexpr int kKPad = L::kKPad;
-  constexpr int kVals = Page::kValues;  // values per 16-byte load
-  constexpr int kChunks = D / kVals;    // 16-byte loads per K (or V) row
+                    int sliding_window, float soft_cap, Blocksparse bs, int split_keys) {
+  using L = DecodeSmem<Page, D>;
+  constexpr int kStride = attn::Tile<D>::kStride;
+  constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_tile = reinterpret_cast<__nv_bfloat16*>(smem + L::k_tile);
-  float* q_s = reinterpret_cast<float*>(smem + L::k_tile + L::v_tile);
-  float* p_s = q_s + QG * D;
-  float* m_s = p_s + QG * kTileKeys;
-  float* l_s = m_s + QG;
-  float* alpha_s = l_s + QG;
-  unsigned char* live_s = reinterpret_cast<unsigned char*>(alpha_s + QG);  // BS only
+  unsigned char* stages = smem + L::wide;
+  __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
+  // The 16 query rows, staged once, before the first split's loads.
+  __nv_bfloat16* q_s = wide;
+  float* o_s = reinterpret_cast<float*>(smem);  // the merge: [kWarps][16][D]
+  float* m_s = o_s + kWarps * 16 * D;           // [kWarps][16]
+  float* l_s = m_s + kWarps * 16;               // [kWarps][16]
 
   const int seq = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int num_seqs = gridDim.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -149,307 +171,374 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int ckv = 2 * num_kv_heads;
 
   const size_t head0 = size_t(seq) * num_q_heads + size_t(kvh) * qg;
-  __nv_bfloat16* out_base = out + head0 * D;
   const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
   if (kv_len <= 0) {
-    for (int i = tid; i < qg * D; i += kThreads) out_base[i] = __float2bfloat16(0.f);
+    if (blockIdx.z == 0)
+      for (int i = tid; i < qg * D; i += kThreads) out[head0 * D + i] = __float2bfloat16(0.f);
     return;
   }
   const int kv_lo = sliding_window > 0 ? max(0, kv_len - sliding_window) : 0;
+  const int first = kv_lo / split_keys;  // the row's live splits: first..last
+  const int last = (kv_len - 1) / split_keys;
+  const int slots = gridDim.z;
+  const bool direct = slots == 1 || first == last;  // one live slot: no partials
+  const int split0 = first_split(blockIdx.z, first, slots);  // this block's first
+  if (split0 > last) return;  // no live split here (the combine skips the slot)
+  const int pos = kv_len - 1;  // the query token's position
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
-
-  // The padding heads past qg get zero query rows.
-  const __nv_bfloat16* q_base = q + head0 * D;
-  for (int i = tid; i < QG * D; i += kThreads)
-    q_s[i] = i < qg * D ? __bfloat162float(q_base[i]) * sm_scale : 0.f;
-  if (tid < QG) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+  // The 16 query rows: heads 0..qg-1 of the kv head, then zeros.
+  for (int i = tid; i < 16 * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int part = i % (D / 8);
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < qg) raw = *reinterpret_cast<const uint4*>(q + (head0 + r) * D + part * 8);
+    *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
   }
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  attn::load_q<D>(qf, q_s);
 
-  float acc[QG];  // output dim tid of each head
+  // This lane's two rows (heads g and g + 8); with blocksparse, the
+  // query's block, and whether each warp's 16 keys of a tile lie in one
+  // key block.
+  float slope[2] = {0.f, 0.f};
+  int phase[2] = {0, 0};
+  const int bq = BS ? pos / bs.block : 0;
+  const bool one_block = BS && bs.block % kWarpKeys == 0;
 #pragma unroll
-  for (int h = 0; h < QG; ++h) acc[h] = 0.f;
-  // ALiBi: one slope per head of the group (a branch uniform across the
-  // grid: without a table no slope is read and no bias is added).
-  const bool alibi = alibi_slopes != nullptr;
-  float slope[QG];
-#pragma unroll
-  for (int h = 0; h < QG; ++h) slope[h] = alibi && h < qg ? alibi_slopes[kvh * qg + h] : 0.f;
-  // Blocksparse: the query's block, each head's phase, and whether dead
-  // keys are skipped (blocks of whole pages) or only masked.
-  int bq = 0;
-  int phase[QG];
-  bool skip_dead = false;
-  if constexpr (BS) {
-    bq = (kv_len - 1) / bs.block;
-#pragma unroll
-    for (int h = 0; h < QG; ++h) phase[h] = bs.offsets[kvh * qg + h];  // qg == QG
-    skip_dead = bs.block % page_size == 0;
-  }
-  for (int tile0 = kv_lo; tile0 < kv_len; tile0 += kTileKeys) {
+  for (int r = 0; r < 2; ++r) {
+    const int h = lane / 4 + 8 * r;
+    if (h < qg && alibi_slopes != nullptr) slope[r] = __ldg(alibi_slopes + kvh * qg + h);
     if constexpr (BS) {
-      if (skip_dead) {
-        // Thread tid's key is staged iff some head of this block may see
-        // it. A tile with no such key is never loaded and never touches
-        // the softmax state; the test is uniform across the block, and
-        // its barrier publishes live_s to the staging loop.
-        const int pos = tile0 + tid;
-        bool live = false;
-#pragma unroll
-        for (int h = 0; h < QG; ++h)
-          live = live || block_visible(bs, bq, pos / bs.block, phase[h]);
-        live = live && pos < kv_len;
-        live_s[tid] = live;
-        if (!__syncthreads_or(live)) continue;
-      }
+      if (h < qg) phase[r] = __ldg(bs.offsets + kvh * qg + h);
     }
-    // Stage K and V rows of keys [tile0, tile0 + kTileKeys); zeros past
-    // kv_len (and, with blocksparse on whole pages, at keys no head sees).
-    for (int c = tid; c < kTileKeys * 2 * kChunks; c += kThreads) {
-      const int key = c / (2 * kChunks);
-      const int rem = c % (2 * kChunks);
-      const int is_v = rem / kChunks;
-      const int part = rem % kChunks;
-      const int pos = tile0 + key;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      bool load = pos < kv_len;
-      if constexpr (BS) load = load && (!skip_dead || live_s[key]);
-      if (load) {
-        const int page = pages[pos / page_size];
-        const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
-        val = *reinterpret_cast<const uint4*>(kv + (row * kChunks + part) * 16);
-      }
-      __nv_bfloat16* dst =
-          is_v ? v_tile + key * D + part * kVals : k_tile + key * kKPad + part * kVals;
-      kv_page::store_chunk_bf16<Page>(val, dst);
-    }
-    __syncthreads();
-
-    // Scores: thread tid owns key tile0 + tid for all QG heads.
-    {
-      const bool valid = tile0 + tid < kv_len;
-      float s[QG];
-#pragma unroll
-      for (int h = 0; h < QG; ++h) s[h] = 0.f;
-      const __nv_bfloat16* krow = k_tile + tid * kKPad;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(k2[i]);
-          kf[2 * i] = f.x;
-          kf[2 * i + 1] = f.y;
-        }
-#pragma unroll
-        for (int h = 0; h < QG; ++h) {
-          const float4 qa = *reinterpret_cast<const float4*>(q_s + h * D + d);
-          const float4 qb = *reinterpret_cast<const float4*>(q_s + h * D + d + 4);
-          s[h] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                  qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-        }
-      }
-      // The key's distance back from the query token, exact in f32.
-      const float dist = float(tile0 + tid - (kv_len - 1));
-#pragma unroll
-      for (int h = 0; h < QG; ++h) {
-        float v = s[h];
-        if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
-        if (alibi) v = __fadd_rn(v, __fmul_rn(slope[h], dist));
-        bool visible = valid;
-        if constexpr (BS)
-          visible = visible && block_visible(bs, bq, (tile0 + tid) / bs.block, phase[h]);
-        p_s[h * kTileKeys + tid] = visible ? v : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: one warp per head. Without blocksparse key tile0 is
-    // always valid, so every tile has a finite maximum; with it a head may
-    // see no key of a tile (nor of any tile before), and then its maximum
-    // stays -inf, every p is 0 and nothing is rescaled.
-    for (int h = warp; h < QG; h += kThreads / 32) {
-      float* row = p_s + h * kTileKeys;
-      float mx = -INFINITY;
-      for (int k = lane; k < kTileKeys; k += 32) mx = fmaxf(mx, row[k]);
-      mx = warp_max(mx);
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int k = lane; k < kTileKeys; k += 32) {
-        const float v = row[k];
-        const float p = v == -INFINITY ? 0.f : __expf(v - m_new);
-        row[k] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_old == -INFINITY ? 0.f : __expf(m_old - m_new);
-        alpha_s[h] = alpha;
-        l_s[h] = l_s[h] * alpha + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P . V over this tile's valid keys.
-    {
-#pragma unroll
-      for (int h = 0; h < QG; ++h) acc[h] *= alpha_s[h];
-      const int n_valid = min(kTileKeys, kv_len - tile0);
-      for (int k = 0; k < n_valid; ++k) {
-        const float v = __bfloat162float(v_tile[k * D + tid]);
-#pragma unroll
-        for (int h = 0; h < QG; ++h) acc[h] += p_s[h * kTileKeys + k] * v;
-      }
-    }
-    __syncthreads();
   }
 
+  // The block takes its live splits split0, split0 + slots, ..., with one
+  // online softmax (each warp's m, l, o) carried through all of them.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-  for (int h = 0; h < QG; ++h) {
-    if (h >= qg) break;
-    const float l = l_s[h];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    out_base[h * D + tid] = __float2bfloat16(acc[h] * inv);
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int split = split0; split <= last; split += slots) {
+    const int k_begin = max(kv_lo, split * split_keys);
+    const int k_end = min(kv_len, (split + 1) * split_keys);
+
+    // The first tile at or after t with a key that some head may see:
+    // every tile without blocksparse. With it, the test is against every
+    // head's phase and is the same in every warp, so the whole block skips
+    // a tile or none of it. When a tile lies in one key block (the block a
+    // multiple of the tile), lane l tests the tile l tiles on, so one
+    // ballot looks 32 tiles ahead; else lane l tests keys t + l and t + 32
+    // + l.
+    auto next_tile = [&](int t) {
+      if constexpr (BS) {
+        if (bs.block % kKeys == 0) {
+          for (; t < k_end; t += 32 * kKeys) {
+            const int mine = t + lane * kKeys;
+            bool live = false;
+            if (mine < k_end && mine + kKeys > k_begin) {
+              for (int h = 0; h < qg; ++h)
+                live = live || block_visible(bs, bq, mine / bs.block,
+                                             __ldg(bs.offsets + kvh * qg + h));
+            }
+            const unsigned hits = __ballot_sync(0xffffffffu, live);
+            if (hits != 0u) return t + (__ffs(hits) - 1) * kKeys;
+          }
+          return t;
+        }
+        for (; t < k_end; t += kKeys) {
+          bool live = false;
+          for (int k = t + lane; k < t + kKeys; k += 32) {
+            if (k < k_begin || k >= k_end) continue;
+            for (int h = 0; h < qg; ++h)
+              live = live ||
+                     block_visible(bs, bq, k / bs.block, __ldg(bs.offsets + kvh * qg + h));
+          }
+          if (__any_sync(0xffffffffu, live)) break;
+        }
+      }
+      return t;
+    };
+
+    // Every warp is done with the query rows, or with the previous split's
+    // merge: the ring is free.
+    __syncthreads();
+    // The ring: the first kStages - 1 tiles now, then one a tile.
+    int tile = next_tile(k_begin / kKeys * kKeys);  // the next tile to use
+    int ahead = tile;                                // the next tile to load
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (ahead < k_end) {
+        attn::issue_tile<Page, D, kThreads>(stages + st * L::stage, kv, pages, page_size,
+                                            ckv, kvh, ahead, k_begin, k_end);
+        ahead = next_tile(ahead + kKeys);
+      }
+      attn::cp_async_commit();
+    }
+
+    for (int it = 0; tile < k_end; ++it) {
+      const int cur = tile;
+      tile = next_tile(cur + kKeys);
+      // Tile `cur` has landed, and every warp is done with the previous
+      // one: its stage is free for the tile kStages - 1 ahead.
+      attn::cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (ahead < k_end) {
+        attn::issue_tile<Page, D, kThreads>(
+            stages + ((it + kStages - 1) % kStages) * L::stage, kv, pages, page_size, ckv,
+            kvh, ahead, k_begin, k_end);
+        ahead = next_tile(ahead + kKeys);
+      }
+      attn::cp_async_commit();
+      const __nv_bfloat16* k_t;
+      if constexpr (L::kNarrow) {
+        attn::widen_tile<Page, D, kThreads>(wide, stages + (it % kStages) * L::stage);
+        __syncthreads();
+        k_t = wide;
+      } else {
+        k_t = reinterpret_cast<const __nv_bfloat16*>(stages + (it % kStages) * L::stage);
+      }
+      const int kb = cur + warp * kWarpKeys;  // this warp's first key
+      if (kb >= k_end || kb + kWarpKeys <= k_begin) continue;
+
+      float s[kWarpKeys / 8][4];
+      attn::qk<D, kWarpKeys / 8>(s, qf, k_t + warp * kWarpKeys * kStride);
+      // Blocksparse: when the warp's 16 keys lie in one key block, a row
+      // sees all of them or none (one test a row), else the test is one a
+      // key.
+      bool vis[2] = {true, true};
+      if constexpr (BS) {
+        if (one_block) {
+          vis[0] = block_visible(bs, bq, kb / bs.block, phase[0]);
+          vis[1] = block_visible(bs, bq, kb / bs.block, phase[1]);
+        }
+      }
+      const bool edge = kb < k_begin || kb + kWarpKeys > k_end || (BS && !one_block);
+#pragma unroll
+      for (int nb = 0; nb < kWarpKeys / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int key = kb + nb * 8 + 2 * (lane % 4) + e % 2;
+          float v = s[nb][e] * sm_scale;
+          if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+          if (alibi_slopes != nullptr)
+            v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos)));
+          if (edge) {
+            bool valid = key >= k_begin && key < k_end;
+            if constexpr (BS) {
+              if (!one_block) valid = valid && block_visible(bs, bq, key / bs.block, phase[r]);
+            }
+            if (!valid) v = -INFINITY;
+          }
+          if constexpr (BS) {
+            if (!vis[r]) v = -INFINITY;
+          }
+          s[nb][e] = v;
+        }
+      }
+      attn::softmax_step<D, kWarpKeys / 8>(s, m, l, o);
+      attn::pv<D, kWarpKeys / 8>(o, s, k_t + kTileElems + warp * kWarpKeys * kStride);
+    }
+  }
+  attn::finish_sums(l);
+
+  // Merge the four warps' states (in warp order) in the freed ring; then
+  // the output, or this slot's partial.
+  attn::cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + lane / 4 + 8 * r;
+    if (lane % 4 == 0) {
+      m_s[row] = m[r];
+      l_s[row] = l[r];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o_s + row * D + j * 8 + 2 * (lane % 4)) =
+          make_float2(o[j][2 * r], o[j][2 * r + 1]);
+  }
+  __syncthreads();
+  const size_t part0 = size_t(blockIdx.z) * num_seqs * num_q_heads + head0;  // head 0's partial
+  for (int i = tid; i < qg * D; i += kThreads) {
+    const int h = i / D;
+    const int d = i % D;
+    float m_max = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_max = fmaxf(m_max, m_s[w * 16 + h]);
+    float acc = 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = m_s[w * 16 + h];
+      if (mw == -INFINITY) continue;  // this warp's keys: none visible
+      const float c = mw == m_max ? 1.f : __expf(mw - m_max);
+      acc += c * o_s[(w * 16 + h) * D + d];
+      sum += c * l_s[w * 16 + h];
+    }
+    if (direct) {
+      out[(head0 + h) * D + d] = __float2bfloat16(sum > 0.f ? acc / sum : 0.f);
+    } else {
+      part_acc[(part0 + h) * D + d] = acc;
+      if (d == 0) {
+        part_ml[2 * (part0 + h)] = m_max;
+        part_ml[2 * (part0 + h) + 1] = sum;
+      }
+    }
   }
 }
 
-template <class Page, int D, int QG, bool BS>
+// The second pass: one block per (sequence, query head), one thread per
+// dimension, merging the live slots of the rows whose keys more than one
+// slot took, in slot order (a slot whose keys were all masked, m = -inf,
+// weighs nothing).
+template <int D>
+__global__ void __launch_bounds__(D)
+paged_decode_combine_kernel(const float* __restrict__ part_acc,
+                            const float* __restrict__ part_ml, const int* __restrict__ kv_lens,
+                            __nv_bfloat16* __restrict__ out, int page_size, int pages_per_seq,
+                            int sliding_window, int split_keys, int slots) {
+  const int seq = blockIdx.x;
+  const int num_seqs = gridDim.x;
+  const int head = blockIdx.y;
+  const int num_q_heads = gridDim.y;
+  const int d = threadIdx.x;
+  const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
+  if (kv_len <= 0) return;
+  const int kv_lo = sliding_window > 0 ? max(0, kv_len - sliding_window) : 0;
+  const int first = kv_lo / split_keys;
+  const int last = (kv_len - 1) / split_keys;
+  if (first == last) return;  // written by its one slot
+  const size_t stride = size_t(num_seqs) * num_q_heads;
+  const size_t p0 = size_t(seq) * num_q_heads + head;
+  float m_max = -INFINITY;
+  for (int z = 0; z < slots; ++z)
+    if (first_split(z, first, slots) <= last)
+      m_max = fmaxf(m_max, part_ml[2 * (z * stride + p0)]);
+  float acc = 0.f;
+  float sum = 0.f;
+  for (int z = 0; z < slots; ++z) {
+    if (first_split(z, first, slots) > last) continue;
+    const size_t p = z * stride + p0;
+    const float mi = part_ml[2 * p];
+    if (mi == -INFINITY) continue;
+    const float c = mi == m_max ? 1.f : __expf(mi - m_max);
+    acc += c * part_acc[p * D + d];
+    sum += c * part_ml[2 * p + 1];
+  }
+  out[p0 * D + d] = __float2bfloat16(sum > 0.f ? acc / sum : 0.f);
+}
+
+template <class Page, int D, bool BS>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
-                   const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads, int qg,
-                   int page_size, int pages_per_seq, float sm_scale, int sliding_window,
-                   float soft_cap, Blocksparse bs, cudaStream_t stream) {
-  using L = DecodeSmem<D, QG, BS>;
+                   const float* alibi_slopes, void* out, float* part_acc, float* part_ml,
+                   int num_seqs, int num_kv_heads, int qg, int page_size, int pages_per_seq,
+                   float sm_scale, int sliding_window, float soft_cap, Blocksparse bs,
+                   int split_keys, int num_slots, cudaStream_t stream) {
+  using L = DecodeSmem<Page, D>;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<Page, D, QG, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(L::bytes));
+    const cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<Page, D, BS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 int(L::bytes));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(num_seqs, num_kv_heads);
-  paged_decode_kernel<Page, D, QG, BS><<<grid, L::kThreads, L::bytes, stream>>>(
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const dim3 grid(num_seqs, num_kv_heads, num_slots);
+  paged_decode_kernel<Page, D, BS><<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
-      page_indices, alibi_slopes, static_cast<__nv_bfloat16*>(out), num_kv_heads, qg,
-      page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs);
+      page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, page_size,
+      pages_per_seq, sm_scale, sliding_window, soft_cap, bs, split_keys);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_slots == 1) return err;
+  paged_decode_combine_kernel<D><<<dim3(num_seqs, num_kv_heads * qg), D, 0, stream>>>(
+      part_acc, part_ml, kv_lens, o, page_size, pages_per_seq, sliding_window, split_keys,
+      num_slots);
   return cudaGetLastError();
-}
-
-// The smallest power of two at or above qg (qg in 1..kMaxQG): the QG_MAX
-// bucket whose instantiation serves it.
-inline int qg_bucket(int qg) {
-  int b = 1;
-  while (b < qg) b *= 2;
-  return b;
-}
-
-// Launches the instantiation for head_dim D and QG_MAX = the bucket of
-// qg, without blocksparse, or with it (D 128 and QG 1, 2, 4 or 8 only:
-// the shapes blocksparse is built for).
-template <class Page, int D>
-cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
-                     const float* alibi_slopes, void* out, int num_seqs, int num_kv_heads,
-                     int qg, int page_size, int pages_per_seq, float sm_scale,
-                     int sliding_window, float soft_cap, Blocksparse bs, cudaStream_t stream) {
-#define PAGED_DECODE_LAUNCH(qgm, b)                                                           \
-  launch<Page, D, qgm, b>(q, kv, kv_lens, page_indices, alibi_slopes, out, num_seqs,         \
-                          num_kv_heads, qg, page_size, pages_per_seq, sm_scale, sliding_window, \
-                          soft_cap, bs, stream)
-  if (bs.offsets != nullptr) {
-    if constexpr (D == 128) {
-      switch (qg) {
-        case 1:
-          return PAGED_DECODE_LAUNCH(1, true);
-        case 2:
-          return PAGED_DECODE_LAUNCH(2, true);
-        case 4:
-          return PAGED_DECODE_LAUNCH(4, true);
-        case 8:
-          return PAGED_DECODE_LAUNCH(8, true);
-      }
-    }
-    return cudaErrorInvalidValue;
-  }
-  switch (qg_bucket(qg)) {
-    case 1:
-      return PAGED_DECODE_LAUNCH(1, false);
-    case 2:
-      return PAGED_DECODE_LAUNCH(2, false);
-    case 4:
-      return PAGED_DECODE_LAUNCH(4, false);
-    case 8:
-      return PAGED_DECODE_LAUNCH(8, false);
-    case 16:
-      return PAGED_DECODE_LAUNCH(16, false);
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PAGED_DECODE_LAUNCH
 }
 
 // Checks the shape and launches the variant for pages of type Page,
 // head_dim 64 or 128, QG = num_q_heads / num_kv_heads query heads per kv
-// head (1 to 16) and blocksparse (a phase table given) or not.
+// head (1 to 16) and blocksparse (a phase table given; head_dim 128 and QG
+// 1, 2, 4 or 8 only: the shapes blocksparse is built for) or not.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
-        const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,
-        int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,
-        float soft_cap, const void* bs_offsets, int bs_block, int bs_local, int bs_vert,
+        const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,
+        int num_q_heads, int num_kv_heads, int head_dim, int page_size, int pages_per_seq,
+        float sm_scale, int sliding_window, float soft_cap, const void* bs_offsets,
+        int bs_block, int bs_local, int bs_vert, int split_keys, int num_slots,
         void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return int(cudaErrorInvalidValue);
   const int qg = num_q_heads / num_kv_heads;
   if (qg < 1 || qg > kMaxQG) return int(cudaErrorInvalidValue);
+  // Splits of whole tiles, and a scratch for the partials whenever there is
+  // more than one slot.
+  if (split_keys <= 0 || split_keys % kKeys != 0 || num_slots <= 0 ||
+      (num_slots > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    return int(cudaErrorInvalidValue);
   const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
-  if (bs.offsets != nullptr && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0))
+  if (bs.offsets != nullptr &&
+      (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0 || head_dim != 128 ||
+       (qg != 1 && qg != 2 && qg != 4 && qg != 8)))
     return int(cudaErrorInvalidValue);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* pages = static_cast<const int*>(page_indices);
   const float* slopes = static_cast<const float*>(alibi_slopes);
+  float* acc = static_cast<float*>(part_acc);
+  float* ml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_DECODE_LAUNCH(d, b)                                                           \
+  launch<Page, d, b>(q, kv_pages, lens, pages, slopes, out, acc, ml, num_seqs, num_kv_heads, \
+                     qg, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs,   \
+                     split_keys, num_slots, s)
   switch (head_dim) {
     case 64:
-      return int(launch_d<Page, 64>(q, kv_pages, lens, pages, slopes, out, num_seqs,
-                                    num_kv_heads, qg, page_size, pages_per_seq, sm_scale,
-                                    sliding_window, soft_cap, bs, s));
+      return int(PAGED_DECODE_LAUNCH(64, false));
     case 128:
-      return int(launch_d<Page, 128>(q, kv_pages, lens, pages, slopes, out, num_seqs,
-                                     num_kv_heads, qg, page_size, pages_per_seq, sm_scale,
-                                     sliding_window, soft_cap, bs, s));
+      return int(bs.offsets != nullptr ? PAGED_DECODE_LAUNCH(128, true)
+                                       : PAGED_DECODE_LAUNCH(128, false));
     default:
       return int(cudaErrorInvalidValue);
   }
+#undef PAGED_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
 // int8}. q bf16[S, QH, D] with D = 64 or 128 and QH = QG * KV for QG in 1
-// to 16 (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size, 2 * KV, D] of the named type (K at even
-// and V at odd combined heads), kv_lens i32[S], page_indices i32[S,
-// pages_per_seq], alibi_slopes f32[QH] or null (no ALiBi), out bf16[S, QH,
-// D]. sliding_window <= 0 and soft_cap <= 0 mean off. bs_offsets i32[QH]
-// (each query head's vertical phase) with bs_block, bs_local and bs_vert
-// turns blocksparse on; null means off (the others are then unread).
-// Returns the CUDA error of the launch (cudaErrorInvalidValue for any other
-// D or QH / KV, or blocksparse parameters that are not positive or at a
-// shape it is not built for).
+// to 16 (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size,
+// 2 * KV, D] of the named type (K at even and V at odd combined heads),
+// kv_lens i32[S], page_indices i32[S, pages_per_seq], alibi_slopes f32[QH]
+// or null (no ALiBi), out bf16[S, QH, D]. sliding_window <= 0 and soft_cap
+// <= 0 mean off. bs_offsets i32[QH] (each query head's vertical phase) with
+// bs_block, bs_local and bs_vert turns blocksparse on; null means off (the
+// others are then unread). split_keys (a multiple of 64) keys a split,
+// num_slots blocks per (sequence, kv head) taking the splits in turn; with
+// more than one slot, part_acc f32[num_slots, S, QH, D] and part_ml
+// f32[num_slots, S, QH, 2] are the scratch of the partials (else they may
+// be null).
+// Launches the split kernel and, with more than one slot, the combine
+// kernel on `stream`. Returns the CUDA error of the launches
+// (cudaErrorInvalidValue for any other D or QH / KV, blocksparse parameters
+// that are not positive or at a shape it is not built for, a split that is
+// not whole tiles, or no scratch where one is needed).
 #define PAGED_DECODE_ENTRY(suffix, Page)                                                     \
   extern "C" int paged_decode_attention_##suffix(                                            \
       const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,    \
-      const void* alibi_slopes, void* out, int num_seqs, int num_q_heads, int num_kv_heads,  \
-      int head_dim, int page_size, int pages_per_seq, float sm_scale, int sliding_window,    \
-      float soft_cap, const void* bs_offsets, int bs_block, int bs_local, int bs_vert,       \
+      const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,      \
+      int num_q_heads, int num_kv_heads, int head_dim, int page_size, int pages_per_seq,     \
+      float sm_scale, int sliding_window, float soft_cap, const void* bs_offsets,            \
+      int bs_block, int bs_local, int bs_vert, int split_keys, int num_slots,                \
       void* stream) {                                                                        \
-    return run<Page>(q, kv_pages, kv_lens, page_indices, alibi_slopes, out, num_seqs,        \
-                     num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale, \
-                     sliding_window, soft_cap, bs_offsets, bs_block, bs_local, bs_vert,      \
-                     stream);                                                                \
+    return run<Page>(q, kv_pages, kv_lens, page_indices, alibi_slopes, out, part_acc,        \
+                     part_ml, num_seqs, num_q_heads, num_kv_heads, head_dim, page_size,      \
+                     pages_per_seq, sm_scale, sliding_window, soft_cap, bs_offsets,          \
+                     bs_block, bs_local, bs_vert, split_keys, num_slots, stream);            \
   }
 
 PAGED_DECODE_ENTRY(bf16, kv_page::Bf16)

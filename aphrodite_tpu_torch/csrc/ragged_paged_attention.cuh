@@ -7,22 +7,20 @@
 // aphrodite_tpu/ops/rpa_alibi_kernel.py: ragged_paged_attention_alibi).
 //
 // Work split: one block per (query tile, kv head). A query tile holds
-// kRows = 64 query rows = floor(64 / QG) consecutive tokens of ONE
-// sequence times the QG query heads that share the kv head, so a tile
-// never straddles two sequences; where QG does not divide 64 (3, 5, 6, 7,
-// 9-15) the last 64 mod QG rows of every tile are idle. QG = QH / KV is a
-// template parameter, instantiated at head_dim 128 for 1, 2, 4 and 8 (a
-// tile of 64, 32, 16 or 8 tokens), and 0, which reads QG at run time and
-// serves every other QG up to 16, and every QG at head_dim 64: its
-// row-to-(token, head) divisions are by a runtime value, the rest is the
-// same code. (Each instantiation adds about two seconds of nvcc to every
-// build; exact ones for the other shapes would add a minute.) head_dim D
-// (64 or 128) is a template parameter too. So are ALiBi and blocksparse,
-// so that the
-// variant without either is the code it was before they came in: a
-// runtime branch in the unrolled row loop slowed that variant on the
-// H100. The variants with ALiBi or blocksparse are built for D 128 and QG
-// 1, 2, 4 and 8 only, the shapes of the models that use them. The plain variants are built from
+// kRows query rows (128 at head_dim 128, 8 warps; 64 at head_dim 64, 4
+// warps) = floor(kRows / QG) consecutive tokens of ONE sequence times the
+// QG query heads that share the kv head, so a tile never straddles two
+// sequences and every K/V tile it stages serves all of its rows; where QG
+// does not divide kRows the last kRows mod QG rows of every tile are idle.
+// The tiles are taken from the end of the token stream, so that within a
+// sequence the tiles that see the most keys start first. QG = QH / KV is
+// a template parameter, instantiated at head_dim 128 for 1, 2, 4 and 8,
+// and 0, which reads QG at run time and serves every other QG up to 16,
+// and every QG at head_dim 64. head_dim D (64 or 128) is a
+// template parameter too. So are ALiBi and blocksparse, so that the variant
+// without either carries no per-score branch for them. The variants with
+// ALiBi or blocksparse are built for D 128 and QG 1, 2, 4 and 8 only, the
+// shapes of the models that use them. The plain variants are built from
 // ragged_paged_attention.cu, those with ALiBi from
 // ragged_paged_attention_alibi.cu and those with blocksparse from
 // ragged_paged_attention_blocksparse.cu: three libraries that nvcc builds
@@ -32,42 +30,62 @@
 // (ceil(T / tokens) + S) and surplus blocks exit, so the launch needs no
 // host-side value and no synchronisation.
 //
-// Bound on the H100: at prefill shapes, operations. A tile does
-// 4 * rows * D FLOPs per key it stages, 64 FLOPs per K/V byte at QG = 4,
-// so the K/V traffic stays below the memory roofline while the FMA work
-// is done on CUDA cores in f32 (about 1/15 of the bf16 tensor-core peak).
-// The design keeps the K/V tile in shared memory for all 64 rows, loads
-// each K/V row with 16-byte coalesced loads, and visits only the keys the
-// tile can see: [max(0, first_row_pos - window + 1), min(kv_len,
-// last_row_pos + 1)). Tensor-core (wgmma) QK and PV products are later
-// work.
+// Bound on the H100: at prefill shapes, operations (4 * D FLOPs per
+// visible (query head, key) pair against 4 * D bytes of K/V per key and kv
+// head: 64 FLOPs a byte at QG 4, above the memory ridge only for long
+// chunks). The design, FlashAttention-2 style (attention_mma.cuh):
+// - both products on the tensor cores, mma.sync m16n8k16 bf16 with f32
+//   sums: each of the four warps owns 16 query rows, holds their Q
+//   fragments in registers (one ldmatrix per 16 dimensions, loaded once),
+//   reads K through ldmatrix and V through ldmatrix.trans, and hands P from
+//   the S accumulator to the A fragments of P . V in registers;
+// - bf16 K/V tiles of 64 keys (four 16-key pages) in shared memory at a
+//   padded stride (no bank conflicts for ldmatrix), in a three-stage
+//   cp.async ring: tiles i + 1 and i + 2 load while tile i is multiplied,
+//   behind one barrier a tile. Narrow pages (E4M3, E5M2, int8) are copied
+//   raw into a byte stage and widened to bf16 in one pass before the
+//   products;
+// - the online softmax in registers (row max and sum across the four
+//   lanes of a quad);
+// - masks only on the tiles that straddle an edge of a warp's rows
+//   (causal, window, kv_len): interior tiles skip the tests, and a warp
+//   skips the products of a tile that none of its rows can see;
+// - it visits only the keys the tile can see: [max(0, first_row_pos -
+//   window + 1), min(kv_len, last_row_pos + 1)), in 64-key tiles aligned
+//   to key 0 (keys of an edge tile outside that range are zero-filled,
+//   never read).
+// mma.sync rather than wgmma: see attention_mma.cuh.
 //
 // Semantics (same as the plain version in ops/attention.py): row i of
 // sequence s sits at absolute position p = kv_len - q_len + i and attends
 // keys j with j <= p, j < kv_len and, with a window w, j > p - w, with
-// scores cap(q . k * sm_scale), plus, with a slope table (f32[QH], the
-// ALiBi option of the vendored fork aphrodite_tpu/ops/rpa_alibi_kernel.py),
-// slope[h] * (j - p): the slope times the f32 distance, rounded, then
-// added after the soft cap, as the fork does. With blocksparse (the fork's
-// blocksparse option, the mask of blocksparse.cuh) each row also masks,
-// with its own block p / bsz and its head's phase, the keys that mask
-// hides, as the fork does (which masks only and loads every page). Here a
-// 32-key tile that no row and head of the query tile can see is skipped
-// before it is staged; that leaves every result unchanged, bit for bit,
-// since such a tile adds probability 0 and rescales by exactly 1. Nothing
-// at or past kv_len is loaded; such slots are zero-filled and get
-// probability exactly 0. Tokens past
-// cu_q_lens[S] are not written here: the caller zero-fills the output.
+// scores cap((q . k) * sm_scale) (the product of the bf16 values summed in
+// f32, then scaled in f32), plus, with a slope table (f32[QH], the ALiBi
+// option of the vendored fork aphrodite_tpu/ops/rpa_alibi_kernel.py),
+// slope[h] * (j - p): the slope times the f32 distance, rounded, then added
+// after the soft cap, as the fork does. The probabilities enter P . V as
+// the sum of two bf16 parts (about 2^-17 of each, where one bf16 P errs by
+// about 2^-9 of a row; PERF.md has what the second product costs); their
+// sum is taken in f32. With
+// blocksparse (the fork's blocksparse option, the mask of blocksparse.cuh)
+// each row also masks, with its own block p / bsz and its head's phase, the
+// keys that mask hides, as the fork does (which masks only and loads every
+// page). Here a 64-key tile that no row and head of the query tile can see
+// is skipped before it is staged (at Phi-3-Small's block of 64 a tile is a
+// block); that leaves every result unchanged, bit for bit, since such a
+// tile adds probability 0 and rescales by exactly 1. Nothing at or past
+// kv_len is loaded; such slots are zero-filled and get probability exactly
+// 0. Tokens past cu_q_lens[S] are not written here: the caller zero-fills
+// the output.
 //
 // Page types: the kernel is a template over the cache's element type
 // (kv_page_types.cuh), with one entry point each for bf16, E4M3, E5M2 and
 // int8 pages. With fp8 pages it stands for the fp8 path of the vendored
 // fork (the JAX package sends fp8 prefill there for its fast fp8 -> bf16
-// conversion), with int8 pages for the bundled kernel. A narrow row is
-// 128 bytes: the staging loop loads 16 values per 16-byte load and widens
-// them to f32 as it stores them into the same shared-memory tiles, so all
-// that follows the staging is unchanged and the result equals, bit for
-// bit, the bf16 entry point's on those pages widened beforehand.
+// conversion), with int8 pages for the bundled kernel. A narrow row is D
+// bytes; the widening pass writes the same bf16 tiles the bf16 pages are
+// copied into, so all that follows is the same code and the result equals,
+// bit for bit, the bf16 entry point's on those pages widened beforehand.
 
 #pragma once
 
@@ -76,44 +94,45 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
 #include "blocksparse.cuh"
 #include "kv_page_types.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;                   // query rows per block
-constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kKeys = 32;                   // keys per K/V tile: one per lane
+// Warps a block: 8 at head_dim 128 (128 query rows share each K/V tile),
+// 4 at head_dim 64 (on the H100 a block of 8 ran slower there: at
+// Qwen2.5-0.5B's two kv heads it leaves too few blocks for 132 SMs). Each
+// warp owns 16 query rows.
+template <int D>
+struct RaggedShape {
+  static constexpr int kWarps = D == 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // query rows per block
+};
+constexpr int kStages = 3;  // the cp.async ring
+constexpr int kKeys = attn::kTileKeys;
 // The largest QH / KV the kernel takes (the wrapper raises above it, and
 // for a head_dim other than 64 and 128).
 constexpr int kMaxQG = 16;
 
-template <int D>
+// Dynamic shared memory: the stages of the ring (bf16 pages: the padded K
+// and V tiles; narrow pages: raw bytes) and, for narrow pages, the one pair
+// of bf16 tiles they are widened into. The query rows (kRows of them at
+// the tiles' stride: the size of one K and V pair) are staged once, before
+// the loop, in the last stage, which the loop fills first (narrow pages:
+// in the widened pair).
+template <class Page, int D>
 struct RaggedSmem {
-  static constexpr int kKPad = D + 4;  // f32 row stride of the K tile
-  static constexpr size_t q = size_t(kRows) * D * 4;
-  static constexpr size_t k = size_t(kKeys) * kKPad * 4;
-  static constexpr size_t v = size_t(kKeys) * D * 4;
-  static constexpr size_t bytes = q + k + v;
+  static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
+  static constexpr size_t wide = kNarrow ? 2 * attn::Tile<D>::kBytes : 0;
+  static constexpr size_t stage = attn::Stage<Page, D>::kBytes;
+  static constexpr size_t bytes = wide + kStages * stage;
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // QG: QH / KV, or 0 for the variant that reads it from qg_rt.
 template <class Page, int D, int QG, bool ALIBI, bool BLOCKSPARSE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(RaggedShape<D>::kThreads)
 ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const unsigned char* __restrict__ kv,
                               const int* __restrict__ kv_lens,
@@ -125,31 +144,39 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               int pages_per_seq, float sm_scale, int sliding_window,
                               float soft_cap, Blocksparse bs) {
   static_assert(QG > 0 || !(ALIBI || BLOCKSPARSE), "options are built for a fixed QG");
-  using L = RaggedSmem<D>;
-  constexpr int kKPad = L::kKPad;
+  using L = RaggedSmem<Page, D>;
+  constexpr int kThreads = RaggedShape<D>::kThreads;
+  constexpr int kRows = RaggedShape<D>::kRows;
+  constexpr int kStride = attn::Tile<D>::kStride;
+  constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
   const int qg = QG > 0 ? QG : qg_rt;
-  const int kTokens = kRows / qg;         // query tokens per tile
-  constexpr int kQChunks = D / 8;           // 16-byte loads per (bf16) q row
-  constexpr int kVals = Page::kValues;      // K/V values per 16-byte load
-  constexpr int kChunks = D / kVals;        // 16-byte loads per K (or V) row
-  constexpr int kDimsPerLane = D / 32;
+  const int kTokens = kRows / qg;  // query tokens per tile
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = reinterpret_cast<float*>(smem + L::q);
-  float* v_s = reinterpret_cast<float*>(smem + L::q + L::k);
+  unsigned char* stages = smem + L::wide;
+  __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
+  // The query rows: in the widened pair, or in the last stage (the first
+  // that the loop fills).
+  __nv_bfloat16* q_s = L::kNarrow ? wide
+                                  : reinterpret_cast<__nv_bfloat16*>(
+                                        stages + (kStages - 1) * L::stage);
 
-  // Which sequence and which token tile is this block's?
+  // Which sequence and which token tile is this block's? Blocks start in
+  // the order of blockIdx.x, and a sequence's last tiles see the most
+  // keys, so the tiles are taken from the end: the longest start first and
+  // the short ones fill the last wave (surplus blocks, past the last tile,
+  // start and exit first).
   int seq = -1;
   int tile_t0 = 0;
   {
+    const int b = int(gridDim.x) - 1 - int(blockIdx.x);
     int tiles_before = 0;
     for (int s = 0; s < num_seqs; ++s) {
       const int q_len = cu_q_lens[s + 1] - cu_q_lens[s];
       const int n_tiles = (q_len + kTokens - 1) / kTokens;
-      if (int(blockIdx.x) < tiles_before + n_tiles) {
+      if (b < tiles_before + n_tiles) {
         seq = s;
-        tile_t0 = (int(blockIdx.x) - tiles_before) * kTokens;
+        tile_t0 = (b - tiles_before) * kTokens;
         break;
       }
       tiles_before += n_tiles;
@@ -170,39 +197,9 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int pos0 = kv_len - q_len + tile_t0;  // absolute position of the tile's first token
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
 
-  // Query rows: row r = token (r / qg), head kvh * qg + r % qg; pre-scaled.
-  // Rows past kTokens * qg are idle (t >= kTokens >= n_tok): zeros.
-  for (int i = tid; i < kRows * kQChunks; i += kThreads) {
-    const int r = i / kQChunks;
-    const int part = i % kQChunks;
-    const int t = r / qg;
-    float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (t < n_tok) {
-      const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
-      const uint4 raw = *reinterpret_cast<const uint4*>(q + head * D + part * 8);
-      kv_page::chunk_to_f32<kv_page::Bf16>(raw, vals);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] *= sm_scale;
-    }
-    float4* dst = reinterpret_cast<float4*>(q_s + r * D + part * 8);
-    dst[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
-    dst[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
-  }
-
   // Keys this tile can see.
   const int kv_hi = min(kv_len, pos0 + n_tok);
   const int kv_lo = sliding_window > 0 ? max(0, pos0 - sliding_window + 1) : 0;
-
-  float m[kRowsPerWarp];
-  float l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDimsPerLane; ++j) acc[i][j] = 0.f;
-  }
 
   // Blocksparse: the phases of this kv head's query heads, for the test of
   // whether any row of the tile may see a key tile.
@@ -211,109 +208,193 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int h = 0; h < QG; ++h) group_phase[h] = bs.offsets[kvh * QG + h];
   }
-
-  for (int tile0 = kv_lo; tile0 < kv_hi; tile0 += kKeys) {
+  // The first tile at or after t that some row and head may see: every
+  // tile without blocksparse. With it, the test is against the tile's first
+  // row (the lowest query block, which sees the most local keys) and every
+  // head's phase, and is the same in every warp, so the whole block skips
+  // a tile or none of it. When a tile lies in one key block (the block a
+  // multiple of the tile), lane l tests the tile l tiles on, so one ballot
+  // looks 32 tiles ahead; else lane l tests keys t + l and t + 32 + l.
+  const int bq0 = BLOCKSPARSE ? pos0 / bs.block : 0;
+  auto next_tile = [&](int t) {
     if constexpr (BLOCKSPARSE) {
-      // Lane l's key against the tile's first row (the lowest query block,
-      // which sees the most local keys) and every head's phase. The same
-      // in every warp, so the whole block skips or none of it.
-      const int key = tile0 + lane;
-      bool live = false;
+      if (bs.block % kKeys == 0) {
+        for (; t < kv_hi; t += 32 * kKeys) {
+          const int mine = t + lane * kKeys;
+          bool live = false;
+          if (mine < kv_hi && mine + kKeys > kv_lo) {
 #pragma unroll
-      for (int h = 0; h < QG; ++h)
-        live = live || block_visible(bs, pos0 / bs.block, key / bs.block, group_phase[h]);
-      if (!__any_sync(0xffffffffu, live && key < kv_hi)) continue;
-    }
-    __syncthreads();  // previous tile fully consumed (and q_s written)
-    for (int c = tid; c < kKeys * 2 * kChunks; c += kThreads) {
-      const int key = c / (2 * kChunks);
-      const int rem = c % (2 * kChunks);
-      const int is_v = rem / kChunks;
-      const int part = rem % kChunks;
-      const int pos = tile0 + key;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // zeros in every page type
-      if (pos < kv_hi) {
-        const int page = pages[pos / page_size];
-        const size_t row = (size_t(page) * page_size + pos % page_size) * ckv + 2 * kvh + is_v;
-        raw = *reinterpret_cast<const uint4*>(kv + (row * kChunks + part) * 16);
-      }
-      float* dst = is_v ? v_s + key * D + part * kVals : k_s + key * kKPad + part * kVals;
-      kv_page::store_chunk_f32<Page>(raw, dst);
-    }
-    __syncthreads();
-
-    const int key_pos = tile0 + lane;
-    const float* krow = k_s + lane * kKPad;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp * kRowsPerWarp + i;
-      const int t = r / qg;
-      if (t >= n_tok) continue;  // warp-uniform
-      const int pos = pos0 + t;
-      bool valid = key_pos < kv_hi && key_pos <= pos;
-      if (sliding_window > 0) valid = valid && key_pos > pos - sliding_window;
-      if constexpr (BLOCKSPARSE) {
-        // This row's block and its head's phase (one cached load per warp).
-        const int phase = __ldg(bs.offsets + kvh * qg + r % qg);
-        valid = valid && block_visible(bs, pos / bs.block, key_pos / bs.block, phase);
-      }
-      const float* qrow = q_s + r * D;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qrow + d);
-        const float4 b = *reinterpret_cast<const float4*>(krow + d);
-        s += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-      }
-      if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-      if constexpr (ALIBI) {
-        // One cached load for the whole warp, where the bias is added.
-        const float slope = __ldg(alibi_slopes + kvh * qg + r % qg);
-        s = __fadd_rn(s, __fmul_rn(slope, float(key_pos - pos)));
-      }
-      const float mx = warp_max(valid ? s : -INFINITY);
-      const float m_new = fmaxf(m[i], mx);
-      if (m_new == -INFINITY) continue;  // no visible key yet for this row
-      const float p = valid ? __expf(s - m_new) : 0.f;
-      const float alpha = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDimsPerLane; ++j) acc[i][j] *= alpha;
-#pragma unroll 4
-      for (int k = 0; k < kKeys; ++k) {
-        const float pk = __shfl_sync(0xffffffffu, p, k);
-        const float* vrow = v_s + k * D + lane * kDimsPerLane;
-        if constexpr (kDimsPerLane % 4 == 0) {
-#pragma unroll
-          for (int j = 0; j < kDimsPerLane; j += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(vrow + j);
-            acc[i][j] += pk * v.x;
-            acc[i][j + 1] += pk * v.y;
-            acc[i][j + 2] += pk * v.z;
-            acc[i][j + 3] += pk * v.w;
+            for (int h = 0; h < QG; ++h)
+              live = live || block_visible(bs, bq0, mine / bs.block, group_phase[h]);
           }
-        } else {  // D = 64: two dims per lane
-          const float2 v = *reinterpret_cast<const float2*>(vrow);
-          acc[i][0] += pk * v.x;
-          acc[i][1] += pk * v.y;
+          const unsigned hits = __ballot_sync(0xffffffffu, live);
+          if (hits != 0u) return t + (__ffs(hits) - 1) * kKeys;
         }
+        return t;
+      }
+      for (; t < kv_hi; t += kKeys) {
+        bool live = false;
+#pragma unroll
+        for (int k = t + lane; k < t + kKeys; k += 32) {
+          if (k < kv_lo || k >= kv_hi) continue;
+#pragma unroll
+          for (int h = 0; h < QG; ++h)
+            live = live || block_visible(bs, bq0, k / bs.block, group_phase[h]);
+        }
+        if (__any_sync(0xffffffffu, live)) break;
       }
     }
+    return t;
+  };
+
+  // The ring: the first kStages - 1 tiles now, then one a tile.
+  int tile = next_tile(kv_lo / kKeys * kKeys);  // the next tile to use
+  int ahead = tile;                              // the next tile to load
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (ahead < kv_hi) {
+      attn::issue_tile<Page, D, kThreads>(stages + st * L::stage, kv, pages, page_size, ckv,
+                                          kvh, ahead, kv_lo, kv_hi);
+      ahead = next_tile(ahead + kKeys);
+    }
+    attn::cp_async_commit();
   }
 
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
+  // Query rows: row r = token (r / qg), head kvh * qg + r % qg, as bf16.
+  // Rows past n_tok * qg are idle: zeros, never written.
+  for (int i = tid; i < kRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int part = i % (D / 8);
     const int t = r / qg;
-    if (t >= n_tok) continue;
-    const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* dst = out + head * D + lane * kDimsPerLane;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (t < n_tok) {
+      const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
+      raw = *reinterpret_cast<const uint4*>(q + head * D + part * 8);
+    }
+    *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
+  }
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  attn::load_q<D>(qf, q_s + warp * 16 * kStride);
+
+  // This lane's two rows (g and g + 8 of the warp's 16), and the span of
+  // token positions of the warp's live rows.
+  int pos[2];
+  bool live_row[2];
+  float slope[2] = {0.f, 0.f};
+  int phase[2] = {0, 0};
 #pragma unroll
-    for (int j = 0; j < kDimsPerLane; j += 2)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j) =
-          __floats2bfloat162_rn(acc[i][j] * inv, acc[i][j + 1] * inv);
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + lane / 4 + 8 * r;
+    live_row[r] = row / qg < n_tok;
+    pos[r] = pos0 + row / qg;
+    if constexpr (ALIBI) slope[r] = __ldg(alibi_slopes + kvh * qg + row % qg);
+    if constexpr (BLOCKSPARSE) phase[r] = __ldg(bs.offsets + kvh * qg + row % qg);
+  }
+  // Blocksparse: each row's query block; when a tile lies in one key
+  // block (the block a multiple of the tile, as Phi-3-Small's 64) each
+  // row's visibility is one test a tile, else one a key.
+  int bq[2] = {0, 0};
+  bool one_block = false;
+  if constexpr (BLOCKSPARSE) {
+    bq[0] = pos[0] / bs.block;
+    bq[1] = pos[1] / bs.block;
+    one_block = bs.block % kKeys == 0;
+  }
+  const bool warp_live = (warp * 16) / qg < n_tok;
+  const int w_pos_min = pos0 + (warp * 16) / qg;
+  const int w_pos_max = pos0 + min(n_tok - 1, (warp * 16 + 15) / qg);
+  const int w_hi = min(kv_hi, w_pos_max + 1);
+  const int w_lo = sliding_window > 0 ? max(0, w_pos_min - sliding_window + 1) : 0;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int it = 0; tile < kv_hi; ++it) {
+    const int cur = tile;
+    tile = next_tile(cur + kKeys);
+    // Tile `cur` has landed, and every warp is done with the previous one
+    // (and with the query rows): its stage is free for the tile kStages - 1
+    // ahead.
+    attn::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (ahead < kv_hi) {
+      attn::issue_tile<Page, D, kThreads>(stages + ((it + kStages - 1) % kStages) * L::stage,
+                                          kv, pages, page_size, ckv, kvh, ahead, kv_lo, kv_hi);
+      ahead = next_tile(ahead + kKeys);
+    }
+    attn::cp_async_commit();
+    unsigned char* stage = stages + (it % kStages) * L::stage;
+    const __nv_bfloat16* k_t;
+    if constexpr (L::kNarrow) {
+      attn::widen_tile<Page, D, kThreads>(wide, stage);
+      __syncthreads();
+      k_t = wide;
+    } else {
+      k_t = reinterpret_cast<const __nv_bfloat16*>(stage);
+    }
+    // A warp whose rows see no key of this tile skips it (uniform per warp).
+    if (!warp_live || cur >= w_hi || cur + kKeys <= w_lo) continue;
+
+    float s[kKeys / 8][4];
+    attn::qk<D, kKeys / 8>(s, qf, k_t);
+    // Masks key by key only where the tile straddles an edge of the warp's
+    // rows (causal, window), or, with blocksparse, where it spans key
+    // blocks; in one key block a row sees all of its keys or none.
+    bool vis[2] = {true, true};
+    if constexpr (BLOCKSPARSE) {
+      if (one_block) {
+        const int bk = cur / bs.block;
+        vis[0] = block_visible(bs, bq[0], bk, phase[0]);
+        vis[1] = block_visible(bs, bq[1], bk, phase[1]);
+      }
+    }
+    const bool edge = cur + kKeys - 1 > w_pos_min ||
+                      (sliding_window > 0 && cur <= w_pos_max - sliding_window) ||
+                      (BLOCKSPARSE && !one_block);
+#pragma unroll
+    for (int nb = 0; nb < kKeys / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int key = cur + nb * 8 + 2 * (lane % 4) + e % 2;
+        float v = s[nb][e] * sm_scale;
+        if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+        if constexpr (ALIBI) v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos[r])));
+        if (edge) {
+          bool valid = key <= pos[r] && key < kv_hi;
+          if (sliding_window > 0) valid = valid && key > pos[r] - sliding_window;
+          if constexpr (BLOCKSPARSE) {
+            if (!one_block)
+              valid = valid && block_visible(bs, bq[r], key / bs.block, phase[r]);
+          }
+          if (!valid) v = -INFINITY;
+        }
+        if constexpr (BLOCKSPARSE) {
+          if (!vis[r]) v = -INFINITY;
+        }
+        s[nb][e] = v;
+      }
+    }
+    attn::softmax_step<D, kKeys / 8>(s, m, l, o);
+    attn::pv<D, kKeys / 8>(o, s, k_t + kTileElems);
+  }
+
+  attn::finish_sums(l);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!live_row[r]) continue;
+    const int row = warp * 16 + lane / 4 + 8 * r;
+    const size_t head =
+        size_t(q_start + tile_t0 + row / qg) * num_q_heads + kvh * qg + row % qg;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    __nv_bfloat16* dst = out + head * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
   }
 }
 
@@ -323,7 +404,9 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
                    int num_seqs, int num_kv_heads, int qg, int page_size, int pages_per_seq,
                    float sm_scale, int sliding_window, float soft_cap, Blocksparse bs,
                    cudaStream_t stream) {
-  const size_t smem = RaggedSmem<D>::bytes;
+  const size_t smem = RaggedSmem<Page, D>::bytes;
+  constexpr int kThreads = RaggedShape<D>::kThreads;
+  constexpr int kRows = RaggedShape<D>::kRows;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -11,7 +11,16 @@ multi-step decode window sends every step here (``cu_q_lens=None`` in
   ``csrc/paged_decode_attention.cu`` (which replaces the TPU kernel
   aphrodite_tpu/ops/decode_attention.py: paged_decode_attention ->
   _decode_kernel) or raise. The kernel is bound by bytes (each live K/V
-  row is read once per step); its source says how it keeps to that.
+  row is read once per step); it splits each row's keys into fixed ranges
+  (``plan_decode_splits``, from host values alone), spreads them over
+  blocks of (sequence, kv head, slot), and merges the splits' partials in
+  a second pass; its source says more.
+- ``ref_decode_partials`` and ``ref_merge_partials``: the plain split-KV
+  pair, what the kernel's two passes compute (per-split flash partials
+  over page-aligned key ranges, and their merge in split order);
+  ``ref_split_decode_attention`` chains them. The tests and chip_smoke.py
+  hold them against the JAX package and the kernel; nothing on the serving
+  path calls them.
 
 Cache layout (shared with the TPU package and both kernels):
   kv_pages: [num_pages, page_size, 2 * num_kv_heads, head_dim],
@@ -40,7 +49,8 @@ vert_stride == 0, ANDed with the causal mask and the window.
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -154,6 +164,163 @@ def ref_paged_decode_attention(
     return out
 
 
+# Split-KV decode. The kernel's tile is 64 keys; a split is a whole number
+# of tiles (and of pages). The grid holds DECODE_BLOCKS_PER_SM blocks an SM
+# where there are splits enough, each block (slot) taking every slots-th
+# split of its row.
+DECODE_TILE_KEYS = 64
+DECODE_SPLIT_KEYS = 256
+DECODE_BLOCKS_PER_SM = 8
+
+
+def plan_decode_splits(num_seqs: int, num_kv_heads: int, max_keys: int,
+                       page_size: int, num_sms: int) -> Tuple[int, int, int]:
+    """(split_keys, num_splits, num_slots) for a decode call of num_seqs
+    rows and num_kv_heads kv heads whose page table holds max_keys =
+    pages_per_seq * page_size keys a row, on a card of num_sms SMs: host
+    values only, no read of kv_lens. split_keys is a multiple of the tile
+    and of the page (whole pages for page sizes that divide or are
+    multiples of 64), num_splits * split_keys covers max_keys, and
+    num_slots (blocks per row and kv head) is at most num_splits."""
+    pairs = max(1, num_seqs * num_kv_heads)
+    unit = DECODE_TILE_KEYS * page_size // math.gcd(DECODE_TILE_KEYS,
+                                                    page_size)
+    split = -(-DECODE_SPLIT_KEYS // unit) * unit
+    num_splits = -(-max(1, max_keys) // split)
+    num_slots = min(num_splits, -(-DECODE_BLOCKS_PER_SM * num_sms // pairs))
+    return split, num_splits, num_slots
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(device_index: int) -> int:
+    """The SM count of CUDA device `device_index`."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_split_ranges(kv_len: int, split_keys: int, num_splits: int,
+                        sliding_window: Optional[int] = None
+                        ) -> List[Tuple[int, int]]:
+    """The key range [lo, hi) of each split of one row: split i covers
+    [i * split_keys, (i + 1) * split_keys) cut to [kv_lo, kv_len), empty
+    (lo >= hi) where they do not meet."""
+    kv_lo = max(0, kv_len - sliding_window) if sliding_window else 0
+    return [(max(kv_lo, i * split_keys), min(kv_len, (i + 1) * split_keys))
+            for i in range(num_splits)]
+
+
+def decode_scratch(num_slots: int, num_seqs: int, num_q_heads: int,
+                   head_dim: int, device) -> Tuple[Optional[torch.Tensor],
+                                                   Optional[torch.Tensor]]:
+    """The kernel's scratch for the partials, one per slot (the merge of
+    that block's splits): acc f32[num_slots, S, QH, D] and (m, l)
+    f32[num_slots, S, QH, 2]; none with one slot (every row then writes its
+    output directly). Its size follows the grid, not the page table."""
+    if num_slots == 1:
+        return None, None
+    shape = (num_slots, num_seqs, num_q_heads)
+    return (torch.empty((*shape, head_dim), dtype=torch.float32,
+                        device=device),
+            torch.empty((*shape, 2), dtype=torch.float32, device=device))
+
+
+def ref_decode_partials(
+    q: torch.Tensor,  # [S, QH, D]
+    kv_pages: torch.Tensor,  # [P, page_size, 2*KV, D]
+    kv_lens: torch.Tensor,  # i32[S]
+    page_indices: torch.Tensor,  # i32[S, pages_per_seq]
+    split_keys: int,
+    num_splits: int,
+    *,
+    sm_scale: float = 1.0,
+    sliding_window: Optional[int] = None,
+    soft_cap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    blocksparse: Optional[Tuple[int, int, int]] = None,
+    bs_head_offsets: Optional[torch.Tensor] = None,
+    bs_on: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain per-split flash partials of decode attention (the kernel's
+    block merges the splits of its slot as it goes, into one partial per
+    slot, in its online softmax): for split i of row s over its keys
+    (``decode_split_ranges``), with scores as ``attend`` forms them and
+    masked ones at -inf, m = their maximum, p = exp(score - m), l = sum(p)
+    and acc = p . v, unnormalised. Returns acc f32[num_splits, S, QH, D],
+    m and l f32[num_splits, S, QH]; a split with no visible key (past
+    kv_len, before the window, or all masked) has m = -inf, l = 0, acc =
+    0. Reads nothing past kv_len."""
+    if not bs_on:
+        blocksparse = None
+    num_seqs, num_q_heads, head_dim = q.shape
+    num_kv_heads = kv_pages.shape[2] // 2
+    qg = num_q_heads // num_kv_heads
+    dev = q.device
+    acc = torch.zeros((num_splits, num_seqs, num_q_heads, head_dim),
+                      device=dev)
+    m = torch.full((num_splits, num_seqs, num_q_heads), -math.inf,
+                   device=dev)
+    l = torch.zeros((num_splits, num_seqs, num_q_heads), device=dev)
+    for s, kv_len in enumerate(kv_lens.tolist()):
+        if kv_len <= 0:
+            continue
+        k, v = gather_kv(kv_pages, page_indices[s], kv_len)
+        pos = kv_len - 1
+        qf = q[s].float().reshape(num_kv_heads, qg, head_dim) * sm_scale
+        ranges = decode_split_ranges(kv_len, split_keys, num_splits,
+                                     sliding_window)
+        for i, (lo, hi) in enumerate(ranges):
+            if lo >= hi:
+                continue
+            keys = torch.arange(lo, hi, device=dev)
+            scores = torch.einsum("gkd,lgd->gkl", qf, k[lo:hi])
+            if soft_cap is not None:
+                scores = soft_cap * torch.tanh(scores / soft_cap)
+            if alibi_slopes is not None:
+                scores = scores + (alibi_slopes.float().to(dev).reshape(
+                    num_kv_heads, qg, 1) * (keys - pos).float())
+            if blocksparse is not None:
+                block, local, vert = blocksparse
+                bk = keys // block
+                offsets = bs_head_offsets.to(dev).long().reshape(
+                    num_kv_heads, qg, 1)
+                visible = ((pos // block - bk) < local) | (
+                    (bk + offsets + 1) % vert == 0)
+                scores = torch.where(visible, scores, -math.inf)
+            mx = scores.amax(-1)  # [KV, QG]
+            p = torch.where(mx[..., None] == -math.inf,
+                            torch.zeros_like(scores),
+                            torch.exp(scores - mx[..., None]))
+            m[i, s] = mx.reshape(num_q_heads)
+            l[i, s] = p.sum(-1).reshape(num_q_heads)
+            acc[i, s] = torch.einsum("gkl,lgd->gkd", p, v[lo:hi]).reshape(
+                num_q_heads, head_dim)
+    return acc, m, l
+
+
+def ref_merge_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain merge of flash partials over their first axis (the kernel's
+    second pass, and the JAX package's merge_attention_partials): with m*
+    the largest m, out = sum(w acc) / sum(w l), w = exp(m - m*), where
+    partials with m = -inf weigh 0 and a row with none is 0."""
+    m_max = m.amax(0)
+    w = torch.where(m == -math.inf, torch.zeros_like(m),
+                    torch.exp(m - m_max))
+    l_tot = (w * l).sum(0)
+    num = (w[..., None] * acc).sum(0)
+    return (num / torch.where(l_tot == 0, torch.ones_like(l_tot),
+                              l_tot)[..., None]).to(out_dtype)
+
+
+def ref_split_decode_attention(q, kv_pages, kv_lens, page_indices,
+                               split_keys: int, num_splits: int,
+                               **kw) -> torch.Tensor:
+    """Plain split-KV decode: ``ref_decode_partials``, then
+    ``ref_merge_partials``; dead rows (kv_len == 0) get zeros."""
+    return ref_merge_partials(*ref_decode_partials(
+        q, kv_pages, kv_lens, page_indices, split_keys, num_splits, **kw),
+        q.dtype)
+
+
 # The blocksparse arguments of both kernels' entry points: the phase table
 # (NULL: off), block size, local blocks, vertical stride.
 BLOCKSPARSE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3
@@ -163,9 +330,10 @@ BLOCKSPARSE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3
 def _kernel(page_type: str):
     fn = getattr(cuda_build.load("paged_decode_attention"),
                  f"paged_decode_attention_{page_type}")
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-                   + BLOCKSPARSE_ARGTYPES + [ctypes.c_void_p])
+                   + BLOCKSPARSE_ARGTYPES + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -263,7 +431,10 @@ def paged_decode_attention(
     bs_on: bool = True,
 ) -> torch.Tensor:
     """Decode attention over the paged cache. num_seqs is unused:
-    kv_lens == 0 marks the dead padded rows."""
+    kv_lens == 0 marks the dead padded rows. On the card one call is one
+    counted launch: the split kernel and, with more than one slot, the
+    combine kernel; the split plan it launched is kept in
+    ``paged_decode_attention.last_plan``."""
     del num_seqs
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
@@ -279,16 +450,28 @@ def paged_decode_attention(
         raise ValueError("kv_lens and page_indices need one row per query")
     _, page_size, ckv, _ = kv_pages.shape
     out = torch.empty_like(q)
+    split_keys, num_splits, num_slots = plan_decode_splits(
+        num_seqs, ckv // 2, page_indices.shape[1] * page_size, page_size,
+        device_sms(q.device.index if q.device.index is not None
+                else torch.cuda.current_device()))
+    part_acc, part_ml = decode_scratch(num_slots, num_seqs, num_q_heads,
+                                       head_dim, q.device)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
     err = _kernel(page_type)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), slopes_ptr(alibi_slopes), out.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
         num_seqs, num_q_heads,
         ckv // 2, head_dim, page_size, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
-        *bs, torch.cuda.current_stream(q.device).cuda_stream)
+        *bs, split_keys, num_slots,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
+    paged_decode_attention.last_plan = dict(
+        split_keys=split_keys, splits=num_splits, slots=num_slots,
+        blocks=num_seqs * (ckv // 2) * num_slots)
     count_launch(paged_decode_attention, page_type,
                  launch_shape(num_q_heads, ckv // 2, head_dim, alibi_slopes,
                               bs[0] is not None))
@@ -326,3 +509,6 @@ def count_launch(wrapper, page_type: str, shape: str) -> None:
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
 paged_decode_attention.launches_by_shape = {}
+# The split plan of the last launch: split_keys, splits (of the page
+# table), slots (blocks per row and kv head), blocks (the grid).
+paged_decode_attention.last_plan = None

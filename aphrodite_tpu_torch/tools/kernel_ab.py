@@ -7,21 +7,25 @@ with ALiBi and with blocksparse, and the shapes slice 8 brought in: QH / KV
 3, 5, 6, 7 and 16 at head_dim 128 and 1 to 16 at head_dim 64;
 ``int4p_matmul`` at groups 32, 64 and 128 and ``int4p_matmul_w4a8`` at
 groups 16, 32, 64 and 128 at the Llama-3.1-8B sites; the page-gather
-probe), records a SHA-256 of each output's bytes and times a few
-main-path shapes. A call that the checkout does not take (a shape or a
-group it raises for, a module it lacks) is left out of its run. Each run
-imports the package of the checkout it is started from, so to compare two
+probe), records a SHA-256 of each output's bytes (and keeps the
+attention outputs themselves, ``outputs.pt``) and times a few main-path
+shapes. A call that the checkout does not take (a shape or a group it
+raises for, a module it lacks) is left out of its run. Each run imports
+the package of the checkout it is started from, so to compare two
 checkouts, copy this file into the other one's
 ``aphrodite_tpu_torch/tools/`` and run, in turns:
 
     python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_A   # here
     (cd OTHER && python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_B)
-    python -m aphrodite_tpu_torch.tools.kernel_ab compare DIR_A DIR_B ...
+    python -m aphrodite_tpu_torch.tools.kernel_ab compare DIR_A DIR_B ... \
+        [--changed paged_decode_attention,ragged_paged_attention]
 
 ``compare`` fails unless every output that all runs have is equal bit for
-bit across them (it counts those only some runs have), and prints each
-timed shape's mean time per run directory. Needs a card; nothing falls
-back to the CPU.
+bit across them (it counts those only some runs have), except the outputs
+of the kernels ``--changed`` names: those must be finite and lie, row by
+row (the D values of one token and query head), within ROW_TOL of the
+largest element of the first run's row. It prints each timed shape's mean
+time per run directory. Needs a card; nothing falls back to the CPU.
 """
 
 import argparse
@@ -40,6 +44,15 @@ PAGE_TYPES = {"bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn,
               "e5m2": torch.float8_e5m2, "int8": torch.int8}
 INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
               "w13": (4096, 28672), "down": (14336, 4096)}
+# The kernel behind each output, by the first word of its key.
+KERNELS = {"ragged": "ragged_paged_attention",
+           "decode": "paged_decode_attention", "int4p": "int4p_matmul",
+           "w4a8": "int4p_matmul_w4a8", "gather_probe": "gather_probe"}
+# A changed kernel's outputs against each other, row by row: |a - b| <=
+# ROW_TOL * max|b row| (two bf16 ulps of the row's largest element, as
+# chip_smoke.py and tests/test_torch_cuda.py hold each kernel to its plain
+# version).
+ROW_TOL = 2.0**-6
 
 
 def time_ms(fn, iters: int) -> float:
@@ -113,7 +126,9 @@ def digest(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()
 
 
-def attention_outputs() -> Dict[str, str]:
+def attention_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """Digests of the attention outputs; the outputs themselves (the rows
+    of live tokens) go into `tensors`."""
     from aphrodite_tpu_torch.models.layers import get_alibi_slopes
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
@@ -168,6 +183,9 @@ def attention_outputs() -> Dict[str, str]:
                     if head_dim != 128:
                         key += f" d{head_dim}"
                     out[key] = digest(got)
+                    rows = (sum(q for q, _ in seqs) if op == "ragged"
+                            else got.shape[0])
+                    tensors[key] = got[:rows].cpu()
     return out
 
 
@@ -299,16 +317,33 @@ def run(out_dir: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: needs a card")
     os.makedirs(out_dir, exist_ok=True)
-    result = {"digests": {**attention_outputs(), **int4_outputs(),
+    tensors: Dict[str, torch.Tensor] = {}
+    result = {"digests": {**attention_outputs(tensors), **int4_outputs(),
                           **probe_outputs()},
               "ms": timings(), "device": torch.cuda.get_device_name(0)}
     with open(os.path.join(out_dir, "kernel_ab.json"), "w") as f:
         json.dump(result, f, indent=1)
+    torch.save(tensors, os.path.join(out_dir, "outputs.pt"))
     print(f"kernel_ab: {len(result['digests'])} outputs, "
           f"{len(result['ms'])} timed shapes -> {out_dir}", flush=True)
 
 
-def compare(dirs: List[str]) -> None:
+def rows_within(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst row's |got - want| over max|want row| (inf where got is
+    not finite)."""
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        return float("inf")
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    return float((err / scale.clamp_min(1e-30)).max()) if err.numel() else 0.0
+
+
+def compare(dirs: List[str], changed: List[str]) -> None:
+    unknown = set(changed) - set(KERNELS.values())
+    if unknown:
+        sys.exit(f"kernel_ab: --changed names no kernel of {sorted(KERNELS.values())}: "
+                 f"{sorted(unknown)}")
     runs = []
     for d in dirs:
         with open(os.path.join(d, "kernel_ab.json")) as f:
@@ -317,8 +352,27 @@ def compare(dirs: List[str]) -> None:
     common = sorted(set.intersection(*keys))
     some = sorted(set.union(*keys) - set(common))
     first = runs[0]["digests"]
-    differ = [k for k in common
-              if any(r["digests"][k] != first[k] for r in runs[1:])]
+    is_changed = [k for k in common if KERNELS[k.split()[0]] in changed]
+    differ = [k for k in common if k not in is_changed
+              and any(r["digests"][k] != first[k] for r in runs[1:])]
+    if is_changed:
+        outs = [torch.load(os.path.join(d, "outputs.pt")) for d in dirs]
+        worst, far, same = 0.0, [], 0
+        for k in is_changed:
+            if all(r["digests"][k] == first[k] for r in runs[1:]):
+                same += 1
+            for o in outs[1:]:
+                ratio = rows_within(o[k], outs[0][k])
+                worst = max(worst, ratio)
+                if not ratio <= ROW_TOL:
+                    far.append(k)
+        print(f"kernel_ab: {len(is_changed)} outputs of {sorted(changed)}: "
+              f"worst row |diff| / max|row| {worst:.3e} (tolerance "
+              f"{ROW_TOL:.3e}); {same} equal bit for bit across all runs",
+              flush=True)
+        if far:
+            sys.exit(f"kernel_ab: {len(set(far))} outputs of the changed "
+                     f"kernels lie outside ROW_TOL, first {sorted(set(far))[:5]}")
     for key in sorted(set.union(*(set(r["ms"]) for r in runs))):
         print(f"time {key}: " + ", ".join(
             f"{d} {r['ms'][key]:.4f} ms" if key in r["ms"] else f"{d} -"
@@ -330,8 +384,9 @@ def compare(dirs: List[str]) -> None:
     if differ:
         sys.exit(f"kernel_ab: {len(differ)} of {len(common)} outputs "
                  f"differ, first {differ[:5]}")
-    print(f"kernel_ab: all {len(common)} outputs that every run has are "
-          f"equal, bit for bit, across {len(dirs)} runs", flush=True)
+    print(f"kernel_ab: all {len(common) - len(is_changed)} outputs of the "
+          f"other kernels that every run has are equal, bit for bit, across "
+          f"{len(dirs)} runs", flush=True)
 
 
 def main() -> None:
@@ -341,11 +396,14 @@ def main() -> None:
     p_run.add_argument("--out", required=True)
     p_cmp = sub.add_parser("compare")
     p_cmp.add_argument("dirs", nargs="+")
+    p_cmp.add_argument("--changed", default="",
+                       help="comma-separated kernels whose outputs are held "
+                            "at ROW_TOL instead of bit for bit")
     args = parser.parse_args()
     if args.cmd == "run":
         run(args.out)
     else:
-        compare(args.dirs)
+        compare(args.dirs, [k for k in args.changed.split(",") if k])
 
 
 if __name__ == "__main__":

@@ -59,7 +59,8 @@ Phases, each of which must pass or the script exits non-zero:
    Phi-3-Small's blocksparse mask on bf16 and E4M3 pages (decode of 16
    rows of 1056-6176 keys, a prefill step of the last 2048 tokens of the
    longest prompt; the library call takes the mask as a bool attn_mask,
-   the bound counts the K/V rows some query head sees). The int4
+   the bound counts the K/V rows some query head sees); at each decode
+   shape it prints the split-KV plan (keys a split, splits, blocks). The int4
    matmul is timed at T = 32 and T = 2048 at each site (and at w13 at
    group 16); its library call is one
    torch.matmul of x with the pre-dequantized bf16 weight (four times the
@@ -115,8 +116,9 @@ Phases, each of which must pass or the script exits non-zero:
    times per layer, every other one the W4A16 kernel; its logits (a
    prefill and a 16-row decode forward, which take W4A8, and an 8-row
    decode forward, which takes W4A16, each forward's launches held to its
-   route) against the plain W4A8 and W4A16 products, and its rates
-   printed beside the gptq path's. ``int8`` and ``fp8`` (4 layers,
+   route) against the plain W4A8 and W4A16 products (argmax on the rows
+   that the plain products summed in another f32 order decide), and its
+   rates printed beside the gptq path's. ``int8`` and ``fp8`` (4 layers,
    quantized at load on the card): the group-wise body (G = K), or the
    e4m3 quantizer and the e4m3 body, 4 launches per layer and forward,
    logits against the plain product; on the fp8 path once with the plain
@@ -368,7 +370,7 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # the row's largest element; ATTN_TOL allows two. q is drawn at std 3
 # against K at std 0.5, so each softmax is peaked (about 100 effective keys
 # out of 1000): a kernel that skips the online-softmax rescale or drops one
-# 32-key tile of a long row misses by several times this bound.
+# 64-key tile of a long row misses by several times this bound.
 ATTN_TOL = 2.0**-6
 Q_STD = 3.0
 KV_STD = 0.5
@@ -458,7 +460,10 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 (and fp8) tensor-core peak
 # product with the order of K reversed) and holds the kernel's logits at
 # max(LOGIT_TOL, FP8_FLOOR_FACTOR x the floor's worst row), and their
 # argmax on every row whose plain top two lie more than twice the floor's
-# largest change apart (a closer pair no f32 order decides).
+# largest change apart (a closer pair no f32 order decides). The W4A8
+# product (exact int32 group sums, f32 fix-ups) meets the same floor after
+# 32 layers: there the plain product with K reversed is a third run, and
+# argmax is held on the rows it decides, the logits at LOGIT_TOL.
 FP8_FLOOR_FACTOR = 1.5
 # The activation quantizer, (T, K) of its checks and timings.
 ACT_CHECK_T = (1, 33, 2048)
@@ -999,9 +1004,10 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     Small's mask on every call, and the prefill step is the last 2048
     tokens of the longest prompt (where the mask hides the most); the
     library call takes the mask as a bool tensor, and the bound counts the
-    K/V rows some query head can see and the visible pairs. Returns, per
-    kernel variant, a dict of shape, ms, plain_ms, library_ms, bound_ms,
-    bound_by."""
+    K/V rows some query head can see and the visible pairs. Prints the
+    decode kernel's split plan (split keys, splits, blocks) at each shape,
+    as the wrapper launched it. Returns, per kernel variant, a dict of
+    shape, ms, plain_ms, library_ms, bound_ms, bound_by."""
     import torch
 
     from aphrodite_tpu_torch.models.layers import get_alibi_slopes
@@ -1096,6 +1102,16 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
             print(f"time {variant} [{name}]: the same call with the gate off "
                   f"(the kernel without blocksparse) "
                   f"{out[variant]['gate_off_ms']:.4f} ms", flush=True)
+        if decode_kernel:
+            # The split-KV plan the wrapper launched at this shape, as it
+            # recorded it (printed only).
+            plan = paged_decode_attention.last_plan
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            print(f"splits {variant} [{name}]: {plan['splits']} splits of "
+                  f"{plan['split_keys']} keys over {plan['blocks']} blocks "
+                  f"({plan['slots']} per row and kv head) for {sms} SMs, as "
+                  "launched", flush=True)
         bf16_variant = variant_name(kernel, "bf16", blocksparse)
         beside = ("" if page_type == "bf16" else
                   f" (bf16 pages, same case: {out[bf16_variant]['ms']:.4f} "
@@ -2338,9 +2354,10 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     import aphrodite_tpu_torch.ops.quant_matmul as quant_matmul_mod
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
     from aphrodite_tpu_torch.ops.quant_matmul import (
-        fp8_w8a8_matmul_ref, int4_matmul_ref, int4p_matmul,
+        dequantize_int4, fp8_w8a8_matmul_ref, int4_matmul_ref, int4p_matmul,
         int4p_matmul_ref, int4p_matmul_w4a8, int4p_matmul_w4a8_ref,
-        int8_matmul_ref, quantize_activations_e4m3, quantize_activations_int8)
+        int8_matmul_ref, quantize_activations_e4m3, quantize_activations_int8,
+        unpack_int4_rows)
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import (
@@ -2464,6 +2481,20 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         return (torch.matmul(xq.float().flip(-1), q.float().flip(0))
                 * act_scale * scale)
 
+    def reordered_w4a8(x, q4p, scale, zero, group, layer_idx=None):
+        # The plain W4A8 product with its sums in another f32 order (K
+        # reversed): the w4a8 path's floor.
+        xq, sx = quantize_activations_int8(x)
+        w = dequantize_int4(unpack_int4_rows(q4p[layer_idx]),
+                            scale[layer_idx], zero[layer_idx], group)
+        return torch.matmul(xq.float().flip(-1), w.flip(0)) * sx
+
+    def reordered_int4(x, q4p, scale, zero, group, layer_idx=None):
+        # plain_int4 with K reversed (the W4A16 forward of the w4a8 path).
+        w = dequantize_int4(unpack_int4_rows(q4p[layer_idx]),
+                            scale[layer_idx], zero[layer_idx], group)
+        return torch.matmul(x.float().flip(-1), w.flip(0))
+
     swaps = {
         "attention": [(llama_mod, "ragged_paged_attention", plain_attention)],
         "int4": [(qlinear_mod, "int4p_matmul", plain_int4)],
@@ -2491,6 +2522,10 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         if what == "fp8 exact":
             qlinear_mod.fp8_w8a8_matmul = reordered_fp8
             floor = run()
+        if what == "w4a8":
+            qlinear_mod.int4p_matmul_w4a8 = reordered_w4a8
+            qlinear_mod.int4p_matmul = reordered_int4
+            w4a8_floor = run()
     finally:
         for (module, attr, _), kernel in zip(swaps, kernels):
             setattr(module, attr, kernel)
@@ -2511,7 +2546,8 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         print(f"logits {what}: {len(dummy)} dummy tokens at the mask value "
               "on both sides, left out of the comparison", flush=True)
     tol = LOGIT_TOL
-    # Rows whose argmax is held: all, or (fp8) those the floor decides.
+    # Rows whose argmax is held: all, or (fp8, w4a8) those the floor
+    # decides.
     decided = [None] * len(forwards)
     if what == "fp8 exact":
         print(f"fp8 exact: {len(site_ratios)} products on the plain run's "
@@ -2531,6 +2567,22 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
                   f"{row_ratio(f, w):.3e}, largest change {change:.3e}, "
                   f"argmax agreement "
                   f"{float((f.argmax(-1) == w.argmax(-1)).float().mean()):.2f}"
+                  f"; argmax held on {int(decided[i].sum())} of "
+                  f"{len(decided[i])} rows", flush=True)
+    if what == "w4a8":
+        # The logits tolerance stays LOGIT_TOL; argmax is held on the rows
+        # the floor decides, as on the fp8 path.
+        for i, (f, w, g) in enumerate(zip(w4a8_floor, want, got)):
+            top2 = w.topk(2, dim=-1).values
+            change = float((f - w).abs().max())
+            decided[i] = (top2[:, 0] - top2[:, 1]) > 2 * change
+            print(f"logits w4a8 floor {list(forwards)[i]} (plain, K "
+                  f"reversed): worst row err / max|row| "
+                  f"{row_ratio(f, w):.3e}, largest change {change:.3e}, "
+                  f"rows whose argmax the floor moves "
+                  f"{(f.argmax(-1) != w.argmax(-1)).nonzero()[:, 0].tolist()}"
+                  f", rows whose argmax the kernel moves "
+                  f"{(g.argmax(-1) != w.argmax(-1)).nonzero()[:, 0].tolist()}"
                   f"; argmax held on {int(decided[i].sum())} of "
                   f"{len(decided[i])} rows", flush=True)
     worst = 0.0

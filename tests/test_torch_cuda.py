@@ -320,8 +320,8 @@ def test_attention_kernels_blocksparse_on_card(op, qg, name, block):
     head (4 kv heads, Phi-3-Small's hetero phases: arange(QH) * max(1,
     vert // QH)), on each page type, against its plain version row by row
     (ROW_TOL), over rows of 1000+ keys, far past the local window; at QG 1
-    and 2 the first 128-key tile of some kv heads is dead for all of their
-    heads. The narrow variants equal the bf16 kernel on the widened pages,
+    and 2 the first 128 keys (two 64-key tiles) of some kv heads are dead
+    for all of their heads. The narrow variants equal the bf16 kernel on the widened pages,
     each launch is counted under its shape, and the gate off equals, bit
     for bit, the kernel without blocksparse."""
     _card_or_skip()
@@ -376,6 +376,124 @@ def test_attention_kernels_blocksparse_on_card(op, qg, name, block):
     before = fn.launches_by_shape.get(f"qg{qg} d128", 0)
     assert torch.equal(fn(q, pages, *args, bs_on=False, **sparse), dense)
     assert fn.launches_by_shape[f"qg{qg} d128"] == before + 1
+
+
+# Decode batches at the edges of the split-KV kernel's key ranges: rows of
+# 8000+ keys (many splits), one row 16 times longer than the rest, rows
+# that end exactly on a split or a 64-key tile boundary (split_keys is 256
+# here), and long rows among many dead padded ones, so that each block
+# takes several splits of its row. Each: the live rows' lengths and the
+# number of dead rows after them.
+DECODE_EDGES = {
+    "many_splits": ([8191, 8000, 8192, 5000, 300, 8193], 2),
+    "one_long_row": ([4096, 256, 250, 240, 230, 256, 200, 180], 2),
+    "boundaries": ([64, 128, 256, 512, 1024, 2048, 63, 65, 1023, 1025, 2047,
+                    2049, 1, 3000], 2),
+    "splits_per_block": ([8191, 5000, 3001, 2048, 257], 59),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 333], ids=["full", "window333"])
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("edge", sorted(DECODE_EDGES))
+def test_decode_kernel_split_edges_on_card(edge, name, window):
+    """The split-KV decode kernel (QG 7 on 4 kv heads, Qwen2.5-7B's ratio)
+    at the edges of its splits and tiles, on each page type, against the
+    plain version row by row (ROW_TOL) and the plain split pair; the
+    narrow variants equal the bf16 kernel on the widened pages, and two
+    calls are equal bit for bit (each block and the merge run in a fixed
+    order)."""
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        plan_decode_splits, ref_split_decode_attention)
+
+    _card_or_skip()
+    lens, dead = DECODE_EDGES[edge]
+    rng = np.random.default_rng(80 + len(lens))
+    seqs = [(1, n) for n in lens]
+    rows = len(seqs)
+    arrays = paged_batch(rng, seqs, 28, 4, 128, padded_seqs=rows + dead,
+                         padded_tokens=rows + dead)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(sm_scale=128**-0.5, sliding_window=window)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    kv_lens, page_idx = (torch.from_numpy(a).cuda() for a in arrays[2:4])
+    got = paged_decode_attention(q, pages, kv_lens, page_idx, **kw)
+    torch.cuda.synchronize()
+    want = ref_paged_decode_attention(q, pages, kv_lens, page_idx, **kw)
+    assert_rows_close(got[:rows], want[:rows])
+    split, n, slots = plan_decode_splits(
+        rows + dead, 4, page_idx.shape[1] * PS, PS,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    assert paged_decode_attention.last_plan["slots"] == slots
+    if edge == "splits_per_block":
+        assert slots < -(-max(lens) // split)  # a block takes several
+    assert_rows_close(got[:rows], ref_split_decode_attention(
+        q, pages, kv_lens, page_idx, split, n, **kw)[:rows])
+    assert not got[rows:].float().any()  # dead rows: zeros
+    assert torch.equal(got, paged_decode_attention(q, pages, kv_lens,
+                                                   page_idx, **kw))
+    if name != "bf16":
+        assert torch.equal(got, paged_decode_attention(
+            q, pages.to(torch.bfloat16), kv_lens, page_idx, **kw))
+
+
+# Ragged batches at the edges of the kernel's 64-key tiles: chunks that
+# start mid-page and are not multiples of a tile (on cached prefixes),
+# decode tokens mixed with prefill chunks, and windows whose edges fall
+# inside a tile.
+RAGGED_EDGES = {
+    "mid_page_chunks": ([(37, 53), (101, 1130), (70, 133), (129, 1000),
+                         (5, 77)], None),
+    "decode_mixed_with_prefill": ([(1, 700), (64, 64), (1, 65), (200, 1300),
+                                   (1, 1), (1, 4097), (63, 190)], None),
+    "window_inside_tiles": ([(90, 1090), (1, 1500), (150, 150), (33, 97),
+                             (1, 300)], 77),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("qg", [4, 7])
+@pytest.mark.parametrize("edge", sorted(RAGGED_EDGES))
+def test_ragged_kernel_tile_edges_on_card(edge, qg, name):
+    """The tensor-core ragged kernel at the edges of its 64-key tiles and
+    its 64-row query tiles, QG 4 (an exact instantiation) and 7 (the
+    runtime one), on each page type, against the plain version row by row
+    (ROW_TOL); the narrow variants equal the bf16 kernel on the widened
+    pages, and padding tokens stay zero."""
+    _card_or_skip()
+    seqs, window = RAGGED_EDGES[edge]
+    rng = np.random.default_rng(90 + qg)
+    rows = sum(q for q, _ in seqs)
+    arrays = paged_batch(rng, seqs, qg * 4, 4, 128, padded_seqs=8,
+                         padded_tokens=rows + 9)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(sm_scale=128**-0.5, sliding_window=window)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    idx = [torch.from_numpy(a).cuda() for a in arrays[2:]]
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    got = ragged_paged_attention(q, pages, *idx, ns, **kw)
+    torch.cuda.synchronize()
+    assert_rows_close(got[:rows],
+                      ref_ragged_paged_attention(q, pages, *idx, ns,
+                                                 **kw)[:rows])
+    assert not got[rows:].float().any()  # padding tokens: zeros
+    if name != "bf16":
+        assert torch.equal(got, ragged_paged_attention(
+            q, pages.to(torch.bfloat16), *idx, ns, **kw))
 
 
 @pytest.mark.cuda
