@@ -18,7 +18,12 @@
 // the k axis is a loop inside the block over a ring of cp.async stages and
 // the accumulators are tensor-core fragments in registers.
 //
-// Two bodies, as on the TPU:
+// Three level bodies. At T >= 64 the wrapper sends the dense body's calls to
+// the wgmma body of dequant_gemm.cuh (int4_matmul_dense_wgmma below), with
+// the same arithmetic, and int8 per-column containers (G = K, zero 0) to its
+// per-column form; the TPU's int4_matmul_dispatch takes its dense body at
+// T >= 64 too. This file's two bodies serve T < 64 and calls that name the
+// group-wise body, as on the TPU:
 //
 // - dense: every level is converted to f32, w = (q - zero) * scale is formed
 //   in f32 and rounded to bf16, and the tile goes to mma.sync with f32
@@ -76,6 +81,7 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include "dequant_gemm.cuh"
 #include "matmul_common.cuh"
 
 namespace {
@@ -92,15 +98,6 @@ constexpr int E4M3 = 2;
 // A warp owns 32 columns as four 8-column tiles, interleaved: tile j holds
 // columns 4 * i + j, so the four level bytes a thread loads as one word
 // belong to its four tiles.
-
-// Two int8 levels, each in the low byte of a 16-bit lane, as two bf16 values.
-__device__ __forceinline__ uint32_t levels_to_bf16x2(uint32_t t) {
-  const uint32_t mag = (t & 0x007F007Fu) | 0x43004300u;  // 128 + low 7 bits
-  const uint32_t off = (t & 0x00800080u) | 0x43004300u;  // 128, or 256 if negative
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
 
 __device__ __forceinline__ float level(uint32_t word, int j) {
   return static_cast<float>(static_cast<int8_t>((word >> (8 * j)) & 0xFFu));
@@ -474,4 +471,46 @@ extern "C" int fp8_w8a8_matmul_e4m3(const void* x, const void* q, void* out, voi
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);
+}
+
+// The wgmma body (dequant_gemm.cuh) for the dense arithmetic, or with
+// per_column = 1 for an int8 per-column container (G = K, zero unused,
+// scale [1, N] applied to the f32 sums). block_t, stages and splits as for
+// int4p_matmul_dense_bf16, splits dividing the K / 64 stages. Returns the
+// CUDA error code of the launches (0 = success), -1 for arguments the body
+// does not take, or -2 if a tensor map could not be made.
+extern "C" int int4_matmul_dense_wgmma(const void* x, const void* q, const void* scale,
+                                       const void* zero, void* out, void* partial, int T, int K,
+                                       int N, int group, int x_stride, int block_t, int stages,
+                                       int splits, int per_column, void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % dqg::KS != 0 || group < 1 || K % group != 0 ||
+      (64 % group != 0 && group % 64 != 0) || x_stride % 8 != 0 || (per_column && group != K))
+    return -1;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zero);
+  float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partial);
+  const int scales = per_column ? dqg::PER_COLUMN : group < 16 ? dqg::ROW_GLOBAL
+                                                               : dqg::GROUP_ROWS;
+#define DQG_LAUNCH(bt, sc)                                                                   \
+  dqg::launch<bt, false, sc>(x, x_stride, q, s, z, o, part, T, K, N, group, stages, splits, \
+                             stream)
+  switch (block_t * 4 + scales) {
+    case 64 * 4 + dqg::GROUP_ROWS:
+      return DQG_LAUNCH(64, dqg::GROUP_ROWS);
+    case 64 * 4 + dqg::ROW_GLOBAL:
+      return DQG_LAUNCH(64, dqg::ROW_GLOBAL);
+    case 64 * 4 + dqg::PER_COLUMN:
+      return DQG_LAUNCH(64, dqg::PER_COLUMN);
+    case 128 * 4 + dqg::GROUP_ROWS:
+      return DQG_LAUNCH(128, dqg::GROUP_ROWS);
+    case 128 * 4 + dqg::ROW_GLOBAL:
+      return DQG_LAUNCH(128, dqg::ROW_GLOBAL);
+    case 128 * 4 + dqg::PER_COLUMN:
+      return DQG_LAUNCH(128, dqg::PER_COLUMN);
+    default:
+      return -1;
+  }
+#undef DQG_LAUNCH
 }

@@ -14,20 +14,23 @@
 // fragments in registers, and the layer index of the stacked form is a
 // pointer offset made by the wrapper.
 //
-// Arithmetic: the group-wise form of the TPU's _kernel_packed_groupwise, at
-// every T. Raw nibbles go to the tensor cores and the group's scale and zero
-// are applied to f32 partial sums:
+// Two bodies, chosen by the wrapper as the TPU's int4p_matmul_pallas chooses
+// (T < 64: group-wise, else dense):
 //
-//   out = sum_g  s_g * (x_g @ q_g)  -  s_g * z_g * rowsum(x_g)
+// - group-wise, in this file: the form of the TPU's _kernel_packed_groupwise.
+//   Raw nibbles go to the tensor cores and the group's scale and zero are
+//   applied to f32 partial sums,
 //
-// The TPU's other body, _kernel_packed_dense (T >= 64 there), dequantizes
-// each weight in f32 and rounds it to bf16 before the product, as
-// int4p_matmul_ref does; the two differ by that rounding, 2^-9 relative per
-// term. A dense kernel (wmma, weights dequantized into shared memory) was
-// written and timed here too: the group-wise one in 32-row blocks was faster
-// at all four Llama-3.1-8B sites at every T from 1 to 2048, so it is the only
-// one kept. It agrees with the exact f32-weight product to the order of the
-// f32 sums.
+//     out = sum_g  s_g * (x_g @ q_g)  -  s_g * z_g * rowsum(x_g),
+//
+//   so it agrees with the exact f32-weight product to the order of the f32
+//   sums, and with the plain version (which rounds the dequantized weight to
+//   bf16) to that rounding, 2^-9 relative per term.
+// - dense (int4p_matmul_dense_bf16 below, the body of dequant_gemm.cuh): the
+//   TPU's _kernel_packed_dense, each weight dequantized in f32 and rounded to
+//   bf16 before a wgmma product fed by TMA, as int4p_matmul_ref does.
+//
+// The rest of this note is about the group-wise body.
 //
 // Bound on the H100:
 // - small T (decode): bytes. K * N / 2 weight bytes and 8 * (K / G) * N bytes
@@ -69,6 +72,7 @@
 // (K / 2) % G == 0, (K / 2) % 32 == 0, x bf16 with unit stride in its last axis and a row
 // stride that is a multiple of 8, all pointers 16-byte aligned.
 
+#include "dequant_gemm.cuh"
 #include "matmul_common.cuh"
 
 namespace {
@@ -387,4 +391,34 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);
+}
+
+// The dense body (dequant_gemm.cuh): block_t token rows per block (64 or
+// 128), a ring of `stages` stages, and K split `splits` ways (dividing the
+// (K / 2) / 64 stages of packed rows; with splits > 1, `partial` is an f32
+// scratch buffer [splits, T, N]). Returns the CUDA error code of the
+// launches (0 = success), -1 for arguments the body does not take, or -2 if
+// a tensor map could not be made.
+extern "C" int int4p_matmul_dense_bf16(const void* x, const void* q4p, const void* scale,
+                                       const void* zero, void* out, void* partial, int T, int K,
+                                       int N, int group, int x_stride, int block_t, int stages,
+                                       int splits, void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % dqg::KS != 0 || group % 16 != 0 ||
+      (K / 2) % group != 0 || x_stride % 8 != 0)
+    return -1;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zero);
+  float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partial);
+  switch (block_t) {
+    case 64:
+      return dqg::launch<64, true, dqg::GROUP_ROWS>(x, x_stride, q4p, s, z, o, part, T, K, N,
+                                                    group, stages, splits, stream);
+    case 128:
+      return dqg::launch<128, true, dqg::GROUP_ROWS>(x, x_stride, q4p, s, z, o, part, T, K, N,
+                                                     group, stages, splits, stream);
+    default:
+      return -1;
+  }
 }

@@ -1,5 +1,6 @@
 // What the quantized matmul kernels share: cp.async staging, the bf16
-// tensor-core instruction and the pass that sums split-K partials.
+// tensor-core instruction, int8 levels as bf16 and the pass that sums
+// split-K partials.
 
 #pragma once
 
@@ -34,6 +35,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two int8 levels, each in the low byte of a 16-bit lane, as two bf16 values.
+__device__ __forceinline__ uint32_t levels_to_bf16x2(uint32_t t) {
+  const uint32_t mag = (t & 0x007F007Fu) | 0x43004300u;  // 128 + low 7 bits
+  const uint32_t off = (t & 0x00800080u) | 0x43004300u;  // 128, or 256 if negative
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // out[i] = partial[0][i] + partial[1][i] + ... in that order, so a split-K

@@ -24,26 +24,33 @@ needs (K/2) % G == 0.
   int4_matmul_pallas_stacked) or raise. It has the TPU's two bodies: the
   dense one rounds the dequantized weight to bf16 as the plain version
   does, the group-wise one works as described below for the packed
-  kernel.
+  kernel. From ``DENSE_MIN_T`` tokens on, the dense body's calls go to the
+  prefill body (below).
 - ``int4p_matmul``: the dispatching wrapper of the packed form. CPU
   tensors take the plain version; CUDA tensors launch the kernel
   ``csrc/int4p_matmul.cu`` (which replaces the TPU kernel
-  aphrodite_tpu/ops/quant_matmul.py: int4p_matmul_pallas) or raise. It
-  is bound by weight bytes at decode sizes and by tensor-core operations
-  at prefill sizes; the source says what it does about each. The kernel
-  uses the group-wise form (raw nibbles on the tensor cores, scale and
-  zero applied to f32 partial sums), so it does not round the dequantized
-  weight to bf16 as the plain version does: it agrees with the exact
-  f32-weight product to the order of the sums, and with the plain version
-  to that rounding (2^-9 relative per term).
+  aphrodite_tpu/ops/quant_matmul.py: int4p_matmul_pallas) or raise. As
+  the TPU kernel it takes a group-wise body under ``DENSE_MIN_T`` tokens
+  and a dense one from there (``int4p_body``). The group-wise body is
+  bound by weight bytes at decode sizes: raw nibbles go to the tensor
+  cores and scale and zero are applied to f32 partial sums, so it agrees
+  with the exact f32-weight product to the order of the sums, and with the
+  plain version to the bf16 rounding of the weight (2^-9 relative per
+  term). The dense body is the prefill body.
+- The prefill body (``csrc/dequant_gemm.cuh``, ``dequant_gemm_plan``),
+  shared by both kernels: a wgmma product fed by TMA, the weight
+  dequantized in f32 and rounded to bf16 as the plain version does, so it
+  agrees with the plain version to the order of the f32 sums. It is bound
+  by tensor-core operations; the source says what it does about that.
 - ``int4p_matmul_w4a8``: the same packed container times per-token int8
   activations (``quantize_activations_int8``); the plain version is
   ``int4p_matmul_w4a8_ref``. CUDA tensors launch the activation quantizer
   and the W4A8 kernel of ``csrc/int4p_matmul_w4a8.cu`` (which replaces
   the TPU kernel int4p_matmul_w4a8_pallas) or raise.
 - ``int8_matmul``: int8 per-channel weight-only, ``{q, scale}``. On the
-  card it is the unpacked container at G = K with zero 0 and launches the
-  group-wise body of ``csrc/int4_matmul.cu``.
+  card it is the unpacked container at G = K with zero 0: the group-wise
+  body of ``csrc/int4_matmul.cu`` under ``DENSE_MIN_T`` tokens, the
+  prefill body's per-column form from there.
 - ``fp8_w8a8_matmul``: e4m3 weights times per-token e4m3 activations. On
   the card the quantizer kernel, then the e4m3 body of
   ``csrc/int4_matmul.cu`` (both operands widened to f16 in registers, f32
@@ -75,6 +82,17 @@ _NUM_SMS = 132  # H100 SXM
 INT4_K_MULTIPLE = 64
 INT4_BODIES = {"groupwise": 0, "dense": 1}
 INT4_GROUPWISE_MIN_GROUP = 16  # one m16n8k16 step
+# The prefill body (csrc/dequant_gemm.cuh). Both wrappers send a product of
+# DENSE_MIN_T tokens or more to it, the threshold at which the JAX package's
+# int4p_matmul_pallas and int4_matmul_dispatch take their dense bodies.
+DENSE_MIN_T = 64
+DENSE_FORMATS = ("packed", "unpacked", "per_column")
+_DG_COLS = 256  # weight columns per block
+_DG_K_STAGE = 64  # raw weight rows (levels, or packed bytes) per stage
+_DG_TOKEN_ROWS = (64, 128)  # token rows per block, the instantiations
+_DG_SMEM = 232448 - 1024  # dynamic shared memory a launch may ask for
+_DG_MAX_STAGES = 8
+_DG_MAX_SPLITS = 16
 
 
 def pack_int4_rows(q4):
@@ -152,6 +170,121 @@ def kernel_plan(T: int, K: int, N: int,
     return block_m, -(-k_tiles // per_split)
 
 
+def _group_rows_per_stage(rows: int, group: int) -> int:
+    """Rows of the scale table that one stage's raw rows touch, at most."""
+    return max((r0 + _DG_K_STAGE - 1) // group - r0 // group + 1
+               for r0 in range(0, rows, _DG_K_STAGE))
+
+
+def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
+                      block_t: Optional[int] = None,
+                      splits: Optional[int] = None) -> dict:
+    """How the prefill body runs a product, or ValueError for a shape it
+    does not take. ``fmt``: "packed" (q4p [K/2, N]), "unpacked" (q4 [K, N])
+    or "per_column" (int8 per-channel, G = K). Keys: ``block_t`` (token
+    rows per block: 64 up to T = 64, else 128, unless given), ``stages``
+    (the ring's depth: as many as fit the shared memory, up to 8),
+    ``splits`` (blocks that share one output tile's k range: 1 where the
+    tiles fill the card's SMs, else the divisor of the k stages with the
+    least estimated time, the partial sums' pass included),
+    ``smem`` (dynamic shared memory bytes), ``stage_bytes``, ``sz_rows``
+    (scale rows staged per stage and half), ``k_stages``, ``blocks`` (of
+    the whole grid). ``block_t`` and ``splits`` may be given (timing
+    sweeps). Host values only, so a launch can go into a CUDA graph."""
+    if fmt not in DENSE_FORMATS:
+        raise ValueError(f"prefill body format must be one of "
+                         f"{DENSE_FORMATS}, got {fmt!r}")
+    rows = K // 2 if fmt == "packed" else K
+    if T < 1 or N % KERNEL_N_MULTIPLE or rows % _DG_K_STAGE or (
+            fmt == "packed" and K % 2):
+        raise ValueError(
+            f"the prefill body takes N that is a multiple of "
+            f"{KERNEL_N_MULTIPLE} and {_DG_K_STAGE}-row stages of the raw "
+            f"weight ({'K/2' if fmt == 'packed' else 'K'} a multiple of "
+            f"{_DG_K_STAGE}); got T {T}, K {K}, N {N}")
+    if fmt == "packed" and (group % KERNEL_GROUP_MULTIPLE or rows % group):
+        raise ValueError(f"the prefill body takes a packed group that is a "
+                         f"multiple of {KERNEL_GROUP_MULTIPLE} and divides "
+                         f"K/2; got group {group}, K {K}")
+    if fmt == "unpacked" and (group < 1 or K % group or (
+            _DG_K_STAGE % group and group % _DG_K_STAGE)):
+        raise ValueError(f"the prefill body takes an unpacked group that "
+                         f"divides K and either divides {_DG_K_STAGE} or is "
+                         f"a multiple of it; got group {group}, K {K}")
+    if fmt == "per_column" and group != K:
+        raise ValueError(f"the per-column form takes G = K, got group "
+                         f"{group}, K {K}")
+    if block_t is None:
+        block_t = _DG_TOKEN_ROWS[0] if T <= _DG_TOKEN_ROWS[0] else \
+            _DG_TOKEN_ROWS[1]
+    if block_t not in _DG_TOKEN_ROWS:
+        raise ValueError(f"block_t must be one of {_DG_TOKEN_ROWS}, got "
+                         f"{block_t}")
+    atoms = 2 if fmt == "packed" else 1
+    staged = fmt == "packed" or (fmt == "unpacked"
+                                 and group >= INT4_GROUPWISE_MIN_GROUP)
+    sz_rows = _group_rows_per_stage(rows, group) if staged else 0
+    stage_bytes = (atoms * block_t * 128 + 2 * _DG_K_STAGE * 128
+                   + 2 * atoms * sz_rows * _DG_COLS * 4)
+    stages = min(_DG_MAX_STAGES, (_DG_SMEM - 1024) // stage_bytes)
+    k_stages = rows // _DG_K_STAGE
+    tiles = -(-N // _DG_COLS) * -(-T // block_t)
+
+    def cost_us(d):
+        # Waves of blocks times a block's stages (and two for its prologue
+        # and epilogue), at about a microsecond a stage on an H100, plus
+        # the pass that reads the d partial sums and writes the output.
+        waves = -(-tiles * d // _NUM_SMS)
+        reduce = (d + 1) * T * N * 4 / 3.35e6 if d > 1 else 0.0
+        return waves * (k_stages // d + 2) + reduce
+
+    if splits is not None:
+        if splits < 1 or k_stages % splits:
+            raise ValueError(f"splits must divide the {k_stages} k stages, "
+                             f"got {splits}")
+    elif tiles >= _NUM_SMS:  # a grid that fills the SMs is not split
+        splits = 1
+    else:
+        splits = min(
+            (d for d in range(1, min(_DG_MAX_SPLITS, k_stages) + 1)
+             if k_stages % d == 0), key=lambda d: (cost_us(d), d))
+    return dict(block_t=block_t, stages=stages, splits=splits,
+                smem=stages * stage_bytes + 1024, stage_bytes=stage_bytes,
+                sz_rows=sz_rows, k_stages=k_stages, blocks=tiles * splits)
+
+
+def int4p_body(T: int, body: Optional[str] = None) -> str:
+    """The body ``int4p_matmul`` launches: the one named, else the JAX
+    package's int4p_matmul_pallas rule (group-wise under DENSE_MIN_T
+    tokens, dense from there)."""
+    if body is None:
+        return "groupwise" if T < DENSE_MIN_T else "dense"
+    if body not in INT4_BODIES:
+        raise ValueError(f"int4p_matmul body must be one of "
+                         f"{sorted(INT4_BODIES)}, got {body!r}")
+    return body
+
+
+def int4_route(T: int, body: Optional[str] = None,
+               per_column: bool = False) -> str:
+    """Where an ``int4_matmul`` call goes, by its key in
+    ``launches_by_body``: "groupwise" or "dense" (the bodies of
+    csrc/int4_matmul.cu), "dense_wgmma" (the prefill body) or
+    "per_column_wgmma" (its int8 per-column form). ``body`` defaults to
+    INT4_BODY; from DENSE_MIN_T tokens on the dense body's calls, and
+    int8 per-column ones, take the prefill body."""
+    if body is None:
+        body = INT4_BODY
+    if body not in INT4_BODIES:
+        raise ValueError(f"int4_matmul body must be one of "
+                         f"{sorted(INT4_BODIES)}, got {body!r}")
+    if T < DENSE_MIN_T:
+        return body
+    if per_column:
+        return "per_column_wgmma"
+    return "dense_wgmma" if body == "dense" else body
+
+
 def _check_device(name, x):
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got "
@@ -210,10 +343,58 @@ def check_kernel_inputs(x, q4p, scale, zero, group, name="int4p_matmul"):
     _check_layout(name, x, q4p, scale, zero)
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_kernel(fmt: str):
+    """The prefill body's entry point in the library of its format."""
+    if fmt == "packed":
+        fn = cuda_build.load("int4p_matmul").int4p_matmul_dense_bf16
+        ints = 8
+    else:
+        fn = cuda_build.load("int4_matmul").int4_matmul_dense_wgmma
+        ints = 9  # and per_column
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _dense_product(wrapper, x, q, scale, zero, group, fmt, block_t=None,
+                   splits=None):
+    """The prefill body on checked operands: f32 [T, N]. ``block_t`` and
+    ``splits`` override the plan's (timing sweeps); the plan launched goes
+    to ``wrapper.last_plan``."""
+    T, K = x.shape
+    N = q.shape[1]
+    plan = dequant_gemm_plan(T, K, N, group, fmt, block_t, splits)
+    splits = plan["splits"]
+    out = torch.empty((T, N), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, T, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    args = [x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), T, K, N, group, x.stride(0),
+            plan["block_t"], plan["stages"], splits]
+    if fmt != "packed":
+        args.append(int(fmt == "per_column"))
+    err = _dense_kernel(fmt)(*args,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__} prefill body: error {err} (T {T}, K {K}, N "
+            f"{N}, group {group}, {fmt}, plan {plan})")
+    wrapper.last_plan = plan
+    return out
+
+
+def _count(wrapper, body: str) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_body[body] = wrapper.launches_by_body.get(body, 0) + 1
+
+
 def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
                  zero: torch.Tensor, group: int,
                  layer_idx: Optional[int] = None,
-                 block_m: Optional[int] = None) -> torch.Tensor:
+                 block_m: Optional[int] = None,
+                 body: Optional[str] = None) -> torch.Tensor:
     """x[T, K] @ dequant(q4p) -> f32 [T, N].
 
     q4p is int8 [K/2, N], or layer-stacked int8 [L, K/2, N] with
@@ -222,8 +403,13 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
     scan's per-layer slice; in PyTorch ``w[layer]`` on a leading axis is a
     view that costs nothing, so the "_idx" plumbing of the JAX package's
     wrap_quant_stacked has no counterpart here. The wrapper reads no device
-    value, so the launch can go into a CUDA graph. ``block_m`` overrides
-    ``kernel_plan``'s choice by T (for timing sweeps).
+    value, so the launch can go into a CUDA graph. ``body`` ("groupwise" or
+    "dense") overrides ``int4p_body``'s choice by T, as int4p_matmul_pallas
+    takes it; ``block_m`` overrides ``kernel_plan``'s rows of x per block
+    of the group-wise body (for timing sweeps). Launches are counted in
+    ``launches`` and, by body ("groupwise", "dense_wgmma"), in
+    ``launches_by_body``; the dense body's plan (``dequant_gemm_plan``) in
+    ``last_plan``.
     """
     if q4p.dim() == 3:
         if layer_idx is None:
@@ -233,6 +419,11 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
         return int4p_matmul_ref(x, q4p, scale, zero, group)
     check_kernel_inputs(x, q4p, scale, zero, group)
     T, K = x.shape
+    if int4p_body(T, body) == "dense":
+        out = _dense_product(int4p_matmul, x, q4p, scale, zero, group,
+                             "packed")
+        _count(int4p_matmul, "dense_wgmma")
+        return out
     N = q4p.shape[1]
     block_m, splits = kernel_plan(T, K, N, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
@@ -246,11 +437,13 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(
             f"int4p_matmul kernel: error {err} (T {T}, K {K}, N {N}, group "
             f"{group}, block_m {block_m}, splits {splits})")
-    int4p_matmul.launches += 1
+    _count(int4p_matmul, "groupwise")
     return out
 
 
 int4p_matmul.launches = 0
+int4p_matmul.launches_by_body = {}
+int4p_matmul.last_plan = None
 
 
 # ----------------------------------------------------------------------
@@ -272,7 +465,9 @@ def _int4_kernel():
 # tensor-core step, so only the dense body takes it; above, the choice
 # follows the card's times (PERF.md): on an H100 the dense body was faster
 # or level at all four Llama-3.1-8B sites for T from 8 to 2048 at groups
-# of 16, 32 and 128. The group-wise body is reached with body="groupwise".
+# of 16, 32 and 128. From DENSE_MIN_T tokens on its calls go to the
+# prefill body, which has its arithmetic. The group-wise body is reached
+# with body="groupwise".
 INT4_BODY = "dense"
 
 
@@ -330,10 +525,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     q4 is int8 [K, N], or layer-stacked int8 [L, K, N] with ``layer_idx``
     (a Python int) picking the layer: a view on the leading axis, so the
     offsets inside the kernel stay those of one layer whatever the size of
-    the stack. ``body`` ("groupwise" or "dense") and ``block_m`` override
-    ``INT4_BODY`` and ``int4_kernel_plan`` (for card checks and timing
+    the stack. ``body`` ("groupwise" or "dense") overrides ``INT4_BODY``;
+    ``int4_route`` says where the call goes (from DENSE_MIN_T tokens on,
+    the dense body's calls take the prefill body). ``block_m`` overrides
+    ``int4_kernel_plan``'s rows of x per block (for card checks and timing
     sweeps). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. Launches are counted in ``launches`` and, by route,
+    in ``launches_by_body``; the prefill body's plan in ``last_plan``.
     """
     if q4.dim() == 3:
         if layer_idx is None:
@@ -345,6 +543,12 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     if body is None:
         body = INT4_BODY
     check_int4_kernel_inputs(x, q4, scale, zero, group, body)
+    route = int4_route(T, body)
+    if route == "dense_wgmma":
+        out = _dense_product(int4_matmul, x, q4, scale, zero, group,
+                             "unpacked")
+        _count(int4_matmul, route)
+        return out
     N = q4.shape[1]
     block_m, splits = int4_kernel_plan(T, K, N, group, body, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
@@ -359,14 +563,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(
             f"int4_matmul kernel: error {err} (T {T}, K {K}, N {N}, group "
             f"{group}, body {body}, block_m {block_m}, splits {splits})")
-    int4_matmul.launches += 1
-    int4_matmul.launches_by_body[body] = \
-        int4_matmul.launches_by_body.get(body, 0) + 1
+    _count(int4_matmul, body)
     return out
 
 
 int4_matmul.launches = 0
 int4_matmul.launches_by_body = {}
+int4_matmul.last_plan = None
 
 
 # ----------------------------------------------------------------------
@@ -538,11 +741,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     per-channel weight-only (q and scale may be layer-stacked, with
     ``layer_idx``). CPU tensors take the plain version. An int8
     per-channel container is the unpacked grouped container at G = K with
-    zero 0, so CUDA tensors go to the group-wise body of ``int4_matmul``
-    (raw levels on the tensor cores, f32 sums, the scale applied to the
-    f32 sum: the JAX package's arithmetic), counted there, with a zero
-    row made once per (N, device). Nothing is dequantized to a bf16
-    copy."""
+    zero 0, so CUDA tensors go to ``int4_matmul``'s kernel, counted there
+    (``int4_route``): under DENSE_MIN_T tokens its group-wise body, from
+    there the prefill body's per-column form. Both multiply raw levels on
+    the tensor cores, sum in f32 and apply the scale to the f32 sum: the
+    JAX package's arithmetic. The group-wise body takes a zero row made
+    once per (N, device); nothing is dequantized to a bf16 copy."""
     if q.dim() == 3:
         if layer_idx is None:
             raise ValueError("layer-stacked q needs layer_idx")
@@ -550,8 +754,14 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return int8_matmul_ref(x, q, scale)
     K, N = q.shape
-    return int4_matmul(x, q, scale, _zero_row(N, q.device), K,
-                       body="groupwise")
+    zero = _zero_row(N, q.device)
+    route = int4_route(x.shape[0], "groupwise", per_column=True)
+    if route != "per_column_wgmma":
+        return int4_matmul(x, q, scale, zero, K, body="groupwise")
+    check_int4_kernel_inputs(x, q, scale, zero, K, "groupwise")
+    out = _dense_product(int4_matmul, x, q, scale, zero, K, "per_column")
+    _count(int4_matmul, route)
+    return out
 
 
 def fp8_w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,

@@ -4,28 +4,38 @@ Runs a fixed set of seeded calls through the public kernel wrappers
 (``paged_decode_attention`` and ``ragged_paged_attention`` on every page
 type, QH / KV 1, 2, 4 and 8 at head_dim 128, with window and soft cap,
 with ALiBi and with blocksparse, and the shapes slice 8 brought in: QH / KV
-3, 5, 6, 7 and 16 at head_dim 128 and 1 to 16 at head_dim 64;
-``int4p_matmul`` at groups 32, 64 and 128 and ``int4p_matmul_w4a8`` at
-groups 16, 32, 64 and 128 at the Llama-3.1-8B sites; the page-gather
-probe), records a SHA-256 of each output's bytes (and keeps the
-attention outputs themselves, ``outputs.pt``) and times a few main-path
-shapes. A call that the checkout does not take (a shape or a group it
-raises for, a module it lacks) is left out of its run. Each run imports
-the package of the checkout it is started from, so to compare two
+3, 5, 6, 7 and 16 at head_dim 128 and 1 to 16 at head_dim 64; at the
+Llama-3.1-8B sites and every T of MATMUL_T ``int4p_matmul`` at groups 32,
+64 and 128, ``int4p_matmul_w4a8`` at groups 16, 32, 64 and 128,
+``int4_matmul`` on four containers through each body it takes,
+``int8_matmul`` and ``fp8_w8a8_matmul``; the page-gather probe), records a
+SHA-256 of each output's bytes (and keeps the attention outputs and rows
+of the prefill body's outputs, ``outputs.pt``) and times a few main-path
+shapes. A matmul output is filed under the body the call goes to (its
+key's first word, ``route``), so T < 64 and T >= 64 outputs of one wrapper
+count as two kernels. A call that the checkout does not take (a shape or a
+group it raises for, a module it lacks) is left out of its run. Each run
+imports the package of the checkout it is started from, so to compare two
 checkouts, copy this file into the other one's
 ``aphrodite_tpu_torch/tools/`` and run, in turns:
 
     python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_A   # here
     (cd OTHER && python -m aphrodite_tpu_torch.tools.kernel_ab run --out DIR_B)
     python -m aphrodite_tpu_torch.tools.kernel_ab compare DIR_A DIR_B ... \
-        [--changed paged_decode_attention,ragged_paged_attention]
+        [--changed int4p_matmul,int4_matmul]
 
 ``compare`` fails unless every output that all runs have is equal bit for
 bit across them (it counts those only some runs have), except the outputs
 of the kernels ``--changed`` names: those must be finite and lie, row by
-row (the D values of one token and query head), within ROW_TOL of the
-largest element of the first run's row. It prints each timed shape's mean
-time per run directory. Needs a card; nothing falls back to the CPU.
+row (the D values of one token and query head, or the N outputs of one
+token), within ROW_TOL of the largest element of the first run's row. It
+prints each timed shape's mean time per run directory.
+
+    python -m aphrodite_tpu_torch.tools.kernel_ab sweep
+
+times the prefill body (csrc/dequant_gemm.cuh) by token rows per block
+and split of K beside the plan's choice. Needs a card; nothing falls back
+to the CPU.
 """
 
 import argparse
@@ -44,10 +54,36 @@ PAGE_TYPES = {"bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn,
               "e5m2": torch.float8_e5m2, "int8": torch.int8}
 INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
               "w13": (4096, 28672), "down": (14336, 4096)}
-# The kernel behind each output, by the first word of its key.
+# The kernel behind each output, by the first word of its key. The matmul
+# keys name the body the call is routed to, by the rule of this tool
+# (``route``), so that two checkouts file the same call under the same key:
+# "int4p_matmul" and "int4_matmul" are the prefill body (csrc/
+# dequant_gemm.cuh) of each kernel, from 64 tokens on; the other bodies
+# have names of their own.
 KERNELS = {"ragged": "ragged_paged_attention",
-           "decode": "paged_decode_attention", "int4p": "int4p_matmul",
+           "decode": "paged_decode_attention",
+           "int4p_groupwise": "int4p_matmul_groupwise",
+           "int4p_dense": "int4p_matmul",
+           "q4_groupwise": "int4_matmul_groupwise",
+           "q4_dense": "int4_matmul_dense",
+           "q4_dense_wgmma": "int4_matmul",
+           "int8_groupwise": "int4_matmul_groupwise",
+           "int8_per_column": "int4_matmul",
+           "fp8": "fp8_w8a8_matmul",
            "w4a8": "int4p_matmul_w4a8", "gather_probe": "gather_probe"}
+# Outputs filed under these kernels also keep rows (MATMUL_ROWS of them,
+# spread over T) in outputs.pt, for ``compare --changed``.
+KEPT_MATMULS = ("int4p_matmul", "int4_matmul")
+MATMUL_ROWS = 48
+MATMUL_T = (1, 8, 32, 63, 64, 100, 257, 2048)
+# The unpacked containers: levels [low, high), zero [low, high), group,
+# signed scales, the bodies named.
+Q4_CONTAINERS = {
+    "q6_k": ((0, 64), (32, 33), 16, True, ("groupwise", "dense")),
+    "q8_0": ((-128, 128), (0, 1), 32, False, ("groupwise", "dense")),
+    "act_order": ((0, 16), (0, 17), 1, False, ("dense",)),
+    "gptq_g128": ((0, 16), (0, 17), 128, False, ("groupwise", "dense")),
+}
 # A changed kernel's outputs against each other, row by row: |a - b| <=
 # ROW_TOL * max|b row| (two bf16 ulps of the row's largest element, as
 # chip_smoke.py and tests/test_torch_cuda.py hold each kernel to its plain
@@ -200,31 +236,102 @@ def int4_case(K, N, group, layers, seed):
     return q4p, scale, zero
 
 
-def int4_outputs() -> Dict[str, str]:
-    """The packed product at groups 32-128 (W4A16) and 16-128 (W4A8) at
-    the four sites and every T; the W4A8 product at group 16 only where
-    the checkout takes it."""
-    from aphrodite_tpu_torch.ops.quant_matmul import (int4p_matmul,
-                                                      int4p_matmul_w4a8)
+def q4_case(K, N, kind, layers, seed):
+    levels, zeros, group, signed, _ = Q4_CONTAINERS[kind]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q4 = torch.randint(*levels, (layers, K, N), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    scale = torch.rand((layers, K // group, N), generator=gen,
+                       device="cuda") * 0.02 + 0.001
+    if signed:
+        scale *= torch.randint(0, 2, scale.shape, generator=gen,
+                               device="cuda").float() * 2 - 1
+    zero = torch.randint(*zeros, (layers, K // group, N), generator=gen,
+                         device="cuda").float()
+    return q4, scale, zero
+
+
+def route(kind: str, T: int, body: str = "dense") -> str:
+    """The first word of a matmul output's key: the body a call of `kind`
+    ("int4p", "q4" with its named body, "int8") goes to at T tokens."""
+    prefill = T >= 64
+    if kind == "int4p":
+        return "int4p_dense" if prefill else "int4p_groupwise"
+    if kind == "int8":
+        return "int8_per_column" if prefill else "int8_groupwise"
+    if body == "groupwise":
+        return "q4_groupwise"
+    return "q4_dense_wgmma" if prefill else "q4_dense"
+
+
+def keep(key: str, got: torch.Tensor, out: Dict[str, str],
+         tensors: Dict[str, torch.Tensor]) -> None:
+    out[key] = digest(got)
+    if KERNELS[key.split()[0]] in KEPT_MATMULS:
+        rows = torch.linspace(0, got.shape[0] - 1,
+                              min(got.shape[0], MATMUL_ROWS)).long().unique()
+        tensors[key] = got[rows.to(got.device)].cpu()
+
+
+def int4_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """The packed product at groups 32-128 (W4A16) and 16-128 (W4A8), the
+    unpacked product on its four containers through each body it takes,
+    int8 per-channel and FP8 W8A8 products, at the four sites and every T
+    of MATMUL_T; the W4A8 product at group 16 only where the checkout
+    takes it."""
+    from aphrodite_tpu_torch.ops.quant_matmul import (fp8_w8a8_matmul,
+                                                      int4_matmul,
+                                                      int4p_matmul,
+                                                      int4p_matmul_w4a8,
+                                                      int8_matmul)
+    from aphrodite_tpu_torch.quantization import fp8, int8
 
     out = {}
+
+    def xs(K):
+        for T in MATMUL_T:
+            gen = torch.Generator(device="cuda").manual_seed(T)
+            yield T, torch.randn((T, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         for group in (16, 32, 64, 128):
             q4p, scale, zero = int4_case(K, N, group, 1, 40 + i)
-            for T in (1, 8, 32, 64, 100, 2048):
-                gen = torch.Generator(device="cuda").manual_seed(T)
-                x = torch.randn((T, K), generator=gen, device="cuda").to(
-                    torch.bfloat16)
+            for T, x in xs(K):
                 if group != 16:
                     got = int4p_matmul(x, q4p, scale, zero, group,
                                        layer_idx=0)
-                    out[f"int4p {site} group{group} T{T}"] = digest(got)
+                    keep(f"{route('int4p', T)} {site} group{group} T{T}",
+                         got, out, tensors)
                 try:
                     got = int4p_matmul_w4a8(x, q4p, scale, zero, group,
                                             layer_idx=0)
                 except ValueError:  # a group this checkout raises for
                     continue
                 out[f"w4a8 {site} group{group} T{T}"] = digest(got)
+            del q4p, scale, zero
+        for c, (kind, spec) in enumerate(Q4_CONTAINERS.items()):
+            group, bodies = spec[2], spec[4]
+            q4, scale, zero = q4_case(K, N, kind, 1, 140 + 10 * i + c)
+            for T, x in xs(K):
+                for body in bodies:
+                    got = int4_matmul(x, q4, scale, zero, group, layer_idx=0,
+                                      body=body)
+                    keep(f"{route('q4', T, body)} {site} {kind} T{T}", got,
+                         out, tensors)
+            del q4, scale, zero
+        w = torch.randn((1, K, N), generator=torch.Generator().manual_seed(
+            240 + i))
+        c8 = {k: v.cuda() for k, v in int8.quantize_from_float(w).items()}
+        cf = fp8.quantize_from_float(w.cuda())
+        for T, x in xs(K):
+            keep(f"{route('int8', T)} {site} T{T}",
+                 int8_matmul(x, c8["q"], c8["scale"], layer_idx=0), out,
+                 tensors)
+            out[f"fp8 {site} T{T}"] = digest(
+                fp8_w8a8_matmul(x, cf["q"], cf["scale"], layer_idx=0))
+        del w, c8, cf
+        torch.cuda.empty_cache()
     return out
 
 
@@ -297,20 +404,113 @@ def timings() -> Dict[str, float]:
                 continue
             out[f"{op} {page_type} {label}"] = time_ms(call, 200)
             del c
-    K, N = INT4_SITES["w13"]
-    layers = 10
-    q4p, scale, zero = int4_case(K, N, 128, layers, 60)
-    for T in (32, 2048):
-        x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
-        state = {"layer": 0}
-
-        def mm():
-            state["layer"] = (state["layer"] + 1) % layers
-            return int4p_matmul(x, q4p, scale, zero, 128,
-                                layer_idx=state["layer"])
-
-        out[f"int4p w13 T{T}"] = time_ms(mm, 200 if T <= 64 else 20)
+    out.update(matmul_timings())
     return out
+
+
+def rotation(layers):
+    state = {"layer": 0}
+
+    def nxt():
+        state["layer"] = (state["layer"] + 1) % layers
+        return state["layer"]
+
+    return nxt
+
+
+MATMUL_TIME_T = (32, 128, 512, 2048)
+
+
+def matmul_timings() -> Dict[str, float]:
+    """The packed product at groups 128 and 16 and the unpacked one on a
+    Q6_K-like container (the wrapper's body) at the four sites and every T
+    of MATMUL_TIME_T, each launch on the next layer of a stack larger than
+    the 50 MB L2."""
+    from aphrodite_tpu_torch.ops.quant_matmul import (int4_matmul,
+                                                      int4p_matmul)
+
+    out = {}
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        cases = []
+        for group in (128, 16):
+            layer_bytes = K * N // 2 + 8 * (K // group) * N
+            layers = -(-100_000_000 // layer_bytes) + 1
+            cases.append((f"int4p g{group}", int4p_matmul, layers,
+                          (*int4_case(K, N, group, layers, 60 + i), group)))
+        layer_bytes = K * N + 8 * (K // 16) * N
+        layers = -(-100_000_000 // layer_bytes) + 1
+        cases.append(("q4 q6_k", int4_matmul, layers,
+                      (*q4_case(K, N, "q6_k", layers, 160 + i), 16)))
+        for name, fn, layers, (q, scale, zero, group) in cases:
+            nxt = rotation(layers)
+            for T in MATMUL_TIME_T:
+                x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
+                out[f"{name} {site} T{T}"] = time_ms(
+                    lambda: fn(x, q, scale, zero, group, layer_idx=nxt()),
+                    200 if T <= 64 else 20)
+        del cases
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep() -> None:
+    """The prefill body's times by token rows per block (block_t) and
+    split of K at the four sites, packed at groups 128 and 16 and
+    unpacked on a Q6_K-like container, beside the plan's choice, the
+    group-wise body and torch.matmul on bf16 weights. dequant_gemm_plan's
+    choices come from these times."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+
+    print(f"sweep on {torch.cuda.get_device_name(0)}", flush=True)
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        for fmt, group in (("packed", 128), ("packed", 16),
+                           ("unpacked", 16)):
+            if fmt == "packed":
+                layer_bytes = K * N // 2 + 8 * (K // group) * N
+                layers = -(-100_000_000 // layer_bytes) + 1
+                q, scale, zero = int4_case(K, N, group, layers, 60 + i)
+                wrapper = qm.int4p_matmul
+                plain_w = lambda l: qm.dequantize_int4(  # noqa: E731
+                    qm.unpack_int4_rows(q[l]), scale[l], zero[l], group)
+            else:
+                layer_bytes = K * N + 8 * (K // group) * N
+                layers = -(-100_000_000 // layer_bytes) + 1
+                q, scale, zero = q4_case(K, N, "q6_k", layers, 160 + i)
+                wrapper = qm.int4_matmul
+                plain_w = lambda l: qm.dequantize_int4(  # noqa: E731
+                    q[l], scale[l], zero[l], group)
+            dense = torch.stack([plain_w(l).to(torch.bfloat16)
+                                 for l in range(min(layers, 3))])
+            nxt = rotation(layers)
+            for T in (64, 128, 256, 512, 2048):
+                x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
+                n = 100 if T <= 128 else 20
+                plan = qm.dequant_gemm_plan(T, K, N, group, fmt)
+
+                def dense_body(bt, sp):
+                    l = nxt()
+                    return qm._dense_product(wrapper, x, q[l], scale[l],
+                                             zero[l], group, fmt, bt, sp)
+
+                line = [f"plan (block_t {plan['block_t']}, splits "
+                        f"{plan['splits']}, stages {plan['stages']}) "
+                        f"{time_ms(lambda: dense_body(None, None), n):.4f}"]
+                for bt in (64, 128):
+                    for sp in (1, 2, 4, 8, 16):
+                        if plan["k_stages"] % sp == 0:
+                            ms = time_ms(lambda: dense_body(bt, sp), n)
+                            line.append(f"{bt}/{sp} {ms:.4f}")
+                groupwise = time_ms(lambda: wrapper(
+                    x, q, scale, zero, group, layer_idx=nxt(),
+                    body="groupwise"), n)
+                library = time_ms(
+                    lambda: torch.matmul(x, dense[nxt() % len(dense)]), n)
+                print(f"sweep {site} {K}x{N} {fmt} g{group} T={T}: ms by "
+                      f"block_t/splits: {', '.join(line)}; group-wise body "
+                      f"{groupwise:.4f}; torch.matmul on bf16 weights "
+                      f"{library:.4f}", flush=True)
+            del q, scale, zero, dense
+            torch.cuda.empty_cache()
 
 
 def run(out_dir: str) -> None:
@@ -318,8 +518,8 @@ def run(out_dir: str) -> None:
         sys.exit("kernel_ab: needs a card")
     os.makedirs(out_dir, exist_ok=True)
     tensors: Dict[str, torch.Tensor] = {}
-    result = {"digests": {**attention_outputs(tensors), **int4_outputs(),
-                          **probe_outputs()},
+    result = {"digests": {**attention_outputs(tensors),
+                          **int4_outputs(tensors), **probe_outputs()},
               "ms": timings(), "device": torch.cuda.get_device_name(0)}
     with open(os.path.join(out_dir, "kernel_ab.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -399,9 +599,14 @@ def main() -> None:
     p_cmp.add_argument("--changed", default="",
                        help="comma-separated kernels whose outputs are held "
                             "at ROW_TOL instead of bit for bit")
+    sub.add_parser("sweep")
     args = parser.parse_args()
     if args.cmd == "run":
         run(args.out)
+    elif args.cmd == "sweep":
+        if not torch.cuda.is_available():
+            sys.exit("kernel_ab: needs a card")
+        sweep()
     else:
         compare(args.dirs, [k for k in args.changed.split(",") if k])
 

@@ -392,17 +392,22 @@ MAX_TOKENS = 64
 INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
               "w13": (4096, 28672), "down": (14336, 4096)}
 INT4_GROUP = 128
-INT4_CHECK_T = (1, 8, 32, 64, 100, 2048)
-INT4_TIME_T = (32, 2048)
+# From 64 tokens on both int4 wrappers take the prefill body
+# (csrc/dequant_gemm.cuh): 63 and 64 hold the switch, 257 a ragged token
+# tile.
+INT4_CHECK_T = (1, 8, 32, 63, 64, 100, 257, 2048)
+INT4_TIME_T = (32, 128, 512, 2048)
 # int4 matmul outputs are compared row by row (the N outputs of one
 # token): |kernel - other| <= tol * max|other row|, x at std 1, against
-# two products. The exact one, with f32 weights: the kernel multiplies raw
-# nibbles and scales f32 partial sums per group, so it differs only in the
-# order of its f32 sums (tensor-core fragments and split K against one
-# cuBLAS f32 product), about sqrt(K) * 2^-24 of the row's largest element:
-# INT4_TOL_SAME. And the plain version, which rounds the dequantized weight
-# to bf16, up to 2^-9 relative per term, adding up as a random walk over K:
-# INT4_TOL_ROUNDED, which also holds the plain version to the exact one.
+# two products. The exact one, with f32 weights: under 64 tokens the
+# kernel multiplies raw nibbles and scales f32 partial sums per group, so
+# it differs only in the order of its f32 sums (tensor-core fragments and
+# split K against one cuBLAS f32 product), about sqrt(K) * 2^-24 of the
+# row's largest element: INT4_TOL_SAME. And the plain version, which
+# rounds the dequantized weight to bf16, up to 2^-9 relative per term,
+# adding up as a random walk over K: INT4_TOL_ROUNDED, which also holds the
+# plain version to the exact one. From 64 tokens on the prefill body rounds
+# the weight as the plain version does, and the two tolerances swap.
 INT4_TOL_SAME = 2.0**-14
 INT4_TOL_ROUNDED = 2.0**-6
 # The unpacked int4 matmul (one int8 level per byte), by container:
@@ -1170,15 +1175,16 @@ def int4_checks(device, group=INT4_GROUP):
     """The int4 kernel against its plain version and the exact f32
     product, at every site and T, at `group` (INT4_GROUP unless given;
     16 for GGUF Q2_K and Q3_K); returns the max abs error against the
-    plain version."""
+    plain version of each body ("groupwise", "dense_wgmma")."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4p_body,
                                                       int4p_matmul,
                                                       int4p_matmul_ref,
                                                       unpack_int4_rows)
 
-    worst_abs = 0.0
+    worst_abs = {"groupwise": 0.0, "dense_wgmma": 0.0}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 40 + i,
@@ -1197,8 +1203,11 @@ def int4_checks(device, group=INT4_GROUP):
                 fail(f"int4p_matmul [{where} T={T}]: non-finite output")
             plain = int4p_matmul_ref(x, q4p[1], scale[1], zero[1], group)
             exact = x.float() @ w_exact
-            pairs = (("kernel", got, "plain", plain, INT4_TOL_ROUNDED),
-                     ("kernel", got, "exact f32", exact, INT4_TOL_SAME),
+            dense = int4p_body(T) == "dense"
+            pairs = (("kernel", got, "plain", plain,
+                      INT4_TOL_SAME if dense else INT4_TOL_ROUNDED),
+                     ("kernel", got, "exact f32", exact,
+                      INT4_TOL_ROUNDED if dense else INT4_TOL_SAME),
                      ("plain", plain, "exact f32", exact, INT4_TOL_ROUNDED))
             ratios = []
             for name, a, label, other, tol in pairs:
@@ -1211,9 +1220,12 @@ def int4_checks(device, group=INT4_GROUP):
                          f"with the {label} product: worst row err / "
                          f"max|row| {ratios[-1]:.3e} (tolerance {tol:.3e})")
             abs_err = float((got - plain).abs().max())
-            worst_abs = max(worst_abs, abs_err)
+            body = "dense_wgmma" if dense else "groupwise"
+            worst_abs[body] = max(worst_abs[body], abs_err)
             print(f"check int4p_matmul [{where} T={T}"
-                  f"{' wide zero' if wide else ''}]: max_abs_err against plain {abs_err:.3e}; worst row err "
+                  f"{' wide zero' if wide else ''}, "
+                  f"{'dense' if dense else 'group-wise'} body]: max_abs_err "
+                  f"against plain {abs_err:.3e}; worst row err "
                   f"/ max|row|: kernel vs plain {ratios[0]:.3e} (tolerance "
                   f"{pairs[0][4]:.3e}), kernel vs exact {ratios[1]:.3e} "
                   f"(tolerance {pairs[1][4]:.3e}), plain vs exact "
@@ -1239,6 +1251,7 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+                                                      int4p_body,
                                                       int4p_matmul,
                                                       int4p_matmul_ref,
                                                       unpack_int4_rows)
@@ -1276,14 +1289,19 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
             nbytes, flops = int4_work(T, K, N, group)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS * 1e3
+            body = int4p_body(T)
             pt = dict(site=site, K=K, N=N, T=T, group=group, ms=ms,
+                      body="dense_wgmma" if body == "dense" else body,
                       plain_ms=plain_ms,
                       library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if body == "dense":
+                pt["plan"] = dict(int4p_matmul.last_plan)
             points.append(pt)
             print(f"time int4p_matmul [{site} {K}x{N} T={T} group {group}, "
-                  f"{layers} "
-                  f"layers in turn]: kernel {ms:.4f} ms, plain "
+                  f"{layers} layers in turn, {pt['body']} body"
+                  f"{', plan ' + str(pt['plan']) if 'plan' in pt else ''}]: "
+                  f"kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
                   f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
                   f"({pt['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
@@ -1294,16 +1312,17 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
 
 
 def int4_block_sweep(device, iters):
-    """Rows of x per block, 16 against 32, each with the split of K the
-    wrapper gives it. The wrapper's choice by T (kernel_plan) comes from
-    these times."""
+    """Rows of x per block of the group-wise body (under 64 tokens), 16
+    against 32, each with the split of K the wrapper gives it. The
+    wrapper's choice by T (kernel_plan) comes from these times; the prefill
+    body's comes from ``kernel_ab sweep``."""
     from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
 
     for site in ("wqkv", "down"):
         K, N = INT4_SITES[site]
         layers = 8
         q4p, scale, zero = make_int4_case(K, N, layers, device, SEED + 80)
-        for T in (8, 16, 32, 2048):
+        for T in (8, 16, 32):
             x = make_x(T, K, device, SEED + 90 + T)
             state = {"layer": 0}
 
@@ -1439,15 +1458,19 @@ def quantizer_checks(device):
 
 
 def int8_checks(device):
-    """int8 per-channel containers (G = K, zero 0) through the group-wise
-    body of int4_matmul at every site and T, against the plain version at
-    INT4_TOL_SAME (exact products, f32 sums in another order)."""
+    """int8 per-channel containers (G = K, zero 0) through int4_matmul's
+    kernel at every site and T (the group-wise body under 64 tokens, the
+    prefill body's per-column form from there), against the plain version
+    at INT4_TOL_SAME (exact products, f32 sums in another order). Returns
+    the max abs error of each route."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (int8_matmul,
+    from aphrodite_tpu_torch.ops.quant_matmul import (int4_route,
+                                                      int8_matmul,
                                                       int8_matmul_ref)
     from aphrodite_tpu_torch.quantization import int8
 
+    worst_abs = {}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         gen = torch.Generator(device=device).manual_seed(SEED + 600 + i)
         w = torch.randn((2, K, N), generator=gen, device=device) * K**-0.5
@@ -1457,15 +1480,75 @@ def int8_checks(device):
             x = make_x(T, K, device, SEED + 50 + T)
             got = int8_matmul(x, c["q"], c["scale"], layer_idx=1)
             torch.cuda.synchronize()
-            ratio = row_ratio(got, int8_matmul_ref(x, c["q"][1],
-                                                   c["scale"][1]))
-            print(f"check int8_matmul (group-wise body, G = K) [{site} T={T}]"
+            want = int8_matmul_ref(x, c["q"][1], c["scale"][1])
+            ratio = row_ratio(got, want)
+            route = int4_route(T, "groupwise", per_column=True)
+            worst_abs[route] = max(worst_abs.get(route, 0.0),
+                                   float((got - want).abs().max()))
+            print(f"check int8_matmul ({route}, G = K) [{site} T={T}]"
                   f": worst row err / max|row| {ratio:.3e} (tolerance "
                   f"{INT4_TOL_SAME:.3e})", flush=True)
             if not got.isfinite().all() or ratio > INT4_TOL_SAME:
                 fail(f"int8_matmul [{site} T={T}] disagrees with its plain "
                      "version")
         del c
+    return worst_abs
+
+
+def int8_timings(device, iters):
+    """Times of the int8 per-channel product at every (site, T) of
+    INT4_TIME_T beside its plain version, the library call (torch.matmul
+    on the bf16 weight q * scale) and the bound (x bf16, one byte a
+    weight, f32 scale and output once each; 2 * T * K * N bf16
+    operations); each timed call takes the next layer of a stack larger
+    than the 50 MB L2. Returns a list of per-point dicts."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.quant_matmul import (int4_route,
+                                                      int8_matmul,
+                                                      int8_matmul_ref)
+    from aphrodite_tpu_torch.quantization import int8
+
+    points = []
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        layers = -(-100_000_000 // (K * N)) + 1
+        gen = torch.Generator(device=device).manual_seed(SEED + 650 + i)
+        c = int8.quantize_from_float(torch.randn(
+            (layers, K, N), generator=gen, device=device) * K**-0.5)
+        dense = torch.stack([(c["q"][l].float() * c["scale"][l]).to(
+            torch.bfloat16) for l in range(min(layers, 3))])
+        for T in INT4_TIME_T:
+            x = make_x(T, K, device, SEED + 70 + T)
+            nxt = rotation(layers)
+            n = iters if T <= 64 else max(4, iters // 10)
+            ms = time_ms(lambda: int8_matmul(x, c["q"], c["scale"],
+                                             layer_idx=nxt()), n)
+
+            def plain():
+                l = nxt()
+                return int8_matmul_ref(x, c["q"][l], c["scale"][l])
+
+            plain_ms = time_ms(plain, max(2, n // 20))
+            library_ms = time_ms(
+                lambda: torch.matmul(x, dense[nxt() % len(dense)]), n)
+            nbytes = T * K * 2 + K * N + N * 4 + T * N * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * T * K * N / BF16_FLOPS * 1e3
+            pt = dict(site=site, K=K, N=N, T=T,
+                      body=int4_route(T, "groupwise", per_column=True),
+                      ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+            points.append(pt)
+            print(f"time int8_matmul [{site} {K}x{N} T={T}, {layers} layers "
+                  f"in turn, {pt['body']}]: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
+                  f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
+                  f"({pt['bound_by']}: {nbytes} bytes, {2 * T * K * N} "
+                  "FLOPs)", flush=True)
+        del c, dense
+        torch.cuda.empty_cache()
+    return points
 
 
 def fp8_checks(device):
@@ -1709,9 +1792,10 @@ def q4_checks(device):
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
                                                       int4_matmul,
-                                                      int4_matmul_ref)
+                                                      int4_matmul_ref,
+                                                      int4_route)
 
-    worst_abs = {"groupwise": 0.0, "dense": 0.0}
+    worst_abs = {"groupwise": 0.0, "dense": 0.0, "dense_wgmma": 0.0}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         for c, (kind, spec) in enumerate(Q4_CONTAINERS.items()):
             tiny = kind == "q6_k" and site == "wo"
@@ -1730,7 +1814,8 @@ def q4_checks(device):
                     got = int4_matmul(x, q4, scale, zero, group, layer_idx=1,
                                       body=body)
                     torch.cuda.synchronize()
-                    where = f"int4_matmul {body} [{site} T={T} {label}]"
+                    route = int4_route(T, body)
+                    where = f"int4_matmul {route} [{site} T={T} {label}]"
                     if (tuple(got.shape) != (T, N)
                             or got.dtype != torch.float32):
                         fail(f"{where}: output {got.shape} {got.dtype}")
@@ -1741,14 +1826,14 @@ def q4_checks(device):
                         err = (got - other).abs().amax(-1)
                         bound = other.abs().amax(-1)
                         ratio = float((err / bound).max())
-                        line.append(f"{body} vs {name} {ratio:.3e} "
+                        line.append(f"{route} vs {name} {ratio:.3e} "
                                     f"(tolerance {tol:.3e})")
                         if not bool((err <= tol * bound).all()):
                             fail(f"{where} disagrees with the {name} "
                                  f"product: worst row err / max|row| "
                                  f"{ratio:.3e} (tolerance {tol:.3e})")
-                    worst_abs[body] = max(worst_abs[body],
-                                          float((got - plain).abs().max()))
+                    worst_abs[route] = max(worst_abs[route],
+                                           float((got - plain).abs().max()))
                 err = (plain - exact).abs().amax(-1)
                 bound = exact.abs().amax(-1)
                 if not bool((err <= INT4_TOL_ROUNDED * bound).all()):
@@ -1778,9 +1863,9 @@ def q4_timings(device, iters):
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
-                                                      INT4_BODY,
                                                       int4_matmul,
-                                                      int4_matmul_ref)
+                                                      int4_matmul_ref,
+                                                      int4_route)
 
     points = []
     for c, kind in enumerate(Q4_TIMED):
@@ -1816,18 +1901,20 @@ def q4_timings(device, iters):
                 nbytes, flops = q4_work(T, K, N, group)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / BF16_FLOPS * 1e3
-                routed = INT4_BODY
+                routed = int4_route(T)
                 for body in ("groupwise", "dense"):
                     points.append(dict(
-                        body=body, container=kind, group=group, site=site,
+                        body=int4_route(T, body), container=kind,
+                        group=group, site=site,
                         K=K, N=N, T=T, ms=ms[body], plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                         bound_by=("bytes" if t_bytes >= t_ops
                                   else "operations"),
-                        routed=body == routed))
+                        routed=int4_route(T, body) == routed))
                 print(f"time int4_matmul [{kind} g{group} {site} {K}x{N} "
                       f"T={T}, {layers} layers in turn]: group-wise "
-                      f"{ms['groupwise']:.4f} ms, dense {ms['dense']:.4f} ms "
+                      f"{ms['groupwise']:.4f} ms, {int4_route(T, 'dense')} "
+                      f"{ms['dense']:.4f} ms "
                       f"(the wrapper takes {routed}), plain {plain_ms:.4f} "
                       f"ms, library (matmul on bf16 weights) "
                       f"{library_ms:.4f} ms, bound "
@@ -1840,9 +1927,9 @@ def q4_timings(device, iters):
 
 
 def q4_block_sweep(device, iters):
-    """Rows of x per block for both bodies of the unpacked kernel, each
-    with the split of K the wrapper gives it. The wrapper's choice by T
-    (int4_kernel_plan) comes from these times."""
+    """Rows of x per block for both bodies of the unpacked kernel under 64
+    tokens, each with the split of K the wrapper gives it. The wrapper's
+    choice by T (int4_kernel_plan) comes from these times."""
     from aphrodite_tpu_torch.ops.quant_matmul import int4_matmul
 
     for kind in Q4_SWEPT:
@@ -1852,7 +1939,7 @@ def q4_block_sweep(device, iters):
             layers = 6
             q4, scale, zero = make_q4_case(K, N, layers, device, SEED + 300,
                                            kind)
-            for T in (8, 32, 2048):
+            for T in (8, 32):
                 x = make_x(T, K, device, SEED + 90 + T)
                 state = {"layer": 0}
 
@@ -2062,7 +2149,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
-    from aphrodite_tpu_torch.ops.quant_matmul import (INT4_BODY,
+    from aphrodite_tpu_torch.ops.quant_matmul import (DENSE_MIN_T,
+                                                      INT4_BODY,
                                                       fp8_w8a8_matmul,
                                                       int4_matmul,
                                                       int4p_matmul,
@@ -2158,6 +2246,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         fn.launches_by_dtype = {}
         fn.launches_by_shape = {}
     int4_matmul.launches_by_body = {}
+    int4p_matmul.launches_by_body = {}
     quantize_activations.launches_by_format = {}
     if q4_body is not None:
         # Until this path's logits are compared; a failure ends the script.
@@ -2175,6 +2264,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     by_shape = {name: dict(wrappers[name].launches_by_shape)
                 for name in by_dtype}
     by_body = dict(int4_matmul.launches_by_body)
+    packed_by_body = dict(int4p_matmul.launches_by_body)
     by_format = dict(quantize_activations.launches_by_format)
     w4a16 = int4p_matmul.launches
     other_int4 = (int4p_matmul.launches
@@ -2184,6 +2274,16 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     forwards = len(forward_tokens)
     # Forwards of 16 tokens or more, which W4A8 takes with the switch.
     wide = sum(1 for t in forward_tokens if t >= 16)
+    # Forwards of DENSE_MIN_T tokens or more, whose int4 products take the
+    # prefill body.
+    prefill = sum(1 for t in forward_tokens if t >= DENSE_MIN_T)
+
+    def split_by_t(small_body, large_body):
+        """Launches by body of four products per layer and forward, the
+        forwards under DENSE_MIN_T tokens on small_body."""
+        want = {small_body: 4 * layers * (forwards - prefill),
+                large_body: 4 * layers * prefill}
+        return {k: n for k, n in want.items() if n}
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
@@ -2240,8 +2340,13 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
+        want = split_by_t("groupwise", "dense_wgmma")
+        if packed_by_body != want:
+            fail(f"int4p_matmul launches by body {packed_by_body} on the "
+                 f"{label} are not {want} ({prefill} of {forwards} forwards "
+                 f"of {DENSE_MIN_T} tokens or more)")
         print(f"{label}: int4p_matmul launched {4 * layers} times in each "
-              "forward", flush=True)
+              f"forward, by body {packed_by_body}", flush=True)
     if w4a8:
         # Four W4A8 products (and activation quantizations) per layer in
         # every forward of 16 tokens or more, four W4A16 ones in every
@@ -2263,13 +2368,14 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               f"{sorted(set(forward_tokens))}", flush=True)
         launches["int4p_matmul"] = w4a16
     if quantization == "int8":
-        # Four group-wise body launches (G = K) per layer and forward.
-        if by_body != {"groupwise": 4 * layers * forwards}:
+        # Four launches (G = K) per layer and forward: the group-wise body,
+        # or the prefill body's per-column form.
+        want = split_by_t("groupwise", "per_column_wgmma")
+        if by_body != want:
             fail(f"int4_matmul launches by body {by_body} on the {label} "
-                 f"are not groupwise: 4 x {layers} layers x {forwards} "
-                 "forwards")
-        print(f"{label}: int4_matmul (group-wise body, G = K) launched "
-              f"{4 * layers} times in each forward", flush=True)
+                 f"are not {want}")
+        print(f"{label}: int4_matmul (G = K) launched {4 * layers} times in "
+              f"each forward, by body {by_body}", flush=True)
     if quantization == "fp8":
         # Four e4m3 quantizations and e4m3 products per layer.
         n = 4 * layers * forwards
@@ -2286,6 +2392,12 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if launches["int4_matmul"] != 4 * layers * forwards:
             fail(f"int4_matmul launches {launches['int4_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
+        want = ({"groupwise": 4 * layers * forwards}
+                if q4_body == "groupwise"
+                else split_by_t("dense", "dense_wgmma"))
+        if by_body != want:
+            fail(f"int4_matmul launches by body {by_body} on the {label} "
+                 f"are not {want}")
         print(f"{label}: int4_matmul launched {4 * layers} times in each "
               f"forward, by body {by_body}", flush=True)
     if other_int4:
@@ -2325,6 +2437,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                 for name, n in launches.items()}
     for body, n in by_body.items():
         launches[f"int4_matmul_{body}"] = n
+    for body, n in packed_by_body.items():
+        launches[f"int4p_matmul_{body}"] = n
     for name, counts in by_shape.items():
         launches[f"{variant_name(name, page_type)} by shape"] = counts
     return launches, rates
@@ -2354,10 +2468,10 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     import aphrodite_tpu_torch.ops.quant_matmul as quant_matmul_mod
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
     from aphrodite_tpu_torch.ops.quant_matmul import (
-        dequantize_int4, fp8_w8a8_matmul_ref, int4_matmul_ref, int4p_matmul,
-        int4p_matmul_ref, int4p_matmul_w4a8, int4p_matmul_w4a8_ref,
-        int8_matmul_ref, quantize_activations_e4m3, quantize_activations_int8,
-        unpack_int4_rows)
+        dequantize_int4, fp8_w8a8_matmul_ref, int4_matmul_ref, int4p_body,
+        int4p_matmul, int4p_matmul_ref, int4p_matmul_w4a8,
+        int4p_matmul_w4a8_ref, int8_matmul_ref, quantize_activations_e4m3,
+        quantize_activations_int8, unpack_int4_rows)
     from aphrodite_tpu_torch.models.interface import ForwardBatch
     from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import (
@@ -2436,11 +2550,16 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
                                           cu_q_lens, num_seqs, **kw)
 
     def plain_int4(x, q4p, scale, zero, group, layer_idx=None):
-        # On f32 x the plain version keeps the dequantized weight in f32,
-        # as the kernel's arithmetic does; on bf16 x it would round it to
-        # bf16, which moves a logit by about 1 % of the row's largest and
-        # can swap two near-equal logits of a random-weight model.
-        return int4p_matmul_ref(x.float(), q4p[layer_idx], scale[layer_idx],
+        # The arithmetic of the body the kernel takes at this T. Under
+        # DENSE_MIN_T tokens (the group-wise body) f32 x, on which the plain
+        # version keeps the dequantized weight in f32; from there (the
+        # prefill body) bf16 x, on which it rounds the weight to bf16 as
+        # that body does. The other rounding moves a logit by about 1 % of
+        # the row's largest and can swap two near-equal logits of a
+        # random-weight model.
+        if int4p_body(x.shape[0]) == "groupwise":
+            x = x.float()
+        return int4p_matmul_ref(x, q4p[layer_idx], scale[layer_idx],
                                 zero[layer_idx], group)
 
     def plain_q4(x, q4, scale, zero, group, layer_idx=None):
@@ -2683,11 +2802,13 @@ def main() -> None:
         kernel_checks("cuda", name, geometry, errs)
     blocksparse_checks("cuda", errs)
     stamp("attention checks")
-    errs["int4p_matmul"] = max(int4_checks("cuda"), int4_checks("cuda", 16))
+    int4_errs = [int4_checks("cuda"), int4_checks("cuda", 16)]
+    for body in ("groupwise", "dense_wgmma"):
+        errs[f"int4p_matmul_{body}"] = max(e[body] for e in int4_errs)
     errs["int4p_matmul_w4a8"] = max(w4a8_checks("cuda"),
                                     w4a8_checks("cuda", 16))
     errs["quantize_activations"] = quantizer_checks("cuda")
-    int8_checks("cuda")
+    int8_errs = int8_checks("cuda")
     errs["fp8_w8a8_matmul"] = fp8_checks("cuda")
     q4_errs = q4_checks("cuda")
     errs["gather_probe"] = probe_check()
@@ -2729,6 +2850,7 @@ def main() -> None:
     w4a8_points += w4a8_timings("cuda", iters=200, group=16, sites=("w13",))
     act_points = quantizer_timings("cuda", iters=200)
     fp8_points = fp8_timings("cuda", iters=200)
+    int8_points = int8_timings("cuda", iters=200)
     int4_block_sweep("cuda", iters=50)
     q4_points = q4_timings("cuda", iters=200)
     q4_block_sweep("cuda", iters=50)
@@ -2887,51 +3009,91 @@ def main() -> None:
                 option="blocksparse", page_type=page_type,
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=errs[name], **bs_times[name]))
-    # The int4 kernel's headline times are those of the largest site at
-    # the decode step's size (group 128); every (site, T, group) point
-    # follows in "points", group 16 (GGUF Q2_K and Q3_K) at w13.
-    head = next(p for p in int4_points
-                if p["site"] == "w13" and p["T"] == 32 and p["group"] == 128)
-    by_path = on_paths("int4p_matmul")
-    kernels.append(dict(
-        name="int4p_matmul", route="cuda",
-        source="aphrodite_tpu_torch/csrc/int4p_matmul.cu",
-        replaces="aphrodite_tpu/ops/quant_matmul.py:528",
-        launches=sum(by_path.values()), launches_by_path=by_path,
-        max_abs_err=errs["int4p_matmul"],
-        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")},
-        shape="w13 4096x28672 T=32", points=int4_points))
+    # The packed int4 kernel, one entry per body: the group-wise body
+    # (under 64 tokens, csrc/int4p_matmul.cu) with the headline times of the
+    # largest site at the decode step's size, and the prefill body
+    # (csrc/dequant_gemm.cuh) with those of the largest site at a 2048-token
+    # prefill step; every (site, T, group) point of each follows in
+    # "points", group 16 (GGUF Q2_K and Q3_K) at w13.
+    packed_bodies = {
+        "groupwise": ("aphrodite_tpu_torch/csrc/int4p_matmul.cu",
+                      "aphrodite_tpu/ops/quant_matmul.py:528 "
+                      "(_kernel_packed_groupwise, :268)", 32),
+        "dense_wgmma": ("aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
+                        "aphrodite_tpu/ops/quant_matmul.py:528 "
+                        "(_kernel_packed_dense, :321)", 2048)}
+    packed_by_body = {b: sum(on_paths(f"int4p_matmul_{b}").values())
+                      for b in packed_bodies}
+    for body, (src, replaces, T) in packed_bodies.items():
+        name = "int4p_matmul" if body == "groupwise" else f"int4p_matmul_{body}"
+        by_path = on_paths(f"int4p_matmul_{body}")
+        if not sum(by_path.values()):
+            fail(f"{name} was launched on no main path")
+        points = [p for p in int4_points if p["body"] == body]
+        head = next(p for p in points if p["site"] == "w13" and p["T"] == T
+                    and p["group"] == 128)
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_by_body=packed_by_body,
+            max_abs_err=errs[f"int4p_matmul_{body}"],
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            shape=f"w13 4096x28672 T={T}", points=points))
     # The unpacked kernel, one entry per body: the headline times are
-    # those of the largest site at the decode step's size on the container
-    # whose T = 32 calls the wrapper sends to that body; every (container,
-    # site, T) point follows in "points". Each body replaces one 2-D TPU
-    # kernel and one body of the layer-stacked one.
+    # those of the largest site at the decode step's size (the bodies of
+    # csrc/int4_matmul.cu) or at a 2048-token prefill step (the prefill
+    # body and its int8 per-column form), on the container the wrapper
+    # sends to that body; every (container, site, T) point follows in
+    # "points". Each level body replaces one 2-D TPU kernel and one body of
+    # the layer-stacked one.
     q4_bodies = {
-        "groupwise": ("q8_0", "aphrodite_tpu/ops/quant_matmul.py:178"),
-        "dense": ("q6_k", "aphrodite_tpu/ops/quant_matmul.py:81")}
-    for body, (kind, replaces) in q4_bodies.items():
+        "groupwise": ("q8_0", 32, "aphrodite_tpu_torch/csrc/int4_matmul.cu",
+                      "aphrodite_tpu/ops/quant_matmul.py:178",
+                      "named on the q8_0 gguf path (body=, bound into the "
+                      "projections' reference to the wrapper), and the int8 "
+                      "path under 64 tokens (G = K)"),
+        "dense": ("q6_k", 32, "aphrodite_tpu_torch/csrc/int4_matmul.cu",
+                  "aphrodite_tpu/ops/quant_matmul.py:81",
+                  "the wrapper's choice under 64 tokens"),
+        "dense_wgmma": ("q6_k", 2048,
+                        "aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
+                        "aphrodite_tpu/ops/quant_matmul.py:81",
+                        "the wrapper's choice from 64 tokens on"),
+        "per_column_wgmma": (None, 2048,
+                             "aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
+                             "aphrodite_tpu/quantization/qlinear.py:54 "
+                             "_int8_matmul (XLA code, no Pallas kernel)",
+                             "int8 per-channel weights from 64 tokens on")}
+    for body, err in int8_errs.items():
+        q4_errs[body] = max(q4_errs.get(body, 0.0), err)
+    q4_by_body = {b: sum(on_paths(f"int4_matmul_{b}").values())
+                  for b in q4_bodies}
+    for body, (kind, T, src, replaces, where) in q4_bodies.items():
         name = f"int4_matmul_{body}"
         by_path = on_paths(name)
         if not sum(by_path.values()):
             fail(f"{name} was launched on no main path")
-        points = [p for p in q4_points if p["body"] == body]
-        head = next(p for p in points if p["container"] == kind
-                    and p["site"] == "w13" and p["T"] == 32)
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="aphrodite_tpu_torch/csrc/int4_matmul.cu",
-            replaces=replaces,
-            also_replaces="aphrodite_tpu/ops/quant_matmul.py:694",
+        if kind is None:
+            points = int8_points
+            head = next(p for p in points if p["site"] == "w13"
+                        and p["T"] == T)
+        else:
+            points = [p for p in q4_points if p["body"] == body]
+            head = next(p for p in points if p["container"] == kind
+                        and p["site"] == "w13" and p["T"] == T)
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=q4_errs[body],
+            launches_by_body=q4_by_body, max_abs_err=q4_errs[body],
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
-            shape=f"w13 4096x28672 T=32, {kind} container",
-            on_main_path=("the wrapper's choice" if body == "dense" else
-                          "named on the q8_0 gguf path (body=, bound "
-                          "into the projections' reference to the wrapper)"),
-            points=points))
+            shape=(f"w13 4096x28672 T={T}"
+                   + (f", {kind} container" if kind else ", int8 per-channel")),
+            on_main_path=where, points=points)
+        if kind is not None:
+            entry["also_replaces"] = "aphrodite_tpu/ops/quant_matmul.py:694"
+        kernels.append(entry)
     # W4A8 and the quantizer. The W4A8 headline times are those of the
     # largest site at the decode step's size (the wrapper: quantizer and
     # kernel); every (site, T) point follows in "points".

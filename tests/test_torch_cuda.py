@@ -644,12 +644,14 @@ def _int4_case(rng, L, K, N, group, T, wide_zero=False):
 @pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
 def test_int4p_kernel_matches_plain_on_card(T, K, N):
     """Llama-3.1-8B wqkv and down sites, stacked weights with a layer
-    index, zeros outside 0..15. Row by row against the exact f32
-    dequantized product (the kernel multiplies raw nibbles and scales f32
-    partial sums, so only the order of the sums differs: 2^-14 of the
-    row's largest element) and against the plain version (which rounds w
-    to bf16, 2^-9 relative per term, adding up as a random walk over K:
-    far inside ROW_TOL)."""
+    index, zeros outside 0..15. Under 64 tokens (the group-wise body) row
+    by row against the exact f32 dequantized product (the kernel
+    multiplies raw nibbles and scales f32 partial sums, so only the order
+    of the sums differs: 2^-14 of the row's largest element) and against
+    the plain version (which rounds w to bf16, 2^-9 relative per term,
+    adding up as a random walk over K: far inside ROW_TOL). From 64 tokens
+    on (the dense body, which rounds w to bf16 as the plain version does)
+    the two references swap their tolerances."""
     _card_or_skip()
     rng = np.random.default_rng(K + T)
     x, q4p, scale, zero = _int4_case(rng, 2, K, N, 128, T, wide_zero=True)
@@ -662,7 +664,9 @@ def test_int4p_kernel_matches_plain_on_card(T, K, N):
     exact = x.float() @ dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
                                         zero[1], 128)
     assert got.isfinite().all()
-    for ref, tol in ((want, ROW_TOL), (exact, 2.0**-14)):
+    tols = ((want, ROW_TOL), (exact, 2.0**-14)) if T < 64 else \
+        ((want, 2.0**-14), (exact, ROW_TOL))
+    for ref, tol in tols:
         err = (got - ref).abs().amax(-1)
         bound = tol * ref.abs().amax(-1)
         assert (err <= bound).all(), float((err / bound).max())
@@ -679,7 +683,8 @@ def test_int4p_kernel_group16_on_card(T, K, N):
     At Llama-3.1-8B's wqkv and w13 sites, T from one token to a prefill
     step, with split K (wqkv at T <= 33) and without (w13, and T 2048):
     against the plain version at ROW_TOL and the exact f32-weight product
-    at 2^-14 of a row."""
+    at 2^-14 of a row, the two tolerances swapped from 64 tokens on (the
+    dense body)."""
     from aphrodite_tpu_torch.ops.quant_matmul import kernel_plan
 
     _card_or_skip()
@@ -695,7 +700,9 @@ def test_int4p_kernel_group16_on_card(T, K, N):
     exact = x.float() @ dequantize_int4(unpack_int4_rows(q4p[0]), scale[0],
                                         zero[0], 16)
     assert got.isfinite().all()
-    for ref, tol in ((want, ROW_TOL), (exact, 2.0**-14)):
+    tols = ((want, ROW_TOL), (exact, 2.0**-14)) if T < 64 else \
+        ((want, 2.0**-14), (exact, ROW_TOL))
+    for ref, tol in tols:
         err = (got - ref).abs().amax(-1)
         bound = tol * ref.abs().amax(-1)
         assert (err <= bound).all(), float((err / bound).max())
@@ -774,7 +781,8 @@ def _assert_int4_close(got, x, q4, scale, zero, group, body):
     exact = x.float() @ dequantize_int4(q4, scale, zero, group)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert got.isfinite().all()
-    tols = ((want, SAME_TOL), (exact, ROW_TOL)) if body == "dense" else \
+    dense = body in ("dense", "dense_wgmma")  # the prefill body's too
+    tols = ((want, SAME_TOL), (exact, ROW_TOL)) if dense else \
         ((want, ROW_TOL), (exact, SAME_TOL))
     for ref, tol in tols:
         err = (got - ref).abs().amax(-1)
@@ -898,6 +906,147 @@ def test_quantize_from_float_on_card_matches_numpy(group):
 
 
 # ----------------------------------------------------------------------
+# The prefill body (csrc/dequant_gemm.cuh) of both int4 kernels
+# ----------------------------------------------------------------------
+
+# Llama-3.1-8B's wqkv, w13 and down sites, and T from the switch (64) to a
+# prefill step, 100 and 257 leaving ragged token tiles.
+DENSE_SITES = {"wqkv": (4096, 6144), "w13": (4096, 28672),
+               "down": (14336, 4096)}
+DENSE_T = (64, 100, 257, 2048)
+# Unpacked containers: (kind of LEVELS, group).
+DENSE_CONTAINERS = {"q6_k": ("q6_k", 16), "q8_0": ("q8_0", 32),
+                    "act_order": ("gptq", 1), "gptq_g128": ("gptq", 128)}
+
+
+def _by_body(wrapper, body):
+    return wrapper.launches_by_body.get(body, 0)
+
+
+def _bf16_x(rng, T, K):
+    return torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+
+
+@pytest.mark.cuda
+def test_dense_body_identity_weights_on_card():
+    """Scale 1 and zero 0 make each weight its level, so the prefill body
+    must give torch.matmul's product of x and the levels up to the order
+    of the f32 sums, in both formats: a check of the TMA boxes, the
+    swizzle and wgmma's descriptors apart from the dequantization."""
+    _card_or_skip()
+    rng = np.random.default_rng(11)
+    K, N, T = 1024, 512, 200
+    q = rng.integers(0, 16, size=(K, N), dtype=np.int8)
+    x = _bf16_x(rng, T, K)
+    ones = torch.ones((K // 128, N), device="cuda")
+    zeros = torch.zeros_like(ones)
+    levels = torch.from_numpy(q).cuda()
+    want = x.float() @ levels.float()
+    packed = int4p_matmul(x, torch.from_numpy(pack_int4_rows(q)).cuda(), ones,
+                          zeros, 128)
+    unpacked = int4_matmul(x, levels, ones, zeros, 128)
+    torch.cuda.synchronize()
+    _assert_rows_within(packed, want, SAME_TOL)
+    _assert_rows_within(unpacked, want, SAME_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+@pytest.mark.parametrize("site", sorted(DENSE_SITES))
+def test_int4p_dense_body_on_card(site, group):
+    """The packed prefill body on a layer of a stack, zeros outside 0..15:
+    against the plain version at SAME_TOL (the same bf16 weights, f32 sums
+    in another order) and the exact f32-weight product at ROW_TOL."""
+    _card_or_skip()
+    K, N = DENSE_SITES[site]
+    rng = np.random.default_rng(N + group)
+    _, q4p, scale, zero = _int4_case(rng, 2, K, N, group, 1, wide_zero=True)
+    want_w = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1], zero[1],
+                             group)
+    for T in DENSE_T:
+        x = _bf16_x(rng, T, K)
+        before = _by_body(int4p_matmul, "dense_wgmma")
+        got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=1)
+        torch.cuda.synchronize()
+        assert _by_body(int4p_matmul, "dense_wgmma") == before + 1
+        _assert_rows_within(
+            got, int4p_matmul_ref(x, q4p[1], scale[1], zero[1], group),
+            SAME_TOL)
+        _assert_rows_within(got, x.float() @ want_w, ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", sorted(DENSE_CONTAINERS))
+@pytest.mark.parametrize("site", sorted(DENSE_SITES))
+def test_int4_dense_body_on_card(site, container):
+    """The unpacked prefill body (the dense body's calls from 64 tokens on)
+    on Q6_K-like, Q8_0-like, act-order (G = 1: each row's scale and zero
+    read from device memory) and GPTQ group-128 containers: against the
+    plain version at SAME_TOL and the exact f32-weight product at
+    ROW_TOL."""
+    _card_or_skip()
+    K, N = DENSE_SITES[site]
+    kind, group = DENSE_CONTAINERS[container]
+    rng = np.random.default_rng(N + group)
+    _, q4, scale, zero = _q4_case(rng, 1, K, N, group, 1, kind)
+    for T in DENSE_T:
+        x = _bf16_x(rng, T, K)
+        before = _by_body(int4_matmul, "dense_wgmma")
+        got = int4_matmul(x, q4[0], scale[0], zero[0], group)
+        torch.cuda.synchronize()
+        assert _by_body(int4_matmul, "dense_wgmma") == before + 1
+        _assert_int4_close(got, x, q4[0], scale[0], zero[0], group,
+                           "dense_wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(DENSE_SITES))
+def test_int8_per_column_body_on_card(site):
+    """int8 per-channel weights through the prefill body's per-column form
+    (raw levels on the tensor cores, the scale on the f32 sum) against
+    int8_matmul_ref: the order of the f32 sums differs only."""
+    _card_or_skip()
+    K, N = DENSE_SITES[site]
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy(rng.standard_normal((1, K, N), dtype=np.float32))
+    c = {k: v.cuda() for k, v in int8.quantize_from_float(w).items()}
+    for T in DENSE_T:
+        x = _bf16_x(rng, T, K)
+        before = _by_body(int4_matmul, "per_column_wgmma")
+        got = int8_matmul(x, c["q"], c["scale"], layer_idx=0)
+        torch.cuda.synchronize()
+        assert _by_body(int4_matmul, "per_column_wgmma") == before + 1
+        _assert_rows_within(got, int8_matmul_ref(x, c["q"][0], c["scale"][0]),
+                            SAME_TOL)
+
+
+@pytest.mark.cuda
+def test_dense_body_edges_and_refusals_on_card():
+    """body="dense" takes any T (token rows past T are masked); an N that
+    is an odd multiple of 128 leaves the last block one warpgroup of
+    columns; K/2 not a multiple of 64 is refused from 64 tokens on and
+    taken by the group-wise body under 64."""
+    _card_or_skip()
+    rng = np.random.default_rng(12)
+    x, q4p, scale, zero = _int4_case(rng, 1, 1024, 384, 64, 70)
+    args = (q4p[0], scale[0], zero[0], 64)
+    for T in (1, 5, 70):
+        got = int4p_matmul(x[:T], *args, body="dense")
+        _assert_rows_within(got, int4p_matmul_ref(x[:T], *args), SAME_TOL)
+    x, q4p, scale, zero = _int4_case(rng, 1, 1088, 256, 32, 70)
+    args = (q4p[0], scale[0], zero[0], 32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int4p_matmul(x, *args)
+    got = int4p_matmul(x[:20], *args)  # the group-wise body
+    exact = x[:20].float() @ dequantize_int4(unpack_int4_rows(q4p[0]),
+                                             scale[0], zero[0], 32)
+    _assert_rows_within(got, exact, SAME_TOL)
+    with pytest.raises(ValueError, match="body"):
+        int4p_matmul(x, *args, body="wmma")
+
+
+# ----------------------------------------------------------------------
 # W4A8, the activation quantizer, int8 weight-only and FP8 W8A8
 # ----------------------------------------------------------------------
 
@@ -1018,20 +1167,22 @@ def test_w4a8_kernel_refuses_what_it_does_not_take():
 @pytest.mark.parametrize("T", [1, 32, 300])
 @pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
 def test_int8_container_groupwise_body_on_card(T, K, N):
-    """int8 per-channel weights through the group-wise body at G = K: the
-    group spans the split-K partitions at small T. Against the plain
-    version (the JAX package's arithmetic: exact products, f32 sums, the
-    scale on the sum), the order of the sums differs only."""
+    """int8 per-channel weights through the group-wise body at G = K under
+    64 tokens (the group spans the split-K partitions at small T), and
+    through the prefill body's per-column form from there. Against the
+    plain version (the JAX package's arithmetic: exact products, f32
+    sums, the scale on the sum), the order of the sums differs only."""
     _card_or_skip()
     rng = np.random.default_rng(T + K)
     w = torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
     c = {k: v.cuda() for k, v in int8.quantize_from_float(w).items()}
     x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
         torch.bfloat16).cuda()
-    before = int4_matmul.launches_by_body.get("groupwise", 0)
+    route = "groupwise" if T < 64 else "per_column_wgmma"
+    before = int4_matmul.launches_by_body.get(route, 0)
     got = int8_matmul(x, c["q"], c["scale"], layer_idx=1)
     torch.cuda.synchronize()
-    assert int4_matmul.launches_by_body["groupwise"] == before + 1
+    assert int4_matmul.launches_by_body[route] == before + 1
     _assert_rows_within(got, int8_matmul_ref(x, c["q"][1], c["scale"][1]),
                         SAME_TOL)
 
