@@ -14,7 +14,17 @@
 // by every token row of a block. A third form, PER_COLUMN, is int8
 // weight-only (G = K, zero 0): the raw levels, exact in bf16, go to the
 // tensor cores and the scale multiplies the f32 sum (the JAX package's
-// _int8_matmul).
+// _int8_matmul). A fourth, E4M3_F16, is the FP8 W8A8 product
+// (int4_matmul.cu, entry fp8_w8a8_matmul_f16; the JAX package's
+// _fp8_w8a8_matmul, which XLA computes): the weight is e4m3 [K, N], x the
+// quantizer's e4m3 activations widened to f16 (exact), each weight pair
+// widened to f16 by one cvt, f16 wgmma with f32 sums, and act_scale[t] then
+// scale[n] multiplied into the store (or, with split K, into the pass that
+// sums the partials). An e4m3 wgmma form was built and measured on an H100:
+// Hopper's 8-bit tensor cores keep fewer bits than f32 inside one k32 step,
+// and its sums, moved to f32 registers after every step, still lay 8.0e-5
+// of a row from the exact ones, past this product's bound of 2^-14; so the
+// e4m3 values take the f16 path, at half the 8-bit rate.
 //
 // Bound on the H100: operations, 2 * T * K * N on the tensor cores, from a
 // few hundred tokens on (at T = 2048 the w13 site of Llama-3.1-8B needs
@@ -60,7 +70,10 @@
 //
 // Shape rules (checked by the entry points): N % 128 == 0 (a last block of
 // 128 columns leaves its second warpgroup's columns unwritten), 64 rows of
-// the raw weight per stage (K % 64 unpacked, (K / 2) % 64 packed), groups as
+// the raw weight per stage (K % 64 unpacked; packed, (K / 2) % 32, the last
+// stage of a K/2 that is an odd multiple of 32 taking its first 32 rows
+// only: its boxes reach past the rows it uses, and TMA fills what lies past
+// the tensors with zeros, which no step reads), groups as
 // each kernel's older bodies take them, x bf16 with a row stride that is a
 // multiple of 8 and a 16-byte aligned start, every weight pointer 16-byte
 // aligned.
@@ -69,8 +82,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "matmul_common.cuh"
 
@@ -84,17 +100,20 @@ constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use
 constexpr int SMEM_ALIGN = 1024;    // a 128-byte swizzle atom repeats every 8 rows
 
-enum Scales { GROUP_ROWS = 0, ROW_GLOBAL = 1, PER_COLUMN = 2 };
+enum Scales { GROUP_ROWS = 0, ROW_GLOBAL = 1, PER_COLUMN = 2, E4M3_F16 = 3 };
 
 struct Params {
   int T, N, group;
   int k_stages_per_split;
+  int last_stage;   // the last stage of the whole k range
   int sz_rows;      // GROUP_ROWS: scale (and zero) rows per stage and half
   int half_groups;  // packed: group rows of the low half of K
   int stages;       // depth of the ring
   int stage_bytes;
   const float* scale;  // ROW_GLOBAL and PER_COLUMN read these directly
   const float* zero;
+  const float* row_scale;  // E4M3_F16: act_scale [T]; the store applies both
+  int scale_out;           // E4M3_F16: 1 unless K is split
   float* out;  // [splits, T, N]
 };
 
@@ -193,69 +212,96 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// wgmma m64nNk16 with A from registers and f32 accumulators, on bf16 or
+// (F16) f16 operands.
+#define DQG_WGMMA_RS_128(TYPES)                                                              \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %69, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" TYPES " "                              \
+      "{"                                                                                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                             \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"                                        \
+      "}\n"                                                                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),      \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),      \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),      \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define DQG_WGMMA_RS_64(TYPES)                                                               \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %37, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" TYPES " "                               \
+      "{"                                                                                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                             \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"                                        \
+      "}\n"                                                                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31])                                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (F16) {
+    DQG_WGMMA_RS_128(".f16.f16");
+  } else {
+    DQG_WGMMA_RS_128(".bf16.bf16");
+  }
 }
 
+template <bool F16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (F16) {
+    DQG_WGMMA_RS_64(".f16.f16");
+  } else {
+    DQG_WGMMA_RS_64(".bf16.bf16");
+  }
 }
 
-template <int BT>
+template <int BT, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[BT / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (BT == 128) {
-    wgmma_m64n128k16_rs(d, a, desc_b);
+    wgmma_m64n128k16_rs<F16>(d, a, desc_b);
   } else {
     static_assert(BT == 64, "token rows per block: 64 or 128");
-    wgmma_m64n64k16_rs(d, a, desc_b);
+    wgmma_m64n64k16_rs<F16>(d, a, desc_b);
   }
+}
+
+// Two e4m3 bytes (the first in the low byte of a 16-bit lane pair's low
+// lane) as two f16 values: exact.
+__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
+  return uint32_t(h.x) | (uint32_t(h.y) << 16);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -278,7 +324,9 @@ __device__ __forceinline__ float lane_of(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// BT: token rows per block (64 or 128). PACKED: half-split nibbles
+// BT: token rows per block (64 or 128). TAIL: the last stage of the k
+// range holds KS / 2 rows (packed K/2 an odd multiple of 32); shapes without
+// one run an instantiation with no tail code. PACKED: half-split nibbles
 // [K/2, N] (two 64-column boxes of x per stage, the low and the high half of
 // K) or one int8 level per byte [K, N]. SCALES: how scale and zero arrive.
 //
@@ -292,7 +340,7 @@ __device__ __forceinline__ float lane_of(const float4& v, int j) {
 // of each 16-row step) of one column: the bytes of two words, permuted. The
 // accumulators hold out^T: entry (row 16w + g + 8h, token 8j + 2t + e) of
 // tile i is register 4j + 2h + e.
-template <int BT, bool PACKED, int SCALES>
+template <int BT, bool PACKED, int SCALES, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 1)
 dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap q_map,
@@ -377,7 +425,9 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     }
     uint32_t a[2][2 * ATOMS][4];  // [buffer][tile (+ 2: high half)][register]
 
-    for (int it = 0; it < count; ++it) {
+    // One stage: `it` of this block's k range, its first N_STEPS k16 steps.
+    auto stage = [&](int it, auto n_steps) {
+      constexpr int N_STEPS = decltype(n_steps)::value;
       const int slot = it % S;
       mbar_wait(&full[slot], (it / S) & 1);
       const unsigned char* st = smem + slot * p.stage_bytes;
@@ -387,7 +437,7 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                         4 * c;
       const int r0 = (stage0 + it) * KS;
 #pragma unroll
-      for (int s = 0; s < KS / 16; ++s) {
+      for (int s = 0; s < N_STEPS; ++s) {
         uint32_t(&A)[2 * ATOMS][4] = a[s & 1];
         // Raw rows 16s + 2t + {0, 1, 8, 9}, this thread's four columns; the
         // box came in the 128-byte swizzle (16-byte chunk index ^ row % 8).
@@ -398,7 +448,19 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
           w[m] = *reinterpret_cast<const uint32_t*>(qs + r * 128 + ((((c >> 2) ^ r) & 7) << 4) +
                                                     ((c & 3) << 2));
         }
-        if constexpr (SCALES == PER_COLUMN) {
+        if constexpr (SCALES == E4M3_F16) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t j = 2 * i + h;
+              // Byte j of rows k and k + 1, low byte first.
+              const uint32_t sel = j | ((4 + j) << 4);
+              A[i][h] = e4m3x2_to_f16x2(__byte_perm(w[0], w[1], sel));
+              A[i][2 + h] = e4m3x2_to_f16x2(__byte_perm(w[2], w[3], sel));
+            }
+          }
+        } else if constexpr (SCALES == PER_COLUMN) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -473,8 +535,8 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
         for (int h = 0; h < ATOMS; ++h) {
           const uint64_t desc = sw128_desc(x_addr + h * BT * 128 + 32 * s);
-          wgmma_rs<BT>(acc[0], A[2 * h], desc);
-          wgmma_rs<BT>(acc[1], A[2 * h + 1], desc);
+          wgmma_rs<BT, SCALES == E4M3_F16>(acc[0], A[2 * h], desc);
+          wgmma_rs<BT, SCALES == E4M3_F16>(acc[1], A[2 * h + 1], desc);
         }
         wgmma_commit();
         // The step before this one is done: its A registers may be written
@@ -487,7 +549,13 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
         wgmma_wait<1>();
         if (s == 0 && it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S]);
       }
-    }
+    };
+    // The last stage of a packed K/2 that is an odd multiple of 32 takes
+    // its first two k16 steps (32 rows) only; every other one all of them.
+    const bool tail = TAIL && stage0 + count - 1 == p.last_stage;
+    for (int it = 0; it < count - tail; ++it) stage(it, std::integral_constant<int, KS / 16>{});
+    if (tail) stage(count - 1, std::integral_constant<int, KS / 32>{});
+
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -497,7 +565,8 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
 
     if (live) {
       float4 sc = make_float4(1.f, 1.f, 1.f, 1.f);
-      if constexpr (SCALES == PER_COLUMN) sc = __ldg(reinterpret_cast<const float4*>(p.scale + col));
+      if (SCALES == PER_COLUMN || (SCALES == E4M3_F16 && p.scale_out))
+        sc = __ldg(reinterpret_cast<const float4*>(p.scale + col));
       float* dst = p.out + size_t(blockIdx.z) * p.T * p.N + col;
 #pragma unroll
       for (int j = 0; j < BT / 8; ++j) {
@@ -507,7 +576,14 @@ dequant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
           if (row >= p.T) continue;
           float4 o = make_float4(acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
                                  acc[1][4 * j + 2 + e]);
-          if constexpr (SCALES == PER_COLUMN) {
+          if (SCALES == E4M3_F16 && p.scale_out) {
+            const float rs = __ldg(p.row_scale + row);
+            o.x = __fmul_rn(o.x, rs);
+            o.y = __fmul_rn(o.y, rs);
+            o.z = __fmul_rn(o.z, rs);
+            o.w = __fmul_rn(o.w, rs);
+          }
+          if (SCALES == PER_COLUMN || (SCALES == E4M3_F16 && p.scale_out)) {
             o.x = __fmul_rn(o.x, sc.x);
             o.y = __fmul_rn(o.y, sc.y);
             o.z = __fmul_rn(o.z, sc.z);
@@ -588,23 +664,26 @@ constexpr int DYNAMIC_SMEM = SMEM_LIMIT - SMEM_ALIGN;
 
 // out (f32 [T, N]) = x @ dequant(q): the launch and, with splits > 1 (into
 // `partial`, f32 [splits, T, N]), the fixed-order sum. K counts columns of
-// x (for packed weights twice their rows). Returns 0, a CUDA error code, -1
-// for arguments this body does not take, or -2 if a tensor map could not be
-// made.
-template <int BT, bool PACKED, int SCALES>
+// x (for packed weights twice their rows). splits divides the stages,
+// ceil(rows / KS). Returns 0, a CUDA error code, -1 for arguments this body
+// does not take, or -2 if a tensor map could not be made.
+template <int BT, bool PACKED, int SCALES, bool TAIL = false>
 int launch(const void* x, int x_stride, const void* q, const float* scale, const float* zero,
            float* out, float* partial, int T, int K, int N, int group, int stages, int splits,
-           cudaStream_t stream) {
+           cudaStream_t stream, const float* row_scale = nullptr) {
   const int rows = PACKED ? K / 2 : K;
-  const int k_stages = rows / KS;
-  if (rows % KS || splits < 1 || k_stages % splits || stages < 1 || stages > MAX_STAGES)
+  const int k_stages = (rows + KS - 1) / KS;
+  if (rows % (PACKED ? 32 : KS) || (rows % KS != 0) != TAIL || splits < 1 ||
+      k_stages % splits || stages < 1 || stages > MAX_STAGES)
     return -1;
   const int sz_rows = SCALES == GROUP_ROWS ? group_rows_per_stage(rows, group) : 0;
   const int sb = stage_bytes(BT, PACKED, SCALES, sz_rows);
   const int smem = stages * sb + SMEM_ALIGN;
   if (smem > DYNAMIC_SMEM) return -1;
   CUtensorMap xm, qm, sm, zm;
-  if (!make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, T, uint64_t(x_stride) * 2, 64, BT,
+  const CUtensorMapDataType x_type =
+      SCALES == E4M3_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&xm, x_type, x, K, T, uint64_t(x_stride) * 2, 64, BT,
                 CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, rows, N, WG_COLS, KS,
                 CU_TENSOR_MAP_SWIZZLE_128B))
@@ -617,7 +696,7 @@ int launch(const void* x, int x_stride, const void* q, const float* scale, const
        !make_map(&zm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, zero, N, K / group, uint64_t(N) * 4, COLS,
                  sz_rows, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return -2;
-  auto kernel = dequant_gemm_kernel<BT, PACKED, SCALES>;
+  auto kernel = dequant_gemm_kernel<BT, PACKED, SCALES, TAIL>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err =
@@ -630,17 +709,24 @@ int launch(const void* x, int x_stride, const void* q, const float* scale, const
   prm.N = N;
   prm.group = group;
   prm.k_stages_per_split = k_stages / splits;
+  prm.last_stage = k_stages - 1;
   prm.sz_rows = sz_rows;
   prm.half_groups = PACKED ? rows / group : 0;
   prm.stages = stages;
   prm.stage_bytes = sb;
   prm.scale = scale;
   prm.zero = zero;
+  prm.row_scale = row_scale;
+  prm.scale_out = SCALES == E4M3_F16 && splits == 1;
   prm.out = splits > 1 ? partial : out;
   const dim3 grid((N + COLS - 1) / COLS, (T + BT - 1) / BT, splits);
   kernel<<<grid, THREADS, smem, stream>>>(xm, qm, sm, zm, prm, rows);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess && splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
+  if (err == cudaSuccess && splits > 1) {
+    err = SCALES == E4M3_F16
+              ? launch_split_reduce_scaled(partial, out, row_scale, scale, T, N, splits, stream)
+              : launch_split_reduce(partial, out, T, N, splits, stream);
+  }
   return static_cast<int>(err);
 }
 

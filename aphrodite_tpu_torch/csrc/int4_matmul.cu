@@ -76,7 +76,9 @@
 // value, and stages no scale or zero rows.
 //
 // Shape rules of the e4m3 body: N % 128 == 0, K % 64 == 0, x's row stride
-// a multiple of 16.
+// a multiple of 16. It serves the FP8 product under 32 tokens; from there
+// the wrapper takes the e4m3 form of the wgmma prefill body
+// (fp8_w8a8_matmul_f16 below), on the same arithmetic.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -107,12 +109,7 @@ __device__ __forceinline__ float component(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// Two e4m3 values, the first in the low byte, as two f16 values (exact).
-__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
-  const __half2_raw h =
-      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
-  return uint32_t(h.x) | (uint32_t(h.y) << 16);
-}
+using dqg::e4m3x2_to_f16x2;
 
 __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                         uint32_t b1) {
@@ -513,4 +510,33 @@ extern "C" int int4_matmul_dense_wgmma(const void* x, const void* q, const void*
       return -1;
   }
 #undef DQG_LAUNCH
+}
+
+// The FP8 W8A8 product on f16 wgmma (the E4M3_F16 form of the prefill body,
+// dequant_gemm.cuh): xq16 (the quantizer's e4m3 activations as f16 [T, K],
+// contiguous) @ q (e4m3 [K, N], row-major), times act_scale (f32 [T]) and
+// then scale (f32 [N]) in the store, or in the pass that sums the partials
+// of a split K. block_t token rows per block (64 or 128), a ring of
+// `stages` stages, splits dividing the K / 64 stages. Returns the CUDA
+// error code of the launches (0 = success), -1 for arguments the body does
+// not take, or -2 if a tensor map could not be made.
+extern "C" int fp8_w8a8_matmul_f16(const void* xq16, const void* q, const void* act_scale,
+                                   const void* scale, void* out, void* partial, int T, int K,
+                                   int N, int block_t, int stages, int splits, void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % dqg::KS != 0) return -1;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* as = static_cast<const float*>(act_scale);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partial);
+  switch (block_t) {
+    case 64:
+      return dqg::launch<64, false, dqg::E4M3_F16>(xq16, K, q, sc, nullptr, o, part, T, K, N, K,
+                                                   stages, splits, stream, as);
+    case 128:
+      return dqg::launch<128, false, dqg::E4M3_F16>(xq16, K, q, sc, nullptr, o, part, T, K, N,
+                                                    K, stages, splits, stream, as);
+    default:
+      return -1;
+  }
 }

@@ -395,7 +395,7 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
 
 // The dense body (dequant_gemm.cuh): block_t token rows per block (64 or
 // 128), a ring of `stages` stages, and K split `splits` ways (dividing the
-// (K / 2) / 64 stages of packed rows; with splits > 1, `partial` is an f32
+// ceil((K / 2) / 64) stages of packed rows; with splits > 1, `partial` is an f32
 // scratch buffer [splits, T, N]). Returns the CUDA error code of the
 // launches (0 = success), -1 for arguments the body does not take, or -2 if
 // a tensor map could not be made.
@@ -403,7 +403,7 @@ extern "C" int int4p_matmul_dense_bf16(const void* x, const void* q4p, const voi
                                        const void* zero, void* out, void* partial, int T, int K,
                                        int N, int group, int x_stride, int block_t, int stages,
                                        int splits, void* stream_ptr) {
-  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % dqg::KS != 0 || group % 16 != 0 ||
+  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % 32 != 0 || group % 16 != 0 ||
       (K / 2) % group != 0 || x_stride % 8 != 0)
     return -1;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -411,14 +411,23 @@ extern "C" int int4p_matmul_dense_bf16(const void* x, const void* q4p, const voi
   const float* z = static_cast<const float*>(zero);
   float* o = static_cast<float*>(out);
   float* part = static_cast<float*>(partial);
-  switch (block_t) {
-    case 64:
-      return dqg::launch<64, true, dqg::GROUP_ROWS>(x, x_stride, q4p, s, z, o, part, T, K, N,
-                                                    group, stages, splits, stream);
+  // A K/2 that is an odd multiple of 32 ends in a 32-row stage: its own
+  // instantiations, so that every other shape runs code without it.
+#define DQG_PACKED(bt, tail)                                                                  \
+  dqg::launch<bt, true, dqg::GROUP_ROWS, tail>(x, x_stride, q4p, s, z, o, part, T, K, N, group, \
+                                              stages, splits, stream)
+  const bool tail = (K / 2) % dqg::KS != 0;
+  switch (block_t * 2 + int(tail)) {
     case 128:
-      return dqg::launch<128, true, dqg::GROUP_ROWS>(x, x_stride, q4p, s, z, o, part, T, K, N,
-                                                     group, stages, splits, stream);
+      return DQG_PACKED(64, false);
+    case 129:
+      return DQG_PACKED(64, true);
+    case 256:
+      return DQG_PACKED(128, false);
+    case 257:
+      return DQG_PACKED(128, true);
     default:
       return -1;
   }
+#undef DQG_PACKED
 }

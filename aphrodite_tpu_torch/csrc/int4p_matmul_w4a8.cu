@@ -28,9 +28,14 @@
 // transposes the 4x4 bytes with six __byte_perm; the nibble planes are then
 // split with & 0x0F0F0F0F and (>> 4) & 0x0F0F0F0F, the TPU kernel's own trick
 // (masking commutes with the byte transpose): per four weights, 1.5 byte
-// permutes and one mask or shift-and-mask per plane. A later wgmma version
-// takes its 8-bit operands K-major from shared memory, so that version will
-// transpose the tile in shared memory (or at load) instead.
+// permutes and one mask or shift-and-mask per plane. A wgmma form with the
+// same A fragments from registers (s8 x s8 -> s32, x by TMA in the 128-byte
+// swizzle, the int32 sums of a group folded in f32 with row sums the
+// quantizer wrote) was built and timed 1.6-7x slower than this kernel on an
+// H100, at every T and group (PERF.md): with the f32 outputs and the open
+// group's int32 sums in registers, a 384-thread block's consumers have room
+// for 32 or 64 token rows, and their fragment builds, waits and folds left
+// the tensor cores idle.
 //
 // Bound on the H100:
 // - small T (decode): bytes. K * N / 2 weight bytes and 8 * (K / G) * N bytes of
@@ -75,7 +80,8 @@
 //         +-127 (quantize_activations_int8);
 //   e4m3: s = max(amax / 448, 1e-12), xq = e4m3(x / s), nearest even
 //         (_fp8_w8a8_matmul's activation cast; |x / s| <= 448, so saturation
-//         never changes a value).
+//         never changes a value); e4m3_f16 writes the same values as f16
+//         (exact), the x operand of the FP8 product's f16 wgmma body.
 // IEEE division (__fdiv_rn; this file is never built with fast math) and
 // __float2int_rn keep it bit-equal to the plain PyTorch versions. It is bound
 // by bytes: 2 read and 1 written per value.
@@ -398,6 +404,7 @@ void launch(const void* xq, const void* sx, const void* q4p, const void* scale, 
 constexpr int Q_THREADS = 256;
 constexpr int FMT_INT8 = 0;
 constexpr int FMT_E4M3 = 1;
+constexpr int FMT_E4M3_F16 = 2;  // e4m3 values, each stored as its f16 (exact)
 
 template <int FMT>
 __global__ void __launch_bounds__(Q_THREADS)
@@ -429,11 +436,12 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, uint8_t* __restrict__ 
                                   : fmaxf(__fdiv_rn(amax, 448.0f), 1e-12f);
   if (threadIdx.x == 0) row_scale[row] = s;
 
-  uint2* dst = reinterpret_cast<uint2*>(xq + size_t(row) * K);
+  constexpr int OUT_BYTES = FMT == FMT_E4M3_F16 ? 2 : 1;
+  uint8_t* dst = xq + size_t(row) * K * OUT_BYTES;
   for (int c = threadIdx.x; c < chunks; c += Q_THREADS) {
     const uint4 v = src[c];
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-    uint32_t word[2] = {0u, 0u};
+    uint32_t word[2 * OUT_BYTES] = {};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float2 f = __bfloat1622float2(h[k]);
@@ -448,11 +456,21 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, uint8_t* __restrict__ 
         } else {
           byte = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
         }
-        const int b = 2 * k + e;  // byte b of the eight
-        word[b / 4] |= byte << (8 * (b % 4));
+        const int b = 2 * k + e;  // value b of the eight
+        if (FMT == FMT_E4M3_F16) {
+          const __half_raw f = __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(byte),
+                                                       __NV_E4M3);
+          word[b / 2] |= uint32_t(f.x) << (16 * (b % 2));
+        } else {
+          word[b / 4] |= byte << (8 * (b % 4));
+        }
       }
     }
-    dst[c] = make_uint2(word[0], word[1]);
+    if (FMT == FMT_E4M3_F16) {
+      reinterpret_cast<uint4*>(dst)[c] = make_uint4(word[0], word[1], word[2], word[3]);
+    } else {
+      reinterpret_cast<uint2*>(dst)[c] = make_uint2(word[0], word[1]);
+    }
   }
 }
 
@@ -501,12 +519,14 @@ extern "C" int int4p_matmul_w4a8(const void* xq, const void* sx, const void* q4p
   return static_cast<int>(err);
 }
 
-// x bf16 [T, K] with row stride x_stride (elements) -> xq [T, K] (int8, or
-// e4m3 bytes) and row_scale f32 [T]. fmt: 0 int8, 1 e4m3. Returns the CUDA
-// error code of the launch, or -1 for arguments the kernel does not take.
+// x bf16 [T, K] with row stride x_stride (elements) -> xq [T, K] (int8,
+// e4m3 bytes, or e4m3 values as f16) and row_scale f32 [T]. fmt: 0 int8, 1
+// e4m3, 2 e4m3 as f16. Returns the CUDA error code of the launch, or -1 for
+// arguments the kernel does not take.
 extern "C" int quantize_rows_bf16(const void* x, void* xq, void* row_scale, int T, int K,
                                   int x_stride, int fmt, void* stream_ptr) {
-  if (T < 1 || K < 8 || K % 8 != 0 || x_stride % 8 != 0 || (fmt != FMT_INT8 && fmt != FMT_E4M3))
+  if (T < 1 || K < 8 || K % 8 != 0 || x_stride % 8 != 0 ||
+      (fmt != FMT_INT8 && fmt != FMT_E4M3 && fmt != FMT_E4M3_F16))
     return -1;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -514,8 +534,10 @@ extern "C" int quantize_rows_bf16(const void* x, void* xq, void* row_scale, int 
   auto* s = static_cast<float*>(row_scale);
   if (fmt == FMT_INT8) {
     quantize_rows_kernel<FMT_INT8><<<T, Q_THREADS, 0, stream>>>(xb, q, s, K, x_stride);
-  } else {
+  } else if (fmt == FMT_E4M3) {
     quantize_rows_kernel<FMT_E4M3><<<T, Q_THREADS, 0, stream>>>(xb, q, s, K, x_stride);
+  } else {
+    quantize_rows_kernel<FMT_E4M3_F16><<<T, Q_THREADS, 0, stream>>>(xb, q, s, K, x_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

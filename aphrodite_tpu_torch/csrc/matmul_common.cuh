@@ -75,4 +75,39 @@ inline cudaError_t launch_split_reduce(const void* partial, void* out, int T, in
   return cudaGetLastError();
 }
 
+// out[t, n] = ((partial[0][t, n] + partial[1][t, n] + ...) * row_scale[t])
+// * col_scale[n]: the partials in a fixed order, then the two scales in that
+// order (the FP8 W8A8 product's, after the JAX package).
+__global__ void __launch_bounds__(256)
+split_reduce_scaled_kernel(const float4* __restrict__ partial, float4* __restrict__ out,
+                           const float* __restrict__ row_scale,
+                           const float4* __restrict__ col_scale, int N4, size_t count4,
+                           int splits) {
+  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count4) return;
+  float4 s = partial[i];
+  for (int p = 1; p < splits; ++p) {
+    const float4 v = partial[size_t(p) * count4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const float r = row_scale[i / N4];
+  const float4 c = col_scale[i % N4];
+  out[i] = make_float4(__fmul_rn(__fmul_rn(s.x, r), c.x), __fmul_rn(__fmul_rn(s.y, r), c.y),
+                       __fmul_rn(__fmul_rn(s.z, r), c.z), __fmul_rn(__fmul_rn(s.w, r), c.w));
+}
+
+inline cudaError_t launch_split_reduce_scaled(const void* partial, void* out,
+                                              const float* row_scale, const float* col_scale,
+                                              int T, int N, int splits, cudaStream_t stream) {
+  const size_t count4 = size_t(T) * N / 4;
+  const unsigned blocks = static_cast<unsigned>((count4 + 255) / 256);
+  split_reduce_scaled_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float4*>(partial), static_cast<float4*>(out), row_scale,
+      reinterpret_cast<const float4*>(col_scale), N / 4, count4, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace

@@ -99,7 +99,8 @@ def load(name: str) -> ctypes.CDLL:
 def ptxas_report(name: str) -> str:
     """What ptxas says (-v) for every kernel of ``csrc/<name>.cu``, one
     line per kernel: its mangled name, then registers, shared memory and
-    spills. The library built here is thrown away."""
+    spills; and its warnings (wgmma serialization among them). The library
+    built here is thrown away."""
     target = BUILD_DIR / f"{name}.ptxas.{os.getpid()}.tmp"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(target),
@@ -115,6 +116,8 @@ def ptxas_report(name: str) -> str:
             kernel = line.split("'")[1] if "'" in line else line
         elif kernel and ("Used" in line or "spill" in line):
             lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+        elif "warning" in line or "Performance Loss" in line:
+            lines.append(line.strip())
     return "\n".join(lines)
 
 

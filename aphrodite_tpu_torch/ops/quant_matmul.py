@@ -52,13 +52,17 @@ needs (K/2) % G == 0.
   body of ``csrc/int4_matmul.cu`` under ``DENSE_MIN_T`` tokens, the
   prefill body's per-column form from there.
 - ``fp8_w8a8_matmul``: e4m3 weights times per-token e4m3 activations. On
-  the card the quantizer kernel, then the e4m3 body of
-  ``csrc/int4_matmul.cu`` (both operands widened to f16 in registers, f32
-  sums, as the JAX package's XLA product sums them; it leaves this product
-  outside any Pallas kernel).
-- ``quantize_activations``: the per-token quantizer of both activation
-  formats, one kernel launch on the card, bit-equal to its plain
-  versions ``quantize_activations_int8`` and ``quantize_activations_e4m3``.
+  the card the quantizer kernel, then (``fp8_route``) from
+  ``FP8_WGMMA_MIN_T`` tokens on the e4m3 form of the prefill body (f16
+  wgmma, the activations widened to f16 by the quantizer, each weight pair
+  by one cvt), under it the e4m3 body of ``csrc/int4_matmul.cu``
+  (mma.sync, both operands widened to f16 in registers): f32 sums, as the
+  JAX package's XLA product sums them (it leaves this product outside any
+  Pallas kernel).
+- ``quantize_activations``: the per-token quantizer of the activation
+  formats (int8, e4m3, and e4m3 values stored as f16), one kernel launch
+  on the card, bit-equal to its plain versions
+  ``quantize_activations_int8`` and ``quantize_activations_e4m3``.
 """
 
 import ctypes
@@ -86,7 +90,9 @@ INT4_GROUPWISE_MIN_GROUP = 16  # one m16n8k16 step
 # DENSE_MIN_T tokens or more to it, the threshold at which the JAX package's
 # int4p_matmul_pallas and int4_matmul_dispatch take their dense bodies.
 DENSE_MIN_T = 64
-DENSE_FORMATS = ("packed", "unpacked", "per_column")
+# "e4m3": the FP8 W8A8 product's form (an e4m3 weight, f16 x, no scale
+# rows staged).
+DENSE_FORMATS = ("packed", "unpacked", "per_column", "e4m3")
 _DG_COLS = 256  # weight columns per block
 _DG_K_STAGE = 64  # raw weight rows (levels, or packed bytes) per stage
 _DG_TOKEN_ROWS = (64, 128)  # token rows per block, the instantiations
@@ -180,8 +186,9 @@ def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
                       block_t: Optional[int] = None,
                       splits: Optional[int] = None) -> dict:
     """How the prefill body runs a product, or ValueError for a shape it
-    does not take. ``fmt``: "packed" (q4p [K/2, N]), "unpacked" (q4 [K, N])
-    or "per_column" (int8 per-channel, G = K). Keys: ``block_t`` (token
+    does not take. ``fmt``: "packed" (q4p [K/2, N]), "unpacked" (q4 [K, N]),
+    "per_column" (int8 per-channel, G = K) or "e4m3" (FP8 W8A8, an e4m3
+    weight [K, N]; ``group`` is not read). Keys: ``block_t`` (token
     rows per block: 64 up to T = 64, else 128, unless given), ``stages``
     (the ring's depth: as many as fit the shared memory, up to 8),
     ``splits`` (blocks that share one output tile's k range: 1 where the
@@ -195,13 +202,16 @@ def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
         raise ValueError(f"prefill body format must be one of "
                          f"{DENSE_FORMATS}, got {fmt!r}")
     rows = K // 2 if fmt == "packed" else K
-    if T < 1 or N % KERNEL_N_MULTIPLE or rows % _DG_K_STAGE or (
+    # Packed stages may end in a 32-row tail (the last stage of a K/2 that
+    # is an odd multiple of 32 takes its first two k16 steps only).
+    row_multiple = _KERNEL_K_TILE if fmt == "packed" else _DG_K_STAGE
+    if T < 1 or N % KERNEL_N_MULTIPLE or rows % row_multiple or (
             fmt == "packed" and K % 2):
         raise ValueError(
             f"the prefill body takes N that is a multiple of "
-            f"{KERNEL_N_MULTIPLE} and {_DG_K_STAGE}-row stages of the raw "
-            f"weight ({'K/2' if fmt == 'packed' else 'K'} a multiple of "
-            f"{_DG_K_STAGE}); got T {T}, K {K}, N {N}")
+            f"{KERNEL_N_MULTIPLE} and "
+            f"{'K/2' if fmt == 'packed' else 'K'} a multiple of "
+            f"{row_multiple}; got T {T}, K {K}, N {N}")
     if fmt == "packed" and (group % KERNEL_GROUP_MULTIPLE or rows % group):
         raise ValueError(f"the prefill body takes a packed group that is a "
                          f"multiple of {KERNEL_GROUP_MULTIPLE} and divides "
@@ -211,6 +221,8 @@ def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
         raise ValueError(f"the prefill body takes an unpacked group that "
                          f"divides K and either divides {_DG_K_STAGE} or is "
                          f"a multiple of it; got group {group}, K {K}")
+    if fmt == "e4m3":
+        group = K
     if fmt == "per_column" and group != K:
         raise ValueError(f"the per-column form takes G = K, got group "
                          f"{group}, K {K}")
@@ -227,8 +239,9 @@ def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
     stage_bytes = (atoms * block_t * 128 + 2 * _DG_K_STAGE * 128
                    + 2 * atoms * sz_rows * _DG_COLS * 4)
     stages = min(_DG_MAX_STAGES, (_DG_SMEM - 1024) // stage_bytes)
-    k_stages = rows // _DG_K_STAGE
+    k_stages = -(-rows // _DG_K_STAGE)
     tiles = -(-N // _DG_COLS) * -(-T // block_t)
+
 
     def cost_us(d):
         # Waves of blocks times a block's stages (and two for its prologue
@@ -578,8 +591,11 @@ int4_matmul.last_plan = None
 
 # The activation formats of the quantizer kernel, by the number its C entry
 # point takes, and the dtype of each one's output.
-ACT_FORMATS = {"int8": 0, "e4m3": 1}
-_ACT_DTYPES = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+# "e4m3_f16": the e4m3 values stored as f16 (exact), the operand of the FP8
+# product's f16 wgmma body.
+ACT_FORMATS = {"int8": 0, "e4m3": 1, "e4m3_f16": 2}
+_ACT_DTYPES = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn,
+               "e4m3_f16": torch.float16}
 E4M3_MAX = 448.0  # largest finite float8_e4m3fn
 
 
@@ -632,17 +648,19 @@ def _w4a8_lib() -> ctypes.CDLL:
 def quantize_activations(x: torch.Tensor,
                          fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, K] per token to ``fmt`` ("int8" for W4A8, "e4m3" for FP8
-    W8A8): (xq [T, K], scale f32 [T, 1]). CPU tensors take the plain
-    version of the format; CUDA tensors launch the quantizer kernel of
-    csrc/int4p_matmul_w4a8.cu, one launch per call and bit-equal to the
-    plain version, or raise."""
+    W8A8, "e4m3_f16" for the same e4m3 values stored as f16, the operand of
+    the FP8 product's f16 wgmma body): (xq [T, K], scale f32 [T, 1]). CPU
+    tensors take the plain version of the format; CUDA tensors launch the
+    quantizer kernel of csrc/int4p_matmul_w4a8.cu, one launch per call and
+    bit-equal to the plain version, or raise."""
     if fmt not in ACT_FORMATS:
         raise ValueError(f"activation format must be one of "
                          f"{sorted(ACT_FORMATS)}, got {fmt!r}")
     if x.device.type == "cpu":
-        plain = (quantize_activations_int8 if fmt == "int8"
-                 else quantize_activations_e4m3)
-        return plain(x)
+        if fmt == "int8":
+            return quantize_activations_int8(x)
+        xq, scale = quantize_activations_e4m3(x)
+        return (xq.to(torch.float16) if fmt == "e4m3_f16" else xq), scale
     _check_device("quantize_activations", x)
     if x.dim() != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"quantize_activations kernel takes bf16 x [T, K], "
@@ -670,6 +688,27 @@ def quantize_activations(x: torch.Tensor,
 
 quantize_activations.launches = 0
 quantize_activations.launches_by_format = {}
+
+
+# The FP8 W8A8 product's bodies, by its wrapper's key in launches_by_body:
+# the e4m3 form of the prefill body (f16 wgmma, dequant_gemm.cuh) and the
+# e4m3 mma.sync body of csrc/int4_matmul.cu. The wrapper takes the wgmma
+# body from FP8_WGMMA_MIN_T tokens on: on an H100 it was faster at all four
+# Llama-3.1-8B sites from 32 tokens on and slower at some under (PERF.md).
+FP8_BODIES = ("f16_wgmma", "e4m3_mma")
+FP8_WGMMA_MIN_T = 32
+
+
+def fp8_route(T: int, body: Optional[str] = None) -> str:
+    """The body ``fp8_w8a8_matmul`` launches: the one named, else the f16
+    wgmma body from FP8_WGMMA_MIN_T tokens on and the e4m3 mma.sync body
+    under. Host values only, so a launch can go into a CUDA graph."""
+    if body is None:
+        return FP8_BODIES[0] if T >= FP8_WGMMA_MIN_T else FP8_BODIES[1]
+    if body not in FP8_BODIES:
+        raise ValueError(f"fp8_w8a8_matmul body must be one of "
+                         f"{FP8_BODIES}, got {body!r}")
+    return body
 
 
 def int4p_matmul_w4a8_ref(x: torch.Tensor, q4p: torch.Tensor,
@@ -782,17 +821,41 @@ def _fp8_kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _fp8_f16_kernel():
+    fn = cuda_build.load("int4_matmul").fp8_w8a8_matmul_f16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                    layer_idx: Optional[int] = None) -> torch.Tensor:
+                    layer_idx: Optional[int] = None,
+                    body: Optional[str] = None,
+                    splits: Optional[int] = None,
+                    block_t: Optional[int] = None) -> torch.Tensor:
     """x [T, K] @ (q [K, N] e4m3 * scale [1, N]) with x quantized per
     token to e4m3 -> f32 [T, N] (q and scale may be layer-stacked, with
     ``layer_idx``). CPU tensors take the plain version. CUDA tensors
-    launch the quantizer kernel, then the e4m3 body of csrc/int4_matmul.cu
-    (counted in ``launches``), which sums the exact e4m3 products in f32;
-    both scales are applied after, in f32, in the JAX package's order.
-    The tiles and the split of K are ``int4_kernel_plan``'s at one group
-    per column. Raises for what the kernel does not take: N % 128, K % 64, a weight
-    that is not contiguous e4m3, non-bf16 x."""
+    launch the quantizer kernel, then the body ``fp8_route`` names, each
+    summing the exact e4m3 products in f32:
+
+    - "f16_wgmma": the e4m3 form of the prefill body (dequant_gemm.cuh,
+      entry fp8_w8a8_matmul_f16 of csrc/int4_matmul.cu, on
+      ``dequant_gemm_plan`` with fmt "e4m3"): f16 wgmma on the quantizer's
+      values widened to f16 (exact), act_scale then scale multiplied into
+      its store;
+    - "e4m3_mma": the e4m3 mma.sync body of csrc/int4_matmul.cu, after
+      which the wrapper multiplies the two scales in the same order.
+
+    Hopper's 8-bit tensor cores keep fewer bits than f32 inside one k32
+    step (8.0e-5 of a row against this product's 2^-14 on an H100, PERF.md),
+    so neither body multiplies e4m3 on them. ``splits`` and ``block_t``
+    override the wgmma body's plan (timing sweeps). Launches are counted in
+    ``launches`` and by body in ``launches_by_body``, the wgmma
+    body's plan in ``last_plan``. Raises for what the kernels do not take:
+    N % 128, K % 64, a weight that is not contiguous e4m3, non-bf16 x."""
     if q.dim() == 3:
         if layer_idx is None:
             raise ValueError("layer-stacked q needs layer_idx")
@@ -815,24 +878,44 @@ def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             f"fp8_w8a8_matmul kernel takes N that is a multiple of "
             f"{KERNEL_N_MULTIPLE} and K that is a multiple of "
             f"{INT4_K_MULTIPLE}, got K {K}, N {N}")
-    if scale.dtype != torch.float32 or scale.shape != (1, N):
-        raise ValueError(f"fp8_w8a8_matmul takes an f32 scale [1, {N}], got "
-                         f"{scale.dtype} {tuple(scale.shape)}")
-    xq, act_scale = quantize_activations(x, "e4m3")
-    block_m, splits = int4_kernel_plan(T, K, N, K, "groupwise")
+    if (scale.dtype != torch.float32 or scale.shape != (1, N)
+            or not scale.is_contiguous() or scale.data_ptr() % 16):
+        raise ValueError(f"fp8_w8a8_matmul takes a contiguous f32 scale "
+                         f"[1, {N}], got {scale.dtype} {tuple(scale.shape)}")
+    route = fp8_route(T, body)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, T, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else out)
-    err = _fp8_kernel()(
-        xq.data_ptr(), q.data_ptr(), out.data_ptr(), partial.data_ptr(), T,
-        K, N, xq.stride(0), block_m, splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if route == "e4m3_mma":
+        xq, act_scale = quantize_activations(x, "e4m3")
+        block_m, mma_splits = int4_kernel_plan(T, K, N, K, "groupwise")
+        partial = (torch.empty((mma_splits, T, N), dtype=torch.float32,
+                               device=x.device) if mma_splits > 1 else out)
+        err = _fp8_kernel()(
+            xq.data_ptr(), q.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            T, K, N, xq.stride(0), block_m, mma_splits, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"fp8_w8a8_matmul kernel: error {err} (T {T}, K {K}, N {N}, "
+                f"block_m {block_m}, splits {mma_splits})")
+        _count(fp8_w8a8_matmul, route)
+        return out * act_scale * scale
+    xq, act_scale = quantize_activations(x, "e4m3_f16")
+    plan = dequant_gemm_plan(T, K, N, K, "e4m3", block_t, splits)
+    partial = (torch.empty((plan["splits"], T, N), dtype=torch.float32,
+                           device=x.device) if plan["splits"] > 1 else out)
+    err = _fp8_f16_kernel()(
+        xq.data_ptr(), q.data_ptr(), act_scale.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), T, K, N, plan["block_t"],
+        plan["stages"], plan["splits"], stream)
     if err != 0:
         raise RuntimeError(
-            f"fp8_w8a8_matmul kernel: error {err} (T {T}, K {K}, N {N}, "
-            f"block_m {block_m}, splits {splits})")
-    fp8_w8a8_matmul.launches += 1
-    return out * act_scale * scale
+            f"fp8_w8a8_matmul wgmma body: error {err} (T {T}, K {K}, N {N}, "
+            f"plan {plan})")
+    fp8_w8a8_matmul.last_plan = plan
+    _count(fp8_w8a8_matmul, route)
+    return out
 
 
 fp8_w8a8_matmul.launches = 0
+fp8_w8a8_matmul.launches_by_body = {}
+fp8_w8a8_matmul.last_plan = None

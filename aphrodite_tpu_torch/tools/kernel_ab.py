@@ -31,11 +31,13 @@ row (the D values of one token and query head, or the N outputs of one
 token), within ROW_TOL of the largest element of the first run's row. It
 prints each timed shape's mean time per run directory.
 
-    python -m aphrodite_tpu_torch.tools.kernel_ab sweep
+    python -m aphrodite_tpu_torch.tools.kernel_ab sweep [--only int4|fp8]
 
 times the prefill body (csrc/dequant_gemm.cuh) by token rows per block
-and split of K beside the plan's choice. Needs a card; nothing falls back
-to the CPU.
+and split of K beside the plan's choice: on int4 weights ("int4") and in
+its e4m3 form, the FP8 W8A8 product's, beside that product's mma.sync
+body and torch._scaled_mm ("fp8"). Needs a card; nothing falls back to
+the CPU.
 """
 
 import argparse
@@ -73,7 +75,7 @@ KERNELS = {"ragged": "ragged_paged_attention",
            "w4a8": "int4p_matmul_w4a8", "gather_probe": "gather_probe"}
 # Outputs filed under these kernels also keep rows (MATMUL_ROWS of them,
 # spread over T) in outputs.pt, for ``compare --changed``.
-KEPT_MATMULS = ("int4p_matmul", "int4_matmul")
+KEPT_MATMULS = ("int4p_matmul", "int4_matmul", "fp8_w8a8_matmul")
 MATMUL_ROWS = 48
 MATMUL_T = (1, 8, 32, 63, 64, 100, 257, 2048)
 # The unpacked containers: levels [low, high), zero [low, high), group,
@@ -328,8 +330,9 @@ def int4_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
             keep(f"{route('int8', T)} {site} T{T}",
                  int8_matmul(x, c8["q"], c8["scale"], layer_idx=0), out,
                  tensors)
-            out[f"fp8 {site} T{T}"] = digest(
-                fp8_w8a8_matmul(x, cf["q"], cf["scale"], layer_idx=0))
+            keep(f"fp8 {site} T{T}",
+                 fp8_w8a8_matmul(x, cf["q"], cf["scale"], layer_idx=0), out,
+                 tensors)
         del w, c8, cf
         torch.cuda.empty_cache()
     return out
@@ -422,12 +425,15 @@ MATMUL_TIME_T = (32, 128, 512, 2048)
 
 
 def matmul_timings() -> Dict[str, float]:
-    """The packed product at groups 128 and 16 and the unpacked one on a
-    Q6_K-like container (the wrapper's body) at the four sites and every T
-    of MATMUL_TIME_T, each launch on the next layer of a stack larger than
-    the 50 MB L2."""
-    from aphrodite_tpu_torch.ops.quant_matmul import (int4_matmul,
+    """The packed product at groups 128 and 16, the unpacked one on a
+    Q6_K-like container (the wrapper's body) and the FP8 W8A8 product (the
+    wrapper's body, quantizer included) at the four sites and every T of
+    MATMUL_TIME_T, each launch on the next layer of a stack larger than the
+    50 MB L2."""
+    from aphrodite_tpu_torch.ops.quant_matmul import (fp8_w8a8_matmul,
+                                                      int4_matmul,
                                                       int4p_matmul)
+    from aphrodite_tpu_torch.quantization import fp8
 
     out = {}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
@@ -449,6 +455,17 @@ def matmul_timings() -> Dict[str, float]:
                     lambda: fn(x, q, scale, zero, group, layer_idx=nxt()),
                     200 if T <= 64 else 20)
         del cases
+        layers = -(-100_000_000 // (K * N)) + 1
+        cf = fp8.quantize_from_float(torch.randn((layers, K, N),
+                                                 device="cuda") * K**-0.5)
+        nxt = rotation(layers)
+        for T in MATMUL_TIME_T:
+            x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
+            out[f"fp8 {site} T{T}"] = time_ms(
+                lambda: fp8_w8a8_matmul(x, cf["q"], cf["scale"],
+                                        layer_idx=nxt()),
+                200 if T <= 64 else 20)
+        del cf
         torch.cuda.empty_cache()
     return out
 
@@ -511,6 +528,59 @@ def sweep() -> None:
                       f"{library:.4f}", flush=True)
             del q, scale, zero, dense
             torch.cuda.empty_cache()
+
+
+SWEEP_FP8_T = (1, 16, 32, 64, 128, 512, 2048)
+
+
+def sweep_fp8() -> None:
+    """The FP8 W8A8 product's times at the four sites and every T of
+    SWEEP_FP8_T: the prefill body's e4m3 form (f16 wgmma) by token rows per
+    block and split of K (up to 4) beside the plan's choice, the e4m3
+    mma.sync body and torch._scaled_mm on the same e4m3 operands; each call
+    takes the next layer of a stack larger than the 50 MB L2, the wrapper's
+    times include the quantizer. fp8_route's threshold comes from these
+    times."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.quantization import fp8
+
+    print(f"sweep fp8 on {torch.cuda.get_device_name(0)}", flush=True)
+    one = torch.ones((), device="cuda")
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        layers = -(-100_000_000 // (K * N)) + 1
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        c = fp8.quantize_from_float(torch.randn(
+            (layers, K, N), generator=gen, device="cuda") * K**-0.5)
+        col_major = c["q"].mT.contiguous().mT
+        nxt = rotation(layers)
+        for T in SWEEP_FP8_T:
+            x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
+            xq, _ = qm.quantize_activations_e4m3(x)
+            n = 100 if T <= 128 else 20
+            plan = qm.dequant_gemm_plan(T, K, N, K, "e4m3")
+
+            def fp8_call(**kw):
+                return qm.fp8_w8a8_matmul(x, c["q"], c["scale"],
+                                          layer_idx=nxt(), **kw)
+
+            line = [f"plan (block_t {plan['block_t']}, splits "
+                    f"{plan['splits']}, stages {plan['stages']}) "
+                    f"{time_ms(lambda: fp8_call(body='f16_wgmma'), n):.4f}"]
+            for bt in (64, 128):
+                for sp in (1, 2, 4):
+                    if plan["k_stages"] % sp == 0:
+                        ms = time_ms(lambda: fp8_call(
+                            body="f16_wgmma", block_t=bt, splits=sp), n)
+                        line.append(f"{bt}/{sp} {ms:.4f}")
+            mma = time_ms(lambda: fp8_call(body="e4m3_mma"), n)
+            library = time_ms(lambda: torch._scaled_mm(
+                xq, col_major[nxt()], scale_a=one, scale_b=one,
+                out_dtype=torch.float32), n)
+            print(f"sweep fp8 {site} {K}x{N} T={T}: f16 wgmma body ms by "
+                  f"block_t/splits: {', '.join(line)}; e4m3 mma.sync body "
+                  f"{mma:.4f}; _scaled_mm {library:.4f}", flush=True)
+        del c, col_major
+        torch.cuda.empty_cache()
 
 
 def run(out_dir: str) -> None:
@@ -599,14 +669,19 @@ def main() -> None:
     p_cmp.add_argument("--changed", default="",
                        help="comma-separated kernels whose outputs are held "
                             "at ROW_TOL instead of bit for bit")
-    sub.add_parser("sweep")
+    p_sweep = sub.add_parser("sweep")
+    p_sweep.add_argument("--only", choices=("int4", "fp8"), default=None,
+                         help="sweep one product only")
     args = parser.parse_args()
     if args.cmd == "run":
         run(args.out)
     elif args.cmd == "sweep":
         if not torch.cuda.is_available():
             sys.exit("kernel_ab: needs a card")
-        sweep()
+        if args.only in (None, "int4"):
+            sweep()
+        if args.only in (None, "fp8"):
+            sweep_fp8()
     else:
         compare(args.dirs, [k for k in args.changed.split(",") if k])
 

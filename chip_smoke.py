@@ -45,9 +45,11 @@ Phases, each of which must pass or the script exits non-zero:
    int8 and e4m3, byte for byte against its plain version on rows with an
    all-zero row, one large value and exact .5 steps. int8 per-channel
    containers through the unpacked kernel's group-wise body at G = K. The
-   FP8 W8A8 product (quantizer and the unpacked kernel's e4m3 body, f32
-   sums) at the same sites and T against its plain version at
-   INT4_TOL_SAME.
+   FP8 W8A8 product (quantizer and each body: the e4m3 form of the
+   prefill body on f16 wgmma, and the unpacked kernel's e4m3 mma.sync
+   body; f32 sums) at the same sites and T and at K 4160 against its
+   plain version at INT4_TOL_SAME. The packed kernel and W4A8 also at K
+   1088 (K/2 an odd multiple of 32) where the group divides 544.
 4. Time each kernel, on every page type, at the main path's shapes
    beside its plain version, one PyTorch library call on pre-gathered
    contiguous K/V (scaled_dot_product_attention; the gather is not timed,
@@ -120,7 +122,8 @@ Phases, each of which must pass or the script exits non-zero:
    that the plain products summed in another f32 order decide), and its
    rates printed beside the gptq path's. ``int8`` and ``fp8`` (4 layers,
    quantized at load on the card): the group-wise body (G = K), or the
-   e4m3 quantizer and the e4m3 body, 4 launches per layer and forward,
+   e4m3 quantizer and the FP8 body fp8_route picks by each forward's T
+   (launches by body held to it), 4 launches per layer and forward,
    logits against the plain product; on the fp8 path once with the plain
    quantizer (bit-equal) and once with the whole plain product, each
    site's product held at INT4_TOL_SAME on that run's inputs.
@@ -397,6 +400,9 @@ INT4_GROUP = 128
 # tile.
 INT4_CHECK_T = (1, 8, 32, 63, 64, 100, 257, 2048)
 INT4_TIME_T = (32, 128, 512, 2048)
+# The FP8 product is timed at the decode step's 16 rows too: under
+# FP8_WGMMA_MIN_T tokens it takes its mma.sync body.
+FP8_TIME_T = (16, *INT4_TIME_T)
 # int4 matmul outputs are compared row by row (the N outputs of one
 # token): |kernel - other| <= tol * max|other row|, x at std 1, against
 # two products. The exact one, with f32 weights: under 64 tokens the
@@ -454,7 +460,7 @@ Q4_TOLS = {"dense": dict(plain=INT4_TOL_SAME, exact=INT4_TOL_ROUNDED),
 # under A8_BOUND of the output's largest value.
 A8_BOUND = 0.02
 INT8_OPS = 1979e12  # H100 SXM dense int8 (and fp8) tensor-core peak
-# The FP8 W8A8 product (the quantizer kernel and the e4m3 body) against its
+# The FP8 W8A8 product (the quantizer kernel and either body) against its
 # plain version: the e4m3 operands are equal on both sides, every product
 # is exact and both sum in f32, so only the order of the sums differs
 # (INT4_TOL_SAME). The fp8 path's logits cannot be held that close: each
@@ -1174,8 +1180,10 @@ def make_x(T, K, device, seed):
 def int4_checks(device, group=INT4_GROUP):
     """The int4 kernel against its plain version and the exact f32
     product, at every site and T, at `group` (INT4_GROUP unless given;
-    16 for GGUF Q2_K and Q3_K); returns the max abs error against the
-    plain version of each body ("groupwise", "dense_wgmma")."""
+    16 for GGUF Q2_K and Q3_K), and at K 1088 where the group divides its
+    K/2 of 544 (the prefill body's 32-row last stage); returns the max abs
+    error against the plain version of each body ("groupwise",
+    "dense_wgmma")."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -1185,7 +1193,7 @@ def int4_checks(device, group=INT4_GROUP):
                                                       unpack_int4_rows)
 
     worst_abs = {"groupwise": 0.0, "dense_wgmma": 0.0}
-    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+    for i, (site, (K, N)) in enumerate(with_tail_site(group).items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 40 + i,
                                           wide_zero=wide, group=group)
@@ -1233,6 +1241,17 @@ def int4_checks(device, group=INT4_GROUP):
                   flush=True)
         del q4p, scale, zero, w_exact
     return worst_abs
+
+
+# A packed K/2 that is an odd multiple of 32: the prefill body's last stage
+# holds 32 rows (and the W4A8 kernel takes such a K/2 too).
+TAIL_SITE = {"k1088": (1088, 512)}
+
+
+def with_tail_site(group):
+    """INT4_SITES, and TAIL_SITE where `group` divides its K/2."""
+    K = TAIL_SITE["k1088"][0]
+    return {**INT4_SITES, **(TAIL_SITE if (K // 2) % group == 0 else {})}
 
 
 def int4_work(T, K, N, group=INT4_GROUP):
@@ -1355,8 +1374,9 @@ def w4a8_checks(device, group=INT4_GROUP):
     """The W4A8 kernel against its plain version (INT4_TOL_SAME) and the
     exact W4A16 product (A8_BOUND of its largest value) at every site and
     T, on a layer-stacked container with a layer index (wide zeros at wo),
-    at `group` (16: GGUF Q2_K / Q3_K); returns the max abs error against
-    the plain version."""
+    at `group` (16: GGUF Q2_K / Q3_K), and at K 1088 where the group
+    divides its K/2 of 544; returns the max abs error against the plain
+    version."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -1365,7 +1385,7 @@ def w4a8_checks(device, group=INT4_GROUP):
                                                       unpack_int4_rows)
 
     worst_abs = 0.0
-    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+    for i, (site, (K, N)) in enumerate(with_tail_site(group).items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 400 + i,
                                           wide_zero=wide, group=group)
@@ -1552,38 +1572,46 @@ def int8_timings(device, iters):
 
 
 def fp8_checks(device):
-    """The FP8 W8A8 product (quantizer kernel and the e4m3 body) at every
-    site and T, on a layer-stacked container with a layer index, against
-    its plain version at INT4_TOL_SAME. Returns the max abs error."""
+    """The FP8 W8A8 product (the quantizer kernel and each body) at every
+    site and T, on a layer-stacked container with a layer index, and at K
+    4160 (65 stages of 64 rows), against its plain version at
+    INT4_TOL_SAME: the body fp8_route picks at that T, then the other one
+    named. Returns the max abs error against the plain version of each
+    body."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (fp8_w8a8_matmul,
+    from aphrodite_tpu_torch.ops.quant_matmul import (FP8_BODIES, fp8_route,
+                                                      fp8_w8a8_matmul,
                                                       fp8_w8a8_matmul_ref)
     from aphrodite_tpu_torch.quantization import fp8
 
-    worst_abs = 0.0
-    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+    worst_abs = dict.fromkeys(FP8_BODIES, 0.0)
+    sites = {**INT4_SITES, "k4160": (4160, 512)}
+    for i, (site, (K, N)) in enumerate(sites.items()):
         gen = torch.Generator(device=device).manual_seed(SEED + 650 + i)
         c = fp8.quantize_from_float(
             torch.randn((2, K, N), generator=gen, device=device) * K**-0.5)
         for T in INT4_CHECK_T:
             x = make_x(T, K, device, SEED + 50 + T)
-            got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=1)
-            torch.cuda.synchronize()
-            where = f"fp8_w8a8_matmul [{site} T={T}]"
-            if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
-                fail(f"{where}: output {got.shape} {got.dtype}")
-            if not bool(got.isfinite().all()):
-                fail(f"{where}: non-finite output")
             plain = fp8_w8a8_matmul_ref(x, c["q"][1], c["scale"][1])
-            ratio = row_ratio(got, plain)
-            abs_err = float((got - plain).abs().max())
-            worst_abs = max(worst_abs, abs_err)
-            print(f"check {where}: max_abs_err against plain {abs_err:.3e}, "
-                  f"worst row err / max|row| {ratio:.3e} (tolerance "
-                  f"{INT4_TOL_SAME:.3e})", flush=True)
-            if ratio > INT4_TOL_SAME:
-                fail(f"{where} disagrees with its plain version")
+            route = fp8_route(T)
+            for body in (route, *(b for b in FP8_BODIES if b != route)):
+                got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=1,
+                                      body=body)
+                torch.cuda.synchronize()
+                where = f"fp8_w8a8_matmul [{site} T={T} {body}]"
+                if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
+                    fail(f"{where}: output {got.shape} {got.dtype}")
+                if not bool(got.isfinite().all()):
+                    fail(f"{where}: non-finite output")
+                ratio = row_ratio(got, plain)
+                abs_err = float((got - plain).abs().max())
+                worst_abs[body] = max(worst_abs[body], abs_err)
+                print(f"check {where}: max_abs_err against plain "
+                      f"{abs_err:.3e}, worst row err / max|row| {ratio:.3e} "
+                      f"(tolerance {INT4_TOL_SAME:.3e})", flush=True)
+                if ratio > INT4_TOL_SAME:
+                    fail(f"{where} disagrees with its plain version")
         del c
         torch.cuda.empty_cache()
     return worst_abs
@@ -1695,18 +1723,20 @@ def quantizer_timings(device, iters):
 
 
 def fp8_timings(device, iters):
-    """Times of the FP8 W8A8 product at every (site, T) of INT4_TIME_T: the
-    wrapper (quantizer kernel, e4m3 body, two f32 scalings) beside its
-    plain version, the library call (one torch._scaled_mm on the same e4m3
-    operands, the weight copied column-major as it asks, with an f32
-    result; the port never calls it) and the bound (bytes: x bf16, 1 byte
-    a weight, f32 scale and output; operations over 1979 TFLOP/s fp8);
-    each timed call takes the next layer of a stack larger than the 50 MB
-    L2. Returns a list of per-point dicts."""
+    """Times of the FP8 W8A8 product's two bodies (the wrapper with body=:
+    quantizer kernel and body, the scalings included) at every (site, T)
+    of FP8_TIME_T beside its plain version, the library call
+    (one torch._scaled_mm on the same e4m3 operands, the weight copied
+    column-major as it asks, with an f32 result; the port never calls it)
+    and the bound (bytes: x bf16, 1 byte a weight, f32 scale and output;
+    operations over 1979 TFLOP/s fp8); each timed call takes the next
+    layer of a stack larger than the 50 MB L2. Returns a list of per-point
+    dicts."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (
-        fp8_w8a8_matmul, fp8_w8a8_matmul_ref, quantize_activations_e4m3)
+        FP8_BODIES, fp8_w8a8_matmul, fp8_w8a8_matmul_ref,
+        quantize_activations_e4m3)
     from aphrodite_tpu_torch.quantization import fp8
 
     points = []
@@ -1717,13 +1747,11 @@ def fp8_timings(device, iters):
             (layers, K, N), generator=gen, device=device) * K**-0.5)
         col_major = c["q"].mT.contiguous().mT
         one = torch.ones((), device=device)
-        for T in INT4_TIME_T:
+        for T in FP8_TIME_T:
             x = make_x(T, K, device, SEED + 70 + T)
             xq, _ = quantize_activations_e4m3(x)
             nxt = rotation(layers)
             n = iters if T <= 64 else max(4, iters // 10)
-            ms = time_ms(lambda: fp8_w8a8_matmul(x, c["q"], c["scale"],
-                                                 layer_idx=nxt()), n)
             library_ms = time_ms(lambda: torch._scaled_mm(
                 xq, col_major[nxt()], scale_a=one, scale_b=one,
                 out_dtype=torch.float32), n)
@@ -1736,16 +1764,21 @@ def fp8_timings(device, iters):
             nbytes = T * K * 2 + K * N + N * 4 + T * N * 4
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * T * K * N / INT8_OPS * 1e3
-            pt = dict(site=site, K=K, N=N, T=T, ms=ms, plain_ms=plain_ms,
-                      library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-            points.append(pt)
-            print(f"time fp8_w8a8_matmul [{site} {K}x{N} T={T}, {layers} "
-                  f"layers in turn]: quantizer + e4m3 body + scaling "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"(_scaled_mm alone) {library_ms:.4f} ms, bound "
-                  f"{pt['bound_ms']:.4f} ms ({pt['bound_by']}: {nbytes} "
-                  f"bytes, {2 * T * K * N} fp8 operations)", flush=True)
+            for body in FP8_BODIES:
+                ms = time_ms(lambda: fp8_w8a8_matmul(
+                    x, c["q"], c["scale"], layer_idx=nxt(), body=body), n)
+                pt = dict(body=body, site=site, K=K, N=N, T=T, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+                points.append(pt)
+                print(f"time fp8_w8a8_matmul [{body} {site} {K}x{N} T={T}, "
+                      f"{layers} layers in turn]: quantizer + body + scaling "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                      f"(_scaled_mm alone) {library_ms:.4f} ms, bound "
+                      f"{pt['bound_ms']:.4f} ms ({pt['bound_by']}: {nbytes} "
+                      f"bytes, {2 * T * K * N} fp8 operations)", flush=True)
         del c, col_major
         torch.cuda.empty_cache()
     return points
@@ -2151,6 +2184,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         paged_decode_attention
     from aphrodite_tpu_torch.ops.quant_matmul import (DENSE_MIN_T,
                                                       INT4_BODY,
+                                                      fp8_route,
                                                       fp8_w8a8_matmul,
                                                       int4_matmul,
                                                       int4p_matmul,
@@ -2245,8 +2279,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     for fn in (ragged_paged_attention, paged_decode_attention):
         fn.launches_by_dtype = {}
         fn.launches_by_shape = {}
-    int4_matmul.launches_by_body = {}
-    int4p_matmul.launches_by_body = {}
+    for fn in (int4_matmul, int4p_matmul, fp8_w8a8_matmul):
+        fn.launches_by_body = {}
     quantize_activations.launches_by_format = {}
     if q4_body is not None:
         # Until this path's logits are compared; a failure ends the script.
@@ -2265,6 +2299,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                 for name in by_dtype}
     by_body = dict(int4_matmul.launches_by_body)
     packed_by_body = dict(int4p_matmul.launches_by_body)
+    fp8_by_body = dict(fp8_w8a8_matmul.launches_by_body)
     by_format = dict(quantize_activations.launches_by_format)
     w4a16 = int4p_matmul.launches
     other_int4 = (int4p_matmul.launches
@@ -2284,6 +2319,14 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         want = {small_body: 4 * layers * (forwards - prefill),
                 large_body: 4 * layers * prefill}
         return {k: n for k, n in want.items() if n}
+
+    def by_route(route):
+        """Launches by body of four products per layer and forward, each
+        forward's on the body route(T) names."""
+        want = {}
+        for t in forward_tokens:
+            want[route(t)] = want.get(route(t), 0) + 4 * layers
+        return want
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
@@ -2361,6 +2404,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             fail(f"W4A8 path launches {got}, by format {by_format}, are not "
                  f"{want} for {wide} forwards of 16 tokens or more and "
                  f"{forwards - wide} under")
+
+
         print(f"{label}: {wide} forwards of 16 tokens or more, each with "
               f"{4 * layers} int4p_matmul_w4a8 and int8 quantize_activations "
               f"launches; {forwards - wide} under, each with {4 * layers} "
@@ -2377,15 +2422,24 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         print(f"{label}: int4_matmul (G = K) launched {4 * layers} times in "
               f"each forward, by body {by_body}", flush=True)
     if quantization == "fp8":
-        # Four e4m3 quantizations and e4m3 products per layer.
+        # Four e4m3 quantizations and products per layer, each forward's on
+        # the body fp8_route names (the f16 body's activations as f16).
         n = 4 * layers * forwards
-        if (launches["fp8_w8a8_matmul"] != n or by_format != {"e4m3": n}):
+        want = by_route(fp8_route)
+        formats = {"f16_wgmma": "e4m3_f16", "e4m3_mma": "e4m3"}
+        want_formats = {}
+        for body, k in want.items():
+            want_formats[formats[body]] = want_formats.get(formats[body],
+                                                           0) + k
+        if (launches["fp8_w8a8_matmul"] != n or fp8_by_body != want
+                or by_format != want_formats):
             fail(f"fp8 path: {launches['fp8_w8a8_matmul']} e4m3 products "
-                 f"and {by_format} quantizer launches are not 4 x {layers} "
-                 f"layers x {forwards} forwards")
-        print(f"{label}: fp8_w8a8_matmul (e4m3 body) and e4m3 "
-              f"quantize_activations launched {4 * layers} times in each "
-              "forward", flush=True)
+                 f"({fp8_by_body} by body, want {want}) and {by_format} "
+                 f"quantizer launches are not 4 x {layers} layers x "
+                 f"{forwards} forwards")
+        print(f"{label}: fp8_w8a8_matmul and quantize_activations launched "
+              f"{4 * layers} times in each forward, by body {fp8_by_body}",
+              flush=True)
     if gguf is not None and not packed_gguf:
         # And four unpacked matmuls (wqkv, wo, w13, down) per layer, none
         # through the packed kernel.
@@ -2439,6 +2493,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         launches[f"int4_matmul_{body}"] = n
     for body, n in packed_by_body.items():
         launches[f"int4p_matmul_{body}"] = n
+    for body, n in fp8_by_body.items():
+        launches[f"fp8_w8a8_matmul_{body}"] = n
     for name, counts in by_shape.items():
         launches[f"{variant_name(name, page_type)} by shape"] = counts
     return launches, rates
@@ -2589,8 +2645,9 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         return want
 
     def plain_quantizer(x, fmt):
-        return (quantize_activations_int8 if fmt == "int8"
-                else quantize_activations_e4m3)(x)
+        xq, scale = (quantize_activations_int8 if fmt == "int8"
+                     else quantize_activations_e4m3)(x)
+        return (xq.to(torch.float16) if fmt == "e4m3_f16" else xq), scale
 
     def reordered_fp8(x, q, scale, layer_idx=None):
         # The plain product with the same exact e4m3 products summed in
@@ -2809,7 +2866,8 @@ def main() -> None:
                                     w4a8_checks("cuda", 16))
     errs["quantize_activations"] = quantizer_checks("cuda")
     int8_errs = int8_checks("cuda")
-    errs["fp8_w8a8_matmul"] = fp8_checks("cuda")
+    for body, err in fp8_checks("cuda").items():
+        errs[f"fp8_w8a8_matmul_{body}"] = err
     q4_errs = q4_checks("cuda")
     errs["gather_probe"] = probe_check()
     stamp("matmul and probe checks")
@@ -3130,25 +3188,42 @@ def main() -> None:
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
         shape="int8, T=32, K=4096", points=act_points))
-    # The FP8 W8A8 product: the quantizer (counted above) and the e4m3 body
-    # of the unpacked kernel; the headline times are those of the largest
-    # site at the decode step's size.
-    head = next(p for p in fp8_points if p["site"] == "w13" and p["T"] == 32)
-    by_path = on_paths("fp8_w8a8_matmul")
-    if not sum(by_path.values()):
+    # The FP8 W8A8 product: the quantizer (counted above) and one entry per
+    # body the paths launched: the e4m3 mma.sync body of csrc/int4_matmul.cu
+    # ("fp8_w8a8_matmul" as in earlier slices) with the headline times of
+    # the largest site at the decode step's size, the f16 wgmma body (the
+    # prefill body's e4m3 form, built in csrc/int4_matmul.cu) at a
+    # 2048-token prefill step; every (site, T) point follows in "points".
+    fp8_bodies = {"e4m3_mma": ("aphrodite_tpu_torch/csrc/int4_matmul.cu", 16,
+                               "fp8_w8a8_matmul"),
+                  "f16_wgmma": ("aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
+                                2048, "fp8_w8a8_matmul_f16_wgmma")}
+    fp8_by_body = {b: sum(on_paths(f"fp8_w8a8_matmul_{b}").values())
+                   for b in fp8_bodies}
+    if not sum(fp8_by_body.values()):
         fail("fp8_w8a8_matmul was launched on no main path")
-    kernels.append(dict(
-        name="fp8_w8a8_matmul", route="cuda",
-        source="aphrodite_tpu_torch/csrc/int4_matmul.cu",
-        replaces=("aphrodite_tpu/quantization/qlinear.py:72 "
-                  "_fp8_w8a8_matmul's product (XLA code, no Pallas kernel)"),
-        launches=sum(by_path.values()), launches_by_path=by_path,
-        max_abs_err=errs["fp8_w8a8_matmul"],
-        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")},
-        library="torch._scaled_mm on the same e4m3 operands",
-        shape="w13 4096x28672 T=32 (quantizer and scaling included)",
-        points=fp8_points))
+    for body, (src, T, name) in fp8_bodies.items():
+        by_path = on_paths(f"fp8_w8a8_matmul_{body}")
+        if not sum(by_path.values()):
+            # main_path held each forward's launches to fp8_route at its T:
+            # no forward of the paths was under FP8_WGMMA_MIN_T tokens.
+            continue
+        points = [p for p in fp8_points if p["body"] == body]
+        head = next(p for p in points if p["site"] == "w13" and p["T"] == T)
+        kernels.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=("aphrodite_tpu/quantization/qlinear.py:72 "
+                      "_fp8_w8a8_matmul's product (XLA code, no Pallas "
+                      "kernel)"),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_by_body=fp8_by_body,
+            max_abs_err=errs[f"fp8_w8a8_matmul_{body}"],
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            library="torch._scaled_mm on the same e4m3 operands",
+            shape=(f"w13 4096x28672 T={T} (quantizer and scaling "
+                   "included)"),
+            points=points))
     # The page-gather probe (TPU kernel row 9), on its own entry point.
     kernels.append(dict(
         name="gather_probe", route="cuda",

@@ -1025,8 +1025,9 @@ def test_int8_per_column_body_on_card(site):
 def test_dense_body_edges_and_refusals_on_card():
     """body="dense" takes any T (token rows past T are masked); an N that
     is an odd multiple of 128 leaves the last block one warpgroup of
-    columns; K/2 not a multiple of 64 is refused from 64 tokens on and
-    taken by the group-wise body under 64."""
+    columns; K/2 an odd multiple of 32 takes the prefill body from 64
+    tokens on (its last stage runs 32 packed rows) and the group-wise body
+    under 64."""
     _card_or_skip()
     rng = np.random.default_rng(12)
     x, q4p, scale, zero = _int4_case(rng, 1, 1024, 384, 64, 70)
@@ -1036,14 +1037,42 @@ def test_dense_body_edges_and_refusals_on_card():
         _assert_rows_within(got, int4p_matmul_ref(x[:T], *args), SAME_TOL)
     x, q4p, scale, zero = _int4_case(rng, 1, 1088, 256, 32, 70)
     args = (q4p[0], scale[0], zero[0], 32)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        int4p_matmul(x, *args)
+    before = _by_body(int4p_matmul, "dense_wgmma")
+    got = int4p_matmul(x, *args)
+    assert _by_body(int4p_matmul, "dense_wgmma") == before + 1
+    _assert_rows_within(got, int4p_matmul_ref(x, *args), SAME_TOL)
     got = int4p_matmul(x[:20], *args)  # the group-wise body
     exact = x[:20].float() @ dequantize_int4(unpack_int4_rows(q4p[0]),
                                              scale[0], zero[0], 32)
     _assert_rows_within(got, exact, SAME_TOL)
     with pytest.raises(ValueError, match="body"):
         int4p_matmul(x, *args, body="wmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 200])
+@pytest.mark.parametrize("group", [16, 32])
+def test_int4p_prefill_body_32_row_tail_on_card(T, group):
+    """K 1088 (K/2 = 544, an odd multiple of 32): the prefill body's last
+    stage takes 32 packed rows; against the plain version at SAME_TOL (the
+    same bf16-rounded weights, f32 sums in another order), with the split
+    of K the plan chooses and with none."""
+    _card_or_skip()
+    rng = np.random.default_rng(T + group)
+    x, q4p, scale, zero = _int4_case(rng, 2, 1088, 512, group, T,
+                                     wide_zero=True)
+    want = int4p_matmul_ref(x, q4p[1], scale[1], zero[1], group)
+    before = _by_body(int4p_matmul, "dense_wgmma")
+    got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=1)
+    torch.cuda.synchronize()
+    assert _by_body(int4p_matmul, "dense_wgmma") == before + 1
+    assert int4p_matmul.last_plan["k_stages"] == 9
+    _assert_rows_within(got, want, SAME_TOL)
+    from aphrodite_tpu_torch.ops.quant_matmul import _dense_product
+    for splits in (1, 3, 9):
+        got = _dense_product(int4p_matmul, x, q4p[1], scale[1], zero[1],
+                             group, "packed", splits=splits)
+        _assert_rows_within(got, want, SAME_TOL)
 
 
 # ----------------------------------------------------------------------
@@ -1064,7 +1093,7 @@ def _assert_rows_within(got, want, tol):
     (1, 4096, 256, 128), (16, 4096, 6144, 128), (33, 1024, 128, 32),
     (100, 14336, 512, 128), (2048, 4096, 256, 64), (1, 4096, 256, 16),
     (33, 1024, 128, 16), (100, 14336, 512, 16), (2048, 4096, 256, 16),
-    (64, 3072, 256, 48)])
+    (64, 3072, 256, 48), (200, 1088, 256, 32), (33, 1088, 384, 16)])
 def test_w4a8_kernel_matches_plain_on_card(T, K, N, group):
     """Stacked container with a layer index, wide zeros; T = 1 and 33
     leave a row block partly dead, K = 14336 at small T splits K; groups
@@ -1088,7 +1117,7 @@ def test_w4a8_kernel_matches_plain_on_card(T, K, N, group):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["int8", "e4m3"])
+@pytest.mark.parametrize("fmt", ["int8", "e4m3", "e4m3_f16"])
 @pytest.mark.parametrize("K", [8, 4096, 14336])
 def test_quantize_activations_kernel_bytes_equal_the_plain_on_card(fmt, K):
     """bf16 rows at scales from e^-8 to e^6, an all-zero row, a row with
@@ -1111,7 +1140,10 @@ def test_quantize_activations_kernel_bytes_equal_the_plain_on_card(fmt, K):
     got_q, got_s = quantize_activations(xc.cuda(), fmt)
     torch.cuda.synchronize()
     assert quantize_activations.launches == before + 1
-    for want_q, want_s in (plain(xc), plain(xc.cuda())):
+    wants = [plain(xc), plain(xc.cuda())]
+    if fmt == "e4m3_f16":
+        wants = [(q.to(torch.float16), s) for q, s in wants]
+    for want_q, want_s in wants:
         assert got_q.dtype == want_q.dtype
         assert torch.equal(got_q.view(torch.uint8).cpu(),
                            want_q.view(torch.uint8).cpu())
@@ -1188,13 +1220,15 @@ def test_int8_container_groupwise_body_on_card(T, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 32, 2048])
+@pytest.mark.parametrize("T", [1, 16, 32, 64, 2048])
 def test_fp8_w8a8_matches_plain_on_card(T):
-    """The quantizer kernel and the e4m3 body of the unpacked kernel
-    against the plain version: the same e4m3 operands, exact products and
-    f32 sums in another order (SAME_TOL), on a stacked row-major weight
-    made on the card; a witness of the plain version (the operands widened
-    to bf16, a bf16 product with f32 sums) at the same tolerance."""
+    """The quantizer kernel and the body fp8_route picks against the plain
+    version: the same e4m3 operands, exact products and f32 sums in
+    another order (SAME_TOL), on a stacked row-major weight made on the
+    card; a witness of the plain version (the operands widened to bf16, a
+    bf16 product with f32 sums) at the same tolerance."""
+    from aphrodite_tpu_torch.ops.quant_matmul import fp8_route
+
     _card_or_skip()
     rng = np.random.default_rng(T)
     K, N = 4096, 6144
@@ -1204,11 +1238,14 @@ def test_fp8_w8a8_matches_plain_on_card(T):
     assert q.is_contiguous()
     x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
         torch.bfloat16).cuda()
-    before = fp8_w8a8_matmul.launches, quantize_activations.launches
+    route = fp8_route(T)
+    before = (fp8_w8a8_matmul.launches, quantize_activations.launches,
+              _by_body(fp8_w8a8_matmul, route))
     got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=1)
     torch.cuda.synchronize()
-    assert (fp8_w8a8_matmul.launches, quantize_activations.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (fp8_w8a8_matmul.launches, quantize_activations.launches,
+            _by_body(fp8_w8a8_matmul, route)) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     want = fp8_w8a8_matmul_ref(x, q, scale)
     _assert_rows_within(got, want, SAME_TOL)
     xq, act_scale = quantize_activations_e4m3(x)
@@ -1219,6 +1256,57 @@ def test_fp8_w8a8_matches_plain_on_card(T):
         fp8_w8a8_matmul(x, q.mT.contiguous().mT, scale)
     with pytest.raises(ValueError, match="multiple of 128"):
         fp8_w8a8_matmul(x, q[:, :200].contiguous(), scale[:, :200])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,N", [(1, 4160, 384), (40, 4160, 384),
+                                   (200, 1024, 256), (130, 14336, 512)])
+def test_fp8_bodies_and_splits_on_card(T, K, N):
+    """The f16 wgmma body and the e4m3 mma.sync body at K 4160 (65 stages
+    of 64 rows), N an odd multiple of 128, T below and above one token
+    block, and the f16 body at every split of K that divides its stages up
+    to 4 (the scales go into the pass that sums the partials): each
+    against the plain version at SAME_TOL."""
+    _card_or_skip()
+    rng = np.random.default_rng(T + K + N)
+    w = torch.from_numpy(rng.standard_normal((1, K, N), dtype=np.float32))
+    c = fp8.quantize_from_float(w.cuda())
+    x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    want = fp8_w8a8_matmul_ref(x, c["q"][0], c["scale"][0])
+    for body in ("f16_wgmma", "e4m3_mma"):
+        _assert_rows_within(fp8_w8a8_matmul(x, c["q"], c["scale"],
+                                            layer_idx=0, body=body),
+                            want, SAME_TOL)
+    stages = K // 64
+    for splits in (d for d in (1, 2, 3, 4) if stages % d == 0):
+        got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=0,
+                              body="f16_wgmma", splits=splits)
+        assert fp8_w8a8_matmul.last_plan["splits"] == splits
+        _assert_rows_within(got, want, SAME_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [192, 256])
+def test_fp8_wgmma_fragment_layout_on_card(K):
+    """The FP8 product's wgmma body on a known weight, q[k, n] = (k + 3 n)
+    mod 16, and one-hot activations, x[t, k] = 1 where k = t: each output
+    is one product, so the kernel must equal the plain version bit for
+    bit, and an e4m3 pair widened into the wrong k or column of the A
+    fragment shows as a wrong value at its place. T = K: two to four
+    token blocks, three or four 64-row stages."""
+    _card_or_skip()
+    N = 256
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    q = torch.from_numpy(((k + 3 * n) % 16).astype(np.float32)).cuda()
+    c = {"q": q.to(torch.float8_e4m3fn)[None],
+         "scale": torch.ones((1, 1, N), device="cuda")}
+    x = torch.eye(K, dtype=torch.bfloat16).cuda()
+    got = fp8_w8a8_matmul(x, c["q"], c["scale"], layer_idx=0,
+                          body="f16_wgmma")
+    want = fp8_w8a8_matmul_ref(x, c["q"][0], c["scale"][0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # ----------------------------------------------------------------------

@@ -207,7 +207,7 @@ def test_plan_fills_the_card_at_few_tiles(fmt, group):
 
 
 @pytest.mark.parametrize("fmt,K,N,group,match", [
-    ("packed", 1088, 256, 32, "multiple of 64"),    # K/2 = 544
+    ("packed", 1056, 256, 16, "multiple of 32"),    # K/2 = 528
     ("packed", 1024, 192, 32, "multiple of 128"),   # N
     ("packed", 1024, 256, 8, "multiple of 16"),     # packed group
     ("packed", 1024, 256, 96, "divides K/2"),       # 512 % 96
@@ -238,22 +238,40 @@ def _meta(*shapes_dtypes):
             for shape, dtype in shapes_dtypes]
 
 
-@pytest.mark.parametrize("T,raises", [(64, True), (300, True), (63, False)])
-def test_packed_wrapper_refuses_at_the_prefill_body_limits(monkeypatch, T,
-                                                           raises):
-    """A packed container whose K/2 is a multiple of 32 but not of 64: the
-    wrapper refuses it from 64 tokens on (the prefill body's stages are 64
-    packed rows) before any launch. Under 64 it passes the checks and goes
-    on to the group-wise body (which needs a card: here, the stream)."""
+@pytest.mark.parametrize("T,body", [(64, "dense_wgmma"), (300, "dense_wgmma"),
+                                    (63, "groupwise")])
+def test_packed_wrapper_takes_k_half_odd_multiples_of_32(monkeypatch, T,
+                                                         body):
+    """A packed container whose K/2 is an odd multiple of 32 (K 1088, K/2 =
+    544, group 32): from 64 tokens on the wrapper launches the prefill body
+    with a plan of nine stages, the last of 32 packed rows; under 64 the
+    group-wise body. The launches are recorded in place of the card's (meta
+    tensors, the device check monkeypatched away)."""
     monkeypatch.setattr(tqm, "_check_device", lambda name, x: None)
+    launched = []
+
+    def record(name):
+        def launch(*args):
+            launched.append((name, args))
+            return 0
+        return launch
+
+    monkeypatch.setattr(tqm, "_dense_kernel", lambda fmt: record(fmt))
+    monkeypatch.setattr(tqm, "_kernel", lambda: record("groupwise"))
+    monkeypatch.setattr(tqm.torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
     x, q4p, scale, zero = _meta(((T, 1088), torch.bfloat16),
                                 ((544, 256), torch.int8),
                                 ((34, 256), torch.float32),
                                 ((34, 256), torch.float32))
-    if raises:
-        with pytest.raises(ValueError, match="multiple of 64"):
-            tqm.int4p_matmul(x, q4p, scale, zero, 32)
-    else:
-        with pytest.raises(Exception) as info:
-            tqm.int4p_matmul(x, q4p, scale, zero, 32)
-        assert "multiple of 64" not in str(info.value)
+    before = dict(tqm.int4p_matmul.launches_by_body)
+    out = tqm.int4p_matmul(x, q4p, scale, zero, 32)
+    assert out.shape == (T, 256) and out.dtype == torch.float32
+    assert [name for name, _ in launched] == [
+        "packed" if body == "dense_wgmma" else "groupwise"]
+    assert tqm.int4p_matmul.launches_by_body.get(body, 0) == \
+        before.get(body, 0) + 1
+    if body == "dense_wgmma":
+        plan = tqm.int4p_matmul.last_plan
+        assert plan["k_stages"] == 9 and 9 % plan["splits"] == 0
+        assert launched[0][1][6:10] == (T, 1088, 256, 32)
