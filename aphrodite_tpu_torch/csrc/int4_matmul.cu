@@ -48,6 +48,12 @@
 // instructions per two levels. The dense body pays a conversion, a subtract
 // and a multiply per level and a rounding per two.
 //
+// Each of these two bodies has a second implementation, the decode body of
+// decode_gemm.cuh (int4_matmul_decode below: forms DENSE, DENSE_ROWS and
+// GROUPWISE, one block an SM, a TMA ring, tokens as the n dimension, with
+// the same arithmetic), and the wrapper picks one of the two by shape
+// (decode_route). The rest of this note is about the kernel in this file.
+//
 // Bound on the H100: at small T bytes (K * N level bytes plus 8 * (K / G) * N
 // of scale and zero against 2 * T * K * N operations); at large T operations.
 // Every level byte is read from device memory once per row block, as full
@@ -83,6 +89,7 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include "decode_gemm.cuh"
 #include "dequant_gemm.cuh"
 #include "matmul_common.cuh"
 
@@ -450,6 +457,42 @@ extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* scale,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);
+}
+
+// The dense (body 1) or group-wise (body 0) body on the decode body
+// (decode_gemm.cuh; a dense call with G < 16 takes its DENSE_ROWS form).
+// t_tile: token rows per block, 8, 16, 32 or 64 (more tokens take more
+// blocks). stages: the ring's depth (0: as many as fit). splits: how many
+// blocks share the k range of one output tile, dividing the K / 64 stages;
+// with splits > 1, `partial` is an f32 scratch buffer [splits, T, N] that a
+// second kernel sums into out in a fixed order. `rs` (group-wise body) is
+// an f32 scratch buffer [K / 16, T rounded up to t_tile] for the step sums
+// of x. Returns the CUDA error code of the launches (0 = success), -1 for
+// arguments the body does not take, or -2 if a tensor map could not be
+// made.
+extern "C" int int4_matmul_decode(const void* x, const void* q, const void* scale,
+                                  const void* zero, void* out, void* partial, void* rs, int T,
+                                  int K, int N, int group, int x_stride, int t_tile, int stages,
+                                  int splits, int body, void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % 64 != 0 || group < 1 || K % group != 0 || x_stride % 8 != 0)
+    return -1;
+  const bool tile_group = 64 % group == 0 || group % 64 == 0;
+  if (!tile_group || (body == GROUPWISE && group < 16) || (body != GROUPWISE && body != DENSE))
+    return -1;
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zero);
+  float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partial);
+  float* sums = static_cast<float*>(rs);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (body == GROUPWISE)
+    return dqd::launch_tile<dqd::GROUPWISE>(t_tile, x, x_stride, q, s, z, o, part, sums, T, K, N,
+                                            group, stages, splits, stream);
+  if (group >= 16)
+    return dqd::launch_tile<dqd::DENSE>(t_tile, x, x_stride, q, s, z, o, part, nullptr, T, K, N,
+                                        group, stages, splits, stream);
+  return dqd::launch_tile<dqd::DENSE_ROWS>(t_tile, x, x_stride, q, s, z, o, part, nullptr, T, K, N,
+                                           group, stages, splits, stream);
 }
 
 // The e4m3 body: out (f32 [T, N]) = the f32 sum of the products of x

@@ -17,20 +17,24 @@
 // Two bodies, chosen by the wrapper as the TPU's int4p_matmul_pallas chooses
 // (T < 64: group-wise, else dense):
 //
-// - group-wise, in this file: the form of the TPU's _kernel_packed_groupwise.
-//   Raw nibbles go to the tensor cores and the group's scale and zero are
-//   applied to f32 partial sums,
+// - group-wise: the form of the TPU's _kernel_packed_groupwise. Raw nibbles
+//   go to the tensor cores and the group's scale and zero are applied to
+//   f32 partial sums,
 //
 //     out = sum_g  s_g * (x_g @ q_g)  -  s_g * z_g * rowsum(x_g),
 //
 //   so it agrees with the exact f32-weight product to the order of the f32
 //   sums, and with the plain version (which rounds the dequantized weight to
-//   bf16) to that rounding, 2^-9 relative per term.
+//   bf16) to that rounding, 2^-9 relative per term. It has two
+//   implementations, which the wrapper picks by shape (decode_route): the
+//   mma.sync kernel in this file (int4p_matmul_bf16), and the decode body of
+//   decode_gemm.cuh (int4p_matmul_decode below: one block an SM, a TMA
+//   ring, tokens as the n dimension), which that header describes.
 // - dense (int4p_matmul_dense_bf16 below, the body of dequant_gemm.cuh): the
 //   TPU's _kernel_packed_dense, each weight dequantized in f32 and rounded to
 //   bf16 before a wgmma product fed by TMA, as int4p_matmul_ref does.
 //
-// The rest of this note is about the group-wise body.
+// The rest of this note is about the group-wise body in this file.
 //
 // Bound on the H100:
 // - small T (decode): bytes. K * N / 2 weight bytes and 8 * (K / G) * N bytes
@@ -72,6 +76,7 @@
 // (K / 2) % G == 0, (K / 2) % 32 == 0, x bf16 with unit stride in its last axis and a row
 // stride that is a multiple of 8, all pointers 16-byte aligned.
 
+#include "decode_gemm.cuh"
 #include "dequant_gemm.cuh"
 #include "matmul_common.cuh"
 
@@ -391,6 +396,28 @@ extern "C" int int4p_matmul_bf16(const void* x, const void* q4p, const void* sca
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) err = launch_split_reduce(partial, out, T, N, splits, stream);
   return static_cast<int>(err);
+}
+
+// The group-wise body on the decode body (decode_gemm.cuh, form PACKED):
+// t_tile token rows per block (8, 16 or 32; more tokens take more blocks),
+// a ring of `stages` stages (0: as many as fit), and K split `splits` ways
+// (dividing the ceil((K / 2) / 64) stages of packed rows; with splits > 1,
+// `partial` is an f32 scratch buffer [splits, T, N] that a second kernel
+// sums into out in a fixed order). `rs` is an f32 scratch buffer [K / 16, T
+// rounded up to t_tile] for the step sums of x. Returns the CUDA error code
+// of the launches (0 = success), -1 for arguments the body does not take,
+// or -2 if a tensor map could not be made.
+extern "C" int int4p_matmul_decode(const void* x, const void* q4p, const void* scale,
+                                   const void* zero, void* out, void* partial, void* rs, int T,
+                                   int K, int N, int group, int x_stride, int t_tile, int stages,
+                                   int splits, void* stream_ptr) {
+  if (T < 1 || N % BN != 0 || K % 2 != 0 || (K / 2) % BKP != 0 || group % 16 != 0 ||
+      (K / 2) % group != 0 || x_stride % 8 != 0)
+    return -1;
+  return dqd::launch_tile<dqd::PACKED>(
+      t_tile, x, x_stride, q4p, static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<float*>(out), static_cast<float*>(partial), static_cast<float*>(rs), T, K, N,
+      group, stages, splits, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The dense body (dequant_gemm.cuh): block_t token rows per block (64 or

@@ -42,6 +42,13 @@ needs (K/2) % G == 0.
   dequantized in f32 and rounded to bf16 as the plain version does, so it
   agrees with the plain version to the order of the f32 sums. It is bound
   by tensor-core operations; the source says what it does about that.
+- The decode body (``csrc/decode_gemm.cuh``, ``decode_plan``): a second
+  implementation of both kernels' group-wise and dense bodies, with their
+  arithmetic: one block an SM streams 256 weight columns of a k range
+  through a TMA ring, tokens as the n dimension of the tensor-core
+  product. ``decode_route`` picks it or the mma.sync kernel by shape, from
+  the card's times (PERF.md). It is bound by the weight's bytes; the
+  source says what it does about that.
 - ``int4p_matmul_w4a8``: the same packed container times per-token int8
   activations (``quantize_activations_int8``); the plain version is
   ``int4p_matmul_w4a8_ref``. CUDA tensors launch the activation quantizer
@@ -81,6 +88,7 @@ KERNEL_N_MULTIPLE = 128
 KERNEL_GROUP_MULTIPLE = 16
 _KERNEL_K_TILE = 32  # packed rows per k tile
 _NUM_SMS = 132  # H100 SXM
+_HBM_BYTES_PER_US = 3.35e6  # H100 SXM
 # The unpacked kernel: k rows per tile, and its two bodies by the number
 # the C entry point takes.
 INT4_K_MULTIPLE = 64
@@ -99,6 +107,14 @@ _DG_TOKEN_ROWS = (64, 128)  # token rows per block, the instantiations
 _DG_SMEM = 232448 - 1024  # dynamic shared memory a launch may ask for
 _DG_MAX_STAGES = 8
 _DG_MAX_SPLITS = 16
+# The decode body (csrc/decode_gemm.cuh): its forms by what the wrapper
+# names them, the token rows per block of its instantiations, and the
+# weight columns a block streams (its raw rows come in stages of
+# _DG_K_STAGE, as the prefill body's).
+DECODE_FORMATS = ("packed", "groupwise", "dense")
+# 64: the unpacked forms with staged scale rows only
+_DQ_TOKEN_TILES = (8, 16, 32, 64)
+_DQ_COLS = 256
 
 
 def pack_int4_rows(q4):
@@ -157,6 +173,28 @@ def _kernel():
     fn = cuda_build.load("int4p_matmul").int4p_matmul_bf16
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# The decode body's C entry points (int4p_matmul_decode, int4_matmul_decode):
+# x, q, scale, zero, out, partial and the step sums' buffer; T, K, N,
+# group, x_stride, t_tile, stages, splits (and, unpacked, the body); the
+# stream.
+DECODE_ARGTYPES = {
+    fmt: [ctypes.c_void_p] * 7 + [ctypes.c_int] * (8 if fmt == "packed"
+                                                    else 9)
+    + [ctypes.c_void_p] for fmt in ("packed", "unpacked")}
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_kernel(fmt: str):
+    """The decode body's entry point in the library of its format."""
+    lib = "packed" if fmt == "packed" else "unpacked"
+    fn = (cuda_build.load("int4p_matmul").int4p_matmul_decode
+          if lib == "packed"
+          else cuda_build.load("int4_matmul").int4_matmul_decode)
+    fn.argtypes = DECODE_ARGTYPES[lib]
     fn.restype = ctypes.c_int
     return fn
 
@@ -266,6 +304,114 @@ def dequant_gemm_plan(T: int, K: int, N: int, group: int, fmt: str,
                 sz_rows=sz_rows, k_stages=k_stages, blocks=tiles * splits)
 
 
+def _decode_stage_bytes(t_tile: int, fmt: str, sz_rows: int) -> int:
+    """Shared memory of one stage of the decode body (decode_gemm.cuh's
+    stage_bytes): x boxes, two 128-column weight boxes of 64 rows, scale
+    and zero rows, the step sums of x; rounded up to 1024 bytes."""
+    atoms = 2 if fmt == "packed" else 1
+    nbytes = (atoms * t_tile * 128 + 2 * _DG_K_STAGE * 128
+              + 2 * atoms * sz_rows * _DQ_COLS * 4
+              + (atoms * 4 * t_tile * 4 if fmt != "dense" else 0))
+    return -(-nbytes // 1024) * 1024
+
+
+def decode_plan(T: int, K: int, N: int, group: int, fmt: str,
+                t_tile: Optional[int] = None,
+                splits: Optional[int] = None,
+                stages: Optional[int] = None) -> dict:
+    """How the decode body runs a product, or ValueError for a shape it
+    does not take. ``fmt``: "packed" (q4p [K/2, N], group-wise
+    arithmetic), "groupwise" or "dense" (q4 [K, N]; "dense" with G < 16
+    reads each row's scale and zero from device memory). Keys:
+    ``t_tile`` (token rows per block: 8, 16, 32 or, unpacked with G >= 16,
+    64, the least that holds T unless given), ``t_tiles`` (blocks along
+    the tokens), ``strips`` (of 256 weight columns), ``splits`` (blocks that share one strip's k range:
+    the divisor of the k stages, up to 16, that keeps a token tile's
+    blocks within one wave of the card's SMs, with the least estimated
+    time, the pass that sums the partials included), ``stages`` (the ring's
+    depth: as many as fit the shared memory, up to 8, and no more than the
+    block's own stages), ``stage_bytes``, ``smem`` (dynamic shared memory
+    bytes),
+    ``sz_rows`` (scale rows staged per stage and half), ``k_stages``,
+    ``blocks`` (of the whole grid) and ``waves`` (blocks over the card's
+    SMs: a fraction where the strips are fewer than the SMs and no split
+    pays). ``t_tile``, ``splits`` and ``stages`` may be given (timing
+    sweeps). Host values only, so a launch can go into a CUDA graph."""
+    if fmt not in DECODE_FORMATS:
+        raise ValueError(f"decode body format must be one of "
+                         f"{DECODE_FORMATS}, got {fmt!r}")
+    packed = fmt == "packed"
+    rows = K // 2 if packed else K
+    row_multiple = _KERNEL_K_TILE if packed else INT4_K_MULTIPLE
+    if T < 1 or N % KERNEL_N_MULTIPLE or rows % row_multiple or (
+            packed and K % 2):
+        raise ValueError(
+            f"the decode body takes N that is a multiple of "
+            f"{KERNEL_N_MULTIPLE} and {'K/2' if packed else 'K'} a multiple "
+            f"of {row_multiple}; got T {T}, K {K}, N {N}")
+    if packed and (group % KERNEL_GROUP_MULTIPLE or rows % group):
+        raise ValueError(f"the decode body takes a packed group that is a "
+                         f"multiple of {KERNEL_GROUP_MULTIPLE} and divides "
+                         f"K/2; got group {group}, K {K}")
+    if not packed and (group < 1 or K % group or (
+            INT4_K_MULTIPLE % group and group % INT4_K_MULTIPLE)):
+        raise ValueError(f"the decode body takes an unpacked group that "
+                         f"divides K and either divides {INT4_K_MULTIPLE} or "
+                         f"is a multiple of it; got group {group}, K {K}")
+    if fmt == "groupwise" and group < INT4_GROUPWISE_MIN_GROUP:
+        raise ValueError(f"the group-wise form takes groups of at least "
+                         f"{INT4_GROUPWISE_MIN_GROUP} rows, got {group}")
+    row_scales = fmt == "dense" and group < INT4_GROUPWISE_MIN_GROUP
+    token_tiles = (_DQ_TOKEN_TILES[:-1] if packed or row_scales
+                   else _DQ_TOKEN_TILES)
+    if t_tile is None:
+        t_tile = next((t for t in token_tiles if T <= t), token_tiles[-1])
+    if t_tile not in token_tiles:
+        raise ValueError(f"t_tile must be one of {token_tiles} for the "
+                         f"{fmt} form, got {t_tile}")
+    sz_rows = 0 if row_scales else _group_rows_per_stage(rows, group)
+    stage_bytes = _decode_stage_bytes(t_tile, fmt, sz_rows)
+    most = min(_DG_MAX_STAGES, (_DG_SMEM - 1024) // stage_bytes)
+    if stages is not None and not 2 <= stages <= most:
+        raise ValueError(f"stages must lie in 2..{most}, got {stages}")
+    k_stages = -(-rows // _DG_K_STAGE)
+    t_tiles = -(-T // t_tile)
+    strips = -(-N // _DQ_COLS)
+    tiles = t_tiles * strips
+    # A stage's bytes at an even share of the card's memory rate (all SMs
+    # streaming), in microseconds.
+    stage_us = stage_bytes * _NUM_SMS / _HBM_BYTES_PER_US
+
+    def cost_us(d):
+        # Waves of blocks (one an SM) times a block's stages and two more
+        # for its prologue and epilogue, plus the pass that reads the d
+        # partial sums and writes the output, and its launch.
+        waves = -(-tiles * d // _NUM_SMS)
+        reduce = ((d + 1) * T * N * 4 / _HBM_BYTES_PER_US + 2.0
+                  if d > 1 else 0.0)
+        return waves * (k_stages // d + 2) * stage_us + reduce
+
+    if splits is not None:
+        if splits < 1 or k_stages % splits:
+            raise ValueError(f"splits must divide the {k_stages} k stages, "
+                             f"got {splits}")
+    else:
+        # The blocks of one token tile stay within one wave.
+        splits = min(
+            (d for d in range(1, min(_DG_MAX_SPLITS, k_stages) + 1)
+             if k_stages % d == 0 and (d == 1 or strips * d <= _NUM_SMS)),
+            key=lambda d: (cost_us(d), d))
+    if stages is None:
+        # No deeper than the block's own stages, so that a short k range
+        # leaves room for a second block on the SM.
+        stages = min(most, max(2, k_stages // splits))
+    blocks = tiles * splits
+    return dict(t_tile=t_tile, t_tiles=t_tiles, strips=strips, splits=splits,
+                stages=stages, stage_bytes=stage_bytes,
+                smem=stages * stage_bytes + 1024, sz_rows=sz_rows,
+                k_stages=k_stages, blocks=blocks, waves=blocks / _NUM_SMS)
+
+
 def int4p_body(T: int, body: Optional[str] = None) -> str:
     """The body ``int4p_matmul`` launches: the one named, else the JAX
     package's int4p_matmul_pallas rule (group-wise under DENSE_MIN_T
@@ -296,6 +442,34 @@ def int4_route(T: int, body: Optional[str] = None,
     if per_column:
         return "per_column_wgmma"
     return "dense_wgmma" if body == "dense" else body
+
+
+# The least weight (K * N) that the decode body runs: under it, the
+# mma.sync kernels were faster on an H100 (PERF.md §6).
+_DECODE_MIN_WEIGHTS = 2**25
+
+
+def decode_route(T: int, K: int, N: int, group: int, fmt: str) -> str:
+    """Which implementation runs a group-wise or dense body (``fmt``:
+    "packed", "groupwise" or "dense") under DENSE_MIN_T tokens: "decode"
+    (csrc/decode_gemm.cuh) or "mma" (the mma.sync kernel of
+    csrc/int4p_matmul.cu or csrc/int4_matmul.cu, the same arithmetic). From
+    the card's times, in turns with the mma.sync kernel's build (PERF.md
+    §6): the decode body is faster where the weight is large (K * N of at
+    least 2^25: Llama-3.1-8B's w13 and down), except for packed groups that
+    are multiples of 32 at 9 to 16 tokens and unpacked group-wise products
+    past 32 tokens. Host values only, so a launch can go into a CUDA
+    graph."""
+    if fmt not in DECODE_FORMATS:
+        raise ValueError(f"decode body format must be one of "
+                         f"{DECODE_FORMATS}, got {fmt!r}")
+    if T >= DENSE_MIN_T or K * N < _DECODE_MIN_WEIGHTS:
+        return "mma"
+    if fmt == "packed" and group % 32 == 0 and 9 <= T <= 16:
+        return "mma"
+    if fmt == "groupwise" and T > 32:
+        return "mma"
+    return "decode"
 
 
 def _check_device(name, x):
@@ -398,6 +572,38 @@ def _dense_product(wrapper, x, q, scale, zero, group, fmt, block_t=None,
     return out
 
 
+def _decode_product(wrapper, x, q, scale, zero, group, fmt, t_tile=None,
+                    splits=None, stages=None):
+    """The decode body on checked operands: f32 [T, N]. ``t_tile``,
+    ``splits`` and ``stages`` override the plan's (timing sweeps); the plan
+    launched goes to ``wrapper.last_plan``."""
+    T, K = x.shape
+    N = q.shape[1]
+    plan = decode_plan(T, K, N, group, fmt, t_tile, splits, stages)
+    splits = plan["splits"]
+    out = torch.empty((T, N), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, T, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    # The group-wise arithmetic's step sums of x, one per 16 columns of K
+    # and token (the last token tile padded with zeros).
+    sums = (torch.empty((K // 16, plan["t_tiles"] * plan["t_tile"]),
+                        dtype=torch.float32, device=x.device)
+            if fmt != "dense" else out)
+    args = [x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), sums.data_ptr(), T, K, N,
+            group, x.stride(0), plan["t_tile"], plan["stages"], splits]
+    if fmt != "packed":
+        args.append(INT4_BODIES[fmt])
+    err = _decode_kernel(fmt)(*args,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__} decode body: error {err} (T {T}, K {K}, N "
+            f"{N}, group {group}, {fmt}, plan {plan})")
+    wrapper.last_plan = plan
+    return out
+
+
 def _count(wrapper, body: str) -> None:
     wrapper.launches += 1
     wrapper.launches_by_body[body] = wrapper.launches_by_body.get(body, 0) + 1
@@ -407,7 +613,11 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
                  zero: torch.Tensor, group: int,
                  layer_idx: Optional[int] = None,
                  block_m: Optional[int] = None,
-                 body: Optional[str] = None) -> torch.Tensor:
+                 body: Optional[str] = None,
+                 decode: Optional[bool] = None,
+                 t_tile: Optional[int] = None,
+                 splits: Optional[int] = None,
+                 stages: Optional[int] = None) -> torch.Tensor:
     """x[T, K] @ dequant(q4p) -> f32 [T, N].
 
     q4p is int8 [K/2, N], or layer-stacked int8 [L, K/2, N] with
@@ -418,10 +628,14 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
     wrap_quant_stacked has no counterpart here. The wrapper reads no device
     value, so the launch can go into a CUDA graph. ``body`` ("groupwise" or
     "dense") overrides ``int4p_body``'s choice by T, as int4p_matmul_pallas
-    takes it; ``block_m`` overrides ``kernel_plan``'s rows of x per block
-    of the group-wise body (for timing sweeps). Launches are counted in
-    ``launches`` and, by body ("groupwise", "dense_wgmma"), in
-    ``launches_by_body``; the dense body's plan (``dequant_gemm_plan``) in
+    takes it. The group-wise body runs on the mma.sync kernel or on the
+    decode body, as ``decode_route`` picks (``decode`` overrides it);
+    ``block_m`` overrides ``kernel_plan``'s rows of x per block of the
+    former, ``t_tile``, ``splits`` and ``stages`` ``decode_plan``'s plan of
+    the latter (timing sweeps). Launches are counted in ``launches`` and,
+    by body ("groupwise", "groupwise_decode", "dense_wgmma"), in
+    ``launches_by_body``; the plan of the last launch of the decode or the
+    prefill body (``decode_plan``, ``dequant_gemm_plan``) in
     ``last_plan``.
     """
     if q4p.dim() == 3:
@@ -438,6 +652,13 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
         _count(int4p_matmul, "dense_wgmma")
         return out
     N = q4p.shape[1]
+    if decode is None:
+        decode = decode_route(T, K, N, group, "packed") == "decode"
+    if decode:
+        out = _decode_product(int4p_matmul, x, q4p, scale, zero, group,
+                              "packed", t_tile, splits, stages)
+        _count(int4p_matmul, "groupwise_decode")
+        return out
     block_m, splits = kernel_plan(T, K, N, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, T, N), dtype=torch.float32,
@@ -532,7 +753,11 @@ def check_int4_kernel_inputs(x, q4, scale, zero, group, body):
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
                 zero: torch.Tensor, group: int,
                 layer_idx: Optional[int] = None, body: Optional[str] = None,
-                block_m: Optional[int] = None) -> torch.Tensor:
+                block_m: Optional[int] = None,
+                decode: Optional[bool] = None,
+                t_tile: Optional[int] = None,
+                splits: Optional[int] = None,
+                stages: Optional[int] = None) -> torch.Tensor:
     """x[T, K] @ dequant(q4) -> f32 [T, N], q4 one int8 level per byte.
 
     q4 is int8 [K, N], or layer-stacked int8 [L, K, N] with ``layer_idx``
@@ -540,11 +765,17 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     offsets inside the kernel stay those of one layer whatever the size of
     the stack. ``body`` ("groupwise" or "dense") overrides ``INT4_BODY``;
     ``int4_route`` says where the call goes (from DENSE_MIN_T tokens on,
-    the dense body's calls take the prefill body). ``block_m`` overrides
-    ``int4_kernel_plan``'s rows of x per block (for card checks and timing
+    the dense body's calls take the prefill body). Under it each body runs
+    on the mma.sync kernel or on the decode body, as ``decode_route`` picks
+    (``decode`` overrides it); ``block_m`` overrides ``int4_kernel_plan``'s
+    rows of x per block of the former, ``t_tile``, ``splits`` and
+    ``stages`` ``decode_plan``'s plan of the latter (card checks and timing
     sweeps). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise. Launches are counted in ``launches`` and, by route,
-    in ``launches_by_body``; the prefill body's plan in ``last_plan``.
+    kernel or raise. Launches are counted in ``launches`` and, by route
+    ("groupwise", "dense", the decode body's "groupwise_decode" and
+    "dense_decode", "dense_wgmma", "per_column_wgmma"), in
+    ``launches_by_body``; the plan of the last launch of the decode or the
+    prefill body in ``last_plan``.
     """
     if q4.dim() == 3:
         if layer_idx is None:
@@ -563,6 +794,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
         _count(int4_matmul, route)
         return out
     N = q4.shape[1]
+    if decode is None:
+        decode = decode_route(T, K, N, group, body) == "decode"
+    if decode:
+        out = _decode_product(int4_matmul, x, q4, scale, zero, group, body,
+                              t_tile, splits, stages)
+        _count(int4_matmul, f"{body}_decode")
+        return out
     block_m, splits = int4_kernel_plan(T, K, N, group, body, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, T, N), dtype=torch.float32,

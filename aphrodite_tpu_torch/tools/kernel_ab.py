@@ -31,16 +31,21 @@ row (the D values of one token and query head, or the N outputs of one
 token), within ROW_TOL of the largest element of the first run's row. It
 prints each timed shape's mean time per run directory.
 
-    python -m aphrodite_tpu_torch.tools.kernel_ab sweep [--only int4|fp8]
+``--tol`` sets that bound (default ROW_TOL).
+
+    python -m aphrodite_tpu_torch.tools.kernel_ab sweep [--only int4|fp8|decode]
 
 times the prefill body (csrc/dequant_gemm.cuh) by token rows per block
 and split of K beside the plan's choice: on int4 weights ("int4") and in
 its e4m3 form, the FP8 W8A8 product's, beside that product's mma.sync
-body and torch._scaled_mm ("fp8"). Needs a card; nothing falls back to
-the CPU.
+body and torch._scaled_mm ("fp8"); and the decode body (csrc/
+decode_gemm.cuh) by token tile, split of K and ring depth beside the
+plan's choice and torch.matmul on bf16 weights ("decode"). Needs a card;
+nothing falls back to the CPU.
 """
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -75,7 +80,9 @@ KERNELS = {"ragged": "ragged_paged_attention",
            "w4a8": "int4p_matmul_w4a8", "gather_probe": "gather_probe"}
 # Outputs filed under these kernels also keep rows (MATMUL_ROWS of them,
 # spread over T) in outputs.pt, for ``compare --changed``.
-KEPT_MATMULS = ("int4p_matmul", "int4_matmul", "fp8_w8a8_matmul")
+KEPT_MATMULS = ("int4p_matmul", "int4_matmul", "fp8_w8a8_matmul",
+                "int4p_matmul_groupwise", "int4_matmul_groupwise",
+                "int4_matmul_dense")
 MATMUL_ROWS = 48
 MATMUL_T = (1, 8, 32, 63, 64, 100, 257, 2048)
 # The unpacked containers: levels [low, high), zero [low, high), group,
@@ -421,19 +428,21 @@ def rotation(layers):
     return nxt
 
 
-MATMUL_TIME_T = (32, 128, 512, 2048)
+MATMUL_TIME_T = (1, 16, 32, 128, 512, 2048)
 
 
 def matmul_timings() -> Dict[str, float]:
     """The packed product at groups 128 and 16, the unpacked one on a
-    Q6_K-like container (the wrapper's body) and the FP8 W8A8 product (the
-    wrapper's body, quantizer included) at the four sites and every T of
-    MATMUL_TIME_T, each launch on the next layer of a stack larger than the
-    50 MB L2."""
+    Q6_K-like container (the wrapper's body) and, under 64 tokens, on a
+    Q8_0-like one (group-wise body), the int8 per-channel product and the
+    FP8 W8A8 product (the wrapper's body, quantizer included) at the four
+    sites and every T of MATMUL_TIME_T, each launch on the next layer of a
+    stack larger than the 50 MB L2."""
     from aphrodite_tpu_torch.ops.quant_matmul import (fp8_w8a8_matmul,
                                                       int4_matmul,
-                                                      int4p_matmul)
-    from aphrodite_tpu_torch.quantization import fp8
+                                                      int4p_matmul,
+                                                      int8_matmul)
+    from aphrodite_tpu_torch.quantization import fp8, int8
 
     out = {}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
@@ -447,14 +456,26 @@ def matmul_timings() -> Dict[str, float]:
         layers = -(-100_000_000 // layer_bytes) + 1
         cases.append(("q4 q6_k", int4_matmul, layers,
                       (*q4_case(K, N, "q6_k", layers, 160 + i), 16)))
+        layers = -(-100_000_000 // (K * N + 8 * (K // 32) * N)) + 1
+        cases.append(("q4 q8_0 groupwise", functools.partial(
+            int4_matmul, body="groupwise"), layers,
+            (*q4_case(K, N, "q8_0", layers, 170 + i), 32)))
+        layers = -(-100_000_000 // (K * N)) + 1
+        c8 = int8.quantize_from_float(torch.randn((layers, K, N),
+                                                  device="cuda") * K**-0.5)
+        cases.append(("int8", lambda x, q, s, z, g, layer_idx: int8_matmul(
+            x, q, s, layer_idx=layer_idx), layers,
+            (c8["q"], c8["scale"], None, K)))
         for name, fn, layers, (q, scale, zero, group) in cases:
             nxt = rotation(layers)
             for T in MATMUL_TIME_T:
+                if T >= 64 and name in ("q4 q8_0 groupwise", "int8"):
+                    continue
                 x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
                 out[f"{name} {site} T{T}"] = time_ms(
                     lambda: fn(x, q, scale, zero, group, layer_idx=nxt()),
                     200 if T <= 64 else 20)
-        del cases
+        del cases, c8
         layers = -(-100_000_000 // (K * N)) + 1
         cf = fp8.quantize_from_float(torch.randn((layers, K, N),
                                                  device="cuda") * K**-0.5)
@@ -583,6 +604,77 @@ def sweep_fp8() -> None:
         torch.cuda.empty_cache()
 
 
+DECODE_SWEEP_T = (1, 16, 32, 48)
+
+
+def sweep_decode() -> None:
+    """The decode body's times at the four sites and every T of
+    DECODE_SWEEP_T: packed at groups 128 and 16, unpacked on a Q6_K-like
+    container (dense form) and a Q8_0-like one (group-wise form), and int8
+    per-channel (group-wise form, G = K); each by token tile (t_tile),
+    split of K and ring depth (stages) beside the plan's choice, the
+    mma.sync kernel of the same body and torch.matmul on bf16 weights,
+    each call on the next layer of a stack larger than the 50 MB L2.
+    decode_plan's choices, and decode_route's, come from these times."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+
+    print(f"sweep decode on {torch.cuda.get_device_name(0)}", flush=True)
+    for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
+        cases = []
+        for group in (128, 16):
+            layers = -(-100_000_000 // (K * N // 2 + 8 * (K // group) * N)) + 1
+            cases.append((f"packed g{group}", qm.int4p_matmul, "packed", group,
+                          layers, int4_case(K, N, group, layers, 60 + i), {}))
+        for kind, body in (("q6_k", "dense"), ("q8_0", "groupwise")):
+            group = Q4_CONTAINERS[kind][2]
+            layers = -(-100_000_000 // (K * N + 8 * (K // group) * N)) + 1
+            cases.append((f"{kind} {body}", qm.int4_matmul, body, group, layers,
+                           q4_case(K, N, kind, layers, 160 + i), {"body": body}))
+        layers = -(-100_000_000 // (K * N)) + 1
+        gen = torch.Generator(device="cuda").manual_seed(260 + i)
+        q8 = torch.randint(-127, 128, (layers, K, N), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        s8 = torch.rand((layers, 1, N), generator=gen, device="cuda") * 0.01
+        cases.append(("int8", qm.int4_matmul, "groupwise", K, layers,
+                      (q8, s8, torch.zeros_like(s8)), {"body": "groupwise"}))
+        dense = torch.randn((3, K, N), device="cuda").to(torch.bfloat16)
+        for T in DECODE_SWEEP_T:
+            x = torch.randn((T, K), device="cuda").to(torch.bfloat16)
+            library = time_ms(lambda: torch.matmul(x, dense[T % 3]), 100)
+            for label, wrapper, fmt, group, layers, (q, sc, z), kw in cases:
+                nxt = rotation(layers)
+
+                def call(decode=True, **over):
+                    return wrapper(x, q, sc, z, group, layer_idx=nxt(),
+                                   decode=decode, **kw, **over)
+
+                plan = qm.decode_plan(T, K, N, group, fmt)
+                line = [f"plan (t_tile {plan['t_tile']}, splits "
+                        f"{plan['splits']}, stages {plan['stages']}, blocks "
+                        f"{plan['blocks']}) {time_ms(call, 100):.4f}"]
+                for tt in (8, 16, 32):
+                    if tt < plan["t_tile"] and T > 16:
+                        continue
+                    for sp in (1, 2, 4, 8, 16):
+                        if plan["k_stages"] % sp or plan["strips"] * sp > 264:
+                            continue
+                        ms = time_ms(lambda: call(t_tile=tt, splits=sp), 100)
+                        line.append(f"{tt}/{sp} {ms:.4f}")
+                for st in (3, 4, 6):
+                    if st < plan["stages"]:
+                        ms = time_ms(lambda: call(stages=st), 100)
+                        line.append(f"stages {st} {ms:.4f}")
+                mma = time_ms(lambda: call(decode=False), 100)
+                print(f"sweep decode {site} {K}x{N} {label} T={T}: decode "
+                      f"body ms by t_tile/splits: {', '.join(line)}; mma.sync "
+                      f"kernel {mma:.4f} (decode_route: "
+                      f"{qm.decode_route(T, K, N, group, fmt)}); "
+                      f"torch.matmul on bf16 weights {library:.4f}",
+                      flush=True)
+        del cases, dense, q8, s8
+        torch.cuda.empty_cache()
+
+
 def run(out_dir: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: needs a card")
@@ -609,7 +701,7 @@ def rows_within(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((err / scale.clamp_min(1e-30)).max()) if err.numel() else 0.0
 
 
-def compare(dirs: List[str], changed: List[str]) -> None:
+def compare(dirs: List[str], changed: List[str], tol: float = ROW_TOL) -> None:
     unknown = set(changed) - set(KERNELS.values())
     if unknown:
         sys.exit(f"kernel_ab: --changed names no kernel of {sorted(KERNELS.values())}: "
@@ -634,15 +726,16 @@ def compare(dirs: List[str], changed: List[str]) -> None:
             for o in outs[1:]:
                 ratio = rows_within(o[k], outs[0][k])
                 worst = max(worst, ratio)
-                if not ratio <= ROW_TOL:
+                if not ratio <= tol:
                     far.append(k)
         print(f"kernel_ab: {len(is_changed)} outputs of {sorted(changed)}: "
               f"worst row |diff| / max|row| {worst:.3e} (tolerance "
-              f"{ROW_TOL:.3e}); {same} equal bit for bit across all runs",
+              f"{tol:.3e}); {same} equal bit for bit across all runs",
               flush=True)
         if far:
             sys.exit(f"kernel_ab: {len(set(far))} outputs of the changed "
-                     f"kernels lie outside ROW_TOL, first {sorted(set(far))[:5]}")
+                     f"kernels lie outside {tol:.3e}, first "
+                     f"{sorted(set(far))[:5]}")
     for key in sorted(set.union(*(set(r["ms"]) for r in runs))):
         print(f"time {key}: " + ", ".join(
             f"{d} {r['ms'][key]:.4f} ms" if key in r["ms"] else f"{d} -"
@@ -668,10 +761,13 @@ def main() -> None:
     p_cmp.add_argument("dirs", nargs="+")
     p_cmp.add_argument("--changed", default="",
                        help="comma-separated kernels whose outputs are held "
-                            "at ROW_TOL instead of bit for bit")
+                            "at --tol of a row instead of bit for bit")
+    p_cmp.add_argument("--tol", type=float, default=ROW_TOL,
+                       help="the changed kernels' bound, of a row's largest "
+                            "element (default ROW_TOL)")
     p_sweep = sub.add_parser("sweep")
-    p_sweep.add_argument("--only", choices=("int4", "fp8"), default=None,
-                         help="sweep one product only")
+    p_sweep.add_argument("--only", choices=("int4", "fp8", "decode"),
+                         default=None, help="sweep one product only")
     args = parser.parse_args()
     if args.cmd == "run":
         run(args.out)
@@ -682,8 +778,11 @@ def main() -> None:
             sweep()
         if args.only in (None, "fp8"):
             sweep_fp8()
+        if args.only in (None, "decode"):
+            sweep_decode()
     else:
-        compare(args.dirs, [k for k in args.changed.split(",") if k])
+        compare(args.dirs, [k for k in args.changed.split(",") if k],
+                args.tol)
 
 
 if __name__ == "__main__":

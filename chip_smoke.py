@@ -395,11 +395,17 @@ MAX_TOKENS = 64
 INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
               "w13": (4096, 28672), "down": (14336, 4096)}
 INT4_GROUP = 128
-# From 64 tokens on both int4 wrappers take the prefill body
-# (csrc/dequant_gemm.cuh): 63 and 64 hold the switch, 257 a ragged token
-# tile.
-INT4_CHECK_T = (1, 8, 32, 63, 64, 100, 257, 2048)
+# Under 64 tokens both int4 wrappers take the decode body
+# (csrc/decode_gemm.cuh), from there the prefill body (csrc/
+# dequant_gemm.cuh): 63 and 64 hold the switch, 257 a ragged token tile;
+# 16 is the main paths' decode step, 48 two token tiles of the decode body.
+INT4_CHECK_T = (1, 8, 16, 32, 48, 63, 64, 100, 257, 2048)
 INT4_TIME_T = (32, 128, 512, 2048)
+# The decode body is timed at one token and at the decode step's 16 and 32
+# too: the packed kernel at every site, the unpacked one (Q6_K-like, Q8_0,
+# int8 G = K) at w13.
+DECODE_TIME_T = (1, 16)
+DECODE_ITERS = 100
 # The FP8 product is timed at the decode step's 16 rows too: under
 # FP8_WGMMA_MIN_T tokens it takes its mma.sync body.
 FP8_TIME_T = (16, *INT4_TIME_T)
@@ -488,6 +494,23 @@ GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q2_K, GGML_Q3_K, GGML_Q6_K = (
 # script writes.
 GGUF_BLOCKS = {"q6_k": (GGML_Q6_K, 256, 210), "q8_0": (GGML_Q8_0, 32, 34),
                "q2_k": (GGML_Q2_K, 256, 84), "q3_k": (GGML_Q3_K, 256, 110)}
+
+
+# The groups of the GGUF block types the main paths serve: Q6_K and Q8_0
+# one level a byte, Q2_K (and Q3_K, its down projection) packed.
+GGUF_GROUPS = {"q6_k": 16, "q8_0": 32, "q2_k": 16}
+
+
+def projection_shapes(config):
+    """(K, N) of the four quantized products of a Llama-family layer:
+    wqkv, wo, w13 (gate and up), down."""
+    H = config["hidden_size"]
+    heads = config["num_attention_heads"]
+    kv_heads = config.get("num_key_value_heads", heads)
+    head_dim = config.get("head_dim", H // heads)
+    inter = config["intermediate_size"]
+    return [(H, (heads + 2 * kv_heads) * head_dim), (heads * head_dim, H),
+            (H, 2 * inter), (inter, H)]
 
 
 def fail(msg: str) -> None:
@@ -762,6 +785,16 @@ def blocksparse_sdpa_inputs(case, layer, num_q_heads, num_kv_heads,
 # ----------------------------------------------------------------------
 # Phases
 # ----------------------------------------------------------------------
+
+
+def implementation_head(point, body):
+    """A timed point with `ms` the time of the implementation `body` names:
+    under 64 tokens a point holds both implementations' times ("mma_ms"
+    for the mma.sync kernel, "decode_ms" for the decode body)."""
+    if "mma_ms" not in point:
+        return point
+    return dict(point, ms=point["decode_ms" if body.endswith("_decode")
+                                else "mma_ms"])
 
 
 def build_kernels():
@@ -1181,9 +1214,11 @@ def int4_checks(device, group=INT4_GROUP):
     """The int4 kernel against its plain version and the exact f32
     product, at every site and T, at `group` (INT4_GROUP unless given;
     16 for GGUF Q2_K and Q3_K), and at K 1088 where the group divides its
-    K/2 of 544 (the prefill body's 32-row last stage); returns the max abs
-    error against the plain version of each body ("groupwise",
-    "dense_wgmma")."""
+    K/2 of 544 (the prefill body's 32-row last stage); under 64 tokens
+    both implementations of the group-wise body, the mma.sync kernel and
+    the decode body, whichever decode_route picks; returns the max abs
+    error against the plain version of each ("groupwise",
+    "groupwise_decode", "dense_wgmma")."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -1192,7 +1227,8 @@ def int4_checks(device, group=INT4_GROUP):
                                                       int4p_matmul_ref,
                                                       unpack_int4_rows)
 
-    worst_abs = {"groupwise": 0.0, "dense_wgmma": 0.0}
+    worst_abs = {"groupwise": 0.0, "groupwise_decode": 0.0,
+                 "dense_wgmma": 0.0}
     for i, (site, (K, N)) in enumerate(with_tail_site(group).items()):
         wide = site == "wo"
         q4p, scale, zero = make_int4_case(K, N, 2, device, SEED + 40 + i,
@@ -1200,18 +1236,23 @@ def int4_checks(device, group=INT4_GROUP):
         w_exact = dequantize_int4(unpack_int4_rows(q4p[1]), scale[1],
                                   zero[1], group)
         where = f"{site} {K}x{N} group {group}"
-        for T in INT4_CHECK_T:
+        for T, decode in ((T, d) for T in INT4_CHECK_T
+                          for d in ((False, True) if T < 64 else (None,))):
             x = make_x(T, K, device, SEED + 50 + T)
-            got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=1)
+            got = int4p_matmul(x, q4p, scale, zero, group, layer_idx=1,
+                               decode=decode)
             torch.cuda.synchronize()
+            dense = int4p_body(T) == "dense"
+            body = ("dense_wgmma" if dense else
+                    "groupwise_decode" if decode else "groupwise")
+            where = f"{site} {K}x{N} group {group} T={T}, {body}"
             if tuple(got.shape) != (T, N) or got.dtype != torch.float32:
-                fail(f"int4p_matmul [{where} T={T}]: output {got.shape} "
+                fail(f"int4p_matmul [{where}]: output {got.shape} "
                      f"{got.dtype}")
             if not bool(got.isfinite().all()):
-                fail(f"int4p_matmul [{where} T={T}]: non-finite output")
+                fail(f"int4p_matmul [{where}]: non-finite output")
             plain = int4p_matmul_ref(x, q4p[1], scale[1], zero[1], group)
             exact = x.float() @ w_exact
-            dense = int4p_body(T) == "dense"
             pairs = (("kernel", got, "plain", plain,
                       INT4_TOL_SAME if dense else INT4_TOL_ROUNDED),
                      ("kernel", got, "exact f32", exact,
@@ -1223,16 +1264,14 @@ def int4_checks(device, group=INT4_GROUP):
                 bound = other.abs().amax(-1)
                 ratios.append(float((err / bound).max()))
                 if not bool((err <= tol * bound).all()):
-                    fail(f"int4p_matmul [{where} T={T}"
+                    fail(f"int4p_matmul [{where}"
                          f"{' wide zero' if wide else ''}]: {name} disagrees "
                          f"with the {label} product: worst row err / "
                          f"max|row| {ratios[-1]:.3e} (tolerance {tol:.3e})")
             abs_err = float((got - plain).abs().max())
-            body = "dense_wgmma" if dense else "groupwise"
             worst_abs[body] = max(worst_abs[body], abs_err)
-            print(f"check int4p_matmul [{where} T={T}"
-                  f"{' wide zero' if wide else ''}, "
-                  f"{'dense' if dense else 'group-wise'} body]: max_abs_err "
+            print(f"check int4p_matmul [{where}"
+                  f"{' wide zero' if wide else ''}]: max_abs_err "
                   f"against plain {abs_err:.3e}; worst row err "
                   f"/ max|row|: kernel vs plain {ratios[0]:.3e} (tolerance "
                   f"{pairs[0][4]:.3e}), kernel vs exact {ratios[1]:.3e} "
@@ -1262,17 +1301,29 @@ def int4_work(T, K, N, group=INT4_GROUP):
     return nbytes, 2 * T * K * N
 
 
+def plan_of(plan):
+    """What a plan says of its grid: the decode body's token tile, token
+    tiles, splits, blocks and stages, or the prefill body's token rows per
+    block, splits, blocks and stages."""
+    keys = ("t_tile", "t_tiles", "block_t", "splits", "blocks", "stages")
+    return {k: plan[k] for k in keys if k in plan}
+
+
 def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
-    """Times of the int4 kernel at every (site, T) of INT4_TIME_T, at
-    `group`, beside its plain version, the library call and the bound;
+    """Times of the int4 kernel at every (site, T) of DECODE_TIME_T and
+    INT4_TIME_T, at `group`, beside its plain version, the library call
+    and the bound, with the plan launched;
     each timed launch takes the next layer of a stack that holds more
     bytes than the 50 MB L2. Returns a list of per-point dicts."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+    from aphrodite_tpu_torch.ops.quant_matmul import (decode_plan,
+                                                      decode_route,
+                                                      dequantize_int4,
                                                       int4p_body,
                                                       int4p_matmul,
                                                       int4p_matmul_ref,
+                                                      kernel_plan,
                                                       unpack_int4_rows)
 
     points = []
@@ -1286,7 +1337,7 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
             dequantize_int4(unpack_int4_rows(q4p[l]), scale[l], zero[l],
                             group).to(torch.bfloat16)
             for l in range(layers)])
-        for T in INT4_TIME_T:
+        for T in (*DECODE_TIME_T, *INT4_TIME_T):
             x = make_x(T, K, device, SEED + 70 + T)
             state = {"layer": 0}
 
@@ -1294,10 +1345,21 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
                 state["layer"] = (state["layer"] + 1) % layers
                 return state["layer"]
 
-            n = iters if T <= 64 else max(4, iters // 10)
-            ms = time_ms(lambda: int4p_matmul(x, q4p, scale, zero,
-                                              group, layer_idx=nxt()),
-                         n)
+            n = (DECODE_ITERS if T in DECODE_TIME_T else iters if T <= 64
+                 else max(4, iters // 10))
+            # Under 64 tokens both implementations of the group-wise body,
+            # the mma.sync kernel and the decode body; `ms` is the one
+            # decode_route picks.
+            impl = {}
+            for decode in ((False, True) if T < 64 else (None,)):
+                impl[decode] = time_ms(
+                    lambda: int4p_matmul(x, q4p, scale, zero, group,
+                                         layer_idx=nxt(), decode=decode), n)
+            routed = T < 64 and decode_route(T, K, N, group,
+                                             "packed") == "decode"
+            ms = impl[routed if T < 64 else None]
+            plan = plan_of(decode_plan(T, K, N, group, "packed")
+                           if T < 64 else int4p_matmul.last_plan)
 
             def plain():
                 l = nxt()
@@ -1308,18 +1370,23 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
             nbytes, flops = int4_work(T, K, N, group)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS * 1e3
-            body = int4p_body(T)
+            body = ("dense_wgmma" if int4p_body(T) == "dense" else
+                    "groupwise_decode" if routed else "groupwise")
             pt = dict(site=site, K=K, N=N, T=T, group=group, ms=ms,
-                      body="dense_wgmma" if body == "dense" else body,
-                      plain_ms=plain_ms,
+                      body=body, plain_ms=plain_ms,
                       library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-            if body == "dense":
-                pt["plan"] = dict(int4p_matmul.last_plan)
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      plan=plan)
+            if T < 64:
+                pt.update(mma_ms=impl[False], decode_ms=impl[True],
+                          mma_plan=dict(zip(("block_m", "splits"),
+                                            kernel_plan(T, K, N))))
             points.append(pt)
             print(f"time int4p_matmul [{site} {K}x{N} T={T} group {group}, "
-                  f"{layers} layers in turn, {pt['body']} body"
-                  f"{', plan ' + str(pt['plan']) if 'plan' in pt else ''}]: "
+                  f"{layers} layers in turn, {body} body, plan {plan}"
+                  + (f"; mma.sync {impl[False]:.4f} ms (plan "
+                     f"{pt['mma_plan']}), decode body {impl[True]:.4f} ms"
+                     if T < 64 else "") + "]: "
                   f"kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
                   f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
@@ -1328,35 +1395,6 @@ def int4_timings(device, iters, group=INT4_GROUP, sites=tuple(INT4_SITES)):
         del q4p, scale, zero, dense
         torch.cuda.empty_cache()
     return points
-
-
-def int4_block_sweep(device, iters):
-    """Rows of x per block of the group-wise body (under 64 tokens), 16
-    against 32, each with the split of K the wrapper gives it. The
-    wrapper's choice by T (kernel_plan) comes from these times; the prefill
-    body's comes from ``kernel_ab sweep``."""
-    from aphrodite_tpu_torch.ops.quant_matmul import int4p_matmul
-
-    for site in ("wqkv", "down"):
-        K, N = INT4_SITES[site]
-        layers = 8
-        q4p, scale, zero = make_int4_case(K, N, layers, device, SEED + 80)
-        for T in (8, 16, 32):
-            x = make_x(T, K, device, SEED + 90 + T)
-            state = {"layer": 0}
-
-            def nxt():
-                state["layer"] = (state["layer"] + 1) % layers
-                return state["layer"]
-
-            times = {bm: time_ms(
-                lambda: int4p_matmul(x, q4p, scale, zero, INT4_GROUP,
-                                     layer_idx=nxt(), block_m=bm),
-                iters) for bm in (16, 32)}
-            print(f"sweep int4p_matmul [{site} T={T}]: 16-row blocks "
-                  f"{times[16]:.4f} ms, 32-row blocks {times[32]:.4f} ms",
-                  flush=True)
-        del q4p, scale, zero
 
 
 # ----------------------------------------------------------------------
@@ -1485,7 +1523,8 @@ def int8_checks(device):
     the max abs error of each route."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (int4_route,
+    from aphrodite_tpu_torch.ops.quant_matmul import (decode_route,
+                                                      int4_route,
                                                       int8_matmul,
                                                       int8_matmul_ref)
     from aphrodite_tpu_torch.quantization import int8
@@ -1503,6 +1542,9 @@ def int8_checks(device):
             want = int8_matmul_ref(x, c["q"][1], c["scale"][1])
             ratio = row_ratio(got, want)
             route = int4_route(T, "groupwise", per_column=True)
+            if route == "groupwise" and decode_route(
+                    T, K, N, K, "groupwise") == "decode":
+                route = "groupwise_decode"
             worst_abs[route] = max(worst_abs.get(route, 0.0),
                                    float((got - want).abs().max()))
             print(f"check int8_matmul ({route}, G = K) [{site} T={T}]"
@@ -1517,14 +1559,17 @@ def int8_checks(device):
 
 def int8_timings(device, iters):
     """Times of the int8 per-channel product at every (site, T) of
-    INT4_TIME_T beside its plain version, the library call (torch.matmul
+    INT4_TIME_T (and DECODE_TIME_T at w13) beside its plain version, the library call (torch.matmul
     on the bf16 weight q * scale) and the bound (x bf16, one byte a
     weight, f32 scale and output once each; 2 * T * K * N bf16
     operations); each timed call takes the next layer of a stack larger
     than the 50 MB L2. Returns a list of per-point dicts."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (int4_route,
+    from aphrodite_tpu_torch.ops.quant_matmul import (decode_plan,
+                                                      decode_route,
+                                                      int4_matmul,
+                                                      int4_route,
                                                       int8_matmul,
                                                       int8_matmul_ref)
     from aphrodite_tpu_torch.quantization import int8
@@ -1537,12 +1582,28 @@ def int8_timings(device, iters):
             (layers, K, N), generator=gen, device=device) * K**-0.5)
         dense = torch.stack([(c["q"][l].float() * c["scale"][l]).to(
             torch.bfloat16) for l in range(min(layers, 3))])
-        for T in INT4_TIME_T:
+        for T in ((*DECODE_TIME_T, *INT4_TIME_T) if site == "w13"
+                  else INT4_TIME_T):
             x = make_x(T, K, device, SEED + 70 + T)
             nxt = rotation(layers)
-            n = iters if T <= 64 else max(4, iters // 10)
+            n = (DECODE_ITERS if T in DECODE_TIME_T else iters if T <= 64
+                 else max(4, iters // 10))
             ms = time_ms(lambda: int8_matmul(x, c["q"], c["scale"],
                                              layer_idx=nxt()), n)
+            route = int4_route(T, "groupwise", per_column=True)
+            impl = {}
+            if T < 64:
+                zero = torch.zeros((layers, 1, N), device=device)
+                # Both implementations of the group-wise body at G = K.
+                for decode in (False, True):
+                    impl[decode] = time_ms(
+                        lambda: int4_matmul(x, c["q"], c["scale"], zero, K,
+                                            layer_idx=nxt(), body="groupwise",
+                                            decode=decode), n)
+                if decode_route(T, K, N, K, "groupwise") == "decode":
+                    route = "groupwise_decode"
+            plan = plan_of(decode_plan(T, K, N, K, "groupwise")
+                           if T < 64 else int4_matmul.last_plan)
 
             def plain():
                 l = nxt()
@@ -1554,14 +1615,17 @@ def int8_timings(device, iters):
             nbytes = T * K * 2 + K * N + N * 4 + T * N * 4
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * T * K * N / BF16_FLOPS * 1e3
-            pt = dict(site=site, K=K, N=N, T=T,
-                      body=int4_route(T, "groupwise", per_column=True),
+            pt = dict(site=site, K=K, N=N, T=T, body=route,
                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      plan=plan)
+            if impl:
+                pt.update(mma_ms=impl[False], decode_ms=impl[True])
             points.append(pt)
             print(f"time int8_matmul [{site} {K}x{N} T={T}, {layers} layers "
-                  f"in turn, {pt['body']}]: kernel {ms:.4f} ms, plain "
+                  f"in turn, {pt['body']}, plan {plan}]: kernel {ms:.4f} ms, "
+                  "plain "
                   f"{plain_ms:.4f} ms, library (matmul on bf16 weights) "
                   f"{library_ms:.4f} ms, bound {pt['bound_ms']:.4f} ms "
                   f"({pt['bound_by']}: {nbytes} bytes, {2 * T * K * N} "
@@ -1819,8 +1883,10 @@ def make_q4_case(K, N, layers, device, seed, kind, tiny_scale=False):
 
 def q4_checks(device):
     """Both bodies of the unpacked kernel, for every container, site and
-    T, against the plain version and the exact f32 product; returns the
-    max abs error against the plain version per body."""
+    T (under 64 tokens on both implementations, the mma.sync kernel and
+    the decode body), against the plain version and the exact f32
+    product; returns the max abs error against the plain version per
+    route."""
     import torch
 
     from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
@@ -1828,7 +1894,8 @@ def q4_checks(device):
                                                       int4_matmul_ref,
                                                       int4_route)
 
-    worst_abs = {"groupwise": 0.0, "dense": 0.0, "dense_wgmma": 0.0}
+    worst_abs = {"groupwise": 0.0, "dense": 0.0, "groupwise_decode": 0.0,
+                 "dense_decode": 0.0, "dense_wgmma": 0.0}
     for i, (site, (K, N)) in enumerate(INT4_SITES.items()):
         for c, (kind, spec) in enumerate(Q4_CONTAINERS.items()):
             tiny = kind == "q6_k" and site == "wo"
@@ -1843,11 +1910,13 @@ def q4_checks(device):
                 plain = int4_matmul_ref(x, q4[1], scale[1], zero[1], group)
                 exact = x.float() @ w_exact
                 line = []
-                for body in spec["bodies"]:
+                for body, decode in (
+                        (b, d) for b in spec["bodies"]
+                        for d in ((False, True) if T < 64 else (None,))):
                     got = int4_matmul(x, q4, scale, zero, group, layer_idx=1,
-                                      body=body)
+                                      body=body, decode=decode)
                     torch.cuda.synchronize()
-                    route = int4_route(T, body)
+                    route = int4_route(T, body) + ("_decode" if decode else "")
                     where = f"int4_matmul {route} [{site} T={T} {label}]"
                     if (tuple(got.shape) != (T, N)
                             or got.dtype != torch.float32):
@@ -1889,13 +1958,15 @@ def q4_work(T, K, N, group):
 
 def q4_timings(device, iters):
     """Times of both bodies at every (container, site, T) of Q4_TIMED and
-    INT4_TIME_T beside the plain version, the library call (torch.matmul
+    INT4_TIME_T (and DECODE_TIME_T at w13) beside the plain version, the library call (torch.matmul
     on the pre-dequantized bf16 weight) and the bound; each timed launch
     takes the next layer of a stack that holds more bytes than the 50 MB
     L2. Returns a list of per-point dicts, one per body."""
     import torch
 
-    from aphrodite_tpu_torch.ops.quant_matmul import (dequantize_int4,
+    from aphrodite_tpu_torch.ops.quant_matmul import (decode_plan,
+                                                      decode_route,
+                                                      dequantize_int4,
                                                       int4_matmul,
                                                       int4_matmul_ref,
                                                       int4_route)
@@ -1911,7 +1982,8 @@ def q4_timings(device, iters):
             dense = torch.stack([
                 dequantize_int4(q4[l], scale[l], zero[l], group).to(
                     torch.bfloat16) for l in range(layers)])
-            for T in INT4_TIME_T:
+            for T in ((*DECODE_TIME_T, *INT4_TIME_T) if site == "w13"
+                      else INT4_TIME_T):
                 x = make_x(T, K, device, SEED + 70 + T)
                 state = {"layer": 0}
 
@@ -1919,11 +1991,23 @@ def q4_timings(device, iters):
                     state["layer"] = (state["layer"] + 1) % layers
                     return state["layer"]
 
-                n = iters if T <= 64 else max(4, iters // 10)
-                ms = {body: time_ms(
-                    lambda: int4_matmul(x, q4, scale, zero, group,
-                                        layer_idx=nxt(), body=body), n)
-                    for body in ("groupwise", "dense")}
+                n = (DECODE_ITERS if T in DECODE_TIME_T else iters
+                     if T <= 64 else max(4, iters // 10))
+                ms, plans, impl = {}, {}, {}
+                for body in ("groupwise", "dense"):
+                    ms[body] = time_ms(
+                        lambda: int4_matmul(x, q4, scale, zero, group,
+                                            layer_idx=nxt(), body=body), n)
+                    plans[body] = plan_of(
+                        decode_plan(T, K, N, group, body) if T < 64
+                        else int4_matmul.last_plan)
+                    if T < 64:
+                        # Both implementations under 64 tokens.
+                        impl[body] = {d: time_ms(
+                            lambda: int4_matmul(x, q4, scale, zero, group,
+                                                layer_idx=nxt(), body=body,
+                                                decode=d), n)
+                            for d in (False, True)}
 
                 def plain():
                     l = nxt()
@@ -1936,18 +2020,27 @@ def q4_timings(device, iters):
                 t_ops = flops / BF16_FLOPS * 1e3
                 routed = int4_route(T)
                 for body in ("groupwise", "dense"):
+                    route = int4_route(T, body)
+                    if T < 64 and decode_route(T, K, N, group,
+                                               body) == "decode":
+                        route += "_decode"
                     points.append(dict(
-                        body=int4_route(T, body), container=kind,
+                        body=route, container=kind,
                         group=group, site=site,
                         K=K, N=N, T=T, ms=ms[body], plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                         bound_by=("bytes" if t_bytes >= t_ops
                                   else "operations"),
-                        routed=int4_route(T, body) == routed))
+                        routed=int4_route(T, body) == routed,
+                        plan=plans[body]))
+                    if T < 64:
+                        points[-1].update(mma_ms=impl[body][False],
+                                          decode_ms=impl[body][True])
                 print(f"time int4_matmul [{kind} g{group} {site} {K}x{N} "
                       f"T={T}, {layers} layers in turn]: group-wise "
-                      f"{ms['groupwise']:.4f} ms, {int4_route(T, 'dense')} "
-                      f"{ms['dense']:.4f} ms "
+                      f"{ms['groupwise']:.4f} ms (plan {plans['groupwise']}), "
+                      f"{int4_route(T, 'dense')} {ms['dense']:.4f} ms (plan "
+                      f"{plans['dense']}) "
                       f"(the wrapper takes {routed}), plain {plain_ms:.4f} "
                       f"ms, library (matmul on bf16 weights) "
                       f"{library_ms:.4f} ms, bound "
@@ -1957,42 +2050,6 @@ def q4_timings(device, iters):
             del q4, scale, zero, dense
             torch.cuda.empty_cache()
     return points
-
-
-def q4_block_sweep(device, iters):
-    """Rows of x per block for both bodies of the unpacked kernel under 64
-    tokens, each with the split of K the wrapper gives it. The wrapper's
-    choice by T (int4_kernel_plan) comes from these times."""
-    from aphrodite_tpu_torch.ops.quant_matmul import int4_matmul
-
-    for kind in Q4_SWEPT:
-        group = Q4_CONTAINERS[kind]["group"]
-        for site in ("wqkv", "down"):
-            K, N = INT4_SITES[site]
-            layers = 6
-            q4, scale, zero = make_q4_case(K, N, layers, device, SEED + 300,
-                                           kind)
-            for T in (8, 32):
-                x = make_x(T, K, device, SEED + 90 + T)
-                state = {"layer": 0}
-
-                def nxt():
-                    state["layer"] = (state["layer"] + 1) % layers
-                    return state["layer"]
-
-                out = []
-                for body in ("groupwise", "dense"):
-                    for bm in (16, 32, 64):
-                        if bm < 32 and T > 32:
-                            continue
-                        t = time_ms(lambda: int4_matmul(
-                            x, q4, scale, zero, group, layer_idx=nxt(),
-                            body=body, block_m=bm),
-                            iters if T <= 64 else max(4, iters // 5))
-                        out.append(f"{body} {bm}-row {t:.4f} ms")
-                print(f"sweep int4_matmul [{kind} g{group} {site} T={T}]: "
-                      + ", ".join(out), flush=True)
-            del q4, scale, zero
 
 
 # ----------------------------------------------------------------------
@@ -2184,6 +2241,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         paged_decode_attention
     from aphrodite_tpu_torch.ops.quant_matmul import (DENSE_MIN_T,
                                                       INT4_BODY,
+                                                      decode_route,
                                                       fp8_route,
                                                       fp8_w8a8_matmul,
                                                       int4_matmul,
@@ -2313,13 +2371,6 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # prefill body.
     prefill = sum(1 for t in forward_tokens if t >= DENSE_MIN_T)
 
-    def split_by_t(small_body, large_body):
-        """Launches by body of four products per layer and forward, the
-        forwards under DENSE_MIN_T tokens on small_body."""
-        want = {small_body: 4 * layers * (forwards - prefill),
-                large_body: 4 * layers * prefill}
-        return {k: n for k, n in want.items() if n}
-
     def by_route(route):
         """Launches by body of four products per layer and forward, each
         forward's on the body route(T) names."""
@@ -2327,6 +2378,29 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         for t in forward_tokens:
             want[route(t)] = want.get(route(t), 0) + 4 * layers
         return want
+
+    def by_site(key):
+        """Launches by body of the four products (wqkv, wo, w13, down) per
+        layer and forward, each product's on the body key(T, K, N) names:
+        under DENSE_MIN_T tokens decode_route picks the decode body or the
+        mma.sync kernel by the product's shape."""
+        want = {}
+        for t in forward_tokens:
+            for K, N in projection_shapes(model_config):
+                want[key(t, K, N)] = want.get(key(t, K, N), 0) + layers
+        return want
+
+    def small_key(body, group, fmt, large):
+        """The key of a product of T tokens: `large` from DENSE_MIN_T
+        tokens on, else `body`, or body + "_decode" where decode_route
+        takes the decode body."""
+        def key(t, K, N):
+            if t >= DENSE_MIN_T:
+                return large
+            g = K if group is None else group
+            return body + ("_decode" if decode_route(t, K, N, g, fmt)
+                           == "decode" else "")
+        return key
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
@@ -2383,7 +2457,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if launches["int4p_matmul"] != 4 * layers * forwards:
             fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
-        want = split_by_t("groupwise", "dense_wgmma")
+        want = by_site(small_key("groupwise", 16 if packed_gguf else
+                                 INT4_GROUP, "packed", "dense_wgmma"))
         if packed_by_body != want:
             fail(f"int4p_matmul launches by body {packed_by_body} on the "
                  f"{label} are not {want} ({prefill} of {forwards} forwards "
@@ -2415,7 +2490,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     if quantization == "int8":
         # Four launches (G = K) per layer and forward: the group-wise body,
         # or the prefill body's per-column form.
-        want = split_by_t("groupwise", "per_column_wgmma")
+        want = by_site(small_key("groupwise", None, "groupwise",
+                                 "per_column_wgmma"))
         if by_body != want:
             fail(f"int4_matmul launches by body {by_body} on the {label} "
                  f"are not {want}")
@@ -2446,9 +2522,10 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if launches["int4_matmul"] != 4 * layers * forwards:
             fail(f"int4_matmul launches {launches['int4_matmul']} are "
                  f"not 4 x {layers} layers x {forwards} forwards")
-        want = ({"groupwise": 4 * layers * forwards}
-                if q4_body == "groupwise"
-                else split_by_t("dense", "dense_wgmma"))
+        group = GGUF_GROUPS[gguf]
+        want = by_site(small_key("groupwise", group, "groupwise", "groupwise")
+                       if q4_body == "groupwise"
+                       else small_key("dense", group, "dense", "dense_wgmma"))
         if by_body != want:
             fail(f"int4_matmul launches by body {by_body} on the {label} "
                  f"are not {want}")
@@ -2860,7 +2937,7 @@ def main() -> None:
     blocksparse_checks("cuda", errs)
     stamp("attention checks")
     int4_errs = [int4_checks("cuda"), int4_checks("cuda", 16)]
-    for body in ("groupwise", "dense_wgmma"):
+    for body in ("groupwise", "groupwise_decode", "dense_wgmma"):
         errs[f"int4p_matmul_{body}"] = max(e[body] for e in int4_errs)
     errs["int4p_matmul_w4a8"] = max(w4a8_checks("cuda"),
                                     w4a8_checks("cuda", 16))
@@ -2909,9 +2986,7 @@ def main() -> None:
     act_points = quantizer_timings("cuda", iters=200)
     fp8_points = fp8_timings("cuda", iters=200)
     int8_points = int8_timings("cuda", iters=200)
-    int4_block_sweep("cuda", iters=50)
     q4_points = q4_timings("cuda", iters=200)
-    q4_block_sweep("cuda", iters=50)
     stamp("timings")
     # Every engine sizes its KV cache from the free memory, so each is
     # freed (main_path holds the only reference) before the next starts.
@@ -3067,39 +3142,59 @@ def main() -> None:
                 option="blocksparse", page_type=page_type,
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=errs[name], **bs_times[name]))
-    # The packed int4 kernel, one entry per body: the group-wise body
-    # (under 64 tokens, csrc/int4p_matmul.cu) with the headline times of the
-    # largest site at the decode step's size, and the prefill body
-    # (csrc/dequant_gemm.cuh) with those of the largest site at a 2048-token
-    # prefill step; every (site, T, group) point of each follows in
-    # "points", group 16 (GGUF Q2_K and Q3_K) at w13.
+    # The packed int4 kernel, one entry per body and implementation: the
+    # group-wise body under 64 tokens on the mma.sync kernel (csrc/
+    # int4p_matmul.cu) and on the decode body (csrc/decode_gemm.cuh), as
+    # decode_route picks, each with the headline times of the largest site
+    # at a decode step it takes, and the prefill body (csrc/
+    # dequant_gemm.cuh) with those of the largest site at a 2048-token
+    # prefill step; every (site, T, group) point follows in "points" (at
+    # decode sizes with both implementations' times), group 16 (GGUF Q2_K
+    # and Q3_K) at w13.
     packed_bodies = {
         "groupwise": ("aphrodite_tpu_torch/csrc/int4p_matmul.cu",
                       "aphrodite_tpu/ops/quant_matmul.py:528 "
-                      "(_kernel_packed_groupwise, :268)", 32),
+                      "(_kernel_packed_groupwise, :268)", 16,
+                      "group-wise body, mma.sync kernel"),
+        "groupwise_decode": ("aphrodite_tpu_torch/csrc/decode_gemm.cuh",
+                             "aphrodite_tpu/ops/quant_matmul.py:528 "
+                             "(_kernel_packed_groupwise, :268)", 32,
+                             "group-wise body, decode body (PACKED)"),
         "dense_wgmma": ("aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
                         "aphrodite_tpu/ops/quant_matmul.py:528 "
-                        "(_kernel_packed_dense, :321)", 2048)}
+                        "(_kernel_packed_dense, :321)", 2048,
+                        "prefill body, packed")}
     packed_by_body = {b: sum(on_paths(f"int4p_matmul_{b}").values())
                       for b in packed_bodies}
-    for body, (src, replaces, T) in packed_bodies.items():
-        name = "int4p_matmul" if body == "groupwise" else f"int4p_matmul_{body}"
+    # Launches of each packed body on each main path that ran the kernel.
+    packed_by_path = {}
+    for body in packed_bodies:
+        for path, n in on_paths(f"int4p_matmul_{body}").items():
+            packed_by_path.setdefault(path, {})[body] = n
+    print("int4p_matmul launches by body on each main path: "
+          + json.dumps(packed_by_path), flush=True)
+    for body, (src, replaces, T, form) in packed_bodies.items():
+        name = ("int4p_matmul" if body == "groupwise"
+                else f"int4p_matmul_{body}")
         by_path = on_paths(f"int4p_matmul_{body}")
         if not sum(by_path.values()):
             fail(f"{name} was launched on no main path")
         points = [p for p in int4_points if p["body"] == body]
-        head = next(p for p in points if p["site"] == "w13" and p["T"] == T
-                    and p["group"] == 128)
+        head = implementation_head(
+            next(p for p in int4_points if p["site"] == "w13"
+                 and p["T"] == T and p["group"] == 128), body)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            launches_by_body=packed_by_body,
+            form=form, launches=sum(by_path.values()),
+            launches_by_path=by_path, launches_by_body=packed_by_body,
+            launches_by_body_by_path=packed_by_path,
             max_abs_err=errs[f"int4p_matmul_{body}"],
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
             shape=f"w13 4096x28672 T={T}", points=points))
     # The unpacked kernel, one entry per body: the headline times are
-    # those of the largest site at the decode step's size (the bodies of
+    # those of the largest site at the decode step's size (the decode
+    # body's level forms, csrc/decode_gemm.cuh, built in
     # csrc/int4_matmul.cu) or at a 2048-token prefill step (the prefill
     # body and its int8 per-column form), on the container the wrapper
     # sends to that body; every (container, site, T) point follows in
@@ -3110,10 +3205,21 @@ def main() -> None:
                       "aphrodite_tpu/ops/quant_matmul.py:178",
                       "named on the q8_0 gguf path (body=, bound into the "
                       "projections' reference to the wrapper), and the int8 "
-                      "path under 64 tokens (G = K)"),
+                      "path under 64 tokens (G = K), where decode_route "
+                      "picks the mma.sync kernel"),
         "dense": ("q6_k", 32, "aphrodite_tpu_torch/csrc/int4_matmul.cu",
                   "aphrodite_tpu/ops/quant_matmul.py:81",
-                  "the wrapper's choice under 64 tokens"),
+                  "the wrapper's choice under 64 tokens, where decode_route "
+                  "picks the mma.sync kernel"),
+        "groupwise_decode": ("q8_0", 32,
+                             "aphrodite_tpu_torch/csrc/decode_gemm.cuh",
+                             "aphrodite_tpu/ops/quant_matmul.py:178",
+                             "the group-wise body where decode_route picks "
+                             "the decode body (GROUPWISE)"),
+        "dense_decode": ("q6_k", 32, "aphrodite_tpu_torch/csrc/decode_gemm.cuh",
+                         "aphrodite_tpu/ops/quant_matmul.py:81",
+                         "the dense body where decode_route picks the decode "
+                         "body (DENSE)"),
         "dense_wgmma": ("q6_k", 2048,
                         "aphrodite_tpu_torch/csrc/dequant_gemm.cuh",
                         "aphrodite_tpu/ops/quant_matmul.py:81",
@@ -3138,10 +3244,18 @@ def main() -> None:
                         and p["T"] == T)
         else:
             points = [p for p in q4_points if p["body"] == body]
-            head = next(p for p in points if p["container"] == kind
-                        and p["site"] == "w13" and p["T"] == T)
+            head = implementation_head(
+                next(p for p in q4_points if p["container"] == kind
+                     and p["site"] == "w13" and p["T"] == T
+                     and p["body"].startswith(body.split("_")[0])), body)
         entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
+            form={"groupwise": "group-wise body, mma.sync kernel",
+                  "dense": "dense body, mma.sync kernel",
+                  "groupwise_decode": "decode body, GROUPWISE",
+                  "dense_decode": "decode body, DENSE (DENSE_ROWS under G 16)",
+                  "dense_wgmma": "prefill body, unpacked",
+                  "per_column_wgmma": "prefill body, PER_COLUMN"}[body],
             launches=sum(by_path.values()), launches_by_path=by_path,
             launches_by_body=q4_by_body, max_abs_err=q4_errs[body],
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",

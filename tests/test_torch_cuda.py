@@ -891,6 +891,68 @@ def test_int4_kernel_refuses_what_it_does_not_take():
     assert int4_matmul.launches_by_body["groupwise"] == groupwise + 1
 
 
+# The decode body (csrc/decode_gemm.cuh) of both kernels: each form, at
+# groups from one row to 128 (48, an odd multiple of 16, packed only), at
+# a packed K/2 that is an odd multiple of 32 where the group divides it
+# (K 2112: K/2 = 1056, a 32-row last stage), N 384 (the second box of the
+# last block lies past N; K split where a divisor of its stages pays), on
+# the layer view of a stack.
+DECODE_T = (1, 7, 8, 9, 16, 17, 33, 63)
+DECODE_CASES = [("packed", 16, 2112), ("packed", 32, 2112),
+                ("packed", 48, 2112), ("packed", 128, 4096),
+                ("groupwise", 16, 2112), ("groupwise", 32, 2112),
+                ("groupwise", 128, 4096), ("dense", 1, 2112),
+                ("dense", 8, 2112), ("dense", 16, 2112), ("dense", 32, 2112),
+                ("dense", 128, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,group,K", DECODE_CASES)
+def test_decode_body_on_card(fmt, group, K):
+    """Every form of the decode body (named with decode=True: at these
+    sizes decode_route picks the mma.sync kernels) at every token tile (T
+    1-63, one and two tiles, ragged and full): against the plain version
+    and the exact f32-weight product (group-wise arithmetic: 2^-14 of a
+    row from the exact one, ROW_TOL from the plain one; dense: the other
+    way round), the same bits from two runs (split K sums in a fixed
+    order), and another layer of the stack giving another product."""
+    from aphrodite_tpu_torch.ops.quant_matmul import decode_plan
+
+    _card_or_skip()
+    N = 384
+    rng = np.random.default_rng(group + K)
+    for T in DECODE_T:
+        if fmt == "packed":
+            x, q, scale, zero = _int4_case(rng, 2, K, N, group, T,
+                                           wide_zero=True)
+            run = lambda l: int4p_matmul(x, q, scale, zero, group,  # noqa
+                                         layer_idx=l, decode=True)
+            w = dequantize_int4(unpack_int4_rows(q[1]), scale[1], zero[1],
+                                group)
+            plain = int4p_matmul_ref(x, q[1], scale[1], zero[1], group)
+            wrapper = int4p_matmul
+        else:
+            x, q, scale, zero = _q4_case(rng, 2, K, N, group, T, "q5_k")
+            run = lambda l: int4_matmul(x, q, scale, zero, group,  # noqa
+                                        layer_idx=l, body=fmt, decode=True)
+            w = dequantize_int4(q[1], scale[1], zero[1], group)
+            plain = int4_matmul_ref(x, q[1], scale[1], zero[1], group)
+            wrapper = int4_matmul
+        got = run(1)
+        torch.cuda.synchronize()
+        assert wrapper.last_plan == decode_plan(T, K, N, group, fmt)
+        exact = x.float() @ w
+        assert got.isfinite().all() and got.shape == (T, N)
+        tols = ((plain, SAME_TOL), (exact, ROW_TOL)) if fmt == "dense" else \
+            ((plain, ROW_TOL), (exact, SAME_TOL))
+        for ref, tol in tols:
+            err = (got - ref).abs().amax(-1)
+            bound = tol * ref.abs().amax(-1)
+            assert (err <= bound).all(), (T, tol, float((err / bound).max()))
+        assert torch.equal(run(1), got)
+        assert not torch.equal(run(0), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [128, 64])
 def test_quantize_from_float_on_card_matches_numpy(group):
@@ -1200,10 +1262,13 @@ def test_w4a8_kernel_refuses_what_it_does_not_take():
 @pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])
 def test_int8_container_groupwise_body_on_card(T, K, N):
     """int8 per-channel weights through the group-wise body at G = K under
-    64 tokens (the group spans the split-K partitions at small T), and
-    through the prefill body's per-column form from there. Against the
+    64 tokens (the group spans the split-K partitions at small T; on the
+    mma.sync kernel or the decode body, as decode_route picks by shape),
+    and through the prefill body's per-column form from there. Against the
     plain version (the JAX package's arithmetic: exact products, f32
     sums, the scale on the sum), the order of the sums differs only."""
+    from aphrodite_tpu_torch.ops.quant_matmul import decode_route
+
     _card_or_skip()
     rng = np.random.default_rng(T + K)
     w = torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
@@ -1211,6 +1276,8 @@ def test_int8_container_groupwise_body_on_card(T, K, N):
     x = torch.from_numpy(rng.standard_normal((T, K), dtype=np.float32)).to(
         torch.bfloat16).cuda()
     route = "groupwise" if T < 64 else "per_column_wgmma"
+    if T < 64 and decode_route(T, K, N, K, "groupwise") == "decode":
+        route = "groupwise_decode"
     before = int4_matmul.launches_by_body.get(route, 0)
     got = int8_matmul(x, c["q"], c["scale"], layer_idx=1)
     torch.cuda.synchronize()
