@@ -198,6 +198,15 @@ class SchedulerConfig:
             raise ValueError("only preemption_mode='recompute' is supported")
 
 
+def chain_windows_enabled() -> bool:
+    """Whether the runner chains decode windows across engine steps and the
+    scheduler reserves a chained window's KV: APHRODITE_CHAIN_WINDOWS, the
+    JAX package's switch, with its meaning (on unless "0"). Off, no request
+    reserves KV slots for a second window, for a deployment short of KV
+    pages."""
+    return os.environ.get("APHRODITE_CHAIN_WINDOWS", "1") != "0"
+
+
 @dataclass
 class DeviceConfig:
     """Target device: "cuda" (the card) or "cpu" (tests). Never probed:

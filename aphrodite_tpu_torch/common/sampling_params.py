@@ -308,6 +308,39 @@ class SamplingParams:
     def all_stop_token_ids(self) -> Set[int]:
         return set(self.stop_token_ids or [])
 
+    @property
+    def chain_speculation_eligible(self) -> bool:
+        """Whether a decode window for this request may be dispatched
+        SPECULATIVELY before the engine confirms the request survives
+        the step (cross-step window chaining,
+        worker/model_runner.py:_can_chain_window). Requires:
+
+        - history-free sampling: nothing in the pipeline reads the
+          token history the speculative window has not seen (penalties,
+          DRY, no-repeat-ngram, min-token EOS masking, guided FSMs,
+          host logits processors, beam state);
+        - chain-invariant randomness: greedy rows or rows WITHOUT an
+          explicit seed. A user-set seed promises reproducible tokens,
+          and the chained window samples with the previous schedule's
+          sampling tensors: identical distribution, different stream.
+
+        EOS/stop/max_tokens finishes do NOT block eligibility: a finish
+        changes the next step's batch composition, the chained window's
+        fingerprint misses, and the window is dropped unfetched.
+
+        The scheduler consults the same predicate to size its lookahead
+        reservation, so KV is only reserved for windows that can
+        actually be speculated.
+        """
+        if (self.presence_penalty or self.frequency_penalty
+                or self.repetition_penalty != 1.0
+                or self.no_repeat_ngram_size or self.dry_multiplier
+                or self.min_tokens or self.custom_token_bans
+                or self.logits_processors or self.use_beam_search
+                or self.guided_spec is not None):
+            return False
+        return self.temperature < _SAMPLING_EPS or self.seed is None
+
     def clone(self) -> "SamplingParams":
         """Deep copy, excluding logits processor callables (shared)."""
         lps = self.logits_processors

@@ -108,6 +108,17 @@ class LlamaForCausalLM:
             self._cos, self._sin = compute_rope_tables(
                 self.head_dim, self.max_position, base=self.rope_theta,
                 rope_scaling=hf.get("rope_scaling"), device=device)
+        # The muP scales as tensors made once, on the model's device: a
+        # tensor made from a Python number in the forward is a copy from
+        # the host, which a captured CUDA graph cannot hold. A subclass
+        # sets both scales before calling this __init__.
+        self._embedding_scale = (
+            torch.tensor(self.embedding_multiplier, dtype=self.dtype,
+                         device=device)
+            if self.embedding_multiplier != 1.0 else None)
+        self._logit_scale = (
+            torch.tensor(self.logit_scale, dtype=torch.float32, device=device)
+            if self.logit_scale else None)
 
     # ------------------------------------------------------------------
     # Params
@@ -273,9 +284,8 @@ class LlamaForCausalLM:
         k_scales, v_scales = kv_scales if kv_scales is not None else (None,
                                                                       None)
         x = params["embed"][batch.token_ids].to(self.dtype)
-        if self.embedding_multiplier != 1.0:
-            x = x * torch.tensor(self.embedding_multiplier, dtype=self.dtype,
-                                 device=x.device)
+        if self._embedding_scale is not None:
+            x = x * self._embedding_scale
         if self.use_rope:
             cos = self._cos[batch.positions]
             sin = self._sin[batch.positions]
@@ -383,8 +393,6 @@ class LlamaForCausalLM:
             # The CPU has no mixed-dtype mm; a product of two bf16 values
             # is exact in f32, so upcasting first gives the same sums.
             logits = torch.matmul(hidden.float(), head.float())
-        if self.logit_scale:
-            logits = logits * torch.tensor(self.logit_scale,
-                                           dtype=torch.float32,
-                                           device=logits.device)
+        if self._logit_scale is not None:
+            logits = logits * self._logit_scale
         return logits

@@ -43,16 +43,22 @@ class Phi3SmallForCausalLM(LlamaForCausalLM):
                 hf["rope_scaling"] = {"type": "linear", "factor": pos_scale}
         elif "factor" not in rs:
             rs["factor"] = pos_scale
+        # Before the Llama body's __init__, which makes them tensors.
+        self.embedding_multiplier = float(
+            hf.get("mup_embedding_multiplier") or 1.0)
+        self.logit_scale = 1.0 / float(hf.get("mup_width_multiplier") or 1.0)
         super().__init__(model_config, device)
 
         if hf.get("mup_use_scaling"):
             self.sm_scale = float(hf["mup_attn_multiplier"]) / self.head_dim
-        self.embedding_multiplier = float(
-            hf.get("mup_embedding_multiplier") or 1.0)
-        self.logit_scale = 1.0 / float(hf.get("mup_width_multiplier") or 1.0)
         self.gegelu_limit = hf.get("gegelu_limit")
         self.dummy_token_ids = [int(i) for i in
                                 hf.get("dummy_token_indices") or []]
+        # On the model's device once: indexing with the list in the
+        # forward would copy it from the host, which a captured CUDA graph
+        # cannot hold.
+        self._dummy_index = torch.tensor(self.dummy_token_ids,
+                                         dtype=torch.long, device=device)
 
         block = int(hf.get("blocksparse_block_size", 64))
         local = int(hf.get("blocksparse_num_local_blocks", 16))
@@ -146,5 +152,5 @@ class Phi3SmallForCausalLM(LlamaForCausalLM):
                        hidden: torch.Tensor) -> torch.Tensor:
         logits = super().compute_logits(params, hidden)
         if self.dummy_token_ids:
-            logits[:, self.dummy_token_ids] = MASK_VALUE
+            logits.index_fill_(1, self._dummy_index, MASK_VALUE)
         return logits

@@ -43,11 +43,11 @@ from aphrodite_tpu_torch.ops.decode_attention import (BLOCKSPARSE_ARGTYPES,
                                                       attend,
                                                       blocksparse_args,
                                                       check_kernel_inputs,
-                                                      count_launch,
                                                       gather_kv,
                                                       launch_shape,
                                                       paged_decode_attention,
                                                       slopes_ptr)
+from aphrodite_tpu_torch.ops.launches import count_launch
 
 
 def ref_ragged_paged_attention(
@@ -156,9 +156,9 @@ def ragged_paged_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel: CUDA error {err}")
-    count_launch(ragged_paged_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, head_dim, alibi_slopes,
-                              bs[0] is not None))
+    count_launch(ragged_paged_attention, dtype=page_type,
+                 shape=launch_shape(num_q_heads, ckv // 2, head_dim,
+                                    alibi_slopes, bs[0] is not None))
     return out
 
 

@@ -55,6 +55,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops.launches import count_launch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The shapes both CUDA kernels are built for: head_dim 64 or 128 with QH /
@@ -472,9 +473,9 @@ def paged_decode_attention(
     paged_decode_attention.last_plan = dict(
         split_keys=split_keys, splits=num_splits, slots=num_slots,
         blocks=num_seqs * (ckv // 2) * num_slots)
-    count_launch(paged_decode_attention, page_type,
-                 launch_shape(num_q_heads, ckv // 2, head_dim, alibi_slopes,
-                              bs[0] is not None))
+    count_launch(paged_decode_attention, dtype=page_type,
+                 shape=launch_shape(num_q_heads, ckv // 2, head_dim,
+                                    alibi_slopes, bs[0] is not None))
     return out
 
 
@@ -493,15 +494,6 @@ def launch_shape(num_q_heads: int, num_kv_heads: int, head_dim: int,
     return (f"qg{qg} d{head_dim}"
             + (" alibi" if alibi_slopes is not None else "")
             + (" blocksparse" if blocksparse else ""))
-
-
-def count_launch(wrapper, page_type: str, shape: str) -> None:
-    """One kernel launch of `wrapper` on pages of `page_type`, of the
-    instantiation and option `shape` (``launch_shape``)."""
-    wrapper.launches += 1
-    for counts, key in ((wrapper.launches_by_dtype, page_type),
-                        (wrapper.launches_by_shape, shape)):
-        counts[key] = counts.get(key, 0) + 1
 
 
 # Launches of the kernel: the total, per page type, and per QH / KV and

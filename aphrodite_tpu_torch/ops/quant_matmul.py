@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops.launches import count_launch
 
 # What the CUDA kernels take (see csrc/int4p_matmul.cu, csrc/int4_matmul.cu).
 KERNEL_N_MULTIPLE = 128
@@ -604,11 +605,6 @@ def _decode_product(wrapper, x, q, scale, zero, group, fmt, t_tile=None,
     return out
 
 
-def _count(wrapper, body: str) -> None:
-    wrapper.launches += 1
-    wrapper.launches_by_body[body] = wrapper.launches_by_body.get(body, 0) + 1
-
-
 def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
                  zero: torch.Tensor, group: int,
                  layer_idx: Optional[int] = None,
@@ -649,7 +645,7 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
     if int4p_body(T, body) == "dense":
         out = _dense_product(int4p_matmul, x, q4p, scale, zero, group,
                              "packed")
-        _count(int4p_matmul, "dense_wgmma")
+        count_launch(int4p_matmul, body="dense_wgmma")
         return out
     N = q4p.shape[1]
     if decode is None:
@@ -657,7 +653,7 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
     if decode:
         out = _decode_product(int4p_matmul, x, q4p, scale, zero, group,
                               "packed", t_tile, splits, stages)
-        _count(int4p_matmul, "groupwise_decode")
+        count_launch(int4p_matmul, body="groupwise_decode")
         return out
     block_m, splits = kernel_plan(T, K, N, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
@@ -671,7 +667,7 @@ def int4p_matmul(x: torch.Tensor, q4p: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(
             f"int4p_matmul kernel: error {err} (T {T}, K {K}, N {N}, group "
             f"{group}, block_m {block_m}, splits {splits})")
-    _count(int4p_matmul, "groupwise")
+    count_launch(int4p_matmul, body="groupwise")
     return out
 
 
@@ -791,7 +787,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     if route == "dense_wgmma":
         out = _dense_product(int4_matmul, x, q4, scale, zero, group,
                              "unpacked")
-        _count(int4_matmul, route)
+        count_launch(int4_matmul, body=route)
         return out
     N = q4.shape[1]
     if decode is None:
@@ -799,7 +795,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     if decode:
         out = _decode_product(int4_matmul, x, q4, scale, zero, group, body,
                               t_tile, splits, stages)
-        _count(int4_matmul, f"{body}_decode")
+        count_launch(int4_matmul, body=f"{body}_decode")
         return out
     block_m, splits = int4_kernel_plan(T, K, N, group, body, block_m)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
@@ -814,7 +810,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(
             f"int4_matmul kernel: error {err} (T {T}, K {K}, N {N}, group "
             f"{group}, body {body}, block_m {block_m}, splits {splits})")
-    _count(int4_matmul, body)
+    count_launch(int4_matmul, body=body)
     return out
 
 
@@ -918,9 +914,7 @@ def quantize_activations(x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"quantize_activations kernel: error {err} "
                            f"(T {T}, K {K}, format {fmt})")
-    quantize_activations.launches += 1
-    quantize_activations.launches_by_format[fmt] = \
-        quantize_activations.launches_by_format.get(fmt, 0) + 1
+    count_launch(quantize_activations, format=fmt)
     return xq, scale
 
 
@@ -993,7 +987,7 @@ def int4p_matmul_w4a8(x: torch.Tensor, q4p: torch.Tensor,
         raise RuntimeError(
             f"int4p_matmul_w4a8 kernel: error {err} (T {T}, K {K}, N {N}, "
             f"group {group}, block_m {block_m}, splits {splits})")
-    int4p_matmul_w4a8.launches += 1
+    count_launch(int4p_matmul_w4a8)
     return out
 
 
@@ -1037,7 +1031,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return int4_matmul(x, q, scale, zero, K, body="groupwise")
     check_int4_kernel_inputs(x, q, scale, zero, K, "groupwise")
     out = _dense_product(int4_matmul, x, q, scale, zero, K, "per_column")
-    _count(int4_matmul, route)
+    count_launch(int4_matmul, body=route)
     return out
 
 
@@ -1135,7 +1129,7 @@ def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             raise RuntimeError(
                 f"fp8_w8a8_matmul kernel: error {err} (T {T}, K {K}, N {N}, "
                 f"block_m {block_m}, splits {mma_splits})")
-        _count(fp8_w8a8_matmul, route)
+        count_launch(fp8_w8a8_matmul, body=route)
         return out * act_scale * scale
     xq, act_scale = quantize_activations(x, "e4m3_f16")
     plan = dequant_gemm_plan(T, K, N, K, "e4m3", block_t, splits)
@@ -1150,7 +1144,7 @@ def fp8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             f"fp8_w8a8_matmul wgmma body: error {err} (T {T}, K {K}, N {N}, "
             f"plan {plan})")
     fp8_w8a8_matmul.last_plan = plan
-    _count(fp8_w8a8_matmul, route)
+    count_launch(fp8_w8a8_matmul, body=route)
     return out
 
 

@@ -20,7 +20,8 @@ import random
 from collections import deque
 from typing import Deque, List, Optional, Tuple
 
-from aphrodite_tpu_torch.common.config import CacheConfig, SchedulerConfig
+from aphrodite_tpu_torch.common.config import (CacheConfig, SchedulerConfig,
+                                               chain_windows_enabled)
 from aphrodite_tpu_torch.common.logger import init_logger
 from aphrodite_tpu_torch.common.sequence import (ScheduledSequence, SchedulerOutputs,
                                            Sequence, SequenceGroup,
@@ -75,10 +76,18 @@ class Scheduler:
         self.waiting: Deque[SequenceGroup] = deque()
         self.running: Deque[SequenceGroup] = deque()
         # Extra KV slots reserved per decode for multi-step execution
-        # (reference lookahead slots, SchedulerOutputs:115). The runner
-        # does not chain windows, so one window's worth is enough.
-        self.num_lookahead_slots = max(
-            0, scheduler_config.num_scheduler_steps - 1)
+        # (reference lookahead slots, SchedulerOutputs:115). With
+        # cross-step window chaining (worker/model_runner.py
+        # _can_chain_window) the runner dispatches ONE window beyond
+        # this step speculatively, so chain-ELIGIBLE requests reserve a
+        # second window's worth (the chain gate requires the capacity to
+        # already exist). Requests whose sampling can never chain
+        # (SamplingParams.chain_speculation_eligible False) only pay the
+        # plain multi-step reservation.
+        nss = scheduler_config.num_scheduler_steps
+        chain = chain_windows_enabled() and nss > 1
+        self.num_lookahead_slots = max(0, nss - 1)
+        self.num_chain_lookahead_slots = nss if chain else 0
         self.num_cumulative_preemption = 0
         self._artificial_preempt_cnt = (ARTIFICIAL_PREEMPTION_PROB
                                         if ENABLE_ARTIFICIAL_PREEMPT else 0)
@@ -301,7 +310,15 @@ class Scheduler:
                 num_new = 1
                 if not budget.can_schedule(1, 1):
                     return scheds, preempted
-            lookahead = 0 if seq.is_prefill else self.num_lookahead_slots
+            if seq.is_prefill:
+                lookahead = 0
+            else:
+                lookahead = self.num_lookahead_slots
+                if (self.num_chain_lookahead_slots
+                        and group.sampling_params is not None
+                        and group.sampling_params.
+                        chain_speculation_eligible):
+                    lookahead += self.num_chain_lookahead_slots
             # Never reserve beyond the model-length ceiling: the block
             # table must stay within pages_per_seq.
             lookahead = min(

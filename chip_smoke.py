@@ -82,11 +82,38 @@ Phases, each of which must pass or the script exits non-zero:
    width, 32 layers, random bf16 weights from a seed) for 16 greedy
    requests with prompts of 16-1024 tokens and 64 new tokens each, so
    chunked prefill mixes with fused 8-step decode windows. Every output
-   must be 64 tokens long. Forwards are counted at ``model.forward``:
-   the attention launches must be one per layer and forward, all on the
+   must be 64 tokens long. Before the timed run two warm-up batches (2
+   rows, then 16) warm up and capture the decode window's CUDA graphs at
+   both sequence buckets the run reaches (8 and 32 rows). The kernel
+   wrappers count the launches they make (none while a window is being
+   captured into a graph): the launches of the forwards the runner ran
+   eagerly (``eager_forwards_by_tokens``: prefill and mixed steps, and
+   a key's warm-up window) are held to those forwards, which must be
+   the engine's prefill and mixed steps and the warm-ups' 8 forwards
+   each, so no pure-decode step ran eagerly. Every pure-decode window
+   must be its key's one warm-up or a replay of the key's one capture.
+   For each key replayed in the run, one window of it runs eagerly on
+   the key's buffers with every row padding, its wrapper counts held to
+   its 8 forwards, and then a replay of its graph is traced with
+   torch.profiler: the replay must launch the port's kernels of the
+   eager window (traced too) by name and count, one decode attention
+   kernel per layer and forward among them. So on every forward, eager
+   or replayed, the attention launches are one per layer, all on the
    cache's page type (the ragged kernel in prefill and mixed steps, the
-   decode kernel in the fused window), so no forward can have taken a
-   plain version. Then one prefill and one decode forward are run with
+   decode kernel in the fused window), and no forward can have taken a
+   plain version. The run's launch counts are the eager ones plus, for
+   each key, its replays times one window's; the kernels line gives
+   that second part as ``launches_in_graph_replays``. The path prints
+   each key's captures, capture seconds, replays, the memory its
+   capture reserved and a traced replay's launches by kernel, and the
+   chained windows, carries and
+   sampling tensors reused. On ``gptq``, ``gptq+fp8_e4m3``, ``q6_k
+   gguf`` and ``qwen2.5-7b`` one window of 16 rows (random cache pages
+   and tokens from the seed) runs through the graph and through the
+   eager window function on the same cache, carry and tensors: outputs
+   and carries equal bit for bit, two windows in a row; then the median
+   ms of 10 windows each way and a torch.profiler breakdown of the
+   graphed one. Then one prefill and one decode forward are run with
    kernel attention and with plain attention on the same inputs, and
    their logits compared.
    Then the int4 one: the same model and requests with
@@ -106,8 +133,10 @@ Phases, each of which must pass or the script exits non-zero:
    skip_tokenizer_init=True)`` on a file of the same geometry that
    ``write_gguf_llama`` writes from the seed into a temporary directory
    (deleted once the engine is up): Q6_K blocks at GGUF_Q6K_LAYERS
-   layers, then Q8_0 blocks at 4 layers. The loader decodes the blocks on
-   the host into one-level-per-byte containers (group 16, group 32); the
+   layers, then Q8_0 blocks at 4 layers (every unpacked product sent to
+   the group-wise body, and the runner's graphs dropped with
+   ``reset_graphs`` so that its windows are captured anew with it). The
+   loader decodes the blocks on the host into one-level-per-byte containers (group 16, group 32); the
    unpacked int4 matmul must count 4 launches per layer and forward and
    the packed one none, and the logits with the kernel must agree with
    those of the plain product. Between them the two paths launch both
@@ -391,6 +420,8 @@ PAGE_TYPES = ("bf16", "e4m3", "e5m2", "int8")
 LOGIT_TOL = 5e-2
 NUM_REQUESTS = 16
 MAX_TOKENS = 64
+# main_path's launches: the key of the part made by CUDA graph replays.
+IN_GRAPH_REPLAYS = "in graph replays"
 # The int4 projections of one Llama-3.1-8B layer: name -> (K, N).
 INT4_SITES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
               "w13": (4096, 28672), "down": (14336, 4096)}
@@ -2214,7 +2245,8 @@ CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
 
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
-              gguf=None, q4_body=None, w4a8=False, compare_lens=None):
+              gguf=None, q4_body=None, w4a8=False, compare_lens=None,
+              window_check=False):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -2230,8 +2262,14 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     APHRODITE_W4_A8=1 for this path only (packed int4 weights, from gptq or
     the q2_k file, take W4A8 in forwards of 16 tokens or more).
     compare_lens: the sequence lengths of the forwards whose logits are
-    compared (default: as compare_logits chooses). Returns the launch
-    counts of the path's kernels, by variant name, and the rates."""
+    compared (default: as compare_logits chooses). window_check: hold one
+    decode window of 16 rows through the runner's CUDA graph against the
+    eager window function, bit for bit, and time both. Returns the launch
+    counts of the path's kernels in the timed run, by variant name (under
+    IN_GRAPH_REPLAYS the part of them that graph replays made), and the
+    rates (with the decode windows' graphs, chained windows, carry and
+    sampling-cache hits of the timed run, and each replayed key's traced
+    launches)."""
     import torch
 
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
@@ -2248,6 +2286,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                                                       int4p_matmul,
                                                       int4p_matmul_w4a8,
                                                       quantize_activations)
+    from aphrodite_tpu_torch.tools.window_check import (kernel_base,
+                                                        trace_launches)
 
     wrappers = {"ragged_paged_attention": ragged_paged_attention,
                 "paged_decode_attention": paged_decode_attention}
@@ -2313,82 +2353,69 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS,
                         ignore_eos=True, detokenize=False)
-    # Warm-up (library initialisation, allocator growth): not counted.
+    # Warm-up (library initialisation, allocator growth, and the decode
+    # windows' warm-up and capture at both sequence buckets the timed run
+    # reaches, 8 rows and 32): not counted.
     llm.generate(prompt_token_ids=[rng.integers(0, vocab, 32).tolist()] * 2,
                  sampling_params=sp)
+    llm.generate(
+        prompt_token_ids=np.random.default_rng(SEED + 1).integers(
+            0, vocab, (NUM_REQUESTS, 16)).tolist(),
+        sampling_params=SamplingParams(temperature=0.0, max_tokens=17,
+                                       ignore_eos=True, detokenize=False))
     prompts = [rng.integers(0, vocab, int(n)).tolist() for n in prompt_lens]
     for k in llm.engine.phase_timings:
         llm.engine.phase_timings[k] = 0 if isinstance(
             llm.engine.phase_timings[k], int) else 0.0
-    # Forwards are counted where the runner calls the model, so that the
-    # attention launches can be held to one per layer and forward.
-    model = llm.engine.runner.model
-    forward_tokens = []  # T of each forward, in order
-    model_forward = model.forward
+    # The wrappers count the launches they make; a window's replays run
+    # outside them, so the decode windows of the timed run are counted by
+    # tracing a replay of each key after it (trace_launches).
+    runner = llm.engine.runner
+    model = runner.model
+    attention_names = ("ragged_paged_attention", "paged_decode_attention")
+    unpacked = (gguf is not None and not packed_gguf) or quantization == "int8"
 
-    def counted_forward(params, kv_cache, batch, *args, **kwargs):
-        forward_tokens.append(int(batch.token_ids.shape[0]))
-        return model_forward(params, kv_cache, batch, *args, **kwargs)
+    def zero_counts():
+        """Every wrapper's launch counts set to 0."""
+        for fn in (ragged_paged_attention, paged_decode_attention,
+                   int4_matmul, int4p_matmul, int4p_matmul_w4a8,
+                   quantize_activations, fp8_w8a8_matmul):
+            fn.launches = 0
+        for fn in (ragged_paged_attention, paged_decode_attention):
+            fn.launches_by_dtype = {}
+            fn.launches_by_shape = {}
+        for fn in (int4_matmul, int4p_matmul, fp8_w8a8_matmul):
+            fn.launches_by_body = {}
+        quantize_activations.launches_by_format = {}
 
-    model.forward = counted_forward
-    for fn in (*wrappers.values(), int4_matmul, int4p_matmul,
-               int4p_matmul_w4a8, quantize_activations, fp8_w8a8_matmul):
-        fn.launches = 0
-    for fn in (ragged_paged_attention, paged_decode_attention):
-        fn.launches_by_dtype = {}
-        fn.launches_by_shape = {}
-    for fn in (int4_matmul, int4p_matmul, fp8_w8a8_matmul):
-        fn.launches_by_body = {}
-    quantize_activations.launches_by_format = {}
-    if q4_body is not None:
-        # Until this path's logits are compared; a failure ends the script.
-        qlinear_mod.int4_matmul = functools.partial(int4_matmul,
-                                                    body=q4_body)
-    t0 = time.monotonic()
-    outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    by_dtype = {name: dict(wrappers[name].launches_by_dtype)
-                for name in ("ragged_paged_attention",
-                             "paged_decode_attention")}
-    by_shape = {name: dict(wrappers[name].launches_by_shape)
-                for name in by_dtype}
-    by_body = dict(int4_matmul.launches_by_body)
-    packed_by_body = dict(int4p_matmul.launches_by_body)
-    fp8_by_body = dict(fp8_w8a8_matmul.launches_by_body)
-    by_format = dict(quantize_activations.launches_by_format)
-    w4a16 = int4p_matmul.launches
-    other_int4 = (int4p_matmul.launches
-                  if (gguf and not packed_gguf) or quantization == "int8"
-                  else int4_matmul.launches)
-    model.forward = model_forward
-    forwards = len(forward_tokens)
-    # Forwards of 16 tokens or more, which W4A8 takes with the switch.
-    wide = sum(1 for t in forward_tokens if t >= 16)
-    # Forwards of DENSE_MIN_T tokens or more, whose int4 products take the
-    # prefill body.
-    prefill = sum(1 for t in forward_tokens if t >= DENSE_MIN_T)
+    def read_counts():
+        """The wrappers' launch counts since zero_counts."""
+        return dict(
+            launches={name: fn.launches for name, fn in wrappers.items()},
+            by_dtype={name: dict(wrappers[name].launches_by_dtype)
+                      for name in attention_names},
+            by_shape={name: dict(wrappers[name].launches_by_shape)
+                      for name in attention_names},
+            by_body=dict(int4_matmul.launches_by_body),
+            packed_by_body=dict(int4p_matmul.launches_by_body),
+            fp8_by_body=dict(fp8_w8a8_matmul.launches_by_body),
+            by_format=dict(quantize_activations.launches_by_format),
+            w4a16=int4p_matmul.launches,
+            other_int4=(int4p_matmul.launches if unpacked
+                        else int4_matmul.launches))
 
-    def by_route(route):
-        """Launches by body of four products per layer and forward, each
-        forward's on the body route(T) names."""
-        want = {}
-        for t in forward_tokens:
-            want[route(t)] = want.get(route(t), 0) + 4 * layers
-        return want
-
-    def by_site(key):
-        """Launches by body of the four products (wqkv, wo, w13, down) per
-        layer and forward, each product's on the body key(T, K, N) names:
-        under DENSE_MIN_T tokens decode_route picks the decode body or the
-        mma.sync kernel by the product's shape."""
-        want = {}
-        for t in forward_tokens:
-            for K, N in projection_shapes(model_config):
-                want[key(t, K, N)] = want.get(key(t, K, N), 0) + layers
-        return want
+    # Every forward launches one attention kernel per layer, of the cache's
+    # page type (the ragged one in prefill and mixed steps, the decode one
+    # in the fused window), of the instantiation of the model's QH / KV,
+    # with ALiBi exactly where the model has slopes, and blocksparse on
+    # exactly the layers whose gate is on.
+    qg = model.num_heads // model.num_kv_heads
+    shape = (f"qg{qg} d{model.head_dim}"
+             + (" alibi" if model.alibi_slopes is not None else ""))
+    per_forward = {shape: layers}
+    if model.blocksparse_params is not None:
+        sparse = sum(model.bs_layer_mask or [True] * layers)
+        per_forward = {f"{shape} blocksparse": sparse, shape: layers - sparse}
 
     def small_key(body, group, fmt, large):
         """The key of a product of T tokens: `large` from DENSE_MIN_T
@@ -2401,11 +2428,238 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             return body + ("_decode" if decode_route(t, K, N, g, fmt)
                            == "decode" else "")
         return key
+
+    def check_counts(c, forward_tokens, what):
+        """Hold the launch counts ``c`` (read_counts) of forwards of
+        ``forward_tokens`` tokens each to what those forwards launch: a
+        forward that took a plain version would leave a sum short."""
+        forwards = len(forward_tokens)
+        launches = c["launches"]
+        where = f"the {label} ({what})"
+
+        def nonzero(counts):
+            return {k: n for k, n in counts.items() if n}
+
+        for name, counts in c["by_dtype"].items():
+            want = {page_type: launches[name]} if launches[name] else {}
+            if nonzero(counts) != want:
+                fail(f"{name} on {where} was launched on page types "
+                     f"{counts}, not only on {page_type}")
+        attention = sum(launches[name] for name in attention_names)
+        if attention != layers * forwards:
+            fail(f"{attention} attention launches on {where} are not "
+                 f"{layers} layers x {forwards} forwards")
+        for name, counts in c["by_shape"].items():
+            want = {k: n * launches[name] // layers
+                    for k, n in per_forward.items() if n and launches[name]}
+            if nonzero(counts) != want:
+                fail(f"{name} on {where} was launched as {counts}, not as "
+                     f"{want}")
+        print(f"{label}: {what}: {forwards} forwards, each with {layers} "
+              f"attention launches on {page_type} pages: {per_forward}",
+              flush=True)
+        # Forwards of 16 tokens or more, which W4A8 takes with the switch.
+        wide = sum(1 for t in forward_tokens if t >= 16)
+        # Forwards of DENSE_MIN_T tokens or more, whose int4 products take
+        # the prefill body.
+        prefill = sum(1 for t in forward_tokens if t >= DENSE_MIN_T)
+
+        def by_route(route):
+            """Launches by body of four products per layer and forward,
+            each forward's on the body route(T) names."""
+            want = {}
+            for t in forward_tokens:
+                want[route(t)] = want.get(route(t), 0) + 4 * layers
+            return want
+
+        def by_site(key):
+            """Launches by body of the four products (wqkv, wo, w13, down)
+            per layer and forward, each product's on the body key(T, K, N)
+            names: under DENSE_MIN_T tokens decode_route picks the decode
+            body or the mma.sync kernel by the product's shape."""
+            want = {}
+            for t in forward_tokens:
+                for K, N in projection_shapes(model_config):
+                    want[key(t, K, N)] = want.get(key(t, K, N), 0) + layers
+            return want
+
+        by_body, by_format = nonzero(c["by_body"]), nonzero(c["by_format"])
+        if packed and not w4a8:
+            # And four int4 matmuls (wqkv, wo, w13, down) per layer.
+            packed_by_body = nonzero(c["packed_by_body"])
+            if launches["int4p_matmul"] != 4 * layers * forwards:
+                fail(f"int4p_matmul launches {launches['int4p_matmul']} on "
+                     f"{where} are not 4 x {layers} layers x {forwards} "
+                     "forwards")
+            want = by_site(small_key("groupwise", 16 if packed_gguf else
+                                     INT4_GROUP, "packed", "dense_wgmma"))
+            if packed_by_body != want:
+                fail(f"int4p_matmul launches by body {packed_by_body} on "
+                     f"{where} are not {want} ({prefill} of {forwards} "
+                     f"forwards of {DENSE_MIN_T} tokens or more)")
+            print(f"{label}: {what}: int4p_matmul launched {4 * layers} "
+                  f"times in each forward, by body {packed_by_body}",
+                  flush=True)
+        if w4a8:
+            # Four W4A8 products (and activation quantizations) per layer
+            # in every forward of 16 tokens or more, four W4A16 ones in
+            # every other.
+            want = {"int4p_matmul_w4a8": 4 * layers * wide,
+                    "quantize_activations": 4 * layers * wide,
+                    "int4p_matmul": 4 * layers * (forwards - wide)}
+            got = {"int4p_matmul_w4a8": launches["int4p_matmul_w4a8"],
+                   "quantize_activations": by_format.get("int8", 0),
+                   "int4p_matmul": c["w4a16"]}
+            if got != want or set(by_format) - {"int8"}:
+                fail(f"W4A8 launches {got}, by format {by_format}, on "
+                     f"{where} are not {want} for {wide} forwards of 16 "
+                     f"tokens or more and {forwards - wide} under")
+            print(f"{label}: {what}: {wide} forwards of 16 tokens or more, "
+                  f"each with {4 * layers} int4p_matmul_w4a8 and int8 "
+                  f"quantize_activations launches; {forwards - wide} under, "
+                  f"each with {4 * layers} int4p_matmul launches; tokens per "
+                  f"forward {sorted(set(forward_tokens))}", flush=True)
+        if quantization == "int8":
+            # Four launches (G = K) per layer and forward: the group-wise
+            # body, or the prefill body's per-column form.
+            want = by_site(small_key("groupwise", None, "groupwise",
+                                     "per_column_wgmma"))
+            if by_body != want:
+                fail(f"int4_matmul launches by body {by_body} on {where} "
+                     f"are not {want}")
+            print(f"{label}: {what}: int4_matmul (G = K) launched "
+                  f"{4 * layers} times in each forward, by body {by_body}",
+                  flush=True)
+        if quantization == "fp8":
+            # Four e4m3 quantizations and products per layer, each
+            # forward's on the body fp8_route names (the f16 body's
+            # activations as f16).
+            fp8_by_body = nonzero(c["fp8_by_body"])
+            n = 4 * layers * forwards
+            want = by_route(fp8_route)
+            formats = {"f16_wgmma": "e4m3_f16", "e4m3_mma": "e4m3"}
+            want_formats = {}
+            for body, k in want.items():
+                want_formats[formats[body]] = want_formats.get(
+                    formats[body], 0) + k
+            if (launches["fp8_w8a8_matmul"] != n or fp8_by_body != want
+                    or by_format != want_formats):
+                fail(f"fp8 launches on {where}: "
+                     f"{launches['fp8_w8a8_matmul']} e4m3 products "
+                     f"({fp8_by_body} by body, want {want}) and {by_format} "
+                     f"quantizer launches are not 4 x {layers} layers x "
+                     f"{forwards} forwards")
+            print(f"{label}: {what}: fp8_w8a8_matmul and "
+                  f"quantize_activations launched {4 * layers} times in each "
+                  f"forward, by body {fp8_by_body}", flush=True)
+        if gguf is not None and not packed_gguf:
+            # And four unpacked matmuls (wqkv, wo, w13, down) per layer,
+            # none through the packed kernel.
+            if launches["int4_matmul"] != 4 * layers * forwards:
+                fail(f"int4_matmul launches {launches['int4_matmul']} on "
+                     f"{where} are not 4 x {layers} layers x {forwards} "
+                     "forwards")
+            group = GGUF_GROUPS[gguf]
+            want = by_site(
+                small_key("groupwise", group, "groupwise", "groupwise")
+                if q4_body == "groupwise"
+                else small_key("dense", group, "dense", "dense_wgmma"))
+            if by_body != want:
+                fail(f"int4_matmul launches by body {by_body} on {where} "
+                     f"are not {want}")
+            print(f"{label}: {what}: int4_matmul launched {4 * layers} "
+                  f"times in each forward, by body {by_body}", flush=True)
+        if c["other_int4"]:
+            fail(f"{c['other_int4']} launches of the other int4 kernel on "
+                 f"{where}")
+
+    zero_counts()
+    runner.eager_forwards_by_tokens.clear()
+    if q4_body is not None:
+        # Until this path's logits are compared; a failure ends the script.
+        # The windows captured so far launch the wrapper's own choice.
+        qlinear_mod.int4_matmul = functools.partial(int4_matmul,
+                                                    body=q4_body)
+        runner.reset_graphs()
+    graphs_before = runner.graph_stats()
+    hits_before = dict(chained=runner.chained_window_hits,
+                       carry=runner.carry_hits,
+                       sampling_cache=runner.sampling_cache_hits)
+    t0 = time.monotonic()
+    outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    eager = read_counts()
+    # T of each forward the runner ran eagerly in the timed run.
+    eager_tokens = [t for t, n in
+                    sorted(runner.eager_forwards_by_tokens.items())
+                    for _ in range(n)]
+    windows = window_stats(runner, graphs_before, hits_before)
     pt = llm.engine.get_phase_timings()
     lens = [len(o.outputs[0].token_ids) for o in outs]
     rates = dict(
         prefill_tok_s=pt["prefill_tokens"] / max(pt["prefill_s"], 1e-9),
-        decode_tok_s=pt["decode_tokens"] / max(pt["decode_s"], 1e-9))
+        decode_tok_s=pt["decode_tokens"] / max(pt["decode_s"], 1e-9),
+        decode_iterations=pt["decode_iterations"])
+    if any(n != MAX_TOKENS for n in lens):
+        fail(f"outputs with other than {MAX_TOKENS} tokens: {lens}")
+    W = min(num_scheduler_steps, runner.MULTI_STEP_WINDOW)
+    check_counts(eager, eager_tokens, "eager forwards")
+    replayed, traced = {}, {}
+    if device == "cuda":
+        # Every pure-decode window ran as its key's one warm-up or as a
+        # replay of the key's one capture; and the runner's eager forwards
+        # are the engine's prefill and mixed steps and the W forwards of
+        # each warm-up, so no pure-decode step ran eagerly.
+        for key, k in windows["graphs"].items():
+            if k["warmups_total"] != 1 or k["captures_total"] > 1 or (
+                    k["replays"] and k["captures_total"] != 1):
+                fail(f"decode window {key} on the {label} ran "
+                     f"{k['warmups_total']} windows eagerly and was captured "
+                     f"{k['captures_total']} times: {k}")
+        warmed = sum(k["warmups"] for k in windows["graphs"].values())
+        if len(eager_tokens) != pt["prefill_iterations"] + W * warmed:
+            fail(f"{len(eager_tokens)} eager forwards on the {label} are not "
+                 f"the engine's {pt['prefill_iterations']} prefill and mixed "
+                 f"steps and {warmed} warm-up windows of {W}")
+        # Each key replayed in the run: one window of it run eagerly,
+        # counted by the wrappers and held to its forwards, then a replay of
+        # its graph traced by torch.profiler, which must launch the port's
+        # kernels of that window by name and count, one decode attention
+        # kernel per layer and forward among them. The run's replays of the
+        # key launched what this replay did.
+        for key, k in windows["graphs"].items():
+            if not k["replays"]:
+                continue
+            S, W_key, _ = runner.window_keys()[key]
+            zero_counts()
+            t_trace = time.monotonic()
+            trace = trace_launches(runner, key)
+            t_trace = time.monotonic() - t_trace
+            window = read_counts()
+            check_counts(window, [S] * W_key, f"a window of {key}")
+            decode_kernels = sum(
+                n for name, n in trace["replay"].items()
+                if kernel_base(name) == "paged_decode_kernel")
+            if trace["replay"] != trace["eager"] or (
+                    decode_kernels != layers * W_key):
+                fail(f"a traced replay of {key} on the {label} launched "
+                     f"{trace['replay']}, not the eager window's "
+                     f"{trace['eager']} with {layers} x {W_key} decode "
+                     "attention kernels")
+            by_kernel = {}
+            for name, n in trace["replay"].items():
+                by_kernel[kernel_base(name)] = by_kernel.get(
+                    kernel_base(name), 0) + n
+            traced[key] = dict(replays=k["replays"], launches=by_kernel,
+                               trace_s=round(t_trace, 2))
+            replayed = add_counts(replayed, window, k["replays"])
+    total = add_counts(eager, replayed)
+    launches = total["launches"]
+    forwards = len(eager_tokens) + sum(
+        runner.window_keys()[key][1] * t["replays"]
+        for key, t in traced.items())
     print(f"{label}: {len(outs)} requests, {sum(prompt_lens)} prompt "
           f"tokens, {sum(lens)} generated tokens in {wall:.2f} s; "
           f"{pt['prefill_iterations']} prefill/mixed steps "
@@ -2414,131 +2668,25 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
           f"ms per step), {pt['decode_iterations']} decode steps "
           f"({rates['decode_tok_s']:.1f} decode tok/s, "
           f"{pt['decode_s'] / max(pt['decode_iterations'], 1) * 1e3:.1f} ms "
-          f"per step); launches {launches}, attention launches by page "
-          f"type {by_dtype}, by shape {by_shape}", flush=True)
-    if any(n != MAX_TOKENS for n in lens):
-        fail(f"outputs with other than {MAX_TOKENS} tokens: {lens}")
+          f"per step); {forwards} forwards ({len(eager_tokens)} eager); "
+          f"launches {launches} ({replayed.get('launches', {})} of them in "
+          f"graph replays), attention launches by page type "
+          f"{total['by_dtype']}, by shape {total['by_shape']}", flush=True)
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was never launched on the {label}")
-    # Every forward launches one attention kernel per layer, of the
-    # cache's page type: the ragged one in prefill and mixed steps, the
-    # decode one in the fused window. A forward that took a plain version
-    # would leave the sum short.
-    for name, counts in by_dtype.items():
-        if counts != {page_type: launches[name]}:
-            fail(f"{name} on the {label} was launched on page types "
-                 f"{counts}, not only on {page_type}")
-    attention = (launches["ragged_paged_attention"]
-                 + launches["paged_decode_attention"])
-    if attention != layers * forwards:
-        fail(f"{attention} attention launches on the {label} are not "
-             f"{layers} layers x {forwards} forwards")
-    # And every one of the instantiation of the model's QH / KV, with ALiBi
-    # exactly where the model has slopes, and blocksparse on exactly the
-    # layers whose gate is on.
-    qg = model.num_heads // model.num_kv_heads
-    shape = (f"qg{qg} d{model.head_dim}"
-             + (" alibi" if model.alibi_slopes is not None else ""))
-    per_forward = {shape: layers}
-    if model.blocksparse_params is not None:
-        sparse = sum(model.bs_layer_mask or [True] * layers)
-        per_forward = {f"{shape} blocksparse": sparse, shape: layers - sparse}
-    for name, counts in by_shape.items():
-        want = {k: n * launches[name] // layers
-                for k, n in per_forward.items() if n and launches[name]}
-        if counts != want:
-            fail(f"{name} on the {label} was launched as {counts}, not as "
-                 f"{want}")
-    print(f"{label}: {forwards} forwards, each with {layers} attention "
-          f"launches on {page_type} pages: {per_forward}", flush=True)
-    if packed and not w4a8:
-        # And four int4 matmuls (wqkv, wo, w13, down) per layer.
-        if launches["int4p_matmul"] != 4 * layers * forwards:
-            fail(f"int4p_matmul launches {launches['int4p_matmul']} are "
-                 f"not 4 x {layers} layers x {forwards} forwards")
-        want = by_site(small_key("groupwise", 16 if packed_gguf else
-                                 INT4_GROUP, "packed", "dense_wgmma"))
-        if packed_by_body != want:
-            fail(f"int4p_matmul launches by body {packed_by_body} on the "
-                 f"{label} are not {want} ({prefill} of {forwards} forwards "
-                 f"of {DENSE_MIN_T} tokens or more)")
-        print(f"{label}: int4p_matmul launched {4 * layers} times in each "
-              f"forward, by body {packed_by_body}", flush=True)
-    if w4a8:
-        # Four W4A8 products (and activation quantizations) per layer in
-        # every forward of 16 tokens or more, four W4A16 ones in every
-        # other.
-        want = {"int4p_matmul_w4a8": 4 * layers * wide,
-                "quantize_activations": 4 * layers * wide,
-                "int4p_matmul": 4 * layers * (forwards - wide)}
-        got = {"int4p_matmul_w4a8": launches["int4p_matmul_w4a8"],
-               "quantize_activations": by_format.get("int8", 0),
-               "int4p_matmul": w4a16}
-        if got != want or set(by_format) - {"int8"}:
-            fail(f"W4A8 path launches {got}, by format {by_format}, are not "
-                 f"{want} for {wide} forwards of 16 tokens or more and "
-                 f"{forwards - wide} under")
-
-
-        print(f"{label}: {wide} forwards of 16 tokens or more, each with "
-              f"{4 * layers} int4p_matmul_w4a8 and int8 quantize_activations "
-              f"launches; {forwards - wide} under, each with {4 * layers} "
-              f"int4p_matmul launches; tokens per forward "
-              f"{sorted(set(forward_tokens))}", flush=True)
-        launches["int4p_matmul"] = w4a16
-    if quantization == "int8":
-        # Four launches (G = K) per layer and forward: the group-wise body,
-        # or the prefill body's per-column form.
-        want = by_site(small_key("groupwise", None, "groupwise",
-                                 "per_column_wgmma"))
-        if by_body != want:
-            fail(f"int4_matmul launches by body {by_body} on the {label} "
-                 f"are not {want}")
-        print(f"{label}: int4_matmul (G = K) launched {4 * layers} times in "
-              f"each forward, by body {by_body}", flush=True)
-    if quantization == "fp8":
-        # Four e4m3 quantizations and products per layer, each forward's on
-        # the body fp8_route names (the f16 body's activations as f16).
-        n = 4 * layers * forwards
-        want = by_route(fp8_route)
-        formats = {"f16_wgmma": "e4m3_f16", "e4m3_mma": "e4m3"}
-        want_formats = {}
-        for body, k in want.items():
-            want_formats[formats[body]] = want_formats.get(formats[body],
-                                                           0) + k
-        if (launches["fp8_w8a8_matmul"] != n or fp8_by_body != want
-                or by_format != want_formats):
-            fail(f"fp8 path: {launches['fp8_w8a8_matmul']} e4m3 products "
-                 f"({fp8_by_body} by body, want {want}) and {by_format} "
-                 f"quantizer launches are not 4 x {layers} layers x "
-                 f"{forwards} forwards")
-        print(f"{label}: fp8_w8a8_matmul and quantize_activations launched "
-              f"{4 * layers} times in each forward, by body {fp8_by_body}",
-              flush=True)
-    if gguf is not None and not packed_gguf:
-        # And four unpacked matmuls (wqkv, wo, w13, down) per layer, none
-        # through the packed kernel.
-        if launches["int4_matmul"] != 4 * layers * forwards:
-            fail(f"int4_matmul launches {launches['int4_matmul']} are "
-                 f"not 4 x {layers} layers x {forwards} forwards")
-        group = GGUF_GROUPS[gguf]
-        want = by_site(small_key("groupwise", group, "groupwise", "groupwise")
-                       if q4_body == "groupwise"
-                       else small_key("dense", group, "dense", "dense_wgmma"))
-        if by_body != want:
-            fail(f"int4_matmul launches by body {by_body} on the {label} "
-                 f"are not {want}")
-        print(f"{label}: int4_matmul launched {4 * layers} times in each "
-              f"forward, by body {by_body}", flush=True)
-    if other_int4:
-        fail(f"{other_int4} launches of the other int4 kernel on the {label}")
+    windows["traced_replays"] = traced
+    print(f"{label}: decode windows {json.dumps(windows)}", flush=True)
     dummy = set(getattr(model, "dummy_token_ids", []))
     for o in outs:
         if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
             fail("generated token id out of the vocabulary")
         if dummy & set(o.outputs[0].token_ids):
             fail(f"a dummy token was generated on the {label}")
+    rates["windows"] = windows
+    if window_check:
+        rates["window_check"] = check_window(runner, label, prompt_lens,
+                                             num_scheduler_steps)
     # What this path adds is compared: the attention kernels (on its page
     # type) unless the cache is bf16 and the weights quantized, then their
     # matmul.
@@ -2564,17 +2712,96 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             del os.environ["APHRODITE_W4_A8"]
         else:
             os.environ["APHRODITE_W4_A8"] = saved_switch
-    launches = {variant_name(name, page_type) if name in by_dtype else name: n
-                for name, n in launches.items()}
-    for body, n in by_body.items():
-        launches[f"int4_matmul_{body}"] = n
-    for body, n in packed_by_body.items():
-        launches[f"int4p_matmul_{body}"] = n
-    for body, n in fp8_by_body.items():
-        launches[f"fp8_w8a8_matmul_{body}"] = n
-    for name, counts in by_shape.items():
-        launches[f"{variant_name(name, page_type)} by shape"] = counts
+
+    def named(c):
+        """Counts (read_counts) by the kernel variant names of the kernels
+        line."""
+        out = {variant_name(name, page_type) if name in attention_names
+               else name: n for name, n in c.get("launches", {}).items()}
+        if w4a8:
+            out["int4p_matmul"] = c.get("w4a16", 0)
+        for prefix, key in (("int4_matmul", "by_body"),
+                            ("int4p_matmul", "packed_by_body"),
+                            ("fp8_w8a8_matmul", "fp8_by_body")):
+            for body, n in c.get(key, {}).items():
+                out[f"{prefix}_{body}"] = n
+        for name, counts in c.get("by_shape", {}).items():
+            out[f"{variant_name(name, page_type)} by shape"] = counts
+        return out
+
+    launches = named(total)
+    # The part of each count that the decode windows' graph replays made:
+    # replays x the launches of one window of the key (trace_launches).
+    launches[IN_GRAPH_REPLAYS] = named(replayed)
     return launches, rates
+
+
+def add_counts(a, b, times=1):
+    """a + times x b, for launch counts and (nested) dicts of them; an
+    empty dict stands for no counts."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        a, b = a or {}, b or {}
+        return {k: add_counts(a.get(k, 0), b.get(k, 0), times)
+                for k in dict.fromkeys([*a, *b])}
+    return a + times * b
+
+
+def window_stats(runner, graphs_before, hits_before):
+    """The decode windows of a run: for each key (``graph_stats``) its
+    warm-ups, captures and replays in the run and since the engine
+    started, the capture seconds and the memory its capture reserved; and
+    the chained windows taken, carries reused and sampling tensors reused
+    in the run."""
+    graphs = {}
+    for key, st in runner.graph_stats().items():
+        before = graphs_before.get(key, {})
+        graphs[key] = dict(
+            warmups=st["warmups"] - before.get("warmups", 0),
+            captures=st["captures"] - before.get("captures", 0),
+            replays=st["replays"] - before.get("replays", 0),
+            warmups_total=st["warmups"], captures_total=st["captures"],
+            capture_s=round(st["capture_s"], 3),
+            pool_bytes=st["pool_bytes"])
+    return dict(
+        graphs=graphs,
+        chained_window_hits=runner.chained_window_hits - hits_before[
+            "chained"],
+        carry_hits=runner.carry_hits - hits_before["carry"],
+        sampling_cache_hits=runner.sampling_cache_hits - hits_before[
+            "sampling_cache"])
+
+
+def check_window(runner, label, prompt_lens, num_scheduler_steps):
+    """One decode window of the 16 prompts' rows (bucket 32, kv lengths
+    the prompts' lengths, random cache pages and tokens from the seed)
+    through the runner's CUDA graph and through the eager window function
+    on the same cache, carry and sampling tensors: the packed outputs and
+    carries must be equal bit for bit. Then the median of 10 windows each
+    way, after 2, the fetch to the host included; and a profile of 3
+    graphed windows."""
+    from aphrodite_tpu_torch.tools.window_check import (WindowCase,
+                                                        equal_windows,
+                                                        profile_windows)
+
+    W = min(num_scheduler_steps, runner.MULTI_STEP_WINDOW)
+    case = WindowCase(runner, 32, [int(n) for n in prompt_lens], W, SEED)
+    eager = case.windows("eager", 2)
+    graphed = case.windows("graphed", 2)
+    if not equal_windows(eager, graphed):
+        fail(f"the graphed decode window on the {label} differs from the "
+             "eager window")
+    out = dict(S=32, rows=len(prompt_lens), W=W,
+               graphed_ms=case.time_ms("graphed"),
+               eager_ms=case.time_ms("eager"))
+    print(f"{label}: a decode window of {W} steps, {len(prompt_lens)} rows "
+          f"in bucket 32: graphed equal to eager bit for bit (2 windows in "
+          f"a row); {out['graphed_ms']:.2f} ms graphed, "
+          f"{out['eager_ms']:.2f} ms eager (median of 10)", flush=True)
+    # Where a graphed window's device time goes (torch.profiler).
+    out["profile"] = profile_windows(case)
+    print(f"{label}: graphed window profile {json.dumps(out['profile'])}",
+          flush=True)
+    return out
 
 
 def compare_logits(llm, device, rng, vocab, what, q4_body,
@@ -2915,6 +3142,85 @@ def probe_path():
     return launches, times
 
 
+def main_paths():
+    """main_path's arguments for each main path, by name (the prompts
+    of 16-1024 tokens unless one names others).
+
+    Two cover the page types the north-star path does not use, cut to 4
+    layers. The last two serve GGUF files: Q6_K at GGUF_Q6K_LAYERS
+    through the body the wrapper chooses (the dense one, at every T),
+    and Q8_0 at 4 layers with every unpacked matmul forced to the
+    group-wise body, which no call would reach otherwise."""
+    prompt_lens = np.random.default_rng(SEED).integers(
+        16, 1025, size=NUM_REQUESTS)
+    phi_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 6145, size=NUM_REQUESTS)
+    qwen_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 4097, size=NUM_REQUESTS)
+    short = dict(LLAMA_8B, num_hidden_layers=4)
+    paths = {
+        "bf16": dict(model_config=LLAMA_8B),
+        "gptq": dict(model_config=LLAMA_8B, quantization="gptq",
+                     window_check=True),
+        "gptq+fp8_e4m3": dict(model_config=LLAMA_8B, quantization="gptq",
+                              kv_cache_dtype="fp8_e4m3", window_check=True),
+        "gptq+fp8_e5m2, 4 layers": dict(model_config=short,
+                                        quantization="gptq",
+                                        kv_cache_dtype="fp8_e5m2"),
+        "gptq+int8, 4 layers": dict(model_config=short, quantization="gptq",
+                                    kv_cache_dtype="int8", kv_scale=0.05),
+        f"q6_k gguf, {GGUF_Q6K_LAYERS} layers": dict(
+            model_config=dict(LLAMA_8B, num_hidden_layers=GGUF_Q6K_LAYERS),
+            gguf="q6_k", window_check=True),
+        "q8_0 gguf, 4 layers, group-wise body": dict(
+            model_config=short, gguf="q8_0", q4_body="groupwise"),
+        # Slice 5: W4A8 (the switch set for this path only), then the two
+        # 8-bit weight kinds quantized at load, cut to 4 layers.
+        "gptq w4a8": dict(model_config=LLAMA_8B, quantization="gptq",
+                          w4a8=True),
+        "int8, 4 layers": dict(model_config=short, quantization="int8"),
+        "fp8, 4 layers": dict(model_config=short, quantization="fp8"),
+        # Slice 6: Baichuan2-13B (MHA, ALiBi) at full width and depth, its
+        # ALiBi on E4M3 pages at 4 layers, and bench.py's 1.4B geometry
+        # (QH/KV 2) with the north-star quantization.
+        "baichuan2-13b": dict(model_config=BAICHUAN2_13B),
+        "baichuan2-13b+fp8_e4m3, 4 layers": dict(
+            model_config=dict(BAICHUAN2_13B, num_hidden_layers=4),
+            kv_cache_dtype="fp8_e4m3"),
+        "bench-1.4b gptq+fp8_e4m3": dict(model_config=BENCH_1P4B,
+                                         quantization="gptq",
+                                         kv_cache_dtype="fp8_e4m3"),
+        # Slice 7: Phi-3-Small (blocksparse on every other layer) at full
+        # width and depth on prompts of 1024-6144 tokens, the same on E4M3
+        # pages at 4 layers, and a GGUF Q2_K file (packed at group 16).
+        "phi-3-small": dict(model_config=PHI3_SMALL,
+                            prompt_lens=phi_prompt_lens),
+        "phi-3-small+fp8_e4m3, 4 layers": dict(
+            model_config=dict(PHI3_SMALL, num_hidden_layers=4),
+            kv_cache_dtype="fp8_e4m3", prompt_lens=phi_prompt_lens),
+        "q2_k gguf, 4 layers": dict(model_config=short, gguf="q2_k"),
+        # Slice 8: W4A8 on the Q2_K file (group 16); Qwen2.5-7B (QH/KV 7,
+        # q|k|v bias) at full width and depth on prompts of 1024-4096
+        # tokens; Qwen2.5-0.5B (head_dim 64, tied) on E4M3 pages at full
+        # depth; Qwen3-14B (QH/KV 5, q/k norm) and Mistral-7B (a window of
+        # 4096 keys, one prompt of 4500 tokens) at 4 layers.
+        "q2_k gguf w4a8, 4 layers": dict(model_config=short, gguf="q2_k",
+                                         w4a8=True),
+        "qwen2.5-7b": dict(model_config=QWEN25_7B,
+                           prompt_lens=qwen_prompt_lens, window_check=True),
+        "qwen2.5-0.5b+fp8_e4m3": dict(model_config=QWEN25_05B,
+                                      kv_cache_dtype="fp8_e4m3"),
+        "qwen3-14b, 4 layers": dict(
+            model_config=dict(QWEN3_14B, num_hidden_layers=4)),
+        "mistral-7b, 4 layers": dict(
+            model_config=dict(MISTRAL_7B, num_hidden_layers=4),
+            prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 4500],
+            compare_lens=[4500, 17, 129]),
+    }
+    return {name: {"prompt_lens": prompt_lens, **kw}
+            for name, kw in paths.items()}
+
+
 def main() -> None:
     import torch
 
@@ -2990,88 +3296,34 @@ def main() -> None:
     stamp("timings")
     # Every engine sizes its KV cache from the free memory, so each is
     # freed (main_path holds the only reference) before the next starts.
-    # Two cover the page types the north-star path does not use, cut to 4
-    # layers. The last two serve GGUF files: Q6_K at GGUF_Q6K_LAYERS
-    # through the body the wrapper chooses (the dense one, at every T),
-    # and Q8_0 at 4 layers with every unpacked matmul forced to the
-    # group-wise body, which no call would reach otherwise.
-    short = dict(LLAMA_8B, num_hidden_layers=4)
-    paths = {
-        "bf16": dict(model_config=LLAMA_8B),
-        "gptq": dict(model_config=LLAMA_8B, quantization="gptq"),
-        "gptq+fp8_e4m3": dict(model_config=LLAMA_8B, quantization="gptq",
-                              kv_cache_dtype="fp8_e4m3"),
-        "gptq+fp8_e5m2, 4 layers": dict(model_config=short,
-                                        quantization="gptq",
-                                        kv_cache_dtype="fp8_e5m2"),
-        "gptq+int8, 4 layers": dict(model_config=short, quantization="gptq",
-                                    kv_cache_dtype="int8", kv_scale=0.05),
-        f"q6_k gguf, {GGUF_Q6K_LAYERS} layers": dict(
-            model_config=dict(LLAMA_8B, num_hidden_layers=GGUF_Q6K_LAYERS),
-            gguf="q6_k"),
-        "q8_0 gguf, 4 layers, group-wise body": dict(
-            model_config=short, gguf="q8_0", q4_body="groupwise"),
-        # Slice 5: W4A8 (the switch set for this path only), then the two
-        # 8-bit weight kinds quantized at load, cut to 4 layers.
-        "gptq w4a8": dict(model_config=LLAMA_8B, quantization="gptq",
-                          w4a8=True),
-        "int8, 4 layers": dict(model_config=short, quantization="int8"),
-        "fp8, 4 layers": dict(model_config=short, quantization="fp8"),
-        # Slice 6: Baichuan2-13B (MHA, ALiBi) at full width and depth, its
-        # ALiBi on E4M3 pages at 4 layers, and bench.py's 1.4B geometry
-        # (QH/KV 2) with the north-star quantization.
-        "baichuan2-13b": dict(model_config=BAICHUAN2_13B),
-        "baichuan2-13b+fp8_e4m3, 4 layers": dict(
-            model_config=dict(BAICHUAN2_13B, num_hidden_layers=4),
-            kv_cache_dtype="fp8_e4m3"),
-        "bench-1.4b gptq+fp8_e4m3": dict(model_config=BENCH_1P4B,
-                                         quantization="gptq",
-                                         kv_cache_dtype="fp8_e4m3"),
-        # Slice 7: Phi-3-Small (blocksparse on every other layer) at full
-        # width and depth on prompts of 1024-6144 tokens, the same on E4M3
-        # pages at 4 layers, and a GGUF Q2_K file (packed at group 16).
-        "phi-3-small": dict(model_config=PHI3_SMALL,
-                            prompt_lens=phi_prompt_lens),
-        "phi-3-small+fp8_e4m3, 4 layers": dict(
-            model_config=dict(PHI3_SMALL, num_hidden_layers=4),
-            kv_cache_dtype="fp8_e4m3", prompt_lens=phi_prompt_lens),
-        "q2_k gguf, 4 layers": dict(model_config=short, gguf="q2_k"),
-        # Slice 8: W4A8 on the Q2_K file (group 16); Qwen2.5-7B (QH/KV 7,
-        # q|k|v bias) at full width and depth on prompts of 1024-4096
-        # tokens; Qwen2.5-0.5B (head_dim 64, tied) on E4M3 pages at full
-        # depth; Qwen3-14B (QH/KV 5, q/k norm) and Mistral-7B (a window of
-        # 4096 keys, one prompt of 4500 tokens) at 4 layers.
-        "q2_k gguf w4a8, 4 layers": dict(model_config=short, gguf="q2_k",
-                                         w4a8=True),
-        "qwen2.5-7b": dict(model_config=QWEN25_7B,
-                           prompt_lens=qwen_prompt_lens),
-        "qwen2.5-0.5b+fp8_e4m3": dict(model_config=QWEN25_05B,
-                                      kv_cache_dtype="fp8_e4m3"),
-        "qwen3-14b, 4 layers": dict(
-            model_config=dict(QWEN3_14B, num_hidden_layers=4)),
-        "mistral-7b, 4 layers": dict(
-            model_config=dict(MISTRAL_7B, num_hidden_layers=4),
-            prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 4500],
-            compare_lens=[4500, 17, 129]),
-    }
     launches, rates = {}, {}
-    for path, kw in paths.items():
+    for path, kw in main_paths().items():
         gc.collect()
         torch.cuda.empty_cache()
-        launches[path], rates[path] = main_path(
-            "cuda", **{"prompt_lens": prompt_lens, **kw})
+        launches[path], rates[path] = main_path("cuda", **kw)
         stamp(f"main path {path}")
 
     # The page-gather probe's own entry point, at its defaults.
     probe_launches, probe_times = probe_path()
     stamp("probe path")
 
-    def on_paths(name):
+    def on_paths(name, part=None):
         """Launches of one kernel variant on each main path that ran it:
         each was read right after its run, with the counts set to 0 just
-        before it."""
-        return {path: counts[name] for path, counts in launches.items()
-                if name in counts}
+        before it; with part=IN_GRAPH_REPLAYS, the part of them that the
+        decode windows' graph replays made (main_path)."""
+        out = {}
+        for path, counts in launches.items():
+            counts = counts if part is None else counts[part]
+            if name in counts:
+                out[path] = counts[name]
+        return out
+
+    def in_replays(name):
+        """The launches of a kernel variant on all main paths that graph
+        replays made: each key's replays in a path's run times the
+        launches of one window of the key, whose replay was traced."""
+        return sum(on_paths(name, IN_GRAPH_REPLAYS).values())
 
     sources = {
         "paged_decode_attention": (
@@ -3103,6 +3355,7 @@ def main() -> None:
             entry = dict(name=name, route="cuda", source=src,
                          replaces=replaces[page_type], page_type=page_type,
                          launches=sum(by_path.values()),
+                         launches_in_graph_replays=in_replays(name),
                          launches_by_path=by_path,
                          launches_by_shape=by_shape, max_abs_err=errs[name],
                          **times[name])
@@ -3140,8 +3393,14 @@ def main() -> None:
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
                 option="blocksparse", page_type=page_type,
-                launches=sum(by_path.values()), launches_by_path=by_path,
-                max_abs_err=errs[name], **bs_times[name]))
+                launches=sum(by_path.values()),
+                launches_in_graph_replays=sum(
+                    counts.get("qg4 d128 blocksparse", 0)
+                    for counts in on_paths(
+                        f"{variant_name(kernel, page_type)} by shape",
+                        IN_GRAPH_REPLAYS).values()),
+                launches_by_path=by_path, max_abs_err=errs[name],
+                **bs_times[name]))
     # The packed int4 kernel, one entry per body and implementation: the
     # group-wise body under 64 tokens on the mma.sync kernel (csrc/
     # int4p_matmul.cu) and on the decode body (csrc/decode_gemm.cuh), as
@@ -3186,6 +3445,7 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             form=form, launches=sum(by_path.values()),
+            launches_in_graph_replays=in_replays(f"int4p_matmul_{body}"),
             launches_by_path=by_path, launches_by_body=packed_by_body,
             launches_by_body_by_path=packed_by_path,
             max_abs_err=errs[f"int4p_matmul_{body}"],
@@ -3256,7 +3516,9 @@ def main() -> None:
                   "dense_decode": "decode body, DENSE (DENSE_ROWS under G 16)",
                   "dense_wgmma": "prefill body, unpacked",
                   "per_column_wgmma": "prefill body, PER_COLUMN"}[body],
-            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches=sum(by_path.values()),
+            launches_in_graph_replays=in_replays(name),
+            launches_by_path=by_path,
             launches_by_body=q4_by_body, max_abs_err=q4_errs[body],
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
@@ -3278,7 +3540,9 @@ def main() -> None:
         name="int4p_matmul_w4a8", route="cuda",
         source="aphrodite_tpu_torch/csrc/int4p_matmul_w4a8.cu",
         replaces="aphrodite_tpu/ops/quant_matmul.py:434",
-        launches=sum(by_path.values()), launches_by_path=by_path,
+        launches=sum(by_path.values()),
+        launches_in_graph_replays=in_replays("int4p_matmul_w4a8"),
+        launches_by_path=by_path,
         max_abs_err=errs["int4p_matmul_w4a8"],
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                 "bf16_library_ms", "bound_ms", "bound_by")},
@@ -3297,7 +3561,9 @@ def main() -> None:
                   "quantize_activations_int8 and "
                   "aphrodite_tpu/quantization/qlinear.py:72 "
                   "_fp8_w8a8_matmul's activation cast (XLA code)"),
-        launches=sum(by_path.values()), launches_by_path=by_path,
+        launches=sum(by_path.values()),
+        launches_in_graph_replays=in_replays("quantize_activations"),
+        launches_by_path=by_path,
         max_abs_err=errs["quantize_activations"],
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
@@ -3329,7 +3595,10 @@ def main() -> None:
             replaces=("aphrodite_tpu/quantization/qlinear.py:72 "
                       "_fp8_w8a8_matmul's product (XLA code, no Pallas "
                       "kernel)"),
-            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches=sum(by_path.values()),
+            launches_in_graph_replays=in_replays(
+                f"fp8_w8a8_matmul_{body}"),
+            launches_by_path=by_path,
             launches_by_body=fp8_by_body,
             max_abs_err=errs[f"fp8_w8a8_matmul_{body}"],
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
@@ -3343,7 +3612,7 @@ def main() -> None:
         name="gather_probe", route="cuda",
         source="aphrodite_tpu_torch/csrc/gather_probe.cu",
         replaces="tools/probe_gather_bw.py:84",
-        launches=probe_launches,
+        launches=probe_launches, launches_in_graph_replays=0,
         launches_by_path={"probe_gather_bw main": probe_launches},
         max_abs_err=errs["gather_probe"],
         **{k: probe_times[k] for k in ("ms", "plain_ms", "library_ms",

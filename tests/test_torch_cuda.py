@@ -1414,3 +1414,207 @@ def test_gather_probe_equals_plain_on_card(kv_len, sequential):
     assert want.abs().max() > 0
     with pytest.raises(ValueError, match="multiple of 8"):
         probe.gather(kv_lens[:12], pages[:12], kv)
+
+
+# ----------------------------------------------------------------------
+# The fused decode window as a CUDA graph (worker/model_runner.py)
+# ----------------------------------------------------------------------
+
+# Llama-3.1-8B's widths at two layers.
+LLAMA_8B_2L = dict(
+    architectures=["LlamaForCausalLM"], hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=2, num_attention_heads=32,
+    num_key_value_heads=8, head_dim=128, vocab_size=128256,
+    max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=500000.0,
+    tie_word_embeddings=False, torch_dtype="bfloat16")
+# One narrow layer and a vocabulary of 256.
+TINY_CARD_LLAMA = dict(LLAMA_8B_2L, hidden_size=512, intermediate_size=1024,
+                       num_hidden_layers=1, num_attention_heads=4,
+                       num_key_value_heads=4, vocab_size=256)
+
+
+def _dummy_runner(path, config, **kw):
+    """The runner of an engine on dummy weights of `config`, bf16, 2048
+    KV pages of 16 tokens, windows of 8 steps."""
+    import json
+
+    from aphrodite_tpu_torch import LLM
+
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    llm = LLM(model=str(path), load_format="dummy", dtype="bfloat16",
+              seed=0, block_size=PS, num_scheduler_steps=8,
+              num_device_blocks_override=2048, skip_tokenizer_init=True,
+              device="cuda", **kw)
+    return llm.engine.runner
+
+
+def _q6_k_params(runner, seed):
+    """Replace the four projections of every layer with Q6_K-like
+    unpacked containers (group 16): the decode body's DENSE form."""
+    rng = np.random.default_rng(seed)
+    lp, L = runner.params["layers"], runner.model.num_layers
+    for name in ("wqkv", "wo", "w13", "down"):
+        K, N = lp[name].shape[-2:]
+        _, q, scale, zero = _q4_case(rng, L, K, N, 16, 1, "q6_k")
+        lp[name] = {"q4": q, "scale": scale, "zero": zero}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gptq+fp8_e4m3", "q6_k"])
+def test_graphed_window_equals_eager_on_card(kind, tmp_path):
+    """A 2-layer model at 8B widths: the captured window's packed outputs
+    and carry equal the eager window's bit for bit on the same cache,
+    carry and tensors, and three replays in a row equal three eager
+    windows. The window's int4 products take the decode body (packed, or
+    the unpacked DENSE form). The wrappers count the warm-up's launches,
+    none at capture and none in replays; a traced replay launches the
+    port's kernels of an eager window by name and count, one decode
+    attention kernel per layer and step among them."""
+    from aphrodite_tpu_torch.tools.window_check import (WindowCase,
+                                                        equal_windows,
+                                                        kernel_base,
+                                                        trace_launches)
+
+    _card_or_skip()
+    kw = (dict(quantization="gptq", kv_cache_dtype="fp8_e4m3")
+          if kind != "q6_k" else {})
+    runner = _dummy_runner(tmp_path, LLAMA_8B_2L, **kw)
+    if kind == "q6_k":
+        _q6_k_params(runner, 3)
+        wrapper, body = int4_matmul, "dense_decode"
+    else:
+        wrapper, body = int4p_matmul, "groupwise_decode"
+    case = WindowCase(runner, 8, [300, 17, 129, 1000, 64], W=8, seed=1)
+    decode_bodies = wrapper.launches_by_body.get(body, 0)
+    launched = wrapper.launches
+    eager = case.windows("eager", 3)
+    decode_per_window = (wrapper.launches_by_body.get(body, 0)
+                         - decode_bodies) // 3
+    assert decode_per_window > 0
+    # Four products a layer and step, 2 layers, 8 steps.
+    per_window = 4 * 2 * 8
+    assert wrapper.launches == launched + 3 * per_window
+    launched = wrapper.launches
+    case.capture()  # a warm-up window, then the capture
+    assert wrapper.launches == launched + per_window
+    graphed = case.windows("graphed", 3)
+    assert wrapper.launches == launched + per_window
+    assert equal_windows(eager, graphed)
+    assert not equal_windows(eager[:1], eager[1:2])
+    (key,) = runner.graph_stats()
+    stats = runner.graph_stats()[key]
+    assert stats["captures"] == 1 and stats["replays"] >= 3
+    trace = trace_launches(runner, key)
+    assert trace["replay"] == trace["eager"]
+    assert sum(n for name, n in trace["replay"].items()
+               if kernel_base(name) == "paged_decode_kernel") == 2 * 8
+    assert sum(n for name, n in trace["replay"].items()
+               if kernel_base(name) == "decode_gemm_kernel") == \
+        decode_per_window
+
+
+@pytest.mark.cuda
+def test_graphed_window_draws_fresh_noise_on_card(tmp_path):
+    """A stochastic window: the final norm is zeroed, so every row's
+    logits are 0 and top_k 5 leaves tokens 0-4 equally likely. Two replays
+    from the same carry draw different tokens, and 40 replays' draws
+    follow the uniform distribution over the five (each count within 5
+    standard deviations of its mean)."""
+    from aphrodite_tpu_torch.tools.window_check import WindowCase
+
+    _card_or_skip()
+    runner = _dummy_runner(tmp_path, TINY_CARD_LLAMA)
+    with torch.inference_mode():
+        runner.params["final_norm"].zero_()
+    S, W, n = 8, 8, 8
+    case = WindowCase(runner, S, [40] * n, W=W, seed=2, temperature=1.0,
+                      top_k=5, windows=2)
+    first, second = case.windows("graphed", 1), case.windows("graphed", 1)
+    assert not np.array_equal(first[0][0], second[0][0])
+    counts = np.zeros(runner.model.vocab_size, np.int64)
+    for _ in range(40):
+        case.restore()
+        packed = case.graphed().numpy()
+        counts += np.bincount(packed[:W * S].reshape(W, S)[:, :n].ravel(),
+                              minlength=runner.model.vocab_size)
+    draws = 40 * W * n
+    assert counts[5:].sum() == 0
+    mean, std = draws / 5, (draws * 0.2 * 0.8) ** 0.5
+    assert (np.abs(counts[:5] - mean) < 5 * std).all(), counts[:5]
+
+
+@pytest.mark.cuda
+def test_host_read_in_window_raises_under_capture_on_card(tmp_path,
+                                                          monkeypatch):
+    """A forward that reads a device value on the host runs eagerly in the
+    warm-up window, and its capture raises: the window is not run
+    eagerly instead, and no graph is kept."""
+    from aphrodite_tpu_torch.tools.window_check import WindowCase
+
+    _card_or_skip()
+    runner = _dummy_runner(tmp_path, TINY_CARD_LLAMA)
+    logits = runner.model.compute_logits
+
+    def host_read(params, hidden):
+        float(hidden.float().sum())
+        return logits(params, hidden)
+
+    monkeypatch.setattr(runner.model, "compute_logits", host_read)
+    case = WindowCase(runner, 8, [40, 41], W=2, seed=3)
+    case.graphed().numpy()  # the warm-up, eagerly
+    replays = sum(s["replays"] for s in runner.graph_stats().values())
+    with pytest.raises(RuntimeError, match="capturing the decode window"):
+        case.graphed()
+    assert not runner.has_window_graph(case.buf, case.flags, case.W)
+    assert sum(s["replays"] for s in runner.graph_stats().values()) == \
+        replays
+    monkeypatch.setattr(runner.model, "compute_logits", logits)
+    case.restore()
+    assert case.eager().numpy().shape == (3 * 2 * 8,)
+
+
+# Each built form of the decode body, at Llama-3.1-8B's down site (16
+# strips of 256 columns: K split in 8, so the reduce pass runs): PACKED at
+# groups 128 and 16, GROUPWISE, DENSE and DENSE_ROWS (G < 16), at T 1, 16,
+# 32 and 48 (one tile of 8, 16 or 32 rows; two of 32, or one of 64 where
+# the form takes it).
+GRAPH_FORMS = [("packed", 128), ("packed", 16), ("groupwise", 32),
+               ("dense", 16), ("dense", 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 32, 48])
+@pytest.mark.parametrize("fmt,group", GRAPH_FORMS)
+def test_decode_body_bits_over_graph_replays_on_card(fmt, group, T):
+    """The decode body in a CUDA graph (its step-sum pass a programmatic
+    dependent of the group-wise forms, and the split-K reduce): 200
+    replays on fixed inputs, each equal bit for bit to the eager launch."""
+    _card_or_skip()
+    rng = np.random.default_rng(group * 100 + T)
+    K, N = 14336, 4096
+    if fmt == "packed":
+        x, q, scale, zero = _int4_case(rng, 1, K, N, group, T)
+        wrapper = int4p_matmul
+        run = lambda: int4p_matmul(x, q, scale, zero, group,  # noqa: E731
+                                   layer_idx=0, decode=True)
+    else:
+        x, q, scale, zero = _q4_case(rng, 1, K, N, group, T,
+                                     "q8_0" if fmt == "groupwise" else "q6_k")
+        wrapper = int4_matmul
+        run = lambda: int4_matmul(x, q, scale, zero, group,  # noqa: E731
+                                  layer_idx=0, body=fmt, decode=True)
+    want = run()
+    plan = wrapper.last_plan
+    assert plan["splits"] > 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for i in range(200):
+        graph.replay()
+        assert torch.equal(got, want), (i, plan)
