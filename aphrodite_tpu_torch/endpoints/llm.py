@@ -39,6 +39,9 @@ class LLM:
         self.engine.lazy_detokenize = True
         self._request_counter = 0
 
+    def get_tokenizer(self):
+        return self.engine.tokenizer
+
     def generate(
         self,
         prompts: Union[str, Sequence[str], None] = None,

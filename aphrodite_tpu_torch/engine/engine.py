@@ -3,11 +3,15 @@
 
 ``add_request()`` tokenizes and enqueues; ``step()`` runs one scheduler
 and device iteration and returns ``RequestOutput``s for the requests it
-touched. Multi-step decode windows and lazy detokenization work as in the
-JAX package. LoRA, prompt adapters, multimodal and encoder-decoder
-inputs, guided decoding, beam search and metrics come with later slices.
+touched. Multi-step decode windows, lazy detokenization, prompt
+logprobs and guided decoding work as in the JAX package: a guided
+request's token FSM is built on a worker thread while the request waits
+outside the scheduler, and each token it appends advances its FSM state.
+LoRA, prompt adapters, multimodal and encoder-decoder inputs, beam search
+and metrics come with later slices.
 """
 
+import concurrent.futures
 import json
 import os
 import time
@@ -24,6 +28,7 @@ from aphrodite_tpu_torch.common.sequence import (Logprob, Sequence,
                                                  SequenceStatus)
 from aphrodite_tpu_torch.engine.args import EngineArgs
 from aphrodite_tpu_torch.engine.stop_checker import StopChecker
+from aphrodite_tpu_torch.guided.token_fsm import get_token_fsm_future
 from aphrodite_tpu_torch.processing.scheduler import Scheduler
 from aphrodite_tpu_torch.transformers_utils.detokenizer import (
     detokenize_incrementally)
@@ -64,6 +69,9 @@ class AphroditeEngine:
 
         self._seq_counter = 0
         self._groups: Dict[str, SequenceGroup] = {}
+        # Guided requests whose FSM is still being built: (request_id,
+        # group, seqs, groups to schedule, future).
+        self._fsm_parked: List[tuple] = []
         self._generation_config = self._load_generation_config()
         # Wall time and tokens of pure-decode iterations (no prefill
         # token) and of iterations that carry prefill tokens:
@@ -118,9 +126,6 @@ class AphroditeEngine:
         if sampling_params.use_beam_search:
             raise NotImplementedError(
                 "beam search is not ported to the PyTorch package yet")
-        if sampling_params.guided_spec is not None:
-            raise NotImplementedError(
-                "guided decoding is not ported to the PyTorch package yet")
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("either prompt or prompt_token_ids required")
@@ -131,6 +136,23 @@ class AphroditeEngine:
         sampling_params = sampling_params.clone()
         sampling_params.update_from_generation_config(
             self._generation_config, self.eos_token_id)
+
+        fsm = None
+        fsm_future = None
+        guided = sampling_params.guided_spec
+        if guided is not None:
+            if self.tokenizer is None:
+                raise ValueError("guided decoding needs a tokenizer")
+            fut = get_token_fsm_future(guided[0], guided[1], self.tokenizer,
+                                       self.model_config.get_vocab_size())
+            if fut.done():
+                # A cached spec, or a build that failed at once: resolved
+                # here, so that a bad spec raises out of add_request.
+                fsm = fut.result()
+            else:
+                # The request waits outside the scheduler until its FSM is
+                # built, so the steps of other requests do not wait.
+                fsm_future = fut
 
         # best_of sampling: sequences run independently from the first
         # token, each scheduled as its own single-seq group sharing the
@@ -144,6 +166,9 @@ class AphroditeEngine:
                 eos_token_id=self.eos_token_id,
                 prompt=prompt,
             )
+            if fsm is not None:
+                seq.fsm = fsm
+                seq.fsm_state = fsm.initial_state()
             seq.seed_offset = sub_idx
             seqs.append(seq)
         group = SequenceGroup(
@@ -154,17 +179,61 @@ class AphroditeEngine:
         )
         self._groups[request_id] = group
         if len(seqs) == 1:
-            self.scheduler.add_seq_group(group)
-            return
-        for seq in seqs:
-            sub = SequenceGroup(
-                request_id=request_id,
-                seqs=[seq],
-                sampling_params=sampling_params,
-                arrival_time=arrival_time,
-            )
-            sub.metrics = group.metrics
-            self.scheduler.add_seq_group(sub)
+            to_schedule = [group]
+        else:
+            to_schedule = []
+            for seq in seqs:
+                sub = SequenceGroup(
+                    request_id=request_id,
+                    seqs=[seq],
+                    sampling_params=sampling_params,
+                    arrival_time=arrival_time,
+                )
+                sub.metrics = group.metrics
+                to_schedule.append(sub)
+        if fsm_future is not None:
+            self._fsm_parked.append((request_id, group, seqs, to_schedule,
+                                     fsm_future))
+        else:
+            for g in to_schedule:
+                self.scheduler.add_seq_group(g)
+
+    def _admit_ready_fsms(self) -> List[str]:
+        """Move the parked guided requests whose FSM is built into the
+        scheduler, and fail those whose build raised. Returns the ids of
+        the failed requests (they need an output this step). It waits
+        briefly only when the engine has nothing else to run."""
+        if not self._fsm_parked:
+            return []
+        if not self.scheduler.has_unfinished_seqs():
+            concurrent.futures.wait([e[4] for e in self._fsm_parked],
+                                    timeout=0.01)
+        errored: List[str] = []
+        still_parked = []
+        for entry in self._fsm_parked:
+            request_id, group, seqs, to_schedule, fut = entry
+            if request_id not in self._groups:
+                continue  # aborted while parked
+            if not fut.done():
+                still_parked.append(entry)
+                continue
+            try:
+                fsm = fut.result()
+            except Exception as e:  # noqa: BLE001
+                logger.error("guided FSM build failed for request %s: %s",
+                             request_id, e)
+                group.error = f"guided decoding compilation failed: {e}"
+                for seq in seqs:
+                    seq.status = SequenceStatus.FINISHED_ABORTED
+                errored.append(request_id)
+                continue
+            for seq in seqs:
+                seq.fsm = fsm
+                seq.fsm_state = fsm.initial_state()
+            for g in to_schedule:
+                self.scheduler.add_seq_group(g)
+        self._fsm_parked = still_parked
+        return errored
 
     def abort_request(self, request_id: Union[str, Iterable[str]]) -> None:
         ids = [request_id] if isinstance(request_id, str) else \
@@ -174,7 +243,8 @@ class AphroditeEngine:
             self._groups.pop(rid, None)
 
     def has_unfinished_requests(self) -> bool:
-        return self.scheduler.has_unfinished_seqs()
+        return (self.scheduler.has_unfinished_seqs()
+                or bool(self._fsm_parked))
 
     def get_phase_timings(self) -> Dict[str, Any]:
         return dict(self.phase_timings)
@@ -185,9 +255,11 @@ class AphroditeEngine:
 
     def step(self) -> List[RequestOutput]:
         t0 = time.monotonic()
+        fsm_errored = self._admit_ready_fsms()
         scheduler_outputs = self.scheduler.schedule()
         if scheduler_outputs.is_empty():
-            return self._make_outputs(scheduler_outputs.ignored, set())
+            return self._make_outputs(scheduler_outputs.ignored,
+                                      set(fsm_errored))
 
         for ss in scheduler_outputs.scheduled:
             ss.group.maybe_set_first_scheduled_time(t0)
@@ -201,6 +273,8 @@ class AphroditeEngine:
         # appended token's KV is computed by the next step — or, for
         # multi-step, was already computed on the device).
         self.scheduler.mark_step_computed(scheduler_outputs)
+        if result.prompt is not None:
+            self._process_prompt_logprobs(scheduler_outputs, result)
 
         touched = set()
         now = time.monotonic()
@@ -214,7 +288,9 @@ class AphroditeEngine:
             sp = ss.group.sampling_params
             need_inc = sp.detokenize and self.tokenizer is not None \
                 and (bool(sp.stop) or not self.lazy_detokenize)
-            if num_steps_done > 1 and sp.logprobs is None and not need_inc:
+            if (num_steps_done > 1 and seq.fsm is None
+                    and sp.logprobs is None and not need_inc
+                    and not sp.logits_processors):
                 self._append_window_bulk(seq, sp, result, i,
                                          num_steps_done)
             else:
@@ -240,7 +316,8 @@ class AphroditeEngine:
             pt["prefill_iterations"] += 1
             pt["prefill_s"] += elapsed
             pt["prefill_tokens"] += scheduler_outputs.num_prefill_tokens
-        return self._make_outputs(scheduler_outputs.ignored, touched)
+        return self._make_outputs(scheduler_outputs.ignored,
+                                  touched | set(fsm_errored))
 
     def _append_window_bulk(self, seq, sp, result, i: int,
                             num_steps_done: int) -> None:
@@ -298,8 +375,9 @@ class AphroditeEngine:
 
     def _append_window_slow(self, seq, sp, result, i: int,
                             num_steps_done: int, need_inc: bool) -> None:
-        """Per-token append: rows with requested logprobs or incremental
-        detokenization (stop strings / streaming)."""
+        """Per-token append: rows with a guided FSM to advance, requested
+        logprobs or incremental detokenization (stop strings /
+        streaming)."""
         for k in range(num_steps_done):
             if seq.is_finished():
                 break  # later multi-step tokens are discarded
@@ -311,6 +389,12 @@ class AphroditeEngine:
             logprob_val = float(result.sampled_logprob[k, i])
             seq.append_token_id(token_id, logprob_val)
             self._tokens_appended_iter += 1
+            if seq.fsm is not None:
+                seq.fsm_state = seq.fsm.next_state(seq.fsm_state, token_id)
+                if seq.fsm_state < 0:
+                    # The automaton left its language (only through the
+                    # EOS forced at a dead end): stop here.
+                    seq.status = SequenceStatus.FINISHED_STOPPED
             if sp.logprobs is not None:
                 entry = {
                     token_id: Logprob(
@@ -327,6 +411,42 @@ class AphroditeEngine:
             if need_inc:
                 new_text = self._decode_sequence(seq, sp)
             self.stop_checker.maybe_stop_sequence(seq, new_text, sp)
+
+    def _process_prompt_logprobs(self, scheduler_outputs, result) -> None:
+        """Attach each prompt token's logprobs from the pass over the
+        token stream (the first prompt token's entry is None)."""
+        tgt_lp, ranks, pk_ids, pk_lp = result.prompt
+        off = 0
+        for ss in scheduler_outputs.scheduled:
+            sp = ss.group.sampling_params
+            seq = ss.seq
+            num_plp = sp.prompt_logprobs
+            chunk_is_prefill = ss.first_token_idx < seq.get_prompt_len()
+            if num_plp is None or not chunk_is_prefill:
+                off += ss.num_tokens
+                continue
+            if seq.prompt_logprobs is None:
+                seq.prompt_logprobs = [None]
+            ids = seq.get_token_ids()
+            for j in range(ss.num_tokens):
+                tpos = ss.first_token_idx + j + 1
+                if tpos >= seq.get_prompt_len():
+                    break
+                row = off + j
+                entry = {
+                    int(ids[tpos]): Logprob(logprob=float(tgt_lp[row]),
+                                            rank=int(ranks[row]))
+                }
+                for k in range(min(num_plp, pk_ids.shape[1])):
+                    entry.setdefault(
+                        int(pk_ids[row, k]),
+                        Logprob(logprob=float(pk_lp[row, k]), rank=k + 1))
+                # A chunk may run again after a preemption: the list stays
+                # aligned with the positions.
+                while len(seq.prompt_logprobs) <= tpos:
+                    seq.prompt_logprobs.append(None)
+                seq.prompt_logprobs[tpos] = entry
+            off += ss.num_tokens
 
     def _decode_sequence_full(self, seq: Sequence,
                               sp: SamplingParams) -> None:

@@ -16,7 +16,8 @@ import pathlib
 import re
 import statistics
 import time
-from typing import Callable, Dict, FrozenSet, List, Sequence, Tuple
+from typing import (Any, Callable, Dict, FrozenSet, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -33,11 +34,13 @@ class WindowCase:
     """len(kv_lens) live rows of bucket S, row i with kv_lens[i] keys of
     random cache values on pages drawn from the seed (room for
     ``windows`` windows of W more), a random last token, and the
-    sampling tensors of ``temperature`` (top_k with it, if given)."""
+    sampling tensors of ``temperature`` (top_k with it, if given), or of
+    ``params``, one SamplingParams a row; row i's key is seed + i's."""
 
     def __init__(self, runner, S: int, kv_lens: Sequence[int], W: int,
                  seed: int, temperature: float = 0.0, top_k: int = -1,
-                 windows: int = 4) -> None:
+                 windows: int = 4,
+                 params: Optional[Sequence[SamplingParams]] = None) -> None:
         self.runner, self.S, self.W = runner, S, W
         rng = np.random.default_rng(seed)
         bs, pps, n = runner.block_size, runner.pages_per_seq, len(kv_lens)
@@ -58,10 +61,12 @@ class WindowCase:
         sched[-1] = n
         carry[:n] = rng.integers(0, vocab, n)
         carry[S:S + n] = kv_lens
-        sp = SamplingParams(temperature=temperature, top_k=top_k,
-                            max_tokens=windows * W)
+        params = params or [SamplingParams(
+            temperature=temperature, top_k=top_k,
+            max_tokens=windows * W)] * n
         rows = [SamplerInputRow(params=sp, token_ids=[0], prompt_len=1,
-                                generated_len=0, seed=0)] * n
+                                generated_len=0, seed=seed + i)
+                for i, sp in enumerate(params)]
         tensors, self.flags, _, _ = build_sampling_tensors(rows, S, vocab)
         cache = runner.kv_cache
         gen = torch.Generator(device=cache.device)
@@ -228,7 +233,9 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
     return counts
 
 
-def trace_launches(runner, key: str) -> Dict[str, Dict[str, int]]:
+def trace_launches(runner, key: str, attempts: int = 3,
+                   reset: Optional[Callable[[], None]] = None
+                   ) -> Dict[str, Any]:
     """The port's kernels one window of the captured key ``key`` (a
     ``runner.window_keys()`` name) launches run eagerly (through the
     wrappers, which count their launches) and as a replay of its graph,
@@ -238,22 +245,47 @@ def trace_launches(runner, key: str) -> Dict[str, Dict[str, int]]:
     buffers are put back and the runner forgets what they held
     (``invalidate_windows``). A replay launches every kernel of its graph,
     whatever the buffers hold, so the replay's counts are those of every
-    replay of the key."""
+    replay of the key.
+
+    The profiler on a card now and then drops a kernel record (once one
+    of the 512 int4p_matmul_kernel launches of an 8B window run eagerly),
+    which only ever lowers a count. So a pair whose two traces differ is
+    traced again from the same buffers, up to ``attempts`` pairs in all;
+    the first pair that agrees is returned, else the last, whose
+    difference the caller reports. ``tries`` is the number of pairs
+    traced, and ``mismatches`` holds, for each pair that differed, each
+    kernel's replay count less its eager count where they differ.
+    ``reset`` (the wrappers' counts set to 0) runs before each eager
+    window, so the counts after the call are those of one window."""
     S, W, flags = runner.window_keys()[key]
     buf = runner.window_buffers(S)
     if not runner.has_window_graph(buf, flags, W):
         raise ValueError(f"the window key {key} has no graph")
     with torch.inference_mode():
         saved = buf.sched.clone(), buf.carry.clone()
-        buf.sched[-1] = 0
+    mismatches: List[Dict[str, int]] = []
     try:
-        eager = kernel_counts(lambda: WindowFetch(
-            runner.decode_window(buf, flags, W)).numpy())
-        replay = kernel_counts(
-            lambda: runner.run_window(buf, flags, W).numpy())
+        for tries in range(1, attempts + 1):
+            with torch.inference_mode():
+                buf.sched.copy_(saved[0])
+                buf.carry.copy_(saved[1])
+                buf.sched[-1] = 0
+            if reset is not None:
+                reset()
+            eager = kernel_counts(lambda: WindowFetch(
+                runner.decode_window(buf, flags, W)).numpy())
+            replay = kernel_counts(
+                lambda: runner.run_window(buf, flags, W).numpy())
+            if eager == replay:
+                break
+            mismatches.append({
+                name: replay.get(name, 0) - eager.get(name, 0)
+                for name in sorted(set(eager) | set(replay))
+                if replay.get(name, 0) != eager.get(name, 0)})
     finally:
         with torch.inference_mode():
             buf.sched.copy_(saved[0])
             buf.carry.copy_(saved[1])
         runner.invalidate_windows()
-    return dict(eager=eager, replay=replay)
+    return dict(eager=eager, replay=replay, tries=tries,
+                mismatches=mismatches)

@@ -5,8 +5,16 @@ The runner owns the parameters, the paged KV cache
 [L, num_pages + 1, page_size, 2*KV, D] (the last page of every layer is
 the trash page that padding tokens write to; its element type is the
 model's, or with ``kv_cache_dtype`` an 8-bit one written through
-per-layer scales) and a ``torch.Generator`` for sampling. Prefill and
-mixed steps run one forward over the flat token stream, eagerly.
+per-layer scales). Prefill and mixed steps run one forward over the flat
+token stream, eagerly, and sample with every stage the batch asks for:
+the history stages (penalties, DRY, no-repeat-ngram) on the rows' token
+histories, the guided allow-mask from each row's FSM state, host logits
+processors between the forward and the sampler, and the prompt logprobs
+of prefill chunks over the whole token stream, in chunks of
+``PROMPT_LOGPROB_ROWS`` rows. Each row draws its noise from its own key:
+the request's seed (or one derived from the request and sequence) mixed
+with the row's generated length, so a seeded request draws the same
+tokens in any batch.
 
 Pure-decode steps run the fused decode window, the counterpart of the
 JAX package's ``_get_multi_step_fn``: ``decode_window`` runs W forwards
@@ -25,12 +33,20 @@ carry is reused when the batch fingerprint matches, each window's
 outputs go to a pinned host buffer behind a CUDA event, and when
 ``_can_chain_window`` allows it the next step's first window is
 dispatched before this step's outputs are read. All-greedy steps with an
-unchanged row set reuse the previous step's sampling tensors.
+unchanged row set reuse the previous step's sampling tensors. Only batches
+whose sampling needs no per-step host state take the window (the JAX
+package's gate): no history stage, min_tokens, guided FSM or host logits
+processor. Inside a window each step folds its index plus the carry's
+step offset (the steps the carry has run since the sampling tensors were
+built) into the rows' keys on the device (``_fold_key_data``), so a step
+of a window draws what a single step at that length draws, and a replay
+what the eager window draws.
 
 Token and sequence counts are padded to the JAX package's buckets, so
 the shapes stay few and fixed.
 """
 
+import inspect
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -52,7 +68,8 @@ from aphrodite_tpu_torch.sampling.metadata import (SamplerInputRow,
                                                    SamplingFlags,
                                                    SamplingTensors,
                                                    build_sampling_tensors)
-from aphrodite_tpu_torch.sampling.sampler import (SamplerOutput, sample,
+from aphrodite_tpu_torch.sampling.sampler import (SamplerOutput,
+                                                  prompt_logprobs, sample,
                                                   tensors_to_device)
 
 logger = init_logger(__name__)
@@ -95,6 +112,10 @@ class StepResult(NamedTuple):
     sampled_rank: np.ndarray  # i32[steps, num_rows]
     topk_ids: np.ndarray  # i32[steps, num_rows, K]
     topk_logprobs: np.ndarray  # f32[steps, num_rows, K]
+    # Prompt logprobs over the flat token stream (single-step prefill
+    # only): (target_lp[T], rank[T], topk_ids[T, K], topk_lp[T, K]).
+    prompt: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray,
+                           np.ndarray]] = None
 
 
 def _upload(arrays: List[np.ndarray], device: torch.device
@@ -223,6 +244,11 @@ class ModelRunner:
 
     # Decode steps per packed host fetch.
     MULTI_STEP_WINDOW = 32
+    # Rows of the token stream per pass of the prompt logprobs: the f32
+    # logits of a chunk are ROWS x vocabulary.
+    PROMPT_LOGPROB_ROWS = 256
+    # The prompt logprobs' top-k cap (the JAX runner's).
+    MAX_PROMPT_LOGPROBS = 32
 
     def __init__(self, engine_config: EngineConfig) -> None:
         self.config = engine_config
@@ -245,6 +271,9 @@ class ModelRunner:
             step=2)
         self.seq_buckets = _buckets(
             max(8, self.scheduler_config.max_num_seqs), 8, step=4)
+        # Token-history widths of the history stages.
+        self.history_buckets = _buckets(
+            max(128, self.model_config.max_model_len), 128)
         self.kv_dtype = (_KV_DTYPES[self.cache_config.cache_dtype]
                          or self.model.dtype)
         # Per-layer (k_scale[L], v_scale[L]) on the device, only for the
@@ -255,8 +284,6 @@ class ModelRunner:
                 load_kv_cache_scales(
                     self.model_config.model, self.model.num_layers,
                     self.cache_config.quantization_param_path), self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.model_config.seed)
         # The decode windows' static buffers by S, their graphs by key
         # (S, W, flags, pages_per_seq), the pool the graphs share and the
         # stream they are warmed up and captured on.
@@ -308,6 +335,10 @@ class ModelRunner:
         # (hidden, fused qkv and gate|up activations, f32 logits).
         act_headroom = (self.token_buckets[-1] *
                         self.model_config.get_hidden_size() * 2 * 64)
+        # And for a chunk of the prompt logprobs: its f32 logits, their
+        # log-softmax and the top-k's temporaries.
+        act_headroom += (self.PROMPT_LOGPROB_ROWS *
+                         self.model_config.get_vocab_size() * 4 * 4)
         budget -= act_headroom
         page_bytes = self._kv_page_bytes()
         num = max(budget // page_bytes, 16)
@@ -377,12 +408,14 @@ class ModelRunner:
              cu_q_lens, num_seqs, logits_indices], self.device))
 
     def _sampling_inputs(self, scheduled: List[ScheduledSequence], S: int):
-        """The step's sampling tensors on the device and its flags.
+        """The step's sampling tensors on the device, its flags, and (for
+        the history stages) the token histories, their lengths and the
+        prompt lengths on the device, at the bucket of the longest row.
 
         Sampling-tensor cache: all-greedy batches with an unchanged row
         set reuse the previous step's device tensors, built and uploaded
-        nothing (stochastic rows rebuild every step, as do the
-        history- and min_tokens-dependent flags)."""
+        nothing (stochastic rows rebuild every step, as their keys fold
+        the step in, as do the history- and min_tokens-dependent flags)."""
         greedy_ok = all(ss.group.sampling_params.temperature == 0.0
                         for ss in scheduled)
         fp = ((S, tuple((ss.seq.seq_id, id(ss.group.sampling_params),
@@ -395,25 +428,24 @@ class ModelRunner:
         rows = []
         for ss in scheduled:
             sp = ss.group.sampling_params
-            if sp.logits_processors:
-                raise NotImplementedError(
-                    "logits processors are not ported to the PyTorch "
-                    "package yet")
-            if sp.prompt_logprobs is not None:
-                raise NotImplementedError(
-                    "prompt logprobs are not ported to the PyTorch "
-                    "package yet")
+            seq = ss.seq
             rows.append(SamplerInputRow(
                 params=sp,
-                token_ids=ss.seq.get_token_ids(),
-                prompt_len=ss.seq.get_prompt_len(),
-                generated_len=ss.seq.get_output_len(),
-                seed=sp.seed if sp.seed is not None else 0,
-                eos_token_id=ss.seq.eos_token_id,
+                token_ids=seq.get_token_ids(),
+                prompt_len=seq.get_prompt_len(),
+                generated_len=seq.get_output_len(),
+                seed=(_offset_seed(sp.seed, seq) if sp.seed is not None
+                      else _default_seed(ss.group.request_id, seq.seq_id)),
+                eos_token_id=seq.eos_token_id,
             ))
-        tensors, flags, _, _ = build_sampling_tensors(
-            rows, S, self.model_config.get_vocab_size())
-        result = (tensors_to_device(tensors, self.device), flags)
+        max_hist = max((len(r.token_ids) for r in rows), default=1)
+        H = _pad_to_bucket(max_hist, self.history_buckets)
+        tensors, flags, history, hl = build_sampling_tensors(
+            rows, S, self.model_config.get_vocab_size(), history_pad=H)
+        hist = None
+        if flags.needs_history:
+            hist = tuple(_upload([history, hl[0], hl[1]], self.device))
+        result = (tensors_to_device(tensors, self.device), flags, hist)
         if (fp is not None and not flags.needs_history
                 and not flags.do_min_tokens and not flags.do_beam):
             # Keep the sampling-params objects alive so id() stays
@@ -423,6 +455,92 @@ class ModelRunner:
         else:
             self._sampling_cache = None
         return result
+
+    def _guided_mask(self, scheduled: List[ScheduledSequence],
+                     S: int) -> torch.Tensor:
+        """The rows' packed allow-masks [S, ceil(V/32)] on the device (the
+        uint32 words as int32), from each sampled row's FSM state; a row at
+        a dead end may emit EOS only, so that its request ends."""
+        words = (self.model_config.get_vocab_size() + 31) // 32
+        gm = np.full((S, words), 0xFFFFFFFF, dtype=np.uint32)
+        for i, ss in enumerate(scheduled):
+            seq = ss.seq
+            if seq.fsm is None or not ss.do_sample:
+                continue
+            m = seq.fsm.allowed_mask(seq.fsm_state)
+            if not m.any() and seq.eos_token_id is not None:
+                m = m.copy()
+                e = seq.eos_token_id
+                m[e >> 5] |= np.uint32(1 << (e & 31))
+            gm[i, :len(m)] = m
+        return torch.from_numpy(gm.view(np.int32)).to(self.device)
+
+    @staticmethod
+    def _apply_logits_processors(
+            logits: np.ndarray,
+            scheduled: List[ScheduledSequence]) -> np.ndarray:
+        """Apply each request's host callables to its raw logits row: a
+        2-argument processor gets ``(output_token_ids, logits_row)``, a
+        3-argument one ``(prompt_token_ids, output_token_ids,
+        logits_row)``; rows are numpy float32, and a processor may return
+        any array-like of the same shape."""
+        for i, ss in enumerate(scheduled):
+            lps = ss.group.sampling_params.logits_processors
+            if not lps or not ss.do_sample:
+                continue
+            seq = ss.seq
+            ids = seq.get_token_ids()
+            plen = seq.get_prompt_len()
+            prompt_ids, out_ids = list(ids[:plen]), list(ids[plen:])
+            row = logits[i]
+            try:
+                for proc in lps:
+                    try:
+                        nargs = len(inspect.signature(proc).parameters)
+                    except (ValueError, TypeError):
+                        nargs = 2
+                    row = (proc(prompt_ids, out_ids, row) if nargs >= 3
+                           else proc(out_ids, row))
+                row = np.asarray(row, dtype=logits.dtype)
+                if row.shape != logits[i].shape:
+                    raise ValueError(
+                        f"processor returned shape {row.shape}, "
+                        f"expected {logits[i].shape}")
+                logits[i] = row
+            except Exception as e:
+                raise ValueError(
+                    "logits processor failed for request "
+                    f"{ss.group.request_id!r}: {e}") from e
+        return logits
+
+    def _prompt_targets(self, scheduled: List[ScheduledSequence],
+                        T: int) -> np.ndarray:
+        """The token that follows each token of the flat stream (0 past a
+        sequence's end)."""
+        tgt = np.zeros((T,), np.int32)
+        off = 0
+        for ss in scheduled:
+            ids = ss.seq.get_token_ids()
+            for j in range(ss.num_tokens):
+                p = ss.first_token_idx + j + 1
+                tgt[off + j] = ids[p] if p < len(ids) else 0
+            off += ss.num_tokens
+        return tgt
+
+    def _prompt_logprobs(self, hidden: torch.Tensor, targets: np.ndarray,
+                         k: int) -> Tuple[np.ndarray, ...]:
+        """The prompt logprobs of every token of the stream that has a
+        target: the target's logprob and rank and the top-k, over the LM
+        head's logits of PROMPT_LOGPROB_ROWS tokens at a time."""
+        tgt = torch.from_numpy(targets).to(self.device)
+        parts = []
+        for start in range(0, len(targets), self.PROMPT_LOGPROB_ROWS):
+            end = min(start + self.PROMPT_LOGPROB_ROWS, len(targets))
+            logits = self.model.compute_logits(self.params,
+                                               hidden[start:end])
+            parts.append(prompt_logprobs(logits, tgt[start:end], k))
+        return tuple(torch.cat([p[i] for p in parts]).cpu().numpy()
+                     for i in range(4))
 
     # ------------------------------------------------------------------
     # Execute
@@ -445,8 +563,21 @@ class ModelRunner:
         if outputs.blocks_to_copy:
             self._apply_block_copies(outputs.blocks_to_copy)
         S = _pad_to_bucket(len(scheduled), self.seq_buckets)
-        tensors, flags = self._sampling_inputs(scheduled, S)
-        if num_steps > 1 and outputs.num_prefill_tokens == 0:
+        tensors, flags, hist = self._sampling_inputs(scheduled, S)
+        guided_mask = None
+        if any(ss.seq.fsm is not None for ss in scheduled):
+            flags = flags._replace(do_guided=True)
+            guided_mask = self._guided_mask(scheduled, S)
+        # Host logits processors need the raw logits on the host each step.
+        has_procs = any(ss.group.sampling_params.logits_processors
+                        for ss in scheduled)
+        # The fused window: a pure-decode batch whose sampling reads no
+        # per-step host state (token history, min_tokens, guided FSM
+        # advancement, host callables).
+        if (num_steps > 1 and outputs.num_prefill_tokens == 0
+                and not flags.needs_history and not flags.do_min_tokens
+                and not flags.do_beam and not flags.do_guided
+                and not has_procs):
             return self._execute_multi(scheduled, S, tensors, flags,
                                        num_steps)
         total_tokens = sum(ss.num_tokens for ss in scheduled)
@@ -457,11 +588,30 @@ class ModelRunner:
                                     self.kv_scales)
         logits = self.model.compute_logits(
             self.params, hidden[batch.logits_indices])
-        out = sample(logits, tensors, flags, self.generator)
+        if has_procs:
+            edited = self._apply_logits_processors(
+                logits.float().cpu().numpy().copy(), scheduled)
+            logits = torch.from_numpy(edited).to(self.device)
+        out = sample(logits, tensors, flags, *(hist or (None,) * 3),
+                     guided_mask=guided_mask)
+        # Prompt logprobs: a prefill chunk of a request that asks for them
+        # adds the pass over the whole token stream.
+        max_plp = 0
+        for ss in scheduled:
+            plp = ss.group.sampling_params.prompt_logprobs
+            if plp is not None and ss.seq.is_prefill:
+                max_plp = max(max_plp,
+                              min(int(plp) or 1, self.MAX_PROMPT_LOGPROBS))
+        prompt = None
+        if max_plp:
+            prompt = self._prompt_logprobs(
+                hidden, self._prompt_targets(scheduled, total_tokens),
+                max_plp)
         n = len(scheduled)
         packed = _pack_step_outputs([out]).cpu().numpy()
         return StepResult(*_unpack_step_outputs(packed, 1, S,
-                                                flags.max_logprobs, n))
+                                                flags.max_logprobs, n),
+                          prompt=prompt)
 
     def _count_forwards(self, tokens: int, n: int) -> None:
         self.eager_forwards_by_tokens[tokens] = (
@@ -482,17 +632,18 @@ class ModelRunner:
 
     @torch.inference_mode()
     def load_window_tensors(self, buf: WindowBuffers,
-                            tensors: SamplingTensors) -> None:
+                            tensors: SamplingTensors) -> bool:
         """Copy device sampling tensors into the buffers' static ones,
-        unless they are the ones copied last."""
+        unless they are the ones copied last; True if they were copied."""
         if buf.tensors_src is tensors:
-            return
+            return False
         if buf.tensors is None:
             buf.tensors = SamplingTensors(*(t.clone() for t in tensors))
         else:
             for dst, src in zip(buf.tensors, tensors):
                 dst.copy_(src)
         buf.tensors_src = tensors
+        return True
 
     @torch.inference_mode()
     def decode_window(self, buf: WindowBuffers, flags: SamplingFlags,
@@ -514,8 +665,10 @@ class ModelRunner:
         valid = rows < num_seqs
         trash = self.trash_slot_base + rows % bs
         token_ids, positions = carry[:S], carry[S:2 * S]
+        # The steps the carry has run since the tensors' keys were built.
+        step_offset = carry[2 * S:]
         outs = []
-        for _ in range(W):
+        for i in range(W):
             pos = positions.clamp(min=0)
             page = page_indices.gather(
                 1, (pos // bs).clamp(max=pps - 1)[:, None].long())[:, 0]
@@ -536,7 +689,10 @@ class ModelRunner:
             hidden = self.model.forward(self.params, self.kv_cache, batch,
                                         self.kv_scales)
             logits = self.model.compute_logits(self.params, hidden)
-            out = sample(logits, buf.tensors, flags, self.generator)
+            # Each row's key at the length this step samples.
+            tensors = buf.tensors._replace(key_data=_fold_key_data(
+                buf.tensors.key_data, step_offset + i))
+            out = sample(logits, tensors, flags)
             outs.append(out)
             token_ids = out.sampled
             positions = positions + 1
@@ -583,9 +739,10 @@ class ModelRunner:
     def _capture(self, g: _WindowGraph, key, buf: WindowBuffers,
                  flags: SamplingFlags, W: int) -> None:
         """Capture ``decode_window`` for ``key`` into ``g``. The wrappers
-        count no launch while they are captured (``ops/launches.py``). The
-        generator is registered with the graph, so every replay draws
-        fresh noise."""
+        count no launch while they are captured (``ops/launches.py``). A
+        replay's noise comes from the rows' keys and the carry's step
+        offset, which the replay reads from the buffers, so every replay
+        draws fresh noise."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         # torch.cuda.graph empties the allocator's cache as it starts; done
@@ -595,7 +752,6 @@ class ModelRunner:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.monotonic()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   stream=self._side_stream()):
@@ -675,14 +831,13 @@ class ModelRunner:
         CERTAIN finish (the max_tokens boundary) makes the speculation
         pointless, so that stays a gate.
 
-        The JAX package also refuses guided decoding and multi-host runs;
-        the port has neither (its sampler raises on guided flags, and it
-        runs on one host), so those clauses are left out."""
+        The JAX package also refuses multi-host runs; the port runs on one
+        host, so that clause is left out."""
         if not chain_windows_enabled():
             return False
         if (flags.do_penalties or flags.do_dry or flags.do_no_repeat_ngram
                 or flags.do_min_tokens or flags.do_banned_tokens
-                or flags.do_beam):
+                or flags.do_beam or flags.do_guided):
             return False
         for ss in scheduled:
             sp = ss.group.sampling_params
@@ -714,7 +869,7 @@ class ModelRunner:
             sched[S * pps + i] = len(ss.block_ids) * bs
         sched[S * pps + S] = n
         _upload_into(buf.sched, sched)
-        self.load_window_tensors(buf, tensors)
+        fresh = self.load_window_tensors(buf, tensors)
 
         W = min(num_steps, self.MULTI_STEP_WINDOW)
         num_windows = cdiv(num_steps, W)
@@ -744,9 +899,15 @@ class ModelRunner:
         # window accounts for; otherwise it must be this step's state, and
         # nothing is uploaded. Any composition change (a finish, a join, a
         # preemption, a chained window not taken, an eager step of these
-        # rows) misses and rebuilds the carry from host truth.
+        # rows) misses and rebuilds the carry from host truth, its step
+        # offset 0. Tensors built this step have keys at this step's
+        # lengths: on a carry that hits, the offset is set to the steps the
+        # carry runs ahead of them (the chained window's).
         if chained or buf.carry_fp == fp:
             self.carry_hits += 1
+            if fresh:
+                _upload_into(buf.carry[2 * S:],
+                             np.asarray([W if chained else 0], np.int32))
         else:
             carry = np.zeros((2 * S + 1,), np.int32)
             for i, ss in enumerate(scheduled):
@@ -780,3 +941,31 @@ class ModelRunner:
         return StepResult(*(
             np.concatenate([u[i] for u in unpacked], axis=0)[:num_steps]
             for i in range(5)))
+
+def _fold_key_data(key_data: torch.Tensor, steps) -> torch.Tensor:
+    """Each row's key `steps` (an int, or a tensor on the device) tokens
+    on: the host mixes the generated length into the second word
+    (metadata.py ``_mix32(seed, generated_len + 1)``, whose last round XORs
+    the first word with a sum that grows with the length), so adding
+    `steps` to that sum gives the key the host would build that many steps
+    later. A step of a window therefore draws what a single step at its
+    length draws. (The JAX package XORs a hash of the window step into the
+    word, which gives a window other streams than single steps.)"""
+    if isinstance(steps, torch.Tensor):
+        steps = steps.long()
+    k0 = key_data[:, 0]
+    k1 = k0 ^ (((key_data[:, 1] ^ k0) + steps) & 0xFFFFFFFF)
+    return torch.stack([k0, k1], dim=1)
+
+
+def _default_seed(request_id: str, seq_id: int) -> int:
+    """A sequence's seed when its request sets none (the JAX runner's: a
+    hash of the request and sequence, which Python salts per process)."""
+    return (hash((request_id, seq_id)) ^ 0xA5A5A5) & 0x7FFFFFFF
+
+
+def _offset_seed(seed: int, seq) -> int:
+    """A seeded request's seed for one of its sequences: sequence 0 keeps
+    the request's seed, its siblings (n > 1) draw other streams."""
+    off = getattr(seq, "seed_offset", 0)
+    return seed if not off else (hash((seed, off)) & 0x7FFFFFFF)

@@ -50,6 +50,16 @@ Phases, each of which must pass or the script exits non-zero:
    body; f32 sums) at the same sites and T and at K 4160 against its
    plain version at INT4_TOL_SAME. The packed kernel and W4A8 also at K
    1088 (K/2 an odd multiple of 32) where the group divides 544.
+   The sampler (plain PyTorch on the card, no kernel of its own) against
+   the same functions on the CPU, on f32 logits [32, 128256] with distinct
+   values (sampler_checks): each distribution stage alone (temperature and
+   dynatemp, top-k/top-p, min-p, top-a, TFS, eta, epsilon, typical,
+   quadratic, XTC, top-nsigma, skew), the whole pipeline with every
+   history-free stage on and with a sampler_priority, the history stages
+   (penalties, DRY, no-repeat-ngram) on token histories of 2048 ids,
+   min_tokens with bans, and a random packed guided mask: the kept sets
+   equal, the values within 1e-5 of each row's largest magnitude; and the
+   tokens sample() draws from the rows' keys equal the CPU's.
 4. Time each kernel, on every page type, at the main path's shapes
    beside its plain version, one PyTorch library call on pre-gathered
    contiguous K/V (scaled_dot_product_attention; the gather is not timed,
@@ -77,6 +87,11 @@ Phases, each of which must pass or the script exits non-zero:
    and 2048, K 4096 and 14336; the FP8 W8A8 product (quantizer, e4m3
    body and scaling) at the four sites, beside torch._scaled_mm on the
    same e4m3 operands (its library call, which the port never makes).
+   The sampler (sampler_timings): sample() at S 8 and 32, V 128256, its
+   greedy floor (argmax and logprob only), stochastic rows with no stage
+   (the noise), each stage alone, every history-free stage at once and
+   the history stages on 2048-id histories, printed with the card's name
+   and power limit.
 5. Run the main paths, each with the engine before it freed. First the
    bf16 one, ``LLM.generate`` on a Llama-3.1-8B-geometry model (full
    width, 32 layers, random bf16 weights from a seed) for 16 greedy
@@ -185,6 +200,21 @@ Phases, each of which must pass or the script exits non-zero:
    blocksparse on the layers whose gate is on (every other one) and QG 4
    without it on the rest; QG 7 at head_dim 128 on qwen2.5-7b, QG 7 at
    head_dim 64 on qwen2.5-0.5b, QG 5 on qwen3-14b, QG 4 on mistral-7b.
+   Then slice 14's two, on gptq+fp8_e4m3 at full width and depth with
+   the 16 requests of 64 tokens: ``samplers, history-free``
+   (history_free_params: seeded random rows, each a different mix of
+   every history-free stage, two with a sampler_priority; its warm-up
+   batch captures the window key of its flags, so its decode windows are
+   graph replays; window_check holds its graphed window against the eager
+   one bit for bit; request 12 is re-run alone and must draw the tokens it
+   drew in the batch) and ``samplers, history`` (history_params: greedy
+   rows with repetition, frequency and presence penalties, DRY,
+   no-repeat-ngram, min_tokens 48, bans, a two-argument logits processor
+   on 2 rows and prompt_logprobs 5 on 4, every decode step on the
+   single-step path; held by check_history_path against the gptq+fp8_e4m3
+   path's tokens and by check_prompt_logprobs against a prefill forward's
+   logits). Both print decode and prefill tok/s beside the gptq+fp8_e4m3
+   path's.
    Last, the page-gather probe's own entry point
    (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
    which times the probe kernel; its kernel was held beforehand against
@@ -196,8 +226,8 @@ Phases, each of which must pass or the script exits non-zero:
    blocksparse instantiation on bf16 and E4M3 pages, with its times at
    Phi-3-Small's geometry; the unpacked int4 matmul once per body, W4A8,
    the activation quantizer, the FP8 W8A8 product and the page-gather
-   probe);
-   the last line is
+   probe); before it, the sampler's errors and times, and each path's
+   rates; the last line is
    {"ok": true, "device": {...}}.
 """
 
@@ -2243,10 +2273,574 @@ CACHE_PAGE_TYPES = {"auto": "bf16", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2",
                     "int8": "int8"}
 
 
+# ----------------------------------------------------------------------
+# The sampler (aphrodite_tpu_torch/sampling/sampler.py): plain PyTorch on
+# the card, no kernel of its own
+# ----------------------------------------------------------------------
+
+SAMPLER_V = 128256  # Llama-3.1-8B's vocabulary
+SAMPLER_S = 32
+SAMPLER_HISTORY = 2048
+# Each distribution stage alone: the rows' settings (cycled over the
+# rows, every fourth row with the stage off).
+SAMPLER_STAGES = {
+    "temperature": [dict(temperature=0.7), dict(temperature=0.05),
+                    dict(dynatemp_min=0.5, dynatemp_max=1.5)],
+    "top_k_top_p": [dict(top_k=50, top_p=0.9), dict(top_p=0.5),
+                    dict(top_k=1000)],
+    "min_p": [dict(min_p=0.05), dict(min_p=0.3)],
+    "top_a": [dict(top_a=0.2), dict(top_a=0.9)],
+    "tfs": [dict(tfs=0.95), dict(tfs=0.5)],
+    "eta_cutoff": [dict(eta_cutoff=3.0), dict(eta_cutoff=15.0)],
+    "epsilon_cutoff": [dict(epsilon_cutoff=0.5), dict(epsilon_cutoff=3.0)],
+    "typical_p": [dict(typical_p=0.9), dict(typical_p=0.5)],
+    "quadratic": [dict(smoothing_factor=0.3),
+                  dict(smoothing_factor=0.5, smoothing_curve=2.0)],
+    "xtc": [dict(xtc_probability=0.5, xtc_threshold=2e-4),
+            dict(xtc_probability=1.0, xtc_threshold=1e-3)],
+    "top_nsigma": [dict(nsigma=1.0), dict(nsigma=2.5)],
+    "skew": [dict(skew=0.5), dict(skew=-0.7)],
+}
+# Every history-free stage in one row.
+SAMPLER_ALL_FREE = dict(
+    temperature=0.9, dynatemp_min=0.6, dynatemp_max=1.4, top_k=2000,
+    top_p=0.95, min_p=0.005, top_a=0.05, tfs=0.98, eta_cutoff=1.0,
+    epsilon_cutoff=0.2, typical_p=0.98, smoothing_factor=0.1,
+    xtc_probability=0.5, xtc_threshold=1e-3, nsigma=3.0, skew=0.3)
+SAMPLER_HISTORY_ROWS = [
+    dict(temperature=0.0, repetition_penalty=1.3),
+    dict(temperature=0.0, frequency_penalty=0.6, presence_penalty=0.5),
+    dict(temperature=0.0, dry_multiplier=0.8, dry_allowed_length=2,
+         dry_sequence_breaker_ids=[5, 9]),
+    dict(temperature=0.0, dry_multiplier=0.5, dry_allowed_length=1,
+         dry_range=512),
+    dict(temperature=0.0, no_repeat_ngram_size=3),
+    dict(temperature=0.0, no_repeat_ngram_size=2),
+    dict(SAMPLER_ALL_FREE, repetition_penalty=1.1, dry_multiplier=0.3),
+    dict(temperature=0.0)]
+
+
+def sampler_rows(mixes, S, seed, history=None, prompt_len=None, **common):
+    """S SamplerInputRows cycling over `mixes` (sampling kwargs; a
+    stochastic row's temperature 1 unless a mix sets it), every fourth row
+    plain, seeds from `seed`; token histories from `history` [S, H]."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.sampling.metadata import SamplerInputRow
+
+    rows = []
+    for i in range(S):
+        kw = dict(temperature=1.0, max_tokens=64)
+        if i % 4 != 3:
+            kw.update(mixes[i % len(mixes)])
+        kw.update(common)
+        ids = [1, 2, 3] if history is None else history[i].tolist()
+        plen = len(ids) if prompt_len is None else prompt_len
+        rows.append(SamplerInputRow(
+            params=SamplingParams(**kw), token_ids=ids, prompt_len=plen,
+            generated_len=len(ids) - plen, seed=seed + i,
+            eos_token_id=SAMPLER_V - 1))
+    return rows
+
+
+def sampler_logits(S, V, seed):
+    """f32 logits [S, V] whose values are distinct in each row: twice the
+    normal's quantiles at (k + 0.5) / V, in an order drawn from the seed
+    for each row."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    p = (torch.arange(V, dtype=torch.float64) + 0.5) / V
+    q = (torch.erfinv(2 * p - 1) * math.sqrt(2) * 2).float()
+    if not bool((q[1:] > q[:-1]).all()):
+        fail("the sampler's logits are not distinct")
+    return torch.stack([q[torch.randperm(V, generator=gen)]
+                        for _ in range(S)])
+
+
+def sampler_checks(device="cuda"):
+    """The sampler on the card against the same functions on the CPU, on
+    logits [32, 128256] with distinct values: each distribution stage
+    alone, the whole pipeline with every history-free stage on (and a
+    sampler_priority), the history stages on token histories of 2048 ids,
+    min_tokens with bans, and a random packed guided mask; then the tokens
+    sample() draws for stochastic rows. The kept sets (finite entries)
+    must be equal and the values within 1e-5 of each row's largest
+    magnitude; the drawn tokens equal. Returns the worst error over a
+    row's largest magnitude of each check."""
+    import torch
+
+    import aphrodite_tpu_torch.sampling.sampler as sampler_mod
+    from aphrodite_tpu_torch.common.sampling_params import SamplerID
+    from aphrodite_tpu_torch.sampling.metadata import build_sampling_tensors
+
+    S, V = SAMPLER_S, SAMPLER_V
+    logits = sampler_logits(S, V, SEED)
+    on = {"cpu": torch.device("cpu"), "card": torch.device(device)}
+    errs, failed = {}, []
+
+    def tensors(rows, history_pad=0):
+        t, flags, hist, hl = build_sampling_tensors(rows, S, V,
+                                                    history_pad=history_pad)
+        out = {}
+        for name, dev in on.items():
+            h = None
+            if hist is not None:
+                h = [torch.from_numpy(a).to(dev) for a in (hist, *hl)]
+            out[name] = (sampler_mod.tensors_to_device(t, dev), h)
+        return out, flags
+
+    def check(name, fn, probs=False):
+        """fn(device name) -> [S, V] on that device; the card's against
+        the CPU's."""
+        t0 = time.monotonic()
+        got = fn("card").cpu().double()
+        want = fn("cpu").double()
+        if probs:
+            got, want = got.clamp(min=0), want.clamp(min=0)
+        kept = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), kept):
+            diff = torch.isfinite(got) != kept
+            print(f"sampler {name}: {int(diff.sum())} tokens kept on one "
+                  f"side only, on rows {diff.any(-1).nonzero()[:, 0].tolist()}"
+                  f"; card {got[diff][:4].tolist()}, CPU "
+                  f"{want[diff][:4].tolist()}", flush=True)
+            failed.append(f"{name}: the card keeps another set of tokens "
+                          "than the CPU")
+            kept &= torch.isfinite(got)
+        scale = torch.where(kept, want, 0).abs().amax(-1, keepdim=True)
+        err = torch.where(kept, got - want, 0).abs()
+        ratio = float((err / scale.clamp(min=1e-30)).max())
+        errs[name] = ratio
+        print(f"sampler {name}: kept {int(kept.sum())} of {S * V} entries "
+              f"on both, worst err / max|row| {ratio:.3e} (tolerance "
+              f"1e-5; {time.monotonic() - t0:.1f} s)", flush=True)
+        if ratio > 1e-5:
+            failed.append(f"{name}: the card's values disagree with the "
+                          "CPU's")
+
+    stage_fns = {
+        "temperature": sampler_mod._apply_temperatures,
+        "top_k_top_p": sampler_mod._apply_top_k_top_p,
+        "min_p": sampler_mod._apply_min_p,
+        "top_a": sampler_mod._apply_top_a,
+        "tfs": sampler_mod._apply_tfs,
+        "eta_cutoff": sampler_mod._apply_eta_cutoff,
+        "epsilon_cutoff": sampler_mod._apply_epsilon_cutoff,
+        "typical_p": sampler_mod._apply_typical,
+        "quadratic": sampler_mod._apply_quadratic,
+        "xtc": sampler_mod._apply_xtc,
+        "top_nsigma": sampler_mod._apply_top_nsigma}
+    for name, mixes in SAMPLER_STAGES.items():
+        ts, _ = tensors(sampler_rows(mixes, S, 1000))
+        if name == "skew":
+            check("skew", lambda d: sampler_mod._apply_skew(
+                torch.softmax(logits.to(on[d]).double(), -1), ts[d][0]),
+                probs=True)
+            continue
+        fn = stage_fns[name]
+        check(name, lambda d: fn(logits.to(on[d]).double(), ts[d][0]))
+
+    def pipeline(name, rows, history_pad=0, guided=None):
+        ts, flags = tensors(rows, history_pad)
+        if guided is not None:
+            flags = flags._replace(do_guided=True)
+
+        def run(d):
+            hist = ts[d][1] or [None] * 3
+            mask = None if guided is None else guided.to(on[d])
+            return sampler_mod.shaped_logprobs(
+                logits.to(on[d]), ts[d][0], flags, *hist, guided_mask=mask)
+        check(name, run)
+        return ts, flags
+
+    free = [SAMPLER_ALL_FREE] + [
+        dict(mix[0], temperature=1.1) for mix in SAMPLER_STAGES.values()]
+    ts, flags = pipeline("pipeline, every history-free stage", sampler_rows(
+        free, S, 2000, sampler_priority=None))
+    prio = [dict(SAMPLER_ALL_FREE, sampler_priority=[
+        SamplerID.MIN_P, SamplerID.XTC, SamplerID.TEMPERATURE,
+        SamplerID.TOP_P_TOP_K, SamplerID.TFS, SamplerID.TYPICAL_P])] + free
+    pipeline("pipeline, a sampler_priority", sampler_rows(prio, S, 3000))
+    # Tokens drawn on both devices from the rows' keys.
+    drawn = {d: sampler_mod.sample(logits.to(on[d]), ts[d][0],
+                                   flags).sampled.cpu() for d in on}
+    if not torch.equal(drawn["card"], drawn["cpu"]):
+        failed.append("the card draws other tokens than the CPU from the "
+                      f"same keys: {(drawn['card'] != drawn['cpu']).sum()} "
+                      f"of {S}")
+    print(f"sampler draws: the card's {S} tokens equal the CPU's "
+          f"({drawn['card'][:6].tolist()}...)", flush=True)
+
+    # Histories of 2048 ids: repeated motifs of a small alphabet, with
+    # random ids between them, 1000 prompt tokens.
+    rng = np.random.default_rng(SEED + 5)
+    motifs = rng.integers(0, 40, (8, 6))
+    history = np.empty((S, SAMPLER_HISTORY), np.int64)
+    for i in range(S):
+        parts = []
+        while sum(len(p) for p in parts) < SAMPLER_HISTORY:
+            parts.append(motifs[rng.integers(0, 8)] if rng.random() < 0.7
+                         else rng.integers(0, V, 3))
+        history[i] = np.concatenate(parts)[:SAMPLER_HISTORY]
+    rows = sampler_rows(SAMPLER_HISTORY_ROWS, S, 4000, history=history,
+                        prompt_len=1000)
+    ts, flags = tensors(rows, SAMPLER_HISTORY)
+    for name, fn in (
+            ("penalties", lambda lg, t, h: sampler_mod._apply_penalties(
+                lg, t, *sampler_mod._history_masks(*h, V))),
+            ("dry", lambda lg, t, h: sampler_mod._apply_dry(
+                lg, t, h[0], h[1], V)),
+            ("no_repeat_ngram", lambda lg, t, h: sampler_mod
+             ._apply_no_repeat_ngram(lg, t, h[0], h[1], V))):
+        check(f"{name} (history {SAMPLER_HISTORY})",
+              lambda d: fn(logits.to(on[d]).double(), ts[d][0], ts[d][1]))
+    pipeline(f"pipeline, history stages (history {SAMPLER_HISTORY})", rows,
+             SAMPLER_HISTORY)
+    stops = [dict(temperature=0.0, min_tokens=48,
+                  stop_token_ids=rng.integers(0, V, 16).tolist()),
+             dict(temperature=1.0, custom_token_bans=rng.integers(
+                 0, V, 64).tolist()),
+             dict(temperature=0.7, min_tokens=4, stop_token_ids=[7],
+                  custom_token_bans=[1, 2, 3])]
+    pipeline("pipeline, min_tokens and bans", sampler_rows(stops, S, 5000))
+    words = torch.from_numpy(rng.integers(0, 2**32, (S, -(-V // 32)),
+                                          dtype=np.uint64).astype(
+        np.uint32).view(np.int32))
+    pipeline("pipeline, guided mask", sampler_rows(free, S, 6000),
+             guided=words)
+    if failed:
+        fail("sampler: " + "; ".join(failed))
+    return errs
+
+
+def graph_ms(fn, replays: int = 20) -> float:
+    """Device milliseconds of one call of `fn` captured into a CUDA graph
+    (the way a decode window runs it), per replay, from CUDA events."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # first use: allocations, library initialisation
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / replays
+
+
+def sampler_timings(card):
+    """Milliseconds (CUDA events) of sample() at S 8 and 32, V 128256, on
+    the card, each way the runner calls it: captured in a CUDA graph (as
+    inside a decode window: the device's time) and launched eagerly (as on
+    the single-step path, time_ms: at several hundred small launches a
+    call, the host's launch rate binds it). Cases: the greedy floor
+    (argmax and logprob only), stochastic rows with no stage (the noise),
+    each stage alone on stochastic rows, every history-free stage at once,
+    and the history stages on histories of 2048 ids."""
+    import torch
+
+    import aphrodite_tpu_torch.sampling.sampler as sampler_mod
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.sampling.metadata import (SamplerInputRow,
+                                                       build_sampling_tensors)
+
+    V, dev = SAMPLER_V, torch.device("cuda")
+    out = {}
+    for S in (8, 32):
+        t0 = time.monotonic()
+        logits = sampler_logits(S, V, SEED + S).to(dev)
+        rng = np.random.default_rng(SEED + S)
+        history = rng.integers(0, 64, (S, SAMPLER_HISTORY))
+        cases = {"greedy floor": dict(temperature=0.0),
+                 "noise (temperature 1)": dict(temperature=1.0)}
+        for name, mixes in SAMPLER_STAGES.items():
+            cases[name] = mixes[0]
+        cases["every history-free stage"] = SAMPLER_ALL_FREE
+        cases.update({
+            "penalties": dict(temperature=0.0, repetition_penalty=1.2,
+                              frequency_penalty=0.5),
+            "dry": dict(temperature=0.0, dry_multiplier=0.8),
+            "no_repeat_ngram": dict(temperature=0.0, no_repeat_ngram_size=3),
+            "history all": dict(temperature=0.0, repetition_penalty=1.2,
+                                dry_multiplier=0.8, no_repeat_ngram_size=3)})
+        graphed, eager = {}, {}
+        for name, mix in cases.items():
+            rows = [SamplerInputRow(
+                params=SamplingParams(**dict(dict(temperature=1.0), **mix)),
+                token_ids=history[i].tolist(), prompt_len=1000,
+                generated_len=SAMPLER_HISTORY - 1000, seed=i)
+                for i in range(S)]
+            t, flags, hist, hl = build_sampling_tensors(
+                rows, S, V, history_pad=SAMPLER_HISTORY)
+            t = sampler_mod.tensors_to_device(t, dev)
+            h = ([torch.from_numpy(a).to(dev) for a in (hist, *hl)]
+                 if hist is not None else [None] * 3)
+
+            def call():
+                sampler_mod.sample(logits, t, flags, *h)
+
+            graphed[name] = graph_ms(call)
+            eager[name] = time_ms(call, 10)
+        torch.cuda.empty_cache()
+        out[S] = {"graphed_ms": {k: round(v, 4) for k, v in graphed.items()},
+                  "eager_ms": {k: round(v, 4) for k, v in eager.items()}}
+        floor = graphed["greedy floor"]
+        print(f"sampler times at S {S}, V {V} ({card}), graphed: " + ", ".join(
+            f"{k} {v:.4f} ms" + ("" if k == "greedy floor" else
+                                 f" (+{v - floor:.4f})")
+            for k, v in graphed.items()), flush=True)
+        print(f"sampler times at S {S}, V {V} ({card}), eager: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in eager.items())
+            + f"; {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def history_free_params():
+    """The 16 requests of the history-free sampler path: seeded random
+    rows, each a different mix of the history-free stages (two set a
+    sampler_priority, the first request's governs the batch); row 12 has
+    temperature 1000, so its draws are its noise's whatever its logits'
+    last bits (the one re-run alone)."""
+    from aphrodite_tpu_torch.common.sampling_params import (SamplerID,
+                                                            SamplingParams)
+
+    mixes = [
+        dict(temperature=0.8, dynatemp_min=0.5, dynatemp_max=1.5,
+             sampler_priority=[SamplerID.MIN_P, SamplerID.TEMPERATURE,
+                               SamplerID.TOP_P_TOP_K, SamplerID.XTC]),
+        dict(temperature=1.0, top_k=50, top_p=0.9),
+        dict(temperature=1.0, min_p=0.05),
+        dict(temperature=1.0, top_a=0.2),
+        dict(temperature=1.0, tfs=0.95),
+        dict(temperature=1.0, eta_cutoff=3.0),
+        dict(temperature=1.0, epsilon_cutoff=1.0),
+        dict(temperature=1.0, typical_p=0.9),
+        dict(temperature=1.0, smoothing_factor=0.3),
+        dict(temperature=1.0, xtc_probability=0.5, xtc_threshold=2e-4,
+             sampler_priority=[SamplerID.XTC, SamplerID.TEMPERATURE]),
+        dict(temperature=1.0, nsigma=1.5),
+        dict(temperature=1.0, skew=0.5),
+        dict(temperature=1000.0),
+        dict(temperature=0.7, top_k=20, temperature_last=True),
+        dict(temperature=1.2, min_p=0.1, top_p=0.8),
+        SAMPLER_ALL_FREE]
+    return [SamplingParams(seed=100 + i, max_tokens=MAX_TOKENS,
+                           ignore_eos=True, detokenize=False, **kw)
+            for i, kw in enumerate(mixes)]
+
+
+# The history path's rows: (what, sampling kwargs); prompt_logprobs 5 on
+# rows 0, 5, 10 and 15. The penalties are strong enough that a token they
+# hit loses its place as the argmax of a random-weight model's logits.
+HISTORY_PATH_ROWS = [
+    ("repetition", dict(repetition_penalty=1.5)),
+    ("repetition", dict(repetition_penalty=1.5)),
+    ("frequency", dict(frequency_penalty=2.0)),
+    ("frequency", dict(frequency_penalty=2.0)),
+    ("presence", dict(presence_penalty=2.0)),
+    ("presence", dict(presence_penalty=2.0)),
+    ("dry", dict(dry_multiplier=3.0, dry_allowed_length=2,
+                 dry_sequence_breaker_ids=[13, 198])),
+    ("dry", dict(dry_multiplier=3.0, dry_allowed_length=1)),
+    ("no_repeat_ngram", dict(no_repeat_ngram_size=3)),
+    ("no_repeat_ngram", dict(no_repeat_ngram_size=3)),
+    ("min_tokens", dict(min_tokens=48)),
+    ("min_tokens", dict(min_tokens=48)),
+    ("bans", {}), ("bans", {}),
+    ("processor", {}), ("processor", {})]
+HISTORY_PLP_ROWS = (0, 5, 10, 15)
+
+
+def forced_token(row, k, vocab):
+    """The token the history path's logits processor forces at step k of
+    a row."""
+    return (7919 * k + 104729 * row) % vocab
+
+
+def history_params(reference, vocab):
+    """The 16 greedy requests of the history path. `reference`: each
+    request's tokens on the greedy gptq+fp8_e4m3 path (same model and
+    prompts): the min_tokens rows' stop ids are the first 16 distinct
+    tokens of theirs, and the ban rows ban the first 64 distinct tokens of
+    theirs, so both stages change what those rows would emit. Two rows
+    carry a two-argument logits processor that forces forced_token."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+
+    def first_distinct(tokens, n):
+        return list(dict.fromkeys(tokens))[:n]
+
+    def processor(row):
+        def force(out_ids, logits):
+            out = np.full_like(logits, -1e9)
+            out[forced_token(row, len(out_ids), vocab)] = 0.0
+            return out
+        return force
+
+    out = []
+    for i, (what, kw) in enumerate(HISTORY_PATH_ROWS):
+        kw = dict(kw)
+        if what == "min_tokens":
+            kw["stop_token_ids"] = first_distinct(reference[i], 16)
+        elif what == "bans":
+            kw["custom_token_bans"] = first_distinct(reference[i], 64)
+        elif what == "processor":
+            kw["logits_processors"] = [processor(i)]
+        out.append(SamplingParams(
+            temperature=0.0, max_tokens=MAX_TOKENS,
+            ignore_eos=what != "min_tokens", detokenize=False,
+            prompt_logprobs=5 if i in HISTORY_PLP_ROWS else None, **kw))
+    return out
+
+
+def repeats(prompt, tokens, n, prompt_counts=True):
+    """Whether some n-gram ending in `tokens` occurs earlier in prompt +
+    tokens (with prompt_counts False, earlier in tokens)."""
+    seq = list(prompt) + list(tokens) if prompt_counts else list(tokens)
+    first = len(seq) - len(tokens)
+    seen = set()
+    for end in range(n, len(seq) + 1):
+        gram = tuple(seq[end - n:end])
+        if end > first and gram in seen:
+            return True
+        seen.add(gram)
+    return False
+
+
+def check_history_path(label, prompts, outs, params, reference, vocab):
+    """The history path's tokens. A penalized row whose stage would have
+    hit the greedy path's tokens of the same request (a repeated token, a
+    repeated n-gram) emits other tokens than those; the no-repeat-ngram
+    rows repeat no 3-gram; no banned id appears; the min_tokens rows emit
+    no stop id in their first 48 tokens; the processor rows emit the
+    tokens it forces."""
+    held, lens = [], {}
+    would_hit = {
+        "repetition": lambda p, r: repeats(p, r, 1),
+        "frequency": lambda p, r: repeats(p, r, 1, prompt_counts=False),
+        "presence": lambda p, r: repeats(p, r, 1, prompt_counts=False),
+        "dry": lambda p, r: repeats(p, r, 2),
+        "no_repeat_ngram": lambda p, r: repeats(p, r, 3)}
+    for i, ((what, _), sp, o) in enumerate(zip(HISTORY_PATH_ROWS, params,
+                                               outs)):
+        toks = o.outputs[0].token_ids
+        lens[i] = len(toks)
+        if what in would_hit and would_hit[what](prompts[i], reference[i]):
+            held.append(i)
+            if toks == reference[i]:
+                fail(f"{label}: row {i} ({what}) emits the greedy path's "
+                     "tokens, which its stage penalizes")
+        if what == "no_repeat_ngram" and repeats(prompts[i], toks, 3):
+            fail(f"{label}: row {i} repeats a 3-gram")
+        if what == "bans" and set(sp.custom_token_bans) & set(toks):
+            fail(f"{label}: row {i} emits a banned id")
+        if what == "min_tokens":
+            if set(sp.stop_token_ids) & set(toks[:48]) or len(toks) < 48:
+                fail(f"{label}: row {i} emits a stop id before token 48 "
+                     f"or ends early ({len(toks)} tokens)")
+        if what == "processor" and toks != [forced_token(i, k, vocab)
+                                             for k in range(len(toks))]:
+            fail(f"{label}: row {i} does not emit its processor's tokens")
+    print(f"{label}: the penalized rows whose stage would hit the greedy "
+          f"path's tokens ({held} of rows 0-9) emit others; no repeated "
+          f"3-gram on rows 8-9, no banned id, no stop id before token 48 on "
+          f"the min_tokens rows (lengths {lens[10]}, {lens[11]}), processor "
+          "rows forced", flush=True)
+    return held
+
+
+def check_prompt_logprobs(llm, label, prompts, outs, device):
+    """The prompt logprobs the engine returned for HISTORY_PLP_ROWS against
+    a log-softmax of one prefill forward's logits of the same prompts (the
+    kernels of compare_logits' kernel run), at every position: the
+    target's and each top-5 id's logprob within LOGIT_TOL of the row's
+    largest logit magnitude."""
+    import torch
+
+    from aphrodite_tpu_torch.models.interface import ForwardBatch
+
+    runner = llm.engine.runner
+    model, params = runner.model, runner.params
+    rows = [prompts[i] for i in HISTORY_PLP_ROWS]
+    lens = [len(p) for p in rows]
+    S, T = 8, -(-sum(lens) // 512) * 512
+    pps = runner.pages_per_seq
+    ids = np.zeros((T,), np.int32)
+    pos = np.zeros((T,), np.int32)
+    slots = np.full((T,), runner.trash_slot_base, np.int32)
+    pages = np.zeros((S, pps), np.int32)
+    kv_lens = np.zeros((S,), np.int32)
+    cu = np.zeros((S + 1,), np.int32)
+    next_page, off = 0, 0
+    for i, p in enumerate(rows):
+        n = len(p)
+        npg = -(-n // PAGE_SIZE)
+        pages[i, :npg] = np.arange(next_page, next_page + npg)
+        next_page += npg
+        j = np.arange(n)
+        ids[off:off + n] = p
+        pos[off:off + n] = j
+        slots[off:off + n] = pages[i, j // PAGE_SIZE] * PAGE_SIZE \
+            + j % PAGE_SIZE
+        kv_lens[i] = n
+        cu[i + 1] = cu[i] + n
+        off += n
+    cu[len(rows) + 1:] = cu[len(rows)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    batch = ForwardBatch(t(ids), t(pos), t(slots), t(kv_lens), t(pages),
+                         t(cu), t(np.asarray([len(rows)], np.int32)),
+                         t(cu[1:S + 1] - 1))
+    worst, checked = 0.0, 0
+    with torch.inference_mode():
+        hidden = model.forward(params, runner.kv_cache, batch,
+                               runner.kv_scales)
+        for i, r in enumerate(HISTORY_PLP_ROWS):
+            plp = outs[r].prompt_logprobs
+            if plp is None or len(plp) != lens[i] or plp[0] is not None:
+                fail(f"{label}: request {r} has no prompt logprobs for "
+                     "every prompt token")
+            # Position j's logits predict token j + 1, 256 positions a pass.
+            for start in range(0, lens[i] - 1, 256):
+                end = min(start + 256, lens[i] - 1)
+                logits = model.compute_logits(
+                    params, hidden[cu[i] + start:cu[i] + end]).float()
+                lp = torch.log_softmax(logits, -1).cpu()
+                scale = logits.abs().amax(-1).cpu()
+                for j in range(start + 1, end + 1):
+                    entry = plp[j]
+                    if rows[i][j] not in entry or len(entry) < 5:
+                        fail(f"{label}: request {r} position {j}: no entry "
+                             "for the prompt token or fewer than 5 top ids")
+                    for tid, lpv in entry.items():
+                        err = abs(lpv.logprob - float(lp[j - 1 - start, tid]))
+                        worst = max(worst, err / float(scale[j - 1 - start]))
+                        checked += 1
+    print(f"{label}: {checked} prompt logprobs of {len(rows)} requests "
+          f"({sum(lens)} prompt tokens) against a log-softmax of a prefill "
+          f"forward's logits: worst err / max|logit row| {worst:.3e} "
+          f"(tolerance {LOGIT_TOL:.1e})", flush=True)
+    if worst > LOGIT_TOL:
+        fail(f"{label}: the prompt logprobs disagree with the forward's "
+             "logits")
+    return worst
+
+
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
               gguf=None, q4_body=None, w4a8=False, compare_lens=None,
-              window_check=False):
+              window_check=False, sampler=None, reference=None):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -2264,12 +2858,21 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     compare_lens: the sequence lengths of the forwards whose logits are
     compared (default: as compare_logits chooses). window_check: hold one
     decode window of 16 rows through the runner's CUDA graph against the
-    eager window function, bit for bit, and time both. Returns the launch
-    counts of the path's kernels in the timed run, by variant name (under
-    IN_GRAPH_REPLAYS the part of them that graph replays made), and the
-    rates (with the decode windows' graphs, chained windows, carry and
-    sampling-cache hits of the timed run, and each replayed key's traced
-    launches)."""
+    eager window function, bit for bit, and time both. sampler: the
+    requests' sampling, greedy by default; "history-free" (the requests of
+    history_free_params, seeded random rows whose decode windows are graph
+    replays; one of them is then re-run alone and must draw the tokens it
+    drew in the batch), or "history" (those of history_params, made from
+    `reference`, the greedy path's tokens of the same requests: history
+    stages, min_tokens, bans, a logits processor and prompt logprobs, on
+    the single-step path; held by check_history_path and
+    check_prompt_logprobs). The sampler paths compare no logits: their
+    model and cache are the gptq+fp8_e4m3 path's, which does. Returns the
+    launch counts of the path's kernels in the timed run, by variant name
+    (under IN_GRAPH_REPLAYS the part of them that graph replays made), and
+    the rates (with the decode windows' graphs, chained windows, carry and
+    sampling-cache hits of the timed run, each replayed key's traced
+    launches, and under "token_ids" each request's tokens)."""
     import torch
 
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
@@ -2353,16 +2956,25 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS,
                         ignore_eos=True, detokenize=False)
+    params = {None: None, "history-free": history_free_params,
+              "history": lambda: history_params(reference, vocab)}[sampler]
+    params = params() if params else [sp] * NUM_REQUESTS
+    warm = [SamplingParams(temperature=0.0, max_tokens=17, ignore_eos=True,
+                           detokenize=False)] * NUM_REQUESTS
+    if sampler == "history-free":
+        # The timed run's flags: its decode windows' key is captured here.
+        warm = [p.clone() for p in params]
+        for p in warm:
+            p.max_tokens = 17
     # Warm-up (library initialisation, allocator growth, and the decode
     # windows' warm-up and capture at both sequence buckets the timed run
     # reaches, 8 rows and 32): not counted.
     llm.generate(prompt_token_ids=[rng.integers(0, vocab, 32).tolist()] * 2,
-                 sampling_params=sp)
+                 sampling_params=warm[:2])
     llm.generate(
         prompt_token_ids=np.random.default_rng(SEED + 1).integers(
             0, vocab, (NUM_REQUESTS, 16)).tolist(),
-        sampling_params=SamplingParams(temperature=0.0, max_tokens=17,
-                                       ignore_eos=True, detokenize=False))
+        sampling_params=warm)
     prompts = [rng.integers(0, vocab, int(n)).tolist() for n in prompt_lens]
     for k in llm.engine.phase_timings:
         llm.engine.phase_timings[k] = 0 if isinstance(
@@ -2586,7 +3198,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                        carry=runner.carry_hits,
                        sampling_cache=runner.sampling_cache_hits)
     t0 = time.monotonic()
-    outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+    outs = llm.generate(prompt_token_ids=prompts, sampling_params=params)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -2602,7 +3214,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         prefill_tok_s=pt["prefill_tokens"] / max(pt["prefill_s"], 1e-9),
         decode_tok_s=pt["decode_tokens"] / max(pt["decode_s"], 1e-9),
         decode_iterations=pt["decode_iterations"])
-    if any(n != MAX_TOKENS for n in lens):
+    # (Requests with stop ids may end early: check_history_path holds them.)
+    if any(n != MAX_TOKENS for n, p in zip(lens, params) if p.ignore_eos):
         fail(f"outputs with other than {MAX_TOKENS} tokens: {lens}")
     W = min(num_scheduler_steps, runner.MULTI_STEP_WINDOW)
     check_counts(eager, eager_tokens, "eager forwards")
@@ -2619,7 +3232,17 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                      f"{k['warmups_total']} windows eagerly and was captured "
                      f"{k['captures_total']} times: {k}")
         warmed = sum(k["warmups"] for k in windows["graphs"].values())
-        if len(eager_tokens) != pt["prefill_iterations"] + W * warmed:
+        if sampler == "history":
+            # Every decode step on the single-step path, none in a window.
+            replays = sum(k["replays"] for k in windows["graphs"].values())
+            if (warmed or replays or len(eager_tokens) !=
+                    pt["prefill_iterations"] + pt["decode_iterations"]):
+                fail(f"{len(eager_tokens)} eager forwards on the {label} are "
+                     f"not the engine's {pt['prefill_iterations']} prefill "
+                     f"and mixed steps and {pt['decode_iterations']} decode "
+                     f"steps ({warmed} windows warmed up, {replays} "
+                     "replayed)")
+        elif len(eager_tokens) != pt["prefill_iterations"] + W * warmed:
             fail(f"{len(eager_tokens)} eager forwards on the {label} are not "
                  f"the engine's {pt['prefill_iterations']} prefill and mixed "
                  f"steps and {warmed} warm-up windows of {W}")
@@ -2635,7 +3258,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             S, W_key, _ = runner.window_keys()[key]
             zero_counts()
             t_trace = time.monotonic()
-            trace = trace_launches(runner, key)
+            trace = trace_launches(runner, key, reset=zero_counts)
             t_trace = time.monotonic() - t_trace
             window = read_counts()
             check_counts(window, [S] * W_key, f"a window of {key}")
@@ -2647,13 +3270,26 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                 fail(f"a traced replay of {key} on the {label} launched "
                      f"{trace['replay']}, not the eager window's "
                      f"{trace['eager']} with {layers} x {W_key} decode "
-                     "attention kernels")
+                     f"attention kernels ({trace['tries']} traced pairs)")
             by_kernel = {}
             for name, n in trace["replay"].items():
                 by_kernel[kernel_base(name)] = by_kernel.get(
                     kernel_base(name), 0) + n
+            mismatched = []
+            for m in trace["mismatches"]:
+                by_base = {}
+                for name, d in m.items():
+                    by_base[kernel_base(name)] = by_base.get(
+                        kernel_base(name), 0) + d
+                mismatched.append(by_base)
             traced[key] = dict(replays=k["replays"], launches=by_kernel,
-                               trace_s=round(t_trace, 2))
+                               trace_s=round(t_trace, 2),
+                               traced_pairs=trace["tries"],
+                               mismatched_pairs=mismatched)
+            if trace["mismatches"]:
+                print(f"{label}: {key}: traced again, the pairs before "
+                      f"differed by (replay less eager) "
+                      f"{mismatched}", flush=True)
             replayed = add_counts(replayed, window, k["replays"])
     total = add_counts(eager, replayed)
     launches = total["launches"]
@@ -2673,7 +3309,10 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
           f"graph replays), attention launches by page type "
           f"{total['by_dtype']}, by shape {total['by_shape']}", flush=True)
     for name, n in launches.items():
-        if n <= 0:
+        # (On the history path every decode step is a single step: the
+        # ragged kernel's, held above.)
+        if n <= 0 and not (sampler == "history"
+                           and name == "paged_decode_attention"):
             fail(f"{name} was never launched on the {label}")
     windows["traced_replays"] = traced
     print(f"{label}: decode windows {json.dumps(windows)}", flush=True)
@@ -2684,28 +3323,39 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if dummy & set(o.outputs[0].token_ids):
             fail(f"a dummy token was generated on the {label}")
     rates["windows"] = windows
+    rates["token_ids"] = [o.outputs[0].token_ids for o in outs]
+    if sampler == "history-free":
+        rates["rerun"] = rerun_alone(llm, label, prompts, params, outs)
+    if sampler == "history":
+        rates["history_rows_held"] = check_history_path(
+            label, prompts, outs, params, reference, vocab)
+        rates["prompt_logprob_err"] = check_prompt_logprobs(
+            llm, label, prompts, outs, device)
     if window_check:
-        rates["window_check"] = check_window(runner, label, prompt_lens,
-                                             num_scheduler_steps)
+        rates["window_check"] = check_window(
+            runner, label, prompt_lens, num_scheduler_steps,
+            params if sampler == "history-free" else None)
     # What this path adds is compared: the attention kernels (on its page
     # type) unless the cache is bf16 and the weights quantized, then their
-    # matmul.
-    what = "attention"
-    if page_type == "bf16" and (quantization or gguf):
-        what = ("w4a8" if w4a8 else "int4" if packed_gguf else
-                "q4" if gguf else
-                {"gptq": "int4", "int8": "int8", "fp8": "fp8"}[quantization])
-    # With blocksparse, contexts past the local window of 16 64-key blocks.
-    lens = compare_lens or ([1500, 1100, 300]
-                            if model.blocksparse_params is not None
-                            else [300, 17, 129])
-    compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY,
-                   lens)
-    if quantization == "fp8":
-        # The check above holds the quantizer kernel with the e4m3 product
-        # on both sides; this one the whole product against its plain
-        # version, at every site on the plain run's inputs.
-        compare_logits(llm, device, rng, vocab, "fp8 exact", INT4_BODY)
+    # matmul. (Not on the sampler paths: see above.)
+    if sampler is None:
+        what = "attention"
+        if page_type == "bf16" and (quantization or gguf):
+            what = ("w4a8" if w4a8 else "int4" if packed_gguf else
+                    "q4" if gguf else {"gptq": "int4", "int8": "int8",
+                                       "fp8": "fp8"}[quantization])
+        # With blocksparse, contexts past the local window of 16 64-key
+        # blocks.
+        lens = compare_lens or ([1500, 1100, 300]
+                                if model.blocksparse_params is not None
+                                else [300, 17, 129])
+        compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY,
+                       lens)
+        if quantization == "fp8":
+            # The check above holds the quantizer kernel with the e4m3
+            # product on both sides; this one the whole product against its
+            # plain version, at every site on the plain run's inputs.
+            compare_logits(llm, device, rng, vocab, "fp8 exact", INT4_BODY)
     qlinear_mod.int4_matmul = int4_matmul
     if w4a8:
         if saved_switch is None:
@@ -2734,6 +3384,34 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # replays x the launches of one window of the key (trace_launches).
     launches[IN_GRAPH_REPLAYS] = named(replayed)
     return launches, rates
+
+
+def rerun_alone(llm, label, prompts, params, outs):
+    """Requests of the history-free path re-run alone (another sequence
+    bucket, no chunked prefill mixed with other prompts). Request 12
+    (temperature 1000, so its draws are its noise's) must draw the tokens
+    it drew in the batch. Request 1 (top-k 50, top-p 0.9) is reported:
+    on the card the forward's last bits depend on the batch's shapes (the
+    kernels' plans follow T and S), and a near tie of its noised logits
+    can then go the other way."""
+    out = {}
+    for row in (12, 1):
+        inside = outs[row].outputs[0].token_ids
+        alone = llm.generate(prompt_token_ids=[prompts[row]],
+                             sampling_params=params[row])[0].outputs[
+                                 0].token_ids
+        prefix = next((k for k, (a, b) in enumerate(zip(alone, inside))
+                       if a != b), len(inside))
+        out[row] = dict(equal=alone == inside, equal_prefix=prefix)
+        print(f"{label}: request {row} (seed {params[row].seed}, "
+              f"temperature {params[row].temperature}) re-run alone: "
+              f"{'the same' if alone == inside else 'other'} tokens as in "
+              f"the batch (the first {prefix} of {len(inside)} equal)",
+              flush=True)
+    if not out[12]["equal"]:
+        fail(f"{label}: a seeded request draws other tokens alone than in "
+             "the batch")
+    return out
 
 
 def add_counts(a, b, times=1):
@@ -2771,9 +3449,11 @@ def window_stats(runner, graphs_before, hits_before):
             "sampling_cache"])
 
 
-def check_window(runner, label, prompt_lens, num_scheduler_steps):
+def check_window(runner, label, prompt_lens, num_scheduler_steps,
+                 params=None):
     """One decode window of the 16 prompts' rows (bucket 32, kv lengths
-    the prompts' lengths, random cache pages and tokens from the seed)
+    the prompts' lengths, random cache pages and tokens from the seed;
+    greedy, or each row sampled by its `params`, its key from the seed)
     through the runner's CUDA graph and through the eager window function
     on the same cache, carry and sampling tensors: the packed outputs and
     carries must be equal bit for bit. Then the median of 10 windows each
@@ -2784,7 +3464,8 @@ def check_window(runner, label, prompt_lens, num_scheduler_steps):
                                                         profile_windows)
 
     W = min(num_scheduler_steps, runner.MULTI_STEP_WINDOW)
-    case = WindowCase(runner, 32, [int(n) for n in prompt_lens], W, SEED)
+    case = WindowCase(runner, 32, [int(n) for n in prompt_lens], W, SEED,
+                      params=params)
     eager = case.windows("eager", 2)
     graphed = case.windows("graphed", 2)
     if not equal_windows(eager, graphed):
@@ -3216,6 +3897,16 @@ def main_paths():
             model_config=dict(MISTRAL_7B, num_hidden_layers=4),
             prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 4500],
             compare_lens=[4500, 17, 129]),
+        # Slice 14: the sampler, on the north-star configuration at full
+        # width and depth (after gptq+fp8_e4m3, whose tokens the history
+        # path takes as its reference).
+        "samplers, history-free": dict(
+            model_config=LLAMA_8B, quantization="gptq",
+            kv_cache_dtype="fp8_e4m3", sampler="history-free",
+            window_check=True),
+        "samplers, history": dict(
+            model_config=LLAMA_8B, quantization="gptq",
+            kv_cache_dtype="fp8_e4m3", sampler="history"),
     }
     return {name: {"prompt_lens": prompt_lens, **kw}
             for name, kw in paths.items()}
@@ -3254,6 +3945,8 @@ def main() -> None:
     q4_errs = q4_checks("cuda")
     errs["gather_probe"] = probe_check()
     stamp("matmul and probe checks")
+    sampler_errs = sampler_checks()
+    stamp("sampler checks")
     prompt_lens = np.random.default_rng(SEED).integers(
         16, 1025, size=NUM_REQUESTS)
     llama = "llama-3.1-8b 32/8"
@@ -3293,6 +3986,7 @@ def main() -> None:
     fp8_points = fp8_timings("cuda", iters=200)
     int8_points = int8_timings("cuda", iters=200)
     q4_points = q4_timings("cuda", iters=200)
+    sampler_times = sampler_timings(card)
     stamp("timings")
     # Every engine sizes its KV cache from the free memory, so each is
     # freed (main_path holds the only reference) before the next starts.
@@ -3300,8 +3994,12 @@ def main() -> None:
     for path, kw in main_paths().items():
         gc.collect()
         torch.cuda.empty_cache()
+        if kw.get("sampler") == "history":
+            kw = dict(kw, reference=rates["gptq+fp8_e4m3"]["token_ids"])
         launches[path], rates[path] = main_path("cuda", **kw)
         stamp(f"main path {path}")
+    for r in rates.values():
+        r.pop("token_ids")
 
     # The page-gather probe's own entry point, at its defaults.
     probe_launches, probe_times = probe_path()
@@ -3619,7 +4317,12 @@ def main() -> None:
                                        "bound_ms", "bound_by")},
         library="index_select of the same pages, then a sum",
         shape=probe_times["shape"]))
-    for a, b in (("gptq w4a8", "gptq"),):
+    print(f"sampler ({card}): " + json.dumps(
+        {"max_err_over_row_max": sampler_errs, "ms": sampler_times}),
+        flush=True)
+    for a, b in (("gptq w4a8", "gptq"),
+                 ("samplers, history-free", "gptq+fp8_e4m3"),
+                 ("samplers, history", "gptq+fp8_e4m3")):
         print(f"rates {a} against {b} (this run): decode "
               f"{rates[a]['decode_tok_s']:.1f} against "
               f"{rates[b]['decode_tok_s']:.1f} tok/s, prefill "

@@ -1517,31 +1517,127 @@ def test_graphed_window_equals_eager_on_card(kind, tmp_path):
 @pytest.mark.cuda
 def test_graphed_window_draws_fresh_noise_on_card(tmp_path):
     """A stochastic window: the final norm is zeroed, so every row's
-    logits are 0 and top_k 5 leaves tokens 0-4 equally likely. Two replays
-    from the same carry draw different tokens, and 40 replays' draws
-    follow the uniform distribution over the five (each count within 5
-    standard deviations of its mean)."""
+    logits are 0 and top_k 5 leaves tokens 0-4 equally likely. Each row
+    draws from its own key: a replay from the same carry draws the same
+    tokens, the next window (the carry's step offset W on) other ones,
+    and 40 windows in a row follow the uniform distribution over the five
+    (each count within 5 standard deviations of its mean)."""
     from aphrodite_tpu_torch.tools.window_check import WindowCase
 
     _card_or_skip()
     runner = _dummy_runner(tmp_path, TINY_CARD_LLAMA)
     with torch.inference_mode():
         runner.params["final_norm"].zero_()
-    S, W, n = 8, 8, 8
+    S, W, n, windows = 8, 8, 8, 40
     case = WindowCase(runner, S, [40] * n, W=W, seed=2, temperature=1.0,
-                      top_k=5, windows=2)
-    first, second = case.windows("graphed", 1), case.windows("graphed", 1)
-    assert not np.array_equal(first[0][0], second[0][0])
+                      top_k=5, windows=windows)
+    first, again = case.windows("graphed", 1), case.windows("graphed", 1)
+    assert np.array_equal(first[0][0], again[0][0])
+    run = case.windows("graphed", windows)
+    assert np.array_equal(run[0][0], first[0][0])
+    assert not np.array_equal(run[0][0], run[1][0])
     counts = np.zeros(runner.model.vocab_size, np.int64)
-    for _ in range(40):
-        case.restore()
-        packed = case.graphed().numpy()
+    for packed, _ in run:
         counts += np.bincount(packed[:W * S].reshape(W, S)[:, :n].ravel(),
                               minlength=runner.model.vocab_size)
-    draws = 40 * W * n
+    draws = windows * W * n
     assert counts[5:].sum() == 0
     mean, std = draws / 5, (draws * 0.2 * 0.8) ** 0.5
     assert (np.abs(counts[:5] - mean) < 5 * std).all(), counts[:5]
+
+
+# Every history-free stage, a different mix a row (two rows with a
+# sampler_priority; temperature_last on one).
+def _history_free_params(n):
+    from aphrodite_tpu_torch.common.sampling_params import SamplerID
+
+    mixes = [
+        dict(temperature=0.8, dynatemp_min=0.5, dynatemp_max=1.5),
+        dict(temperature=1.0, top_k=50, top_p=0.9),
+        dict(temperature=0.9, min_p=0.05, top_a=0.1),
+        dict(temperature=1.1, tfs=0.95, eta_cutoff=2.0),
+        dict(temperature=1.0, epsilon_cutoff=2.0, typical_p=0.9),
+        dict(temperature=1.0, smoothing_factor=0.3, nsigma=2.0),
+        dict(temperature=1.0, xtc_probability=0.5, xtc_threshold=0.001,
+             skew=0.5),
+        dict(temperature=0.7, top_k=100, min_p=0.02, temperature_last=True),
+    ]
+    out = [SamplingParams(max_tokens=64, **mixes[i % len(mixes)])
+           for i in range(n)]
+    out[0].sampler_priority = [SamplerID.MIN_P, SamplerID.TEMPERATURE,
+                               SamplerID.TOP_P_TOP_K]
+    return out
+
+
+@pytest.mark.cuda
+def test_graphed_window_with_every_history_free_stage_equals_eager_on_card(
+        tmp_path):
+    """A 2-layer model at 8B widths (vocabulary 128256) with every
+    history-free stage on, a different mix a row: the graphed window's
+    outputs and carry equal the eager window's bit for bit, two windows
+    in a row, and its replays launch no host value (the capture holds)."""
+    from aphrodite_tpu_torch.tools.window_check import (WindowCase,
+                                                        equal_windows)
+
+    _card_or_skip()
+    runner = _dummy_runner(tmp_path, LLAMA_8B_2L, quantization="gptq",
+                           kv_cache_dtype="fp8_e4m3")
+    case = WindowCase(runner, 32, [300, 17, 129, 1000, 64, 40, 500, 8] * 2,
+                      W=8, seed=5, params=_history_free_params(16))
+    flags = case.flags
+    assert all((flags.do_temperatures, flags.do_top_p_top_k, flags.do_min_p,
+                flags.do_top_as, flags.do_tfss, flags.do_eta_cutoffs,
+                flags.do_epsilon_cutoffs, flags.do_typical_ps,
+                flags.do_quadratic, flags.do_xtc, flags.do_nsigmas,
+                flags.do_skew)) and not flags.all_greedy
+    eager = case.windows("eager", 2)
+    graphed = case.windows("graphed", 2)
+    assert equal_windows(eager, graphed)
+    assert not equal_windows(eager[:1], eager[1:2])
+    assert runner.has_window_graph(case.buf, flags, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 8])
+def test_seeded_row_is_batch_independent_on_card(tmp_path, steps):
+    """A seeded request draws the same tokens alone and inside a batch of
+    other seeded, unseeded and greedy requests (another sequence bucket,
+    chunked prefill mixed with decodes, windows of 8). The final norm is
+    zeroed, so the logits are 0 whatever the batch and the draws are the
+    noise's alone (the forward's bits depend on the batch's shapes)."""
+    import json
+
+    from aphrodite_tpu_torch import LLM
+
+    _card_or_skip()
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump(TINY_CARD_LLAMA, f)
+    llm = LLM(model=str(tmp_path), load_format="dummy", dtype="bfloat16",
+              seed=0, block_size=PS, num_scheduler_steps=steps,
+              max_num_batched_tokens=64, num_device_blocks_override=512,
+              skip_tokenizer_init=True, device="cuda")
+    with torch.inference_mode():
+        llm.engine.runner.params["final_norm"].zero_()
+    kw = dict(temperature=1.0, top_k=40, xtc_probability=0.5,
+              xtc_threshold=0.01, max_tokens=24, ignore_eos=True,
+              detokenize=False)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (20, 50, 90, 7)]
+
+    def tokens(outs):
+        return [o.outputs[0].token_ids for o in outs]
+
+    seeded = SamplingParams(seed=1234, **kw)
+    alone = tokens(llm.generate(prompt_token_ids=prompts[:1],
+                                sampling_params=seeded))[0]
+    batch = tokens(llm.generate(
+        prompt_token_ids=prompts,
+        sampling_params=[seeded, SamplingParams(seed=7, **kw),
+                         SamplingParams(**kw),
+                         SamplingParams(temperature=0.0, max_tokens=24,
+                                        ignore_eos=True, detokenize=False)]))
+    assert batch[0] == alone
+    assert batch[1] != alone
 
 
 @pytest.mark.cuda

@@ -98,9 +98,12 @@ def test_unported_request_features_raise(model_dir):
     with pytest.raises(NotImplementedError, match="beam"):
         llm.generate(["hi"], SamplingParams(use_beam_search=True, best_of=2,
                                             temperature=0.0, max_tokens=4))
-    with pytest.raises(NotImplementedError, match="do_penalties"):
-        llm.generate(["hi"], SamplingParams(presence_penalty=0.5,
-                                            max_tokens=4))
+    # Beam search is the one request feature left: the sampler's stages,
+    # prompt logprobs, logits processors and guided decoding run.
+    out = llm.generate(["hi"], SamplingParams(
+        presence_penalty=0.5, prompt_logprobs=2, guided_regex="[ab]+",
+        logits_processors=[lambda ids, row: row], max_tokens=4))
+    assert len(out[0].prompt_logprobs) == len(out[0].prompt_token_ids)
     # The engine recovers for later requests.
     out = llm.generate(["hi"], SamplingParams(temperature=0.0, max_tokens=3))
     assert len(out[0].outputs[0].token_ids) == 3
@@ -183,15 +186,16 @@ def test_gumbel_sampling_follows_the_distribution():
     shaped probabilities: 40k draws, 3-sigma bound per token."""
     vocab, S, calls = 6, 4000, 10
     logits = torch.tensor([[2.0, 1.0, 0.5, 0.0, -1.0, -3.0]]).repeat(S, 1)
-    rows = [SamplerInputRow(params=SamplingParams(temperature=1.0),
-                            token_ids=[1], prompt_len=1, generated_len=0,
-                            seed=0)] * S
-    t, flags, _, _ = build_sampling_tensors(rows, S, vocab)
-    t = tensors_to_device(t, torch.device("cpu"))
-    gen = torch.Generator().manual_seed(0)
     counts = np.zeros(vocab)
-    for _ in range(calls):
-        toks = sample(logits, t, flags, gen).sampled.numpy()
+    for call in range(calls):
+        # Each row's stream is its key's: a seed a row, a step a call.
+        rows = [SamplerInputRow(params=SamplingParams(temperature=1.0),
+                                token_ids=[1], prompt_len=1,
+                                generated_len=call, seed=i)
+                for i in range(S)]
+        t, flags, _, _ = build_sampling_tensors(rows, S, vocab)
+        t = tensors_to_device(t, torch.device("cpu"))
+        toks = sample(logits, t, flags).sampled.numpy()
         counts += np.bincount(toks, minlength=vocab)
     n = S * calls
     probs = torch.softmax(logits[0], -1).numpy()

@@ -379,7 +379,7 @@ def test_window_function_is_the_eager_loop(cpu_runner):
     runner.kv_cache.copy_(torch.from_numpy(rng.standard_normal(
         tuple(runner.kv_cache.shape)).astype(np.float32)))
     rows = _scheduled(PORT, [(GREEDY, 1, 4), (GREEDY, 2, 4)])
-    tensors, flags = runner._sampling_inputs(rows, S)
+    tensors, flags, _ = runner._sampling_inputs(rows, S)
     buf = runner.window_buffers(S)
     pps = runner.pages_per_seq
     sched = np.zeros((S * pps + S + 1,), np.int32)
@@ -417,8 +417,10 @@ def test_window_function_is_the_eager_loop(cpu_runner):
                                  torch.arange(S, dtype=torch.int32))
             hidden = runner.model.forward(runner.params, runner.kv_cache,
                                           batch, runner.kv_scales)
+            step = len(outs)
             out = sample(runner.model.compute_logits(runner.params, hidden),
-                         tensors, flags, runner.generator)
+                         tensors._replace(key_data=port_runner._fold_key_data(
+                             tensors.key_data, step)), flags)
             outs.append(out)
             ids, pos = out.sampled, pos + 1
         want = port_runner._pack_step_outputs(outs)
