@@ -23,8 +23,9 @@
 // the A fragment of P for those 16 keys.
 //
 // Shared-memory tiles hold bf16 rows of D values at a stride of D + 8 (an
-// odd number of 16-byte units), so the eight row addresses of each ldmatrix
-// fall on distinct banks.
+// odd number of 16-byte units: 9 at head_dim 64, 13 at 96, 17 at 128, 33
+// at 256), so the eight row addresses of each ldmatrix are 16-byte aligned
+// and fall on distinct banks.
 
 #pragma once
 
@@ -102,6 +103,12 @@ struct Stage {
   static constexpr size_t kBytes = kNarrow ? size_t(kTileKeys) * 2 * D : 2 * Tile<D>::kBytes;
 };
 
+// Copies of a tile a thread issues (or widens) up to which the loop is
+// unrolled whole; past it, in steps of 8. Only the decode kernel at head_dim
+// 256 on bf16 pages passes it (32 copies a thread): unrolled whole there,
+// the 32 copies' addresses stay live beside O's 128 registers and spill.
+constexpr int kUnrollCopies = 16;
+
 // Issues the cp.async copies of keys [tile0, tile0 + 64) of kv head kvh into
 // `stage`, zero-filling every key outside [lo, hi): nothing outside is read.
 // Each warp reads the page index of each page the tile touches once (lane i
@@ -120,8 +127,9 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage, const unsigned 
   int pid_hi = 0;
   if ((p0 + lane) * page_size < hi) pid_lo = __ldg(pages + p0 + lane);
   if ((p0 + 32 + lane) * page_size < hi) pid_hi = __ldg(pages + p0 + 32 + lane);
-#pragma unroll
-  for (int i = 0; i < kTileKeys * 2 * kChunks / kThreads; ++i) {
+  constexpr int kCopies = kTileKeys * 2 * kChunks / kThreads;
+#pragma unroll(kCopies > kUnrollCopies ? 8 : kCopies)
+  for (int i = 0; i < kCopies; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int key = c / (2 * kChunks);
     const int rem = c % (2 * kChunks);
@@ -151,8 +159,9 @@ template <class Page, int D, int kThreads>
 __device__ __forceinline__ void widen_tile(__nv_bfloat16* tiles, const unsigned char* stage) {
   constexpr int kChunks = D / 16;
   static_assert(kTileKeys * 2 * kChunks % kThreads == 0, "whole chunks a thread");
-#pragma unroll
-  for (int i = 0; i < kTileKeys * 2 * kChunks / kThreads; ++i) {
+  constexpr int kCopies = kTileKeys * 2 * kChunks / kThreads;
+#pragma unroll(kCopies > kUnrollCopies ? 8 : kCopies)
+  for (int i = 0; i < kCopies; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int row = c / kChunks;  // is_v * 64 + key
     const int part = c % kChunks;
@@ -161,22 +170,34 @@ __device__ __forceinline__ void widen_tile(__nv_bfloat16* tiles, const unsigned 
   }
 }
 
-// The A fragments of 16 query rows (bf16, at `rows`, stride D + 8): one
-// ldmatrix.x4 per 16 dimensions.
+// Q's A fragments for 16 query rows (bf16, staged at `rows`, stride D +
+// 8). Up to head_dim 128 a warp holds all D / 16 of them in registers,
+// loaded once. At 256 they would take 64 registers a thread beside O's
+// 128 (and S), so there the rows stay staged in shared memory for the
+// whole loop and each k16 step of Q . K^T reads its fragment with one
+// ldmatrix.x4.
 template <int D>
-__device__ __forceinline__ void load_q(uint32_t qf[D / 16][4], const __nv_bfloat16* rows) {
+struct QFrags {
+  static constexpr bool kHeld = D <= 128;
+  uint32_t f[kHeld ? D / 16 : 1][4];
+  const __nv_bfloat16* rows;  // this lane's ldmatrix row at dimension 0
+};
+
+template <int D>
+__device__ __forceinline__ void load_q(QFrags<D>& q, const __nv_bfloat16* rows) {
   const int lane = threadIdx.x % 32;
   const int mi = lane / 8;
+  q.rows = rows + ((mi & 1) * 8 + lane % 8) * Tile<D>::kStride + (mi / 2) * 8;
+  if constexpr (QFrags<D>::kHeld) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], rows + ((mi & 1) * 8 + lane % 8) * Tile<D>::kStride + kk * 16 +
-                            (mi / 2) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(q.f[kk], q.rows + kk * 16);
+  }
 }
 
 // s[nb] = Q . K^T for the 8-key blocks nb of the NB * 8 keys from `keys`
 // (the K tile's row of the first key).
 template <int D, int NB>
-__device__ __forceinline__ void qk(float s[NB][4], uint32_t qf[D / 16][4],
+__device__ __forceinline__ void qk(float s[NB][4], const QFrags<D>& q,
                                    const __nv_bfloat16* keys) {
   const int lane = threadIdx.x % 32;
   const int mi = lane / 8;
@@ -184,13 +205,22 @@ __device__ __forceinline__ void qk(float s[NB][4], uint32_t qf[D / 16][4],
   for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (QFrags<D>::kHeld) {
+      a[0] = q.f[kk][0];
+      a[1] = q.f[kk][1];
+      a[2] = q.f[kk][2];
+      a[3] = q.f[kk][3];
+    } else {
+      ldmatrix_x4(a, q.rows + kk * 16);
+    }
 #pragma unroll
     for (int p = 0; p < NB / 2; ++p) {
       uint32_t b[4];
       ldmatrix_x4(b, keys + (p * 16 + (mi / 2) * 8 + lane % 8) * Tile<D>::kStride + kk * 16 +
                          (mi & 1) * 8);
-      mma_bf16(s[2 * p], qf[kk], b[0], b[1]);
-      mma_bf16(s[2 * p + 1], qf[kk], b[2], b[3]);
+      mma_bf16(s[2 * p], a, b[0], b[1]);
+      mma_bf16(s[2 * p + 1], a, b[2], b[3]);
     }
   }
 }

@@ -44,7 +44,12 @@
 // 16 rows of one mma.sync m16n8k16 tile (rows past QG are zero padding,
 // never written), so one instantiation takes every QG from 1 to 16; both
 // products run on the tensor cores, Q . K^T and P . V as in the ragged
-// kernel, with Q's fragments held in registers.
+// kernel, with Q's fragments held in registers (read from the staged rows
+// at each k16 step at head_dim 256, as there). head_dim is a template
+// parameter: 64, 96, 128 and 256 are built, the last two for Phi-3-mini
+// and Gemma, whose decode steps the JAX package sends to the ragged
+// kernel (its decode kernel takes 64 and 128 only; the port keeps one
+// routing for every head_dim).
 //
 // Bound on the H100: bytes. Each step reads every live K/V row once
 // (2 * kv_len * D values per kv head) and does 4 * QG * D FLOPs per key,
@@ -115,20 +120,26 @@ constexpr int kStages = 2;
 constexpr int kKeys = attn::kTileKeys;
 constexpr int kWarpKeys = kKeys / kWarps;  // keys of each tile a warp takes
 // The largest QH / KV the kernel takes: the rows of one mma tile (the
-// wrapper raises above it, and for a head_dim other than 64 and 128).
+// wrapper raises above it, and for a head_dim other than 64, 96, 128 and
+// 256).
 constexpr int kMaxQG = 16;
 
 // Dynamic shared memory: the ring (two stages; for narrow pages also the
 // bf16 tiles they are widened into), reused after the last tile for the
-// four warps' states (o [16, D], m [16], l [16] each).
+// four warps' states (o [16, D], m [16], l [16] each). The 16 query rows
+// are staged once at the start of the ring (read into registers before
+// the first tile lands), or, at head_dim 256, where the warps read their
+// Q fragments at every tile (attn::QFrags), after it: 8448 bytes more,
+// 143616 in all with bf16 pages, so one block an SM.
 template <class Page, int D>
 struct DecodeSmem {
   static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
   static constexpr size_t wide = kNarrow ? 2 * attn::Tile<D>::kBytes : 0;
   static constexpr size_t stage = attn::Stage<Page, D>::kBytes;
   static constexpr size_t ring = wide + kStages * stage;
+  static constexpr size_t q = attn::QFrags<D>::kHeld ? 0 : 16 * attn::Tile<D>::kStride * 2;
   static constexpr size_t merge = size_t(kWarps) * 16 * (D + 2) * 4;
-  static constexpr size_t bytes = ring > merge ? ring : merge;
+  static constexpr size_t bytes = ring + q > merge ? ring + q : merge;
 };
 
 // The first split at or after `first` that slot `slot` of `slots` takes
@@ -156,7 +167,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   unsigned char* stages = smem + L::wide;
   __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
   // The 16 query rows, staged once, before the first split's loads.
-  __nv_bfloat16* q_s = wide;
+  __nv_bfloat16* q_s =
+      attn::QFrags<D>::kHeld ? wide : reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
   float* o_s = reinterpret_cast<float*>(smem);  // the merge: [kWarps][16][D]
   float* m_s = o_s + kWarps * 16 * D;           // [kWarps][16]
   float* l_s = m_s + kWarps * 16;               // [kWarps][16]
@@ -195,7 +207,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
   }
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  attn::QFrags<D> qf;
   attn::load_q<D>(qf, q_s);
 
   // This lane's two rows (heads g and g + 8); with blocksparse, the
@@ -461,9 +473,10 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64 or 128, QG = num_q_heads / num_kv_heads query heads per kv
-// head (1 to 16) and blocksparse (a phase table given; head_dim 128 and QG
-// 1, 2, 4 or 8 only: the shapes blocksparse is built for) or not.
+// head_dim 64, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
+// heads per kv head (1 to 16) and blocksparse (a phase table given;
+// head_dim 128 and QG 1, 2, 4 or 8 only: the shapes blocksparse is built
+// for) or not.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,
@@ -498,6 +511,10 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   switch (head_dim) {
     case 64:
       return int(PAGED_DECODE_LAUNCH(64, false));
+    case 96:
+      return int(PAGED_DECODE_LAUNCH(96, false));
+    case 256:
+      return int(PAGED_DECODE_LAUNCH(256, false));
     case 128:
       return int(bs.offsets != nullptr ? PAGED_DECODE_LAUNCH(128, true)
                                        : PAGED_DECODE_LAUNCH(128, false));
@@ -510,7 +527,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 }  // namespace
 
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
-// int8}. q bf16[S, QH, D] with D = 64 or 128 and QH = QG * KV for QG in 1
+// int8}. q bf16[S, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV for QG in 1
 // to 16 (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size,
 // 2 * KV, D] of the named type (K at even and V at odd combined heads),
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], alibi_slopes f32[QH]

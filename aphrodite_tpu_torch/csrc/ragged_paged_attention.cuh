@@ -7,17 +7,18 @@
 // aphrodite_tpu/ops/rpa_alibi_kernel.py: ragged_paged_attention_alibi).
 //
 // Work split: one block per (query tile, kv head). A query tile holds
-// kRows query rows (128 at head_dim 128, 8 warps; 64 at head_dim 64, 4
-// warps) = floor(kRows / QG) consecutive tokens of ONE sequence times the
-// QG query heads that share the kv head, so a tile never straddles two
-// sequences and every K/V tile it stages serves all of its rows; where QG
-// does not divide kRows the last kRows mod QG rows of every tile are idle.
+// kRows query rows (128 at head_dim 96, 128 and 256, 8 warps; 64 at
+// head_dim 64, 4 warps) = floor(kRows / QG) consecutive tokens of ONE
+// sequence times the QG query heads that share the kv head, so a tile
+// never straddles two sequences and every K/V tile it stages serves all
+// of its rows; where QG does not divide kRows the last kRows mod QG rows
+// of every tile are idle.
 // The tiles are taken from the end of the token stream, so that within a
 // sequence the tiles that see the most keys start first. QG = QH / KV is
 // a template parameter, instantiated at head_dim 128 for 1, 2, 4 and 8,
 // and 0, which reads QG at run time and serves every other QG up to 16,
-// and every QG at head_dim 64. head_dim D (64 or 128) is a
-// template parameter too. So are ALiBi and blocksparse, so that the variant
+// and every QG at head_dim 64, 96 and 256. head_dim D (64, 96, 128 or
+// 256) is a template parameter too. So are ALiBi and blocksparse, so that the variant
 // without either carries no per-score branch for them. The variants with
 // ALiBi or blocksparse are built for D 128 and QG 1, 2, 4 and 8 only, the
 // shapes of the models that use them. The plain variants are built from
@@ -35,16 +36,19 @@
 // head: 64 FLOPs a byte at QG 4, above the memory ridge only for long
 // chunks). The design, FlashAttention-2 style (attention_mma.cuh):
 // - both products on the tensor cores, mma.sync m16n8k16 bf16 with f32
-//   sums: each of the four warps owns 16 query rows, holds their Q
-//   fragments in registers (one ldmatrix per 16 dimensions, loaded once),
-//   reads K through ldmatrix and V through ldmatrix.trans, and hands P from
-//   the S accumulator to the A fragments of P . V in registers;
+//   sums: each warp owns 16 query rows, holds their Q fragments in
+//   registers (one ldmatrix per 16 dimensions, loaded once; at head_dim
+//   256, where O alone takes 128 registers a thread, it reads them from
+//   the staged rows at each k16 step instead, and takes each tile in two
+//   32-key steps), reads K through ldmatrix and V through ldmatrix.trans,
+//   and hands P from the S accumulator to the A fragments of P . V in
+//   registers;
 // - bf16 K/V tiles of 64 keys (four 16-key pages) in shared memory at a
 //   padded stride (no bank conflicts for ldmatrix), in a three-stage
 //   cp.async ring: tiles i + 1 and i + 2 load while tile i is multiplied,
-//   behind one barrier a tile. Narrow pages (E4M3, E5M2, int8) are copied
-//   raw into a byte stage and widened to bf16 in one pass before the
-//   products;
+//   behind one barrier a tile (two stages at head_dim 256, for room).
+//   Narrow pages (E4M3, E5M2, int8) are copied raw into a byte stage and
+//   widened to bf16 in one pass before the products;
 // - the online softmax in registers (row max and sum across the four
 //   lanes of a quad);
 // - masks only on the tiles that straddle an edge of a warp's rows
@@ -100,20 +104,28 @@
 
 namespace {
 
-// Warps a block: 8 at head_dim 128 (128 query rows share each K/V tile),
-// 4 at head_dim 64 (on the H100 a block of 8 ran slower there: at
-// Qwen2.5-0.5B's two kv heads it leaves too few blocks for 132 SMs). Each
-// warp owns 16 query rows.
+// Warps a block: 8 at head_dim 96, 128 and 256 (128 query rows share
+// each K/V tile), 4 at head_dim 64 (on the H100 a block of 8 ran slower
+// there: at Qwen2.5-0.5B's two kv heads it leaves too few blocks for 132
+// SMs). Each warp owns 16 query rows.
+// Stages of the cp.async ring: three, but two at head_dim 256, where a
+// bf16 stage (K and V, 64 keys at a stride of 264) is 67584 bytes and the
+// query rows stay staged beside the ring (attn::QFrags): 2 x 67584 + 67584
+// = 202752 of the 232448 bytes a block may have.
+// Keys of one Q . K^T and P . V step: the whole 64-key tile, but two
+// halves of 32 at head_dim 256, so that S takes 16 registers a thread
+// beside O's 128 (D / 8 fragments of four).
 template <int D>
 struct RaggedShape {
-  static constexpr int kWarps = D == 128 ? 8 : 4;
+  static constexpr int kWarps = D == 64 ? 4 : 8;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;  // query rows per block
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kSubKeys = D == 256 ? 32 : attn::kTileKeys;
 };
-constexpr int kStages = 3;  // the cp.async ring
 constexpr int kKeys = attn::kTileKeys;
 // The largest QH / KV the kernel takes (the wrapper raises above it, and
-// for a head_dim other than 64 and 128).
+// for a head_dim other than 64, 96, 128 and 256).
 constexpr int kMaxQG = 16;
 
 // Dynamic shared memory: the stages of the ring (bf16 pages: the padded K
@@ -121,13 +133,17 @@ constexpr int kMaxQG = 16;
 // of bf16 tiles they are widened into. The query rows (kRows of them at
 // the tiles' stride: the size of one K and V pair) are staged once, before
 // the loop, in the last stage, which the loop fills first (narrow pages:
-// in the widened pair).
+// in the widened pair); at head_dim 256, where they are read at every
+// tile, in a region of their own after the ring.
 template <class Page, int D>
 struct RaggedSmem {
   static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
   static constexpr size_t wide = kNarrow ? 2 * attn::Tile<D>::kBytes : 0;
   static constexpr size_t stage = attn::Stage<Page, D>::kBytes;
-  static constexpr size_t bytes = wide + kStages * stage;
+  static constexpr size_t ring = wide + RaggedShape<D>::kStages * stage;
+  static constexpr size_t q =
+      attn::QFrags<D>::kHeld ? 0 : size_t(RaggedShape<D>::kRows) * attn::Tile<D>::kStride * 2;
+  static constexpr size_t bytes = ring + q;
 };
 
 // QG: QH / KV, or 0 for the variant that reads it from qg_rt.
@@ -147,6 +163,8 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   using L = RaggedSmem<Page, D>;
   constexpr int kThreads = RaggedShape<D>::kThreads;
   constexpr int kRows = RaggedShape<D>::kRows;
+  constexpr int kStages = RaggedShape<D>::kStages;
+  constexpr int kSub = RaggedShape<D>::kSubKeys;
   constexpr int kStride = attn::Tile<D>::kStride;
   constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
   const int qg = QG > 0 ? QG : qg_rt;
@@ -155,11 +173,12 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stages = smem + L::wide;
   __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
-  // The query rows: in the widened pair, or in the last stage (the first
-  // that the loop fills).
-  __nv_bfloat16* q_s = L::kNarrow ? wide
-                                  : reinterpret_cast<__nv_bfloat16*>(
-                                        stages + (kStages - 1) * L::stage);
+  // The query rows: in their own region (head_dim 256), in the widened
+  // pair, or in the last stage (the first that the loop fills).
+  __nv_bfloat16* q_s =
+      !attn::QFrags<D>::kHeld ? reinterpret_cast<__nv_bfloat16*>(smem + L::ring)
+      : L::kNarrow            ? wide
+                              : reinterpret_cast<__nv_bfloat16*>(stages + (kStages - 1) * L::stage);
 
   // Which sequence and which token tile is this block's? Blocks start in
   // the order of blockIdx.x, and a sequence's last tiles see the most
@@ -273,7 +292,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
   }
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  attn::QFrags<D> qf;
   attn::load_q<D>(qf, q_s + warp * 16 * kStride);
 
   // This lane's two rows (g and g + 8 of the warp's 16), and the span of
@@ -335,14 +354,9 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       k_t = reinterpret_cast<const __nv_bfloat16*>(stage);
     }
-    // A warp whose rows see no key of this tile skips it (uniform per warp).
-    if (!warp_live || cur >= w_hi || cur + kKeys <= w_lo) continue;
-
-    float s[kKeys / 8][4];
-    attn::qk<D, kKeys / 8>(s, qf, k_t);
-    // Masks key by key only where the tile straddles an edge of the warp's
-    // rows (causal, window), or, with blocksparse, where it spans key
-    // blocks; in one key block a row sees all of its keys or none.
+    // Masks key by key only where a step straddles an edge of the warp's
+    // rows (causal, window), or, with blocksparse, where the tile spans
+    // key blocks; in one key block a row sees all of its keys or none.
     bool vis[2] = {true, true};
     if constexpr (BLOCKSPARSE) {
       if (one_block) {
@@ -351,35 +365,44 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
         vis[1] = block_visible(bs, bq[1], bk, phase[1]);
       }
     }
-    const bool edge = cur + kKeys - 1 > w_pos_min ||
-                      (sliding_window > 0 && cur <= w_pos_max - sliding_window) ||
-                      (BLOCKSPARSE && !one_block);
 #pragma unroll
-    for (int nb = 0; nb < kKeys / 8; ++nb) {
+    for (int sub = 0; sub < kKeys; sub += kSub) {
+      const int c0 = cur + sub;  // the step's first key
+      // A warp whose rows see no key of the step skips it (uniform per warp).
+      if (!warp_live || c0 >= w_hi || c0 + kSub <= w_lo) continue;
+
+      float s[kSub / 8][4];
+      attn::qk<D, kSub / 8>(s, qf, k_t + sub * kStride);
+      const bool edge = c0 + kSub - 1 > w_pos_min ||
+                        (sliding_window > 0 && c0 <= w_pos_max - sliding_window) ||
+                        (BLOCKSPARSE && !one_block);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const int key = cur + nb * 8 + 2 * (lane % 4) + e % 2;
-        float v = s[nb][e] * sm_scale;
-        if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
-        if constexpr (ALIBI) v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos[r])));
-        if (edge) {
-          bool valid = key <= pos[r] && key < kv_hi;
-          if (sliding_window > 0) valid = valid && key > pos[r] - sliding_window;
-          if constexpr (BLOCKSPARSE) {
-            if (!one_block)
-              valid = valid && block_visible(bs, bq[r], key / bs.block, phase[r]);
+      for (int nb = 0; nb < kSub / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int key = c0 + nb * 8 + 2 * (lane % 4) + e % 2;
+          float v = s[nb][e] * sm_scale;
+          if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+          if constexpr (ALIBI) v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos[r])));
+          if (edge) {
+            bool valid = key <= pos[r] && key < kv_hi;
+            if (sliding_window > 0) valid = valid && key > pos[r] - sliding_window;
+            if constexpr (BLOCKSPARSE) {
+              if (!one_block)
+                valid = valid && block_visible(bs, bq[r], key / bs.block, phase[r]);
+            }
+            if (!valid) v = -INFINITY;
           }
-          if (!valid) v = -INFINITY;
+          if constexpr (BLOCKSPARSE) {
+            if (!vis[r]) v = -INFINITY;
+          }
+          s[nb][e] = v;
         }
-        if constexpr (BLOCKSPARSE) {
-          if (!vis[r]) v = -INFINITY;
-        }
-        s[nb][e] = v;
       }
+      attn::softmax_step<D, kSub / 8>(s, m, l, o);
+      attn::pv<D, kSub / 8>(o, s, k_t + kTileElems + sub * kStride);
     }
-    attn::softmax_step<D, kKeys / 8>(s, m, l, o);
-    attn::pv<D, kKeys / 8>(o, s, k_t + kTileElems);
   }
 
   attn::finish_sums(l);
@@ -426,9 +449,9 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Launches the instantiation for head_dim D: at D 128 QG 1, 2, 4 and 8
-// have their own, every other QG up to 16 (and every QG at D 64) the one
-// that reads it at run time. With ALiBi or blocksparse only D 128 and QG
-// 1, 2, 4 and 8 are built.
+// have their own, every other QG up to 16 (and every QG at D 64, 96 and
+// 256) the one that reads it at run time. With ALiBi or blocksparse only D
+// 128 and QG 1, 2, 4 and 8 are built.
 template <class Page, int D, bool ALIBI, bool BLOCKSPARSE>
 cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                      const int* cu_q_lens, const float* alibi_slopes, void* out,
@@ -462,9 +485,9 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64 or 128, QG = num_q_heads / num_kv_heads query heads per kv
-// head (1 to 16), ALiBi (a slope table given) or not and blocksparse (a
-// phase table given) or not.
+// head_dim 64, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
+// heads per kv head (1 to 16), ALiBi (a slope table given) or not and
+// blocksparse (a phase table given) or not.
 template <class Page, bool ALIBI, bool BLOCKSPARSE>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* cu_q_lens, const void* alibi_slopes, void* out, int num_tokens,
@@ -484,24 +507,29 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   const float* slopes = static_cast<const float*>(alibi_slopes);
   const Blocksparse bs{static_cast<const int*>(bs_offsets), bs_block, bs_local, bs_vert};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RAGGED_LAUNCH_D(d)                                                                  \
+  launch_d<Page, d, ALIBI, BLOCKSPARSE>(q, kv_pages, lens, pages, cu, slopes, out, num_tokens, \
+                                        num_seqs, num_kv_heads, qg, page_size, pages_per_seq,  \
+                                        sm_scale, sliding_window, soft_cap, bs, s)
   switch (head_dim) {
     case 64:
-      return int(launch_d<Page, 64, ALIBI, BLOCKSPARSE>(
-          q, kv_pages, lens, pages, cu, slopes, out, num_tokens, num_seqs, num_kv_heads, qg,
-          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs, s));
+      return int(RAGGED_LAUNCH_D(64));
+    case 96:
+      return int(RAGGED_LAUNCH_D(96));
     case 128:
-      return int(launch_d<Page, 128, ALIBI, BLOCKSPARSE>(
-          q, kv_pages, lens, pages, cu, slopes, out, num_tokens, num_seqs, num_kv_heads, qg,
-          page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs, s));
+      return int(RAGGED_LAUNCH_D(128));
+    case 256:
+      return int(RAGGED_LAUNCH_D(256));
     default:
       return int(cudaErrorInvalidValue);
   }
+#undef RAGGED_LAUNCH_D
 }
 
 }  // namespace
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
-// blocksparse or not. q bf16[T, QH, D] with D = 64 or 128 and QH = QG * KV
+// blocksparse or not. q bf16[T, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV
 // for QG in 1 to 16 (with ALiBi or blocksparse: D = 128 and QG in {1, 2, 4,
 // 8}), kv_pages [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],

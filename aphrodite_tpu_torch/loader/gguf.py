@@ -856,6 +856,10 @@ _ARCH_TO_HF = {
     "gemma2": "Gemma2ForCausalLM",
     "phi3": "Phi3ForCausalLM",
 }
+# Architectures whose GGUF tensors the port does not load yet: Gemma2's
+# sandwich norms and Phi-3's fused attn_qkv / ffn_up have no mapping
+# above. Their HF checkpoints are served; their GGUF files raise.
+_UNPORTED_GGUF_ARCHS = ("gemma", "gemma2", "phi3")
 
 
 def gguf_to_hf_config(path: str) -> Dict[str, Any]:
@@ -919,6 +923,11 @@ def load_gguf_params_to_host(model, path: str) -> Dict[str, Any]:
     from aphrodite_tpu_torch.quantization.int4 import maybe_pack
 
     gg = GGUFFile(path)
+    arch = gg.metadata.get("general.architecture", "llama")
+    if arch in _UNPORTED_GGUF_ARCHS:
+        raise NotImplementedError(
+            f"GGUF files of architecture {arch!r} are not ported yet "
+            "(ROADMAP.md, module queue item 4); load the HF checkpoint")
     num_layers = model.num_layers
     quantizable = set(model.quantizable_weights())
 

@@ -1,9 +1,10 @@
 """Functional model layers (counterpart of aphrodite_tpu/models/layers.py).
 
-Plain PyTorch on tensors: RMSNorm, LayerNorm, SiLU-and-mul, and rotary
-position embedding with the default, linear (position interpolation) and
-Llama-3 frequency tables, NeoX (rotate-half) style. The other RoPE
-scalings come with the models that use them. Also the ALiBi slope
+Plain PyTorch on tensors: RMSNorm, LayerNorm, SiLU-and-mul, GELU-and-mul
+(the tanh form), and rotary position embedding with the default, linear
+(position interpolation), Llama-3 and Phi-3 LongRoPE frequency tables,
+NeoX (rotate-half) style. The other RoPE scalings come with the models
+that use them. Also the ALiBi slope
 schedule (a copy of aphrodite_tpu/models/bloom.py: get_alibi_slopes).
 """
 
@@ -41,6 +42,14 @@ def silu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
 
 
+def gelu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """GeGLU: the tanh form of GELU on the gate, in f32, rounded to the
+    gate's dtype, times up (the JAX package's gelu_and_mul with
+    approximate="tanh", Gemma's ``gelu_pytorch_tanh``)."""
+    return torch.nn.functional.gelu(
+        gate.float(), approximate="tanh").to(gate.dtype) * up
+
+
 def compute_rope_tables(
     head_dim: int,
     max_position: int,
@@ -50,11 +59,16 @@ def compute_rope_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables of shape [max_position, head_dim // 2] in f32,
     computed in float64 on the host. Handles no scaling ("default"),
-    "linear" (positions divided by the factor) and "llama3"
-    frequency-band rescaling."""
+    "linear" (positions divided by the factor), "llama3" frequency-band
+    rescaling and Phi-3's "longrope" ("su"): each frequency divided by its
+    short factor, or by its long one where max_position exceeds the
+    scaling's original_max_position_embeddings (max_position when it
+    names none, as in the JAX package), and both tables scaled by
+    sqrt(1 + ln(max_position / original) / ln(original)) past it."""
     inv_freq = 1.0 / (base**(
         np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
     positions = np.arange(max_position, dtype=np.float64)
+    attn_factor = 1.0
     if rope_scaling:
         rope_type = rope_scaling.get("rope_type",
                                      rope_scaling.get("type", "default"))
@@ -77,11 +91,25 @@ def compute_rope_tables(
                 np.where(wavelen > low_freq_wavelen, inv_freq / factor,
                          (1 - smooth) * (inv_freq / factor)
                          + smooth * inv_freq))
+        elif rope_type in ("longrope", "su"):
+            orig_max = int(rope_scaling.get(
+                "original_max_position_embeddings", max_position))
+            factors = (rope_scaling.get("long_factor")
+                       if max_position > orig_max else
+                       rope_scaling.get("short_factor"))
+            if factors:
+                inv_freq = inv_freq / np.asarray(factors, dtype=np.float64)
+            scale = max_position / orig_max
+            if scale > 1.0:
+                attn_factor = math.sqrt(
+                    1.0 + math.log(scale) / math.log(orig_max))
         elif rope_type not in ("default", None):
             raise ValueError(f"unsupported rope scaling type {rope_type!r}")
     freqs = np.einsum("p,f->pf", positions, inv_freq)
-    cos = torch.tensor(np.cos(freqs), dtype=torch.float32, device=device)
-    sin = torch.tensor(np.sin(freqs), dtype=torch.float32, device=device)
+    cos = torch.tensor(np.cos(freqs) * attn_factor, dtype=torch.float32,
+                       device=device)
+    sin = torch.tensor(np.sin(freqs) * attn_factor, dtype=torch.float32,
+                       device=device)
     return cos, sin
 
 

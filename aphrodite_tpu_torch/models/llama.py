@@ -30,7 +30,21 @@ Hooks serve the subclasses, as in the JAX package:
   ``up`` then stay apart at load;
 - ``qk_norm(q, k, lp, layer)``: a per-head normalization of q [T, QH, D]
   and k [T, KV, D] after the reshape to heads and before RoPE (identity
-  here; Qwen3 normalizes over head_dim).
+  here; Qwen3 normalizes over head_dim);
+- Gemma's: ``norm_weight_offset`` (RMSNorm by offset + w, the sum in the
+  weight's dtype), ``scale_embeddings`` (sqrt(hidden) in the model dtype,
+  before ``embedding_multiplier``), ``hidden_act`` "silu" or "gelu_tanh"
+  (GeGLU), ``attn_softcap`` (both attention kernels' soft cap) and
+  ``logit_softcap`` (tanh(l / c) * c on the f32 logits), 0.0 meaning off;
+- per layer: ``layer_windows`` (each layer's sliding window; None: the
+  model's ``sliding_window`` on every layer; Gemma2 alternates local and
+  global layers) and ``local_rope_layers`` (the layers that rotate by
+  ``_cos_local`` / ``_sin_local``, Gemma3's local table; None: every
+  layer by ``_cos`` / ``_sin``); each is a Python choice, so the decode
+  window's CUDA graph captures it as it stands;
+- Gemma2's sandwich norms: with ``post_attn_norm`` and ``post_ff_norm``
+  in the layer params, each block's output is normalized before its
+  residual add.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -41,8 +55,8 @@ from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.interface import ForwardBatch
 from aphrodite_tpu_torch.models.layers import (apply_rope,
                                                compute_rope_tables,
-                                               layer_norm, rms_norm,
-                                               silu_and_mul)
+                                               gelu_and_mul, layer_norm,
+                                               rms_norm, silu_and_mul)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
 from aphrodite_tpu_torch.quantization.qlinear import qmatmul
@@ -67,6 +81,13 @@ class LlamaForCausalLM:
     # muP-style scales (1.0 and None: off).
     embedding_multiplier: float = 1.0
     logit_scale: Optional[float] = None
+    # Gemma: RMSNorm by (offset + w), embeddings times sqrt(hidden), the
+    # MLP's activation ("silu" or "gelu_tanh"), soft caps (0.0: off).
+    norm_weight_offset: float = 0.0
+    scale_embeddings: bool = False
+    hidden_act: str = "silu"
+    attn_softcap: float = 0.0
+    logit_softcap: float = 0.0
     # Set by a subclass whose finalize_params splits fused checkpoint
     # tensors: its quantized checkpoints are not loaded.
     splits_fused_tensors: bool = False
@@ -104,6 +125,12 @@ class LlamaForCausalLM:
         self.blocksparse_params: Optional[Tuple[int, int, int]] = None
         self.bs_head_offsets: Optional[torch.Tensor] = None
         self.bs_layer_mask: Optional[List[bool]] = None
+        # Per layer (a subclass with local layers sets them): the sliding
+        # windows, and the layers rotated by a local table of their own.
+        self.layer_windows: Optional[List[Optional[int]]] = None
+        self.local_rope_layers: Optional[List[bool]] = None
+        self._cos_local: Optional[torch.Tensor] = None
+        self._sin_local: Optional[torch.Tensor] = None
         if self.use_rope:
             self._cos, self._sin = compute_rope_tables(
                 self.head_dim, self.max_position, base=self.rope_theta,
@@ -119,6 +146,10 @@ class LlamaForCausalLM:
         self._logit_scale = (
             torch.tensor(self.logit_scale, dtype=torch.float32, device=device)
             if self.logit_scale else None)
+        self._hidden_scale = (
+            torch.tensor(self.hidden_size**0.5, dtype=self.dtype,
+                         device=device)
+            if self.scale_embeddings else None)
 
     # ------------------------------------------------------------------
     # Params
@@ -284,11 +315,16 @@ class LlamaForCausalLM:
         k_scales, v_scales = kv_scales if kv_scales is not None else (None,
                                                                       None)
         x = params["embed"][batch.token_ids].to(self.dtype)
+        if self._hidden_scale is not None:
+            x = x * self._hidden_scale
         if self._embedding_scale is not None:
             x = x * self._embedding_scale
         if self.use_rope:
-            cos = self._cos[batch.positions]
-            sin = self._sin[batch.positions]
+            rope = (self._cos[batch.positions], self._sin[batch.positions])
+            if self.local_rope_layers is not None:
+                rope_local = (self._cos_local[batch.positions],
+                              self._sin_local[batch.positions])
+        sandwich = "post_attn_norm" in lp
         for layer in range(self.num_layers):
             h = self._norm(x, lp["input_norm"][layer],
                            self._layer_bias(lp, "input_norm_b", layer))
@@ -300,6 +336,8 @@ class LlamaForCausalLM:
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
             q, k = self.qk_norm(q, k, lp, layer)
             if self.use_rope:
+                cos, sin = (rope_local if self.local_rope_layers is not None
+                            and self.local_rope_layers[layer] else rope)
                 q = apply_rope(q, cos, sin)
                 k = apply_rope(k, cos, sin)
             else:
@@ -315,7 +353,10 @@ class LlamaForCausalLM:
             attn = ragged_paged_attention(
                 q, pages, batch.kv_lens, batch.page_indices,
                 batch.cu_q_lens, batch.num_seqs, sm_scale=self.sm_scale,
-                sliding_window=self.sliding_window,
+                sliding_window=(self.sliding_window
+                                if self.layer_windows is None
+                                else self.layer_windows[layer]),
+                soft_cap=self.attn_softcap or None,
                 alibi_slopes=self.alibi_slopes,
                 blocksparse=self.blocksparse_params,
                 bs_head_offsets=self.bs_head_offsets,
@@ -323,11 +364,17 @@ class LlamaForCausalLM:
                        or self.bs_layer_mask[layer]))
             if v_scale is not None:
                 attn = attn * v_scale.to(attn.dtype)
-            x = x + self._linear(lp, attn.reshape(-1, NH * D), ("wo",),
-                                 ("bo",), layer).to(self.dtype)
+            o = self._linear(lp, attn.reshape(-1, NH * D), ("wo",), ("bo",),
+                             layer).to(self.dtype)
+            if sandwich:
+                o = self._norm(o, lp["post_attn_norm"][layer])
+            x = x + o
             h = self._norm(x, lp["post_norm"][layer],
                            self._layer_bias(lp, "post_norm_b", layer))
-            x = x + self.mlp(lp, h, layer).to(self.dtype)
+            ff = self.mlp(lp, h, layer).to(self.dtype)
+            if sandwich:
+                ff = self._norm(ff, lp["post_ff_norm"][layer])
+            x = x + ff
         return self._norm(x, params["final_norm"], params.get("final_norm_b"))
 
     def qk_norm(self, q: torch.Tensor, k: torch.Tensor, lp: Dict[str, Any],
@@ -343,6 +390,8 @@ class LlamaForCausalLM:
 
     def _norm(self, x: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.norm_weight_offset:
+            weight = weight + self.norm_weight_offset
         if self.norm_type == "layernorm":
             return layer_norm(x, weight, bias, self.rms_eps)
         return rms_norm(x, weight, self.rms_eps)
@@ -369,13 +418,15 @@ class LlamaForCausalLM:
 
     def mlp(self, lp: Dict[str, Any], h: torch.Tensor,
             layer: int) -> torch.Tensor:
-        """The gated SiLU MLP of one layer (gate and up in the model
-        dtype, as the JAX package casts them)."""
+        """The gated SiLU (or, with hidden_act "gelu_tanh", GeGLU) MLP of
+        one layer (gate and up in the model dtype, as the JAX package
+        casts them)."""
         g13 = self._linear(lp, h, ("w13", "gate", "up"),
                            ("b13", "gate_b", "up_b"), layer).to(self.dtype)
         F = g13.shape[-1] // 2
-        return self._linear(lp, silu_and_mul(g13[:, :F], g13[:, F:]),
-                            ("down",), ("down_b",), layer)
+        act = gelu_and_mul if self.hidden_act == "gelu_tanh" else silu_and_mul
+        return self._linear(lp, act(g13[:, :F], g13[:, F:]), ("down",),
+                            ("down_b",), layer)
 
     def compute_logits(self, params: Dict[str, Any],
                        hidden: torch.Tensor) -> torch.Tensor:
@@ -395,4 +446,7 @@ class LlamaForCausalLM:
             logits = torch.matmul(hidden.float(), head.float())
         if self._logit_scale is not None:
             logits = logits * self._logit_scale
+        if self.logit_softcap:
+            cap = self.logit_softcap
+            logits = cap * torch.tanh(logits / cap)
         return logits

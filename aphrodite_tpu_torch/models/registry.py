@@ -2,8 +2,9 @@
 
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
 Llama (and the checkpoints that reuse its graph: Mistral, Qwen2 and
-Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan and
-Phi-3-Small so far; any other architecture raises. The embedding aliases
+Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan,
+Phi-3-Small, Phi-3 (mini, medium) and Gemma, Gemma2 and Gemma3 so far;
+any other architecture raises. The embedding aliases
 (``MistralModel``, ``LlamaModel``) wait for the pooling runner.
 """
 
@@ -12,7 +13,11 @@ from typing import Dict, Type
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
                                                  BaichuanForCausalLM)
+from aphrodite_tpu_torch.models.gemma import (Gemma2ForCausalLM,
+                                              Gemma3ForCausalLM,
+                                              GemmaForCausalLM)
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
+from aphrodite_tpu_torch.models.phi3 import Phi3ForCausalLM
 from aphrodite_tpu_torch.models.phi3small import Phi3SmallForCausalLM
 from aphrodite_tpu_torch.models.qwen3 import Qwen3ForCausalLM
 
@@ -44,6 +49,10 @@ _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "BaiChuanForCausalLM": BaiChuanForCausalLM,
     "BaichuanForCausalLM": BaichuanForCausalLM,
     "Phi3SmallForCausalLM": Phi3SmallForCausalLM,
+    "GemmaForCausalLM": GemmaForCausalLM,
+    "Gemma2ForCausalLM": Gemma2ForCausalLM,
+    "Gemma3ForCausalLM": Gemma3ForCausalLM,
+    "Phi3ForCausalLM": Phi3ForCausalLM,
 }
 
 

@@ -32,8 +32,9 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 64 or 128 with 1 to 16 query heads per kv
-head (the instantiation is chosen at the launch), and, at head_dim 128
+Both kernels take head_dim 64, 96, 128 or 256 with 1 to 16 query heads
+per kv head (the instantiation is chosen at the launch), and, at head_dim
+128
 with 1, 2, 4 or 8 query heads per kv head, an optional ALiBi slope table
 f32[QH]: score + slope[h] * (key position - query position), added after
 the soft cap and before the mask, as the JAX package adds it. Or, at
@@ -58,12 +59,14 @@ from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.launches import count_launch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# The shapes both CUDA kernels are built for: head_dim 64 or 128 with QH /
-# KV from 1 (MHA: Baichuan-13B) to 16, which covers Llama-3's 4 and 8,
-# Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3. Falcon-7B's 71 is above it.
-# ALiBi and blocksparse are built for head_dim 128 at QH / KV 1, 2, 4 or 8
-# only (Baichuan, bench.py's 1.4B, Phi-3-Small).
-KERNEL_HEAD_DIMS = (64, 128)
+# The shapes both CUDA kernels are built for: head_dim 64, 96 (Phi-3-mini),
+# 128 or 256 (Gemma, Gemma2, Gemma3), the head_dims of the JAX-bundled
+# ragged kernel, with QH / KV from 1 (MHA: Baichuan-13B) to 16, which
+# covers Llama-3's 4 and 8, Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3.
+# Falcon-7B's 71 is above it. ALiBi and blocksparse are built for head_dim
+# 128 at QH / KV 1, 2, 4 or 8 only (Baichuan, bench.py's 1.4B,
+# Phi-3-Small).
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 KERNEL_MAX_QUERIES_PER_KV = 16
 OPTION_HEAD_DIM = 128
 OPTION_QUERIES_PER_KV = (1, 2, 4, 8)

@@ -320,14 +320,17 @@ class Scheduler:
                         chain_speculation_eligible):
                     lookahead += self.num_chain_lookahead_slots
             # Never reserve beyond the model-length ceiling: the block
-            # table must stay within pages_per_seq.
-            lookahead = min(
-                lookahead,
-                max(0, self.scheduler_config.max_model_len -
-                    seq.get_len() - num_new))
+            # table must stay within pages_per_seq. get_len() already
+            # counts a prefill chunk's tokens, so the slots past it are
+            # capped too (the JAX package caps only the lookahead, and its
+            # table outgrows pages_per_seq where a prompt plus its chunk
+            # passes max_model_len).
+            mml = self.scheduler_config.max_model_len
+            lookahead = min(lookahead,
+                            max(0, mml - seq.get_len() - num_new))
+            slots = min(num_new + lookahead, max(0, mml - seq.get_len()))
             # Ensure block capacity (incl. lookahead), preempting LIFO.
-            while not self.block_manager.can_append_slots(
-                    seq, num_new + lookahead):
+            while not self.block_manager.can_append_slots(seq, slots):
                 victim = self._pick_preemption_victim(group,
                                                       already_preempted +
                                                       preempted)
@@ -337,7 +340,7 @@ class Scheduler:
                     return [], preempted + [group]
                 self._preempt(victim)
                 preempted.append(victim)
-            cow = self.block_manager.append_slots(seq, num_new + lookahead)
+            cow = self.block_manager.append_slots(seq, slots)
             if cow and blocks_to_copy is not None:
                 blocks_to_copy.extend(cow)
             budget.add(num_new, 1)

@@ -227,9 +227,13 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
         run()
         torch.cuda.synchronize()
     counts: Dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and kernel_base(e.name) in ours:
-            counts[e.name] = counts.get(e.name, 0) + 1
+    # The profiler's raw records: prof.events() would first build the tree
+    # of every host event, seconds for an eager window of tens of
+    # thousands of them.
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA
+                and kernel_base(e.name()) in ours):
+            counts[e.name()] = counts.get(e.name(), 0) + 1
     return counts
 
 

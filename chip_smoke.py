@@ -15,7 +15,9 @@ Phases, each of which must pass or the script exits non-zero:
    the same pages widened to bf16), at five geometries (ATTN_GEOMETRIES,
    head_dim 128, 16-token pages): Baichuan2-13B's 40 query and 40 kv
    heads with its 40 ALiBi slopes, bench.py's 1.4B 16 / 8, Llama-3.1-8B's
-   32 / 8 and Llama-3-70B's 64 / 8: a mixed prefill and decode batch, a
+   32 / 8 and Llama-3-70B's 64 / 8 (and since slices 8 and 15 the
+   further shapes of ATTN_GEOMETRIES: QH/KV 3 to 16, head_dim 64, 96 and
+   256): a mixed prefill and decode batch, a
    chunked prefill on a cached prefix, a decode batch with dead padded
    rows, and sliding window with soft cap, every case with rows of 1000+
    keys (where ALiBi's bias reaches hundreds); with ALiBi, all-zero
@@ -72,7 +74,9 @@ Phases, each of which must pass or the script exits non-zero:
    rows of 1056-6176 keys, a prefill step of the last 2048 tokens of the
    longest prompt; the library call takes the mask as a bool attn_mask,
    the bound counts the K/V rows some query head sees); at each decode
-   shape it prints the split-KV plan (keys a split, splits, blocks). The int4
+   shape it prints the split-KV plan (keys a split, splits, blocks); and
+   at the Qwen2.5, Phi-3-mini and Gemma geometries at their paths'
+   prompts. The int4
    matmul is timed at T = 32 and T = 2048 at each site (and at w13 at
    group 16); its library call is one
    torch.matmul of x with the pre-dequantized bf16 weight (four times the
@@ -156,15 +160,14 @@ Phases, each of which must pass or the script exits non-zero:
    the packed one none, and the logits with the kernel must agree with
    those of the plain product. Between them the two paths launch both
    bodies (printed per path).
-   Then slice 5's three: ``gptq w4a8`` (32 layers, APHRODITE_W4_A8=1 for
-   this path only): forwards are counted by their tokens; every forward of
+   Then slice 5's three: ``gptq w4a8, 8 layers`` (32 layers until slice
+   15; APHRODITE_W4_A8=1 for this path only): forwards are counted by their tokens; every forward of
    16 tokens or more must launch the W4A8 kernel and the int8 quantizer 4
    times per layer, every other one the W4A16 kernel; its logits (a
    prefill and a 16-row decode forward, which take W4A8, and an 8-row
    decode forward, which takes W4A16, each forward's launches held to its
    route) against the plain W4A8 and W4A16 products (argmax on the rows
-   that the plain products summed in another f32 order decide), and its
-   rates printed beside the gptq path's. ``int8`` and ``fp8`` (4 layers,
+   that the plain products summed in another f32 order decide). ``int8`` and ``fp8`` (4 layers,
    quantized at load on the card): the group-wise body (G = K), or the
    e4m3 quantizer and the FP8 body fp8_route picks by each forward's T
    (launches by body held to it), 4 launches per layer and forward,
@@ -200,6 +203,8 @@ Phases, each of which must pass or the script exits non-zero:
    blocksparse on the layers whose gate is on (every other one) and QG 4
    without it on the rest; QG 7 at head_dim 128 on qwen2.5-7b, QG 7 at
    head_dim 64 on qwen2.5-0.5b, QG 5 on qwen3-14b, QG 4 on mistral-7b.
+   QG 1 at head_dim 96 on the Phi-3-mini ones, QG 2 at 256 on the
+   Gemma-2-9B ones, QG 1 at 256 on gemma-7b and QG 4 at 256 on gemma-3-1b.
    Then slice 14's two, on gptq+fp8_e4m3 at full width and depth with
    the 16 requests of 64 tokens: ``samplers, history-free``
    (history_free_params: seeded random rows, each a different mix of
@@ -215,6 +220,19 @@ Phases, each of which must pass or the script exits non-zero:
    path's tokens and by check_prompt_logprobs against a prefill forward's
    logits). Both print decode and prefill tok/s beside the gptq+fp8_e4m3
    path's.
+   Then slice 15's six: ``gemma-2-9b`` (Gemma2ForCausalLM from the
+   published values: head_dim 256, QG 2, sandwich norms, soft caps 50 and
+   30, a 4096-key window on the even layers; bf16, full width and all 42
+   layers, prompts of 1024-6144 tokens, logits compared on a 4500-token
+   prefill) and ``phi-3-mini-4k`` (Phi3ForCausalLM: head_dim 96, MHA, a
+   2047-key window; all 32 layers, prompts of 1024-4032), both with
+   window_check; ``gemma-2-9b gptq+fp8_e4m3, 4 layers`` (the int4 kernels
+   at Gemma's shapes, E4M3 pages), ``gemma-7b, 4 layers`` (QG 1 at 256),
+   ``gemma-3-1b`` (all 26 layers: five local layers to one global, two
+   rope tables, the (1 + w) q/k norm) and ``phi-3-mini-128k, 4 layers``
+   (LongRoPE with stand-in factors drawn from the seed, served at 16384
+   positions: the model's rotary table must be the long factors' one,
+   check_longrope; one prompt of 5000 tokens).
    Last, the page-gather probe's own entry point
    (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
    which times the probe kernel; its kernel was held beforehand against
@@ -399,12 +417,122 @@ MISTRAL_7B = {
     "tie_word_embeddings": False,
     "torch_dtype": "bfloat16",
 }
+# Slice 15's models, each from its published config.json (values as
+# published; the vocabulary, tied head and soft caps are the models' own,
+# torch_dtype the path's). Gemma-2-9B (Gemma2ForCausalLM): head_dim 256,
+# QH/KV 2, a 4096-key window on the even layers (the config names no
+# layer_types), soft caps 50 and 30, query_pre_attn_scalar 256.
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"],
+    "hidden_size": 3584,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 42,
+    "num_attention_heads": 16,
+    "num_key_value_heads": 8,
+    "head_dim": 256,
+    "vocab_size": 256000,
+    "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256,
+    "hidden_activation": "gelu_pytorch_tanh",
+    "torch_dtype": "bfloat16",
+}
+# Phi-3-mini-4k-instruct (Phi3ForCausalLM): head_dim 96 (3072 / 32), MHA, a
+# 2047-key window on every layer (its checkpoints' fused qkv_proj and
+# gate_up_proj play no part with dummy weights).
+PHI3_MINI_4K = {
+    "architectures": ["Phi3ForCausalLM"],
+    "hidden_size": 3072,
+    "intermediate_size": 8192,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 32,
+    "vocab_size": 32064,
+    "max_position_embeddings": 4096,
+    "original_max_position_embeddings": 4096,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0,
+    "rope_scaling": None,
+    "sliding_window": 2047,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+# Gemma-7B (GemmaForCausalLM): head_dim 256 at QH/KV 1.
+GEMMA_7B = {
+    "architectures": ["GemmaForCausalLM"],
+    "hidden_size": 3072,
+    "intermediate_size": 24576,
+    "num_hidden_layers": 28,
+    "num_attention_heads": 16,
+    "num_key_value_heads": 16,
+    "head_dim": 256,
+    "vocab_size": 256000,
+    "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0,
+    "torch_dtype": "bfloat16",
+}
+# Gemma-3-1B-it (Gemma3ForCausalLM): head_dim 256 at QH/KV 4, five local
+# layers (a 512-key window, rope base 10000) to one global (base 1e6). The
+# published file gives the pattern as sliding_window_pattern 6 (layer i
+# global where (i + 1) % 6 == 0, as HF reads it); both packages read
+# layer_types, which newer copies of the file carry and which is written
+# here from the pattern.
+GEMMA3_1B = {
+    "architectures": ["Gemma3ForCausalLM"],
+    "hidden_size": 1152,
+    "intermediate_size": 6912,
+    "num_hidden_layers": 26,
+    "num_attention_heads": 4,
+    "num_key_value_heads": 1,
+    "head_dim": 256,
+    "vocab_size": 262144,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0,
+    "rope_scaling": None,
+    "sliding_window": 512,
+    "sliding_window_pattern": 6,
+    "layer_types": ["full_attention" if (i + 1) % 6 == 0
+                    else "sliding_attention" for i in range(26)],
+    "query_pre_attn_scalar": 256,
+    "hidden_activation": "gelu_pytorch_tanh",
+    "torch_dtype": "bfloat16",
+}
+# Phi-3-mini-128k-instruct: Phi-3-mini-4k's geometry with LongRoPE. Its
+# two 48-entry factor lists are not in the repository: phi3_128k_config
+# draws stand-ins from the seed. The published file names
+# original_max_position_embeddings (4096) at its top level; both packages
+# read it inside rope_scaling only (ROADMAP.md §3, gaps of the reference),
+# so it is written there too, and the long factors apply at the served
+# length, 16384 (the published 131072 is cut to keep the page tables of
+# this 4-layer path small).
+PHI3_MINI_128K_LEN = 16384
+
+
+def phi3_128k_config(layers: int) -> dict:
+    rng = np.random.default_rng(SEED)
+    scaling = {"type": "longrope", "original_max_position_embeddings": 4096,
+               "short_factor": np.sort(rng.uniform(1.0, 3.0, 48)).tolist(),
+               "long_factor": np.sort(rng.uniform(1.0, 64.0, 48)).tolist()}
+    return dict(PHI3_MINI_4K, num_hidden_layers=layers,
+                max_position_embeddings=131072, rope_scaling=scaling,
+                sliding_window=262144)
+
+
 # The attention kernels' checks: (query heads, kv heads, head_dim, ALiBi)
 # of Baichuan2-13B (QH/KV 1), bench.py's 1.4B (2), Llama-3.1-8B (4) and
 # Llama-3-70B (8); and the shapes slice 8 brought in: Qwen2.5-7B (QH/KV 7),
 # Qwen2.5-0.5B (7 at head_dim 64), Qwen3-14B (5), Llama-3.2-3B (3),
 # Qwen2.5-1.5B (6), Llama-3.2-1B (4 at head_dim 64) and QH/KV 16 at head_dim
-# 64 (the largest the kernels take).
+# 64 (the largest the kernels take); and slice 15's: Phi-3-mini (MHA at
+# head_dim 96), Gemma-2-9B (2 at 256), Gemma-7B (1 at 256) and Gemma-3-1B
+# (4 at 256).
 ATTN_GEOMETRIES = {
     "baichuan2-13b 40/40 alibi": (40, 40, 128, True),
     "bench-1.4b 16/8": (16, 8, 128, False),
@@ -417,6 +545,10 @@ ATTN_GEOMETRIES = {
     "qwen2.5-1.5b 12/2": (12, 2, 128, False),
     "llama-3.2-1b 32/8 d64": (32, 8, 64, False),
     "qg16 32/2 d64": (32, 2, 64, False),
+    "phi-3-mini 32/32 d96": (32, 32, 96, False),
+    "gemma-2-9b 16/8 d256": (16, 8, 256, False),
+    "gemma-7b 16/16 d256": (16, 16, 256, False),
+    "gemma-3-1b 4/1 d256": (4, 1, 256, False),
 }
 # And with Phi-3-Small's blocksparse mask: (block size, local blocks,
 # vertical stride); query head h has phase h * max(1, stride // QH).
@@ -448,6 +580,18 @@ PAGE_TYPES = ("bf16", "e4m3", "e5m2", "int8")
 # every row must agree. One-ulp bf16 differences in each layer's attention
 # output propagate through 32 layers of bf16 matmuls.
 LOGIT_TOL = 5e-2
+# The random Gemma2 and Gemma3 models (sandwich norms, whose dummy weights
+# are ones, so 1 + w = 2) are chaotic with depth: the logits of plain
+# attention in f32 and in f64 lie 0.005 of a row apart at 2 Gemma-2-9B
+# layers, 0.044 at 6, 0.31 at 14 and 0.94 at 42, where even their argmax
+# differs (Gemma-3-1B: 0.021 at 4 layers, 0.22 at 26), while Llama-3.1-8B
+# and Phi-3-mini stay at 0.012-0.013 over 32 layers (NVIDIA H100 80GB
+# HBM3 at 700 W: python -m aphrodite_tpu_torch.tools.logits_floor, this
+# script's compare prefill). A comparison at LOGIT_TOL has no power
+# there, so those paths compare their logits on their model's first
+# COMPARE_LAYERS layers, where that floor is 0.033 (Gemma-2-9B, a
+# 4500-token prefill) and 0.021 (Gemma-3-1B) of a row.
+COMPARE_LAYERS = 4
 NUM_REQUESTS = 16
 MAX_TOKENS = 64
 # main_path's launches: the key of the part made by CUDA graph replays.
@@ -2840,7 +2984,8 @@ def check_prompt_logprobs(llm, label, prompts, outs, device):
 def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
               gguf=None, q4_body=None, w4a8=False, compare_lens=None,
-              window_check=False, sampler=None, reference=None):
+              window_check=False, sampler=None, reference=None,
+              max_model_len=None, compare_layers=None):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -2867,7 +3012,12 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     stages, min_tokens, bans, a logits processor and prompt logprobs, on
     the single-step path; held by check_history_path and
     check_prompt_logprobs). The sampler paths compare no logits: their
-    model and cache are the gptq+fp8_e4m3 path's, which does. Returns the
+    model and cache are the gptq+fp8_e4m3 path's, which does.
+    max_model_len: the served length (default: the config's
+    max_position_embeddings); with LongRoPE scaling the model's rotary
+    table must be the one its long factors give at that length.
+    compare_layers: the depth at which the logits are compared (default:
+    the model's; see COMPARE_LAYERS). Returns the
     launch counts of the path's kernels in the timed run, by variant name
     (under IN_GRAPH_REPLAYS the part of them that graph replays made), and
     the rates (with the decode windows' graphs, chained windows, carry and
@@ -2945,7 +3095,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                   quantization_param_path=scales_path,
                   num_scheduler_steps=num_scheduler_steps, block_size=16,
                   max_num_batched_tokens=2048, skip_tokenizer_init=True,
-                  device=device)
+                  max_model_len=max_model_len, device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         print(f"{label}: engine up in {time.monotonic() - t0:.1f} s, "
@@ -2953,6 +3103,9 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               f"{llm.engine.runner.kv_cache.dtype}, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
               flush=True)
+    scaling = model_config.get("rope_scaling") or {}
+    if scaling.get("type") == "longrope":
+        check_longrope(llm.engine.runner.model, scaling, label)
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS,
                         ignore_eos=True, detokenize=False)
@@ -3350,7 +3503,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                                 if model.blocksparse_params is not None
                                 else [300, 17, 129])
         compare_logits(llm, device, rng, vocab, what, q4_body or INT4_BODY,
-                       lens)
+                       lens, compare_layers)
         if quantization == "fp8":
             # The check above holds the quantizer kernel with the e4m3
             # product on both sides; this one the whole product against its
@@ -3384,6 +3537,39 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     # replays x the launches of one window of the key (trace_launches).
     launches[IN_GRAPH_REPLAYS] = named(replayed)
     return launches, rates
+
+
+def check_longrope(model, scaling, label):
+    """Fail unless the model rotates by the table of its long factors
+    (served past the original length) with the attention factor, and not
+    by the short factors' table."""
+    import math
+
+    import torch
+
+    from aphrodite_tpu_torch.models.layers import compute_rope_tables
+
+    cos = model._cos.cpu()
+    orig = scaling["original_max_position_embeddings"]
+    if model.max_position <= orig:
+        fail(f"{label}: served length {model.max_position} is not past the "
+             f"original {orig}")
+    inv_freq = 1.0 / (model.rope_theta**(
+        np.arange(0, model.head_dim, 2, dtype=np.float64) / model.head_dim))
+    inv_freq = inv_freq / np.asarray(scaling["long_factor"], np.float64)
+    factor = math.sqrt(1.0 + math.log(model.max_position / orig)
+                       / math.log(orig))
+    positions = np.arange(model.max_position, dtype=np.float64)
+    want = torch.tensor(np.cos(positions[:, None] * inv_freq[None, :])
+                        * factor, dtype=torch.float32)
+    short, _ = compute_rope_tables(
+        model.head_dim, model.max_position, base=model.rope_theta,
+        rope_scaling=dict(scaling, original_max_position_embeddings=(
+            model.max_position)))
+    if not torch.equal(cos, want) or torch.equal(cos, short):
+        fail(f"{label}: the rotary table is not the long factors' one")
+    print(f"{label}: LongRoPE, the long factors' table at {model.max_position}"
+          f" positions, attention factor {factor:.6f}", flush=True)
 
 
 def rerun_alone(llm, label, prompts, params, outs):
@@ -3486,7 +3672,7 @@ def check_window(runner, label, prompt_lens, num_scheduler_steps,
 
 
 def compare_logits(llm, device, rng, vocab, what, q4_body,
-                   lens=(300, 17, 129)):
+                   lens=(300, 17, 129), layers=None):
     """One prefill forward (ragged kernel) of sequences of `lens` tokens
     and one decode forward (decode kernel) with every kernel, then the same
     with the plain version of one
@@ -3502,7 +3688,9 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     quantizer of FP8 W8A8; the e4m3 product on both sides) or "fp8 exact"
     (the whole FP8 W8A8 product against its plain version: the plain run
     also launches the product at every site on that run's own inputs and
-    holds it at INT4_TOL_SAME)."""
+    holds it at INT4_TOL_SAME). layers: the forwards run the model's
+    first `layers` layers only (its own weights and cache), for a model
+    whose random weights make its full depth chaotic (COMPARE_LAYERS)."""
     import torch
 
     import aphrodite_tpu_torch.models.llama as llama_mod
@@ -3571,15 +3759,21 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     def run():
         runner.kv_cache[:, :next_page] = base
         logits = []
-        with torch.inference_mode():
-            for name, batch in forwards.items():
-                before = (int4p_matmul_w4a8.launches, int4p_matmul.launches)
-                h = model.forward(params, runner.kv_cache, batch,
-                                  runner.kv_scales)
-                logits.append(model.compute_logits(
-                    params, h[batch.logits_indices])[:len(lens)])
-                routed[name] = (int4p_matmul_w4a8.launches - before[0],
-                                int4p_matmul.launches - before[1])
+        depth = model.num_layers
+        model.num_layers = layers or depth
+        try:
+            with torch.inference_mode():
+                for name, batch in forwards.items():
+                    before = (int4p_matmul_w4a8.launches,
+                              int4p_matmul.launches)
+                    h = model.forward(params, runner.kv_cache, batch,
+                                      runner.kv_scales)
+                    logits.append(model.compute_logits(
+                        params, h[batch.logits_indices])[:len(lens)])
+                    routed[name] = (int4p_matmul_w4a8.launches - before[0],
+                                    int4p_matmul.launches - before[1])
+        finally:
+            model.num_layers = depth
         return logits
 
     def plain_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens,
@@ -3748,7 +3942,7 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
                   f"{len(decided[i])} rows", flush=True)
     worst = 0.0
     for (name, g, w), held in zip(zip(forwards, got, want), decided):
-        label = f"{what} {name}"
+        label = f"{what} {name}" + (f" ({layers} layers)" if layers else "")
         if not bool(g.isfinite().all()):
             fail(f"{label} logits are not finite")
         err = (g - w).abs().amax(-1)
@@ -3838,6 +4032,10 @@ def main_paths():
         1024, 6145, size=NUM_REQUESTS)
     qwen_prompt_lens = np.random.default_rng(SEED).integers(
         1024, 4097, size=NUM_REQUESTS)
+    # Phi-3-mini-4k serves 4096 positions: prompts of 1024-4032 leave room
+    # for the 64 new tokens, and run past its 2047-key window.
+    phi3_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 4033, size=NUM_REQUESTS)
     short = dict(LLAMA_8B, num_hidden_layers=4)
     paths = {
         "bf16": dict(model_config=LLAMA_8B),
@@ -3857,8 +4055,11 @@ def main_paths():
             model_config=short, gguf="q8_0", q4_body="groupwise"),
         # Slice 5: W4A8 (the switch set for this path only), then the two
         # 8-bit weight kinds quantized at load, cut to 4 layers.
-        "gptq w4a8": dict(model_config=LLAMA_8B, quantization="gptq",
-                          w4a8=True),
+        # (32 layers until slice 15 cut it to 8 for time; its argmax is held
+        # on the rows a K-reversed plain run decides, at any depth.)
+        "gptq w4a8, 8 layers": dict(
+            model_config=dict(LLAMA_8B, num_hidden_layers=8),
+            quantization="gptq", w4a8=True),
         "int8, 4 layers": dict(model_config=short, quantization="int8"),
         "fp8, 4 layers": dict(model_config=short, quantization="fp8"),
         # Slice 6: Baichuan2-13B (MHA, ALiBi) at full width and depth, its
@@ -3907,6 +4108,35 @@ def main_paths():
         "samplers, history": dict(
             model_config=LLAMA_8B, quantization="gptq",
             kv_cache_dtype="fp8_e4m3", sampler="history"),
+        # Slice 15: head_dim 256 and 96. Gemma-2-9B at full width and depth
+        # on prompts of 1024-6144 tokens (its local layers' 4096-key window
+        # bites; logits compared on a 4500-token prefill), Phi-3-mini-4k at
+        # full width and depth on prompts of 1024-4032 (its 2047-key window;
+        # a 2500-token prefill compared); Gemma-2-9B's shapes with int4
+        # weights and an E4M3 cache, Gemma-7B (QH/KV 1) and Phi-3-mini-128k
+        # (LongRoPE, stand-in factors) at 4 layers; Gemma-3-1B (5 local
+        # layers to 1 global, two rope bases, q/k norm) at full depth.
+        "gemma-2-9b": dict(model_config=GEMMA2_9B,
+                           prompt_lens=phi_prompt_lens, window_check=True,
+                           compare_lens=[4500, 17, 129],
+                           compare_layers=COMPARE_LAYERS),
+        "phi-3-mini-4k": dict(model_config=PHI3_MINI_4K,
+                              prompt_lens=phi3_prompt_lens,
+                              window_check=True,
+                              compare_lens=[2500, 17, 129]),
+        "gemma-2-9b gptq+fp8_e4m3, 4 layers": dict(
+            model_config=dict(GEMMA2_9B, num_hidden_layers=4),
+            quantization="gptq", kv_cache_dtype="fp8_e4m3",
+            prompt_lens=phi_prompt_lens),
+        "gemma-7b, 4 layers": dict(
+            model_config=dict(GEMMA_7B, num_hidden_layers=4)),
+        "gemma-3-1b": dict(model_config=GEMMA3_1B,
+                           compare_layers=COMPARE_LAYERS),
+        "phi-3-mini-128k, 4 layers": dict(
+            model_config=phi3_128k_config(4),
+            max_model_len=PHI3_MINI_128K_LEN,
+            prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 5000],
+            compare_lens=[5000, 17, 129]),
     }
     return {name: {"prompt_lens": prompt_lens, **kw}
             for name, kw in paths.items()}
@@ -3952,6 +4182,7 @@ def main() -> None:
     llama = "llama-3.1-8b 32/8"
     times = kernel_timings("cuda", llama, ATTN_GEOMETRIES[llama],
                            prompt_lens, iters=200, errs=errs)
+    stamp("timings: attention, llama-3.1-8b")
     # At the Baichuan geometry four cache layers already hold more K/V than
     # the L2 (80 kv heads' rows).
     baichuan = "baichuan2-13b 40/40 alibi"
@@ -3967,25 +4198,45 @@ def main() -> None:
                               iters=100, errs=errs,
                               page_types=("bf16", "e4m3"), layers=4,
                               blocksparse=True)
+    stamp("timings: attention, ALiBi and blocksparse")
     # Slice 8's shapes at their main paths' prompts (1024-4096 tokens):
     # Qwen2.5-7B (QH/KV 7) on bf16 pages, Qwen2.5-0.5B (QH/KV 7, head_dim
     # 64) on bf16 and E4M3 pages.
     qwen_prompt_lens = np.random.default_rng(SEED).integers(
         1024, 4097, size=NUM_REQUESTS)
-    qwen_times = {}
+    geometry_times = {}
     for geometry, page_types in (("qwen2.5-7b 28/4", ("bf16",)),
                                  ("qwen2.5-0.5b 14/2 d64", ("bf16", "e4m3"))):
-        qwen_times[geometry] = kernel_timings(
+        geometry_times[geometry] = kernel_timings(
             "cuda", geometry, ATTN_GEOMETRIES[geometry], qwen_prompt_lens,
             iters=100, errs=errs, page_types=page_types)
+    # Slice 15's geometries at their main paths' prompts: Phi-3-mini's
+    # 1024-4032 tokens, Gemma-2-9B's 1024-6144 (bf16 pages, and E4M3,
+    # which its 4-layer path runs on), Gemma-7B's and Gemma-3-1B's
+    # 16-1024; each launch on the next of `layers` cache layers, more K/V
+    # than the L2 holds.
+    phi3_prompt_lens = np.random.default_rng(SEED).integers(
+        1024, 4033, size=NUM_REQUESTS)
+    for geometry, lens, page_types, layers in (
+            ("phi-3-mini 32/32 d96", phi3_prompt_lens, ("bf16",), 4),
+            ("gemma-2-9b 16/8 d256", phi_prompt_lens, ("bf16", "e4m3"), 4),
+            ("gemma-7b 16/16 d256", prompt_lens, ("bf16",), 4),
+            ("gemma-3-1b 4/1 d256", prompt_lens, ("bf16",), 16)):
+        geometry_times[geometry] = kernel_timings(
+            "cuda", geometry, ATTN_GEOMETRIES[geometry], lens, iters=100,
+            errs=errs, page_types=page_types, layers=layers)
+    stamp("timings: attention, Qwen2.5, Phi-3-mini and Gemma geometries")
     int4_points = int4_timings("cuda", iters=200)
     int4_points += int4_timings("cuda", iters=200, group=16, sites=("w13",))
+    stamp("timings: int4p_matmul")
     w4a8_points = w4a8_timings("cuda", iters=200)
     w4a8_points += w4a8_timings("cuda", iters=200, group=16, sites=("w13",))
     act_points = quantizer_timings("cuda", iters=200)
     fp8_points = fp8_timings("cuda", iters=200)
     int8_points = int8_timings("cuda", iters=200)
+    stamp("timings: W4A8, quantizer, FP8, int8")
     q4_points = q4_timings("cuda", iters=200)
+    stamp("timings: int4_matmul")
     sampler_times = sampler_timings(card)
     stamp("timings")
     # Every engine sizes its KV cache from the free memory, so each is
@@ -4065,7 +4316,7 @@ def main() -> None:
                 entry["bf16_ms"] = times[kernel]["ms"]
             if name in alibi_times:
                 entry["baichuan2-13b"] = alibi_times[name]
-            for geometry, got in qwen_times.items():
+            for geometry, got in geometry_times.items():
                 if name in got:
                     entry[geometry.split()[0]] = got[name]
             kernels.append(entry)
@@ -4320,8 +4571,7 @@ def main() -> None:
     print(f"sampler ({card}): " + json.dumps(
         {"max_err_over_row_max": sampler_errs, "ms": sampler_times}),
         flush=True)
-    for a, b in (("gptq w4a8", "gptq"),
-                 ("samplers, history-free", "gptq+fp8_e4m3"),
+    for a, b in (("samplers, history-free", "gptq+fp8_e4m3"),
                  ("samplers, history", "gptq+fp8_e4m3")):
         print(f"rates {a} against {b} (this run): decode "
               f"{rates[a]['decode_tok_s']:.1f} against "

@@ -251,17 +251,17 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
 @pytest.mark.parametrize("qg", [1, 3, 5, 6, 7, 8, 12, 16])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
 def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
                                                         name):
-    """Each kernel at head_dim 64 and 128 and QH/KV from 1 to 16 (2 kv
-    heads), among them Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3, which
-    the decode kernel serves from the instantiation of the next power of
-    two and the ragged one from its runtime-QG instantiation with idle
-    rows, on each page type, with a window and a soft cap, against its
-    plain version row by row (ROW_TOL); the narrow variants equal the
+    """Each kernel at head_dim 64, 96 (Phi-3-mini), 128 and 256 (Gemma)
+    and QH/KV from 1 to 16 (2 kv heads), among them Qwen2.5's 5, 6 and 7
+    and Llama-3.2-3B's 3, which the decode kernel serves as rows of one
+    mma tile and the ragged one from its runtime-QG instantiation with
+    idle rows, on each page type, with a window and a soft cap, against
+    its plain version row by row (ROW_TOL); the narrow variants equal the
     bf16 kernel on the widened pages, and each launch is counted under its
     shape."""
     _card_or_skip()
@@ -520,7 +520,7 @@ def test_attention_kernels_refuse_what_they_do_not_take():
                    torch.ones(64, device="cuda")[::2]):
         with pytest.raises(ValueError, match="ALiBi"):
             paged_decode_attention(q, pages, idx, table, alibi_slopes=slopes)
-    for d in (96, 256):  # head_dims no instantiation takes
+    for d in (80, 192, 512):  # head_dims no instantiation takes
         with pytest.raises(ValueError, match="head_dim"):
             paged_decode_attention(
                 torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda"),
@@ -530,6 +530,19 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
         paged_decode_attention(q[:, :24].contiguous(), pages, idx, table,
                                alibi_slopes=torch.ones(24, device="cuda"))
+    for d in (96, 256):  # built without either option
+        qd = torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda")
+        pd = torch.zeros((3, PS, 16, d), dtype=torch.int8, device="cuda")
+        with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
+            paged_decode_attention(qd, pd, idx, table,
+                                   alibi_slopes=torch.ones(32, device="cuda"))
+        with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
+            ragged_paged_attention(
+                qd, pd, idx, table, torch.arange(5, dtype=torch.int32,
+                                                 device="cuda"), idx[:1],
+                blocksparse=(64, 4, 8),
+                bs_head_offsets=torch.zeros(32, dtype=torch.int32,
+                                            device="cuda"))
     with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
         paged_decode_attention(
             q[..., :64].contiguous(), pages[..., :64].contiguous(), idx,
