@@ -1,0 +1,4 @@
+from aphrodite_tpu_torch.endpoints.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

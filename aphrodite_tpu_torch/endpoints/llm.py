@@ -1,9 +1,11 @@
 """Offline batch inference API (counterpart of
-aphrodite_tpu/endpoints/llm.py: LLM.generate).
+aphrodite_tpu/endpoints/llm.py: LLM.generate and LLM.chat).
 
 ``LLM(model=...).generate(prompts, sampling_params)`` drives the engine's
-hot loop directly. It runs on the card by default; pass ``device="cpu"``
-to run on the CPU.
+hot loop directly; ``chat`` applies the tokenizer's chat template (or the
+server's fallback template) first. It runs on the card by default; pass
+``device="cpu"`` to run on the CPU. ``encode`` raises: the port has no
+pooling runner yet.
 """
 
 from typing import List, Optional, Sequence, Union
@@ -12,6 +14,8 @@ from aphrodite_tpu_torch.common.outputs import RequestOutput
 from aphrodite_tpu_torch.common.sampling_params import SamplingParams
 from aphrodite_tpu_torch.engine.args import EngineArgs
 from aphrodite_tpu_torch.engine.engine import AphroditeEngine
+from aphrodite_tpu_torch.transformers_utils.tokenizer import \
+    apply_chat_template
 
 
 class LLM:
@@ -41,6 +45,32 @@ class LLM:
 
     def get_tokenizer(self):
         return self.engine.tokenizer
+
+    def chat(
+        self,
+        messages,
+        sampling_params: Union[SamplingParams, Sequence[SamplingParams],
+                               None] = None,
+        chat_template: Optional[str] = None,
+        add_generation_prompt: bool = True,
+    ) -> List[RequestOutput]:
+        """Generation for one conversation (a list of {role, content}
+        dicts) or a list of them, through the tokenizer's chat template,
+        or the fallback template when it has none."""
+        if messages and isinstance(messages[0], dict):
+            conversations = [messages]
+        else:
+            conversations = list(messages)
+        prompts = [apply_chat_template(self.engine.tokenizer, conv,
+                                       add_generation_prompt, chat_template)
+                   for conv in conversations]
+        return self.generate(prompts, sampling_params)
+
+    def encode(self, *args, **kwargs):
+        raise NotImplementedError(
+            "embeddings need the pooling runner, which is not ported to the "
+            "PyTorch package yet (ROADMAP.md, module queue: the rest of the "
+            "zoo)")
 
     def generate(
         self,

@@ -1,14 +1,18 @@
 """The synchronous engine: request intake -> schedule -> execute -> outputs
-(counterpart of aphrodite_tpu/engine/engine.py, offline text path).
+(counterpart of aphrodite_tpu/engine/engine.py, text path).
 
 ``add_request()`` tokenizes and enqueues; ``step()`` runs one scheduler
 and device iteration and returns ``RequestOutput``s for the requests it
 touched. Multi-step decode windows, lazy detokenization, prompt
-logprobs and guided decoding work as in the JAX package: a guided
-request's token FSM is built on a worker thread while the request waits
-outside the scheduler, and each token it appends advances its FSM state.
-LoRA, prompt adapters, multimodal and encoder-decoder inputs, beam search
-and metrics come with later slices.
+logprobs, guided decoding and beam search work as in the JAX package: a
+guided request's token FSM is built on a worker thread while the request
+waits outside the scheduler, and each token it appends advances its FSM
+state; a beam request prefills one sequence and forks it as its beams
+are chosen (``_process_beam_group``). Each step feeds the stat logger
+(Prometheus when installed). ``warmup()`` captures every sequence
+bucket's decode-window graphs before traffic. LoRA, prompt adapters,
+multimodal and encoder-decoder inputs and pooling come with later
+slices.
 """
 
 import concurrent.futures
@@ -27,6 +31,7 @@ from aphrodite_tpu_torch.common.sequence import (Logprob, Sequence,
                                                  SequenceGroup,
                                                  SequenceStatus)
 from aphrodite_tpu_torch.engine.args import EngineArgs
+from aphrodite_tpu_torch.engine.metrics import StatLogger, Stats
 from aphrodite_tpu_torch.engine.stop_checker import StopChecker
 from aphrodite_tpu_torch.guided.token_fsm import get_token_fsm_future
 from aphrodite_tpu_torch.processing.scheduler import Scheduler
@@ -73,12 +78,22 @@ class AphroditeEngine:
         # group, seqs, groups to schedule, future).
         self._fsm_parked: List[tuple] = []
         self._generation_config = self._load_generation_config()
-        # Wall time and tokens of pure-decode iterations (no prefill
+        self.stat_logger = StatLogger(self.model_config.model)
+        # Per-phase wall time of engine iterations (schedule / execute /
+        # postprocess), cumulative and of the latest iteration; and the
+        # wall time and tokens of pure-decode iterations (no prefill
         # token) and of iterations that carry prefill tokens:
         # decode_tokens / decode_s is steady-state decode throughput,
         # prefill_tokens / prefill_s the prompt throughput of steps that
         # carry prompts.
         self.phase_timings = {
+            "iterations": 0,
+            "schedule_s": 0.0,
+            "execute_s": 0.0,
+            "postprocess_s": 0.0,
+            "last_schedule_ms": 0.0,
+            "last_execute_ms": 0.0,
+            "last_postprocess_ms": 0.0,
             "decode_iterations": 0,
             "decode_s": 0.0,
             "decode_tokens": 0,
@@ -123,9 +138,6 @@ class AphroditeEngine:
             raise ValueError(f"duplicate request_id {request_id!r}")
         if sampling_params is None:
             sampling_params = SamplingParams()
-        if sampling_params.use_beam_search:
-            raise NotImplementedError(
-                "beam search is not ported to the PyTorch package yet")
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("either prompt or prompt_token_ids required")
@@ -154,11 +166,15 @@ class AphroditeEngine:
                 # built, so the steps of other requests do not wait.
                 fsm_future = fut
 
-        # best_of sampling: sequences run independently from the first
-        # token, each scheduled as its own single-seq group sharing the
-        # parent group's bookkeeping.
+        # Beam search: one sequence prefills; beams fork after the first
+        # sampling step (joint pruning in _process_beam_group). best_of
+        # sampling: sequences run independently from the first token, each
+        # scheduled as its own single-seq group sharing the parent group's
+        # bookkeeping.
+        num_initial = 1 if sampling_params.use_beam_search else \
+            sampling_params.best_of
         seqs = []
-        for sub_idx in range(sampling_params.best_of):
+        for sub_idx in range(num_initial):
             seq = Sequence(
                 seq_id=self._next_seq_id(),
                 prompt_token_ids=prompt_token_ids,
@@ -177,6 +193,8 @@ class AphroditeEngine:
             sampling_params=sampling_params,
             arrival_time=arrival_time,
         )
+        if sampling_params.use_beam_search:
+            group.completed_beams = []
         self._groups[request_id] = group
         if len(seqs) == 1:
             to_schedule = [group]
@@ -246,8 +264,99 @@ class AphroditeEngine:
         return (self.scheduler.has_unfinished_seqs()
                 or bool(self._fsm_parked))
 
+    # ---- frontend-callable utilities (in-process, or over the socket
+    # protocol of engine/multiproc.py) ----------------------------------
+
     def get_phase_timings(self) -> Dict[str, Any]:
-        return dict(self.phase_timings)
+        """The phase timings, with the decode windows' graph replays,
+        captures and capture seconds summed over the runner's keys (the
+        JAX engine merges its pipeline stats here)."""
+        out = dict(self.phase_timings)
+        stats = self.runner.graph_stats().values()
+        out["graph_keys"] = len(stats)
+        out["graph_replays"] = sum(g["replays"] for g in stats)
+        out["graph_captures"] = sum(g["captures"] for g in stats)
+        out["graph_capture_s"] = sum(g["capture_s"] for g in stats)
+        return out
+
+    def warmup(self) -> None:
+        """Run synthetic waves at every sequence bucket up to max_num_seqs
+        before traffic: each wave prefills at the full token budget and
+        decodes through two windows, so every bucket's decode-window
+        graph is warmed up and captured here (the JAX engine compiles its
+        program grid the same way), not under live load. Mixed prefill
+        and decode steps run too: the second half of a wave prefills
+        beside the first half's decodes."""
+        t0 = time.monotonic()
+        nss = max(1, self.scheduler_config.num_scheduler_steps)
+        vocab = self.model_config.get_vocab_size()
+        budget = self.scheduler_config.max_num_batched_tokens
+        rng = np.random.default_rng(0)
+        waves = [s for s in self.runner.seq_buckets
+                 if s <= self.scheduler_config.max_num_seqs]
+        sp = SamplingParams(temperature=0.0, max_tokens=2 * nss + 2,
+                            ignore_eos=True, detokenize=False)
+
+        def add(tag, n, plen):
+            for i in range(n):
+                self.add_request(
+                    f"__warmup_{tag}_{i}",
+                    prompt_token_ids=rng.integers(
+                        0, vocab, size=(max(1, plen),)).tolist(),
+                    sampling_params=sp)
+
+        for S in waves:
+            plen = int(min(budget // S,
+                           self.model_config.max_model_len // 2,
+                           self.model_config.max_model_len
+                           - 2 * nss - 3))
+            if plen < 1:
+                continue  # context too small for this wave's decode run
+            add(f"{S}a", max(1, S // 2), plen)
+            self.step()
+            self.step()
+            add(f"{S}b", S - max(1, S // 2), plen)
+            while self.has_unfinished_requests():
+                self.step()
+        # Warm-up traffic would read as steady-state throughput.
+        for k, v in self.phase_timings.items():
+            self.phase_timings[k] = 0 if isinstance(v, int) else 0.0
+        logger.info("warmup: %d sequence buckets in %.1f s", len(waves),
+                    time.monotonic() - t0)
+
+    def prometheus_metrics(self) -> bytes:
+        """The Prometheus registry of the process the engine runs in, as
+        text (empty without prometheus_client): what the server's /metrics
+        answers, also when the engine runs in a child process."""
+        try:
+            import prometheus_client
+        except ImportError:
+            return b""
+        return prometheus_client.generate_latest()
+
+    def profile_start(self, trace_dir: str) -> None:
+        """Start a torch.profiler trace of this process (host and, on the
+        card, CUDA activity); ``profile_stop`` writes it to trace_dir as
+        a Chrome trace."""
+        if getattr(self, "_profiler", None) is not None:
+            raise RuntimeError("a trace is already running")
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.runner.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._trace_dir = trace_dir
+
+    def profile_stop(self) -> None:
+        prof = getattr(self, "_profiler", None)
+        if prof is None:
+            raise RuntimeError("no trace is running")
+        self._profiler = None
+        prof.stop()
+        os.makedirs(self._trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self._trace_dir, "trace.json"))
 
     # ------------------------------------------------------------------
     # The hot loop
@@ -257,6 +366,7 @@ class AphroditeEngine:
         t0 = time.monotonic()
         fsm_errored = self._admit_ready_fsms()
         scheduler_outputs = self.scheduler.schedule()
+        t_sched = time.monotonic()
         if scheduler_outputs.is_empty():
             return self._make_outputs(scheduler_outputs.ignored,
                                       set(fsm_errored))
@@ -267,6 +377,7 @@ class AphroditeEngine:
         result = self.runner.execute(
             scheduler_outputs,
             num_steps=self.scheduler_config.num_scheduler_steps)
+        t_exec = time.monotonic()
         num_steps_done = result.sampled.shape[0]
 
         # Advance computed-token counters BEFORE appending new tokens (the
@@ -278,6 +389,7 @@ class AphroditeEngine:
 
         touched = set()
         now = time.monotonic()
+        beam_groups: Dict[int, List] = {}
         self._tokens_appended_iter = 0
         for i, ss in enumerate(scheduler_outputs.scheduled):
             seq = ss.seq
@@ -286,6 +398,9 @@ class AphroditeEngine:
             if not ss.do_sample:
                 continue  # mid-prefill chunk: no token produced
             sp = ss.group.sampling_params
+            if sp.use_beam_search:
+                beam_groups.setdefault(id(ss.group), []).append((i, ss))
+                continue
             need_inc = sp.detokenize and self.tokenizer is not None \
                 and (bool(sp.stop) or not self.lazy_detokenize)
             if (num_steps_done > 1 and seq.fsm is None
@@ -305,9 +420,21 @@ class AphroditeEngine:
             if group is not None:
                 group.maybe_set_first_token_time(now)
 
+        for rows in beam_groups.values():
+            self._process_beam_group(rows, result)
+
         self.scheduler.free_finished_seq_groups()
-        elapsed = time.monotonic() - t0
+        self._log_stats(scheduler_outputs, now)
+        t_post = time.monotonic()
+        elapsed = t_post - t0
         pt = self.phase_timings
+        pt["iterations"] += 1
+        pt["schedule_s"] += t_sched - t0
+        pt["execute_s"] += t_exec - t_sched
+        pt["postprocess_s"] += t_post - t_exec
+        pt["last_schedule_ms"] = (t_sched - t0) * 1e3
+        pt["last_execute_ms"] = (t_exec - t_sched) * 1e3
+        pt["last_postprocess_ms"] = (t_post - t_exec) * 1e3
         if scheduler_outputs.num_prefill_tokens == 0:
             pt["decode_iterations"] += 1
             pt["decode_s"] += elapsed
@@ -412,6 +539,44 @@ class AphroditeEngine:
                 new_text = self._decode_sequence(seq, sp)
             self.stop_checker.maybe_stop_sequence(seq, new_text, sp)
 
+    def _log_stats(self, scheduler_outputs, now: float) -> None:
+        bm = self.scheduler.block_manager
+        kv_usage = 1.0 - bm.get_num_free_blocks() / max(bm.num_blocks, 1)
+        stats = Stats(
+            now=now,
+            num_running=len(self.scheduler.running),
+            num_waiting=len(self.scheduler.waiting),
+            kv_usage=kv_usage,
+            prefix_cache_hit_rate=bm.get_prefix_cache_hit_rate(),
+            num_preemptions_iter=len(scheduler_outputs.preempted),
+            num_prompt_tokens_iter=scheduler_outputs.num_prefill_tokens,
+            # Tokens appended (a window appends several per decode row).
+            num_generation_tokens_iter=self._tokens_appended_iter,
+            # Phase times lag one iteration: the current iteration's
+            # postprocess is not over when the stats are cut.
+            schedule_ms_iter=self.phase_timings["last_schedule_ms"],
+            execute_ms_iter=self.phase_timings["last_execute_ms"],
+            postprocess_ms_iter=self.phase_timings["last_postprocess_ms"],
+        )
+        for ss in scheduler_outputs.scheduled:
+            m = ss.group.metrics
+            if not ss.do_sample:
+                continue
+            if ss.seq.get_output_len() == 1 and m.first_scheduled_time:
+                stats.time_to_first_tokens_iter.append(
+                    now - m.arrival_time)
+            elif ss.seq.get_output_len() > 1:
+                if m.last_token_time:
+                    stats.time_per_output_tokens_iter.append(
+                        now - m.last_token_time)
+            m.last_token_time = now
+            if ss.seq.is_finished():
+                stats.time_e2e_requests.append(now - m.arrival_time)
+                reason = SequenceStatus.get_finished_reason(ss.seq.status)
+                if reason:
+                    stats.finished_reason_iter.append(reason)
+        self.stat_logger.log(stats)
+
     def _process_prompt_logprobs(self, scheduler_outputs, result) -> None:
         """Attach each prompt token's logprobs from the pass over the
         token stream (the first prompt token's entry is None)."""
@@ -447,6 +612,129 @@ class AphroditeEngine:
                     seq.prompt_logprobs.append(None)
                 seq.prompt_logprobs[tpos] = entry
             off += ss.num_tokens
+
+    def _process_beam_group(self, rows: List, result) -> None:
+        """Joint beam expansion and pruning for one request.
+
+        Each live beam's row carries its top 2 x width candidate logprobs
+        (sampling/metadata.py); the global top `width` continuations are
+        kept, a beam chosen several times forks, and EOS or length-capped
+        hypotheses retire. When the search is done (no live beam, or
+        early_stopping, or no live beam can beat the width-th hypothesis
+        under length_penalty), the best n hypotheses become the group's
+        sequences."""
+        group = rows[0][1].group
+        sp = group.sampling_params
+        width = sp.best_of
+        completed = group.completed_beams
+
+        # Candidate continuations: (new cumulative logprob, seq, token, lp).
+        candidates = []
+        K = result.topk_ids.shape[2]
+        for i, ss in rows:
+            seq = ss.seq
+            for j in range(K):
+                tid = int(result.topk_ids[0, i, j])
+                lp = float(result.topk_logprobs[0, i, j])
+                candidates.append((seq.cumulative_logprob + lp, seq, tid,
+                                   lp))
+        candidates.sort(key=lambda c: c[0], reverse=True)
+
+        live_seqs = [ss.seq for _, ss in rows]
+        selections: List = []  # (seq, token, lp)
+        for cum, seq, tid, lp in candidates:
+            if len(selections) >= width:
+                break
+            is_eos = (seq.eos_token_id is not None
+                      and tid == seq.eos_token_id
+                      and not sp.ignore_eos)
+            if is_eos:
+                if len(completed) < 2 * width:
+                    hyp = seq.fork(self._next_seq_id())
+                    hyp.append_token_id(tid, lp)
+                    hyp.status = SequenceStatus.FINISHED_STOPPED
+                    self._decode_beam(hyp, sp)
+                    completed.append(hyp)
+                continue
+            selections.append((seq, tid, lp))
+
+        # Fork the parents chosen more than once before appending.
+        by_parent: Dict[int, List] = {}
+        for seq, tid, lp in selections:
+            by_parent.setdefault(seq.seq_id, []).append((seq, tid, lp))
+        new_live: List[Sequence] = []
+        for sels in by_parent.values():
+            parent = sels[0][0]
+            forks = [parent]
+            for _ in range(len(sels) - 1):
+                child = parent.fork(self._next_seq_id())
+                self.scheduler.fork_seq(parent, child)
+                group.add(child)
+                forks.append(child)
+            for target, (_, tid, lp) in zip(forks, sels):
+                target.append_token_id(tid, lp)
+                target.num_computed_tokens = target.get_len() - 1
+                new_live.append(target)
+        # Prune the live beams not chosen.
+        selected_ids = {s.seq_id for s in new_live}
+        for seq in live_seqs:
+            if seq.seq_id not in selected_ids:
+                seq.status = SequenceStatus.FINISHED_ABORTED
+                self.scheduler.free_seq(seq)
+                group.remove(seq.seq_id)
+        # Length cap: live beams reaching max_tokens become hypotheses.
+        still_live = []
+        for seq in new_live:
+            capped = ((sp.max_tokens is not None
+                       and seq.get_output_len() >= sp.max_tokens)
+                      or seq.get_len() >= self.model_config.max_model_len)
+            if capped:
+                self._retire_beam(seq, sp, group)
+            else:
+                still_live.append(seq)
+
+        def score(s: Sequence) -> float:
+            return s.cumulative_logprob / max(
+                s.get_output_len(), 1)**sp.length_penalty
+
+        done = False
+        if not still_live:
+            done = True
+        elif len(completed) >= width:
+            if sp.early_stopping is True:
+                done = True
+            else:
+                best_live = max(score(s) for s in still_live)
+                top_completed = sorted((score(s) for s in completed),
+                                       reverse=True)[:width]
+                done = best_live <= top_completed[-1]
+        if done:
+            for seq in still_live:
+                # The live beams left count as hypotheses too.
+                self._retire_beam(seq, sp, group)
+            best = sorted(completed, key=score, reverse=True)[:sp.n]
+            # The final hypotheses become the group's sequences, which
+            # RequestOutput.from_seq_group reports.
+            group.seqs.clear()
+            group._seq_dict.clear()
+            for seq in best:
+                group.add(seq)
+
+    def _retire_beam(self, seq: Sequence, sp: SamplingParams,
+                     group: SequenceGroup) -> None:
+        """A live beam becomes a length-capped hypothesis."""
+        seq.status = SequenceStatus.FINISHED_LENGTH_CAPPED
+        self._decode_beam(seq, sp)
+        group.completed_beams.append(seq)
+        self.scheduler.free_seq(seq)
+        group.remove(seq.seq_id)
+
+    def _decode_beam(self, seq: Sequence, sp: SamplingParams) -> None:
+        """A hypothesis's text, decoded once from its output tokens."""
+        if sp.detokenize and self.tokenizer is not None:
+            seq.output_text = self.tokenizer.decode(
+                seq.output_token_ids,
+                skip_special_tokens=sp.skip_special_tokens)
 
     def _decode_sequence_full(self, seq: Sequence,
                               sp: SamplingParams) -> None:

@@ -226,13 +226,22 @@ class BlockManager:
             num_cached_tokens -= num_cached_tokens % self.block_size
         return num_cached_tokens
 
+    def _shared_tail(self, seq: Sequence) -> List[int]:
+        """Indices of the blocks that the sequence's next tokens (from its
+        first uncomputed one) will be written into, or reserved ahead for,
+        and that a fork shares."""
+        table = self.block_tables[seq.seq_id]
+        first = seq.num_computed_tokens // self.block_size
+        return [i for i in range(first, len(table))
+                if self._blocks[table[i]].ref_count > 1]
+
     def can_append_slots(self, seq: Sequence, num_slots: int = 1) -> bool:
         table = self.block_tables[seq.seq_id]
         capacity = len(table) * self.block_size
-        needed = seq.get_len() + num_slots - capacity
-        if needed <= 0:
-            return True
-        return self.get_num_free_blocks() >= cdiv(needed, self.block_size)
+        needed = max(0, cdiv(seq.get_len() + num_slots - capacity,
+                             self.block_size))
+        needed += len(self._shared_tail(seq))
+        return needed == 0 or self.get_num_free_blocks() >= needed
 
     def append_slots(self, seq: Sequence,
                      num_slots: int = 1) -> List[Tuple[int, int]]:
@@ -241,19 +250,24 @@ class BlockManager:
         Returns copy-on-write directives [(src_block, dst_block)] that the
         runner must execute before writing new KV (only non-empty after a
         fork shared a partial block).
+
+        Every block a fork shares from the one that holds the sequence's
+        first uncomputed token to the end of the table becomes the
+        sequence's own: the first is copied when it holds computed tokens,
+        the ones after (slots reserved ahead for multi-step windows) are
+        fresh. The JAX package's copy unshares only the table's last
+        block: after a fork of a sequence that holds slots reserved ahead,
+        the beams then write their tokens into the same shared slots.
         """
         table = self.block_tables[seq.seq_id]
         cow: List[Tuple[int, int]] = []
-        # Copy-on-write for the (possibly shared) last partial block.
-        if table:
-            last = self._blocks[table[-1]]
-            last_is_full = seq.get_len() % self.block_size == 0 and \
-                len(table) * self.block_size <= seq.get_len()
-            if last.ref_count > 1 and not last_is_full:
-                new_block = self._allocate_raw_block()
-                cow.append((last.block_id, new_block.block_id))
-                self._free_block(last.block_id)
-                table[-1] = new_block.block_id
+        first = seq.num_computed_tokens // self.block_size
+        for i in self._shared_tail(seq):
+            new_block = self._allocate_raw_block()
+            if i == first and seq.num_computed_tokens % self.block_size:
+                cow.append((table[i], new_block.block_id))
+            self._free_block(table[i])
+            table[i] = new_block.block_id
         needed_blocks = cdiv(seq.get_len() + num_slots, self.block_size)
         while len(table) < needed_blocks:
             block = self._allocate_raw_block()

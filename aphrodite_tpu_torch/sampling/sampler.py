@@ -7,10 +7,11 @@ TFS, eta and epsilon cutoffs, typical-p, quadratic smoothing, XTC and
 skew, with min_tokens, banned tokens and the guided allow-mask before
 them, in the JAX package's default order (temperature last when
 ``temperature_last``) or a request's ``sampler_priority``. The
-``SamplingFlags`` of a batch select the stages that run; only beam search
-(``do_beam``) raises. No stage reads a value back to the host or makes a
-tensor whose shape depends on the data, so a decode window with any of
-the history-free stages can be captured into a CUDA graph.
+``SamplingFlags`` of a batch select the stages that run. Beam rows are
+greedy rows whose top ``max_logprobs`` candidates the engine expands
+(``do_beam`` adds no stage). No stage reads a value back to the host or
+makes a tensor whose shape depends on the data, so a decode window with
+any of the history-free stages can be captured into a CUDA graph.
 
 The two divergences from the reference that the JAX module documents are
 kept: top-nsigma's standard deviation is taken over the finite logits
@@ -58,8 +59,6 @@ _TEMPERATURE_MINIMUM = 2e-5
 GUMBEL_FOLD = 0x5A
 XTC_FOLD = 0xC0
 
-# Flags of stages this module does not port yet.
-_UNPORTED_FLAGS = ("do_beam",)
 # Flags of the stages and masks that shape the distribution: with none of
 # them set the log-distribution is the logits' log-softmax, taken in f32.
 _SHAPING_FLAGS = (
@@ -526,11 +525,6 @@ def _shaped(logits, t, flags, history, history_lens, prompt_lens,
             guided_mask):
     """shaped_logprobs, in f64 where a stage runs (in f32 where none
     does)."""
-    unported = [f for f in _UNPORTED_FLAGS if getattr(flags, f)]
-    if unported:
-        raise NotImplementedError(
-            f"sampler stages {unported} are not ported to the PyTorch "
-            "package yet")
     if not any(getattr(flags, f) for f in _SHAPING_FLAGS):
         return torch.log_softmax(logits.float(), dim=-1)
     V = logits.shape[1]

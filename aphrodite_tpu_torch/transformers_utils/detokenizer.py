@@ -6,6 +6,12 @@ token-by-token decoding must not emit partial UTF-8/byte-fallback artifacts,
 and sentencepiece-style tokenizers need a prefix window so " word" keeps its
 leading space. State per sequence: `tokens` (string pieces), `prefix_offset`
 and `read_offset` into that list.
+
+`tokens` holds one piece per token id, special tokens included (they are
+dropped when the pieces become text), so that the ids not yet converted
+are always those past len(tokens). The JAX package's copy drops them
+from the list too, and then converts ids again after a prompt or output
+that holds one: its streamed text repeats tokens.
 """
 
 from typing import List, Optional, Tuple
@@ -67,8 +73,7 @@ def detokenize_incrementally(
     """Returns (new_tokens, new_text_delta, prefix_offset, read_offset)."""
     if prev_tokens is None:
         # First call: convert everything, position the window at the tail.
-        new_tokens = tokenizer.convert_ids_to_tokens(
-            all_token_ids, skip_special_tokens=skip_special_tokens)
+        new_tokens = tokenizer.convert_ids_to_tokens(all_token_ids)
         output_tokens = new_tokens
         prefix_offset = max(
             len(output_tokens) - INITIAL_INCREMENTAL_DETOKENIZATION_OFFSET,
@@ -76,8 +81,7 @@ def detokenize_incrementally(
         read_offset = max(len(output_tokens) - 1, 0)
     else:
         new_ids = all_token_ids[len(prev_tokens):]
-        new_tokens = tokenizer.convert_ids_to_tokens(
-            new_ids, skip_special_tokens=skip_special_tokens)
+        new_tokens = tokenizer.convert_ids_to_tokens(new_ids)
         output_tokens = prev_tokens + new_tokens
 
     prefix_text = _convert_tokens_to_string(

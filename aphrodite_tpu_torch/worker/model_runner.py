@@ -147,8 +147,9 @@ def _pack_step_outputs(outs: List[SamplerOutput]) -> torch.Tensor:
 
 
 def _unpack_step_outputs(raw: np.ndarray, W: int, S: int, K: int, n: int):
-    """Split a packed window buffer back into (sampled, rank, logprob,
-    topk_ids, topk_logprobs), each sliced to the n live rows."""
+    """Split a packed window buffer back into StepResult's order (sampled,
+    logprob, rank, topk_ids, topk_logprobs), each sliced to the n live
+    rows."""
     ws = W * S
     sampled = raw[:ws].reshape(W, S)[:, :n]
     rank = raw[ws:2 * ws].reshape(W, S)[:, :n]
@@ -161,7 +162,7 @@ def _unpack_step_outputs(raw: np.ndarray, W: int, S: int, K: int, n: int):
     else:
         topk_ids = np.zeros((W, n, 0), np.int32)
         topk_lp = np.zeros((W, n, 0), np.float32)
-    return sampled, rank, lp, topk_ids, topk_lp
+    return sampled, lp, rank, topk_ids, topk_lp
 
 
 class WindowBuffers:

@@ -233,10 +233,27 @@ Phases, each of which must pass or the script exits non-zero:
    (LongRoPE with stand-in factors drawn from the seed, served at 16384
    positions: the model's rotary table must be the long factors' one,
    check_longrope; one prompt of 5000 tokens).
-   Last, the page-gather probe's own entry point
+   Then the page-gather probe's own entry point
    (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
    which times the probe kernel; its kernel was held beforehand against
    its plain version, which it must equal bit for bit.
+   Last, slice 16's serving phase (serving_phase): the gptq+fp8_e4m3 path
+   has run a greedy request (with logprobs) and a beam request (width 4,
+   n 2) alone through LLM.generate before its engine was freed, with a
+   word tokenizer written by write_word_tokenizer; then `python -m
+   aphrodite_tpu_torch run` serves the same configuration (dummy weights
+   from seed 0, --warmup), its engine in a spawned child: the child, and
+   not the frontend, must map the card's memory; 16 concurrent requests
+   (greedy plain and streamed, seeded random, streamed chat, a beam
+   request, a Kobold generate, a stream the client closes after 8 chunks)
+   must parse against the protocol and give their 64 tokens;
+   /v1/internal/engine_stats must show graph replays; the greedy request
+   alone (plain and streamed) and the beam request alone must equal
+   LLM.generate's text and logprobs bit for bit; /metrics, /v1/tokenize,
+   /v1/detokenize answer and an image chat part answers 400; SIGINT stops
+   both processes. It prints time to first token and per output token
+   (median, p90) of the streams, seconds to /health and of the warm-up,
+   and the engine's decode and prefill tok/s beside the offline path's.
 6. Print {"kernels": [...]} with each kernel's launches on the main path,
    its error against the plain version and its times (each attention
    kernel once per page type, with its launches by shape and, on bf16
@@ -249,6 +266,7 @@ Phases, each of which must pass or the script exits non-zero:
    {"ok": true, "device": {...}}.
 """
 
+import asyncio
 import functools
 import gc
 import json
@@ -2985,7 +3003,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               quantization=None, kv_cache_dtype="auto", kv_scale=None,
               gguf=None, q4_body=None, w4a8=False, compare_lens=None,
               window_check=False, sampler=None, reference=None,
-              max_model_len=None, compare_layers=None):
+              max_model_len=None, compare_layers=None,
+              serve_reference=False):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -3017,7 +3036,10 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     max_position_embeddings); with LongRoPE scaling the model's rotary
     table must be the one its long factors give at that length.
     compare_layers: the depth at which the logits are compared (default:
-    the model's; see COMPARE_LAYERS). Returns the
+    the model's; see COMPARE_LAYERS). serve_reference: the engine gets the
+    serving phase's word tokenizer, and runs the serving phase's greedy and
+    beam requests alone before it is freed (serve_reference_requests; the
+    result under "serve_reference"). Returns the
     launch counts of the path's kernels in the timed run, by variant name
     (under IN_GRAPH_REPLAYS the part of them that graph replays made), and
     the rates (with the decode windows' graphs, chained windows, carry and
@@ -3080,6 +3102,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         if gguf is None:
             source = dict(model=write_model_dir(td, model_config),
                           load_format="dummy", quantization=quantization)
+            if serve_reference:
+                write_word_tokenizer(td, model_config["vocab_size"])
         else:
             # The file goes with the temporary directory when the engine
             # is up: the loader has decoded it by then.
@@ -3094,7 +3118,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                   kv_cache_dtype=kv_cache_dtype,
                   quantization_param_path=scales_path,
                   num_scheduler_steps=num_scheduler_steps, block_size=16,
-                  max_num_batched_tokens=2048, skip_tokenizer_init=True,
+                  max_num_batched_tokens=2048,
+                  skip_tokenizer_init=not serve_reference,
                   max_model_len=max_model_len, device=device)
         if device == "cuda":
             torch.cuda.synchronize()
@@ -3484,6 +3509,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             label, prompts, outs, params, reference, vocab)
         rates["prompt_logprob_err"] = check_prompt_logprobs(
             llm, label, prompts, outs, device)
+    if serve_reference:
+        rates["serve_reference"] = serve_reference_requests(llm)
     if window_check:
         rates["window_check"] = check_window(
             runner, label, prompt_lens, num_scheduler_steps,
@@ -4017,6 +4044,439 @@ def probe_path():
     return launches, times
 
 
+# ----------------------------------------------------------------------
+# The serving phase: `python -m aphrodite_tpu_torch run` on the north star
+# ----------------------------------------------------------------------
+
+# Llama-3.1's bos and eos ids, the serving tokenizer's special words.
+SERVE_BOS, SERVE_EOS = 128000, 128001
+SERVE_MAX_TOKENS = MAX_TOKENS
+# The requests sent alone, first through LLM.generate on the north-star
+# path's engine, then through the server: a 200-token prompt (one prefill
+# chunk at either token budget, so both engines run the same shapes).
+SERVE_ALONE_PROMPT_LEN = 200
+SERVE_BEAM = dict(use_beam_search=True, best_of=4, n=2)
+# The stream the client closes, after this many chunks.
+SERVE_CLOSE_AFTER = 8
+SERVE_HEALTH_TIMEOUT_S = 600
+
+
+def write_word_tokenizer(path: str, vocab_size: int) -> None:
+    """A tokenizer of vocab_size words, written with the tokenizers
+    package (nothing is downloaded): token i is the word "w<i>", words are
+    split at whitespace, an unknown word is token 0, bos and eos are
+    Llama-3.1's ids, and there is no chat template, so the server's
+    fallback template applies. Generated text is the words of its tokens,
+    one per token."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    vocab = {f"w{i}": i for i in range(vocab_size)}
+    tok = Tokenizer(models.WordLevel(vocab=vocab, unk_token="w0"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "bos_token": f"w{SERVE_BOS}",
+                   "eos_token": f"w{SERVE_EOS}",
+                   "unk_token": "w0", "model_max_length": 131072}, f)
+
+
+def serve_words(rng, n, vocab):
+    """n token ids that are no special word, and their text."""
+    ids = rng.integers(1, SERVE_BOS, n).tolist()
+    return ids, " ".join(f"w{t}" for t in ids)
+
+
+def serve_alone_prompt(vocab):
+    return serve_words(np.random.default_rng(SEED + 16),
+                       SERVE_ALONE_PROMPT_LEN, vocab)[0]
+
+
+def serve_reference_requests(llm):
+    """The serving phase's greedy request (with the sampled token's
+    logprob at each step) and its beam request, each alone through
+    LLM.generate: their text, tokens and logprobs, which the server must
+    give again bit for bit."""
+    from aphrodite_tpu_torch import SamplingParams
+
+    prompt = serve_alone_prompt(llm.engine.model_config.get_vocab_size())
+    common = dict(temperature=0.0, max_tokens=SERVE_MAX_TOKENS,
+                  ignore_eos=True)
+    greedy = llm.generate(prompt_token_ids=[prompt], sampling_params=
+                          SamplingParams(logprobs=1, **common))[0].outputs[0]
+    beam = llm.generate(prompt_token_ids=[prompt], sampling_params=
+                        SamplingParams(**SERVE_BEAM, **common))[0].outputs
+    return dict(
+        greedy=dict(text=greedy.text, token_ids=list(greedy.token_ids),
+                    logprobs=[lp[t].logprob for t, lp in
+                              zip(greedy.token_ids, greedy.logprobs)]),
+        beam=[dict(text=c.text, token_ids=list(c.token_ids),
+                   cumulative_logprob=c.cumulative_logprob) for c in beam])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def card_pids():
+    """{pid: MiB} of the processes nvidia-smi sees on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    pids = {}
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            pids[int(parts[0])] = parts[1]
+    return pids
+
+
+def card_maps(pid: int):
+    """The card's device files that the process maps into its memory
+    (/dev/nvidia0, /dev/nvidia-uvm; not the control device): a CUDA
+    context's memory, which a process that only asked whether there is a
+    card does not map."""
+    names = set()
+    with open(f"/proc/{pid}/maps") as f:
+        for line in f:
+            fields = line.split()
+            if (len(fields) >= 6 and fields[5].startswith("/dev/nvidia")
+                    and fields[5] != "/dev/nvidiactl"):
+                names.add(fields[5])
+    return sorted(names)
+
+
+def running(pid: int) -> bool:
+    """Whether the process exists and has not exited (a zombie has)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def percentiles(xs):
+    return dict(median=float(np.percentile(xs, 50)),
+                p90=float(np.percentile(xs, 90)))
+
+
+async def serve_requests(base, vocab, prompt_lens):
+    """The 16 concurrent requests (greedy completions, plain and
+    streamed; seeded random ones; streamed chat; a beam request; a Kobold
+    generate; a stream the client closes after SERVE_CLOSE_AFTER chunks),
+    each of 64 new tokens. Returns each one's result and its stream
+    timings."""
+    import aiohttp
+
+    from aphrodite_tpu_torch.endpoints.openai.protocol import (
+        ChatCompletionStreamResponse, CompletionResponse)
+
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [serve_words(rng, int(n), vocab) for n in prompt_lens]
+    common = dict(max_tokens=SERVE_MAX_TOKENS, ignore_eos=True)
+    kinds = (["greedy"] * 3 + ["greedy stream"] * 4 + ["seeded"] * 3
+             + ["chat stream"] * 2 + ["beam", "kobold", "closed stream",
+                                      "greedy"])
+
+    async def sse(resp, parse, close_after=None):
+        """(chunks, the seconds at which each arrived)."""
+        chunks, times = [], []
+        async for raw in resp.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            chunks.append(parse(**json.loads(data)))
+            times.append(time.monotonic())
+            if close_after is not None and len(chunks) >= close_after:
+                resp.close()
+                break
+        return chunks, times
+
+    async def one(session, i, kind):
+        ids, text = prompts[i]
+        t0 = time.monotonic()
+        out = dict(kind=kind, prompt_len=len(ids))
+        if kind in ("greedy", "seeded", "beam"):
+            body = dict(prompt=ids, temperature=0.0, **common)
+            if kind == "seeded":
+                body.update(temperature=0.8, top_p=0.95, seed=1000 + i)
+            if kind == "beam":
+                body.update(SERVE_BEAM)
+            async with session.post(base + "/v1/completions",
+                                    json=body) as resp:
+                if resp.status != 200:
+                    fail(f"serving: {kind} request {i} answered "
+                         f"{resp.status}: {await resp.text()}")
+                r = CompletionResponse(**await resp.json())
+            out["texts"] = [c.text for c in r.choices]
+            out["finish"] = [c.finish_reason for c in r.choices]
+        elif kind in ("greedy stream", "closed stream"):
+            body = dict(prompt=ids, temperature=0.0, stream=True, **common)
+            async with session.post(base + "/v1/completions",
+                                    json=body) as resp:
+                chunks, times = await sse(
+                    resp, CompletionResponse,
+                    SERVE_CLOSE_AFTER if kind == "closed stream" else None)
+            out["texts"] = ["".join(c.choices[0].text for c in chunks)]
+            out["finish"] = [chunks[-1].choices[0].finish_reason]
+            out["chunks"] = len(chunks)
+            first = next(t for t, c in zip(times, chunks)
+                         if c.choices[0].text)
+            out["ttft_s"], out["last_s"] = first - t0, times[-1] - t0
+        elif kind == "chat stream":
+            body = dict(messages=[{"role": "user", "content": text}],
+                        temperature=0.0, stream=True, **common)
+            async with session.post(base + "/v1/chat/completions",
+                                    json=body) as resp:
+                chunks, times = await sse(resp, ChatCompletionStreamResponse)
+            out["texts"] = ["".join(c.choices[0].delta.content or ""
+                                    for c in chunks)]
+            out["finish"] = [chunks[-1].choices[0].finish_reason]
+            first = next(t for t, c in zip(times, chunks)
+                         if c.choices[0].delta.content)
+            out["ttft_s"], out["last_s"] = first - t0, times[-1] - t0
+        else:  # kobold
+            body = dict(prompt=text, max_length=SERVE_MAX_TOKENS,
+                        temperature=0.0, use_default_badwordsids=True)
+            async with session.post(base + "/api/v1/generate",
+                                    json=body) as resp:
+                if resp.status != 200:
+                    fail(f"serving: Kobold request answered {resp.status}")
+                out["texts"] = [(await resp.json())["results"][0]["text"]]
+            out["finish"] = ["length"]
+        out["seconds"] = time.monotonic() - t0
+        return out
+
+    timeout = aiohttp.ClientTimeout(total=SERVE_HEALTH_TIMEOUT_S)
+    async with aiohttp.ClientSession(timeout=timeout) as session:
+        results = await asyncio.gather(*[one(session, i, kind)
+                                         for i, kind in enumerate(kinds)])
+        # What the phase checks after the concurrent run: each alone, and
+        # the small routes.
+        async def post(route, body):
+            async with session.post(base + route, json=body) as resp:
+                return resp.status, await resp.json()
+
+        async def get(route):
+            async with session.get(base + route) as resp:
+                return resp.status, await resp.text()
+
+        status, stats = await get("/v1/internal/engine_stats")
+        stats = json.loads(stats)
+        alone_ids = serve_alone_prompt(vocab)
+        alone = dict(temperature=0.0, prompt=alone_ids, **common)
+        _, greedy = await post("/v1/completions", dict(alone, logprobs=1))
+        async with session.post(base + "/v1/completions",
+                                json=dict(alone, stream=True)) as resp:
+            chunks, _ = await sse(resp, CompletionResponse)
+        streamed = "".join(c.choices[0].text for c in chunks)
+        _, beam = await post("/v1/completions", dict(alone, **SERVE_BEAM))
+        checks = dict(
+            greedy=CompletionResponse(**greedy), streamed=streamed,
+            beam=CompletionResponse(**beam),
+            metrics=await get("/metrics"),
+            tokenize=await post("/v1/tokenize", {"prompt": "w5 w6 w7"}),
+            detokenize=await post("/v1/detokenize", {"tokens": [5, 6, 7]}),
+            unported=await post("/v1/chat/completions", {"messages": [
+                {"role": "user", "content": [
+                    {"type": "image_url",
+                     "image_url": {"url": "data:image/png;base64,"}}]}]}),
+            models=await get("/v1/models"))
+    return results, stats, checks
+
+
+def check_serving(results, stats, checks, reference, vocab, graphs=True):
+    """Hold the serving phase's answers: every request's text is its 64
+    tokens' words (the closed stream fewer), streamed text joined equals
+    the same request's final text, the decode windows ran as graph
+    replays, the greedy and beam requests sent alone equal LLM.generate's
+    bit for bit, and the small routes answer. (graphs=False: on the CPU,
+    which captures no graph.)"""
+    for i, r in enumerate(results):
+        for text, finish in zip(r["texts"], r["finish"]):
+            words = text.split()
+            if not all(w.startswith("w") and w[1:].isdigit()
+                       and 0 <= int(w[1:]) < vocab for w in words):
+                fail(f"serving: request {i} ({r['kind']}) gave text that "
+                     f"is not the vocabulary's words: {text[:200]!r}")
+            if r["kind"] == "closed stream":
+                if not words or len(words) >= SERVE_MAX_TOKENS:
+                    fail(f"serving: the closed stream got {len(words)} "
+                         "tokens")
+                continue
+            if len(words) != SERVE_MAX_TOKENS or finish != "length":
+                fail(f"serving: request {i} ({r['kind']}) gave "
+                     f"{len(words)} tokens, finish {finish}")
+        if r["kind"] == "beam" and len(r["texts"]) != SERVE_BEAM["n"]:
+            fail(f"serving: the beam request gave {len(r['texts'])} "
+                 "hypotheses")
+    if graphs and stats.get("graph_replays", 0) <= 0:
+        fail(f"serving: engine_stats shows no graph replay: {stats}")
+    greedy = checks["greedy"].choices[0]
+    ref = reference["greedy"]
+    if greedy.text != ref["text"]:
+        fail(f"serving: the greedy request alone gave {greedy.text[:200]!r},"
+             f" LLM.generate {ref['text'][:200]!r}")
+    if greedy.logprobs.token_logprobs != ref["logprobs"]:
+        diff = max(abs(a - b) for a, b in zip(greedy.logprobs.token_logprobs,
+                                              ref["logprobs"]))
+        fail(f"serving: the greedy request's logprobs differ from "
+             f"LLM.generate's by up to {diff}")
+    if checks["streamed"] != ref["text"]:
+        fail("serving: the greedy request streamed alone joined to "
+             f"{checks['streamed'][:200]!r}, not its final text")
+    beam = [c.text for c in checks["beam"].choices]
+    if beam != [h["text"] for h in reference["beam"]]:
+        fail(f"serving: the beam request alone gave {beam}, LLM.generate "
+             f"{[h['text'] for h in reference['beam']]}")
+    status, metrics = checks["metrics"]
+    if status != 200 or "aphrodite:generation_tokens_total" not in metrics:
+        fail("serving: /metrics has no generation token counter")
+    if checks["tokenize"] != (200, {
+            "tokens": [5, 6, 7], "count": 3,
+            "max_model_len": LLAMA_8B["max_position_embeddings"]}):
+        fail(f"serving: /v1/tokenize answered {checks['tokenize']}")
+    if checks["detokenize"] != (200, {"prompt": "w5 w6 w7"}):
+        fail(f"serving: /v1/detokenize answered {checks['detokenize']}")
+    status, body = checks["unported"]
+    if status != 400 or "not ported" not in body["error"]["message"]:
+        fail(f"serving: an image chat part answered {status} {body}")
+    if checks["models"][0] != 200:
+        fail("serving: /v1/models did not answer")
+
+
+def serving_phase(card, offline_rates, reference, device="cuda"):
+    """`python -m aphrodite_tpu_torch run` on the north-star configuration
+    (Llama-3.1-8B geometry, 32 layers, gptq, E4M3 cache, dummy weights from
+    seed 0), its engine in a child process, warmed up before the port
+    opens: the checks of check_serving, the card's memory held by the
+    engine child alone, and SIGINT stopping both processes. Prints the
+    streamed requests' time to first token and time per output token,
+    the seconds to /health and of the warm-up, and the engine's rates.
+    device="cpu" rehearses the phase on the CPU (with a smaller LLAMA_8B
+    patched in), without the check of the card's memory."""
+    import signal
+    import urllib.request
+
+    vocab = LLAMA_8B["vocab_size"]
+    prompt_lens = np.random.default_rng(SEED).integers(
+        16, 1025, size=NUM_REQUESTS)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as td:
+        write_model_dir(td, LLAMA_8B)
+        write_word_tokenizer(td, vocab)
+        port = free_port()
+        log_path = os.path.join(td, "serve.log")
+        log = open(log_path, "w")
+        cmd = [sys.executable, "-m", "aphrodite_tpu_torch", "run", td,
+               "--load-format", "dummy", "--quantization", "gptq",
+               "--kv-cache-dtype", "fp8_e4m3", "--num-scheduler-steps", "8",
+               "--warmup", "--port", str(port)] + (
+                   ["--device", "cpu"] if device == "cpu" else [])
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            cmd, cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=repo), start_new_session=True)
+        base = f"http://127.0.0.1:{port}"
+
+        def log_tail():
+            log.flush()
+            with open(log_path) as f:
+                return f.read()[-3000:]
+
+        try:
+            while True:
+                try:
+                    with urllib.request.urlopen(base + "/health",
+                                                timeout=2) as resp:
+                        if resp.status == 200:
+                            break
+                except OSError:
+                    pass
+                if proc.poll() is not None:
+                    fail(f"serving: the server exited with {proc.returncode}"
+                         f" before /health:\n{log_tail()}")
+                if time.monotonic() - t0 > SERVE_HEALTH_TIMEOUT_S:
+                    fail(f"serving: no /health in {SERVE_HEALTH_TIMEOUT_S} s:"
+                         f"\n{log_tail()}")
+                time.sleep(0.5)
+            health_s = time.monotonic() - t0
+            warm = [line for line in log_tail().splitlines()
+                    if "warmup:" in line]
+            children = [int(p) for p in subprocess.run(
+                ["ps", "-o", "pid=", "--ppid", str(proc.pid)],
+                capture_output=True, text=True).stdout.split()]
+            maps = {p: card_maps(p) for p in [proc.pid, *children]}
+            engine_pids = [p for p in children if maps[p]]
+            on_card = card_pids() if device == "cuda" else {}
+            # nvidia-smi decides where it names these processes; in another
+            # pid namespace it names others, and the maps decide.
+            ours = set(on_card) & set(maps)
+            if device == "cpu":
+                engine_pids = children
+            elif (len(engine_pids) != 1 or maps[proc.pid]
+                  or (ours and ours != set(engine_pids))):
+                fail(f"serving: the card is held by {engine_pids} of the "
+                     f"frontend {proc.pid}'s children {children} (device "
+                     f"files mapped: {maps}; nvidia-smi: {on_card})")
+            print(f"serving: /health after {health_s:.1f} s ({warm}); the "
+                  f"engine child {engine_pids[0]} holds the card, the "
+                  f"frontend {proc.pid} does not (device files mapped: "
+                  f"{maps}; nvidia-smi: {on_card})", flush=True)
+            t1 = time.monotonic()
+            results, stats, checks = asyncio.run(
+                serve_requests(base, vocab, prompt_lens))
+            run_s = time.monotonic() - t1
+            check_serving(results, stats, checks, reference, vocab,
+                          graphs=device == "cuda")
+            streams = [r for r in results
+                       if r["kind"] in ("greedy stream", "chat stream")]
+            ttft = percentiles([r["ttft_s"] for r in streams])
+            tpot = percentiles([(r["last_s"] - r["ttft_s"])
+                                / (SERVE_MAX_TOKENS - 1) for r in streams])
+            serve_rates = dict(
+                decode_tok_s=stats["decode_tokens"] / max(stats["decode_s"],
+                                                          1e-9),
+                prefill_tok_s=stats["prefill_tokens"]
+                / max(stats["prefill_s"], 1e-9))
+            summary = dict(
+                card=card, health_s=round(health_s, 1), warmup=warm,
+                requests=len(results), prompt_tokens=int(sum(prompt_lens)),
+                concurrent_s=round(run_s, 2), ttft_s=ttft, tpot_s=tpot,
+                streams=len(streams), engine=serve_rates,
+                offline=dict(decode_tok_s=offline_rates["decode_tok_s"],
+                             prefill_tok_s=offline_rates["prefill_tok_s"]),
+                graph_replays=stats["graph_replays"],
+                graph_captures=stats["graph_captures"],
+                closed_stream_chunks=next(r["chunks"] for r in results
+                                          if r["kind"] == "closed stream"))
+            print(f"serving ({card}): " + json.dumps(summary), flush=True)
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                fail("serving: the frontend did not exit on SIGINT")
+            deadline = time.monotonic() + 30
+            while any(running(p) for p in children):
+                if time.monotonic() > deadline:
+                    fail(f"serving: the engine child {children} outlived "
+                         "the frontend")
+                time.sleep(0.2)
+            return summary
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log.close()
+
+
 def main_paths():
     """main_path's arguments for each main path, by name (the prompts
     of 16-1024 tokens unless one names others).
@@ -4042,7 +4502,8 @@ def main_paths():
         "gptq": dict(model_config=LLAMA_8B, quantization="gptq",
                      window_check=True),
         "gptq+fp8_e4m3": dict(model_config=LLAMA_8B, quantization="gptq",
-                              kv_cache_dtype="fp8_e4m3", window_check=True),
+                              kv_cache_dtype="fp8_e4m3", window_check=True,
+                              serve_reference=True),
         "gptq+fp8_e5m2, 4 layers": dict(model_config=short,
                                         quantization="gptq",
                                         kv_cache_dtype="fp8_e5m2"),
@@ -4251,10 +4712,15 @@ def main() -> None:
         stamp(f"main path {path}")
     for r in rates.values():
         r.pop("token_ids")
+    serve_reference = rates["gptq+fp8_e4m3"].pop("serve_reference")
 
     # The page-gather probe's own entry point, at its defaults.
     probe_launches, probe_times = probe_path()
     stamp("probe path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_phase(card, rates["gptq+fp8_e4m3"], serve_reference)
+    stamp("serving")
 
     def on_paths(name, part=None):
         """Launches of one kernel variant on each main path that ran it:

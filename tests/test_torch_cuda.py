@@ -1727,3 +1727,34 @@ def test_decode_body_bits_over_graph_replays_on_card(fmt, group, T):
     for i in range(200):
         graph.replay()
         assert torch.equal(got, want), (i, plan)
+
+
+# ----------------------------------------------------------------------
+# Beam-search page copies (worker/model_runner.py _apply_block_copies)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "fp8_e4m3", "int8"])
+def test_block_copies_equal_index_copy_on_card(kv_cache_dtype, tmp_path):
+    """A beam fork's copy-on-write copies: every layer's page of each
+    (src, dst) pair moves as raw bytes, equal byte for byte to a plain
+    index_copy of the same pages, on bf16, E4M3 and int8 pages."""
+    _card_or_skip()
+    config = dict(TINY_CARD_LLAMA, num_hidden_layers=3)
+    runner = _dummy_runner(tmp_path, config, kv_cache_dtype=kv_cache_dtype)
+    raw = runner.kv_cache.view(torch.uint8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    raw.copy_(torch.randint(0, 256, raw.shape, dtype=torch.uint8,
+                            device="cuda", generator=gen))
+    pairs = [(3, 700), (3, 701), (1500, 9), (42, 43), (2047, 0)]
+    src = torch.tensor([p[0] for p in pairs], device="cuda")
+    dst = torch.tensor([p[1] for p in pairs], device="cuda")
+    want = raw.clone()
+    want.index_copy_(1, dst, raw.index_select(1, src))
+    runner._apply_block_copies(pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, want)
+    assert runner.kv_cache.dtype == {"auto": torch.bfloat16,
+                                     "fp8_e4m3": torch.float8_e4m3fn,
+                                     "int8": torch.int8}[kv_cache_dtype]

@@ -95,11 +95,17 @@ def test_cuda_device_without_card_raises(model_dir, monkeypatch):
 
 def test_unported_request_features_raise(model_dir):
     llm = LLM(model=model_dir, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="beam"):
-        llm.generate(["hi"], SamplingParams(use_beam_search=True, best_of=2,
-                                            temperature=0.0, max_tokens=4))
-    # Beam search is the one request feature left: the sampler's stages,
-    # prompt logprobs, logits processors and guided decoding run.
+    # Pooling is what still raises; beam search runs since the serving
+    # slice (tests/test_torch_beam_search.py holds it against JAX).
+    with pytest.raises(NotImplementedError, match="pooling"):
+        llm.encode(["hi"])
+    out = llm.generate(["hi"], SamplingParams(use_beam_search=True,
+                                              best_of=2, n=2,
+                                              temperature=0.0, max_tokens=4,
+                                              ignore_eos=True))
+    assert [len(c.token_ids) for c in out[0].outputs] == [4, 4]
+    # The sampler's stages, prompt logprobs, logits processors and guided
+    # decoding run.
     out = llm.generate(["hi"], SamplingParams(
         presence_penalty=0.5, prompt_logprobs=2, guided_regex="[ab]+",
         logits_processors=[lambda ids, row: row], max_tokens=4))
