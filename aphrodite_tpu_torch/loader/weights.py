@@ -15,9 +15,12 @@ With a GPTQ/AWQ quantization method, a checkpoint that carries packed
 ``qweight`` tensors is parsed into int4 containers
 (quantization/int4.py); a dense or dummy one is quantized at load, as it
 is for the int8 and fp8 methods (quantization/{int8,fp8}.py), by the
-method's ``quantize_from_float``. Container members keep their own dtypes
-(int8 levels, e4m3, f32 scale and zero); only dense float leaves take the
-model dtype.
+method's ``quantize_from_float``. An ``EXPERT_ONLY`` method
+(experts_int8) quantizes the model's ``expert_weights()`` and nothing
+else. MoE expert tensors, one per (layer, expert) in the checkpoint
+(``hf_expert_mappings``), are stacked [L, E, ...]. Container members
+keep their own dtypes (int8 levels, e4m3, f32 scale and zero); only
+dense float leaves take the model dtype.
 
 ``load_kv_cache_scales`` reads the per-layer scales of a quantized KV
 cache (a JSON file, else checkpoint tensors, else ones).
@@ -109,9 +112,11 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
     """The model's params tree from an HF checkpoint, as CPU tensors.
 
     Per-layer tensors come from ``hf_param_mappings``, layer-independent
-    ones from ``hf_global_mappings``, and fused per-layer tensors from
-    ``hf_split_mappings``: (template, [(our_path, start, end)], transpose),
-    each part a slice of the (transposed) tensor's output dim. Then
+    ones from ``hf_global_mappings``, per-(layer, expert) ones from
+    ``hf_expert_mappings`` (stacked [L, E, ...]), and fused per-layer
+    tensors from ``hf_split_mappings``: (template, [(our_path, start,
+    end)], transpose), each part a slice of the (transposed) tensor's
+    output dim. Then
     ``finalize_params`` post-processes the tree, as in the JAX package (HF
     checkpoints only: dummy weights skip it there too)."""
     lookup: Dict[str, Tuple[str, Any, bool, Optional[int]]] = {}
@@ -129,6 +134,15 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
             lookup[template.format(i=i)] = ("split", slices, transpose, i)
         for our_path, _, _ in slices:
             pieces[our_path] = [None] * model.num_layers
+    num_experts = getattr(model, "num_experts", 0)
+    experts: Dict[str, List[List[Optional[torch.Tensor]]]] = {}
+    for template, our_path, transpose in model.hf_expert_mappings():
+        experts[our_path] = [[None] * num_experts
+                             for _ in range(model.num_layers)]
+        for i in range(model.num_layers):
+            for e in range(num_experts):
+                lookup[template.format(i=i, e=e)] = ("expert", our_path,
+                                                     transpose, (i, e))
     params: Dict[str, Any] = {}
     for name, arr in safetensors_weight_iterator(model_dir):
         info = lookup.get(name)
@@ -144,6 +158,8 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
         elif kind == "split":
             for our_path, start, end in target:
                 pieces[our_path][idx] = arr[..., start:end]
+        elif kind == "expert":
+            experts[target][idx[0]][idx[1]] = arr
         else:
             pieces[target][idx] = arr
     for our_path, layer_list in pieces.items():
@@ -152,6 +168,14 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
             raise ValueError(f"checkpoint is missing layers {missing[:4]}"
                              f"... for {our_path}")
         _set_path(params, our_path, torch.stack(layer_list, dim=0))
+    for our_path, grid in experts.items():
+        missing = [(i, e) for i, row in enumerate(grid)
+                   for e, a in enumerate(row) if a is None]
+        if missing:
+            raise ValueError(f"checkpoint is missing (layer, expert) "
+                             f"{missing[:4]}... for {our_path}")
+        _set_path(params, our_path, torch.stack(
+            [torch.stack(row, dim=0) for row in grid], dim=0))
     model.finalize_params(params)
     _check_shapes(model.param_shapes(), params)
     return params
@@ -184,6 +208,12 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     dense HF Linear weights. Per-layer containers are unpacked, then
     stacked on the leading layer axis.
     """
+    if model.expert_weights():
+        raise NotImplementedError(
+            f"{type(model).__name__} is a Mixture-of-Experts model; GPTQ/AWQ "
+            "checkpoints of MoE models are not ported yet (ROADMAP.md, "
+            "module queue item 7: quantized MoE checkpoints). Dense "
+            "checkpoints load, with quantization='experts_int8' too")
     if model.hf_split_mappings() or model.splits_fused_tensors:
         raise NotImplementedError(
             f"{type(model).__name__} stores fused tensors (hf_split_mappings"
@@ -265,14 +295,38 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     return params
 
 
+def quantized_paths(model, method) -> List[str]:
+    """The param paths a load-time method quantizes: the model's
+    ``expert_weights()`` for an ``EXPERT_ONLY`` method (a model without
+    experts raises, as in the JAX package), else its
+    ``quantizable_weights()``."""
+    if getattr(method, "EXPERT_ONLY", False):
+        paths = model.expert_weights()
+        if not paths:
+            raise ValueError(
+                f"quantization {method.NAME!r} targets MoE expert weights, "
+                f"but {type(model).__name__} declares none")
+        return paths
+    return model.quantizable_weights()
+
+
 def quantize_params_at_load(model, params: Dict[str, Any],
                             method) -> Dict[str, Any]:
-    """Quantize the quantizable weights of a full-precision params tree,
-    where its tensors lie, with the method's ``quantize_from_float``
-    (int4 at group 128, int8 or fp8 per channel)."""
-    for path in model.quantizable_weights():
-        _set_path(params, path,
-                  method.quantize_from_float(_get_path(params, path)))
+    """Quantize the weights ``quantized_paths`` names in a full-precision
+    params tree, where its tensors lie, with the method's
+    ``quantize_from_float`` (int4 at group 128, int8 or fp8 per
+    channel, experts_int8 per expert and channel). Expert stacks are
+    quantized one layer at a time, so the f32 copy is one layer's."""
+    per_layer = getattr(method, "EXPERT_ONLY", False)
+    for path in quantized_paths(model, method):
+        w = _get_path(params, path)
+        if per_layer:
+            layers = [method.quantize_from_float(w[i])
+                      for i in range(w.shape[0])]
+            q = {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+        else:
+            q = method.quantize_from_float(w)
+        _set_path(params, path, q)
         logger.info("quantized %s at load (%s)", path, method.NAME)
     return params
 
@@ -330,13 +384,14 @@ def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
     weight is normal with std 1/sqrt(last dim), the magnitudes of the JAX
     package's LlamaForCausalLM.random_params.
 
-    With a quantization ``method`` (quantization/int4, int8 or fp8) the
-    model's quantizable weights are drawn in f32 and quantized by its
-    ``quantize_from_float`` one layer of one matrix at a time, so the peak
-    stays near the size of the quantized model."""
+    With a quantization ``method`` (quantization/int4, int8, fp8 or
+    experts_int8) the weights it quantizes (``quantized_paths``) are drawn
+    in f32 and quantized by its ``quantize_from_float`` one layer of one
+    matrix (or expert stack) at a time, so the peak stays near the size of
+    the quantized model."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    quantizable = (set(model.quantizable_weights()) if method is not None
+    quantizable = (set(quantized_paths(model, method)) if method is not None
                    else set())
 
     def quantized(shape):
@@ -416,8 +471,8 @@ def load_model_params(model, model_config: ModelConfig,
                       device: torch.device) -> Dict[str, Any]:
     dtype = model.dtype
     fmt = load_config.load_format
-    # int4, int8, fp8 or None; a method that is not ported raised in
-    # ModelConfig.
+    # int4, int8, fp8, experts_int8 or None; a method that is not ported
+    # raised in ModelConfig.
     method = get_quantization_method(model_config.quantization)
     if fmt == "auto":
         if model_config.model.endswith(".gguf"):
@@ -446,6 +501,7 @@ def load_model_params(model, model_config: ModelConfig,
     else:
         host = load_hf_params_to_host(model, model_config.model)
         if method is not None:
-            # int8/fp8, or int4 on a dense checkpoint: quantize at load.
+            # int8/fp8/experts_int8, or int4 on a dense checkpoint:
+            # quantize at load.
             host = quantize_params_at_load(model, host, method)
     return _to_device(host, device, dtype)

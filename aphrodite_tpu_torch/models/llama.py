@@ -27,7 +27,10 @@ Hooks serve the subclasses, as in the JAX package:
   (applied in the model dtype), ``logit_scale`` (f32, after the f32
   product) and ``tie_word_embeddings_default``;
 - ``mlp(lp, h, layer)``, which a subclass may replace; ``gate`` and
-  ``up`` then stay apart at load;
+  ``up`` then stay apart at load (an MoE subclass has neither: its
+  experts come from ``hf_expert_mappings``, stacked [L, E, ...], and
+  ``expert_weights`` names them for experts_int8);
+- ``lm_head_bias`` (``lm_head_b``, added to the f32 logits);
 - ``qk_norm(q, k, lp, layer)``: a per-head normalization of q [T, QH, D]
   and k [T, KV, D] after the reshape to heads and before RoPE (identity
   here; Qwen3 normalizes over head_dim);
@@ -78,6 +81,7 @@ class LlamaForCausalLM:
     # "rms" or "layernorm" (mean-centred, with bias).
     norm_type: str = "rms"
     tie_word_embeddings_default: bool = False
+    lm_head_bias: bool = False
     # muP-style scales (1.0 and None: off).
     embedding_multiplier: float = 1.0
     logit_scale: Optional[float] = None
@@ -186,6 +190,8 @@ class LlamaForCausalLM:
             shapes["final_norm_b"] = (H,)
         if not self.tie_word_embeddings:
             shapes["lm_head"] = (H, V)
+            if self.lm_head_bias:
+                shapes["lm_head_b"] = (V,)
         return shapes
 
     def fuse_projections(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -233,6 +239,11 @@ class LlamaForCausalLM:
         return ["layers.wq", "layers.wk", "layers.wv", "layers.wo",
                 "layers.gate", "layers.up", "layers.down"]
 
+    def expert_weights(self) -> List[str]:
+        """Param paths of MoE expert stacks (experts_int8 quantizes these
+        only); a dense model has none."""
+        return []
+
     def hf_param_mappings(self) -> List[Tuple[str, str, bool]]:
         """(hf_template, our_path, transpose) for per-layer weights.
 
@@ -270,6 +281,18 @@ class LlamaForCausalLM:
             self) -> List[Tuple[str, List[Tuple[str, int, int]], bool]]:
         """(hf_template, [(our_path, start, end)], transpose) for fused
         per-layer tensors split along the output dim; Llama has none."""
+        return []
+
+    def mlp_workspace_bytes(self, max_tokens: int, max_seqs: int) -> int:
+        """Device memory an MLP needs beyond the activations the runner
+        counts (MoE: the grouped product's buffers and one layer's
+        dequantized experts); none for a dense model."""
+        return 0
+
+    def hf_expert_mappings(self) -> List[Tuple[str, str, bool]]:
+        """(hf_template with {i} and {e}, our_path, transpose) for
+        per-(layer, expert) tensors, stacked [L, E, ...]; a dense model has
+        none."""
         return []
 
     def finalize_params(self, params: Dict[str, Any]) -> None:
@@ -444,6 +467,8 @@ class LlamaForCausalLM:
             # The CPU has no mixed-dtype mm; a product of two bf16 values
             # is exact in f32, so upcasting first gives the same sums.
             logits = torch.matmul(hidden.float(), head.float())
+        if "lm_head_b" in params:
+            logits = logits + params["lm_head_b"].float()
         if self._logit_scale is not None:
             logits = logits * self._logit_scale
         if self.logit_softcap:

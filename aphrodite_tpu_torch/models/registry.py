@@ -3,8 +3,10 @@
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
 Llama (and the checkpoints that reuse its graph: Mistral, Qwen2 and
 Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan,
-Phi-3-Small, Phi-3 (mini, medium) and Gemma, Gemma2 and Gemma3 so far;
-any other architecture raises. The embedding aliases
+Phi-3-Small, Phi-3 (mini, medium), Gemma, Gemma2 and Gemma3, and the MoE
+models Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE and PhiMoE so far; any other
+architecture raises. The MoE architectures still to port raise with the
+ROADMAP item that holds them (``_WAITING``). The embedding aliases
 (``MistralModel``, ``LlamaModel``) wait for the pooling runner.
 """
 
@@ -17,9 +19,14 @@ from aphrodite_tpu_torch.models.gemma import (Gemma2ForCausalLM,
                                               Gemma3ForCausalLM,
                                               GemmaForCausalLM)
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
+from aphrodite_tpu_torch.models.mixtral import MixtralForCausalLM
+from aphrodite_tpu_torch.models.olmoe import OlmoeForCausalLM
 from aphrodite_tpu_torch.models.phi3 import Phi3ForCausalLM
 from aphrodite_tpu_torch.models.phi3small import Phi3SmallForCausalLM
+from aphrodite_tpu_torch.models.phimoe import PhiMoEForCausalLM
+from aphrodite_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
 from aphrodite_tpu_torch.models.qwen3 import Qwen3ForCausalLM
+from aphrodite_tpu_torch.models.qwen3_moe import Qwen3MoeForCausalLM
 
 
 class Qwen2ForCausalLM(LlamaForCausalLM):
@@ -53,11 +60,40 @@ _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "Gemma2ForCausalLM": Gemma2ForCausalLM,
     "Gemma3ForCausalLM": Gemma3ForCausalLM,
     "Phi3ForCausalLM": Phi3ForCausalLM,
+    "MixtralForCausalLM": MixtralForCausalLM,
+    "Qwen2MoeForCausalLM": Qwen2MoeForCausalLM,
+    "Qwen3MoeForCausalLM": Qwen3MoeForCausalLM,
+    "OlmoeForCausalLM": OlmoeForCausalLM,
+    "PhiMoEForCausalLM": PhiMoEForCausalLM,
+    "PhimoeForCausalLM": PhiMoEForCausalLM,
+}
+
+# MoE architectures the JAX package serves and the port does not yet, with
+# what each waits for (ROADMAP.md, module queue item 7).
+_WAITING = {
+    "GraniteMoeForCausalLM": "Granite's residual_multiplier in the Llama "
+                             "body (item 7, GraniteMoE)",
+    "DbrxForCausalLM": "DBRX's fused expert tensors (item 7, DBRX)",
+    "ArcticForCausalLM": "Arctic's residual MoE beside a dense MLP (item 7, "
+                         "Arctic)",
+    "DeepseekForCausalLM": "DeepSeek's shared experts and dense first "
+                           "layers (item 7, DeepSeek)",
+    "DeepseekV2ForCausalLM": "MLA with its latent cache and the grouped "
+                             "sigmoid router (item 7, DeepSeek V2/V3)",
+    "DeepseekV3ForCausalLM": "MLA with its latent cache and the grouped "
+                             "sigmoid router (item 7, DeepSeek V2/V3)",
+    "QuantMixtralForCausalLM": "GPTQ/AWQ checkpoints of MoE models (item 7, "
+                               "quantized MoE checkpoints)",
 }
 
 
 def get_model_class(model_config: ModelConfig) -> Type[LlamaForCausalLM]:
     arch = model_config.architecture
+    if arch in _WAITING:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported to the PyTorch package "
+            f"yet: it waits for {_WAITING[arch]} in ROADMAP.md's module "
+            "queue. The JAX package (aphrodite_tpu) serves it.")
     if arch not in _MODEL_REGISTRY:
         raise ValueError(
             f"architecture {arch!r} is not ported to the PyTorch package "

@@ -35,32 +35,39 @@ REPO = Path(__file__).resolve().parents[2]
 PAGE = 16
 
 
-def plain_f64(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-              sm_scale, sliding_window=None, soft_cap=None, **unused):
-    """ref_ragged_paged_attention's arithmetic in f64 (no ALiBi or
-    blocksparse: the models measured here have neither)."""
+def plain_f64(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs=None,
+              *, sm_scale, sliding_window=None, soft_cap=None, **unused):
+    """ref_ragged_paged_attention's arithmetic in f64, rounded to q's dtype
+    (no ALiBi or blocksparse: the models measured here have neither); a
+    decode batch (cu_q_lens None) has one query row a sequence. Query rows
+    go 512 at a time, so a 5000-token prefill's scores stay near a
+    gigabyte. chip_smoke.py's compare_logits takes it as its f64 floor."""
+    if cu_q_lens is None:
+        cu_q_lens = torch.arange(q.shape[0] + 1, device=q.device)
     out = torch.zeros_like(q)
     cu = cu_q_lens.tolist()
+    _, qh, d = q.shape
     for s, kv_len in enumerate(kv_lens.tolist()):
-        n = cu[s + 1] - cu[s]
-        if n <= 0 or kv_len <= 0:
+        if cu[s + 1] <= cu[s] or kv_len <= 0:
             continue
         k, v = (t.double() for t in gather_kv(kv_pages, page_indices[s],
                                                kv_len))
-        _, qh, d = q.shape
         kvh = k.shape[1]
-        qf = q[cu[s]:cu[s + 1]].double().reshape(n, kvh, qh // kvh, d)
-        scores = torch.einsum("ngkd,lgd->gknl", qf * sm_scale, k)
-        if soft_cap is not None:
-            scores = soft_cap * torch.tanh(scores / soft_cap)
-        pos = torch.arange(kv_len - n, kv_len, device=q.device)
         keys = torch.arange(kv_len, device=q.device)
-        mask = keys[None, :] <= pos[:, None]
-        if sliding_window is not None:
-            mask &= keys[None, :] > pos[:, None] - sliding_window
-        probs = torch.softmax(torch.where(mask, scores, MASK_VALUE), -1)
-        out[cu[s]:cu[s + 1]] = torch.einsum(
-            "gknl,lgd->ngkd", probs, v).reshape(n, qh, d).to(q.dtype)
+        first = kv_len - (cu[s + 1] - cu[s])
+        for a in range(cu[s], cu[s + 1], 512):
+            b = min(a + 512, cu[s + 1])
+            qf = q[a:b].double().reshape(b - a, kvh, qh // kvh, d)
+            scores = torch.einsum("ngkd,lgd->gknl", qf * sm_scale, k)
+            if soft_cap is not None:
+                scores = soft_cap * torch.tanh(scores / soft_cap)
+            pos = first + torch.arange(a - cu[s], b - cu[s], device=q.device)
+            mask = keys[None, :] <= pos[:, None]
+            if sliding_window is not None:
+                mask &= keys[None, :] > pos[:, None] - sliding_window
+            probs = torch.softmax(torch.where(mask, scores, MASK_VALUE), -1)
+            out[a:b] = torch.einsum("gknl,lgd->ngkd", probs, v).reshape(
+                b - a, qh, d).to(q.dtype)
     return out
 
 

@@ -340,6 +340,9 @@ class ModelRunner:
         # log-softmax and the top-k's temporaries.
         act_headroom += (self.PROMPT_LOGPROB_ROWS *
                          self.model_config.get_vocab_size() * 4 * 4)
+        # And what an MoE layer's grouped product needs.
+        act_headroom += self.model.mlp_workspace_bytes(
+            self.token_buckets[-1], self.seq_buckets[-1])
         budget -= act_headroom
         page_bytes = self._kv_page_bytes()
         num = max(budget // page_bytes, 16)

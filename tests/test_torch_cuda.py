@@ -1758,3 +1758,78 @@ def test_block_copies_equal_index_copy_on_card(kv_cache_dtype, tmp_path):
     assert runner.kv_cache.dtype == {"auto": torch.bfloat16,
                                      "fp8_e4m3": torch.float8_e4m3fn,
                                      "int8": torch.int8}[kv_cache_dtype]
+
+
+# ----------------------------------------------------------------------
+# The MoE grouped expert product (ops/moe.py, plain PyTorch on the card)
+# ----------------------------------------------------------------------
+
+# The five MoE paths' expert widths: (H, F, E, k, routing).
+MOE_WIDTHS = {
+    "qwen3-30b-a3b": (2048, 768, 128, 8, "topk renormalized"),
+    "mixtral-8x7b": (4096, 14336, 8, 2, "topk renormalized"),
+    "qwen1.5-moe-a2.7b": (2048, 1408, 60, 4, "topk"),
+    "olmoe-1b-7b": (2048, 1024, 64, 8, "topk"),
+    "phi-3.5-moe": (4096, 6400, 16, 2, "sparsemixer"),
+}
+# Row by row against the plain per-token product (f32, silu(gate) * up
+# rounded to bf16, the result not rounded): the forms round their result
+# to bf16, up to 2^-8 of a value; 2^-7 allows that twice.
+MOE_ROW_TOL = 2.0**-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MOE_WIDTHS))
+def test_moe_forms_match_plain_product_on_card(name):
+    """At each MoE path's widths, bf16 experts and x from a seed, routed
+    by the path's router kind: the capacity form at 32 tokens (a decode
+    bucket) and the loop form at 2048 (a prefill step), each against
+    moe.plain_expert_mlp within MOE_ROW_TOL of a row; the capacity form
+    captured into a CUDA graph and replayed on new x equals it eagerly
+    bit for bit."""
+    from aphrodite_tpu_torch.ops import moe
+
+    _card_or_skip()
+    H, F, E, k, routing = MOE_WIDTHS[name]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+
+    w1, w3 = randn(E, H, F, std=H**-0.5), randn(E, H, F, std=H**-0.5)
+    w2 = randn(E, F, H, std=F**-0.5)
+    router = randn(H, E, std=H**-0.5)
+
+    def route(x):
+        logits = moe.router_logits(x, router)
+        if routing == "sparsemixer":
+            return moe.sparsemixer_routing(logits)
+        return moe.topk_routing(logits, k, routing.endswith("renormalized"))
+
+    for T, form in ((32, moe.capacity_expert_mlp),
+                    (2048, moe.loop_expert_mlp)):
+        x = randn(T, H)
+        weights, ids = route(x)
+        got = form(x, w1, w3, w2, weights, ids)
+        want = moe.plain_expert_mlp(x, w1, w3, w2, weights, ids)
+        assert got.dtype == torch.bfloat16 and bool(got.isfinite().all())
+        err = (got.float() - want).abs().amax(-1)
+        assert bool((err <= MOE_ROW_TOL * want.abs().amax(-1)).all()), (
+            form.__name__, float((err / want.abs().amax(-1)).max()))
+    x = randn(32, H)
+    static = x.clone()
+    weights, ids = route(static)
+    moe.capacity_expert_mlp(static, w1, w3, w2, weights, ids)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        w_g, ids_g = route(static)
+        out = moe.capacity_expert_mlp(static, w1, w3, w2, w_g, ids_g)
+    for _ in range(2):
+        x = randn(32, H)
+        static.copy_(x)
+        graph.replay()
+        weights, ids = route(x)
+        assert torch.equal(out, moe.capacity_expert_mlp(x, w1, w3, w2,
+                                                        weights, ids))

@@ -45,13 +45,14 @@ def _models():
     return jax_model, model
 
 
-def _batch(rows, T, S, decode=False):
-    """numpy batch arrays for rows = [(token_ids, first_pos, pages)]."""
+def _batch(rows, T, S, decode=False, num_pages=NUM_PAGES, pps=PPS):
+    """numpy batch arrays for rows = [(token_ids, first_pos, pages)], on a
+    cache of num_pages pages (+ the trash page) and pps pages a row."""
     token_ids = np.zeros((T,), np.int32)
     positions = np.zeros((T,), np.int32)
-    slots = NUM_PAGES * PS + np.arange(T, dtype=np.int32) % PS
+    slots = num_pages * PS + np.arange(T, dtype=np.int32) % PS
     kv_lens = np.zeros((S,), np.int32)
-    pages = np.zeros((S, PPS), np.int32)
+    pages = np.zeros((S, pps), np.int32)
     cu = np.zeros((S + 1,), np.int32)
     last = np.zeros((S,), np.int32)
     off = 0

@@ -221,6 +221,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "aphrodite_tpu_torch/loader/gguf.py",
             "aphrodite_tpu_torch/models/gemma.py",
             "aphrodite_tpu_torch/models/phi3.py",
+            "aphrodite_tpu_torch/models/mixtral.py",
+            "aphrodite_tpu_torch/models/olmoe.py",
+            "aphrodite_tpu_torch/models/phimoe.py",
+            "aphrodite_tpu_torch/models/qwen2_moe.py",
+            "aphrodite_tpu_torch/models/qwen3_moe.py",
+            "aphrodite_tpu_torch/ops/moe.py",
+            "aphrodite_tpu_torch/quantization/experts_int8.py",
             "aphrodite_tpu_torch/quantization/__init__.py",
             "aphrodite_tpu_torch/quantization/int4.py",
             "aphrodite_tpu_torch/quantization/qlinear.py"} <= covered

@@ -321,7 +321,7 @@ def test_registry_maps_8bit_methods(name, module):
     assert got.RUNTIME_QUANTIZE and jax_method(name).RUNTIME_QUANTIZE
 
 
-@pytest.mark.parametrize("name", ["experts_int8", "modelopt", "deepspeedfp",
+@pytest.mark.parametrize("name", ["hqq", "modelopt", "deepspeedfp",
                                   "bitsandbytes", "marlin", "quip"])
 def test_registry_raises_for_methods_not_ported(name):
     jax_method(name)  # the JAX package knows it
