@@ -106,14 +106,26 @@ class ModelConfig:
         archs = self.hf_config.get("architectures") or ["LlamaForCausalLM"]
         return archs[0]
 
+    # The HF names first, then the aliases other config classes use
+    # (MPT's d_model, n_layers, n_heads; Bloom's, Falcon's and GPT-2's
+    # n_layer, n_head), in the JAX package's order; a config that names no
+    # head count reports 1, as there.
     def get_hidden_size(self) -> int:
-        return int(self.hf_config["hidden_size"])
+        return int(self.hf_config.get("hidden_size")
+                   or self.hf_config.get("d_model"))
 
     def get_num_layers(self) -> int:
-        return int(self.hf_config["num_hidden_layers"])
+        return int(self.hf_config.get("num_hidden_layers")
+                   or self.hf_config.get("n_layer")
+                   or self.hf_config.get("n_layers")
+                   or self.hf_config.get("num_layers"))
 
     def get_num_attention_heads(self) -> int:
-        return int(self.hf_config["num_attention_heads"])
+        return int(self.hf_config.get("num_attention_heads")
+                   or self.hf_config.get("n_head")
+                   or self.hf_config.get("n_heads")
+                   or self.hf_config.get("decoder_attention_heads")
+                   or self.hf_config.get("num_heads") or 1)
 
     def get_total_num_kv_heads(self) -> int:
         return int(

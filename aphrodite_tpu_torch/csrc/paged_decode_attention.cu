@@ -40,9 +40,19 @@
 // softmax, and the four warps' states are merged in shared memory after
 // the block's last split. (A ring that runs on from one split to the next
 // ran 9-14 % slower on bf16 pages at the timed shapes, where most blocks
-// take one split.) The QG = QH / KV query heads of the kv head are the
-// 16 rows of one mma.sync m16n8k16 tile (rows past QG are zero padding,
-// never written), so one instantiation takes every QG from 1 to 16; both
+// take one split.) Up to QG = QH / KV = 16, the query heads of the kv
+// head are the 16 rows of one mma.sync m16n8k16 tile (rows past QG are
+// zero padding, never written), so one instantiation takes every QG from
+// 1 to 16. Above 16 (Falcon-7B's multi-query 71 on one kv head) they are
+// more than one tile's rows, and a second kernel of this source,
+// paged_decode_wide_kernel, takes them: its block has eight warps, warp w
+// owns the 16 rows of head tile w and takes all 64 keys of every K/V
+// tile, so each tile is staged once for up to 128 query heads (8 tiles
+// of 16; rows past QG are padding, as above) and no warp holds more than
+// one tile's accumulators. Past 128 query heads a kv head's heads are cut
+// into groups of 128, one block each (a grid dimension the wrapper's
+// plan counts). Its splits, ring, masks, partials and combine are the
+// first kernel's; only the warps' share of the work differs. Both
 // products run on the tensor cores, Q . K^T and P . V as in the ragged
 // kernel, with Q's fragments held in registers (read from the staged rows
 // at each k16 step at head_dim 256, as there). head_dim is a template
@@ -119,10 +129,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;
 constexpr int kKeys = attn::kTileKeys;
 constexpr int kWarpKeys = kKeys / kWarps;  // keys of each tile a warp takes
-// The largest QH / KV the kernel takes: the rows of one mma tile (the
-// wrapper raises above it, and for a head_dim other than 64, 96, 128 and
-// 256).
-constexpr int kMaxQG = 16;
+// The largest QH / KV the first kernel takes: the rows of one mma tile.
+// Above it the wide kernel runs, eight warps of 16 rows each (the wrapper
+// raises for a head_dim other than 64, 96, 128 and 256).
+constexpr int kTileQG = 16;
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideRows = 16 * kWideWarps;  // query heads a wide block takes
 
 // Dynamic shared memory: the ring (two stages; for narrow pages also the
 // bf16 tiles they are widened into), reused after the last tile for the
@@ -140,6 +153,23 @@ struct DecodeSmem {
   static constexpr size_t q = attn::QFrags<D>::kHeld ? 0 : 16 * attn::Tile<D>::kStride * 2;
   static constexpr size_t merge = size_t(kWarps) * 16 * (D + 2) * 4;
   static constexpr size_t bytes = ring + q > merge ? ring + q : merge;
+};
+
+// The wide kernel's shared memory: the same ring, with its 128 query rows
+// staged once at the start of it (two K/V tiles' bytes, read into
+// registers before the first tile lands) or, at head_dim 256, after it
+// (67584 bytes more: 202752 in all with bf16 pages). No merge region: each
+// warp owns its rows' whole state.
+template <class Page, int D>
+struct WideSmem {
+  static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
+  static constexpr size_t wide = kNarrow ? 2 * attn::Tile<D>::kBytes : 0;
+  static constexpr size_t stage = attn::Stage<Page, D>::kBytes;
+  static constexpr size_t ring = wide + kStages * stage;
+  static constexpr size_t rows = size_t(kWideRows) * attn::Tile<D>::kStride * 2;
+  static constexpr size_t q = attn::QFrags<D>::kHeld ? 0 : rows;
+  static constexpr size_t bytes = ring + q;
+  static_assert(!attn::QFrags<D>::kHeld || rows <= ring, "the query rows fit in the ring");
 };
 
 // The first split at or after `first` that slot `slot` of `slots` takes
@@ -402,6 +432,187 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// QG above 16: the block of (sequence, kv head and head group, slot)
+// takes query heads h0 .. h0 + rows - 1 of its kv head (h0 = 128 times
+// the group), warp w the 16 of them from h0 + 16 w; every warp takes all
+// keys of every staged tile (at head_dim 256 in two 32-key steps, so that
+// the scores take 16 registers beside O's 128, as in the ragged kernel).
+// The splits, the ring, the scores and masks, the direct output and the
+// partials are those of paged_decode_kernel above.
+template <class Page, int D>
+__global__ void __launch_bounds__(kWideThreads)
+paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                         const unsigned char* __restrict__ kv,
+                         const int* __restrict__ kv_lens,
+                         const int* __restrict__ page_indices,
+                         const float* __restrict__ alibi_slopes,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                         float* __restrict__ part_ml, int num_kv_heads, int qg,
+                         int head_groups, int page_size, int pages_per_seq, float sm_scale,
+                         int sliding_window, float soft_cap, int split_keys) {
+  using L = WideSmem<Page, D>;
+  constexpr int kStride = attn::Tile<D>::kStride;
+  constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
+  constexpr int kSub = D == 256 ? 32 : kKeys;                // keys of one step
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stages = smem + L::wide;
+  __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
+  // The query rows: at the start of the ring (read into registers before
+  // the first tile is issued), or after it at head_dim 256.
+  __nv_bfloat16* q_s =
+      attn::QFrags<D>::kHeld ? wide : reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
+
+  const int seq = blockIdx.x;
+  const int kvh = blockIdx.y / head_groups;
+  const int h0 = (blockIdx.y % head_groups) * kWideRows;  // first head, of the kv head's
+  const int rows = min(kWideRows, qg - h0);               // live query heads of the block
+  const int num_seqs = gridDim.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int num_q_heads = num_kv_heads * qg;
+  const int ckv = 2 * num_kv_heads;
+
+  const size_t head0 = size_t(seq) * num_q_heads + size_t(kvh) * qg + h0;
+  const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
+  if (kv_len <= 0) {
+    if (blockIdx.z == 0)
+      for (int i = tid; i < rows * D; i += kWideThreads) out[head0 * D + i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int kv_lo = sliding_window > 0 ? max(0, kv_len - sliding_window) : 0;
+  const int first = kv_lo / split_keys;
+  const int last = (kv_len - 1) / split_keys;
+  const int slots = gridDim.z;
+  const bool direct = slots == 1 || first == last;
+  const int split0 = first_split(blockIdx.z, first, slots);
+  if (split0 > last) return;
+  const int pos = kv_len - 1;
+  const int* pages = page_indices + size_t(seq) * pages_per_seq;
+  // The block's query rows: heads h0 .. h0 + rows - 1, then zeros.
+  for (int i = tid; i < kWideRows * (D / 8); i += kWideThreads) {
+    const int r = i / (D / 8);
+    const int part = i % (D / 8);
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) raw = *reinterpret_cast<const uint4*>(q + (head0 + r) * D + part * 8);
+    *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
+  }
+  __syncthreads();
+  attn::QFrags<D> qf;
+  attn::load_q<D>(qf, q_s + warp * 16 * kStride);
+  const bool warp_live = warp * 16 < rows;
+
+  // This lane's two rows: heads warp * 16 + g and + 8 of the block's.
+  float slope[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int h = warp * 16 + lane / 4 + 8 * r;
+    if (h < rows && alibi_slopes != nullptr)
+      slope[r] = __ldg(alibi_slopes + size_t(kvh) * qg + h0 + h);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int split = split0; split <= last; split += slots) {
+    const int k_begin = max(kv_lo, split * split_keys);
+    const int k_end = min(kv_len, (split + 1) * split_keys);
+    // Every warp is done with the query rows, or with the previous split's
+    // last tile: the ring is free.
+    __syncthreads();
+    int tile = k_begin / kKeys * kKeys;  // the next tile to use
+    int ahead = tile;                    // the next tile to load
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (ahead < k_end) {
+        attn::issue_tile<Page, D, kWideThreads>(stages + st * L::stage, kv, pages, page_size,
+                                                ckv, kvh, ahead, k_begin, k_end);
+        ahead += kKeys;
+      }
+      attn::cp_async_commit();
+    }
+    for (int it = 0; tile < k_end; ++it) {
+      const int cur = tile;
+      tile += kKeys;
+      // Tile `cur` has landed, and every warp is done with the previous
+      // one: its stage is free for the tile kStages - 1 ahead.
+      attn::cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (ahead < k_end) {
+        attn::issue_tile<Page, D, kWideThreads>(
+            stages + ((it + kStages - 1) % kStages) * L::stage, kv, pages, page_size, ckv,
+            kvh, ahead, k_begin, k_end);
+        ahead += kKeys;
+      }
+      attn::cp_async_commit();
+      const __nv_bfloat16* k_t;
+      if constexpr (L::kNarrow) {
+        attn::widen_tile<Page, D, kWideThreads>(wide, stages + (it % kStages) * L::stage);
+        __syncthreads();
+        k_t = wide;
+      } else {
+        k_t = reinterpret_cast<const __nv_bfloat16*>(stages + (it % kStages) * L::stage);
+      }
+      if (!warp_live) continue;
+#pragma unroll
+      for (int sub = 0; sub < kKeys; sub += kSub) {
+        const int c0 = cur + sub;  // the step's first key
+        if (c0 >= k_end || c0 + kSub <= k_begin) continue;
+        float s[kSub / 8][4];
+        attn::qk<D, kSub / 8>(s, qf, k_t + sub * kStride);
+        const bool edge = c0 < k_begin || c0 + kSub > k_end;
+#pragma unroll
+        for (int nb = 0; nb < kSub / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e / 2;
+            const int key = c0 + nb * 8 + 2 * (lane % 4) + e % 2;
+            float v = s[nb][e] * sm_scale;
+            if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
+            if (alibi_slopes != nullptr)
+              v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos)));
+            if (edge && (key < k_begin || key >= k_end)) v = -INFINITY;
+            s[nb][e] = v;
+          }
+        }
+        attn::softmax_step<D, kSub / 8>(s, m, l, o);
+        attn::pv<D, kSub / 8>(o, s, k_t + kTileElems + sub * kStride);
+      }
+    }
+  }
+  attn::finish_sums(l);
+  attn::cp_async_wait_all();
+  if (!warp_live) return;
+  // The output, or this slot's partial (the unnormalised acc, m and l of
+  // each row).
+  const size_t part0 = size_t(blockIdx.z) * num_seqs * num_q_heads + head0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int h = warp * 16 + lane / 4 + 8 * r;
+    if (h >= rows) continue;
+    if (direct) {
+      __nv_bfloat16* dst = out + (head0 + h) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float a = l[r] > 0.f ? o[j][2 * r] / l[r] : 0.f;
+        const float b = l[r] > 0.f ? o[j][2 * r + 1] / l[r] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(a, b);
+      }
+    } else {
+      float* dst = part_acc + (part0 + h) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (lane % 4 == 0) {
+        part_ml[2 * (part0 + h)] = m[r];
+        part_ml[2 * (part0 + h) + 1] = l[r];
+      }
+    }
+  }
+}
+
 // The second pass: one block per (sequence, query head), one thread per
 // dimension, merging the live slots of the rows whose keys more than one
 // slot took, in slot order (a slot whose keys were all masked, m = -inf,
@@ -459,11 +670,29 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
     configured = true;
   }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const dim3 grid(num_seqs, num_kv_heads, num_slots);
-  paged_decode_kernel<Page, D, BS><<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
-      page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, page_size,
-      pages_per_seq, sm_scale, sliding_window, soft_cap, bs, split_keys);
+  if (qg <= kTileQG) {
+    const dim3 grid(num_seqs, num_kv_heads, num_slots);
+    paged_decode_kernel<Page, D, BS><<<grid, kThreads, L::bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
+        page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, page_size,
+        pages_per_seq, sm_scale, sliding_window, soft_cap, bs, split_keys);
+  } else {
+    using W = WideSmem<Page, D>;
+    static bool wide_configured = false;
+    if (!wide_configured) {
+      const cudaError_t err = cudaFuncSetAttribute(paged_decode_wide_kernel<Page, D>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   int(W::bytes));
+      if (err != cudaSuccess) return err;
+      wide_configured = true;
+    }
+    const int head_groups = (qg + kWideRows - 1) / kWideRows;
+    const dim3 grid(num_seqs, num_kv_heads * head_groups, num_slots);
+    paged_decode_wide_kernel<Page, D><<<grid, kWideThreads, W::bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
+        page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, head_groups,
+        page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, split_keys);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_slots == 1) return err;
   paged_decode_combine_kernel<D><<<dim3(num_seqs, num_kv_heads * qg), D, 0, stream>>>(
@@ -474,9 +703,9 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 
 // Checks the shape and launches the variant for pages of type Page,
 // head_dim 64, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
-// heads per kv head (1 to 16) and blocksparse (a phase table given;
-// head_dim 128 and QG 1, 2, 4 or 8 only: the shapes blocksparse is built
-// for) or not.
+// heads per kv head (any; above 16 the wide kernel) and blocksparse (a
+// phase table given; head_dim 128 and QG 1, 2, 4 or 8 only: the shapes
+// blocksparse is built for) or not.
 template <class Page>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,
@@ -487,7 +716,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   if (num_seqs <= 0) return int(cudaSuccess);
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return int(cudaErrorInvalidValue);
   const int qg = num_q_heads / num_kv_heads;
-  if (qg < 1 || qg > kMaxQG) return int(cudaErrorInvalidValue);
+  if (qg < 1) return int(cudaErrorInvalidValue);
   // Splits of whole tiles, and a scratch for the partials whenever there is
   // more than one slot.
   if (split_keys <= 0 || split_keys % kKeys != 0 || num_slots <= 0 ||
@@ -527,21 +756,22 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 }  // namespace
 
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
-// int8}. q bf16[S, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV for QG in 1
-// to 16 (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size,
+// int8}. q bf16[S, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV for any
+// QG (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size,
 // 2 * KV, D] of the named type (K at even and V at odd combined heads),
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], alibi_slopes f32[QH]
 // or null (no ALiBi), out bf16[S, QH, D]. sliding_window <= 0 and soft_cap
 // <= 0 mean off. bs_offsets i32[QH] (each query head's vertical phase) with
 // bs_block, bs_local and bs_vert turns blocksparse on; null means off (the
 // others are then unread). split_keys (a multiple of 64) keys a split,
-// num_slots blocks per (sequence, kv head) taking the splits in turn; with
+// num_slots blocks per (sequence, kv head; for QG above 128, per kv head
+// and group of 128 query heads) taking the splits in turn; with
 // more than one slot, part_acc f32[num_slots, S, QH, D] and part_ml
 // f32[num_slots, S, QH, 2] are the scratch of the partials (else they may
 // be null).
 // Launches the split kernel and, with more than one slot, the combine
 // kernel on `stream`. Returns the CUDA error of the launches
-// (cudaErrorInvalidValue for any other D or QH / KV, blocksparse parameters
+// (cudaErrorInvalidValue for any other D, QH not a multiple of KV, blocksparse parameters
 // that are not positive or at a shape it is not built for, a split that is
 // not whole tiles, or no scratch where one is needed).
 #define PAGED_DECODE_ENTRY(suffix, Page)                                                     \

@@ -6,22 +6,30 @@
 // (and the base semantics of its vendored fork
 // aphrodite_tpu/ops/rpa_alibi_kernel.py: ragged_paged_attention_alibi).
 //
-// Work split: one block per (query tile, kv head). A query tile holds
-// kRows query rows (128 at head_dim 96, 128 and 256, 8 warps; 64 at
-// head_dim 64, 4 warps) = floor(kRows / QG) consecutive tokens of ONE
-// sequence times the QG query heads that share the kv head, so a tile
-// never straddles two sequences and every K/V tile it stages serves all
-// of its rows; where QG does not divide kRows the last kRows mod QG rows
-// of every tile are idle.
+// Work split: one block per (query tile, kv head). The query rows of a
+// sequence and kv head are its (token, query head) pairs, flattened token
+// by token: row f is token f / QG and query head f % QG of the QG = QH /
+// KV heads that share the kv head. A query tile holds kRows consecutive
+// rows of that order (128 at head_dim 96, 128 and 256, 8 warps; 64 at
+// head_dim 64, 4 warps) of ONE sequence, so a tile never straddles two
+// sequences and every K/V tile it stages serves all of its rows; each
+// row carries its own token position for the causal mask, the window and
+// the ALiBi distance. Only a sequence's last tile has idle rows. Where QG
+// divides kRows a tile is kRows / QG whole tokens; where it does not, a
+// tile may begin and end inside a token's heads; and at QG above kRows
+// (Falcon-7B's 71 on one kv head, head_dim 64) a token's heads fill more
+// than one tile.
 // The tiles are taken from the end of the token stream, so that within a
-// sequence the tiles that see the most keys start first. QG = QH / KV is
-// a template parameter, instantiated at head_dim 128 for 1, 2, 4 and 8,
-// and 0, which reads QG at run time and serves every other QG up to 16,
-// and every QG at head_dim 64, 96 and 256. head_dim D (64, 96, 128 or
-// 256) is a template parameter too. So are ALiBi and blocksparse, so that the variant
-// without either carries no per-score branch for them. The variants with
-// ALiBi or blocksparse are built for D 128 and QG 1, 2, 4 and 8 only, the
-// shapes of the models that use them. The plain variants are built from
+// sequence the tiles that see the most keys start first. QG is a template
+// parameter, instantiated at head_dim 128 for 1, 2, 4 and 8, and 0, which
+// reads QG at run time and serves every other QG, and every QG at head_dim
+// 64, 96 and 256. head_dim D (64, 96, 128 or 256) is a template parameter
+// too. So are ALiBi and blocksparse, so that the variant without either
+// carries no per-score branch for them. ALiBi reads each row's slope by
+// its query head, at every D and QG (the fixed instantiations at D 128,
+// and the runtime one elsewhere). Blocksparse is built for D 128 and QG
+// 1, 2, 4 and 8 only, the shapes of the model that uses it (its per-tile
+// skip tests every head's phase from a table of QG entries). The plain variants are built from
 // ragged_paged_attention.cu, those with ALiBi from
 // ragged_paged_attention_alibi.cu and those with blocksparse from
 // ragged_paged_attention_blocksparse.cu: three libraries that nvcc builds
@@ -124,9 +132,6 @@ struct RaggedShape {
   static constexpr int kSubKeys = D == 256 ? 32 : attn::kTileKeys;
 };
 constexpr int kKeys = attn::kTileKeys;
-// The largest QH / KV the kernel takes (the wrapper raises above it, and
-// for a head_dim other than 64, 96, 128 and 256).
-constexpr int kMaxQG = 16;
 
 // Dynamic shared memory: the stages of the ring (bf16 pages: the padded K
 // and V tiles; narrow pages: raw bytes) and, for narrow pages, the one pair
@@ -159,7 +164,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               int num_kv_heads, int qg_rt, int page_size,
                               int pages_per_seq, float sm_scale, int sliding_window,
                               float soft_cap, Blocksparse bs) {
-  static_assert(QG > 0 || !(ALIBI || BLOCKSPARSE), "options are built for a fixed QG");
+  static_assert(QG > 0 || !BLOCKSPARSE, "blocksparse is built for a fixed QG");
   using L = RaggedSmem<Page, D>;
   constexpr int kThreads = RaggedShape<D>::kThreads;
   constexpr int kRows = RaggedShape<D>::kRows;
@@ -168,7 +173,6 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kStride = attn::Tile<D>::kStride;
   constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
   const int qg = QG > 0 ? QG : qg_rt;
-  const int kTokens = kRows / qg;  // query tokens per tile
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stages = smem + L::wide;
@@ -180,22 +184,22 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       : L::kNarrow            ? wide
                               : reinterpret_cast<__nv_bfloat16*>(stages + (kStages - 1) * L::stage);
 
-  // Which sequence and which token tile is this block's? Blocks start in
-  // the order of blockIdx.x, and a sequence's last tiles see the most
-  // keys, so the tiles are taken from the end: the longest start first and
-  // the short ones fill the last wave (surplus blocks, past the last tile,
-  // start and exit first).
+  // Which sequence and which tile of its rows is this block's? Blocks
+  // start in the order of blockIdx.x, and a sequence's last tiles see the
+  // most keys, so the tiles are taken from the end: the longest start
+  // first and the short ones fill the last wave (surplus blocks, past the
+  // last tile, start and exit first).
   int seq = -1;
-  int tile_t0 = 0;
+  int tile_f0 = 0;  // the tile's first row, in the sequence's rows
   {
     const int b = int(gridDim.x) - 1 - int(blockIdx.x);
     int tiles_before = 0;
     for (int s = 0; s < num_seqs; ++s) {
       const int q_len = cu_q_lens[s + 1] - cu_q_lens[s];
-      const int n_tiles = (q_len + kTokens - 1) / kTokens;
+      const int n_tiles = (q_len * qg + kRows - 1) / kRows;
       if (b < tiles_before + n_tiles) {
         seq = s;
-        tile_t0 = (b - tiles_before) * kTokens;
+        tile_f0 = (b - tiles_before) * kRows;
         break;
       }
       tiles_before += n_tiles;
@@ -212,12 +216,14 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_start = cu_q_lens[seq];
   const int q_len = cu_q_lens[seq + 1] - q_start;
   const int kv_len = min(kv_lens[seq], pages_per_seq * page_size);
-  const int n_tok = min(kTokens, q_len - tile_t0);
-  const int pos0 = kv_len - q_len + tile_t0;  // absolute position of the tile's first token
+  const int n_rows = min(kRows, q_len * qg - tile_f0);  // the tile's live rows
+  const int pos_base = kv_len - q_len;  // absolute position of the sequence's first token
+  const int pos0 = pos_base + tile_f0 / qg;                  // of the tile's first row
+  const int pos_end = pos_base + (tile_f0 + n_rows - 1) / qg;  // and of its last
   const int* pages = page_indices + size_t(seq) * pages_per_seq;
 
   // Keys this tile can see.
-  const int kv_hi = min(kv_len, pos0 + n_tok);
+  const int kv_hi = min(kv_len, pos_end + 1);
   const int kv_lo = sliding_window > 0 ? max(0, pos0 - sliding_window + 1) : 0;
 
   // Blocksparse: the phases of this kv head's query heads, for the test of
@@ -278,15 +284,16 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     attn::cp_async_commit();
   }
 
-  // Query rows: row r = token (r / qg), head kvh * qg + r % qg, as bf16.
-  // Rows past n_tok * qg are idle: zeros, never written.
+  // Query rows: row r = the sequence's row f = tile_f0 + r, token f / qg,
+  // head kvh * qg + f % qg, as bf16. Rows past n_rows are idle: zeros,
+  // never written.
   for (int i = tid; i < kRows * (D / 8); i += kThreads) {
     const int r = i / (D / 8);
     const int part = i % (D / 8);
-    const int t = r / qg;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (t < n_tok) {
-      const size_t head = size_t(q_start + tile_t0 + t) * num_q_heads + kvh * qg + r % qg;
+    if (r < n_rows) {
+      const int f = tile_f0 + r;
+      const size_t head = size_t(q_start + f / qg) * num_q_heads + kvh * qg + f % qg;
       raw = *reinterpret_cast<const uint4*>(q + head * D + part * 8);
     }
     *reinterpret_cast<uint4*>(q_s + r * kStride + part * 8) = raw;
@@ -304,10 +311,11 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + lane / 4 + 8 * r;
-    live_row[r] = row / qg < n_tok;
-    pos[r] = pos0 + row / qg;
-    if constexpr (ALIBI) slope[r] = __ldg(alibi_slopes + kvh * qg + row % qg);
-    if constexpr (BLOCKSPARSE) phase[r] = __ldg(bs.offsets + kvh * qg + row % qg);
+    const int f = tile_f0 + row;
+    live_row[r] = row < n_rows;
+    pos[r] = pos_base + f / qg;
+    if constexpr (ALIBI) slope[r] = __ldg(alibi_slopes + kvh * qg + f % qg);
+    if constexpr (BLOCKSPARSE) phase[r] = __ldg(bs.offsets + kvh * qg + f % qg);
   }
   // Blocksparse: each row's query block; when a tile lies in one key
   // block (the block a multiple of the tile, as Phi-3-Small's 64) each
@@ -319,9 +327,9 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     bq[1] = pos[1] / bs.block;
     one_block = bs.block % kKeys == 0;
   }
-  const bool warp_live = (warp * 16) / qg < n_tok;
-  const int w_pos_min = pos0 + (warp * 16) / qg;
-  const int w_pos_max = pos0 + min(n_tok - 1, (warp * 16 + 15) / qg);
+  const bool warp_live = warp * 16 < n_rows;
+  const int w_pos_min = pos_base + (tile_f0 + warp * 16) / qg;
+  const int w_pos_max = pos_base + (tile_f0 + min(n_rows - 1, warp * 16 + 15)) / qg;
   const int w_hi = min(kv_hi, w_pos_max + 1);
   const int w_lo = sliding_window > 0 ? max(0, w_pos_min - sliding_window + 1) : 0;
 
@@ -409,9 +417,8 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (!live_row[r]) continue;
-    const int row = warp * 16 + lane / 4 + 8 * r;
-    const size_t head =
-        size_t(q_start + tile_t0 + row / qg) * num_q_heads + kvh * qg + row % qg;
+    const int f = tile_f0 + warp * 16 + lane / 4 + 8 * r;
+    const size_t head = size_t(q_start + f / qg) * num_q_heads + kvh * qg + f % qg;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     __nv_bfloat16* dst = out + head * D + 2 * (lane % 4);
 #pragma unroll
@@ -438,8 +445,9 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int tokens = kRows / qg;  // per tile; the kernel maps rows with the same qg
-  const dim3 grid((num_tokens + tokens - 1) / tokens + num_seqs, num_kv_heads);
+  // At most ceil(T * qg / kRows) + S tiles: a sequence's rows fill all of
+  // its tiles but the last (the kernel maps rows with the same qg).
+  const dim3 grid((num_tokens * qg + kRows - 1) / kRows + num_seqs, num_kv_heads);
   ragged_paged_attention_kernel<Page, D, QG, ALIBI, BLOCKSPARSE>
       <<<grid, kThreads, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
@@ -449,8 +457,8 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Launches the instantiation for head_dim D: at D 128 QG 1, 2, 4 and 8
-// have their own, every other QG up to 16 (and every QG at D 64, 96 and
-// 256) the one that reads it at run time. With ALiBi or blocksparse only D
+// have their own, every other QG (and every QG at D 64, 96 and 256) the
+// one that reads it at run time, with ALiBi too. With blocksparse only D
 // 128 and QG 1, 2, 4 and 8 are built.
 template <class Page, int D, bool ALIBI, bool BLOCKSPARSE>
 cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
@@ -463,9 +471,8 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
                                            alibi_slopes, out, num_tokens, num_seqs,          \
                                            num_kv_heads, qg, page_size, pages_per_seq,       \
                                            sm_scale, sliding_window, soft_cap, bs, stream)
-  constexpr bool kOption = ALIBI || BLOCKSPARSE;
   if constexpr (D != 128) {
-    if constexpr (kOption) return cudaErrorInvalidValue;
+    if constexpr (BLOCKSPARSE) return cudaErrorInvalidValue;
     else return RAGGED_LAUNCH(0);
   } else {
     switch (qg) {
@@ -478,7 +485,7 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
       case 8:
         return RAGGED_LAUNCH(8);
     }
-    if constexpr (kOption) return cudaErrorInvalidValue;
+    if constexpr (BLOCKSPARSE) return cudaErrorInvalidValue;
     else return RAGGED_LAUNCH(0);
   }
 #undef RAGGED_LAUNCH
@@ -486,7 +493,7 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
 
 // Checks the shape and launches the variant for pages of type Page,
 // head_dim 64, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
-// heads per kv head (1 to 16), ALiBi (a slope table given) or not and
+// heads per kv head (any), ALiBi (a slope table given) or not and
 // blocksparse (a phase table given) or not.
 template <class Page, bool ALIBI, bool BLOCKSPARSE>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
@@ -496,7 +503,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
         const void* bs_offsets, int bs_block, int bs_local, int bs_vert, void* stream) {
   if (num_tokens <= 0 || num_seqs <= 0) return int(cudaSuccess);
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 ||
-      num_q_heads / num_kv_heads > kMaxQG || ALIBI != (alibi_slopes != nullptr) ||
+      ALIBI != (alibi_slopes != nullptr) ||
       BLOCKSPARSE != (bs_offsets != nullptr) ||
       (BLOCKSPARSE && (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0)))
     return int(cudaErrorInvalidValue);
@@ -530,8 +537,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
 // blocksparse or not. q bf16[T, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV
-// for QG in 1 to 16 (with ALiBi or blocksparse: D = 128 and QG in {1, 2, 4,
-// 8}), kv_pages [P, page_size, 2 * KV, D] of the named type,
+// for any QG (with blocksparse: D = 128 and QG in {1, 2, 4, 8}), kv_pages
+// [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],
 // alibi_slopes f32[QH] (the ALiBi entry points) or null (the others), out
 // bf16[T, QH, D] (zero-filled by the caller). sliding_window <= 0 and

@@ -857,9 +857,11 @@ _ARCH_TO_HF = {
     "phi3": "Phi3ForCausalLM",
 }
 # Architectures whose GGUF tensors the port does not load yet: Gemma2's
-# sandwich norms and Phi-3's fused attn_qkv / ffn_up have no mapping
-# above. Their HF checkpoints are served; their GGUF files raise.
-_UNPORTED_GGUF_ARCHS = ("gemma", "gemma2", "phi3")
+# sandwich norms, Phi-3's fused attn_qkv / ffn_up, and the fused attn_qkv,
+# LayerNorm biases and plain MLPs of Falcon, Bloom, MPT and JAIS have no
+# mapping above. Their HF checkpoints are served; their GGUF files raise.
+_UNPORTED_GGUF_ARCHS = ("gemma", "gemma2", "phi3", "falcon", "bloom", "mpt",
+                        "jais")
 
 
 def gguf_to_hf_config(path: str) -> Dict[str, Any]:
@@ -927,7 +929,7 @@ def load_gguf_params_to_host(model, path: str) -> Dict[str, Any]:
     if arch in _UNPORTED_GGUF_ARCHS:
         raise NotImplementedError(
             f"GGUF files of architecture {arch!r} are not ported yet "
-            "(ROADMAP.md, module queue item 4); load the HF checkpoint")
+            "(ROADMAP.md, module queue item 3); load the HF checkpoint")
     num_layers = model.num_layers
     quantizable = set(model.quantizable_weights())
 

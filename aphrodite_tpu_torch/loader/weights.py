@@ -217,8 +217,9 @@ def load_quantized_hf_params_to_host(model, model_dir: str,
     if model.hf_split_mappings() or model.splits_fused_tensors:
         raise NotImplementedError(
             f"{type(model).__name__} stores fused tensors (hf_split_mappings"
-            " or finalize_params); quantized checkpoints of such models are "
-            "not ported yet (ROADMAP.md, module queue item 1)")
+            " or finalize_params); quantized checkpoints of such models "
+            "(Baichuan, Phi-3, Phi-3-Small, Bloom, MPT, JAIS, Falcon) are "
+            "not ported yet (ROADMAP.md, module queue item 3)")
     is_awq = quant_method.startswith("awq")
     num_layers = model.num_layers
     per_layer_maps = model.hf_param_mappings()
@@ -308,6 +309,28 @@ def quantized_paths(model, method) -> List[str]:
                 f"but {type(model).__name__} declares none")
         return paths
     return model.quantizable_weights()
+
+
+def check_kernel_shapes(model, method) -> None:
+    """Raise unless every weight the method quantizes has a shape the
+    card's quantized products take: N a multiple of KERNEL_N_MULTIPLE and
+    K of INT4_K_MULTIPLE (all of them need both). On the card nothing
+    falls back to a plain product, so a model whose widths miss them
+    (Falcon-7B's hidden 4544, JAIS-13b's MLP of 13653) raises here, at
+    load, and not at its first forward."""
+    from aphrodite_tpu_torch.ops.quant_matmul import (INT4_K_MULTIPLE,
+                                                      KERNEL_N_MULTIPLE)
+
+    for path in quantized_paths(model, method):
+        shape = _get_path(model.param_shapes(), path)
+        K, N = shape[-2], shape[-1]
+        if N % KERNEL_N_MULTIPLE or K % INT4_K_MULTIPLE:
+            raise NotImplementedError(
+                f"{type(model).__name__}: {path} is [K={K}, N={N}]; the "
+                f"card's {method.NAME} products take N a multiple of "
+                f"{KERNEL_N_MULTIPLE} and K of {INT4_K_MULTIPLE}, so this "
+                f"model cannot serve {method.NAME} weights on the card "
+                "(its bf16 weights serve)")
 
 
 def quantize_params_at_load(model, params: Dict[str, Any],
@@ -474,6 +497,10 @@ def load_model_params(model, model_config: ModelConfig,
     # int4, int8, fp8, experts_int8 or None; a method that is not ported
     # raised in ModelConfig.
     method = get_quantization_method(model_config.quantization)
+    if (method is not None and device.type == "cuda"
+            and not getattr(method, "EXPERT_ONLY", False)):
+        # (experts_int8's experts are dequantized in plain PyTorch.)
+        check_kernel_shapes(model, method)
     if fmt == "auto":
         if model_config.model.endswith(".gguf"):
             fmt = "gguf"

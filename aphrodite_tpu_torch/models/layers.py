@@ -1,7 +1,7 @@
 """Functional model layers (counterpart of aphrodite_tpu/models/layers.py).
 
 Plain PyTorch on tensors: RMSNorm, LayerNorm, SiLU-and-mul, GELU-and-mul
-(the tanh form), and rotary position embedding with the default, linear
+(the tanh form), the plain MLP's activations, and rotary position embedding with the default, linear
 (position interpolation), Llama-3 and Phi-3 LongRoPE frequency tables,
 NeoX (rotate-half) style. The other RoPE scalings come with the models
 that use them. Also the ALiBi slope
@@ -48,6 +48,22 @@ def gelu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     approximate="tanh", Gemma's ``gelu_pytorch_tanh``)."""
     return torch.nn.functional.gelu(
         gate.float(), approximate="tanh").to(gate.dtype) * up
+
+
+def ungated_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The plain MLP's activation in f32 (the JAX package's ``mlp`` with
+    ``gated_mlp`` off): "gelu_tanh" (Bloom, StarCoder2), exact "gelu"
+    (MPT, Falcon), "relu", or "relu2" (the square of relu)."""
+    xf = x.float()
+    if kind == "relu":
+        return torch.relu(xf)
+    if kind == "relu2":
+        r = torch.relu(xf)
+        return r * r
+    if kind in ("gelu", "gelu_tanh"):
+        return torch.nn.functional.gelu(
+            xf, approximate="tanh" if kind == "gelu_tanh" else "none")
+    raise ValueError(f"unknown ungated MLP activation {kind!r}")
 
 
 def compute_rope_tables(

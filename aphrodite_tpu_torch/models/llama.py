@@ -23,9 +23,19 @@ Hooks serve the subclasses, as in the JAX package:
   weights), ``o_proj_bias`` (``bo``) and ``mlp_bias`` (``gate_b``,
   ``up_b``, fused into ``b13``, and ``down_b``);
 - ``norm_type`` "rms" or "layernorm" (with ``input_norm_b``,
-  ``post_norm_b`` and ``final_norm_b``), ``embedding_multiplier``
-  (applied in the model dtype), ``logit_scale`` (f32, after the f32
-  product) and ``tie_word_embeddings_default``;
+  ``post_norm_b`` and ``final_norm_b`` where ``norm_bias``; MPT's
+  LayerNorms have none), ``embedding_multiplier`` (applied in the model
+  dtype), ``logit_scale`` (f32, after the f32 product) and
+  ``tie_word_embeddings_default``;
+- ``embedding_norm``: a norm of the token embeddings before the first
+  layer (``embed_norm``, ``embed_norm_b``; Bloom);
+- ``gated_mlp`` False: the plain two-matmul MLP, ``fc1`` (with ``fc1_b``
+  under ``mlp_bias``), ``ungated_act`` ("gelu_tanh", exact "gelu",
+  "relu" or "relu2", in f32, rounded to the model dtype), ``fc2`` (and
+  ``fc2_b``); ``fc1`` is fused with nothing;
+- ``parallel_residual``: x + attn(norm1(x)) + mlp(norm2(x)) in one step
+  (Falcon), with ``single_norm`` feeding the MLP the same norm1 output
+  (no ``post_norm`` params at all);
 - ``mlp(lp, h, layer)``, which a subclass may replace; ``gate`` and
   ``up`` then stay apart at load (an MoE subclass has neither: its
   experts come from ``hf_expert_mappings``, stacked [L, E, ...], and
@@ -48,6 +58,8 @@ Hooks serve the subclasses, as in the JAX package:
 - Gemma2's sandwich norms: with ``post_attn_norm`` and ``post_ff_norm``
   in the layer params, each block's output is normalized before its
   residual add.
+Every hook is a Python choice made at init, so the decode window's CUDA
+graph captures the forward as it stands.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -59,7 +71,8 @@ from aphrodite_tpu_torch.models.interface import ForwardBatch
 from aphrodite_tpu_torch.models.layers import (apply_rope,
                                                compute_rope_tables,
                                                gelu_and_mul, layer_norm,
-                                               rms_norm, silu_and_mul)
+                                               rms_norm, silu_and_mul,
+                                               ungated_activation)
 from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
 from aphrodite_tpu_torch.ops.kv_cache import write_kv
 from aphrodite_tpu_torch.quantization.qlinear import qmatmul
@@ -78,8 +91,19 @@ class LlamaForCausalLM:
     attention_bias: bool = False
     o_proj_bias: bool = False
     mlp_bias: bool = False
-    # "rms" or "layernorm" (mean-centred, with bias).
+    # "rms" or "layernorm" (mean-centred, with bias where norm_bias).
     norm_type: str = "rms"
+    norm_bias: bool = True
+    # A norm of the token embeddings before the first layer (Bloom).
+    embedding_norm: bool = False
+    # The plain two-matmul MLP (fc1, ungated_act, fc2) instead of the gated
+    # one; ungated_act: "gelu_tanh", "gelu" (exact), "relu" or "relu2".
+    gated_mlp: bool = True
+    ungated_act: str = "gelu_tanh"
+    # x + attn(norm1(x)) + mlp(norm2(x)) in one step; single_norm: the MLP
+    # takes norm1(x) too (no post_norm params).
+    parallel_residual: bool = False
+    single_norm: bool = False
     tie_word_embeddings_default: bool = False
     lm_head_bias: bool = False
     # muP-style scales (1.0 and None: off).
@@ -173,25 +197,36 @@ class LlamaForCausalLM:
                 "wv": (L, H, NKV * D),
                 "wo": (L, NH * D, H),
                 "post_norm": (L, H),
-                "gate": (L, H, F),
-                "up": (L, H, F),
-                "down": (L, F, H),
             },
         }
         lay = shapes["layers"]
-        if self.mlp_bias:
-            lay.update(gate_b=(L, F), up_b=(L, F), down_b=(L, H))
+        if self.gated_mlp:
+            lay.update(gate=(L, H, F), up=(L, H, F), down=(L, F, H))
+            if self.mlp_bias:
+                lay.update(gate_b=(L, F), up_b=(L, F), down_b=(L, H))
+        else:
+            lay.update(fc1=(L, H, F), fc2=(L, F, H))
+            if self.mlp_bias:
+                lay.update(fc1_b=(L, F), fc2_b=(L, H))
         if self.attention_bias:
             lay.update(bq=(L, NH * D), bk=(L, NKV * D), bv=(L, NKV * D))
         if self.o_proj_bias:
             lay["bo"] = (L, H)
-        if self.norm_type == "layernorm":
+        layernorm_bias = self.norm_type == "layernorm" and self.norm_bias
+        if layernorm_bias:
             lay.update(input_norm_b=(L, H), post_norm_b=(L, H))
             shapes["final_norm_b"] = (H,)
+        if self.embedding_norm:
+            shapes["embed_norm"] = (H,)
+            if layernorm_bias:
+                shapes["embed_norm_b"] = (H,)
         if not self.tie_word_embeddings:
             shapes["lm_head"] = (H, V)
             if self.lm_head_bias:
                 shapes["lm_head_b"] = (V,)
+        if self.single_norm:
+            lay.pop("post_norm")
+            lay.pop("post_norm_b", None)
         return shapes
 
     def fuse_projections(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -199,7 +234,8 @@ class LlamaForCausalLM:
         output axis (all share their input): 4 matmuls per layer, not 7,
         and their biases with them (bqkv, b13). Same layout and rules as
         the JAX package's fuse_projections: a subclass with its own
-        ``mlp`` keeps gate and up apart. Quantized containers fuse member
+        ``mlp`` keeps gate and up apart, and the plain MLP's fc1 is fused
+        with nothing. Quantized containers fuse member
         by member, and only when all parts are of one kind with one K and
         one group size; otherwise the parts stay apart and the forward
         multiplies each."""
@@ -229,15 +265,17 @@ class LlamaForCausalLM:
                 lp[bias_out] = torch.cat([lp.pop(b) for b in biases], dim=-1)
 
         fuse(("wq", "wk", "wv"), "wqkv", ("bq", "bk", "bv"), "bqkv")
-        if type(self).mlp is LlamaForCausalLM.mlp:
+        if self.gated_mlp and type(self).mlp is LlamaForCausalLM.mlp:
             fuse(("gate", "up"), "w13", ("gate_b", "up_b"), "b13")
         return params
 
     def quantizable_weights(self) -> List[str]:
         """Param paths eligible for weight quantization (the Linear
         layers; embeddings, norms and lm_head stay full precision)."""
-        return ["layers.wq", "layers.wk", "layers.wv", "layers.wo",
-                "layers.gate", "layers.up", "layers.down"]
+        attn = ["layers.wq", "layers.wk", "layers.wv", "layers.wo"]
+        if self.gated_mlp:
+            return attn + ["layers.gate", "layers.up", "layers.down"]
+        return attn + ["layers.fc1", "layers.fc2"]
 
     def expert_weights(self) -> List[str]:
         """Param paths of MoE expert stacks (experts_int8 quantizes these
@@ -249,8 +287,8 @@ class LlamaForCausalLM:
 
         HF stores Linear weights [out, in]; ours are [in, out] (transpose).
         The bias terms are the JAX package's: o_proj, LayerNorm and q|k|v
-        biases by their flags; MLP biases of a gated MLP have no mapping
-        here (a subclass maps its own).
+        biases by their flags, and the plain MLP's; MLP biases of a gated
+        MLP have no mapping here (a subclass maps its own).
         """
         la = "model.layers.{i}."
         maps = [
@@ -261,13 +299,20 @@ class LlamaForCausalLM:
             (la + "self_attn.o_proj.weight", "layers.wo", True),
             (la + "post_attention_layernorm.weight", "layers.post_norm",
              False),
-            (la + "mlp.gate_proj.weight", "layers.gate", True),
-            (la + "mlp.up_proj.weight", "layers.up", True),
-            (la + "mlp.down_proj.weight", "layers.down", True),
         ]
+        if self.gated_mlp:
+            maps += [(la + "mlp.gate_proj.weight", "layers.gate", True),
+                     (la + "mlp.up_proj.weight", "layers.up", True),
+                     (la + "mlp.down_proj.weight", "layers.down", True)]
+        else:
+            maps += [(la + "mlp.c_fc.weight", "layers.fc1", True),
+                     (la + "mlp.c_proj.weight", "layers.fc2", True)]
+            if self.mlp_bias:
+                maps += [(la + "mlp.c_fc.bias", "layers.fc1_b", False),
+                         (la + "mlp.c_proj.bias", "layers.fc2_b", False)]
         if self.o_proj_bias:
             maps.append((la + "self_attn.o_proj.bias", "layers.bo", False))
-        if self.norm_type == "layernorm":
+        if self.norm_type == "layernorm" and self.norm_bias:
             maps += [(la + "input_layernorm.bias", "layers.input_norm_b",
                       False),
                      (la + "post_attention_layernorm.bias",
@@ -304,7 +349,7 @@ class LlamaForCausalLM:
             ("model.embed_tokens.weight", "embed", False),
             ("model.norm.weight", "final_norm", False),
         ]
-        if self.norm_type == "layernorm":
+        if self.norm_type == "layernorm" and self.norm_bias:
             maps.append(("model.norm.bias", "final_norm_b", False))
         if not self.tie_word_embeddings:
             maps.append(("lm_head.weight", "lm_head", True))
@@ -342,6 +387,8 @@ class LlamaForCausalLM:
             x = x * self._hidden_scale
         if self._embedding_scale is not None:
             x = x * self._embedding_scale
+        if self.embedding_norm:
+            x = self._norm(x, params["embed_norm"], params.get("embed_norm_b"))
         if self.use_rope:
             rope = (self._cos[batch.positions], self._sin[batch.positions])
             if self.local_rope_layers is not None:
@@ -389,6 +436,14 @@ class LlamaForCausalLM:
                 attn = attn * v_scale.to(attn.dtype)
             o = self._linear(lp, attn.reshape(-1, NH * D), ("wo",), ("bo",),
                              layer).to(self.dtype)
+            if self.parallel_residual:
+                # One step: x + attn(norm1(x)) + mlp(norm2(x)), or with
+                # single_norm the MLP on norm1(x) too.
+                h2 = h if self.single_norm else self._norm(
+                    x, lp["post_norm"][layer],
+                    self._layer_bias(lp, "post_norm_b", layer))
+                x = x + o + self.mlp(lp, h2, layer).to(self.dtype)
+                continue
             if sandwich:
                 o = self._norm(o, lp["post_attn_norm"][layer])
             x = x + o
@@ -443,7 +498,12 @@ class LlamaForCausalLM:
             layer: int) -> torch.Tensor:
         """The gated SiLU (or, with hidden_act "gelu_tanh", GeGLU) MLP of
         one layer (gate and up in the model dtype, as the JAX package
-        casts them)."""
+        casts them), or without ``gated_mlp`` fc1, ``ungated_act`` (in
+        f32, rounded to the model dtype) and fc2."""
+        if not self.gated_mlp:
+            up = self._linear(lp, h, ("fc1",), ("fc1_b",), layer)
+            act = ungated_activation(up, self.ungated_act).to(self.dtype)
+            return self._linear(lp, act, ("fc2",), ("fc2_b",), layer)
         g13 = self._linear(lp, h, ("w13", "gate", "up"),
                            ("b13", "gate_b", "up_b"), layer).to(self.dtype)
         F = g13.shape[-1] // 2

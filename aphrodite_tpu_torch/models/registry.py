@@ -3,8 +3,10 @@
 Maps HF ``architectures[0]`` to a model class. The PyTorch package ports
 Llama (and the checkpoints that reuse its graph: Mistral, Qwen2 and
 Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan,
-Phi-3-Small, Phi-3 (mini, medium), Gemma, Gemma2 and Gemma3, and the MoE
-models Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE and PhiMoE so far; any other
+Phi-3-Small, Phi-3 (mini, medium), Gemma, Gemma2 and Gemma3, the MoE
+models Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE and PhiMoE, and the ALiBi and
+multi-query families Bloom, MPT, JAIS and Falcon (with its legacy RW name)
+so far; any other
 architecture raises. The MoE architectures still to port raise with the
 ROADMAP item that holds them (``_WAITING``). The embedding aliases
 (``MistralModel``, ``LlamaModel``) wait for the pooling runner.
@@ -15,11 +17,15 @@ from typing import Dict, Type
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
                                                  BaichuanForCausalLM)
+from aphrodite_tpu_torch.models.bloom import BloomForCausalLM
+from aphrodite_tpu_torch.models.falcon import FalconForCausalLM
 from aphrodite_tpu_torch.models.gemma import (Gemma2ForCausalLM,
                                               Gemma3ForCausalLM,
                                               GemmaForCausalLM)
+from aphrodite_tpu_torch.models.jais import JAISLMHeadModel
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
 from aphrodite_tpu_torch.models.mixtral import MixtralForCausalLM
+from aphrodite_tpu_torch.models.mpt import MPTForCausalLM
 from aphrodite_tpu_torch.models.olmoe import OlmoeForCausalLM
 from aphrodite_tpu_torch.models.phi3 import Phi3ForCausalLM
 from aphrodite_tpu_torch.models.phi3small import Phi3SmallForCausalLM
@@ -66,6 +72,12 @@ _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "OlmoeForCausalLM": OlmoeForCausalLM,
     "PhiMoEForCausalLM": PhiMoEForCausalLM,
     "PhimoeForCausalLM": PhiMoEForCausalLM,
+    "BloomForCausalLM": BloomForCausalLM,
+    "MptForCausalLM": MPTForCausalLM,
+    "MPTForCausalLM": MPTForCausalLM,
+    "JAISLMHeadModel": JAISLMHeadModel,
+    "FalconForCausalLM": FalconForCausalLM,
+    "RWForCausalLM": FalconForCausalLM,
 }
 
 # MoE architectures the JAX package serves and the port does not yet, with

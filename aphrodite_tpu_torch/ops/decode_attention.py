@@ -32,13 +32,14 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 64, 96, 128 or 256 with 1 to 16 query heads
-per kv head (the instantiation is chosen at the launch), and, at head_dim
-128
-with 1, 2, 4 or 8 query heads per kv head, an optional ALiBi slope table
+Both kernels take head_dim 64, 96, 128 or 256 with any number of query
+heads per kv head (the instantiation is chosen at the launch; the decode
+kernel takes more than 16 in a kernel of its own, ``decode_head_groups``),
+and, at every one of those shapes, an optional ALiBi slope table
 f32[QH]: score + slope[h] * (key position - query position), added after
 the soft cap and before the mask, as the JAX package adds it. Or, at
-those shapes and instead of ALiBi, Phi-3-Small's blocksparse mask:
+head_dim 128 with 1, 2, 4 or 8 query heads per kv head and instead of
+ALiBi, Phi-3-Small's blocksparse mask:
 ``blocksparse=(block_size, local_blocks, vert_stride)`` with
 ``bs_head_offsets`` (a contiguous i32[QH] tensor on q's device, each
 global query head's vertical phase) and ``bs_on`` (a Python bool, the
@@ -61,15 +62,18 @@ from aphrodite_tpu_torch.ops.launches import count_launch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The shapes both CUDA kernels are built for: head_dim 64, 96 (Phi-3-mini),
 # 128 or 256 (Gemma, Gemma2, Gemma3), the head_dims of the JAX-bundled
-# ragged kernel, with QH / KV from 1 (MHA: Baichuan-13B) to 16, which
-# covers Llama-3's 4 and 8, Qwen2.5's 5, 6 and 7 and Llama-3.2-3B's 3.
-# Falcon-7B's 71 is above it. ALiBi and blocksparse are built for head_dim
-# 128 at QH / KV 1, 2, 4 or 8 only (Baichuan, bench.py's 1.4B,
-# Phi-3-Small).
+# ragged kernel, at every QH / KV, from 1 (MHA: Baichuan-13B, Bloom, MPT,
+# JAIS) to Falcon-7B's 71 (multi-query), with or without ALiBi.
+# Blocksparse is built for head_dim 128 at QH / KV 1, 2, 4 or 8 only
+# (Phi-3-Small's 4).
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)
-KERNEL_MAX_QUERIES_PER_KV = 16
-OPTION_HEAD_DIM = 128
-OPTION_QUERIES_PER_KV = (1, 2, 4, 8)
+BLOCKSPARSE_HEAD_DIM = 128
+BLOCKSPARSE_QUERIES_PER_KV = (1, 2, 4, 8)
+# Up to this QH / KV the decode kernel holds a kv head's query heads as
+# the rows of one mma tile; above it its wide kernel takes them, 128 query
+# heads a block (a block per group of 128 past that).
+DECODE_TILE_QUERIES = 16
+DECODE_WIDE_QUERIES = 128
 # Page types the CUDA kernels read, and the suffix of each one's entry
 # point (also its key in ``launches_by_dtype``).
 KERNEL_PAGE_TYPES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
@@ -177,16 +181,28 @@ DECODE_SPLIT_KEYS = 256
 DECODE_BLOCKS_PER_SM = 8
 
 
+def decode_head_groups(queries_per_kv: int) -> int:
+    """The decode kernel's blocks per (row, kv head, slot): one up to
+    DECODE_WIDE_QUERIES query heads per kv head, else one per group of
+    that many."""
+    if queries_per_kv <= DECODE_TILE_QUERIES:
+        return 1
+    return -(-queries_per_kv // DECODE_WIDE_QUERIES)
+
+
 def plan_decode_splits(num_seqs: int, num_kv_heads: int, max_keys: int,
-                       page_size: int, num_sms: int) -> Tuple[int, int, int]:
+                       page_size: int, num_sms: int,
+                       head_groups: int = 1) -> Tuple[int, int, int]:
     """(split_keys, num_splits, num_slots) for a decode call of num_seqs
-    rows and num_kv_heads kv heads whose page table holds max_keys =
+    rows and num_kv_heads kv heads, each taken by head_groups blocks
+    (``decode_head_groups``), whose page table holds max_keys =
     pages_per_seq * page_size keys a row, on a card of num_sms SMs: host
     values only, no read of kv_lens. split_keys is a multiple of the tile
     and of the page (whole pages for page sizes that divide or are
     multiples of 64), num_splits * split_keys covers max_keys, and
-    num_slots (blocks per row and kv head) is at most num_splits."""
-    pairs = max(1, num_seqs * num_kv_heads)
+    num_slots (blocks per row, kv head and head group) is at most
+    num_splits."""
+    pairs = max(1, num_seqs * num_kv_heads * head_groups)
     unit = DECODE_TILE_KEYS * page_size // math.gcd(DECODE_TILE_KEYS,
                                                     page_size)
     split = -(-DECODE_SPLIT_KEYS // unit) * unit
@@ -372,18 +388,13 @@ def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
             f"a multiple of KV; got q {tuple(q.shape)}, kv pages "
             f"{tuple(kv_pages.shape)}")
     qg = num_q_heads // num_kv_heads
-    if qg > KERNEL_MAX_QUERIES_PER_KV:
+    if bs_head_offsets is not None and (
+            head_dim != BLOCKSPARSE_HEAD_DIM
+            or qg not in BLOCKSPARSE_QUERIES_PER_KV):
         raise ValueError(
-            f"attention kernel takes QH/KV up to {KERNEL_MAX_QUERIES_PER_KV}; "
-            f"got {num_q_heads} query heads over {num_kv_heads} kv heads "
-            f"(QH/KV {qg})")
-    option = ("ALiBi" if alibi_slopes is not None else
-              "blocksparse" if bs_head_offsets is not None else None)
-    if option and (head_dim != OPTION_HEAD_DIM
-                   or qg not in OPTION_QUERIES_PER_KV):
-        raise ValueError(
-            f"attention kernel takes {option} at head_dim {OPTION_HEAD_DIM} "
-            f"and QH/KV in {OPTION_QUERIES_PER_KV}; got head_dim {head_dim}, "
+            f"attention kernel takes blocksparse at head_dim "
+            f"{BLOCKSPARSE_HEAD_DIM} and QH/KV in "
+            f"{BLOCKSPARSE_QUERIES_PER_KV}; got head_dim {head_dim}, "
             f"QH/KV {qg}")
     if alibi_slopes is not None and (
             alibi_slopes.device != q.device
@@ -454,10 +465,11 @@ def paged_decode_attention(
         raise ValueError("kv_lens and page_indices need one row per query")
     _, page_size, ckv, _ = kv_pages.shape
     out = torch.empty_like(q)
+    head_groups = decode_head_groups(num_q_heads // (ckv // 2))
     split_keys, num_splits, num_slots = plan_decode_splits(
         num_seqs, ckv // 2, page_indices.shape[1] * page_size, page_size,
         device_sms(q.device.index if q.device.index is not None
-                else torch.cuda.current_device()))
+                else torch.cuda.current_device()), head_groups)
     part_acc, part_ml = decode_scratch(num_slots, num_seqs, num_q_heads,
                                        head_dim, q.device)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
@@ -475,7 +487,7 @@ def paged_decode_attention(
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
     paged_decode_attention.last_plan = dict(
         split_keys=split_keys, splits=num_splits, slots=num_slots,
-        blocks=num_seqs * (ckv // 2) * num_slots)
+        blocks=num_seqs * (ckv // 2) * head_groups * num_slots)
     count_launch(paged_decode_attention, dtype=page_type,
                  shape=launch_shape(num_q_heads, ckv // 2, head_dim,
                                     alibi_slopes, bs[0] is not None))
@@ -505,5 +517,6 @@ paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
 paged_decode_attention.launches_by_shape = {}
 # The split plan of the last launch: split_keys, splits (of the page
-# table), slots (blocks per row and kv head), blocks (the grid).
+# table), slots (blocks per row, kv head and head group), blocks (the
+# grid).
 paged_decode_attention.last_plan = None

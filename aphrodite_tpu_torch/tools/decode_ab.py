@@ -53,7 +53,7 @@ LLM.generate = warm_generate
 _, rates = c.main_path("cuda", **kw)
 print("DECODE_AB " + json.dumps(rates), flush=True)
 """
-PATHS = ("gptq", "qwen2.5-7b", "q6_k gguf, 32 layers")
+PATHS = ("gptq", "qwen2.5-7b", "q6_k gguf, 16 layers")
 
 
 def path_arguments(path: str) -> str:

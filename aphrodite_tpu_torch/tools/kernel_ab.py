@@ -171,20 +171,57 @@ def digest(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()
 
 
-def attention_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
-    """Digests of the attention outputs; the outputs themselves (the rows
-    of live tokens) go into `tensors`."""
+# The attention calls: ragged prefill chunks and decode rows of 1000+ keys,
+# and 12 live decode rows of 16.
+RAGGED_SEQS = [(1, 300), (200, 200), (1, 17), (77, 77), (1, 1100), (90, 1250)]
+
+
+def decode_seqs():
+    lens = np.random.default_rng(3).integers(1, 1100, size=12)
+    lens[:2] = (1500, 1025)
+    return [(1, int(n)) for n in lens]
+
+
+def attention_call(op: str, page_type: str, qg: int, head_dim: int,
+                   name: str):
+    """One seeded call of a wrapper ("ragged" or "decode") at QG query
+    heads per kv head (16 kv heads at QG 1, else 32 query heads in all)
+    and head_dim, with the variant `name` ("plain", "window_cap",
+    "alibi", "blocksparse"): (its output, the rows that hold live
+    tokens). Raises ValueError for a shape the checkout does not take."""
     from aphrodite_tpu_torch.models.layers import get_alibi_slopes
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
     from aphrodite_tpu_torch.ops.decode_attention import \
         paged_decode_attention
 
+    kvh = 32 // qg if qg > 1 else 16
+    qh = qg * kvh
+    seqs, padded = ((RAGGED_SEQS, (8, 660)) if op == "ragged"
+                    else (decode_seqs(), (16, 16)))
+    c = attention_case(seqs, qh, kvh, page_type, qg + 7, *padded,
+                       head_dim=head_dim)
+    variants = {
+        "plain": {},
+        "window_cap": dict(sliding_window=100, soft_cap=30.0),
+        "alibi": dict(alibi_slopes=torch.from_numpy(
+            get_alibi_slopes(qh)).cuda()),
+        "blocksparse": dict(blocksparse=(64, 4, 8), bs_head_offsets=(
+            torch.arange(qh, dtype=torch.int32, device="cuda")
+            * max(1, 8 // qh)))}
+    kw = dict(variants[name], sm_scale=head_dim**-0.5 * c["scale"])
+    if op == "ragged":
+        got = ragged_paged_attention(c["q"], c["kv"][0], c["kv_lens"],
+                                     c["pages"], c["cu"], c["ns"], **kw)
+        return got, sum(q for q, _ in seqs)
+    got = paged_decode_attention(c["q"], c["kv"][0], c["kv_lens"],
+                                 c["pages"], c["ns"], **kw)
+    return got, got.shape[0]
+
+
+def attention_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """Digests of the attention outputs; the outputs themselves (the rows
+    of live tokens) go into `tensors`."""
     out = {}
-    ragged_seqs = [(1, 300), (200, 200), (1, 17), (77, 77), (1, 1100),
-                   (90, 1250)]
-    lens = np.random.default_rng(3).integers(1, 1100, size=12)
-    lens[:2] = (1500, 1025)
-    decode_seqs = [(1, int(n)) for n in lens]
     # (QG, head_dim, variants): the shapes before slice 8 with every
     # option, then the new ones without ALiBi or blocksparse.
     shapes = [(qg, 128, ("plain", "window_cap", "alibi", "blocksparse"))
@@ -194,42 +231,17 @@ def attention_outputs(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
                for qg in (1, 2, 3, 4, 5, 6, 7, 8, 16)]
     for page_type in PAGE_TYPES:
         for qg, head_dim, names in shapes:
-            kvh = 32 // qg if qg > 1 else 16
-            qh = qg * kvh
-            slopes = torch.from_numpy(get_alibi_slopes(qh)).cuda()
-            phases = (torch.arange(qh, dtype=torch.int32, device="cuda")
-                      * max(1, 8 // qh))
-            for op, seqs, padded in (
-                    ("ragged", ragged_seqs, (8, 660)),
-                    ("decode", decode_seqs, (16, 16))):
-                c = attention_case(seqs, qh, kvh, page_type, qg + 7,
-                                   *padded, head_dim=head_dim)
-                variants = {"plain": {},
-                            "window_cap": dict(sliding_window=100,
-                                               soft_cap=30.0),
-                            "alibi": dict(alibi_slopes=slopes),
-                            "blocksparse": dict(blocksparse=(64, 4, 8),
-                                                bs_head_offsets=phases)}
+            for op in ("ragged", "decode"):
                 for name in names:
-                    kw = dict(variants[name],
-                              sm_scale=head_dim**-0.5 * c["scale"])
                     try:
-                        if op == "ragged":
-                            got = ragged_paged_attention(
-                                c["q"], c["kv"][0], c["kv_lens"], c["pages"],
-                                c["cu"], c["ns"], **kw)
-                        else:
-                            got = paged_decode_attention(
-                                c["q"], c["kv"][0], c["kv_lens"], c["pages"],
-                                c["ns"], **kw)
+                        got, rows = attention_call(op, page_type, qg,
+                                                   head_dim, name)
                     except ValueError:  # a shape this checkout raises for
                         continue
                     key = f"{op} {page_type} qg{qg} {name}"
                     if head_dim != 128:
                         key += f" d{head_dim}"
                     out[key] = digest(got)
-                    rows = (sum(q for q, _ in seqs) if op == "ragged"
-                            else got.shape[0])
                     tensors[key] = got[:rows].cpu()
     return out
 

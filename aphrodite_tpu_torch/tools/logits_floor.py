@@ -153,7 +153,8 @@ def main() -> None:
     configs = {"gemma2": (chip_smoke.GEMMA2_9B, [4500, 17, 129]),
                "gemma3": (chip_smoke.GEMMA3_1B, [300, 17, 129]),
                "phi3": (chip_smoke.PHI3_MINI_4K, [2500, 17, 129]),
-               "llama": (chip_smoke.LLAMA_8B, [300, 17, 129])}
+               "llama": (chip_smoke.LLAMA_8B, [300, 17, 129]),
+               "falcon7b": (chip_smoke.FALCON_7B, [300, 17, 129])}
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", choices=sorted(configs))
     parser.add_argument("layers", type=int, nargs="+")

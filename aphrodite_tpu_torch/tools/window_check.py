@@ -238,7 +238,8 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
 
 
 def trace_launches(runner, key: str, attempts: int = 3,
-                   reset: Optional[Callable[[], None]] = None
+                   reset: Optional[Callable[[], None]] = None,
+                   accept: Optional[Callable[[Dict[str, int]], bool]] = None
                    ) -> Dict[str, Any]:
     """The port's kernels one window of the captured key ``key`` (a
     ``runner.window_keys()`` name) launches run eagerly (through the
@@ -253,10 +254,13 @@ def trace_launches(runner, key: str, attempts: int = 3,
 
     The profiler on a card now and then drops a kernel record (once one
     of the 512 int4p_matmul_kernel launches of an 8B window run eagerly),
-    which only ever lowers a count. So a pair whose two traces differ is
-    traced again from the same buffers, up to ``attempts`` pairs in all;
-    the first pair that agrees is returned, else the last, whose
-    difference the caller reports. ``tries`` is the number of pairs
+    which only ever lowers a count. So a pair whose two traces differ, or
+    whose traces ``accept`` (given the replay's counts) refuses, is traced
+    again from the same buffers, up to ``attempts`` pairs in all: the
+    caller's count of a kernel it knows the window launches is then lower
+    in both traces alike, one record dropped from each. The first pair
+    that agrees (and that ``accept`` takes) is returned, else the last,
+    whose difference the caller reports. ``tries`` is the number of pairs
     traced, and ``mismatches`` holds, for each pair that differed, each
     kernel's replay count less its eager count where they differ.
     ``reset`` (the wrappers' counts set to 0) runs before each eager
@@ -280,7 +284,7 @@ def trace_launches(runner, key: str, attempts: int = 3,
                 runner.decode_window(buf, flags, W)).numpy())
             replay = kernel_counts(
                 lambda: runner.run_window(buf, flags, W).numpy())
-            if eager == replay:
+            if eager == replay and (accept is None or accept(replay)):
                 break
             mismatches.append({
                 name: replay.get(name, 0) - eager.get(name, 0)

@@ -17,7 +17,9 @@ Phases, each of which must pass or the script exits non-zero:
    heads with its 40 ALiBi slopes, bench.py's 1.4B 16 / 8, Llama-3.1-8B's
    32 / 8 and Llama-3-70B's 64 / 8 (and since slices 8 and 15 the
    further shapes of ATTN_GEOMETRIES: QH/KV 3 to 16, head_dim 64, 96 and
-   256): a mixed prefill and decode batch, a
+   256; since slice 18 Falcon-7B's 71 query heads on one kv head and
+   Bloom-560m's ALiBi, both at head_dim 64): a mixed prefill and decode
+   batch, a
    chunked prefill on a cached prefix, a decode batch with dead padded
    rows, and sliding window with soft cap, every case with rows of 1000+
    keys (where ALiBi's bias reaches hundreds); with ALiBi, all-zero
@@ -76,7 +78,8 @@ Phases, each of which must pass or the script exits non-zero:
    the bound counts the K/V rows some query head sees); at each decode
    shape it prints the split-KV plan (keys a split, splits, blocks); and
    at the Qwen2.5, Phi-3-mini and Gemma geometries at their paths'
-   prompts. The int4
+   prompts, and at the Falcon-7B and Bloom-560m ones on every page type.
+   The int4
    matmul is timed at T = 32 and T = 2048 at each site (and at w13 at
    group 16); its library call is one
    torch.matmul of x with the pre-dequantized bf16 weight (four times the
@@ -220,12 +223,13 @@ Phases, each of which must pass or the script exits non-zero:
    path's tokens and by check_prompt_logprobs against a prefill forward's
    logits). Both print decode and prefill tok/s beside the gptq+fp8_e4m3
    path's.
-   Then slice 15's six: ``gemma-2-9b`` (Gemma2ForCausalLM from the
-   published values: head_dim 256, QG 2, sandwich norms, soft caps 50 and
-   30, a 4096-key window on the even layers; bf16, full width and all 42
-   layers, prompts of 1024-6144 tokens, logits compared on a 4500-token
-   prefill) and ``phi-3-mini-4k`` (Phi3ForCausalLM: head_dim 96, MHA, a
-   2047-key window; all 32 layers, prompts of 1024-4032), both with
+   Then slice 15's six: ``gemma-2-9b, 21 layers`` (Gemma2ForCausalLM from
+   the published values: head_dim 256, QG 2, sandwich norms, soft caps 50
+   and 30, a 4096-key window on the even layers; bf16, full width, half
+   its 42 layers since slice 18, prompts of 1024-6144 tokens, logits
+   compared on a 4500-token prefill) and ``phi-3-mini-4k``
+   (Phi3ForCausalLM: head_dim 96, MHA, a 2047-key window; all 32 layers,
+   prompts of 1024-4032), both with
    window_check; ``gemma-2-9b gptq+fp8_e4m3, 4 layers`` (the int4 kernels
    at Gemma's shapes, E4M3 pages), ``gemma-7b, 4 layers`` (QG 1 at 256),
    ``gemma-3-1b`` (all 26 layers: five local layers to one global, two
@@ -234,8 +238,9 @@ Phases, each of which must pass or the script exits non-zero:
    positions: the model's rotary table must be the long factors' one,
    check_longrope; one prompt of 5000 tokens).
    Then slice 17's five, Mixture-of-Experts models on dummy weights at
-   their published widths: ``qwen3-30b-a3b`` (Qwen3MoeForCausalLM at full
-   width and all 48 layers: 128 experts, top 8, QH/KV 8),
+   their published widths: ``qwen3-30b-a3b, 24 layers``
+   (Qwen3MoeForCausalLM at full width, half its 48 layers since slice 18:
+   128 experts, top 8, QH/KV 8),
    ``mixtral-8x7b experts_int8+fp8_e4m3, 4 layers`` (its experts
    quantized to int8 at load and dequantized a layer at a time, on E4M3
    pages), ``qwen1.5-moe-a2.7b, 4 layers`` (60 experts, top 4, a shared
@@ -254,6 +259,19 @@ Phases, each of which must pass or the script exits non-zero:
    adds a third run with the plain attention in f64, holding argmax on
    the rows whose plain top two that run's change cannot swap (a router
    turns a rounding difference into another expert now and then).
+   Then slice 18's seven, from the published config.json values on
+   dummy weights: ``falcon-7b`` (FalconForCausalLM at full width and all
+   32 layers: 71 query heads on one kv head at head_dim 64, a parallel
+   block from one LayerNorm; check_window), ``falcon-7b+fp8_e4m3, 4
+   layers``, ``falcon-40b, 4 layers`` (new decoder architecture, QH/KV
+   16), ``falcon-rw-1b`` (all 24 layers: ALiBi, MHA, sequential),
+   ``bloom-560m+fp8_e4m3`` (all 24 layers: ALiBi at head_dim 64 on E4M3
+   pages, the embedding LayerNorm, 250880 tokens), ``mpt-7b, 4 layers``
+   and ``jais-13b, 4 layers`` (ALiBi at head_dim 128, no biases / SwiGLU
+   with biases and muP scales). Every attention launch of them is held
+   to the model's shape ("qg71 d64", "qg16 d64", "qg1 d64 alibi", "qg1
+   d128 alibi"), and a traced replay's decode kernels count the wide
+   form's too.
    Then the page-gather probe's own entry point
    (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
    which times the probe kernel; its kernel was held beforehand against
@@ -693,14 +711,129 @@ def phi35_moe_config(layers: int) -> dict:
     }
 
 
+# Slice 18's models, each from its published config.json (values as
+# published, the HF-format Falcon files; torch_dtype the path's). Falcon-7B
+# (tiiuae/falcon-7b): multi-query, 71 query heads of 64 on one kv head,
+# a parallel block from one LayerNorm, no biases, tied head.
+FALCON_7B = {
+    "architectures": ["FalconForCausalLM"],
+    "hidden_size": 4544,
+    "num_attention_heads": 71,
+    "num_hidden_layers": 32,
+    "multi_query": True,
+    "parallel_attn": True,
+    "new_decoder_architecture": False,
+    "alibi": False,
+    "bias": False,
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 65024,
+    "torch_dtype": "bfloat16",
+}
+# Falcon-40B (tiiuae/falcon-40b): the new decoder architecture, 128 query
+# heads over 8 kv heads (QH/KV 16), ln_attn and ln_mlp.
+FALCON_40B = {
+    "architectures": ["FalconForCausalLM"],
+    "hidden_size": 8192,
+    "num_attention_heads": 128,
+    "num_kv_heads": 8,
+    "num_hidden_layers": 60,
+    "new_decoder_architecture": True,
+    "parallel_attn": True,
+    "alibi": False,
+    "bias": False,
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 65024,
+    "torch_dtype": "bfloat16",
+}
+# Falcon-RW-1B (tiiuae/falcon-rw-1b): multi-head (32 of 64), sequential,
+# ALiBi; its config sets bias, which neither package reads (models/
+# falcon.py: no bias tensor has a mapping).
+FALCON_RW_1B = {
+    "architectures": ["FalconForCausalLM"],
+    "hidden_size": 2048,
+    "num_attention_heads": 32,
+    "num_hidden_layers": 24,
+    "multi_query": False,
+    "parallel_attn": False,
+    "new_decoder_architecture": False,
+    "alibi": True,
+    "bias": True,
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 50304,
+    "torch_dtype": "bfloat16",
+}
+# Bloom-560m (bigscience/bloom-560m): 16 heads of 64 with ALiBi, the
+# embedding LayerNorm, a 250880-token vocabulary; its config names its
+# sizes n_head and n_layer and gives no maximum length (2048 is derived).
+BLOOM_560M = {
+    "architectures": ["BloomForCausalLM"],
+    "hidden_size": 1024,
+    "n_head": 16,
+    "n_layer": 24,
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 250880,
+    "torch_dtype": "bfloat16",
+}
+# MPT-7B (mosaicml/mpt-7b): d_model 4096, 32 heads of 128 with MPT's ALiBi
+# schedule (alibi_bias_max 8), no biases, exact GELU, max_seq_len 2048.
+MPT_7B = {
+    "architectures": ["MPTForCausalLM"],
+    "d_model": 4096,
+    "n_heads": 32,
+    "n_layers": 32,
+    "expansion_ratio": 4,
+    "max_seq_len": 2048,
+    "no_bias": True,
+    "attn_config": {"alibi": True, "alibi_bias_max": 8, "clip_qkv": None,
+                    "qk_ln": False, "attn_type": "multihead_attention"},
+    "vocab_size": 50432,
+    "torch_dtype": "bfloat16",
+}
+# JAIS-13b (core42/jais-13b): n_embd 5120, 40 heads of 128 with ALiBi, a
+# SwiGLU MLP of 13653, the muP scales (embeddings x 14.6, logits x 0.111,
+# attention scale 1 / head_dim).
+JAIS_13B = {
+    "architectures": ["JAISLMHeadModel"],
+    "n_embd": 5120,
+    "n_head": 40,
+    "n_layer": 40,
+    "n_inner": 13653,
+    "n_positions": 2048,
+    "position_embedding_type": "alibi",
+    "activation_function": "swiglu",
+    "scale_qk_dot_by_d": True,
+    "embeddings_scale": 14.6,
+    "width_scale": 0.11100000000000002,
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 84992,
+    "torch_dtype": "bfloat16",
+}
+# The keys a config may name its depth by (HF, Bloom, Falcon, JAIS; MPT).
+LAYER_KEYS = ("num_hidden_layers", "n_layer", "n_layers")
+
+
+def config_layers(config: dict) -> int:
+    """The depth a config names, under whichever key it uses."""
+    return int(next(config[k] for k in LAYER_KEYS if k in config))
+
+
+def with_layers(config: dict, layers: int) -> dict:
+    """The config cut (or set) to `layers` layers, under its own key."""
+    key = next(k for k in LAYER_KEYS if k in config)
+    return dict(config, **{key: layers})
+
+
 # The attention kernels' checks: (query heads, kv heads, head_dim, ALiBi)
 # of Baichuan2-13B (QH/KV 1), bench.py's 1.4B (2), Llama-3.1-8B (4) and
 # Llama-3-70B (8); and the shapes slice 8 brought in: Qwen2.5-7B (QH/KV 7),
 # Qwen2.5-0.5B (7 at head_dim 64), Qwen3-14B (5), Llama-3.2-3B (3),
 # Qwen2.5-1.5B (6), Llama-3.2-1B (4 at head_dim 64) and QH/KV 16 at head_dim
-# 64 (the largest the kernels take); and slice 15's: Phi-3-mini (MHA at
-# head_dim 96), Gemma-2-9B (2 at 256), Gemma-7B (1 at 256) and Gemma-3-1B
-# (4 at 256).
+# 64 (the largest the kernels took until slice 18); slice 15's: Phi-3-mini
+# (MHA at head_dim 96), Gemma-2-9B (2 at 256), Gemma-7B (1 at 256) and
+# Gemma-3-1B (4 at 256); and slice 18's: Falcon-7B (71 on one kv head at
+# head_dim 64: the decode kernel's wide form, the ragged kernel's tiles
+# inside a token's heads) and Bloom-560m (MHA with ALiBi at head_dim 64:
+# the ragged kernel's runtime-QG instantiation with ALiBi).
 ATTN_GEOMETRIES = {
     "baichuan2-13b 40/40 alibi": (40, 40, 128, True),
     "bench-1.4b 16/8": (16, 8, 128, False),
@@ -717,6 +850,8 @@ ATTN_GEOMETRIES = {
     "gemma-2-9b 16/8 d256": (16, 8, 256, False),
     "gemma-7b 16/16 d256": (16, 16, 256, False),
     "gemma-3-1b 4/1 d256": (4, 1, 256, False),
+    "falcon-7b 71/1 d64": (71, 1, 64, False),
+    "bloom-560m 16/16 alibi d64": (16, 16, 64, True),
 }
 # And with Phi-3-Small's blocksparse mask: (block size, local blocks,
 # vertical stride); query head h has phase h * max(1, stride // QH).
@@ -859,8 +994,9 @@ FP8_FLOOR_FACTOR = 1.5
 ACT_CHECK_T = (1, 33, 2048)
 ACT_TIME = ((32, 4096), (32, 14336), (2048, 4096), (2048, 14336))
 # Depth of the Q6_K GGUF main path (full width; the other GGUF paths run 4
-# layers).
-GGUF_Q6K_LAYERS = 32
+# layers; 32 until slice 18, cut to 16 for time: at 32 its host-side file
+# writing and block decoding took 146-198 s of the run).
+GGUF_Q6K_LAYERS = 16
 GGML_F32, GGML_F16, GGML_Q8_0, GGML_Q2_K, GGML_Q3_K, GGML_Q6_K = (
     0, 1, 8, 10, 11, 14)
 # (ggml type, values per block, bytes per block) of each block type the
@@ -3230,7 +3366,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     if (gguf is not None and not packed_gguf) or quantization == "int8":
         wrappers["int4_matmul"] = int4_matmul
     page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
-    layers = model_config["num_hidden_layers"]
+    layers = config_layers(model_config)
     weights = (quantization or (gguf and gguf + ' gguf') or 'bf16') + (
         " w4a8" if w4a8 else "")
     label = (f"main path ({weights} weights, "
@@ -3588,13 +3724,21 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             S, W_key, _ = runner.window_keys()[key]
             zero_counts()
             t_trace = time.monotonic()
-            trace = trace_launches(runner, key, reset=zero_counts)
+            def decode_count(counts):
+                # (Above 16 query heads per kv head the decode kernel's
+                # wide form runs.)
+                return sum(n for name, n in counts.items()
+                           if kernel_base(name) in (
+                               "paged_decode_kernel",
+                               "paged_decode_wide_kernel"))
+
+            trace = trace_launches(
+                runner, key, reset=zero_counts,
+                accept=lambda c: decode_count(c) == layers * W_key)
             t_trace = time.monotonic() - t_trace
             window = read_counts()
             check_counts(window, [S] * W_key, f"a window of {key}")
-            decode_kernels = sum(
-                n for name, n in trace["replay"].items()
-                if kernel_base(name) == "paged_decode_kernel")
+            decode_kernels = decode_count(trace["replay"])
             if trace["replay"] != trace["eager"] or (
                     decode_kernels != layers * W_key):
                 fail(f"a traced replay of {key} on the {label} launched "
@@ -4885,8 +5029,9 @@ def main_paths():
         # weights and an E4M3 cache, Gemma-7B (QH/KV 1) and Phi-3-mini-128k
         # (LongRoPE, stand-in factors) at 4 layers; Gemma-3-1B (5 local
         # layers to 1 global, two rope bases, q/k norm) at full depth.
-        "gemma-2-9b": dict(model_config=GEMMA2_9B,
-                           prompt_lens=phi_prompt_lens, window_check=True,
+        "gemma-2-9b, 21 layers": dict(
+            model_config=dict(GEMMA2_9B, num_hidden_layers=21),
+            prompt_lens=phi_prompt_lens, window_check=True,
                            compare_lens=[4500, 17, 129],
                            compare_layers=COMPARE_LAYERS),
         "phi-3-mini-4k": dict(model_config=PHI3_MINI_4K,
@@ -4918,8 +5063,11 @@ def main_paths():
         # plain attention in f32 and in f64 lie 0.94 of a row apart on the
         # compare prefill, NVIDIA H100 80GB HBM3 at 700 W). Each holds both
         # forms of the grouped product (moe_checks) and its graphed window.
-        "qwen3-30b-a3b": dict(model_config=QWEN3_30B_A3B,
-                              window_check=True),
+        # (Qwen3-30B-A3B ran all 48 layers and Gemma-2-9B all 42 until
+        # slice 18 cut both to half their depth for time.)
+        "qwen3-30b-a3b, 24 layers": dict(
+            model_config=dict(QWEN3_30B_A3B, num_hidden_layers=24),
+            window_check=True),
         "mixtral-8x7b experts_int8+fp8_e4m3, 4 layers": dict(
             model_config=dict(MIXTRAL_8X7B, num_hidden_layers=4),
             quantization="experts_int8", kv_cache_dtype="fp8_e4m3",
@@ -4934,6 +5082,25 @@ def main_paths():
             max_model_len=PHI3_MINI_128K_LEN,
             prompt_lens=[*prompt_lens[:NUM_REQUESTS - 1], 5000],
             window_check=True),
+        # Slice 18: 71 query heads on one kv head and ALiBi at head_dim 64.
+        # Falcon-7B at full width and all 32 layers (the headline: both
+        # attention kernels at QG 71, its window held graphed against
+        # eager), on E4M3 pages at 4 layers; Falcon-40B (new decoder
+        # architecture, QG 16) at 4; Falcon-RW-1B (ALiBi, MHA, sequential)
+        # at all 24 layers; Bloom-560m (ALiBi at head_dim 64, the embedding
+        # norm, 250880 tokens) on E4M3 pages at all 24; MPT-7B and JAIS-13b
+        # (ALiBi at head_dim 128 with the non-Llama blocks) at 4.
+        "falcon-7b": dict(model_config=FALCON_7B, window_check=True),
+        "falcon-7b+fp8_e4m3, 4 layers": dict(
+            model_config=with_layers(FALCON_7B, 4),
+            kv_cache_dtype="fp8_e4m3"),
+        "falcon-40b, 4 layers": dict(model_config=with_layers(FALCON_40B,
+                                                              4)),
+        "falcon-rw-1b": dict(model_config=FALCON_RW_1B),
+        "bloom-560m+fp8_e4m3": dict(model_config=BLOOM_560M,
+                                    kv_cache_dtype="fp8_e4m3"),
+        "mpt-7b, 4 layers": dict(model_config=with_layers(MPT_7B, 4)),
+        "jais-13b, 4 layers": dict(model_config=with_layers(JAIS_13B, 4)),
     }
     return {name: {"prompt_lens": prompt_lens, **kw}
             for name, kw in paths.items()}
@@ -5023,6 +5190,16 @@ def main() -> None:
             "cuda", geometry, ATTN_GEOMETRIES[geometry], lens, iters=100,
             errs=errs, page_types=page_types, layers=layers)
     stamp("timings: attention, Qwen2.5, Phi-3-mini and Gemma geometries")
+    # Slice 18's geometries at their paths' prompts (16-1024 tokens), on
+    # every page type: Falcon-7B's 71 query heads on one kv head (48 cache
+    # layers: a layer holds 256 bytes of K/V a token) and Bloom-560m's
+    # ALiBi at head_dim 64.
+    for geometry, layers in (("falcon-7b 71/1 d64", 48),
+                             ("bloom-560m 16/16 alibi d64", 4)):
+        geometry_times[geometry] = kernel_timings(
+            "cuda", geometry, ATTN_GEOMETRIES[geometry], prompt_lens,
+            iters=100, errs=errs, layers=layers)
+    stamp("timings: attention, Falcon-7B and Bloom-560m geometries")
     int4_points = int4_timings("cuda", iters=200)
     int4_points += int4_timings("cuda", iters=200, group=16, sites=("w13",))
     stamp("timings: int4p_matmul")

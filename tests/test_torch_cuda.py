@@ -259,8 +259,8 @@ def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
     """Each kernel at head_dim 64, 96 (Phi-3-mini), 128 and 256 (Gemma)
     and QH/KV from 1 to 16 (2 kv heads), among them Qwen2.5's 5, 6 and 7
     and Llama-3.2-3B's 3, which the decode kernel serves as rows of one
-    mma tile and the ragged one from its runtime-QG instantiation with
-    idle rows, on each page type, with a window and a soft cap, against
+    mma tile and the ragged one from its runtime-QG instantiation (tiles
+    that end inside a token's heads), on each page type, with a window and a soft cap, against
     its plain version row by row (ROW_TOL); the narrow variants equal the
     bf16 kernel on the widened pages, and each launch is counted under its
     shape."""
@@ -303,6 +303,167 @@ def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
     if name != "bf16":
         assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
 
+
+def _attention_case(op, rng, qg, kvh, head_dim, name, **kw):
+    """A ragged batch (a decode row among prefill chunks, rows of 1000+
+    keys) or a decode batch (12 live rows of up to 1200 keys among 16), on
+    pages of `name` (narrow pages hold value / 0.02, folded into
+    sm_scale): (fn, ref, q, pages, args, kw, rows)."""
+    if op == "ragged":
+        seqs = [(1, 90), (70, 70), (33, 150), (1, 17), (1, 1300), (40, 1040)]
+        rows = sum(q for q, _ in seqs)
+        padded_seqs, padded_tokens = 8, rows + 5
+        fn, ref = ragged_paged_attention, ref_ragged_paged_attention
+    else:
+        lens = rng.integers(1, 400, size=12)
+        lens[:2] = (1200, 1030)
+        seqs = [(1, int(n)) for n in lens]
+        rows, padded_seqs, padded_tokens = 12, 16, 16
+        fn, ref = paged_decode_attention, ref_paged_decode_attention
+    arrays = paged_batch(rng, seqs, qg * kvh, kvh, head_dim,
+                         padded_seqs=padded_seqs, padded_tokens=padded_tokens)
+    q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+    values = torch.from_numpy(arrays[1]).cuda()
+    kw = dict(kw, sm_scale=head_dim**-0.5)
+    if name == "bf16":
+        pages = values.to(torch.bfloat16)
+    else:
+        pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                            NARROW[name])
+        kw["sm_scale"] *= 0.02
+    kv_lens, page_idx, cu = (torch.from_numpy(a).cuda() for a in arrays[2:])
+    ns = torch.tensor([len(seqs)], dtype=torch.int32, device="cuda")
+    args = (kv_lens, page_idx, cu, ns) if op == "ragged" else (kv_lens,
+                                                                page_idx)
+    return fn, ref, q, pages, args, kw, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("qg,kvh", [(17, 2), (71, 1), (71, 2), (130, 1)],
+                         ids=["qg17", "qg71_kv1", "qg71_kv2", "qg130"])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_attention_kernels_many_queries_per_kv_on_card(op, qg, kvh, head_dim,
+                                                       name):
+    """Each kernel above 16 query heads per kv head: Falcon-7B's 71 on one
+    and on two kv heads, 17 (two head tiles), and 130 (the decode kernel's
+    two head groups of 128), where the decode kernel runs its wide form
+    (eight warps, one head tile each) and the ragged one tiles the
+    flattened (token, head) rows, a tile ending inside a token's heads; on
+    each page type, with a window and a soft cap, against its plain
+    version row by row (ROW_TOL); the narrow variants equal the bf16
+    kernel on the widened pages, and each launch is counted under its
+    shape."""
+    _card_or_skip()
+    rng = np.random.default_rng(700 + qg + head_dim + kvh)
+    fn, ref, q, pages, args, kw, rows = _attention_case(
+        op, rng, qg, kvh, head_dim, name, sliding_window=700, soft_cap=30.0)
+    shape = f"qg{qg} d{head_dim}"
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert not got[rows:].float().any()  # padding tokens, dead rows: zeros
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
+    if op == "decode":
+        plan = paged_decode_attention.last_plan
+        groups = -(-qg // 128)
+        assert plan["blocks"] == 16 * kvh * groups * plan["slots"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("head_dim", [64, 96, 256])
+@pytest.mark.parametrize("qg", [1, 2, 71])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_attention_kernels_alibi_every_head_dim_on_card(op, qg, head_dim,
+                                                        name):
+    """ALiBi off head_dim 128 (Bloom's and Falcon-RW's 64, and 96 and 256)
+    at 1, 2 and 71 query heads per kv head (2 kv heads), with the model's
+    slope table and a soft cap, on each page type, against the plain
+    version row by row (ROW_TOL), over rows of 1000+ keys where the bias
+    of the steep heads reaches -1000; all-zero slopes equal no ALiBi bit
+    for bit, the narrow variants equal the bf16 kernel on the widened
+    pages, and each launch is counted under its shape."""
+    _card_or_skip()
+    rng = np.random.default_rng(800 + qg + head_dim)
+    kvh = 2
+    fn, ref, q, pages, args, kw, rows = _attention_case(
+        op, rng, qg, kvh, head_dim, name, soft_cap=30.0,
+        alibi_slopes=torch.from_numpy(get_alibi_slopes(qg * kvh)).cuda())
+    shape = f"qg{qg} d{head_dim} alibi"
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert not got[rows:].float().any()
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
+    zero = dict(kw, alibi_slopes=torch.zeros_like(kw["alibi_slopes"]))
+    off = {k: v for k, v in kw.items() if k != "alibi_slopes"}
+    assert torch.equal(fn(q, pages, *args, **zero), fn(q, pages, *args, **off))
+
+
+
+# SHA-256 of the ALiBi outputs of the fixed-QG instantiations (head_dim
+# 128, QG 1, 2, 4 and 8) on kernel_ab's seeded calls, as the build before
+# the ragged kernel's rows were flattened gave them (kernel_ab run on an
+# NVIDIA H100 80GB HBM3; the same call's two runs, before and after,
+# agreed on all 866 outputs): (op, page type, QG) -> digest.
+ALIBI_D128_DIGESTS = {
+    ("decode", "bf16", 1): "9cb81455452ebdf97f180e71613fc06d20e51c17b5ee7183cabec2d532f64af1",
+    ("decode", "bf16", 2): "62ea0404f8bf171c5ff12fb7cee230c103206c99574e8860a5a9404fd78f5516",
+    ("decode", "bf16", 4): "163dc27bfc9f82d65c8d9242e151320f885a79578032a9dd567ba8bc6d054fdc",
+    ("decode", "bf16", 8): "440860646b5e8cf2499e8159d6933965253a81427ecaccc9d0dda26b9a71c892",
+    ("decode", "e4m3", 1): "69a51fc907d3c74dd5b84ae341f02bf646b510f4e7b0417aad7841e462183dce",
+    ("decode", "e4m3", 2): "1832bec9999fd4ab628dc890ec527a20800eb9f7d4cd75326be763639b72e960",
+    ("decode", "e4m3", 4): "330f1a69f895b4c8b8e2a37e5a50db140dc72fceb5a7368ca7fc356995d7c8d8",
+    ("decode", "e4m3", 8): "c933e9a5545d577c3c017db4a4fa7d92b71eec1c9fa62eef1bf22e90269bcacc",
+    ("decode", "e5m2", 1): "1da65419b0266e57b69d7a666bafcb76ee0462ec7cb40b83f8931263121ab2b6",
+    ("decode", "e5m2", 2): "c0eb2c2c56af03599819ea96dc90f2d22ed78a56584b84bf0811399ca3ee8ae8",
+    ("decode", "e5m2", 4): "50ac3487fd99e2899d41b5ddaa034992e953845a9ee153f92b2ccf7ff894895f",
+    ("decode", "e5m2", 8): "3f9120031d3148f8e964ba5bb6b51c603c58cfadcc2e89ae4421fb88ff49d70f",
+    ("decode", "int8", 1): "48316b9c45c94deb7b00573f97df82e2fe0355017472a8cc5a081784ff166d74",
+    ("decode", "int8", 2): "66e927f0d9a3830c627d4164ddf2b83c85d675e8ed8a6f896e74373fd3c8ee76",
+    ("decode", "int8", 4): "329883d118614dadbdd9b214a23bfb403e7d830e0cbbe98a7efd80629273d980",
+    ("decode", "int8", 8): "019fc5abf709155f3d357a8694a24ce0f4839e67c81da6e4018005e20737095e",
+    ("ragged", "bf16", 1): "da04b820a97a6771f2e0ba4b1d21c0dcc52075536748a2ef423bfd604b7ec383",
+    ("ragged", "bf16", 2): "4b8bb667058d67ba4d9c9ed8975697ae53eb51d7e25eb3fe2daad6b72a1b622c",
+    ("ragged", "bf16", 4): "1959403a16cd3b0c2d54331bf0d0e18eabd3698c6f21d98f4f12003f23148593",
+    ("ragged", "bf16", 8): "d0f293b7dc5d1a52a8a5bf804523c0b9b0fd9065f7dac7b8e99683776a0fbe39",
+    ("ragged", "e4m3", 1): "8a2af794b02d807b8b1fff116d9f434c3e20bd24e6ebbee85b1599a0acdaab85",
+    ("ragged", "e4m3", 2): "8bd1201b142246b5ad7536003a0ef5c4a0bc6a95ef497e0de86e32f74ebde1be",
+    ("ragged", "e4m3", 4): "885cec8adc705226812d57b871b99d5d1ac4dd86f5860c7b2a95f5eb23d2c24c",
+    ("ragged", "e4m3", 8): "be0ca51a1d49f824c8659783d8f45d53013388f534ede9e8be656885db58a2d1",
+    ("ragged", "e5m2", 1): "41919adf1798f6650238359448f1cbb3e333e225249ea7b70f4091f0557ce5aa",
+    ("ragged", "e5m2", 2): "aeadc9c71ec3b0bfa6ef5de144c39c37fa0fdae1d4a5801cdc1885b7bce3ed33",
+    ("ragged", "e5m2", 4): "1dd0aab4ab7130db3edbf1de781ba2e314cade643d82ebee596ded7b889ac993",
+    ("ragged", "e5m2", 8): "b88cf3d760bb2abad5898a5c6a01e6055b541a8edb770d7d7d8cc47eb0c59f88",
+    ("ragged", "int8", 1): "c7e8343f380b20f2db04f09ab86cd5066f9cb948754405f0b835b17052dba2b5",
+    ("ragged", "int8", 2): "6a795aa6c1f8222f71c5f0dfefd3e37a3de2f79e84a6a51d49347742be5b3d56",
+    ("ragged", "int8", 4): "7890bf0b80da043e0d8406fd05ac49f5733a6119e83d1ae6bcd6a0fa160baf44",
+    ("ragged", "int8", 8): "3c36f4b42b56d9fb5911d2b098a32c588cbb3d749512f3b74ed955e6e51a1a97",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("qg", [1, 2, 4, 8])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_alibi_d128_fixed_qg_outputs_unchanged_on_card(op, qg, name):
+    """The ALiBi variants Baichuan and bench.py's 1.4B geometry run (head_dim
+    128, QG 1, 2, 4, 8, every page type) give, bit for bit, the outputs the
+    build before this slice gave on the same seeded calls."""
+    _card_or_skip()
+    from aphrodite_tpu_torch.tools.kernel_ab import attention_call, digest
+
+    got, _ = attention_call(op, name, qg, 128, "alibi")
+    torch.cuda.synchronize()
+    assert digest(got) == ALIBI_D128_DIGESTS[(op, name, qg)]
 
 # Phi-3-Small's blocksparse parameters (block 64, 16 local blocks, stride
 # 8) cut to 4 local blocks so that rows of 1000+ keys reach far past the
@@ -509,10 +670,6 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     pages = torch.zeros((3, PS, 16, 128), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="bf16 q"):
         paged_decode_attention(q.float(), pages, idx, table)
-    with pytest.raises(ValueError, match="QH/KV up to 16"):  # 17 per kv head
-        paged_decode_attention(
-            torch.zeros((4, 17, 128), dtype=torch.bfloat16, device="cuda"),
-            pages[:, :, :2].contiguous(), idx, table)
     with pytest.raises(ValueError, match="multiple of KV"):  # 3 heads over 8
         paged_decode_attention(q[:, :3].contiguous(), pages, idx, table)
     for slopes in (torch.ones(32, dtype=torch.bfloat16, device="cuda"),
@@ -526,16 +683,14 @@ def test_attention_kernels_refuse_what_they_do_not_take():
                 torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda"),
                 torch.zeros((3, PS, 16, d), dtype=torch.int8, device="cuda"),
                 idx, table)
-    # ALiBi and blocksparse are built for head_dim 128 at QH/KV 1, 2, 4, 8.
-    with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
-        paged_decode_attention(q[:, :24].contiguous(), pages, idx, table,
-                               alibi_slopes=torch.ones(24, device="cuda"))
-    for d in (96, 256):  # built without either option
+    # Blocksparse is built for head_dim 128 at QH/KV 1, 2, 4, 8.
+    with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
+        paged_decode_attention(
+            q[:, :24].contiguous(), pages, idx, table, blocksparse=(64, 4, 8),
+            bs_head_offsets=torch.zeros(24, dtype=torch.int32, device="cuda"))
+    for d in (96, 256):  # built without it
         qd = torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda")
         pd = torch.zeros((3, PS, 16, d), dtype=torch.int8, device="cuda")
-        with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
-            paged_decode_attention(qd, pd, idx, table,
-                                   alibi_slopes=torch.ones(32, device="cuda"))
         with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
             ragged_paged_attention(
                 qd, pd, idx, table, torch.arange(5, dtype=torch.int32,

@@ -130,16 +130,13 @@ def _case(head_dim, qh=8, kvh=2):
 @pytest.mark.parametrize("head_dim", [96, 256])
 def test_kernel_rules_take_96_and_256_but_no_option_there(head_dim):
     """check_kernel_inputs (both wrappers' rules on a card) takes head_dim
-    96 and 256 at QH/KV 1 to 16 and still raises for ALiBi and
-    blocksparse there, above QH/KV 16, and at any head_dim outside 64,
-    96, 128 and 256."""
-    for qh in (2, 4, 8, 32):
+    96 and 256 at QH/KV 1 to 16 and above (17, and Falcon-7B's 71), and
+    ALiBi there, and still raises for blocksparse there and at any
+    head_dim outside 64, 96, 128 and 256."""
+    for qh in (2, 4, 8, 32, 34, 142):
         check_kernel_inputs(*_case(head_dim, qh=qh), ())
-    with pytest.raises(ValueError, match="QH/KV up to 16"):
-        check_kernel_inputs(*_case(head_dim, qh=34), ())
-    slopes = _OnCard((8,), torch.float32)
-    with pytest.raises(ValueError, match="ALiBi at head_dim 128"):
-        check_kernel_inputs(*_case(head_dim), (), alibi_slopes=slopes)
+        check_kernel_inputs(*_case(head_dim, qh=qh), (),
+                            alibi_slopes=_OnCard((qh,), torch.float32))
     offsets = _OnCard((8,), torch.int32)
     with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
         check_kernel_inputs(*_case(head_dim), (), bs_head_offsets=offsets)

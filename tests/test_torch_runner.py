@@ -486,6 +486,9 @@ TRACED_NAMES = [
     ("void (anonymous namespace)::paged_decode_kernel<kv_page::Bf16, 128, "
      "false>(__nv_bfloat16 const*, unsigned char const*)",
      "paged_decode_kernel"),
+    ("void (anonymous namespace)::paged_decode_wide_kernel<kv_page::E4m3, "
+     "64>(__nv_bfloat16 const*, unsigned char const*, int, int)",
+     "paged_decode_wide_kernel"),
     ("void dqd::decode_gemm_kernel<4, 0>(CUtensorMap_st, CUtensorMap_st)",
      "decode_gemm_kernel"),
     ("split_reduce_kernel(float4 const*, float4*, unsigned long, int)",
@@ -502,7 +505,8 @@ def test_traced_kernel_names_reduce_to_the_port_kernels(name, base):
     ours = window_check.port_kernel_names()
     assert window_check.kernel_base(name) == base
     assert (base in ours) == (not base.startswith("nvjet"))
-    assert {"paged_decode_kernel", "paged_decode_combine_kernel",
+    assert {"paged_decode_kernel", "paged_decode_wide_kernel",
+            "paged_decode_combine_kernel",
             "ragged_paged_attention_kernel", "decode_gemm_kernel",
             "step_sums_kernel", "dequant_gemm_kernel", "int4_matmul_kernel",
             "int4p_matmul_kernel", "int4p_matmul_w4a8_kernel",
