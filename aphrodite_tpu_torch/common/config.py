@@ -127,6 +127,23 @@ class ModelConfig:
                    or self.hf_config.get("decoder_attention_heads")
                    or self.hf_config.get("num_heads") or 1)
 
+    # Encoder-decoder depths (T5's num_layers and num_decoder_layers,
+    # BART's encoder_layers and decoder_layers), read where the JAX
+    # models read them; the accessors above answer as the JAX ModelConfig
+    # does for these configs too.
+    def get_num_encoder_layers(self) -> int:
+        hf = self.hf_config
+        if "encoder_layers" in hf:
+            return int(hf["encoder_layers"])
+        return int(hf.get("num_layers", 6))
+
+    def get_num_decoder_layers(self) -> int:
+        hf = self.hf_config
+        if "decoder_layers" in hf:
+            return int(hf["decoder_layers"])
+        return int(hf.get("num_decoder_layers")
+                   or self.get_num_encoder_layers())
+
     def get_total_num_kv_heads(self) -> int:
         return int(
             self.hf_config.get("num_key_value_heads",

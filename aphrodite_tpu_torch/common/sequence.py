@@ -213,6 +213,7 @@ class Sequence:
         child.fsm_state = self.fsm_state
         child.mm_spans = self.mm_spans
         child.extra_hash = self.extra_hash
+        child.encoder_token_ids = self.encoder_token_ids
         child.seed_offset = self.seed_offset
         return child
 

@@ -74,7 +74,8 @@
 //
 // Semantics (same as the plain version in ops/decode_attention.py):
 //   out[s, h] = softmax_j(cap((q[s, h] . k[s, j]) * sm_scale)
-//                         + slope[h] * (j - (kv_len - 1))) . v[s, j]
+//                         + slope[h] * (j - (kv_len - 1))
+//                         + rel[h, min(kv_len - 1 - j, rel_len - 1)]) . v[s, j]
 // over j in [kv_lo, kv_len), kv_lo = max(0, kv_len - window) with a window,
 // kv head h / QG; the dot product of the bf16 values is summed in f32 and
 // then scaled; the ALiBi term is there only when a slope table is given
@@ -87,6 +88,27 @@
 // shared-memory slots of such keys are zero-filled and their probabilities
 // are exactly 0, so stale or NaN bytes in unwritten page slots cannot
 // reach the output.
+//
+// T5's relative-position bias (the rel_bias option of the TPU kernel):
+// the score of key j gains table[h, bucket(kv_len - 1 - j)], added after the
+// ALiBi term's place and before the mask, as the JAX kernel adds it. The
+// bucket of a distance is a logarithm, truncated, which the card would
+// compute per column and might round otherwise than the host. So the
+// wrapper gathers the table once a call into columns by distance,
+// rel_bias f32[QH, rel_len] (column n = table[h, bucket(n)], for n up to the
+// saturation distance rel_len - 1, the first whose bucket is the last; 114
+// columns for T5's 32 buckets and max_distance 128), from a bucket-of-
+// distance index the host computes once per (buckets, max_distance) with the
+// plain version's f32 arithmetic, and each score reads its column through
+// the read-only cache (__ldg: one table row is 456 bytes, and a block's rows
+// stay in L1). The columns are not staged in shared memory: that would move
+// every instantiation's layout (the D 256 one holds 143616 bytes for its one
+// block an SM). The bias is a template flag, REL, of both kernel forms (the
+// entry point takes it where the table pointer is not null): a runtime test
+// of the pointer cost the instantiations without it registers and spills,
+// and 7-29 % of their time at the main paths' decode shapes on an H100;
+// with the flag they are the code they were. A table with ALiBi or
+// blocksparse is refused.
 //
 // Blocksparse (Phi-3-Small's local + vertical-stride mask, blocksparse.cuh,
 // the blocksparse option of the TPU kernel), with the query's block bq =
@@ -178,7 +200,15 @@ __device__ __forceinline__ int first_split(int slot, int first, int slots) {
   return slot >= first ? slot : slot + (first - slot + slots - 1) / slots * slots;
 }
 
-template <class Page, int D, bool BS>
+// The column of a T5 bias row for a key `dist` = pos - key positions before
+// the query: the distance itself up to the saturation distance rel_len - 1,
+// whose bucket every longer distance shares (keys past kv_len, masked
+// anyway, give a negative distance and read column 0).
+__device__ __forceinline__ int rel_column(int dist, int rel_len) {
+  return min(max(dist, 0), rel_len - 1);
+}
+
+template <class Page, int D, bool BS, bool REL>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ kv,
@@ -188,7 +218,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int num_kv_heads, int qg,
                     int page_size, int pages_per_seq, float sm_scale,
-                    int sliding_window, float soft_cap, Blocksparse bs, int split_keys) {
+                    int sliding_window, float soft_cap, Blocksparse bs,
+                    const float* __restrict__ rel_bias, int rel_len, int split_keys) {
   using L = DecodeSmem<Page, D>;
   constexpr int kStride = attn::Tile<D>::kStride;
   constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
@@ -245,12 +276,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // key block.
   float slope[2] = {0.f, 0.f};
   int phase[2] = {0, 0};
+  // With a T5 bias, each row's columns (rows past qg read head qg - 1's:
+  // their scores are never written).
+  const float* rb[2] = {nullptr, nullptr};
   const int bq = BS ? pos / bs.block : 0;
   const bool one_block = BS && bs.block % kWarpKeys == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int h = lane / 4 + 8 * r;
     if (h < qg && alibi_slopes != nullptr) slope[r] = __ldg(alibi_slopes + kvh * qg + h);
+    if constexpr (REL) rb[r] = rel_bias + size_t(kvh * qg + min(h, qg - 1)) * rel_len;
     if constexpr (BS) {
       if (h < qg) phase[r] = __ldg(bs.offsets + kvh * qg + h);
     }
@@ -367,6 +402,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
           if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
           if (alibi_slopes != nullptr)
             v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos)));
+          if constexpr (REL) v = __fadd_rn(v, __ldg(rb[r] + rel_column(pos - key, rel_len)));
           if (edge) {
             bool valid = key >= k_begin && key < k_end;
             if constexpr (BS) {
@@ -439,7 +475,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 // the scores take 16 registers beside O's 128, as in the ragged kernel).
 // The splits, the ring, the scores and masks, the direct output and the
 // partials are those of paged_decode_kernel above.
-template <class Page, int D>
+template <class Page, int D, bool REL>
 __global__ void __launch_bounds__(kWideThreads)
 paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
                          const unsigned char* __restrict__ kv,
@@ -449,7 +485,8 @@ paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                          float* __restrict__ part_ml, int num_kv_heads, int qg,
                          int head_groups, int page_size, int pages_per_seq, float sm_scale,
-                         int sliding_window, float soft_cap, int split_keys) {
+                         int sliding_window, float soft_cap, const float* __restrict__ rel_bias,
+                         int rel_len, int split_keys) {
   using L = WideSmem<Page, D>;
   constexpr int kStride = attn::Tile<D>::kStride;
   constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
@@ -505,11 +542,14 @@ paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
 
   // This lane's two rows: heads warp * 16 + g and + 8 of the block's.
   float slope[2] = {0.f, 0.f};
+  const float* rb[2] = {nullptr, nullptr};  // each row's T5 columns, as above
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int h = warp * 16 + lane / 4 + 8 * r;
     if (h < rows && alibi_slopes != nullptr)
       slope[r] = __ldg(alibi_slopes + size_t(kvh) * qg + h0 + h);
+    if constexpr (REL)
+      rb[r] = rel_bias + (size_t(kvh) * qg + h0 + min(h, max(rows - 1, 0))) * rel_len;
   }
 
   float m[2] = {-INFINITY, -INFINITY};
@@ -573,6 +613,8 @@ paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
             if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
             if (alibi_slopes != nullptr)
               v = __fadd_rn(v, __fmul_rn(slope[r], float(key - pos)));
+            if constexpr (REL)
+              v = __fadd_rn(v, __ldg(rb[r] + rel_column(pos - key, rel_len)));
             if (edge && (key < k_begin || key >= k_end)) v = -INFINITY;
             s[nb][e] = v;
           }
@@ -654,16 +696,17 @@ paged_decode_combine_kernel(const float* __restrict__ part_acc,
   out[p0 * D + d] = __float2bfloat16(sum > 0.f ? acc / sum : 0.f);
 }
 
-template <class Page, int D, bool BS>
+template <class Page, int D, bool BS, bool REL>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int* page_indices,
                    const float* alibi_slopes, void* out, float* part_acc, float* part_ml,
                    int num_seqs, int num_kv_heads, int qg, int page_size, int pages_per_seq,
                    float sm_scale, int sliding_window, float soft_cap, Blocksparse bs,
-                   int split_keys, int num_slots, cudaStream_t stream) {
+                   const float* rel_bias, int rel_len, int split_keys, int num_slots,
+                   cudaStream_t stream) {
   using L = DecodeSmem<Page, D>;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<Page, D, BS>,
+    const cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<Page, D, BS, REL>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  int(L::bytes));
     if (err != cudaSuccess) return err;
@@ -672,15 +715,15 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   if (qg <= kTileQG) {
     const dim3 grid(num_seqs, num_kv_heads, num_slots);
-    paged_decode_kernel<Page, D, BS><<<grid, kThreads, L::bytes, stream>>>(
+    paged_decode_kernel<Page, D, BS, REL><<<grid, kThreads, L::bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
         page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, page_size,
-        pages_per_seq, sm_scale, sliding_window, soft_cap, bs, split_keys);
+        pages_per_seq, sm_scale, sliding_window, soft_cap, bs, rel_bias, rel_len, split_keys);
   } else {
     using W = WideSmem<Page, D>;
     static bool wide_configured = false;
     if (!wide_configured) {
-      const cudaError_t err = cudaFuncSetAttribute(paged_decode_wide_kernel<Page, D>,
+      const cudaError_t err = cudaFuncSetAttribute(paged_decode_wide_kernel<Page, D, REL>,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                    int(W::bytes));
       if (err != cudaSuccess) return err;
@@ -688,10 +731,11 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
     }
     const int head_groups = (qg + kWideRows - 1) / kWideRows;
     const dim3 grid(num_seqs, num_kv_heads * head_groups, num_slots);
-    paged_decode_wide_kernel<Page, D><<<grid, kWideThreads, W::bytes, stream>>>(
+    paged_decode_wide_kernel<Page, D, REL><<<grid, kWideThreads, W::bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(kv), kv_lens,
         page_indices, alibi_slopes, o, part_acc, part_ml, num_kv_heads, qg, head_groups,
-        page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, split_keys);
+        page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, rel_bias, rel_len,
+        split_keys);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_slots == 1) return err;
@@ -711,8 +755,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
         const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,
         int num_q_heads, int num_kv_heads, int head_dim, int page_size, int pages_per_seq,
         float sm_scale, int sliding_window, float soft_cap, const void* bs_offsets,
-        int bs_block, int bs_local, int bs_vert, int split_keys, int num_slots,
-        void* stream) {
+        int bs_block, int bs_local, int bs_vert, const void* rel_bias, int rel_len,
+        int split_keys, int num_slots, void* stream) {
   if (num_seqs <= 0) return int(cudaSuccess);
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return int(cudaErrorInvalidValue);
   const int qg = num_q_heads / num_kv_heads;
@@ -727,26 +771,36 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
       (bs_block <= 0 || bs_local <= 0 || bs_vert <= 0 || head_dim != 128 ||
        (qg != 1 && qg != 2 && qg != 4 && qg != 8)))
     return int(cudaErrorInvalidValue);
+  // A T5 bias takes neither ALiBi nor blocksparse beside it.
+  if (rel_bias != nullptr &&
+      (rel_len <= 0 || alibi_slopes != nullptr || bs.offsets != nullptr))
+    return int(cudaErrorInvalidValue);
+  const float* rb = static_cast<const float*>(rel_bias);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* pages = static_cast<const int*>(page_indices);
   const float* slopes = static_cast<const float*>(alibi_slopes);
   float* acc = static_cast<float*>(part_acc);
   float* ml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_DECODE_LAUNCH(d, b)                                                           \
-  launch<Page, d, b>(q, kv_pages, lens, pages, slopes, out, acc, ml, num_seqs, num_kv_heads, \
+#define PAGED_DECODE_LAUNCH(d, b, r)                                                        \
+  launch<Page, d, b, r>(q, kv_pages, lens, pages, slopes, out, acc, ml, num_seqs, num_kv_heads, \
                      qg, page_size, pages_per_seq, sm_scale, sliding_window, soft_cap, bs,   \
-                     split_keys, num_slots, s)
+                     rb, rel_len, split_keys, num_slots, s)
+  const bool rel = rb != nullptr;
   switch (head_dim) {
     case 64:
-      return int(PAGED_DECODE_LAUNCH(64, false));
+      return int(rel ? PAGED_DECODE_LAUNCH(64, false, true)
+                     : PAGED_DECODE_LAUNCH(64, false, false));
     case 96:
-      return int(PAGED_DECODE_LAUNCH(96, false));
+      return int(rel ? PAGED_DECODE_LAUNCH(96, false, true)
+                     : PAGED_DECODE_LAUNCH(96, false, false));
     case 256:
-      return int(PAGED_DECODE_LAUNCH(256, false));
+      return int(rel ? PAGED_DECODE_LAUNCH(256, false, true)
+                     : PAGED_DECODE_LAUNCH(256, false, false));
     case 128:
-      return int(bs.offsets != nullptr ? PAGED_DECODE_LAUNCH(128, true)
-                                       : PAGED_DECODE_LAUNCH(128, false));
+      return int(bs.offsets != nullptr ? PAGED_DECODE_LAUNCH(128, true, false)
+                 : rel                 ? PAGED_DECODE_LAUNCH(128, false, true)
+                                       : PAGED_DECODE_LAUNCH(128, false, false));
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -763,7 +817,10 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 // or null (no ALiBi), out bf16[S, QH, D]. sliding_window <= 0 and soft_cap
 // <= 0 mean off. bs_offsets i32[QH] (each query head's vertical phase) with
 // bs_block, bs_local and bs_vert turns blocksparse on; null means off (the
-// others are then unread). split_keys (a multiple of 64) keys a split,
+// others are then unread). rel_bias f32[QH, rel_len] (T5's bias by
+// distance, column n for distance n, the last column for every longer one)
+// turns the T5 bias on, without ALiBi or blocksparse; null means off.
+// split_keys (a multiple of 64) keys a split,
 // num_slots blocks per (sequence, kv head; for QG above 128, per kv head
 // and group of 128 query heads) taking the splits in turn; with
 // more than one slot, part_acc f32[num_slots, S, QH, D] and part_ml
@@ -772,7 +829,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 // Launches the split kernel and, with more than one slot, the combine
 // kernel on `stream`. Returns the CUDA error of the launches
 // (cudaErrorInvalidValue for any other D, QH not a multiple of KV, blocksparse parameters
-// that are not positive or at a shape it is not built for, a split that is
+// that are not positive or at a shape it is not built for, a T5 bias with
+// ALiBi or blocksparse or without columns, a split that is
 // not whole tiles, or no scratch where one is needed).
 #define PAGED_DECODE_ENTRY(suffix, Page)                                                     \
   extern "C" int paged_decode_attention_##suffix(                                            \
@@ -780,12 +838,13 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
       const void* alibi_slopes, void* out, void* part_acc, void* part_ml, int num_seqs,      \
       int num_q_heads, int num_kv_heads, int head_dim, int page_size, int pages_per_seq,     \
       float sm_scale, int sliding_window, float soft_cap, const void* bs_offsets,            \
-      int bs_block, int bs_local, int bs_vert, int split_keys, int num_slots,                \
-      void* stream) {                                                                        \
+      int bs_block, int bs_local, int bs_vert, const void* rel_bias, int rel_len,            \
+      int split_keys, int num_slots, void* stream) {                                         \
     return run<Page>(q, kv_pages, kv_lens, page_indices, alibi_slopes, out, part_acc,        \
                      part_ml, num_seqs, num_q_heads, num_kv_heads, head_dim, page_size,      \
                      pages_per_seq, sm_scale, sliding_window, soft_cap, bs_offsets,          \
-                     bs_block, bs_local, bs_vert, split_keys, num_slots, stream);            \
+                     bs_block, bs_local, bs_vert, rel_bias, rel_len, split_keys, num_slots,  \
+                     stream);                                                                \
   }
 
 PAGED_DECODE_ENTRY(bf16, kv_page::Bf16)

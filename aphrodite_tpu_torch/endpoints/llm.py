@@ -4,8 +4,11 @@ aphrodite_tpu/endpoints/llm.py: LLM.generate and LLM.chat).
 ``LLM(model=...).generate(prompts, sampling_params)`` drives the engine's
 hot loop directly; ``chat`` applies the tokenizer's chat template (or the
 server's fallback template) first. It runs on the card by default; pass
-``device="cpu"`` to run on the CPU. ``encode`` raises: the port has no
-pooling runner yet.
+``device="cpu"`` to run on the CPU. A prompt may be a dict, as in the
+JAX package: {"prompt": text} or {"prompt_token_ids": ids}, and for an
+encoder-decoder model (whose prompt feeds the encoder) also
+"decoder_prompt_token_ids". ``encode`` raises: the port has no pooling
+runner yet.
 """
 
 from typing import List, Optional, Sequence, Union
@@ -74,12 +77,12 @@ class LLM:
 
     def generate(
         self,
-        prompts: Union[str, Sequence[str], None] = None,
+        prompts: Union[str, dict, Sequence[Union[str, dict]], None] = None,
         sampling_params: Union[SamplingParams, Sequence[SamplingParams],
                                None] = None,
         prompt_token_ids: Optional[Sequence[List[int]]] = None,
     ) -> List[RequestOutput]:
-        if isinstance(prompts, str):
+        if isinstance(prompts, (str, dict)):
             prompts = [prompts]
         num = len(prompts) if prompts is not None else len(prompt_token_ids)
         if sampling_params is None:
@@ -93,13 +96,17 @@ class LLM:
             self._request_counter += 1
             rid = str(self._request_counter)
             request_ids.append(rid)
+            prompt = prompts[i] if prompts is not None else None
+            ids = prompt_token_ids[i] if prompt_token_ids is not None else None
+            decoder_ids = None
+            if isinstance(prompt, dict):
+                ids = prompt.get("prompt_token_ids", ids)
+                decoder_ids = prompt.get("decoder_prompt_token_ids")
+                prompt = prompt.get("prompt")
             self.engine.add_request(
-                request_id=rid,
-                prompt=prompts[i] if prompts is not None else None,
-                sampling_params=sampling_params[i],
-                prompt_token_ids=(prompt_token_ids[i]
-                                  if prompt_token_ids is not None else None),
-            )
+                request_id=rid, prompt=prompt,
+                sampling_params=sampling_params[i], prompt_token_ids=ids,
+                decoder_prompt_token_ids=decoder_ids)
         return self._run_engine(request_ids)
 
     def _run_engine(self, request_ids: List[str]) -> List[RequestOutput]:

@@ -10,9 +10,11 @@ waits outside the scheduler, and each token it appends advances its FSM
 state; a beam request prefills one sequence and forks it as its beams
 are chosen (``_process_beam_group``). Each step feeds the stat logger
 (Prometheus when installed). ``warmup()`` captures every sequence
-bucket's decode-window graphs before traffic. LoRA, prompt adapters,
-multimodal and encoder-decoder inputs and pooling come with later
-slices.
+bucket's decode-window graphs before traffic. An encoder-decoder model
+(T5, BART) takes the prompt as its encoder's input, and its decoder
+starts from ``decoder_prompt_token_ids`` or the model's
+decoder_start_token_id. LoRA, prompt adapters, multimodal inputs and
+pooling come with later slices.
 """
 
 import concurrent.futures
@@ -133,7 +135,13 @@ class AphroditeEngine:
         sampling_params: Optional[SamplingParams] = None,
         prompt_token_ids: Optional[List[int]] = None,
         arrival_time: Optional[float] = None,
+        decoder_prompt_token_ids: Optional[List[int]] = None,
     ) -> None:
+        """Enqueue one request. For an encoder-decoder model the prompt
+        feeds the encoder, and the decoder starts from
+        decoder_prompt_token_ids, or from the model's
+        decoder_start_token_id without them; a decoder-only model takes no
+        decoder_prompt_token_ids."""
         if request_id in self._groups:
             raise ValueError(f"duplicate request_id {request_id!r}")
         if sampling_params is None:
@@ -145,6 +153,20 @@ class AphroditeEngine:
         if sampling_params.truncate_prompt_tokens is not None:
             prompt_token_ids = prompt_token_ids[
                 -sampling_params.truncate_prompt_tokens:]
+        model = self.runner.model
+        encoder_token_ids = None
+        if getattr(model, "encoder_takes_audio", False):
+            raise NotImplementedError(
+                "audio-encoder models are not ported to the PyTorch package "
+                "yet (ROADMAP.md, module queue item 10: Whisper)")
+        if getattr(model, "is_encoder_decoder", False):
+            encoder_token_ids = list(prompt_token_ids)
+            prompt_token_ids = (list(decoder_prompt_token_ids)
+                                if decoder_prompt_token_ids
+                                else [model.decoder_start_token_id])
+        elif decoder_prompt_token_ids:
+            raise ValueError("decoder_prompt_token_ids is only valid for "
+                             "encoder-decoder models")
         sampling_params = sampling_params.clone()
         sampling_params.update_from_generation_config(
             self._generation_config, self.eos_token_id)
@@ -185,6 +207,7 @@ class AphroditeEngine:
             if fsm is not None:
                 seq.fsm = fsm
                 seq.fsm_state = fsm.initial_state()
+            seq.encoder_token_ids = encoder_token_ids
             seq.seed_offset = sub_idx
             seqs.append(seq)
         group = SequenceGroup(

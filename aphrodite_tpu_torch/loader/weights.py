@@ -113,10 +113,12 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
 
     Per-layer tensors come from ``hf_param_mappings``, layer-independent
     ones from ``hf_global_mappings``, per-(layer, expert) ones from
-    ``hf_expert_mappings`` (stacked [L, E, ...]), and fused per-layer
+    ``hf_expert_mappings`` (stacked [L, E, ...]), fused per-layer
     tensors from ``hf_split_mappings``: (template, [(our_path, start,
     end)], transpose), each part a slice of the (transposed) tensor's
-    output dim. Then
+    output dim, and the per-layer tensors of a stack with a layer count of
+    its own (an encoder-decoder's encoder) from ``hf_aux_mappings``:
+    (template, our_path, transpose, count). Then
     ``finalize_params`` post-processes the tree, as in the JAX package (HF
     checkpoints only: dummy weights skip it there too)."""
     lookup: Dict[str, Tuple[str, Any, bool, Optional[int]]] = {}
@@ -134,6 +136,11 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
             lookup[template.format(i=i)] = ("split", slices, transpose, i)
         for our_path, _, _ in slices:
             pieces[our_path] = [None] * model.num_layers
+    for template, our_path, transpose, count in getattr(
+            model, "hf_aux_mappings", list)():
+        for i in range(count):
+            lookup[template.format(i=i)] = ("layer", our_path, transpose, i)
+        pieces[our_path] = [None] * count
     num_experts = getattr(model, "num_experts", 0)
     experts: Dict[str, List[List[Optional[torch.Tensor]]]] = {}
     for template, our_path, transpose in model.hf_expert_mappings():
@@ -416,6 +423,9 @@ def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
     gen.manual_seed(seed)
     quantizable = (set(quantized_paths(model, method)) if method is not None
                    else set())
+    # Ones also where the model names other norm weights (the
+    # encoder-decoders' ln1, ln2, ...).
+    ones = getattr(model, "dummy_ones", lambda path: False)
 
     def quantized(shape):
         layers = []
@@ -430,7 +440,7 @@ def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
         for k, shape in shapes.items():
             if isinstance(shape, dict):
                 out[k] = walk(shape, f"{prefix}{k}.")
-            elif "norm" in k:
+            elif "norm" in k or ones(prefix + k):
                 out[k] = torch.ones(shape, dtype=dtype, device=device)
             elif prefix + k in quantizable:
                 out[k] = quantized(shape)

@@ -8,8 +8,8 @@ import torch
 class ForwardBatch(NamedTuple):
     """Flat inputs for one step (T padded tokens, S padded sequences), as
     device tensors. Counterpart of aphrodite_tpu/models/interface.py
-    without the LoRA, multimodal, encoder-decoder and M-RoPE fields, which
-    later slices bring."""
+    without the LoRA, multimodal and M-RoPE fields, which later slices
+    bring."""
 
     # [T] token ids (padding: 0).
     token_ids: torch.Tensor
@@ -30,3 +30,8 @@ class ForwardBatch(NamedTuple):
     # [S] index into [T] of the last token of each sequence (for logits
     # extraction; padding: 0).
     logits_indices: torch.Tensor
+    # Encoder-decoder models: each sequence's cross-attention pages (the
+    # encoder's K/V, written once by the encoder pass) and encoder length;
+    # None for a decoder-only model.
+    cross_page_indices: Optional[torch.Tensor] = None  # i32[S, enc_pages]
+    cross_kv_lens: Optional[torch.Tensor] = None  # i32[S]

@@ -6,17 +6,20 @@ Qwen2.5, and the JAX registry's Llama aliases), Qwen3, Baichuan,
 Phi-3-Small, Phi-3 (mini, medium), Gemma, Gemma2 and Gemma3, the MoE
 models Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE and PhiMoE, and the ALiBi and
 multi-query families Bloom, MPT, JAIS and Falcon (with its legacy RW name)
-so far; any other
+and the encoder-decoders T5 (Flan-T5), BART and mBART so far; any other
 architecture raises. The MoE architectures still to port raise with the
-ROADMAP item that holds them (``_WAITING``). The embedding aliases
+ROADMAP item that holds them (``_WAITING``), as do the encoder-decoders
+still to port (Whisper, BLIP-2 with T5). The embedding aliases
 (``MistralModel``, ``LlamaModel``) wait for the pooling runner.
 """
 
-from typing import Dict, Type
+from typing import Dict
 
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.models.baichuan import (BaiChuanForCausalLM,
                                                  BaichuanForCausalLM)
+from aphrodite_tpu_torch.models.bart import (BartForConditionalGeneration,
+                                             MBartForConditionalGeneration)
 from aphrodite_tpu_torch.models.bloom import BloomForCausalLM
 from aphrodite_tpu_torch.models.falcon import FalconForCausalLM
 from aphrodite_tpu_torch.models.gemma import (Gemma2ForCausalLM,
@@ -33,6 +36,7 @@ from aphrodite_tpu_torch.models.phimoe import PhiMoEForCausalLM
 from aphrodite_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
 from aphrodite_tpu_torch.models.qwen3 import Qwen3ForCausalLM
 from aphrodite_tpu_torch.models.qwen3_moe import Qwen3MoeForCausalLM
+from aphrodite_tpu_torch.models.t5 import T5ForConditionalGeneration
 
 
 class Qwen2ForCausalLM(LlamaForCausalLM):
@@ -46,7 +50,7 @@ class MistralForCausalLM(LlamaForCausalLM):
     """Mistral: the Llama topology with the config's sliding window."""
 
 
-_MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
+_MODEL_REGISTRY: Dict[str, type] = {
     "LlamaForCausalLM": LlamaForCausalLM,
     "MistralForCausalLM": MistralForCausalLM,
     "Qwen2ForCausalLM": Qwen2ForCausalLM,
@@ -78,10 +82,16 @@ _MODEL_REGISTRY: Dict[str, Type[LlamaForCausalLM]] = {
     "JAISLMHeadModel": JAISLMHeadModel,
     "FalconForCausalLM": FalconForCausalLM,
     "RWForCausalLM": FalconForCausalLM,
+    # Encoder-decoders, as the JAX registry names them.
+    "T5ForConditionalGeneration": T5ForConditionalGeneration,
+    "T5WithLMHeadModel": T5ForConditionalGeneration,
+    "BartForConditionalGeneration": BartForConditionalGeneration,
+    "BartModel": BartForConditionalGeneration,
+    "MBartForConditionalGeneration": MBartForConditionalGeneration,
 }
 
-# MoE architectures the JAX package serves and the port does not yet, with
-# what each waits for (ROADMAP.md, module queue item 7).
+# Architectures the JAX package serves and the port does not yet, with what
+# each waits for (ROADMAP.md, module queue items 7 and 10).
 _WAITING = {
     "GraniteMoeForCausalLM": "Granite's residual_multiplier in the Llama "
                              "body (item 7, GraniteMoE)",
@@ -96,10 +106,14 @@ _WAITING = {
                              "sigmoid router (item 7, DeepSeek V2/V3)",
     "QuantMixtralForCausalLM": "GPTQ/AWQ checkpoints of MoE models (item 7, "
                                "quantized MoE checkpoints)",
+    "WhisperForConditionalGeneration": "the audio encoder (item 10, "
+                                       "Whisper)",
+    "Blip2ForConditionalGeneration": "BLIP-2's vision tower and its splice "
+                                     "into T5's encoder (item 10, BLIP2-T5)",
 }
 
 
-def get_model_class(model_config: ModelConfig) -> Type[LlamaForCausalLM]:
+def get_model_class(model_config: ModelConfig) -> type:
     arch = model_config.architecture
     if arch in _WAITING:
         raise NotImplementedError(

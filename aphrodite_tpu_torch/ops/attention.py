@@ -65,12 +65,17 @@ def ref_ragged_paged_attention(
     blocksparse: Optional[Tuple[int, int, int]] = None,
     bs_head_offsets: Optional[torch.Tensor] = None,  # i32[QH]
     bs_on: bool = True,
+    rel_bias: Optional[torch.Tensor] = None,  # f32[QH, NB]
+    rel_bias_meta: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain ragged paged attention, one sequence at a time.
 
     Token i of sequence s sits at absolute position kv_len - q_len + i.
     Tokens past cu_q_lens[S] (padding) get zeros; the JAX reference
-    leaves garbage there, which callers ignore either way.
+    leaves garbage there, which callers ignore either way. rel_bias: T5's
+    causal bucket bias (``attend``), which the ragged kernel does not take:
+    the T5 model's prefill is this plain version, as it is XLA code in the
+    JAX package.
     """
     del num_seqs
     if not bs_on:
@@ -87,7 +92,8 @@ def ref_ragged_paged_attention(
             q[cu[s]:cu[s + 1]], k, v, pos, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
             alibi_slopes=alibi_slopes, blocksparse=blocksparse,
-            bs_head_offsets=bs_head_offsets).to(q.dtype)
+            bs_head_offsets=bs_head_offsets, rel_bias=rel_bias,
+            rel_bias_meta=rel_bias_meta).to(q.dtype)
     return out
 
 

@@ -47,6 +47,15 @@ layer's gate; False launches the instantiation without blocksparse).
 With b(x) = x // block_size, key j is visible to a query at position p
 for head h iff b(p) - b(j) < local_blocks or (b(j) + offsets[h] + 1) %
 vert_stride == 0, ANDed with the causal mask and the window.
+
+The decode kernel also takes T5's relative-position bias, at every shape
+it takes and on every page type, but neither with ALiBi nor with
+blocksparse: ``rel_bias`` f32[QH, NB] (one table shared by every layer)
+and ``rel_bias_meta`` (num_buckets, max_distance). The score of key j
+gains table[h, bucket(p - j)] (``t5_relative_bucket``, causal), after the
+soft cap and the ALiBi term's place and before the mask, as the JAX kernel
+adds it. The wrapper hands the kernel the table's columns by distance
+(``rel_bias_columns``), so the card computes no logarithm.
 """
 
 import ctypes
@@ -94,12 +103,73 @@ def gather_kv(kv_pages: torch.Tensor, pages: torch.Tensor, kv_len: int):
     return rows[:, 0::2], rows[:, 1::2]
 
 
+def t5_relative_bucket(rel: torch.Tensor, bidirectional: bool,
+                       num_buckets: int, max_distance: int) -> torch.Tensor:
+    """T5's relative-position bucket of rel = key position - query
+    position (an integer tensor), HF T5Attention._relative_position_bucket:
+    a copy of aphrodite_tpu/models/t5.py: _rel_bucket, whose f32 arithmetic
+    it repeats (the logarithm of the distance over max_exact, divided by the
+    f32 log(max_distance / max_exact), times the buckets left, truncated),
+    so that it gives the JAX package's bucket at every distance. The causal
+    form (the decoder's) puts every key at or after the query in bucket 0."""
+    f32 = torch.float32
+    ret = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (rel > 0).to(rel.dtype) * num_buckets
+        n = rel.abs()
+    else:
+        n = -rel.clamp(max=0)
+    max_exact = num_buckets // 2
+    logv = torch.log(n.clamp(min=1).to(f32)
+                     / torch.tensor(max_exact, dtype=f32))
+    large = max_exact + (
+        logv / torch.tensor(math.log(max_distance / max_exact), dtype=f32)
+        * torch.tensor(num_buckets - max_exact, dtype=f32)).to(rel.dtype)
+    large = large.clamp(max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, large)
+
+
+@functools.lru_cache(maxsize=None)
+def rel_bias_distances(num_buckets: int, max_distance: int) -> torch.Tensor:
+    """The causal bucket of each distance 0, 1, ..., N (an int64 CPU
+    tensor), N the saturation distance: the first whose bucket is the last
+    (num_buckets - 1), which every longer distance shares. Computed once per
+    (num_buckets, max_distance) by ``t5_relative_bucket``; N is at most
+    max(max_distance, num_buckets)."""
+    n = torch.arange(max(max_distance, num_buckets) + 1)
+    buckets = t5_relative_bucket(-n, False, num_buckets, max_distance)
+    last = (buckets == num_buckets - 1).nonzero()
+    if not len(last):
+        raise ValueError(f"T5 buckets ({num_buckets}, {max_distance}) never "
+                         "reach the last bucket")
+    return buckets[:int(last[0]) + 1].long()
+
+
+@functools.lru_cache(maxsize=None)
+def _distances_on(num_buckets: int, max_distance: int,
+                  device: torch.device) -> torch.Tensor:
+    return rel_bias_distances(num_buckets, max_distance).to(device)
+
+
+def rel_bias_columns(rel_bias: torch.Tensor,
+                     rel_bias_meta: Tuple[int, int]) -> torch.Tensor:
+    """What the decode kernel reads of a T5 table f32[QH, NB]: its
+    columns by distance, f32[QH, N + 1] (column n = table[:, bucket(n)],
+    ``rel_bias_distances``), contiguous on the table's device; a gather,
+    so each column holds the table's value bit for bit."""
+    idx = _distances_on(*(int(x) for x in rel_bias_meta), rel_bias.device)
+    return rel_bias.float().index_select(1, idx).contiguous()
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, *, sm_scale: float,
            sliding_window: Optional[int], soft_cap: Optional[float],
            alibi_slopes: Optional[torch.Tensor] = None,
            blocksparse: Optional[Tuple[int, int, int]] = None,
-           bs_head_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bs_head_offsets: Optional[torch.Tensor] = None,
+           rel_bias: Optional[torch.Tensor] = None,
+           rel_bias_meta: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Attention of n query rows q [n, QH, D] at absolute positions q_pos
     over keys k/v [L, KV, D] at positions 0..L-1 (f32 result).
 
@@ -109,8 +179,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (i32[QH]), p // block_size - j // block_size < local or
     (j // block_size + offsets[h] + 1) % vert == 0. With ALiBi slopes
     (f32[QH]) the capped score of head h gains slope[h] * (j - p), the
-    product rounded to f32 before the sum. Masked scores take MASK_VALUE
-    (as in the JAX reference), not -inf.
+    product rounded to f32 before the sum; with a T5 table rel_bias
+    (f32[QH, NB], rel_bias_meta = (num_buckets, max_distance)) it gains
+    rel_bias[h, bucket(j - p)], the causal ``t5_relative_bucket``, after
+    that. Masked scores take MASK_VALUE (as in the JAX reference), not
+    -inf.
     """
     n, num_q_heads, head_dim = q.shape
     num_kv_heads = k.shape[1]
@@ -124,6 +197,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rel = (kv_pos[None, :] - q_pos[:, None]).float()  # [n, L]
         slopes = alibi_slopes.float().reshape(num_kv_heads, qg, 1, 1)
         scores = scores + slopes * rel
+    if rel_bias is not None:
+        bucket = t5_relative_bucket(kv_pos[None, :] - q_pos[:, None], False,
+                                    *rel_bias_meta)  # [n, L]
+        scores = scores + rel_bias.float()[:, bucket].reshape(
+            num_kv_heads, qg, *bucket.shape)
     mask = kv_pos[None, :] <= q_pos[:, None]
     if sliding_window is not None:
         mask &= kv_pos[None, :] > (q_pos[:, None] - sliding_window)
@@ -154,6 +232,8 @@ def ref_paged_decode_attention(
     blocksparse: Optional[Tuple[int, int, int]] = None,
     bs_head_offsets: Optional[torch.Tensor] = None,  # i32[QH]
     bs_on: bool = True,
+    rel_bias: Optional[torch.Tensor] = None,  # f32[QH, NB]
+    rel_bias_meta: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain decode attention; dead rows (kv_len == 0) get zeros, as the
     TPU kernel writes them."""
@@ -168,7 +248,8 @@ def ref_paged_decode_attention(
         out[s] = attend(q[s:s + 1], k, v, pos, sm_scale=sm_scale,
                         sliding_window=sliding_window, soft_cap=soft_cap,
                         alibi_slopes=alibi_slopes, blocksparse=blocksparse,
-                        bs_head_offsets=bs_head_offsets)[0].to(q.dtype)
+                        bs_head_offsets=bs_head_offsets, rel_bias=rel_bias,
+                        rel_bias_meta=rel_bias_meta)[0].to(q.dtype)
     return out
 
 
@@ -258,6 +339,8 @@ def ref_decode_partials(
     blocksparse: Optional[Tuple[int, int, int]] = None,
     bs_head_offsets: Optional[torch.Tensor] = None,
     bs_on: bool = True,
+    rel_bias: Optional[torch.Tensor] = None,
+    rel_bias_meta: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain per-split flash partials of decode attention (the kernel's
     block merges the splits of its slot as it goes, into one partial per
@@ -297,6 +380,10 @@ def ref_decode_partials(
             if alibi_slopes is not None:
                 scores = scores + (alibi_slopes.float().to(dev).reshape(
                     num_kv_heads, qg, 1) * (keys - pos).float())
+            if rel_bias is not None:
+                bucket = t5_relative_bucket(keys - pos, False, *rel_bias_meta)
+                scores = scores + rel_bias.float().to(dev)[:, bucket].reshape(
+                    num_kv_heads, qg, -1)
             if blocksparse is not None:
                 block, local, vert = blocksparse
                 bk = keys // block
@@ -344,6 +431,9 @@ def ref_split_decode_attention(q, kv_pages, kv_lens, page_indices,
 # The blocksparse arguments of both kernels' entry points: the phase table
 # (NULL: off), block size, local blocks, vertical stride.
 BLOCKSPARSE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3
+# The decode kernel's T5 arguments: the columns by distance (NULL: off) and
+# their number.
+REL_BIAS_ARGTYPES = [ctypes.c_void_p, ctypes.c_int]
 
 
 @functools.lru_cache(maxsize=None)
@@ -352,8 +442,8 @@ def _kernel(page_type: str):
                  f"paged_decode_attention_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-                   + BLOCKSPARSE_ARGTYPES + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + BLOCKSPARSE_ARGTYPES + REL_BIAS_ARGTYPES
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -369,9 +459,11 @@ def blocksparse_args(blocksparse: Optional[Tuple[int, int, int]],
 
 
 def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
-                        bs_head_offsets=None):
+                        bs_head_offsets=None, rel_bias=None):
     """Raise unless the tensors are what the CUDA attention kernels take.
-    bs_head_offsets: the phase table of a launch with blocksparse on."""
+    bs_head_offsets: the phase table of a launch with blocksparse on;
+    rel_bias: a T5 table (the decode kernel's), which takes neither ALiBi
+    nor blocksparse beside it."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype != torch.bfloat16 or kv_pages.dtype not in KERNEL_PAGE_TYPES:
@@ -419,6 +511,18 @@ def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
                 f"contiguous int32 [{num_q_heads}] tensor on q's device, got "
                 f"{bs_head_offsets.dtype} {tuple(bs_head_offsets.shape)} on "
                 f"{bs_head_offsets.device}")
+    if rel_bias is not None:
+        if alibi_slopes is not None or bs_head_offsets is not None:
+            raise ValueError("the decode kernel takes a T5 bias without ALiBi "
+                             "and without blocksparse")
+        if (rel_bias.device != q.device or rel_bias.dtype != torch.float32
+                or len(rel_bias.shape) != 2
+                or rel_bias.shape[0] != num_q_heads):
+            raise ValueError(
+                "the decode kernel takes a T5 bias as an f32 "
+                f"[{num_q_heads}, num_buckets] tensor on q's device, got "
+                f"{rel_bias.dtype} {tuple(rel_bias.shape)} on "
+                f"{rel_bias.device}")
     for t in (q, kv_pages):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel needs contiguous, 16-byte "
@@ -444,6 +548,8 @@ def paged_decode_attention(
     blocksparse: Optional[Tuple[int, int, int]] = None,
     bs_head_offsets: Optional[torch.Tensor] = None,
     bs_on: bool = True,
+    rel_bias: Optional[torch.Tensor] = None,
+    rel_bias_meta: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Decode attention over the paged cache. num_seqs is unused:
     kv_lens == 0 marks the dead padded rows. On the card one call is one
@@ -451,15 +557,20 @@ def paged_decode_attention(
     combine kernel; the split plan it launched is kept in
     ``paged_decode_attention.last_plan``."""
     del num_seqs
+    if (rel_bias is None) != (rel_bias_meta is None):
+        raise ValueError("rel_bias and rel_bias_meta go together")
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
             alibi_slopes=alibi_slopes, blocksparse=blocksparse,
-            bs_head_offsets=bs_head_offsets, bs_on=bs_on)
+            bs_head_offsets=bs_head_offsets, bs_on=bs_on, rel_bias=rel_bias,
+            rel_bias_meta=rel_bias_meta)
     bs = blocksparse_args(blocksparse, bs_head_offsets, bs_on)
     check_kernel_inputs(q, kv_pages, (kv_lens, page_indices), alibi_slopes,
-                        None if bs[0] is None else bs_head_offsets)
+                        None if bs[0] is None else bs_head_offsets, rel_bias)
+    rel = (None if rel_bias is None
+           else rel_bias_columns(rel_bias, rel_bias_meta))
     num_seqs, num_q_heads, head_dim = q.shape
     if kv_lens.shape != (num_seqs,) or page_indices.shape[0] != num_seqs:
         raise ValueError("kv_lens and page_indices need one row per query")
@@ -481,7 +592,8 @@ def paged_decode_attention(
         num_seqs, num_q_heads,
         ckv // 2, head_dim, page_size, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
-        *bs, split_keys, num_slots,
+        *bs, None if rel is None else rel.data_ptr(),
+        0 if rel is None else rel.shape[1], split_keys, num_slots,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel: CUDA error {err}")
@@ -490,7 +602,8 @@ def paged_decode_attention(
         blocks=num_seqs * (ckv // 2) * head_groups * num_slots)
     count_launch(paged_decode_attention, dtype=page_type,
                  shape=launch_shape(num_q_heads, ckv // 2, head_dim,
-                                    alibi_slopes, bs[0] is not None))
+                                    alibi_slopes, bs[0] is not None,
+                                    rel is not None))
     return out
 
 
@@ -501,18 +614,20 @@ def slopes_ptr(alibi_slopes: Optional[torch.Tensor]) -> Optional[int]:
 
 def launch_shape(num_q_heads: int, num_kv_heads: int, head_dim: int,
                  alibi_slopes: Optional[torch.Tensor],
-                 blocksparse: bool = False) -> str:
+                 blocksparse: bool = False, rel_bias: bool = False) -> str:
     """The shape and option of a launch, as the key of
     ``launches_by_shape``: "qg<QH/KV> d<head_dim>", then " alibi" with a
-    slope table or " blocksparse" with blocksparse on."""
+    slope table, " blocksparse" with blocksparse on or " rel_bias" with a
+    T5 table."""
     qg = num_q_heads // num_kv_heads
     return (f"qg{qg} d{head_dim}"
             + (" alibi" if alibi_slopes is not None else "")
-            + (" blocksparse" if blocksparse else ""))
+            + (" blocksparse" if blocksparse else "")
+            + (" rel_bias" if rel_bias else ""))
 
 
 # Launches of the kernel: the total, per page type, and per QH / KV and
-# head_dim with ALiBi, blocksparse or neither.
+# head_dim with ALiBi, blocksparse, a T5 bias or none.
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_dtype = {}
 paged_decode_attention.launches_by_shape = {}

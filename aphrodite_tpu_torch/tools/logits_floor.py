@@ -29,19 +29,23 @@ import aphrodite_tpu_torch.models.llama as llama_mod
 from aphrodite_tpu_torch import LLM
 from aphrodite_tpu_torch.models.interface import ForwardBatch
 from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
-from aphrodite_tpu_torch.ops.decode_attention import MASK_VALUE, gather_kv
+from aphrodite_tpu_torch.ops.decode_attention import (MASK_VALUE, gather_kv,
+                                                      t5_relative_bucket)
 
 REPO = Path(__file__).resolve().parents[2]
 PAGE = 16
 
 
 def plain_f64(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs=None,
-              *, sm_scale, sliding_window=None, soft_cap=None, **unused):
+              *, sm_scale, sliding_window=None, soft_cap=None, rel_bias=None,
+              rel_bias_meta=None, **unused):
     """ref_ragged_paged_attention's arithmetic in f64, rounded to q's dtype
-    (no ALiBi or blocksparse: the models measured here have neither); a
-    decode batch (cu_q_lens None) has one query row a sequence. Query rows
-    go 512 at a time, so a 5000-token prefill's scores stay near a
-    gigabyte. chip_smoke.py's compare_logits takes it as its f64 floor."""
+    (no ALiBi or blocksparse: the models measured here have neither; T5's
+    bias table, where given, in f64 too); a decode batch (cu_q_lens None)
+    has one query row a sequence. Query rows go 512 at a time, so a
+    5000-token prefill's scores stay near a gigabyte. chip_smoke.py's
+    compare_logits and compare_encdec_logits take it as their f64
+    floor."""
     if cu_q_lens is None:
         cu_q_lens = torch.arange(q.shape[0] + 1, device=q.device)
     out = torch.zeros_like(q)
@@ -62,6 +66,11 @@ def plain_f64(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs=None,
             if soft_cap is not None:
                 scores = soft_cap * torch.tanh(scores / soft_cap)
             pos = first + torch.arange(a - cu[s], b - cu[s], device=q.device)
+            if rel_bias is not None:
+                bucket = t5_relative_bucket(keys[None, :] - pos[:, None],
+                                            False, *rel_bias_meta)
+                scores = scores + rel_bias.double()[:, bucket].reshape(
+                    kvh, qh // kvh, *bucket.shape)
             mask = keys[None, :] <= pos[:, None]
             if sliding_window is not None:
                 mask &= keys[None, :] > pos[:, None] - sliding_window

@@ -211,12 +211,29 @@ def kernel_base(name: str) -> str:
     return head.split()[-1].split("::")[-1] if head.split() else head
 
 
+# PyTorch kernels launched before and after the traced work, inside the
+# trace (``kernel_counts``).
+TRACE_PADDING = 64
+
+
+def _padding() -> None:
+    """TRACE_PADDING small PyTorch kernels, then a synchronize."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(TRACE_PADDING):
+        x += 1
+    torch.cuda.synchronize()
+
+
 def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
     """The port's kernels that ``run`` launches on the card, by their full
     traced name (template arguments included), counted by torch.profiler
     with host and device activity (with device activity alone a card
     lost kernel records of a replay). Library kernels (PyTorch's,
-    cuBLAS's) are left out."""
+    cuBLAS's) are left out. The work is traced between two runs of
+    ``_padding``: a card's trace of a window whose port kernels are its
+    attention launches alone (Falcon-RW-1B, MPT-7B on bf16 weights) came
+    out one launch short in every pair traced, as if the records at an end
+    of the trace were lost, and the padding's records are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -224,8 +241,10 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _padding()
         run()
         torch.cuda.synchronize()
+        _padding()
     counts: Dict[str, int] = {}
     # The profiler's raw records: prof.events() would first build the tree
     # of every host event, seconds for an eager window of tens of

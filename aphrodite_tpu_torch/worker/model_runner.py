@@ -42,6 +42,17 @@ built) into the rows' keys on the device (``_fold_key_data``), so a step
 of a window draws what a single step at that length draws, and a replay
 what the eager window draws.
 
+Encoder-decoder models (T5, BART) run the JAX package's encoder-decoder
+path: a second cache of the self cache's shape holds each sequence's
+cross K/V, written once by an encoder pass at the sequence's first prefill
+chunk (``_run_encoder``, padded to the history buckets) and read by every
+decoder step through the batch's cross table; prefix caching is off, and
+every decode step is a single eager step (no window: its graphs hold no
+cross buffers), as in the JAX package. Such a step is marked as pure
+decode (``cu_q_lens=None``, one token a row), so that its self-attention
+takes the decode kernel; the JAX runner marks only its windows' steps so,
+and runs none for these models.
+
 Token and sequence counts are padded to the JAX package's buckets, so
 the shapes stay few and fixed.
 """
@@ -261,6 +272,16 @@ class ModelRunner:
                                                         self.device)
         self.params: Optional[Dict[str, Any]] = None
         self.kv_cache: Optional[torch.Tensor] = None
+        # Encoder-decoder models: the cross cache, which the encoder pass
+        # writes once per sequence and decoder steps only read; decoder
+        # pages never hold content another request could share.
+        self.is_encdec = getattr(self.model, "is_encoder_decoder", False)
+        self.cross_kv: Optional[torch.Tensor] = None
+        if self.is_encdec:
+            self.cache_config.enable_prefix_caching = False
+        # Encoder passes run and the tokens they encoded (padding left out).
+        self.encoder_passes = 0
+        self.encoder_tokens = 0
         self.num_pages: Optional[int] = None
         self.block_size = self.cache_config.block_size
         self.pages_per_seq = cdiv(self.model_config.max_model_len,
@@ -316,9 +337,16 @@ class ModelRunner:
         logger.info("model loaded in %.1fs", time.monotonic() - t0)
 
     def _kv_page_bytes(self) -> int:
+        """The bytes of one page in every layer: of the self cache, and of
+        the cross cache beside it for an encoder-decoder model."""
         ckv, d = self.model.kv_cache_shape_suffix
-        return (self.model.num_layers * self.block_size * ckv * d
-                * self.kv_dtype.itemsize)
+        total = (self.model.num_layers * self.block_size * ckv * d
+                 * self.kv_dtype.itemsize)
+        if self.is_encdec:
+            cckv, cd = self.model.cross_kv_cache_shape_suffix
+            total += (self.model.num_layers * self.block_size * cckv * cd
+                      * self.kv_dtype.itemsize)
+        return total
 
     def determine_num_pages(self) -> int:
         """Size the KV cache from the card's free memory."""
@@ -359,6 +387,11 @@ class ModelRunner:
         self.kv_cache = torch.zeros(
             (self.model.num_layers, num_pages + 1, self.block_size, ckv, d),
             dtype=self.kv_dtype, device=self.device)
+        if self.is_encdec:
+            cckv, cd = self.model.cross_kv_cache_shape_suffix
+            self.cross_kv = torch.zeros(
+                (self.model.num_layers, num_pages + 1, self.block_size, cckv,
+                 cd), dtype=self.kv_dtype, device=self.device)
 
     @property
     def trash_slot_base(self) -> int:
@@ -368,6 +401,31 @@ class ModelRunner:
     # ------------------------------------------------------------------
     # Batch assembly (host)
     # ------------------------------------------------------------------
+
+    def _run_encoder(self, ss: ScheduledSequence) -> None:
+        """One encoder pass for a sequence entering its first prefill
+        chunk: the encoder over its encoder prompt, padded to the history
+        bucket of its length, then every decoder layer's cross K/V written
+        into its cross pages (the padding rows at the trash page's slots).
+        The pages are written once; decoder steps only read them."""
+        enc_ids = ss.seq.encoder_token_ids
+        E = len(enc_ids)
+        Ep = _pad_to_bucket(E, self.history_buckets)
+        bs = self.block_size
+        tokens = np.zeros((Ep,), np.int32)
+        tokens[:E] = enc_ids
+        positions = np.arange(Ep, dtype=np.int32)
+        positions[E:] = 0
+        table = np.asarray(ss.cross_block_ids, np.int32)
+        slots = self.trash_slot_base + np.arange(Ep, dtype=np.int32) % bs
+        pos = np.arange(E)
+        slots[:E] = table[pos // bs] * bs + pos % bs
+        tokens_d, positions_d, slots_d = _upload([tokens, positions, slots],
+                                                 self.device)
+        self.model.encode_and_write_cross(self.params, self.cross_kv,
+                                          tokens_d, positions_d, slots_d, E)
+        self.encoder_passes += 1
+        self.encoder_tokens += E
 
     def build_forward_batch(
         self,
@@ -383,6 +441,21 @@ class ModelRunner:
         page_indices = np.zeros((S, self.pages_per_seq), np.int32)
         cu_q_lens = np.zeros((S + 1,), np.int32)
         logits_indices = np.zeros((S,), np.int32)
+        cross = []
+        if self.is_encdec:
+            # The cross table's width is bucketed on the batch's longest
+            # encoder prompt: the cross read gathers that many pages a row.
+            max_enc = max(len(ss.seq.encoder_token_ids or [1])
+                          for ss in scheduled)
+            width = cdiv(_pad_to_bucket(max_enc, self.history_buckets),
+                         self.block_size)
+            cross_pages = np.zeros((S, width), np.int32)
+            cross_lens = np.zeros((S,), np.int32)
+            for i, ss in enumerate(scheduled):
+                table = ss.cross_block_ids or []
+                cross_pages[i, :len(table)] = table
+                cross_lens[i] = len(ss.seq.encoder_token_ids or [])
+            cross = [cross_pages, cross_lens]
         offset = 0
         bs = self.block_size
         for i, ss in enumerate(scheduled):
@@ -409,7 +482,7 @@ class ModelRunner:
         num_seqs = np.asarray([len(scheduled)], np.int32)
         return ForwardBatch(*_upload(
             [token_ids, positions, slot_mapping, kv_lens, page_indices,
-             cu_q_lens, num_seqs, logits_indices], self.device))
+             cu_q_lens, num_seqs, logits_indices, *cross], self.device))
 
     def _sampling_inputs(self, scheduled: List[ScheduledSequence], S: int):
         """The step's sampling tensors on the device, its flags, and (for
@@ -566,6 +639,10 @@ class ModelRunner:
             raise ValueError("execute() called with an empty schedule")
         if outputs.blocks_to_copy:
             self._apply_block_copies(outputs.blocks_to_copy)
+        if self.is_encdec:
+            for ss in scheduled:
+                if ss.first_token_idx == 0 and ss.seq.encoder_token_ids:
+                    self._run_encoder(ss)
         S = _pad_to_bucket(len(scheduled), self.seq_buckets)
         tensors, flags, hist = self._sampling_inputs(scheduled, S)
         guided_mask = None
@@ -575,21 +652,32 @@ class ModelRunner:
         # Host logits processors need the raw logits on the host each step.
         has_procs = any(ss.group.sampling_params.logits_processors
                         for ss in scheduled)
-        # The fused window: a pure-decode batch whose sampling reads no
-        # per-step host state (token history, min_tokens, guided FSM
-        # advancement, host callables).
+        # The fused window: a pure-decode batch of a decoder-only model
+        # whose sampling reads no per-step host state (token history,
+        # min_tokens, guided FSM advancement, host callables).
         if (num_steps > 1 and outputs.num_prefill_tokens == 0
+                and not self.is_encdec
                 and not flags.needs_history and not flags.do_min_tokens
                 and not flags.do_beam and not flags.do_guided
                 and not has_procs):
             return self._execute_multi(scheduled, S, tensors, flags,
                                        num_steps)
         total_tokens = sum(ss.num_tokens for ss in scheduled)
-        T = _pad_to_bucket(total_tokens, self.token_buckets)
-        batch = self.build_forward_batch(scheduled, T, S)
+        if self.is_encdec and outputs.num_prefill_tokens == 0:
+            # A pure-decode step of an encoder-decoder model, one token a
+            # row: marked as such (cu_q_lens=None), as the window marks
+            # its steps, so that self-attention takes the decode kernel
+            # (T5's with its bias).
+            T = S
+            batch = self.build_forward_batch(scheduled, T, S)._replace(
+                cu_q_lens=None)
+        else:
+            T = _pad_to_bucket(total_tokens, self.token_buckets)
+            batch = self.build_forward_batch(scheduled, T, S)
         self._count_forwards(T, 1)
+        cross = {"cross_kv": self.cross_kv} if self.is_encdec else {}
         hidden = self.model.forward(self.params, self.kv_cache, batch,
-                                    self.kv_scales)
+                                    self.kv_scales, **cross)
         logits = self.model.compute_logits(
             self.params, hidden[batch.logits_indices])
         if has_procs:

@@ -26,7 +26,13 @@ Phases, each of which must pass or the script exits non-zero:
    slopes must also equal no ALiBi bit for bit. The fifth is Phi-3-Small's
    blocksparse mask at 32 / 8 heads (block 64, 16 local blocks, stride 8,
    a phase per query head) over kv lengths of 1024-6144, where the gate
-   off must equal the kernel without blocksparse bit for bit. Cache slots
+   off must equal the kernel without blocksparse bit for bit. Since
+   slice 19, the decode kernel with T5's relative-position bias
+   (REL_BIAS_GEOMETRIES: Flan-T5-XXL's 64 heads of 64, QG 1 at head_dim
+   128, QG 2 at 64 and QG 71 at 64, the wide form; a table of 32 buckets
+   up to distance 128 at std 3, unscaled scores) on every page type, at
+   the main paths' decode step and at the T5 paths' own rows of 64 keys,
+   where an all-zero table must equal no bias bit for bit. Cache slots
    past each
    sequence's length hold NaN (bf16, and byte 0x7f in the fp8 types) or
    127 (int8), so a kernel that reads past kv_len fails the check. The
@@ -272,6 +278,23 @@ Phases, each of which must pass or the script exits non-zero:
    to the model's shape ("qg71 d64", "qg16 d64", "qg1 d64 alibi", "qg1
    d128 alibi"), and a traced replay's decode kernels count the wide
    form's too.
+   Then slice 19's four encoder-decoder paths (encdec_paths, after the
+   main paths), from the published config.json
+   values on dummy bf16 weights, each through encdec_path: 16 requests
+   with encoder prompts of 16-512 tokens and 64 new tokens, greedy, every
+   decode step a single eager step: ``flan-t5-xxl`` (T5 at full width and
+   all 24 + 24 layers), ``flan-t5-xxl+fp8_e4m3, 4 layers`` (E4M3 self and
+   cross pages), ``t5-small`` (6 + 6, the tied head's scaling) and
+   ``bart-large-cnn`` (12 + 12, post-norm). Every pure-decode step
+   launches the decode kernel once a layer ("qg1 d64 rel_bias" on T5,
+   "qg1 d64" on BART), every BART prefill step the ragged kernel once a
+   layer (T5's prefill is plain PyTorch, as it is XLA code in the JAX
+   package); each encoder pass is timed; the logits of a prefill and a
+   decode step with the kernels must lie within LOGIT_TOL of the plain
+   attention's, argmax held on the rows a third run in f64 decides
+   (Flan-T5-XXL on its first COMPARE_LAYERS decoder layers, the floor at
+   24 printed); and a traced decode step gives cross-attention's share of
+   its device time.
    Then the page-gather probe's own entry point
    (aphrodite_tpu_torch/tools/probe_gather_bw.py: main) at its defaults,
    which times the probe kernel; its kernel was held beforehand against
@@ -298,7 +321,9 @@ Phases, each of which must pass or the script exits non-zero:
    kernel once per page type, with its launches by shape and, on bf16
    and E4M3 pages, its times at the Baichuan2-13B geometry; each kernel's
    blocksparse instantiation on bf16 and E4M3 pages, with its times at
-   Phi-3-Small's geometry; the unpacked int4 matmul once per body, W4A8,
+   Phi-3-Small's geometry; the decode kernel with the T5 bias on bf16 and
+   E4M3 pages, with its times at Flan-T5-XXL's geometry; the unpacked
+   int4 matmul once per body, W4A8,
    the activation quantizer, the FP8 W8A8 product and the page-gather
    probe); before it, the sampler's errors and times, and each path's
    rates; the last line is
@@ -807,6 +832,72 @@ JAIS_13B = {
     "layer_norm_epsilon": 1e-5,
     "vocab_size": 84992,
     "torch_dtype": "bfloat16",
+}
+# Slice 19's encoder-decoders, from their published config.json values
+# (google/flan-t5-xxl, google-t5/t5-small, facebook/bart-large-cnn); each
+# runs at full width and all its layers, in bf16 (the dtype is passed).
+FLAN_T5_XXL = {
+    "architectures": ["T5ForConditionalGeneration"],
+    "model_type": "t5",
+    "d_model": 4096,
+    "d_ff": 10240,
+    "d_kv": 64,
+    "num_heads": 64,
+    "num_layers": 24,
+    "num_decoder_layers": 24,
+    "feed_forward_proj": "gated-gelu",
+    "tie_word_embeddings": False,
+    "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128,
+    "layer_norm_epsilon": 1e-6,
+    "n_positions": 512,
+    "vocab_size": 32128,
+    "decoder_start_token_id": 0,
+    "eos_token_id": 1,
+    "pad_token_id": 0,
+    "torch_dtype": "float32",
+}
+T5_SMALL = {
+    "architectures": ["T5ForConditionalGeneration"],
+    "model_type": "t5",
+    "d_model": 512,
+    "d_ff": 2048,
+    "d_kv": 64,
+    "num_heads": 8,
+    "num_layers": 6,
+    "num_decoder_layers": 6,
+    "feed_forward_proj": "relu",
+    "tie_word_embeddings": True,
+    "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128,
+    "layer_norm_epsilon": 1e-6,
+    "n_positions": 512,
+    "vocab_size": 32128,
+    "decoder_start_token_id": 0,
+    "eos_token_id": 1,
+    "pad_token_id": 0,
+    "torch_dtype": "float32",
+}
+BART_LARGE_CNN = {
+    "architectures": ["BartForConditionalGeneration"],
+    "model_type": "bart",
+    "d_model": 1024,
+    "encoder_layers": 12,
+    "decoder_layers": 12,
+    "num_hidden_layers": 12,
+    "encoder_attention_heads": 16,
+    "decoder_attention_heads": 16,
+    "encoder_ffn_dim": 4096,
+    "decoder_ffn_dim": 4096,
+    "activation_function": "gelu",
+    "max_position_embeddings": 1024,
+    "scale_embedding": False,
+    "vocab_size": 50264,
+    "bos_token_id": 0,
+    "pad_token_id": 1,
+    "eos_token_id": 2,
+    "decoder_start_token_id": 2,
+    "torch_dtype": "float32",
 }
 # The keys a config may name its depth by (HF, Bloom, Falcon, JAIS; MPT).
 LAYER_KEYS = ("num_hidden_layers", "n_layer", "n_layers")
@@ -1679,6 +1770,190 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
               ") "
               f"{library_ms:.4f} ms, bound {out[variant]['bound_ms']:.4f} ms "
               f"({out[variant]['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
+              flush=True)
+        del case, qq, kk, vv, mask
+    return out
+
+
+# ----------------------------------------------------------------------
+# T5's relative-position bias in the decode kernel
+# ----------------------------------------------------------------------
+
+# The decode kernel's T5 bias: (query heads, kv heads, head_dim) by name.
+# Flan-T5-XXL's 64 heads of 64 (QG 1, the T5 paths' shape), QG 1 at
+# head_dim 128, QG 2 at 64 and QG 71 at 64 (the kernel's wide form).
+REL_BIAS_GEOMETRIES = {
+    "flan-t5-xxl 64/64 d64 rel_bias": (64, 64, 64),
+    "qg1 16/16 d128 rel_bias": (16, 16, 128),
+    "qg2 32/16 d64 rel_bias": (32, 16, 64),
+    "qg71 71/1 d64 rel_bias": (71, 1, 64),
+}
+# T5's and Flan-T5's buckets and max_distance (saturation at distance 113).
+REL_BIAS_META = (32, 128)
+REL_BIAS_GEOMETRY = "flan-t5-xxl 64/64 d64 rel_bias"
+
+
+def rel_bias_table(num_q_heads, device, seed):
+    """A T5 table f32[QH, 32] at std 3, so that the bias moves the
+    softmax (the dummy weights' table is at std 1/8)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((num_q_heads, REL_BIAS_META[0]), generator=gen)
+            * 3).to(device)
+
+
+def rel_bias_cases(prompt_lens):
+    """(label, seqs) of the phase's decode batches, each in the 32-row
+    bucket: the main paths' decode step (16 rows of the prompts plus 32
+    tokens, 48-1056 keys) and the T5 paths' own, 16 rows of MAX_TOKENS
+    keys (a decoder row at the end of its run)."""
+    return [("main-path decode step",
+             [(1, int(n) + MAX_TOKENS // 2) for n in prompt_lens]),
+            ("t5 decoder rows", [(1, MAX_TOKENS)] * NUM_REQUESTS)]
+
+
+def rel_bias_variant(page_type: str) -> str:
+    """The kernels line's name of the decode kernel with the T5 bias."""
+    return variant_name("paged_decode_attention_rel_bias", page_type)
+
+
+def rel_bias_checks(device, errs, prompt_lens):
+    """The decode kernel with the T5 bias at each of REL_BIAS_GEOMETRIES,
+    on every page type, at both of rel_bias_cases, unscaled as T5 attends
+    (sm_scale 1, times the narrow pages' scale), against its plain version
+    row by row; the narrow variants equal the bf16 one on the widened
+    pages, and an all-zero table equals no bias, bit for bit. Keeps the
+    max abs error per page type in `errs`."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        paged_decode_attention, ref_paged_decode_attention)
+
+    for g, (name, (qh, kvh, d)) in enumerate(REL_BIAS_GEOMETRIES.items()):
+        table = rel_bias_table(qh, device, SEED + 40 + g)
+        for i, (label, seqs) in enumerate(rel_bias_cases(prompt_lens)):
+            for page_type in PAGE_TYPES:
+                variant = rel_bias_variant(page_type)
+                errs.setdefault(variant, 0.0)
+                case = make_attention_case(seqs, qh, kvh, d, padded_seqs=32,
+                                           padded_tokens=32, device=device,
+                                           seed=SEED + 50 + i,
+                                           page_type=page_type)
+                kw = dict(sm_scale=case["kv_scale"], rel_bias=table,
+                          rel_bias_meta=REL_BIAS_META)
+                args = (case["kv_lens"], case["page_indices"])
+                got = paged_decode_attention(case["q"], case["kv"][0], *args,
+                                             case["num_seqs"], **kw)
+                want = ref_paged_decode_attention(case["q"], case["kv"][0],
+                                                  *args, **kw)
+                full = f"{name}: {label}"
+                check_close(errs, variant, full, got, want, len(seqs))
+                if page_type != "bf16":
+                    check_equals_bf16_kernel(variant, full, got,
+                                             paged_decode_attention, case,
+                                             args, kw)
+                zero = paged_decode_attention(
+                    case["q"], case["kv"][0], *args,
+                    **dict(kw, rel_bias=torch.zeros_like(table)))
+                plain = paged_decode_attention(case["q"], case["kv"][0],
+                                               *args,
+                                               sm_scale=case["kv_scale"])
+                if not torch.equal(zero, plain):
+                    fail(f"{variant} [{full}]: an all-zero table differs "
+                         "from no bias")
+                del case, got, want, zero, plain
+
+
+def rel_bias_sdpa_mask(case, table, num_q_heads):
+    """SDPA's additive mask for the decode rows of `case` with the T5
+    bias: table[h, bucket(query - key)] on each row's keys, -inf past
+    them, in bf16 [n, QH, 1, L]."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.decode_attention import t5_relative_bucket
+
+    n = len(case["seqs"])
+    lmax = max(kv for _, kv in case["seqs"])
+    dev = table.device
+    keys = torch.arange(lmax, device=dev)
+    pos = case["kv_lens"][:n].long() - 1
+    bucket = t5_relative_bucket(keys[None, :] - pos[:, None], False,
+                                *REL_BIAS_META)  # [n, L]
+    bias = table[:, bucket].permute(1, 0, 2)  # [n, QH, L]
+    live = keys[None, None, :] <= pos[:, None, None]
+    return torch.where(live, bias, float("-inf"))[:, :, None].to(
+        torch.bfloat16)
+
+
+def rel_bias_timings(device, errs, iters=100, layers=8):
+    """The decode kernel with the T5 bias at Flan-T5-XXL's geometry and
+    the T5 paths' decode step (16 rows of MAX_TOKENS keys in the 32-row
+    bucket), on every page type, each timed launch on the next of
+    `layers` cache layers: kernel (the wrapper: its gather of the table's
+    columns and the launch), plain version, and the library call
+    (scaled_dot_product_attention on the rows gathered and widened to
+    bf16 beforehand, the bias as a bf16 additive mask), beside the bound
+    (bytes: q and the output once, each live K/V row once, the index
+    tensors and the table; 4 D + 1 FLOPs per visible pair). Returns, per
+    page type's variant, a dict of shape, ms, plain_ms, library_ms,
+    bound_ms, bound_by."""
+    import torch
+
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        paged_decode_attention, ref_paged_decode_attention)
+
+    qh, kvh, d = REL_BIAS_GEOMETRIES[REL_BIAS_GEOMETRY]
+    table = rel_bias_table(qh, device, SEED + 45)
+    seqs = [(1, MAX_TOKENS)] * NUM_REQUESTS
+    out = {}
+    for page_type in PAGE_TYPES:
+        variant = rel_bias_variant(page_type)
+        case = make_attention_case(seqs, qh, kvh, d, padded_seqs=32,
+                                   padded_tokens=32, device=device,
+                                   seed=SEED + 46, num_layers=layers,
+                                   page_type=page_type)
+        kw = dict(sm_scale=case["kv_scale"], rel_bias=table,
+                  rel_bias_meta=REL_BIAS_META)
+        state = {"layer": layers - 1}
+
+        def call(use_kernel):
+            layer = state["layer"] = (state["layer"] + 1) % layers
+            fn = (paged_decode_attention if use_kernel
+                  else ref_paged_decode_attention)
+            return fn(case["q"], case["kv"][layer], case["kv_lens"],
+                      case["page_indices"], **kw)
+
+        got = call(True)
+        state["layer"] = layers - 1
+        check_close(errs, variant, f"{REL_BIAS_GEOMETRY}: timed shape", got,
+                    call(False), len(seqs))
+        ms = time_ms(lambda: call(True), iters)
+        plain_ms = time_ms(lambda: call(False), max(1, iters // 20))
+        qq, kk, vv, _ = sdpa_inputs(case, 0, qh, kvh, d, True)
+        mask = rel_bias_sdpa_mask(case, table, qh)
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, scale=case["kv_scale"]), iters)
+        nbytes, flops = attention_work(case, qh, kvh, d, True)
+        pairs = sum(kv for _, kv in seqs) * qh
+        nbytes += table.numel() * 4
+        flops += pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[variant] = dict(
+            shape=f"{REL_BIAS_GEOMETRY}, decode {len(seqs)} rows of "
+                  f"{MAX_TOKENS} keys", ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        plan = paged_decode_attention.last_plan
+        print(f"time {variant} [{REL_BIAS_GEOMETRY}]: {len(seqs)} seqs of "
+              f"{MAX_TOKENS} keys: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (sdpa on the rows widened to "
+              f"bf16, gather excluded, the bias as a bf16 mask) "
+              f"{library_ms:.4f} ms, bound {out[variant]['bound_ms']:.4f} ms "
+              f"({out[variant]['bound_by']}: {nbytes} bytes, {flops} "
+              f"FLOPs); {plan['splits']} splits, {plan['blocks']} blocks",
               flush=True)
         del case, qq, kk, vv, mask
     return out
@@ -4929,6 +5204,431 @@ def serving_phase(card, offline_rates, reference, device="cuda"):
             log.close()
 
 
+# ----------------------------------------------------------------------
+# Encoder-decoder paths (slice 19)
+# ----------------------------------------------------------------------
+
+# The encoder prompts of the encoder-decoder paths: 16-512 tokens (T5's
+# n_positions is 512).
+ENCDEC_PROMPT_LENS = (16, 513)
+# The logits comparison's encoder prompts and decoder prompts.
+ENCDEC_COMPARE_ENC = (300, 17, 129)
+ENCDEC_COMPARE_DEC = (9, 1, 23)
+
+
+def encdec_batches(runner, rng, vocab, device):
+    """Hand-built steps of the runner's model over the encoder prompts
+    ENCDEC_COMPARE_ENC (their encoder passes run here, into the runner's
+    cross cache) with decoder prompts ENCDEC_COMPARE_DEC: a prefill of the
+    decoder prompts and the decode step after it (8 rows, 3 live), on
+    pages from 0 up (the engine is idle between generate calls). Returns
+    (the two ForwardBatch, the pages they use)."""
+    import torch
+
+    from aphrodite_tpu_torch.models.interface import ForwardBatch
+    from aphrodite_tpu_torch.worker.model_runner import _pad_to_bucket
+
+    bs, model = runner.block_size, runner.model
+    S = 8
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        np.asarray(a, np.int32))).to(device)
+    next_page = 0
+    width = -(-_pad_to_bucket(max(ENCDEC_COMPARE_ENC), runner.history_buckets)
+              // bs)
+    cross = np.zeros((S, width), np.int32)
+    cross_lens = np.zeros((S,), np.int32)
+    pages = np.zeros((S, runner.pages_per_seq), np.int32)
+    for i, (E, n) in enumerate(zip(ENCDEC_COMPARE_ENC, ENCDEC_COMPARE_DEC)):
+        npg = -(-E // bs)
+        cross[i, :npg] = np.arange(next_page, next_page + npg)
+        next_page += npg
+        Ep = _pad_to_bucket(E, runner.history_buckets)
+        tokens = np.zeros((Ep,), np.int32)
+        tokens[:E] = rng.integers(0, vocab, E)
+        pos = np.arange(Ep)
+        pos[E:] = 0
+        slots = runner.trash_slot_base + np.arange(Ep) % bs
+        slots[:E] = cross[i, pos[:E] // bs] * bs + pos[:E] % bs
+        model.encode_and_write_cross(runner.params, runner.cross_kv,
+                                     t(tokens), t(pos), t(slots), E)
+        cross_lens[i] = E
+        npg = -(-(n + 1) // bs)
+        pages[i, :npg] = np.arange(next_page, next_page + npg)
+        next_page += npg
+    T = 16 * -(-sum(ENCDEC_COMPARE_DEC) // 16)
+    ids = np.zeros((T,), np.int32)
+    pos = np.zeros((T,), np.int32)
+    slots = runner.trash_slot_base + np.arange(T) % bs
+    cu = np.zeros((S + 1,), np.int32)
+    off = 0
+    for i, n in enumerate(ENCDEC_COMPARE_DEC):
+        p = np.arange(n)
+        ids[off:off + n] = rng.integers(0, vocab, n)
+        pos[off:off + n] = p
+        slots[off:off + n] = pages[i, p // bs] * bs + p % bs
+        cu[i + 1] = cu[i] + n
+        off += n
+    live = len(ENCDEC_COMPARE_DEC)
+    cu[live + 1:] = cu[live]
+    kv_lens = np.zeros((S,), np.int32)
+    kv_lens[:live] = ENCDEC_COMPARE_DEC
+    cross_t = (t(cross), t(cross_lens))
+    prefill = ForwardBatch(t(ids), t(pos), t(slots), t(kv_lens), t(pages),
+                           t(cu), t([live]),
+                           t(np.pad(cu[1:live + 1] - 1, (0, S - live))),
+                           *cross_t)
+    dpos = np.zeros((S,), np.int32)
+    dpos[:live] = ENCDEC_COMPARE_DEC
+    dslots = runner.trash_slot_base + np.arange(S) % bs
+    dslots[:live] = [pages[i, n // bs] * bs + n % bs
+                     for i, n in enumerate(ENCDEC_COMPARE_DEC)]
+    decode = ForwardBatch(t(rng.integers(0, vocab, S)), t(dpos), t(dslots),
+                          t(np.where(np.arange(S) < live, dpos + 1, 0)),
+                          t(pages), None, t([live]), t(np.arange(S)),
+                          *cross_t)
+    return {"prefill": prefill, "decode": decode}, next_page
+
+
+def cross_attention_share(runner, batch):
+    """The share of a traced decode forward's device time that its
+    cross-attention takes (torch.profiler over one forward, each
+    cross-attention call in a range: a kernel counts there when the host
+    launched it inside one), and that device time in ms; (None, 0.0) where
+    the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import aphrodite_tpu_torch.models.bart as bart_mod
+    import aphrodite_tpu_torch.models.t5 as t5_mod
+
+    model = runner.model
+    module = t5_mod if isinstance(
+        model, t5_mod.T5ForConditionalGeneration) else bart_mod
+    inner = module.cross_attention
+
+    def ranged(*args, **kwargs):
+        with record_function("cross_attention"):
+            return inner(*args, **kwargs)
+
+    module.cross_attention = ranged
+    try:
+        with torch.inference_mode():
+            model.forward(runner.params, runner.kv_cache, batch,
+                          cross_kv=runner.cross_kv)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model.forward(runner.params, runner.kv_cache, batch,
+                              cross_kv=runner.cross_kv)
+                torch.cuda.synchronize()
+    finally:
+        module.cross_attention = inner
+    events = list(prof.profiler.kineto_results.events())
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+              if e.name() == "cross_attention"
+              and e.device_type() != DeviceType.CUDA]
+    launch_at = {e.correlation_id(): e.start_ns() for e in events
+                 if e.device_type() != DeviceType.CUDA
+                 and "Launch" in e.name()}
+    total = inside = 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        total += e.duration_ns()
+        at = launch_at.get(e.correlation_id())
+        if at is not None and any(a <= at <= b for a, b in ranges):
+            inside += e.duration_ns()
+    if not total:
+        return None, 0.0
+    return inside / total, total / 1e6
+
+
+def compare_encdec_logits(llm, device, rng, vocab, layers=None):
+    """The compare steps (encdec_batches) through the model with its
+    attention kernels, then with their plain versions, then with the plain
+    attention in f64 (tools/logits_floor.py: plain_f64), on the same inputs
+    and the same starting cache: logits within LOGIT_TOL of each row, and
+    argmax held on the rows whose plain top two lie more than twice the
+    f64 run's largest change apart (random weights leave near ties, and a
+    rounding in the attention output can swap them). The T5 model's
+    self-attention kernel is the decode kernel with the T5 bias (its
+    prefill is plain on both sides); BART's the ragged kernel and the
+    decode kernel. layers: the decoder's first `layers` layers only
+    (COMPARE_LAYERS), for a model whose random depth is chaotic; the
+    floor at its full depth is printed beside. Returns the worst row
+    error (relative to the row's largest logit) and the batches."""
+    import torch
+
+    import aphrodite_tpu_torch.models.bart as bart_mod
+    import aphrodite_tpu_torch.models.t5 as t5_mod
+    from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
+    from aphrodite_tpu_torch.ops.decode_attention import \
+        ref_paged_decode_attention
+    from aphrodite_tpu_torch.tools.logits_floor import plain_f64
+
+    runner = llm.engine.runner
+    model = runner.model
+    forwards, used = encdec_batches(runner, rng, vocab, device)
+    base = runner.kv_cache[:, :used].clone()
+    live = len(ENCDEC_COMPARE_DEC)
+    depth = model.num_layers
+
+    def run(n_layers):
+        runner.kv_cache[:, :used] = base
+        model.num_layers = n_layers
+        out = []
+        try:
+            with torch.inference_mode():
+                for batch in forwards.values():
+                    h = model.forward(runner.params, runner.kv_cache, batch,
+                                      cross_kv=runner.cross_kv)
+                    out.append(model.compute_logits(
+                        runner.params, h[batch.logits_indices])[:live])
+        finally:
+            model.num_layers = depth
+        return out
+
+    def plain_decode(q, kv_pages, kv_lens, page_indices, num_seqs=None,
+                     **kw):
+        return ref_paged_decode_attention(q, kv_pages, kv_lens, page_indices,
+                                          **kw)
+
+    def plain_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens,
+                        num_seqs, **kw):
+        if cu_q_lens is None:
+            return plain_decode(q, kv_pages, kv_lens, page_indices, **kw)
+        return ref_ragged_paged_attention(q, kv_pages, kv_lens, page_indices,
+                                          cu_q_lens, num_seqs, **kw)
+
+    def f64_decode(q, kv_pages, kv_lens, page_indices, num_seqs=None, **kw):
+        return plain_f64(q, kv_pages, kv_lens, page_indices, None, **kw)
+
+    if isinstance(model, t5_mod.T5ForConditionalGeneration):
+        swaps = {"plain": [(t5_mod, "paged_decode_attention", plain_decode)],
+                 "f64": [(t5_mod, "paged_decode_attention", f64_decode),
+                         (t5_mod, "ref_ragged_paged_attention", plain_f64)]}
+    else:
+        swaps = {"plain": [(bart_mod, "ragged_paged_attention",
+                            plain_attention)],
+                 "f64": [(bart_mod, "ragged_paged_attention", plain_f64)]}
+
+    def swapped(kind, n_layers):
+        saved = [(m, a, getattr(m, a)) for m, a, _ in swaps[kind]]
+        for m, a, fn in swaps[kind]:
+            setattr(m, a, fn)
+        try:
+            return run(n_layers)
+        finally:
+            for m, a, fn in saved:
+                setattr(m, a, fn)
+
+    n = layers or depth
+    got, want, floor = run(n), swapped("plain", n), swapped("f64", n)
+    if layers:
+        full = [row_ratio(f, w) for f, w in zip(swapped("f64", depth),
+                                                 swapped("plain", depth))]
+        print(f"logits encoder-decoder at all {depth} decoder layers: plain "
+              f"attention in f32 and in f64 lie {max(full):.3e} of a row "
+              f"apart (by step: {[f'{r:.3e}' for r in full]})", flush=True)
+    worst = 0.0
+    for name, g, w, f in zip(forwards, got, want, floor):
+        label = f"encoder-decoder {name}" + (f" ({layers} layers)" if layers
+                                             else "")
+        if not bool(g.isfinite().all()):
+            fail(f"{label} logits are not finite")
+        err = (g - w).abs().amax(-1)
+        ratio = float((err / w.abs().amax(-1)).max())
+        top2 = w.topk(2, dim=-1).values
+        change = float((f - w).abs().max())
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * change
+        same = g.argmax(-1) == w.argmax(-1)
+        print(f"logits {label}: max_abs_err {float(err.max()):.3e}, worst "
+              f"row err / max|row| {ratio:.3e} (tolerance {LOGIT_TOL:.1e}), "
+              f"argmax agreement {float(same.float().mean()):.2f}; the f64 "
+              f"floor: worst row err / max|row| {row_ratio(f, w):.3e}, "
+              f"largest change {change:.3e}; plain top-two gaps "
+              f"{(top2[:, 0] - top2[:, 1]).tolist()}; argmax held on "
+              f"{int(decided.sum())} of {live} rows", flush=True)
+        if not bool((err <= LOGIT_TOL * w.abs().amax(-1)).all()):
+            fail(f"{label} logits with the kernels disagree with the plain "
+                 "versions'")
+        if not bool(same[decided].all()):
+            fail(f"{label} logits with the kernels pick another token than "
+                 "with the plain versions on a row the floor decides")
+        worst = max(worst, ratio)
+    return worst, forwards
+
+
+def encdec_path(device, model_config, kv_cache_dtype="auto",
+                compare_layers=None):
+    """LLM.generate of an encoder-decoder model (T5 or BART, from
+    `model_config` with dummy bf16 weights from the seed) through the
+    port's entry point: NUM_REQUESTS encoder prompts of ENCDEC_PROMPT_LENS
+    tokens, MAX_TOKENS new tokens each, greedy, on a cache of
+    kv_cache_dtype. Every forward runs eagerly (no decode window for these
+    models). Holds the attention launches of the timed run: the decode
+    kernel once a layer in every pure-decode step (with the T5 bias,
+    "qg1 d64 rel_bias", for T5), and for BART the ragged kernel once a
+    layer in every prefill or mixed step (T5's prefill is plain PyTorch),
+    all on the cache's page type; times each encoder pass; then
+    compare_encdec_logits (on the decoder's first compare_layers layers
+    where given) and cross_attention_share on its decode step. Returns
+    the launches (as main_path names them) and the rates."""
+    import torch
+
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
+    from aphrodite_tpu_torch.ops.decode_attention import \
+        paged_decode_attention
+
+    page_type = CACHE_PAGE_TYPES[kv_cache_dtype]
+    arch = model_config["architectures"][0]
+    t5 = arch.startswith("T5")
+    layers = model_config.get("num_decoder_layers",
+                              model_config.get("decoder_layers"))
+    enc_layers = model_config.get("num_layers",
+                                  model_config.get("encoder_layers"))
+    label = (f"encoder-decoder path ({arch}, {kv_cache_dtype} cache, "
+             f"{enc_layers} + {layers} layers)")
+    vocab = model_config["vocab_size"]
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.monotonic()
+        llm = LLM(model=write_model_dir(td, model_config),
+                  load_format="dummy", dtype="bfloat16", seed=SEED,
+                  kv_cache_dtype=kv_cache_dtype, block_size=PAGE_SIZE,
+                  max_num_batched_tokens=2048, num_scheduler_steps=8,
+                  skip_tokenizer_init=True, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        print(f"{label}: engine up in {time.monotonic() - t0:.1f} s, "
+              f"{llm.engine.runner.num_pages} pages of self and cross KV "
+              f"of {llm.engine.runner.kv_cache.dtype}", flush=True)
+    runner = llm.engine.runner
+    model = runner.model
+    rng = np.random.default_rng(SEED)
+    enc_lens = rng.integers(*ENCDEC_PROMPT_LENS, size=NUM_REQUESTS)
+    prompts = [{"prompt_token_ids": rng.integers(2, vocab, int(n)).tolist()}
+               for n in enc_lens]
+    sp = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS,
+                        ignore_eos=True, detokenize=False)
+    # Warm-up (library initialisation, allocator growth): not counted.
+    llm.generate(prompts[:2], SamplingParams(temperature=0.0, max_tokens=4,
+                                             ignore_eos=True,
+                                             detokenize=False))
+    for k in llm.engine.phase_timings:
+        llm.engine.phase_timings[k] = 0 if isinstance(
+            llm.engine.phase_timings[k], int) else 0.0
+    wrappers = {"ragged_paged_attention": ragged_paged_attention,
+                "paged_decode_attention": paged_decode_attention}
+    for fn in wrappers.values():
+        fn.launches, fn.launches_by_dtype, fn.launches_by_shape = 0, {}, {}
+    encoder_s = []
+    inner = runner._run_encoder
+
+    def timed_encoder(ss):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_enc = time.perf_counter()
+        inner(ss)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        encoder_s.append(time.perf_counter() - t_enc)
+
+    runner._run_encoder = timed_encoder
+    try:
+        t0 = time.monotonic()
+        outs = llm.generate(prompts, sp)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        del runner._run_encoder
+    counts = {name: dict(launches=fn.launches,
+                         by_dtype=dict(fn.launches_by_dtype),
+                         by_shape=dict(fn.launches_by_shape))
+              for name, fn in wrappers.items()}
+    pt = llm.engine.get_phase_timings()
+    lens = [len(o.outputs[0].token_ids) for o in outs]
+    if lens != [MAX_TOKENS] * NUM_REQUESTS:
+        fail(f"{label}: outputs with other than {MAX_TOKENS} tokens: {lens}")
+    for o in outs:
+        if not all(0 <= t < vocab for t in o.outputs[0].token_ids):
+            fail(f"{label}: generated token id out of the vocabulary")
+    if len(encoder_s) != NUM_REQUESTS:
+        fail(f"{label}: {len(encoder_s)} encoder passes for "
+             f"{NUM_REQUESTS} requests")
+    shape = f"qg1 d{model.head_dim}" + (" rel_bias" if t5 else "")
+    want = {"paged_decode_attention": layers * pt["decode_iterations"],
+            "ragged_paged_attention": (0 if t5 else
+                                       layers * pt["prefill_iterations"])}
+    for name, c in counts.items():
+        n = want[name]
+        expect = dict(launches=n, by_dtype={page_type: n} if n else {},
+                      by_shape={shape: n} if n else {})
+        got = {k: ({kk: v for kk, v in c[k].items() if v}
+                   if isinstance(c[k], dict) else c[k]) for k in c}
+        if got != expect:
+            fail(f"{name} on the {label} launched {got}, not {expect} "
+                 f"({pt['decode_iterations']} decode and "
+                 f"{pt['prefill_iterations']} prefill steps of {layers} "
+                 "layers)")
+    rates = dict(
+        prefill_tok_s=pt["prefill_tokens"] / max(pt["prefill_s"], 1e-9),
+        decode_tok_s=pt["decode_tokens"] / max(pt["decode_s"], 1e-9),
+        decode_step_ms=pt["decode_s"] / max(pt["decode_iterations"], 1)
+        * 1e3,
+        decode_iterations=pt["decode_iterations"],
+        prefill_iterations=pt["prefill_iterations"],
+        encoder_s=sum(encoder_s), encoder_s_each_max=max(encoder_s),
+        encoder_tokens=int(sum(enc_lens)), wall_s=wall)
+    print(f"{label}: {NUM_REQUESTS} requests, {int(sum(enc_lens))} encoder "
+          f"tokens, {sum(lens)} generated tokens in {wall:.2f} s; "
+          f"{len(encoder_s)} encoder passes, {sum(encoder_s):.3f} s in all "
+          f"(longest {max(encoder_s):.3f} s); {pt['prefill_iterations']} "
+          f"prefill/mixed steps ({rates['prefill_tok_s']:.1f} decoder "
+          f"prompt tok/s), {pt['decode_iterations']} decode steps "
+          f"({rates['decode_tok_s']:.1f} tok/s, "
+          f"{rates['decode_step_ms']:.1f} ms a step); launches "
+          f"{json.dumps(counts)}; greedy tokens of request 0: "
+          f"{outs[0].outputs[0].token_ids[:16]}", flush=True)
+    worst, forwards = compare_encdec_logits(llm, device, rng, vocab,
+                                            compare_layers)
+    rates["logits_worst_row_err"] = worst
+    if device == "cuda":
+        share, device_ms = cross_attention_share(runner, forwards["decode"])
+        rates["cross_attention_share"] = share
+        rates["traced_decode_device_ms"] = device_ms
+        print(f"{label}: a traced decode step (8 rows, 3 live): "
+              f"{device_ms:.2f} device ms, cross-attention "
+              + ("not measured (no device time traced)" if share is None
+                 else f"{share:.1%} of it"), flush=True)
+
+    named = {variant_name(name, page_type): c["launches"]
+             for name, c in counts.items() if c["launches"]}
+    for name, c in counts.items():
+        named[f"{variant_name(name, page_type)} by shape"] = c["by_shape"]
+    named[IN_GRAPH_REPLAYS] = {}
+    return named, rates
+
+
+def encdec_paths():
+    """encdec_path's arguments for each encoder-decoder path, by name."""
+    return {
+        # (Its logits are compared on the first COMPARE_LAYERS decoder
+        # layers: at 24, the plain attention in f32 and in f64 lie far
+        # apart, as at Gemma-2-9B's depth; the floor at 24 is printed.)
+        "flan-t5-xxl": dict(model_config=FLAN_T5_XXL,
+                            compare_layers=COMPARE_LAYERS),
+        "flan-t5-xxl+fp8_e4m3, 4 layers": dict(
+            model_config=dict(FLAN_T5_XXL, num_layers=4,
+                              num_decoder_layers=4),
+            kv_cache_dtype="fp8_e4m3"),
+        "t5-small": dict(model_config=T5_SMALL),
+        "bart-large-cnn": dict(model_config=BART_LARGE_CNN),
+    }
+
+
 def main_paths():
     """main_path's arguments for each main path, by name (the prompts
     of 16-1024 tokens unless one names others).
@@ -5126,6 +5826,9 @@ def main() -> None:
     for name, geometry in ATTN_GEOMETRIES.items():
         kernel_checks("cuda", name, geometry, errs)
     blocksparse_checks("cuda", errs)
+    prompt_lens = np.random.default_rng(SEED).integers(
+        16, 1025, size=NUM_REQUESTS)
+    rel_bias_checks("cuda", errs, prompt_lens)
     stamp("attention checks")
     int4_errs = [int4_checks("cuda"), int4_checks("cuda", 16)]
     for body in ("groupwise", "groupwise_decode", "dense_wgmma"):
@@ -5141,8 +5844,6 @@ def main() -> None:
     stamp("matmul and probe checks")
     sampler_errs = sampler_checks()
     stamp("sampler checks")
-    prompt_lens = np.random.default_rng(SEED).integers(
-        16, 1025, size=NUM_REQUESTS)
     llama = "llama-3.1-8b 32/8"
     times = kernel_timings("cuda", llama, ATTN_GEOMETRIES[llama],
                            prompt_lens, iters=200, errs=errs)
@@ -5200,6 +5901,8 @@ def main() -> None:
             "cuda", geometry, ATTN_GEOMETRIES[geometry], prompt_lens,
             iters=100, errs=errs, layers=layers)
     stamp("timings: attention, Falcon-7B and Bloom-560m geometries")
+    rel_bias_times = rel_bias_timings("cuda", errs)
+    stamp("timings: attention with the T5 bias")
     int4_points = int4_timings("cuda", iters=200)
     int4_points += int4_timings("cuda", iters=200, group=16, sites=("w13",))
     stamp("timings: int4p_matmul")
@@ -5226,6 +5929,11 @@ def main() -> None:
     for r in rates.values():
         r.pop("token_ids")
     serve_reference = rates["gptq+fp8_e4m3"].pop("serve_reference")
+    for path, kw in encdec_paths().items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[path], rates[path] = encdec_path("cuda", **kw)
+        stamp(f"encoder-decoder path {path}")
 
     # The page-gather probe's own entry point, at its defaults.
     probe_launches, probe_times = probe_path()
@@ -5329,6 +6037,26 @@ def main() -> None:
                         IN_GRAPH_REPLAYS).values()),
                 launches_by_path=by_path, max_abs_err=errs[name],
                 **bs_times[name]))
+    # The decode kernel with T5's bias on the pages the T5 paths gave it
+    # (bf16 and E4M3; the others are held in the checks above), timed at
+    # Flan-T5-XXL's geometry.
+    for page_type in ("bf16", "e4m3"):
+        name = rel_bias_variant(page_type)
+        by_shape = on_paths(
+            f"{variant_name('paged_decode_attention', page_type)} by shape")
+        by_path = {path: counts["qg1 d64 rel_bias"]
+                   for path, counts in by_shape.items()
+                   if counts.get("qg1 d64 rel_bias")}
+        if not sum(by_path.values()):
+            fail(f"{name} was launched on no main path")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aphrodite_tpu_torch/csrc/paged_decode_attention.cu",
+            replaces="aphrodite_tpu/ops/decode_attention.py:95",
+            option="rel_bias", page_type=page_type,
+            launches=sum(by_path.values()), launches_in_graph_replays=0,
+            launches_by_path=by_path, max_abs_err=errs[name],
+            **rel_bias_times[name]))
     # The packed int4 kernel, one entry per body and implementation: the
     # group-wise body under 64 tokens on the mma.sync kernel (csrc/
     # int4p_matmul.cu) and on the decode body (csrc/decode_gemm.cuh), as
@@ -5557,6 +6285,10 @@ def main() -> None:
               f"{rates[b]['decode_tok_s']:.1f} tok/s, prefill "
               f"{rates[a]['prefill_tok_s']:.1f} against "
               f"{rates[b]['prefill_tok_s']:.1f} tok/s", flush=True)
+    for path in encdec_paths():
+        r = rates[path]
+        print(f"encoder-decoder {path} ({card}): " + json.dumps(r),
+              flush=True)
     for path, r in rates.items():
         if "moe" in r:
             print(f"moe {path} ({card}): " + json.dumps(dict(

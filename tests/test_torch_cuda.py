@@ -465,6 +465,100 @@ def test_alibi_d128_fixed_qg_outputs_unchanged_on_card(op, qg, name):
     torch.cuda.synchronize()
     assert digest(got) == ALIBI_D128_DIGESTS[(op, name, qg)]
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
+@pytest.mark.parametrize("qg", [1, 2, 71])
+def test_decode_kernel_t5_bias_on_card(qg, head_dim, name):
+    """The decode kernel with T5's bias table (32 buckets up to distance
+    128, at std 3) at 1, 2 and 71 query heads per kv head (2 kv heads: the
+    wide form at 71) and every head_dim, on each page type, unscaled as T5
+    attends (sm_scale 1: scores reach the hundreds), against the plain
+    version row by row (ROW_TOL) over rows of up to 1200 keys (far past the
+    saturation distance, 113); an all-zero table equals no bias and the
+    narrow variants equal the bf16 kernel on the widened pages, bit for
+    bit; each launch is counted under its shape."""
+    _card_or_skip()
+    rng = np.random.default_rng(900 + qg + head_dim)
+    kvh = 2
+    fn, ref, q, pages, args, kw, rows = _attention_case(
+        "decode", rng, qg, kvh, head_dim, name)
+    table = torch.from_numpy(
+        3 * rng.standard_normal((qg * kvh, 32)).astype(np.float32)).cuda()
+    kw = dict(kw, sm_scale=kw["sm_scale"] * head_dim**0.5, rel_bias=table,
+              rel_bias_meta=(32, 128))
+    shape = f"qg{qg} d{head_dim} rel_bias"
+    before = fn.launches_by_shape.get(shape, 0)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_shape[shape] == before + 1
+    assert_rows_close(got[:rows], ref(q, pages, *args, **kw)[:rows])
+    assert not got[rows:].float().any()
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
+    zero = dict(kw, rel_bias=torch.zeros_like(table))
+    off = {k: v for k, v in kw.items() if not k.startswith("rel_bias")}
+    assert torch.equal(fn(q, pages, *args, **zero), fn(q, pages, *args, **off))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_t5_bias_beside_alibi_or_blocksparse():
+    """A T5 table with ALiBi slopes or with blocksparse raises before any
+    launch, as the ALiBi-and-blocksparse pair does."""
+    _card_or_skip()
+    rng = np.random.default_rng(950)
+    fn, _, q, pages, args, kw, _ = _attention_case("decode", rng, 4, 2, 128,
+                                                   "bf16")
+    kw = dict(kw, rel_bias=torch.zeros((8, 32), device="cuda"),
+              rel_bias_meta=(32, 128))
+    before = fn.launches
+    with pytest.raises(ValueError, match="without ALiBi"):
+        fn(q, pages, *args, alibi_slopes=torch.zeros(8, device="cuda"), **kw)
+    with pytest.raises(ValueError, match="without blocksparse"):
+        fn(q, pages, *args, blocksparse=(64, 4, 8),
+           bs_head_offsets=torch.zeros(8, dtype=torch.int32, device="cuda"),
+           **kw)
+    assert fn.launches == before
+
+
+# SHA-256 of the decode kernel's outputs without the T5 bias on kernel_ab's
+# seeded calls (head_dim 64 at QG 1, T5's and BART's shape, and at QG 2;
+# head_dim 128 at QG 4), as the build before the bias came gave them
+# (kernel_ab's attention_call on an NVIDIA H100 80GB HBM3; the same call's
+# kernel_ab runs, before and after, agreed on all 866 outputs):
+# (page type, QG, head_dim) -> digest.
+DECODE_NO_BIAS_DIGESTS = {
+    ("bf16", 1, 64): "897f11c535fa48442e8818d3a939d4acc45539c33bf5bed9c5bec5db45edbdb8",
+    ("bf16", 2, 64): "64a49cec449093319e00e9025c34184eab67b5fead2784d0a10a9191902e3af5",
+    ("bf16", 4, 128): "0b999889eadee2e382f8086fd59f8e51b9df994a8a7918ab1159668ed6115a3a",
+    ("e4m3", 1, 64): "ea5d8c8cdc88cf995782d23a70a65e8634585f201e154a4cbee9ff6e0e9dd586",
+    ("e4m3", 2, 64): "bd53f818d806ecc8364b8509a66fa7e517090a644c48180267f2ebd8aacc03a3",
+    ("e4m3", 4, 128): "094328a5447618d38b45ed6d30c80cd4c84d1bf84e52fdc666148a42f055ecdd",
+    ("e5m2", 1, 64): "3e95d982418621ea6d0518820258587621b640a5b3f5c1bd3bf6cee1b62c3858",
+    ("e5m2", 2, 64): "01f47ca0cb03f3c68faca615d3fcb013964aa5fb92fabd99550de6e2174b5bf0",
+    ("e5m2", 4, 128): "bdbb18c0496b6bb0f999d7d3f664f33d38e2a4ab7085ea4d9264926c5b738301",
+    ("int8", 1, 64): "119d0afef024ff4657e3d8e271c3cba816cf61dec32bea498c2a22425b193aa4",
+    ("int8", 2, 64): "b1d548f43b48ffe43ac7de85dd2015b69fcc0de8f8ef3d12adb7c82407a70f2c",
+    ("int8", 4, 128): "1fe8e6b98fe839b7a99af4ec81c184140175346a013acd594a36252f72e2140e",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sorted(DECODE_NO_BIAS_DIGESTS),
+                         ids=lambda k: "-".join(map(str, k)))
+def test_decode_outputs_without_t5_bias_unchanged_on_card(key):
+    """The decode kernel's launches without the T5 bias give, bit for bit,
+    the outputs the build before the bias gave on the same seeded
+    calls."""
+    _card_or_skip()
+    from aphrodite_tpu_torch.tools.kernel_ab import attention_call, digest
+
+    name, qg, head_dim = key
+    got, _ = attention_call("decode", name, qg, head_dim, "plain")
+    torch.cuda.synchronize()
+    assert digest(got) == DECODE_NO_BIAS_DIGESTS[key]
+
+
 # Phi-3-Small's blocksparse parameters (block 64, 16 local blocks, stride
 # 8) cut to 4 local blocks so that rows of 1000+ keys reach far past the
 # window, and a block under a page (the kernels then mask only).
