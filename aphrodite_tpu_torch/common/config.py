@@ -36,6 +36,56 @@ def _read_hf_config(model: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def fill_family_keys(hf: Dict[str, Any]) -> None:
+    """Fill, in place and only where missing, the keys a family's config
+    names its own way, under the names the accessors below and the Llama
+    body read: the JAX package's model classes set the same defaults
+    (``hf.setdefault``) in their __init__. Here they are set when the
+    config is read, so that every accessor gives the JAX ModelConfig's
+    answer (after its model is built) before any model is built: the KV
+    cache is sized before the model."""
+    arch = (hf.get("architectures") or [""])[0]
+    if arch == "GPTJForCausalLM":
+        hf.setdefault("hidden_size", hf.get("n_embd"))
+        hf.setdefault("intermediate_size",
+                      hf.get("n_inner") or 4 * int(hf["hidden_size"]))
+        hf.setdefault("rms_norm_eps", hf.get("layer_norm_epsilon", 1e-5))
+    elif arch in ("ChatGLMModel", "ChatGLMForConditionalGeneration"):
+        hf.setdefault("num_hidden_layers", hf.get("num_layers"))
+        hf.setdefault("intermediate_size", hf.get("ffn_hidden_size"))
+        hf.setdefault("rms_norm_eps", hf.get("layernorm_epsilon", 1e-5))
+        hf.setdefault("vocab_size", hf.get("padded_vocab_size"))
+        if hf.get("multi_query_attention"):
+            hf.setdefault("num_key_value_heads",
+                          hf["multi_query_group_num"])
+        hf.setdefault("max_position_embeddings",
+                      hf.get("seq_length", 2048))
+        # Rotary over half of each head, its base scaled by rope_ratio
+        # (ChatGLM3's long-context variants).
+        hf.setdefault("partial_rotary_factor", 0.5)
+        hf.setdefault("rope_theta",
+                      10000.0 * float(hf.get("rope_ratio", 1.0)))
+        hf.setdefault("attention_bias",
+                      bool(hf.get("add_qkv_bias", False)
+                           or hf.get("add_bias_linear", False)))
+    elif arch in ("StableLmForCausalLM", "StableLMEpochForCausalLM",
+                  "StablelmForCausalLM"):
+        # StableLM-Epoch configs (stablelm-3b-4e1t) name norm_eps and
+        # rope_pct, and the q|k|v bias use_qkv_bias.
+        hf.setdefault("rms_norm_eps",
+                      hf.get("layer_norm_eps", hf.get("norm_eps", 1e-5)))
+        if hf.get("rope_pct") and not hf.get("partial_rotary_factor"):
+            hf["partial_rotary_factor"] = hf["rope_pct"]
+        hf.setdefault("attention_bias", bool(hf.get("use_qkv_bias")))
+    elif arch == "NemotronForCausalLM":
+        hf.setdefault("rms_norm_eps", hf.get("norm_eps", 1e-5))
+    elif arch in ("GPTNeoXForCausalLM", "PhiForCausalLM",
+                  "PersimmonForCausalLM", "CohereForCausalLM"):
+        hf.setdefault("rms_norm_eps", hf.get("layer_norm_eps", 1e-5))
+        if arch == "PhiForCausalLM":
+            hf.setdefault("partial_rotary_factor", 0.5)
+
+
 @dataclass
 class ModelConfig:
     """Model architecture + checkpoint description."""
@@ -59,6 +109,7 @@ class ModelConfig:
             self.tokenizer = self.model
         if not self.hf_config:
             self.hf_config = _read_hf_config(self.model)
+        fill_family_keys(self.hf_config)
         if self.dtype == "auto":
             self.dtype = str(self.hf_config.get("torch_dtype", "bfloat16"))
             if self.dtype.startswith("torch."):
@@ -155,7 +206,8 @@ class ModelConfig:
         return self.get_hidden_size() // self.get_num_attention_heads()
 
     def get_vocab_size(self) -> int:
-        return int(self.hf_config["vocab_size"])
+        return int(self.hf_config.get("vocab_size")
+                   or self.hf_config.get("padded_vocab_size"))
 
     def get_sliding_window(self) -> Optional[int]:
         if self.hf_config.get("use_sliding_window") is False:

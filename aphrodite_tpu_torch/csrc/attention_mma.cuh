@@ -1,5 +1,5 @@
 // Building blocks shared by the two attention kernels
-// (ragged_paged_attention.cuh, paged_decode_attention.cu): the bf16
+// (ragged_paged_attention.cuh, paged_decode_attention.cuh): the bf16
 // tensor-core product mma.sync.m16n8k16 (f32 sums), ldmatrix, cp.async, the
 // staging of one 64-key K/V tile from the paged cache into shared memory,
 // and the online softmax of one warp's 16 query rows.
@@ -23,9 +23,11 @@
 // the A fragment of P for those 16 keys.
 //
 // Shared-memory tiles hold bf16 rows of D values at a stride of D + 8 (an
-// odd number of 16-byte units: 9 at head_dim 64, 13 at 96, 17 at 128, 33
-// at 256), so the eight row addresses of each ldmatrix are 16-byte aligned
-// and fall on distinct banks.
+// odd number of 16-byte units: 9 at head_dim 64, 11 at 80, 13 at 96, 17 at
+// 128, 33 at 256), so the eight row addresses of each ldmatrix are 16-byte
+// aligned and fall on distinct banks. Every loop over D takes one k16 step
+// (16 dimensions) at a time, so D 80's five steps need nothing of their
+// own.
 
 #pragma once
 
@@ -109,6 +111,21 @@ struct Stage {
 // the 32 copies' addresses stay live beside O's 128 registers and spill.
 constexpr int kUnrollCopies = 16;
 
+// The 16-byte copies of one tile (K and V rows of kChunks each), and how
+// many a thread of kThreads takes: whole where the block's threads divide
+// them; else the last round is taken by the first threads only. That is
+// narrow pages at head_dim 80 (640 copies) in the 256-thread forms (the
+// ragged kernel, the decode kernel's wide form): threads 0-127 take a
+// third copy. 640 is a multiple of 32, so the round ends on a warp's edge
+// and no warp splits (the page-index shuffles stay whole-warp).
+template <int kChunks, int kThreads>
+struct TileCopies {
+  static constexpr int kTotal = kTileKeys * 2 * kChunks;
+  static constexpr bool kWhole = kTotal % kThreads == 0;
+  static constexpr int kPerThread = (kTotal + kThreads - 1) / kThreads;
+  static_assert(kTotal % 32 == 0, "the last round ends on a warp's edge");
+};
+
 // Issues the cp.async copies of keys [tile0, tile0 + 64) of kv head kvh into
 // `stage`, zero-filling every key outside [lo, hi): nothing outside is read.
 // Each warp reads the page index of each page the tile touches once (lane i
@@ -120,17 +137,20 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage, const unsigned 
                                            int tile0, int lo, int hi) {
   constexpr int kVals = Page::kValues;
   constexpr int kChunks = D / kVals;  // 16-byte loads per K (or V) row
-  static_assert(kTileKeys * 2 * kChunks % kThreads == 0, "whole copies a thread");
+  using Copies = TileCopies<kChunks, kThreads>;
   const int lane = threadIdx.x % 32;
   const int p0 = tile0 / page_size;
   int pid_lo = 0;
   int pid_hi = 0;
   if ((p0 + lane) * page_size < hi) pid_lo = __ldg(pages + p0 + lane);
   if ((p0 + 32 + lane) * page_size < hi) pid_hi = __ldg(pages + p0 + 32 + lane);
-  constexpr int kCopies = kTileKeys * 2 * kChunks / kThreads;
+  constexpr int kCopies = Copies::kPerThread;
 #pragma unroll(kCopies > kUnrollCopies ? 8 : kCopies)
   for (int i = 0; i < kCopies; ++i) {
     const int c = threadIdx.x + i * kThreads;
+    if constexpr (!Copies::kWhole) {
+      if (c >= Copies::kTotal) break;
+    }
     const int key = c / (2 * kChunks);
     const int rem = c % (2 * kChunks);
     const int is_v = rem / kChunks;
@@ -158,11 +178,14 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage, const unsigned 
 template <class Page, int D, int kThreads>
 __device__ __forceinline__ void widen_tile(__nv_bfloat16* tiles, const unsigned char* stage) {
   constexpr int kChunks = D / 16;
-  static_assert(kTileKeys * 2 * kChunks % kThreads == 0, "whole chunks a thread");
-  constexpr int kCopies = kTileKeys * 2 * kChunks / kThreads;
+  using Copies = TileCopies<kChunks, kThreads>;
+  constexpr int kCopies = Copies::kPerThread;
 #pragma unroll(kCopies > kUnrollCopies ? 8 : kCopies)
   for (int i = 0; i < kCopies; ++i) {
     const int c = threadIdx.x + i * kThreads;
+    if constexpr (!Copies::kWhole) {
+      if (c >= Copies::kTotal) break;
+    }
     const int row = c / kChunks;  // is_v * 64 + key
     const int part = c % kChunks;
     const uint4 raw = *reinterpret_cast<const uint4*>(stage + size_t(row) * D + part * 16);

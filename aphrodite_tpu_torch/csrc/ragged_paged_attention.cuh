@@ -10,8 +10,8 @@
 // sequence and kv head are its (token, query head) pairs, flattened token
 // by token: row f is token f / QG and query head f % QG of the QG = QH /
 // KV heads that share the kv head. A query tile holds kRows consecutive
-// rows of that order (128 at head_dim 96, 128 and 256, 8 warps; 64 at
-// head_dim 64, 4 warps) of ONE sequence, so a tile never straddles two
+// rows of that order (128 at head_dim 80, 96, 128 and 256, 8 warps; 64
+// at head_dim 64, 4 warps) of ONE sequence, so a tile never straddles two
 // sequences and every K/V tile it stages serves all of its rows; each
 // row carries its own token position for the causal mask, the window and
 // the ALiBi distance. Only a sequence's last tile has idle rows. Where QG
@@ -23,8 +23,8 @@
 // sequence the tiles that see the most keys start first. QG is a template
 // parameter, instantiated at head_dim 128 for 1, 2, 4 and 8, and 0, which
 // reads QG at run time and serves every other QG, and every QG at head_dim
-// 64, 96 and 256. head_dim D (64, 96, 128 or 256) is a template parameter
-// too. So are ALiBi and blocksparse, so that the variant without either
+// 64, 80, 96 and 256. head_dim D (64, 80, 96, 128 or 256) is a template
+// parameter too. So are ALiBi and blocksparse, so that the variant without either
 // carries no per-score branch for them. ALiBi reads each row's slope by
 // its query head, at every D and QG (the fixed instantiations at D 128,
 // and the runtime one elsewhere). Blocksparse is built for D 128 and QG
@@ -112,10 +112,15 @@
 
 namespace {
 
-// Warps a block: 8 at head_dim 96, 128 and 256 (128 query rows share
+// Warps a block: 8 at head_dim 80, 96, 128 and 256 (128 query rows share
 // each K/V tile), 4 at head_dim 64 (on the H100 a block of 8 ran slower
 // there: at Qwen2.5-0.5B's two kv heads it leaves too few blocks for 132
-// SMs). Each warp owns 16 query rows.
+// SMs). Each warp owns 16 query rows. At 80 (Phi-2, Pythia-2.8B,
+// StableLM-3B: 32 kv heads, so blocks enough at 128 rows) a bf16 stage is
+// 22528 bytes, 67584 for the ring (53248 narrow), and the 128 query rows
+// fit in one stage as at 96; a narrow tile's 640 copies take two whole
+// rounds of the 256 threads and a third of threads 0-127 (attention_mma.cuh:
+// TileCopies).
 // Stages of the cp.async ring: three, but two at head_dim 256, where a
 // bf16 stage (K and V, 64 keys at a stride of 264) is 67584 bytes and the
 // query rows stay staged beside the ring (attn::QFrags): 2 x 67584 + 67584
@@ -457,7 +462,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Launches the instantiation for head_dim D: at D 128 QG 1, 2, 4 and 8
-// have their own, every other QG (and every QG at D 64, 96 and 256) the
+// have their own, every other QG (and every QG at D 64, 80, 96 and 256) the
 // one that reads it at run time, with ALiBi too. With blocksparse only D
 // 128 and QG 1, 2, 4 and 8 are built.
 template <class Page, int D, bool ALIBI, bool BLOCKSPARSE>
@@ -492,7 +497,7 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
+// head_dim 64, 80, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
 // heads per kv head (any), ALiBi (a slope table given) or not and
 // blocksparse (a phase table given) or not.
 template <class Page, bool ALIBI, bool BLOCKSPARSE>
@@ -521,6 +526,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   switch (head_dim) {
     case 64:
       return int(RAGGED_LAUNCH_D(64));
+    case 80:
+      return int(RAGGED_LAUNCH_D(80));
     case 96:
       return int(RAGGED_LAUNCH_D(96));
     case 128:
@@ -536,7 +543,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 }  // namespace
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
-// blocksparse or not. q bf16[T, QH, D] with D = 64, 96, 128 or 256 and QH = QG * KV
+// blocksparse or not. q bf16[T, QH, D] with D = 64, 80, 96, 128 or 256 and QH = QG * KV
 // for any QG (with blocksparse: D = 128 and QG in {1, 2, 4, 8}), kv_pages
 // [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],

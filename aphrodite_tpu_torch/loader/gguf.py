@@ -899,6 +899,13 @@ def gguf_to_hf_config(path: str) -> Dict[str, Any]:
     return cfg
 
 
+def _transposed(a: np.ndarray) -> np.ndarray:
+    """a.T as a contiguous array (the same bytes), copied by torch's
+    blocked, multi-threaded transpose: numpy's walks one core across a
+    large matrix's rows, the longest part of a GGUF load at 8B widths."""
+    return torch.from_numpy(a).t().contiguous().numpy()
+
+
 def _stack_layers(our_path: str, layer_list: List[Any]):
     """Per-layer pieces on a leading [L] axis: arrays, or containers member
     by member."""
@@ -955,15 +962,13 @@ def load_gguf_params_to_host(model, path: str) -> Dict[str, Any]:
             # maybe_pack nibble-packs only when the levels fit [0, 15]
             # (q4 family, q2_k, q3_k); q5/q6/q8/iq levels keep one byte
             # each.
-            piece = maybe_pack({
-                "q4": np.ascontiguousarray(q.T),
-                "scale": np.ascontiguousarray(scale.T),
-                "zero": np.ascontiguousarray(zero.T),
-            })
+            piece = maybe_pack({"q4": _transposed(q),
+                                "scale": _transposed(scale),
+                                "zero": _transposed(zero)})
         else:
             arr = dequant_tensor(gg, info)  # [out, in] or [n]
             if arr.ndim == 2 and our_path not in ("embed",):
-                arr = np.ascontiguousarray(arr.T)
+                arr = _transposed(arr)
             piece = arr
         if layer_idx is None:
             _set_path(params, our_path,

@@ -30,6 +30,20 @@ def split_head_major_qkv(w: torch.Tensor, num_heads: int,
                  .contiguous() for i in range(3))
 
 
+def finalize_head_major_qkv(params: Dict[str, Any], num_heads: int,
+                            head_dim: int) -> None:
+    """The head-major fused q|k|v of a loaded tree (``qkv_fused`` and its
+    bias ``qkv_fused_b``) split in place into wq, wk, wv (bq, bk, bv):
+    Bloom's, GPT-NeoX's and Persimmon's ``finalize_params``."""
+    lay = params["layers"]
+    if "qkv_fused" not in lay:
+        return
+    lay["wq"], lay["wk"], lay["wv"] = split_head_major_qkv(
+        lay.pop("qkv_fused"), num_heads, head_dim)
+    lay["bq"], lay["bk"], lay["bv"] = split_head_major_qkv(
+        lay.pop("qkv_fused_b"), num_heads, head_dim)
+
+
 class BloomForCausalLM(LlamaForCausalLM):
     attention_bias = True
     o_proj_bias = True
@@ -89,13 +103,4 @@ class BloomForCausalLM(LlamaForCausalLM):
         ]
 
     def finalize_params(self, params: Dict[str, Any]) -> None:
-        """The head-major fused q|k|v (and its bias) split into wq, wk, wv
-        (bq, bk, bv)."""
-        lay = params["layers"]
-        if "qkv_fused" not in lay:
-            return
-        NH, D = self.num_heads, self.head_dim
-        lay["wq"], lay["wk"], lay["wv"] = split_head_major_qkv(
-            lay.pop("qkv_fused"), NH, D)
-        lay["bq"], lay["bk"], lay["bv"] = split_head_major_qkv(
-            lay.pop("qkv_fused_b"), NH, D)
+        finalize_head_major_qkv(params, self.num_heads, self.head_dim)

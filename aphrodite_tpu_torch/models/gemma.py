@@ -91,7 +91,7 @@ class Gemma3ForCausalLM(Gemma2ForCausalLM):
         # Local layers: their own base and no scaling; the global table
         # keeps rope_theta and any rope_scaling.
         self._cos_local, self._sin_local = compute_rope_tables(
-            self.head_dim, self.max_position,
+            self.rotary_dim, self.max_position,
             base=float(hf.get("rope_local_base_freq", 10000.0)),
             rope_scaling=None, device=device)
         self.local_rope_layers = self.local_layers

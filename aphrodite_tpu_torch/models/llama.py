@@ -14,7 +14,12 @@ Attention is ops/attention.py, which holds the two attention kernels.
 Hooks serve the subclasses, as in the JAX package:
 - position encoding: ``use_rope`` (False: no rotary tables, no rotation)
   and ``alibi_slopes`` (an f32[QH] tensor on the model's device, handed to
-  both attention kernels, or None);
+  both attention kernels, or None); the rotation covers ``rotary_dim``
+  leading dims of each head (the config's ``rotary_pct``, else
+  ``partial_rotary_factor``, of head_dim, or its absolute ``rotary_dim``:
+  GPT-NeoX, Phi, StableLM, GPT-J), the rest pass through, and
+  ``rope_style`` pairs the rotated dims "neox" (rotate-half) or "gptj"
+  (interleaved: GPT-J, Cohere, GLM, ChatGLM);
 - blocksparse attention: ``blocksparse_params`` (block size, local blocks,
   vertical stride), ``bs_head_offsets`` (each query head's vertical phase,
   an i32[QH] tensor on the model's device) and ``bs_layer_mask`` (one bool
@@ -43,10 +48,12 @@ Hooks serve the subclasses, as in the JAX package:
 - ``lm_head_bias`` (``lm_head_b``, added to the f32 logits);
 - ``qk_norm(q, k, lp, layer)``: a per-head normalization of q [T, QH, D]
   and k [T, KV, D] after the reshape to heads and before RoPE (identity
-  here; Qwen3 normalizes over head_dim);
-- Gemma's: ``norm_weight_offset`` (RMSNorm by offset + w, the sum in the
-  weight's dtype), ``scale_embeddings`` (sqrt(hidden) in the model dtype,
-  before ``embedding_multiplier``), ``hidden_act`` "silu" or "gelu_tanh"
+  here; Qwen3 normalizes over head_dim, Phi, Persimmon and Cohere take a
+  LayerNorm);
+- Gemma's: ``norm_weight_offset`` (either norm by offset + w, the sum
+  in the weight's dtype; Nemotron's LayerNorm1p too),
+  ``scale_embeddings`` (sqrt(hidden) in the model dtype, before
+  ``embedding_multiplier``), ``hidden_act`` "silu" or "gelu_tanh"
   (GeGLU), ``attn_softcap`` (both attention kernels' soft cap) and
   ``logit_softcap`` (tanh(l / c) * c on the f32 logits), 0.0 meaning off;
 - per layer: ``layer_windows`` (each layer's sliding window; None: the
@@ -86,6 +93,9 @@ class LlamaForCausalLM:
     # Rotary positions; a subclass with ALiBi sets it False before
     # __init__ and fills alibi_slopes after.
     use_rope: bool = True
+    # The pairing of the rotated dims: "neox" (rotate-half) or "gptj"
+    # (interleaved).
+    rope_style: str = "neox"
     # Bias terms (q|k|v bias may also come from the config's
     # "attention_bias", as in the JAX package).
     attention_bias: bool = False
@@ -143,8 +153,14 @@ class LlamaForCausalLM:
         self.sliding_window = model_config.get_sliding_window()
         self.dtype = _DTYPES[model_config.dtype]
         self.sm_scale = self.head_dim**-0.5
-        if float(hf.get("partial_rotary_factor") or 1.0) != 1.0:
-            raise NotImplementedError("partial rotary is not ported yet")
+        # Partial rotary, in the JAX package's precedence: GPT-NeoX's
+        # rotary_pct, then partial_rotary_factor, then an absolute
+        # rotary_dim (GPT-J).
+        pct = float(hf.get("rotary_pct")
+                    or hf.get("partial_rotary_factor") or 1.0)
+        self.rotary_dim = max(2, int(self.head_dim * pct))
+        if hf.get("rotary_dim"):
+            self.rotary_dim = int(hf["rotary_dim"])
         if self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"q heads ({self.num_heads}) must be a multiple of kv "
@@ -161,7 +177,7 @@ class LlamaForCausalLM:
         self._sin_local: Optional[torch.Tensor] = None
         if self.use_rope:
             self._cos, self._sin = compute_rope_tables(
-                self.head_dim, self.max_position, base=self.rope_theta,
+                self.rotary_dim, self.max_position, base=self.rope_theta,
                 rope_scaling=hf.get("rope_scaling"), device=device)
         # The muP scales as tensors made once, on the model's device: a
         # tensor made from a Python number in the forward is a copy from
@@ -390,6 +406,7 @@ class LlamaForCausalLM:
         if self.embedding_norm:
             x = self._norm(x, params["embed_norm"], params.get("embed_norm_b"))
         if self.use_rope:
+            neox = self.rope_style == "neox"
             rope = (self._cos[batch.positions], self._sin[batch.positions])
             if self.local_rope_layers is not None:
                 rope_local = (self._cos_local[batch.positions],
@@ -408,8 +425,8 @@ class LlamaForCausalLM:
             if self.use_rope:
                 cos, sin = (rope_local if self.local_rope_layers is not None
                             and self.local_rope_layers[layer] else rope)
-                q = apply_rope(q, cos, sin)
-                k = apply_rope(k, cos, sin)
+                q = apply_rope(q, cos, sin, neox)
+                k = apply_rope(k, cos, sin, neox)
             else:
                 # The attention kernels read q contiguous; where there is
                 # a rotation, it makes the copy.

@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("paged_decode_attention", "ragged_paged_attention",
+KERNEL_SOURCES = ("paged_decode_attention", "paged_decode_attention_rel",
+                  "ragged_paged_attention",
                   "ragged_paged_attention_alibi",
                   "ragged_paged_attention_blocksparse", "int4p_matmul",
                   "int4_matmul", "int4p_matmul_w4a8", "gather_probe")
@@ -73,17 +74,29 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, target, time.monotonic())
+        # nvcc's output goes to a file, so that each compile's own time is
+        # taken when it ends (a pipe read in turn would time them all by
+        # the slowest before them).
+        log = open(tmp.with_suffix(".log"), "w+")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        running[name] = (proc, log, tmp, target, time.monotonic())
     failures = []
-    for name, (proc, tmp, target, t0) in running.items():
-        output, _ = proc.communicate()
-        seconds[name] = time.monotonic() - t0
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
-            continue
-        os.replace(tmp, target)
+    while running:
+        for name, (proc, log, tmp, target, t0) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.monotonic() - t0
+            del running[name]
+            log.seek(0)
+            output = log.read()
+            log.close()
+            os.unlink(log.name)
+            if proc.returncode != 0:
+                failures.append(
+                    f"{name}.cu (exit {proc.returncode}):\n{output}")
+                continue
+            os.replace(tmp, target)
+        time.sleep(0.05)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return seconds

@@ -8,7 +8,9 @@ multi-step decode window sends every step here (``cu_q_lens=None`` in
   and the reference the CUDA kernel is held against.
 - ``paged_decode_attention``: the dispatching wrapper. CPU tensors take
   the plain version; CUDA tensors launch the hand-written Hopper kernel
-  ``csrc/paged_decode_attention.cu`` (which replaces the TPU kernel
+  ``csrc/paged_decode_attention.cuh`` (built as
+  ``paged_decode_attention.cu`` and, with T5's bias,
+  ``paged_decode_attention_rel.cu``; it replaces the TPU kernel
   aphrodite_tpu/ops/decode_attention.py: paged_decode_attention ->
   _decode_kernel) or raise. The kernel is bound by bytes (each live K/V
   row is read once per step); it splits each row's keys into fixed ranges
@@ -32,7 +34,7 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 64, 96, 128 or 256 with any number of query
+Both kernels take head_dim 64, 80, 96, 128 or 256 with any number of query
 heads per kv head (the instantiation is chosen at the launch; the decode
 kernel takes more than 16 in a kernel of its own, ``decode_head_groups``),
 and, at every one of those shapes, an optional ALiBi slope table
@@ -69,13 +71,15 @@ from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.launches import count_launch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# The shapes both CUDA kernels are built for: head_dim 64, 96 (Phi-3-mini),
-# 128 or 256 (Gemma, Gemma2, Gemma3), the head_dims of the JAX-bundled
-# ragged kernel, at every QH / KV, from 1 (MHA: Baichuan-13B, Bloom, MPT,
-# JAIS) to Falcon-7B's 71 (multi-query), with or without ALiBi.
+# The shapes both CUDA kernels are built for: head_dim 64, 80 (Phi-2,
+# Pythia-2.8B, StableLM-3B), 96 (Phi-3-mini), 128 or 256 (Gemma, Gemma2,
+# Gemma3), the head_dims of the JAX-bundled ragged kernel and those the JAX
+# package sends to its jnp reference (80), at every QH / KV, from 1 (MHA:
+# Baichuan-13B, Bloom, MPT, JAIS) to Falcon-7B's 71 (multi-query), with or
+# without ALiBi.
 # Blocksparse is built for head_dim 128 at QH / KV 1, 2, 4 or 8 only
 # (Phi-3-Small's 4).
-KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
 BLOCKSPARSE_HEAD_DIM = 128
 BLOCKSPARSE_QUERIES_PER_KV = (1, 2, 4, 8)
 # Up to this QH / KV the decode kernel holds a kv head's query heads as
@@ -437,9 +441,11 @@ REL_BIAS_ARGTYPES = [ctypes.c_void_p, ctypes.c_int]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(page_type: str):
-    fn = getattr(cuda_build.load("paged_decode_attention"),
-                 f"paged_decode_attention_{page_type}")
+def _kernel(page_type: str, rel: bool):
+    # The entry points with T5's bias are a library of their own (built in
+    # parallel with the one without it).
+    name = "paged_decode_attention" + ("_rel" if rel else "")
+    fn = getattr(cuda_build.load(name), f"{name}_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
                    + BLOCKSPARSE_ARGTYPES + REL_BIAS_ARGTYPES
@@ -584,7 +590,7 @@ def paged_decode_attention(
     part_acc, part_ml = decode_scratch(num_slots, num_seqs, num_q_heads,
                                        head_dim, q.device)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
-    err = _kernel(page_type)(
+    err = _kernel(page_type, rel is not None)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), slopes_ptr(alibi_slopes), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),

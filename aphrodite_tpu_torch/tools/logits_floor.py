@@ -123,7 +123,7 @@ def measure(config, layers, lens, seed):
                   num_device_blocks_override=1024)
     runner = llm.engine.runner
     model, params = runner.model, runner.params
-    batch, used = prefill_batch(runner, lens, cfg["vocab_size"], seed)
+    batch, used = prefill_batch(runner, lens, model.vocab_size, seed)
     base = runner.kv_cache[:, :used].clone()
     kernel = llama_mod.ragged_paged_attention
 
@@ -163,7 +163,8 @@ def main() -> None:
                "gemma3": (chip_smoke.GEMMA3_1B, [300, 17, 129]),
                "phi3": (chip_smoke.PHI3_MINI_4K, [2500, 17, 129]),
                "llama": (chip_smoke.LLAMA_8B, [300, 17, 129]),
-               "falcon7b": (chip_smoke.FALCON_7B, [300, 17, 129])}
+               "falcon7b": (chip_smoke.FALCON_7B, [300, 17, 129]),
+               "phi2": (chip_smoke.PHI_2, [300, 17, 129])}
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", choices=sorted(configs))
     parser.add_argument("layers", type=int, nargs="+")

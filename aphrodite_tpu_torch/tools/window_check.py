@@ -258,7 +258,8 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
 
 def trace_launches(runner, key: str, attempts: int = 3,
                    reset: Optional[Callable[[], None]] = None,
-                   accept: Optional[Callable[[Dict[str, int]], bool]] = None
+                   accept: Optional[Callable[[Dict[str, int]], bool]] = None,
+                   wrapper_count: Optional[Callable[[], int]] = None
                    ) -> Dict[str, Any]:
     """The port's kernels one window of the captured key ``key`` (a
     ``runner.window_keys()`` name) launches run eagerly (through the
@@ -283,7 +284,12 @@ def trace_launches(runner, key: str, attempts: int = 3,
     traced, and ``mismatches`` holds, for each pair that differed, each
     kernel's replay count less its eager count where they differ.
     ``reset`` (the wrappers' counts set to 0) runs before each eager
-    window, so the counts after the call are those of one window."""
+    window, so the counts after the call are those of one window.
+    ``pairs`` holds every pair's two traces and, with ``wrapper_count``,
+    what that returned right after the pair's eager window (the wrappers'
+    own count of the launches the traces should hold), and ``padding``
+    the padding kernels traced before and after each run
+    (TRACE_PADDING)."""
     S, W, flags = runner.window_keys()[key]
     buf = runner.window_buffers(S)
     if not runner.has_window_graph(buf, flags, W):
@@ -291,6 +297,7 @@ def trace_launches(runner, key: str, attempts: int = 3,
     with torch.inference_mode():
         saved = buf.sched.clone(), buf.carry.clone()
     mismatches: List[Dict[str, int]] = []
+    pairs: List[Dict[str, Any]] = []
     try:
         for tries in range(1, attempts + 1):
             with torch.inference_mode():
@@ -301,8 +308,10 @@ def trace_launches(runner, key: str, attempts: int = 3,
                 reset()
             eager = kernel_counts(lambda: WindowFetch(
                 runner.decode_window(buf, flags, W)).numpy())
+            wrapper = wrapper_count() if wrapper_count is not None else None
             replay = kernel_counts(
                 lambda: runner.run_window(buf, flags, W).numpy())
+            pairs.append(dict(eager=eager, replay=replay, wrapper=wrapper))
             if eager == replay and (accept is None or accept(replay)):
                 break
             mismatches.append({
@@ -315,4 +324,4 @@ def trace_launches(runner, key: str, attempts: int = 3,
             buf.carry.copy_(saved[1])
         runner.invalidate_windows()
     return dict(eager=eager, replay=replay, tries=tries,
-                mismatches=mismatches)
+                mismatches=mismatches, pairs=pairs, padding=TRACE_PADDING)

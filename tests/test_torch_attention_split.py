@@ -3,7 +3,7 @@
 The decode kernel of aphrodite_tpu_torch splits each row's keys into fixed,
 page-aligned ranges; each block takes every slots-th split of its row into
 one flash partial, and a second pass merges the blocks' partials
-(csrc/paged_decode_attention.cu). Its plain counterparts in
+(csrc/paged_decode_attention.cuh). Its plain counterparts in
 ops/decode_attention.py (``ref_decode_partials``, ``ref_merge_partials``,
 ``plan_decode_splits``) are held here, on the same numpy inputs, against
 the JAX package's merge (``merge_attention_partials``), its per-shard

@@ -251,12 +251,14 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("qg", [1, 3, 5, 6, 7, 8, 12, 16])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
 def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
                                                         name):
-    """Each kernel at head_dim 64, 96 (Phi-3-mini), 128 and 256 (Gemma)
+    """Each kernel at head_dim 64, 80 (Phi-2, whose narrow tiles take a
+    copy round of half the threads in the 256-thread forms), 96
+    (Phi-3-mini), 128 and 256 (Gemma)
     and QH/KV from 1 to 16 (2 kv heads), among them Qwen2.5's 5, 6 and 7
     and Llama-3.2-3B's 3, which the decode kernel serves as rows of one
     mma tile and the ragged one from its runtime-QG instantiation (tiles
@@ -340,7 +342,7 @@ def _attention_case(op, rng, qg, kvh, head_dim, name, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 80, 128])
 @pytest.mark.parametrize("qg,kvh", [(17, 2), (71, 1), (71, 2), (130, 1)],
                          ids=["qg17", "qg71_kv1", "qg71_kv2", "qg130"])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
@@ -376,12 +378,13 @@ def test_attention_kernels_many_queries_per_kv_on_card(op, qg, kvh, head_dim,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 96, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 256])
 @pytest.mark.parametrize("qg", [1, 2, 71])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
 def test_attention_kernels_alibi_every_head_dim_on_card(op, qg, head_dim,
                                                         name):
-    """ALiBi off head_dim 128 (Bloom's and Falcon-RW's 64, and 96 and 256)
+    """ALiBi off head_dim 128 (Bloom's and Falcon-RW's 64, and 80, 96 and
+    256)
     at 1, 2 and 71 query heads per kv head (2 kv heads), with the model's
     slope table and a soft cap, on each page type, against the plain
     version row by row (ROW_TOL), over rows of 1000+ keys where the bias
@@ -467,7 +470,7 @@ def test_alibi_d128_fixed_qg_outputs_unchanged_on_card(op, qg, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("qg", [1, 2, 71])
 def test_decode_kernel_t5_bias_on_card(qg, head_dim, name):
     """The decode kernel with T5's bias table (32 buckets up to distance
@@ -771,7 +774,7 @@ def test_attention_kernels_refuse_what_they_do_not_take():
                    torch.ones(64, device="cuda")[::2]):
         with pytest.raises(ValueError, match="ALiBi"):
             paged_decode_attention(q, pages, idx, table, alibi_slopes=slopes)
-    for d in (80, 192, 512):  # head_dims no instantiation takes
+    for d in (72, 192, 512):  # head_dims no instantiation takes
         with pytest.raises(ValueError, match="head_dim"):
             paged_decode_attention(
                 torch.zeros((4, 32, d), dtype=torch.bfloat16, device="cuda"),

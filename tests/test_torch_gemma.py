@@ -132,7 +132,7 @@ def test_kernel_rules_take_96_and_256_but_no_option_there(head_dim):
     """check_kernel_inputs (both wrappers' rules on a card) takes head_dim
     96 and 256 at QH/KV 1 to 16 and above (17, and Falcon-7B's 71), and
     ALiBi there, and still raises for blocksparse there and at any
-    head_dim outside 64, 96, 128 and 256."""
+    head_dim outside 64, 80, 96, 128 and 256 (8 either side of each)."""
     for qh in (2, 4, 8, 32, 34, 142):
         check_kernel_inputs(*_case(head_dim, qh=qh), ())
         check_kernel_inputs(*_case(head_dim, qh=qh), (),
@@ -140,7 +140,7 @@ def test_kernel_rules_take_96_and_256_but_no_option_there(head_dim):
     offsets = _OnCard((8,), torch.int32)
     with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
         check_kernel_inputs(*_case(head_dim), (), bs_head_offsets=offsets)
-    for bad in (head_dim - 16, head_dim + 16):
+    for bad in (head_dim - 8, head_dim + 8):
         with pytest.raises(ValueError, match="head_dim in"):
             check_kernel_inputs(*_case(bad), ())
 

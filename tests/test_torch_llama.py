@@ -170,8 +170,13 @@ def test_bf16_logits_match_jax_in_f32(tie):
 
 
 def test_unported_rope_scaling_raises():
-    with pytest.raises(ValueError, match="yarn"):
-        compute_rope_tables(16, 32, rope_scaling={"rope_type": "yarn"})
+    """A scaling type neither package knows raises, as the JAX function
+    raises (the yarn and dynamic types are ported)."""
+    scaling = {"rope_type": "ntk-by-parts"}
+    with pytest.raises(ValueError, match="ntk-by-parts"):
+        jax_rope_tables(16, 32, rope_scaling=scaling)
+    with pytest.raises(ValueError, match="ntk-by-parts"):
+        compute_rope_tables(16, 32, rope_scaling=scaling)
 
 
 def test_hf_checkpoint_loads_like_jax(tiny_llama_dir):
@@ -215,8 +220,15 @@ def test_dummy_params_shapes_and_scale():
 
 
 def test_registry_raises_for_unported_architecture():
+    """An architecture the JAX package serves and the port does not yet
+    (GPT-2) raises naming the queue item it waits for; one neither
+    serves, the bare "not ported" ValueError."""
     config = ModelConfig(model="unused", dtype="float32",
                          hf_config=dict(HF, architectures=["GPT2LMHeadModel"]))
+    with pytest.raises(NotImplementedError, match="not ported.*item 3"):
+        get_model_class(config)
+    config = ModelConfig(model="unused", dtype="float32", hf_config=dict(
+        HF, architectures=["NoSuchModelForCausalLM"]))
     with pytest.raises(ValueError, match="not ported"):
         get_model_class(config)
     assert get_model_class(ModelConfig(

@@ -226,6 +226,15 @@ def test_port_imports_no_jax_and_no_jax_package():
             "aphrodite_tpu_torch/models/phimoe.py",
             "aphrodite_tpu_torch/models/qwen2_moe.py",
             "aphrodite_tpu_torch/models/qwen3_moe.py",
+            "aphrodite_tpu_torch/models/gpt_neox.py",
+            "aphrodite_tpu_torch/models/phi.py",
+            "aphrodite_tpu_torch/models/stablelm.py",
+            "aphrodite_tpu_torch/models/persimmon.py",
+            "aphrodite_tpu_torch/models/gptj.py",
+            "aphrodite_tpu_torch/models/cohere.py",
+            "aphrodite_tpu_torch/models/nemotron.py",
+            "aphrodite_tpu_torch/models/glm.py",
+            "aphrodite_tpu_torch/models/chatglm.py",
             "aphrodite_tpu_torch/ops/moe.py",
             "aphrodite_tpu_torch/quantization/experts_int8.py",
             "aphrodite_tpu_torch/quantization/__init__.py",
