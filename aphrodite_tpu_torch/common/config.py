@@ -84,6 +84,32 @@ def fill_family_keys(hf: Dict[str, Any]) -> None:
         hf.setdefault("rms_norm_eps", hf.get("layer_norm_eps", 1e-5))
         if arch == "PhiForCausalLM":
             hf.setdefault("partial_rotary_factor", 0.5)
+    elif arch in ("GPT2LMHeadModel", "GPTBigCodeForCausalLM"):
+        hf.setdefault("hidden_size", hf.get("n_embd"))
+        if arch == "GPTBigCodeForCausalLM":
+            # Multi-query (the default): one kv head.
+            hf.setdefault("num_key_value_heads",
+                          1 if hf.get("multi_query", True)
+                          else int(hf.get("num_attention_heads")
+                                   or hf.get("n_head")))
+        hf.setdefault("intermediate_size",
+                      hf.get("n_inner") or 4 * int(hf["hidden_size"]))
+        hf.setdefault("rms_norm_eps", hf.get("layer_norm_epsilon", 1e-5))
+    elif arch == "OPTForCausalLM":
+        hf.setdefault("intermediate_size", hf.get("ffn_dim"))
+        hf.setdefault("rms_norm_eps", 1e-5)
+    elif arch == "OlmoForCausalLM":
+        hf.setdefault("rms_norm_eps", 1e-5)
+    elif arch == "ExaoneForCausalLM":
+        hf.setdefault("rms_norm_eps", hf.get("layer_norm_epsilon", 1e-5))
+        if hf.get("num_layers") and not hf.get("num_hidden_layers"):
+            hf["num_hidden_layers"] = hf["num_layers"]
+    elif arch == "DeciLMForCausalLM":
+        # Every layer is served at the largest of its kv head counts (the
+        # JAX class sets it, over any count the config names).
+        if hf.get("num_key_value_heads_per_layer"):
+            hf["num_key_value_heads"] = max(
+                int(n) for n in hf["num_key_value_heads_per_layer"])
 
 
 @dataclass

@@ -24,10 +24,10 @@
 //
 // Shared-memory tiles hold bf16 rows of D values at a stride of D + 8 (an
 // odd number of 16-byte units: 9 at head_dim 64, 11 at 80, 13 at 96, 17 at
-// 128, 33 at 256), so the eight row addresses of each ldmatrix are 16-byte
-// aligned and fall on distinct banks. Every loop over D takes one k16 step
-// (16 dimensions) at a time, so D 80's five steps need nothing of their
-// own.
+// 128, 21 at 160, 33 at 256), so the eight row addresses of each ldmatrix
+// are 16-byte aligned and fall on distinct banks. Every loop over D takes
+// one k16 step (16 dimensions) at a time, so D 80's five steps and D 160's
+// ten need nothing of their own.
 
 #pragma once
 
@@ -106,9 +106,10 @@ struct Stage {
 };
 
 // Copies of a tile a thread issues (or widens) up to which the loop is
-// unrolled whole; past it, in steps of 8. Only the decode kernel at head_dim
-// 256 on bf16 pages passes it (32 copies a thread): unrolled whole there,
-// the 32 copies' addresses stay live beside O's 128 registers and spill.
+// unrolled whole; past it, in steps of 8. Only the decode kernel's
+// 128-thread form on bf16 pages at head_dim 160 (20 copies a thread) and
+// 256 (32) passes it: unrolled whole at 256, the 32 copies' addresses stay
+// live beside O's 128 registers and spill.
 constexpr int kUnrollCopies = 16;
 
 // The 16-byte copies of one tile (K and V rows of kChunks each), and how
@@ -117,7 +118,9 @@ constexpr int kUnrollCopies = 16;
 // narrow pages at head_dim 80 (640 copies) in the 256-thread forms (the
 // ragged kernel, the decode kernel's wide form): threads 0-127 take a
 // third copy. 640 is a multiple of 32, so the round ends on a warp's edge
-// and no warp splits (the page-index shuffles stay whole-warp).
+// and no warp splits (the page-index shuffles stay whole-warp). At head_dim
+// 160 a tile is 2560 copies (bf16) or 1280 (narrow), whole at 128 and at
+// 256 threads.
 template <int kChunks, int kThreads>
 struct TileCopies {
   static constexpr int kTotal = kTileKeys * 2 * kChunks;
@@ -195,10 +198,10 @@ __device__ __forceinline__ void widen_tile(__nv_bfloat16* tiles, const unsigned 
 
 // Q's A fragments for 16 query rows (bf16, staged at `rows`, stride D +
 // 8). Up to head_dim 128 a warp holds all D / 16 of them in registers,
-// loaded once. At 256 they would take 64 registers a thread beside O's
-// 128 (and S), so there the rows stay staged in shared memory for the
-// whole loop and each k16 step of Q . K^T reads its fragment with one
-// ldmatrix.x4.
+// loaded once. At 160 and 256 they would take 40 and 64 registers a thread
+// beside O's 80 and 128 (and S), so there the rows stay staged in shared
+// memory for the whole loop and each k16 step of Q . K^T reads its
+// fragment with one ldmatrix.x4.
 template <int D>
 struct QFrags {
   static constexpr bool kHeld = D <= 128;

@@ -62,14 +62,18 @@
 // first kernel's; only the warps' share of the work differs. Both
 // products run on the tensor cores, Q . K^T and P . V as in the ragged
 // kernel, with Q's fragments held in registers (read from the staged rows
-// at each k16 step at head_dim 256, as there). head_dim is a template
-// parameter: 64, 80, 96, 128 and 256 are built; 80 (Phi-2, Pythia-2.8B,
-// StableLM-3B), 96 (Phi-3-mini) and 256 (Gemma) for models whose decode
-// steps the JAX package sends to the ragged kernel or to its jnp
-// reference (its decode kernel takes 64 and 128 only; the port keeps one
-// routing for every head_dim). At 80 a narrow tile is 640 16-byte copies,
-// which the wide form's 256 threads take in two whole rounds and a third
-// of threads 0-127 (attention_mma.cuh: TileCopies).
+// at each k16 step at head_dim 160 and 256, as there). head_dim is a
+// template parameter: 64, 80, 96, 128, 160 and 256 are built; 80 (Phi-2,
+// Pythia-2.8B, StableLM-3B), 96 (Phi-3-mini), 160 (StableLM-2-12B) and 256
+// (Gemma) for models whose decode steps the JAX package sends to the
+// ragged kernel or to its jnp reference (its decode kernel takes 64 and
+// 128 only; the port keeps one routing for every head_dim). At 80 a narrow
+// tile is 640 16-byte copies, which the wide form's 256 threads take in
+// two whole rounds and a third of threads 0-127 (attention_mma.cuh:
+// TileCopies). At 160 the split form's ring and staged rows take 91392
+// bytes with bf16 pages (two blocks an SM) and the wide form's 129024;
+// O's 80 registers a thread leave room for the wide form's scores of a
+// whole 64-key tile, so it takes each tile in one step, as up to 128.
 //
 // Bound on the H100: bytes. Each step reads every live K/V row once
 // (2 * kv_len * D values per kv head) and does 4 * QG * D FLOPs per key,
@@ -165,7 +169,7 @@ constexpr int kKeys = attn::kTileKeys;
 constexpr int kWarpKeys = kKeys / kWarps;  // keys of each tile a warp takes
 // The largest QH / KV the first kernel takes: the rows of one mma tile.
 // Above it the wide kernel runs, eight warps of 16 rows each (the wrapper
-// raises for a head_dim other than 64, 80, 96, 128 and 256).
+// raises for a head_dim other than 64, 80, 96, 128, 160 and 256).
 constexpr int kTileQG = 16;
 constexpr int kWideWarps = 8;
 constexpr int kWideThreads = 32 * kWideWarps;
@@ -175,9 +179,10 @@ constexpr int kWideRows = 16 * kWideWarps;  // query heads a wide block takes
 // bf16 tiles they are widened into), reused after the last tile for the
 // four warps' states (o [16, D], m [16], l [16] each). The 16 query rows
 // are staged once at the start of the ring (read into registers before
-// the first tile lands), or, at head_dim 256, where the warps read their
-// Q fragments at every tile (attn::QFrags), after it: 8448 bytes more,
-// 143616 in all with bf16 pages, so one block an SM.
+// the first tile lands), or, at head_dim 160 and 256, where the warps read
+// their Q fragments at every tile (attn::QFrags), after it: 5376 bytes
+// more at 160 (91392 in all with bf16 pages, two blocks an SM), 8448 at
+// 256 (143616, one block an SM).
 template <class Page, int D>
 struct DecodeSmem {
   static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
@@ -191,9 +196,9 @@ struct DecodeSmem {
 
 // The wide kernel's shared memory: the same ring, with its 128 query rows
 // staged once at the start of it (two K/V tiles' bytes, read into
-// registers before the first tile lands) or, at head_dim 256, after it
-// (67584 bytes more: 202752 in all with bf16 pages). No merge region: each
-// warp owns its rows' whole state.
+// registers before the first tile lands) or, at head_dim 160 and 256,
+// after it (43008 bytes more at 160: 129024 in all with bf16 pages; 67584
+// at 256: 202752). No merge region: each warp owns its rows' whole state.
 template <class Page, int D>
 struct WideSmem {
   static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
@@ -484,7 +489,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 // takes query heads h0 .. h0 + rows - 1 of its kv head (h0 = 128 times
 // the group), warp w the 16 of them from h0 + 16 w; every warp takes all
 // keys of every staged tile (at head_dim 256 in two 32-key steps, so that
-// the scores take 16 registers beside O's 128, as in the ragged kernel).
+// the scores take 16 registers beside O's 128, as in the ragged kernel; at
+// 160, beside O's 80, in one 64-key step).
 // The splits, the ring, the scores and masks, the direct output and the
 // partials are those of paged_decode_kernel above.
 template <class Page, int D, bool REL>
@@ -508,7 +514,7 @@ paged_decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
   unsigned char* stages = smem + L::wide;
   __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
   // The query rows: at the start of the ring (read into registers before
-  // the first tile is issued), or after it at head_dim 256.
+  // the first tile is issued), or after it at head_dim 160 and 256.
   __nv_bfloat16* q_s =
       attn::QFrags<D>::kHeld ? wide : reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
 
@@ -758,7 +764,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64, 80, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
+// head_dim 64, 80, 96, 128, 160 or 256, QG = num_q_heads / num_kv_heads query
 // heads per kv head (any; above 16 the wide kernel) and blocksparse (a
 // phase table given; head_dim 128 and QG 1, 2, 4 or 8 only: the shapes
 // blocksparse is built for) or not; with T5's bias (REL: a table given)
@@ -807,6 +813,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
       return int(PAGED_DECODE_LAUNCH(80, false, REL));
     case 96:
       return int(PAGED_DECODE_LAUNCH(96, false, REL));
+    case 160:
+      return int(PAGED_DECODE_LAUNCH(160, false, REL));
     case 256:
       return int(PAGED_DECODE_LAUNCH(256, false, REL));
     case 128:
@@ -825,7 +833,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 // One entry point per page type: paged_decode_attention_{bf16, e4m3, e5m2,
 // int8} (paged_decode_attention.cu) and, with T5's bias,
 // paged_decode_attention_rel_{bf16, ...} (paged_decode_attention_rel.cu).
-// q bf16[S, QH, D] with D = 64, 80, 96, 128 or 256 and QH = QG * KV for any
+// q bf16[S, QH, D] with D = 64, 80, 96, 128, 160 or 256 and QH = QG * KV for any
 // QG (blocksparse: D = 128, QG in {1, 2, 4, 8}), kv_pages [P, page_size,
 // 2 * KV, D] of the named type (K at even and V at odd combined heads),
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], alibi_slopes f32[QH]

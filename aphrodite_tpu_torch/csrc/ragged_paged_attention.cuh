@@ -10,7 +10,7 @@
 // sequence and kv head are its (token, query head) pairs, flattened token
 // by token: row f is token f / QG and query head f % QG of the QG = QH /
 // KV heads that share the kv head. A query tile holds kRows consecutive
-// rows of that order (128 at head_dim 80, 96, 128 and 256, 8 warps; 64
+// rows of that order (128 at head_dim 80, 96, 128, 160 and 256, 8 warps; 64
 // at head_dim 64, 4 warps) of ONE sequence, so a tile never straddles two
 // sequences and every K/V tile it stages serves all of its rows; each
 // row carries its own token position for the causal mask, the window and
@@ -23,7 +23,7 @@
 // sequence the tiles that see the most keys start first. QG is a template
 // parameter, instantiated at head_dim 128 for 1, 2, 4 and 8, and 0, which
 // reads QG at run time and serves every other QG, and every QG at head_dim
-// 64, 80, 96 and 256. head_dim D (64, 80, 96, 128 or 256) is a template
+// 64, 80, 96, 160 and 256. head_dim D (64, 80, 96, 128, 160 or 256) is a template
 // parameter too. So are ALiBi and blocksparse, so that the variant without either
 // carries no per-score branch for them. ALiBi reads each row's slope by
 // its query head, at every D and QG (the fixed instantiations at D 128,
@@ -46,9 +46,10 @@
 // - both products on the tensor cores, mma.sync m16n8k16 bf16 with f32
 //   sums: each warp owns 16 query rows, holds their Q fragments in
 //   registers (one ldmatrix per 16 dimensions, loaded once; at head_dim
-//   256, where O alone takes 128 registers a thread, it reads them from
-//   the staged rows at each k16 step instead, and takes each tile in two
-//   32-key steps), reads K through ldmatrix and V through ldmatrix.trans,
+//   160 and 256, where O alone takes 80 and 128 registers a thread, it
+//   reads them from the staged rows at each k16 step instead, and at 256
+//   takes each tile in two 32-key steps), reads K through ldmatrix and V
+//   through ldmatrix.trans,
 //   and hands P from the S accumulator to the A fragments of P . V in
 //   registers;
 // - bf16 K/V tiles of 64 keys (four 16-key pages) in shared memory at a
@@ -112,7 +113,7 @@
 
 namespace {
 
-// Warps a block: 8 at head_dim 80, 96, 128 and 256 (128 query rows share
+// Warps a block: 8 at head_dim 80, 96, 128, 160 and 256 (128 query rows share
 // each K/V tile), 4 at head_dim 64 (on the H100 a block of 8 ran slower
 // there: at Qwen2.5-0.5B's two kv heads it leaves too few blocks for 132
 // SMs). Each warp owns 16 query rows. At 80 (Phi-2, Pythia-2.8B,
@@ -124,10 +125,14 @@ namespace {
 // Stages of the cp.async ring: three, but two at head_dim 256, where a
 // bf16 stage (K and V, 64 keys at a stride of 264) is 67584 bytes and the
 // query rows stay staged beside the ring (attn::QFrags): 2 x 67584 + 67584
-// = 202752 of the 232448 bytes a block may have.
+// = 202752 of the 232448 bytes a block may have. At 160 (StableLM-2-12B:
+// 8 kv heads) the query rows stay staged beside the ring too, and three
+// stages fit: a bf16 stage at a stride of 168 is 43008 bytes, 3 x 43008 +
+// 43008 = 172032 (one block an SM, as at 256; narrow pages 147456).
 // Keys of one Q . K^T and P . V step: the whole 64-key tile, but two
 // halves of 32 at head_dim 256, so that S takes 16 registers a thread
-// beside O's 128 (D / 8 fragments of four).
+// beside O's 128 (D / 8 fragments of four). At 160, O's 80 registers leave
+// room for S's 32 of the whole tile.
 template <int D>
 struct RaggedShape {
   static constexpr int kWarps = D == 64 ? 4 : 8;
@@ -143,8 +148,8 @@ constexpr int kKeys = attn::kTileKeys;
 // of bf16 tiles they are widened into. The query rows (kRows of them at
 // the tiles' stride: the size of one K and V pair) are staged once, before
 // the loop, in the last stage, which the loop fills first (narrow pages:
-// in the widened pair); at head_dim 256, where they are read at every
-// tile, in a region of their own after the ring.
+// in the widened pair); at head_dim 160 and 256, where they are read at
+// every tile, in a region of their own after the ring.
 template <class Page, int D>
 struct RaggedSmem {
   static constexpr bool kNarrow = attn::Stage<Page, D>::kNarrow;
@@ -182,7 +187,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stages = smem + L::wide;
   __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
-  // The query rows: in their own region (head_dim 256), in the widened
+  // The query rows: in their own region (head_dim 160, 256), in the widened
   // pair, or in the last stage (the first that the loop fills).
   __nv_bfloat16* q_s =
       !attn::QFrags<D>::kHeld ? reinterpret_cast<__nv_bfloat16*>(smem + L::ring)
@@ -462,7 +467,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens, const int*
 }
 
 // Launches the instantiation for head_dim D: at D 128 QG 1, 2, 4 and 8
-// have their own, every other QG (and every QG at D 64, 80, 96 and 256) the
+// have their own, every other QG (and every QG at D 64, 80, 96, 160 and 256) the
 // one that reads it at run time, with ALiBi too. With blocksparse only D
 // 128 and QG 1, 2, 4 and 8 are built.
 template <class Page, int D, bool ALIBI, bool BLOCKSPARSE>
@@ -497,7 +502,7 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64, 80, 96, 128 or 256, QG = num_q_heads / num_kv_heads query
+// head_dim 64, 80, 96, 128, 160 or 256, QG = num_q_heads / num_kv_heads query
 // heads per kv head (any), ALiBi (a slope table given) or not and
 // blocksparse (a phase table given) or not.
 template <class Page, bool ALIBI, bool BLOCKSPARSE>
@@ -532,6 +537,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
       return int(RAGGED_LAUNCH_D(96));
     case 128:
       return int(RAGGED_LAUNCH_D(128));
+    case 160:
+      return int(RAGGED_LAUNCH_D(160));
     case 256:
       return int(RAGGED_LAUNCH_D(256));
     default:
@@ -543,7 +550,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 }  // namespace
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
-// blocksparse or not. q bf16[T, QH, D] with D = 64, 80, 96, 128 or 256 and QH = QG * KV
+// blocksparse or not. q bf16[T, QH, D] with D = 64, 80, 96, 128, 160 or 256 and QH = QG * KV
 // for any QG (with blocksparse: D = 128 and QG in {1, 2, 4, 8}), kv_pages
 // [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],

@@ -856,12 +856,38 @@ _ARCH_TO_HF = {
     "gemma2": "Gemma2ForCausalLM",
     "phi3": "Phi3ForCausalLM",
 }
-# Architectures whose GGUF tensors the port does not load yet: Gemma2's
-# sandwich norms, Phi-3's fused attn_qkv / ffn_up, and the fused attn_qkv,
-# LayerNorm biases and plain MLPs of Falcon, Bloom, MPT and JAIS have no
-# mapping above. Their HF checkpoints are served; their GGUF files raise.
-_UNPORTED_GGUF_ARCHS = ("gemma", "gemma2", "phi3", "falcon", "bloom", "mpt",
-                        "jais")
+# llama.cpp architecture names (``general.architecture``) of the families
+# whose GGUF tensors the port does not map, each with the ROADMAP item that
+# holds it: every family the port serves or lists as waiting whose file
+# the Llama mapping above would load wrongly (other norms, fused or
+# partial q|k|v, biases, plain MLPs, learned positions, experts, SSM
+# state). The JAX package's gguf_to_hf_config serves every unknown name
+# as Llama; here such a file raises by name before anything is built.
+_DENSE_GGUF = "item 3, GGUF files of the dense families"
+_UNPORTED_GGUF_ARCHS = {
+    **dict.fromkeys((
+        "gemma", "gemma2", "gemma3", "phi3", "falcon", "bloom", "mpt",
+        "jais", "gptneox", "phi2", "stablelm", "gptj", "persimmon",
+        "command-r", "cohere2", "nemotron", "chatglm", "glm4", "gpt2",
+        "starcoder", "starcoder2", "granite", "olmo", "olmo2", "orion",
+        "internlm2", "exaone", "deci", "baichuan", "qwen", "qwen3",
+        "minicpm", "minicpm3", "t5", "t5encoder"), _DENSE_GGUF),
+    **dict.fromkeys((
+        "qwen2moe", "qwen3moe", "olmoe", "phimoe", "granitemoe", "dbrx",
+        "arctic", "deepseek", "deepseek2"),
+        "item 7, quantized MoE checkpoints"),
+    **dict.fromkeys(("mamba", "mamba2", "jamba"), "item 10, the SSMs"),
+}
+
+
+def refuse_unported_arch(arch: str) -> None:
+    """Raise, naming the ROADMAP item, for a GGUF architecture whose
+    tensors the port does not map."""
+    if arch in _UNPORTED_GGUF_ARCHS:
+        raise NotImplementedError(
+            f"GGUF files of architecture {arch!r} are not ported yet "
+            f"(ROADMAP.md, module queue {_UNPORTED_GGUF_ARCHS[arch]}); "
+            "load the HF checkpoint")
 
 
 def gguf_to_hf_config(path: str) -> Dict[str, Any]:
@@ -870,6 +896,7 @@ def gguf_to_hf_config(path: str) -> Dict[str, Any]:
     gg = GGUFFile(path)
     md = gg.metadata
     arch = md.get("general.architecture", "llama")
+    refuse_unported_arch(arch)
 
     def g(key, default=None):
         return md.get(f"{arch}.{key}", default)
@@ -932,11 +959,7 @@ def load_gguf_params_to_host(model, path: str) -> Dict[str, Any]:
     from aphrodite_tpu_torch.quantization.int4 import maybe_pack
 
     gg = GGUFFile(path)
-    arch = gg.metadata.get("general.architecture", "llama")
-    if arch in _UNPORTED_GGUF_ARCHS:
-        raise NotImplementedError(
-            f"GGUF files of architecture {arch!r} are not ported yet "
-            "(ROADMAP.md, module queue item 3); load the HF checkpoint")
+    refuse_unported_arch(gg.metadata.get("general.architecture", "llama"))
     num_layers = model.num_layers
     quantizable = set(model.quantizable_weights())
 

@@ -118,7 +118,9 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
     end)], transpose), each part a slice of the (transposed) tensor's
     output dim, and the per-layer tensors of a stack with a layer count of
     its own (an encoder-decoder's encoder) from ``hf_aux_mappings``:
-    (template, our_path, transpose, count). Then
+    (template, our_path, transpose, count). A model with
+    ``maybe_pad_kv_weight_layer(our_path, tensor, layer)`` reshapes each
+    per-layer tensor there first. Then
     ``finalize_params`` post-processes the tree, as in the JAX package (HF
     checkpoints only: dummy weights skip it there too)."""
     lookup: Dict[str, Tuple[str, Any, bool, Optional[int]]] = {}
@@ -160,6 +162,10 @@ def load_hf_params_to_host(model, model_dir: str) -> Dict[str, Any]:
         kind, target, transpose, idx = info
         if transpose:
             arr = arr.t()
+        if kind == "layer" and hasattr(model, "maybe_pad_kv_weight_layer"):
+            # A layer's own shape brought to the stack's (DeciLM's kv
+            # heads per layer), as the JAX loader's hook of that name.
+            arr = model.maybe_pad_kv_weight_layer(target, arr, idx)
         if kind == "global":
             _set_path(params, target, arr.contiguous())
         elif kind == "split":
@@ -454,7 +460,9 @@ def dummy_params(model, seed: int, device: torch.device, dtype: torch.dtype,
 
 def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's parameter tree (nested dicts of numpy arrays,
-    after fuse_projections) as the port's parameters: the same nesting,
+    after fuse_projections) as the port's parameters, whatever its keys
+    (``embed_pos``, OPT-350m's folded ``embed`` and ``lm_head`` beside its
+    raw tensors, a tree without norms): the same nesting,
     the same [in, out] layout and [L] stacking, values copied into CPU
     tensors: float leaves as f32, the integer members of quantized
     containers (int8 levels) in their own dtype, e4m3 weights (numpy

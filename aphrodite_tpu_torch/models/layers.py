@@ -24,16 +24,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
                bias: Optional[torch.Tensor] = None,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm computed in f32 (mean-centred, rsqrt(var + eps), then
-    weight and bias), returned in x's dtype: the JAX package's
-    arithmetic."""
+    weight and bias; without a weight, neither), returned in x's dtype:
+    the JAX package's arithmetic."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.float()
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)

@@ -64,7 +64,25 @@ Hooks serve the subclasses, as in the JAX package:
   window's CUDA graph captures it as it stands;
 - Gemma2's sandwich norms: with ``post_attn_norm`` and ``post_ff_norm``
   in the layer params, each block's output is normalized before its
-  residual add.
+  residual add;
+- ``learned_positions``: a table of learned absolute positions,
+  ``embed_pos`` ((``max_position_embeddings`` or ``n_positions``) +
+  ``pos_offset`` rows), added to the token embeddings at ``positions +
+  pos_offset`` (GPT-2, GPT-BigCode; OPT's offset of 2). A position past
+  the table would be an index a CUDA gather refuses with a device-side
+  assert, so a ``max_model_len`` beyond it raises at init (the JAX gather
+  clamps it);
+- ``postnorm_residual``: OPT-350m's order, x = norm1(x + attn(x)), then
+  x = norm2(x + mlp(x)), no norm before either block; and
+  ``skip_final_norm`` (no final norm, no ``final_norm`` params);
+- ``residual_multiplier``: both branches of the sequential residual scaled
+  before their add (Granite), 1.0 meaning off;
+- ``rope_layer_mask``: one bool per layer, False for a layer without
+  rotation (SmolLM3's NoPE layers); None: every layer rotates;
+- ``norm_parametric`` False: every norm a LayerNorm without weight or
+  bias, and no norm parameters at all (OLMo);
+- ``qkv_clip``: q, k and v clamped to [-clip, clip] before the reshape
+  to heads (OLMo's clip_qkv), 0.0 meaning off.
 Every hook is a Python choice made at init, so the decode window's CUDA
 graph captures the forward as it stands.
 """
@@ -118,7 +136,18 @@ class LlamaForCausalLM:
     lm_head_bias: bool = False
     # muP-style scales (1.0 and None: off).
     embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
     logit_scale: Optional[float] = None
+    # Learned absolute positions (embed_pos), indexed at position +
+    # pos_offset (OPT keeps 2 rows before position 0).
+    learned_positions: bool = False
+    pos_offset: int = 0
+    # OPT-350m: the norms after each residual add, and no final norm.
+    postnorm_residual: bool = False
+    skip_final_norm: bool = False
+    # OLMo: LayerNorms without weight or bias; q, k, v clamped (0.0: off).
+    norm_parametric: bool = True
+    qkv_clip: float = 0.0
     # Gemma: RMSNorm by (offset + w), embeddings times sqrt(hidden), the
     # MLP's activation ("silu" or "gelu_tanh"), soft caps (0.0: off).
     norm_weight_offset: float = 0.0
@@ -173,6 +202,21 @@ class LlamaForCausalLM:
         # windows, and the layers rotated by a local table of their own.
         self.layer_windows: Optional[List[Optional[int]]] = None
         self.local_rope_layers: Optional[List[bool]] = None
+        # Per layer: whether it rotates q and k (None: every layer does).
+        self.rope_layer_mask: Optional[List[bool]] = None
+        if self.learned_positions:
+            # The table's rows follow the checkpoint's declared maximum,
+            # not max_model_len, as in the JAX package.
+            self.num_positions = int(hf.get("max_position_embeddings")
+                                     or hf.get("n_positions")
+                                     or self.max_position)
+            if self.max_position > self.num_positions:
+                raise ValueError(
+                    f"max_model_len {self.max_position} exceeds the "
+                    f"{self.num_positions} learned positions of "
+                    f"{type(self).__name__}; positions past the table have "
+                    "no embedding (the JAX package clamps them to its last "
+                    "row); serve at most that many")
         self._cos_local: Optional[torch.Tensor] = None
         self._sin_local: Optional[torch.Tensor] = None
         if self.use_rope:
@@ -187,6 +231,14 @@ class LlamaForCausalLM:
             torch.tensor(self.embedding_multiplier, dtype=self.dtype,
                          device=device)
             if self.embedding_multiplier != 1.0 else None)
+        # The residual multiplier in the model dtype and in f32, for a
+        # branch in either (a quantized product comes back in f32), as the
+        # JAX package rounds it to the branch's dtype.
+        self._residual_scale = (
+            {dt: torch.tensor(self.residual_multiplier, dtype=dt,
+                              device=device)
+             for dt in {self.dtype, torch.float32}}
+            if self.residual_multiplier != 1.0 else None)
         self._logit_scale = (
             torch.tensor(self.logit_scale, dtype=torch.float32, device=device)
             if self.logit_scale else None)
@@ -236,6 +288,8 @@ class LlamaForCausalLM:
             shapes["embed_norm"] = (H,)
             if layernorm_bias:
                 shapes["embed_norm_b"] = (H,)
+        if self.learned_positions:
+            shapes["embed_pos"] = (self.num_positions + self.pos_offset, H)
         if not self.tie_word_embeddings:
             shapes["lm_head"] = (H, V)
             if self.lm_head_bias:
@@ -243,6 +297,13 @@ class LlamaForCausalLM:
         if self.single_norm:
             lay.pop("post_norm")
             lay.pop("post_norm_b", None)
+        if self.skip_final_norm or not self.norm_parametric:
+            shapes.pop("final_norm")
+            shapes.pop("final_norm_b", None)
+        if not self.norm_parametric:
+            for key in ("input_norm", "input_norm_b", "post_norm",
+                        "post_norm_b"):
+                lay.pop(key, None)
         return shapes
 
     def fuse_projections(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -336,6 +397,8 @@ class LlamaForCausalLM:
         if self.attention_bias:
             maps += [(la + f"self_attn.{n}_proj.bias", f"layers.b{n}", False)
                      for n in "qkv"]
+        if not self.norm_parametric:
+            maps = [m for m in maps if "norm" not in m[1]]
         return maps
 
     def hf_split_mappings(
@@ -369,6 +432,8 @@ class LlamaForCausalLM:
             maps.append(("model.norm.bias", "final_norm_b", False))
         if not self.tie_word_embeddings:
             maps.append(("lm_head.weight", "lm_head", True))
+        if not self.norm_parametric:
+            maps = [m for m in maps if "norm" not in m[1]]
         return maps
 
     @property
@@ -403,6 +468,9 @@ class LlamaForCausalLM:
             x = x * self._hidden_scale
         if self._embedding_scale is not None:
             x = x * self._embedding_scale
+        if self.learned_positions:
+            x = x + params["embed_pos"][batch.positions
+                                        + self.pos_offset].to(self.dtype)
         if self.embedding_norm:
             x = self._norm(x, params["embed_norm"], params.get("embed_norm_b"))
         if self.use_rope:
@@ -413,23 +481,28 @@ class LlamaForCausalLM:
                               self._sin_local[batch.positions])
         sandwich = "post_attn_norm" in lp
         for layer in range(self.num_layers):
-            h = self._norm(x, lp["input_norm"][layer],
-                           self._layer_bias(lp, "input_norm_b", layer))
+            h = x if self.postnorm_residual else self._norm(
+                x, self._layer_param(lp, "input_norm", layer),
+                self._layer_param(lp, "input_norm_b", layer))
             qkv = self._linear(lp, h, ("wqkv", "wq", "wk", "wv"),
-                               ("bqkv", "bq", "bk", "bv"),
-                               layer).to(self.dtype)
+                               ("bqkv", "bq", "bk", "bv"), layer)
+            if self.qkv_clip:
+                qkv = qkv.clamp(-self.qkv_clip, self.qkv_clip)
+            qkv = qkv.to(self.dtype)
             q = qkv[:, :NH * D].reshape(-1, NH, D)
             k = qkv[:, NH * D:(NH + NKV) * D].reshape(-1, NKV, D)
             v = qkv[:, (NH + NKV) * D:].reshape(-1, NKV, D)
             q, k = self.qk_norm(q, k, lp, layer)
-            if self.use_rope:
+            if self.use_rope and (self.rope_layer_mask is None
+                                  or self.rope_layer_mask[layer]):
                 cos, sin = (rope_local if self.local_rope_layers is not None
                             and self.local_rope_layers[layer] else rope)
                 q = apply_rope(q, cos, sin, neox)
                 k = apply_rope(k, cos, sin, neox)
             else:
                 # The attention kernels read q contiguous; where there is
-                # a rotation, it makes the copy.
+                # a rotation, it makes the copy (a NoPE layer's identity
+                # rotation in the JAX package leaves q and k as they are).
                 q = q.contiguous()
             k_scale = None if k_scales is None else k_scales[layer]
             v_scale = None if v_scales is None else v_scales[layer]
@@ -452,25 +525,40 @@ class LlamaForCausalLM:
             if v_scale is not None:
                 attn = attn * v_scale.to(attn.dtype)
             o = self._linear(lp, attn.reshape(-1, NH * D), ("wo",), ("bo",),
-                             layer).to(self.dtype)
+                             layer)
+            post_norm = (self._layer_param(lp, "post_norm", layer),
+                         self._layer_param(lp, "post_norm_b", layer))
             if self.parallel_residual:
                 # One step: x + attn(norm1(x)) + mlp(norm2(x)), or with
                 # single_norm the MLP on norm1(x) too.
-                h2 = h if self.single_norm else self._norm(
-                    x, lp["post_norm"][layer],
-                    self._layer_bias(lp, "post_norm_b", layer))
-                x = x + o + self.mlp(lp, h2, layer).to(self.dtype)
+                h2 = h if self.single_norm else self._norm(x, *post_norm)
+                x = x + o.to(self.dtype) + self.mlp(lp, h2, layer).to(
+                    self.dtype)
                 continue
+            if self.postnorm_residual:
+                x = self._norm(x + o.to(self.dtype),
+                               self._layer_param(lp, "input_norm", layer),
+                               self._layer_param(lp, "input_norm_b", layer))
+                ff = self.mlp(lp, x, layer).to(self.dtype)
+                x = self._norm(x + ff, *post_norm)
+                continue
+            if self._residual_scale is not None:
+                o = o * self._residual_scale[o.dtype]
+            o = o.to(self.dtype)
             if sandwich:
                 o = self._norm(o, lp["post_attn_norm"][layer])
             x = x + o
-            h = self._norm(x, lp["post_norm"][layer],
-                           self._layer_bias(lp, "post_norm_b", layer))
+            h = self._norm(x, *post_norm)
             ff = self.mlp(lp, h, layer).to(self.dtype)
+            if self._residual_scale is not None:
+                ff = ff * self._residual_scale[ff.dtype]
             if sandwich:
                 ff = self._norm(ff, lp["post_ff_norm"][layer])
             x = x + ff
-        return self._norm(x, params["final_norm"], params.get("final_norm_b"))
+        if self.skip_final_norm:
+            return x
+        return self._norm(x, params.get("final_norm"),
+                          params.get("final_norm_b"))
 
     def qk_norm(self, q: torch.Tensor, k: torch.Tensor, lp: Dict[str, Any],
                 layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -479,12 +567,14 @@ class LlamaForCausalLM:
         return q, k
 
     @staticmethod
-    def _layer_bias(lp: Dict[str, Any], name: str,
-                    layer: int) -> Optional[torch.Tensor]:
+    def _layer_param(lp: Dict[str, Any], name: str,
+                     layer: int) -> Optional[torch.Tensor]:
         return lp[name][layer] if name in lp else None
 
-    def _norm(self, x: torch.Tensor, weight: torch.Tensor,
+    def _norm(self, x: torch.Tensor, weight: Optional[torch.Tensor],
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if weight is None:  # non-parametric (OLMo): a bare LayerNorm
+            return layer_norm(x, None, None, self.rms_eps)
         if self.norm_weight_offset:
             weight = weight + self.norm_weight_offset
         if self.norm_type == "layernorm":

@@ -8,9 +8,12 @@ models Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE and PhiMoE, the ALiBi and
 multi-query families Bloom, MPT, JAIS and Falcon (with its legacy RW
 name), the encoder-decoders T5 (Flan-T5), BART and mBART, and the
 partial- and interleaved-rotary families GPT-NeoX (Pythia), Phi (1, 1.5,
-2), StableLM, Persimmon, GPT-J, Cohere, Nemotron, GLM-4 and ChatGLM so
-far. Every other architecture the JAX package serves raises with the
-ROADMAP item that holds it (``_WAITING``); any other raises too.
+2), StableLM, Persimmon, GPT-J, Cohere, Nemotron, GLM-4 and ChatGLM, the
+learned-position families GPT-2, GPTBigCode (StarCoder) and OPT, and the
+Llama-body families Granite, SmolLM3, DeciLM, StarCoder2, Orion, OLMo,
+EXAONE and InternLM2 so far. Every other architecture the JAX package
+serves raises with the ROADMAP item that holds it (``_WAITING``); any
+other raises too.
 """
 
 from typing import Dict
@@ -24,19 +27,28 @@ from aphrodite_tpu_torch.models.bloom import BloomForCausalLM
 from aphrodite_tpu_torch.models.chatglm import \
     ChatGLMForConditionalGeneration
 from aphrodite_tpu_torch.models.cohere import CohereForCausalLM
+from aphrodite_tpu_torch.models.decilm import DeciLMForCausalLM
+from aphrodite_tpu_torch.models.exaone import ExaoneForCausalLM
 from aphrodite_tpu_torch.models.falcon import FalconForCausalLM
 from aphrodite_tpu_torch.models.gemma import (Gemma2ForCausalLM,
                                               Gemma3ForCausalLM,
                                               GemmaForCausalLM)
 from aphrodite_tpu_torch.models.glm import GlmForCausalLM
+from aphrodite_tpu_torch.models.gpt2 import GPT2LMHeadModel
+from aphrodite_tpu_torch.models.gpt_bigcode import GPTBigCodeForCausalLM
 from aphrodite_tpu_torch.models.gpt_neox import GPTNeoXForCausalLM
 from aphrodite_tpu_torch.models.gptj import GPTJForCausalLM
+from aphrodite_tpu_torch.models.granite import GraniteForCausalLM
+from aphrodite_tpu_torch.models.internlm2 import InternLM2ForCausalLM
 from aphrodite_tpu_torch.models.jais import JAISLMHeadModel
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
 from aphrodite_tpu_torch.models.mixtral import MixtralForCausalLM
 from aphrodite_tpu_torch.models.mpt import MPTForCausalLM
 from aphrodite_tpu_torch.models.nemotron import NemotronForCausalLM
+from aphrodite_tpu_torch.models.olmo import OlmoForCausalLM
 from aphrodite_tpu_torch.models.olmoe import OlmoeForCausalLM
+from aphrodite_tpu_torch.models.opt import OPTForCausalLM
+from aphrodite_tpu_torch.models.orion import OrionForCausalLM
 from aphrodite_tpu_torch.models.persimmon import PersimmonForCausalLM
 from aphrodite_tpu_torch.models.phi import PhiForCausalLM
 from aphrodite_tpu_torch.models.phi3 import Phi3ForCausalLM
@@ -45,7 +57,9 @@ from aphrodite_tpu_torch.models.phimoe import PhiMoEForCausalLM
 from aphrodite_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
 from aphrodite_tpu_torch.models.qwen3 import Qwen3ForCausalLM
 from aphrodite_tpu_torch.models.qwen3_moe import Qwen3MoeForCausalLM
+from aphrodite_tpu_torch.models.smollm3 import SmolLM3ForCausalLM
 from aphrodite_tpu_torch.models.stablelm import StableLmForCausalLM
+from aphrodite_tpu_torch.models.starcoder2 import Starcoder2ForCausalLM
 from aphrodite_tpu_torch.models.t5 import T5ForConditionalGeneration
 
 
@@ -105,6 +119,18 @@ _MODEL_REGISTRY: Dict[str, type] = {
     "GlmForCausalLM": GlmForCausalLM,
     "ChatGLMModel": ChatGLMForConditionalGeneration,
     "ChatGLMForConditionalGeneration": ChatGLMForConditionalGeneration,
+    # Learned positions, and the Llama body's other hooks.
+    "GPT2LMHeadModel": GPT2LMHeadModel,
+    "GPTBigCodeForCausalLM": GPTBigCodeForCausalLM,
+    "OPTForCausalLM": OPTForCausalLM,
+    "GraniteForCausalLM": GraniteForCausalLM,
+    "SmolLM3ForCausalLM": SmolLM3ForCausalLM,
+    "DeciLMForCausalLM": DeciLMForCausalLM,
+    "Starcoder2ForCausalLM": Starcoder2ForCausalLM,
+    "OrionForCausalLM": OrionForCausalLM,
+    "OlmoForCausalLM": OlmoForCausalLM,
+    "ExaoneForCausalLM": ExaoneForCausalLM,
+    "InternLM2ForCausalLM": InternLM2ForCausalLM,
     # Encoder-decoders, as the JAX registry names them.
     "T5ForConditionalGeneration": T5ForConditionalGeneration,
     "T5WithLMHeadModel": T5ForConditionalGeneration,
@@ -118,23 +144,10 @@ _MODEL_REGISTRY: Dict[str, type] = {
 _DENSE = "the rest of the dense zoo (item 3"
 _MULTIMODAL = "its vision or audio tower (item 10, the multimodal towers)"
 _WAITING = {
-    "GPT2LMHeadModel": f"{_DENSE}: learned positions)",
-    "GPTBigCodeForCausalLM": f"{_DENSE}: learned positions, multi-query "
-                             "c_attn)",
-    "OPTForCausalLM": f"{_DENSE}: learned positions with an offset, "
-                      "postnorm_residual)",
-    "GraniteForCausalLM": f"{_DENSE}: Granite's residual_multiplier)",
-    "SmolLM3ForCausalLM": f"{_DENSE}: NoPE layers)",
-    "DeciLMForCausalLM": f"{_DENSE}: per-layer kv heads)",
-    "Starcoder2ForCausalLM": f"{_DENSE})",
-    "OlmoForCausalLM": f"{_DENSE}: non-parametric LayerNorm)",
-    "Olmo2ForCausalLM": f"{_DENSE})",
-    "ExaoneForCausalLM": f"{_DENSE})",
-    "OrionForCausalLM": f"{_DENSE})",
-    "InternLM2ForCausalLM": f"{_DENSE})",
-    "MiniCPMForCausalLM": f"{_DENSE})",
+    "Olmo2ForCausalLM": f"{_DENSE}: OLMo2's own forward)",
+    "MiniCPMForCausalLM": f"{_DENSE}: MiniCPM's muP scales)",
     "MiniCPM3ForCausalLM": f"{_DENSE}: MLA)",
-    "SolarForCausalLM": f"{_DENSE})",
+    "SolarForCausalLM": f"{_DENSE}: Solar's bskcn segments)",
     "QWenLMHeadModel": f"{_DENSE}: Qwen v1)",
     "MambaForCausalLM": "the SSMs (item 10)",
     "Mamba2ForCausalLM": "the SSMs (item 10)",
@@ -151,8 +164,7 @@ _WAITING = {
         "MiniCPMV", "Qwen2VLForConditionalGeneration",
         "PaliGemmaForConditionalGeneration", "FuyuForCausalLM",
         "Phi3VForCausalLM"), _MULTIMODAL),
-    "GraniteMoeForCausalLM": "Granite's residual_multiplier in the Llama "
-                             "body (item 7, GraniteMoE)",
+    "GraniteMoeForCausalLM": "GraniteMoE's experts (item 7, GraniteMoE)",
     "DbrxForCausalLM": "DBRX's fused expert tensors (item 7, DBRX)",
     "ArcticForCausalLM": "Arctic's residual MoE beside a dense MLP (item 7, "
                          "Arctic)",

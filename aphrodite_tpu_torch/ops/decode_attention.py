@@ -34,8 +34,8 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 64, 80, 96, 128 or 256 with any number of query
-heads per kv head (the instantiation is chosen at the launch; the decode
+Both kernels take head_dim 64, 80, 96, 128, 160 or 256 with any number of
+query heads per kv head (the instantiation is chosen at the launch; the decode
 kernel takes more than 16 in a kernel of its own, ``decode_head_groups``),
 and, at every one of those shapes, an optional ALiBi slope table
 f32[QH]: score + slope[h] * (key position - query position), added after
@@ -72,14 +72,15 @@ from aphrodite_tpu_torch.ops.launches import count_launch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The shapes both CUDA kernels are built for: head_dim 64, 80 (Phi-2,
-# Pythia-2.8B, StableLM-3B), 96 (Phi-3-mini), 128 or 256 (Gemma, Gemma2,
-# Gemma3), the head_dims of the JAX-bundled ragged kernel and those the JAX
-# package sends to its jnp reference (80), at every QH / KV, from 1 (MHA:
+# Pythia-2.8B, StableLM-3B), 96 (Phi-3-mini), 128, 160 (StableLM-2-12B) or
+# 256 (Gemma, Gemma2, Gemma3), the head_dims of the JAX-bundled ragged
+# kernel and those the JAX package sends to its jnp reference (80, 160), at
+# every QH / KV, from 1 (MHA:
 # Baichuan-13B, Bloom, MPT, JAIS) to Falcon-7B's 71 (multi-query), with or
 # without ALiBi.
 # Blocksparse is built for head_dim 128 at QH / KV 1, 2, 4 or 8 only
 # (Phi-3-Small's 4).
-KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 160, 256)
 BLOCKSPARSE_HEAD_DIM = 128
 BLOCKSPARSE_QUERIES_PER_KV = (1, 2, 4, 8)
 # Up to this QH / KV the decode kernel holds a kv head's query heads as

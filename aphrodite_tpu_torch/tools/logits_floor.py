@@ -164,7 +164,8 @@ def main() -> None:
                "phi3": (chip_smoke.PHI3_MINI_4K, [2500, 17, 129]),
                "llama": (chip_smoke.LLAMA_8B, [300, 17, 129]),
                "falcon7b": (chip_smoke.FALCON_7B, [300, 17, 129]),
-               "phi2": (chip_smoke.PHI_2, [300, 17, 129])}
+               "phi2": (chip_smoke.PHI_2, [300, 17, 129]),
+               "stablelm2": (chip_smoke.STABLELM_2_12B, [300, 17, 129])}
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", choices=sorted(configs))
     parser.add_argument("layers", type=int, nargs="+")

@@ -975,6 +975,96 @@ CHATGLM3_6B = {
     "tie_word_embeddings": False,
     "torch_dtype": "bfloat16",
 }
+# Slice 21's, from their published config.json values. StableLM-2-12B
+# (stabilityai/stablelm-2-12b): 32 heads of 160 on 8 kv heads, rotary over
+# a quarter of each (40 dims), a parallel residual with two LayerNorms
+# (its qk_layernorm is read by neither package: ROADMAP §3).
+STABLELM_2_12B = {
+    "architectures": ["StableLmForCausalLM"],
+    "hidden_size": 5120,
+    "intermediate_size": 13824,
+    "num_hidden_layers": 40,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "partial_rotary_factor": 0.25,
+    "rope_theta": 10000,
+    "use_parallel_residual": True,
+    "qk_layernorm": True,
+    "use_qkv_bias": False,
+    "hidden_act": "silu",
+    "layer_norm_eps": 1e-5,
+    "max_position_embeddings": 4096,
+    "vocab_size": 100352,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+# StarCoder (bigcode/starcoder, GPTBigCode): 48 heads of 128 on one kv
+# head (multi-query: the decode kernel's wide form at QH/KV 48), learned
+# positions over 8192, the tanh-GELU MLP, a tied head.
+STARCODER = {
+    "architectures": ["GPTBigCodeForCausalLM"],
+    "n_embd": 6144,
+    "n_head": 48,
+    "n_layer": 40,
+    "n_inner": 24576,
+    "n_positions": 8192,
+    "multi_query": True,
+    "activation_function": "gelu_pytorch_tanh",
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 49152,
+    "torch_dtype": "bfloat16",
+}
+# OPT-6.7B (facebook/opt-6.7b): MHA, 32 heads of 128, learned positions
+# with OPT's offset of 2, a ReLU MLP, a tied head.
+OPT_6P7B = {
+    "architectures": ["OPTForCausalLM"],
+    "hidden_size": 4096,
+    "num_attention_heads": 32,
+    "num_hidden_layers": 32,
+    "ffn_dim": 16384,
+    "max_position_embeddings": 2048,
+    "word_embed_proj_dim": 4096,
+    "do_layer_norm_before": True,
+    "activation_function": "relu",
+    "vocab_size": 50272,
+    "torch_dtype": "bfloat16",
+}
+# GPT-2-XL (openai-community/gpt2-xl): 25 heads of 64 (MHA), 1024 learned
+# positions, Conv1D weights, a tied head.
+GPT2_XL = {
+    "architectures": ["GPT2LMHeadModel"],
+    "n_embd": 1600,
+    "n_head": 25,
+    "n_layer": 48,
+    "n_inner": None,
+    "n_positions": 1024,
+    "n_ctx": 1024,
+    "activation_function": "gelu_new",
+    "layer_norm_epsilon": 1e-5,
+    "vocab_size": 50257,
+    "torch_dtype": "bfloat16",
+}
+# Granite-3.1-8B (ibm-granite/granite-3.1-8b-instruct): the Llama topology
+# at QH/KV 4 with its four muP multipliers.
+GRANITE_31_8B = {
+    "architectures": ["GraniteForCausalLM"],
+    "hidden_size": 4096,
+    "intermediate_size": 12800,
+    "num_hidden_layers": 40,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "embedding_multiplier": 12.0,
+    "residual_multiplier": 0.22,
+    "attention_multiplier": 0.0078125,
+    "logits_scaling": 16.0,
+    "rope_theta": 10000000.0,
+    "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 131072,
+    "attention_bias": False,
+    "vocab_size": 49155,
+    "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16",
+}
 # Qwen2.5-7B with the YaRN scaling its model card documents for long
 # contexts (factor 4 over its 32768 positions).
 QWEN25_7B_YARN = dict(QWEN25_7B, rope_scaling={
@@ -1080,7 +1170,10 @@ def with_layers(config: dict, layers: int) -> dict:
 # the ragged kernel's runtime-QG instantiation with ALiBi); and slice 20's:
 # Phi-2 (MHA at head_dim 80) and 20 query heads on one kv head at 80 (the
 # decode kernel's wide form, whose 256 threads take a narrow tile's 640
-# copies in two and a half rounds).
+# copies in two and a half rounds); and slice 21's: StableLM-2-12B (QH/KV 4
+# at head_dim 160, whose Q fragments both kernels read from the staged
+# rows at every k16 step) and 20 query heads on one kv head at 160 (the
+# wide form at 160).
 ATTN_GEOMETRIES = {
     "baichuan2-13b 40/40 alibi": (40, 40, 128, True),
     "bench-1.4b 16/8": (16, 8, 128, False),
@@ -1101,6 +1194,8 @@ ATTN_GEOMETRIES = {
     "bloom-560m 16/16 alibi d64": (16, 16, 64, True),
     "phi-2 32/32 d80": (32, 32, 80, False),
     "qg20 20/1 d80": (20, 1, 80, False),
+    "stablelm-2-12b 32/8 d160": (32, 8, 160, False),
+    "qg20 20/1 d160": (20, 1, 160, False),
 }
 # And with Phi-3-Small's blocksparse mask: (block size, local blocks,
 # vertical stride); query head h has phase h * max(1, stride // QH).
@@ -6017,6 +6112,34 @@ def main_paths():
             model_config=with_layers(CHATGLM3_6B, 4), f64_floor=True),
         "qwen2.5-7b yarn, 4 layers": dict(
             model_config=with_layers(QWEN25_7B_YARN, 4), f64_floor=True),
+        # Slice 21: head_dim 160 and the learned-position and Llama-hook
+        # families. StableLM-2-12B at full width and all 40 layers (the
+        # headline: both kernels at d160, its window held graphed against
+        # eager), on E4M3 pages at 4; StarCoder (the decode kernel's wide
+        # form at QH/KV 48, learned positions), OPT-6.7B (OPT's offset of
+        # 2), GPT-2-XL (MHA at d64, 1024 learned positions: its prompts of
+        # 16-960 tokens and 64 new ones stay inside the table) and
+        # Granite-3.1-8B (the four multipliers), each at 4 layers; the
+        # windows of GPT-2-XL (learned positions) and Granite (the
+        # residual multiplier) are held graphed against eager.
+        "stablelm-2-12b": dict(model_config=STABLELM_2_12B,
+                               window_check=True, f64_floor=True),
+        "stablelm-2-12b+fp8_e4m3, 4 layers": dict(
+            model_config=with_layers(STABLELM_2_12B, 4),
+            kv_cache_dtype="fp8_e4m3", f64_floor=True),
+        "starcoder, 4 layers": dict(model_config=with_layers(STARCODER, 4),
+                                    f64_floor=True),
+        "opt-6.7b, 4 layers": dict(model_config=with_layers(OPT_6P7B, 4),
+                                   f64_floor=True),
+        "gpt2-xl, 4 layers": dict(
+            model_config=with_layers(GPT2_XL, 4), window_check=True,
+            prompt_lens=np.random.default_rng(SEED).integers(
+                16, GPT2_XL["n_positions"] - MAX_TOKENS + 1,
+                size=NUM_REQUESTS),
+            f64_floor=True),
+        "granite-3.1-8b, 4 layers": dict(
+            model_config=with_layers(GRANITE_31_8B, 4), window_check=True,
+            f64_floor=True),
     }
     return {name: {"prompt_lens": prompt_lens, **kw}
             for name, kw in paths.items()}
@@ -6124,6 +6247,13 @@ def main() -> None:
         prompt_lens, iters=100, errs=errs, page_types=("bf16", "e4m3"),
         layers=4)
     stamp("timings: attention, Phi-2 geometry")
+    # Slice 21's: StableLM-2-12B (head_dim 160) at its paths' prompts, on
+    # bf16 and E4M3 pages (its 4-layer path's).
+    geometry_times["stablelm-2-12b 32/8 d160"] = kernel_timings(
+        "cuda", "stablelm-2-12b 32/8 d160",
+        ATTN_GEOMETRIES["stablelm-2-12b 32/8 d160"], prompt_lens, iters=100,
+        errs=errs, page_types=("bf16", "e4m3"), layers=4)
+    stamp("timings: attention, StableLM-2-12B geometry")
     rel_bias_times = rel_bias_timings("cuda", errs)
     stamp("timings: attention with the T5 bias")
     int4_points = int4_timings("cuda", iters=200)

@@ -251,14 +251,15 @@ def test_attention_kernels_every_qg_and_alibi_on_card(op, qg, alibi, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 160, 256])
 @pytest.mark.parametrize("qg", [1, 3, 5, 6, 7, 8, 12, 16])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
 def test_attention_kernels_head_dim_and_every_qg_on_card(op, qg, head_dim,
                                                         name):
     """Each kernel at head_dim 64, 80 (Phi-2, whose narrow tiles take a
     copy round of half the threads in the 256-thread forms), 96
-    (Phi-3-mini), 128 and 256 (Gemma)
+    (Phi-3-mini), 128, 160 (StableLM-2-12B, Q read from the staged rows
+    at every k16 step) and 256 (Gemma)
     and QH/KV from 1 to 16 (2 kv heads), among them Qwen2.5's 5, 6 and 7
     and Llama-3.2-3B's 3, which the decode kernel serves as rows of one
     mma tile and the ragged one from its runtime-QG instantiation (tiles
@@ -342,7 +343,7 @@ def _attention_case(op, rng, qg, kvh, head_dim, name, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 80, 128])
+@pytest.mark.parametrize("head_dim", [64, 80, 128, 160])
 @pytest.mark.parametrize("qg,kvh", [(17, 2), (71, 1), (71, 2), (130, 1)],
                          ids=["qg17", "qg71_kv1", "qg71_kv2", "qg130"])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
@@ -350,7 +351,8 @@ def test_attention_kernels_many_queries_per_kv_on_card(op, qg, kvh, head_dim,
                                                        name):
     """Each kernel above 16 query heads per kv head: Falcon-7B's 71 on one
     and on two kv heads, 17 (two head tiles), and 130 (the decode kernel's
-    two head groups of 128), where the decode kernel runs its wide form
+    two head groups of 128), at head_dim 64, 80, 128 and 160, where the
+    decode kernel runs its wide form
     (eight warps, one head tile each) and the ragged one tiles the
     flattened (token, head) rows, a tile ending inside a token's heads; on
     each page type, with a window and a soft cap, against its plain
@@ -378,13 +380,13 @@ def test_attention_kernels_many_queries_per_kv_on_card(op, qg, kvh, head_dim,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 80, 96, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 160, 256])
 @pytest.mark.parametrize("qg", [1, 2, 71])
 @pytest.mark.parametrize("op", ["ragged", "decode"])
 def test_attention_kernels_alibi_every_head_dim_on_card(op, qg, head_dim,
                                                         name):
-    """ALiBi off head_dim 128 (Bloom's and Falcon-RW's 64, and 80, 96 and
-    256)
+    """ALiBi off head_dim 128 (Bloom's and Falcon-RW's 64, and 80, 96, 160
+    and 256)
     at 1, 2 and 71 query heads per kv head (2 kv heads), with the model's
     slope table and a soft cap, on each page type, against the plain
     version row by row (ROW_TOL), over rows of 1000+ keys where the bias
@@ -470,7 +472,7 @@ def test_alibi_d128_fixed_qg_outputs_unchanged_on_card(op, qg, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
-@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 128, 160, 256])
 @pytest.mark.parametrize("qg", [1, 2, 71])
 def test_decode_kernel_t5_bias_on_card(qg, head_dim, name):
     """The decode kernel with T5's bias table (32 buckets up to distance
