@@ -24,8 +24,8 @@
 //
 // Shared-memory tiles hold bf16 rows of D values at a stride of D + 8 (an
 // odd number of 16-byte units: 9 at head_dim 64, 11 at 80, 13 at 96, 17 at
-// 128, 21 at 160, 33 at 256), so the eight row addresses of each ldmatrix
-// are 16-byte aligned and fall on distinct banks. Every loop over D takes
+// 128, 21 at 160, 33 at 256, 49 at 384), so the eight row addresses of
+// each ldmatrix are 16-byte aligned and fall on distinct banks. Every loop over D takes
 // one k16 step (16 dimensions) at a time, so D 80's five steps and D 160's
 // ten need nothing of their own.
 
@@ -289,12 +289,14 @@ __device__ __forceinline__ void softmax_step(float s[NB][4], float m[2], float l
 }
 
 // o += P . V over the NB * 8 keys from `vals` (the V tile's row of the
-// first key), with P (the probabilities in s) taken as hi + lo, both bf16
+// first key, offset to the first of the kCols columns o holds: all D of
+// them but in the ragged kernel at head_dim 384, where a warp holds 128),
+// with P (the probabilities in s) taken as hi + lo, both bf16
 // (hi = P rounded, lo = the rest rounded), in two products: about 2^-17
 // of each probability, where hi alone errs by about 2^-9 (24 layers on
 // E4M3 pages grew that to 4.8e-2 of a logits row; PERF.md).
-template <int D, int NB>
-__device__ __forceinline__ void pv(float o[D / 8][4], float s[NB][4],
+template <int D, int NB, int kCols = D>
+__device__ __forceinline__ void pv(float o[kCols / 8][4], float s[NB][4],
                                    const __nv_bfloat16* vals) {
   const int lane = threadIdx.x % 32;
   const int mi = lane / 8;
@@ -314,7 +316,7 @@ __device__ __forceinline__ void pv(float o[D / 8][4], float s[NB][4],
       a_lo[i] = pack_bf16(p[i][0] - __low2float(hi), p[i][1] - __high2float(hi));
     }
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < kCols / 16; ++dp) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, vals + (j * 16 + (mi & 1) * 8 + lane % 8) * Tile<D>::kStride +
                                dp * 16 + (mi / 2) * 8);

@@ -11,7 +11,8 @@
 // by token: row f is token f / QG and query head f % QG of the QG = QH /
 // KV heads that share the kv head. A query tile holds kRows consecutive
 // rows of that order (128 at head_dim 80, 96, 128, 160 and 256, 8 warps; 64
-// at head_dim 64, 4 warps) of ONE sequence, so a tile never straddles two
+// at head_dim 64, 4 warps; 32 at head_dim 384, 6 warps, three a 16-row
+// group: RaggedShape) of ONE sequence, so a tile never straddles two
 // sequences and every K/V tile it stages serves all of its rows; each
 // row carries its own token position for the causal mask, the window and
 // the ALiBi distance. Only a sequence's last tile has idle rows. Where QG
@@ -23,8 +24,9 @@
 // sequence the tiles that see the most keys start first. QG is a template
 // parameter, instantiated at head_dim 128 for 1, 2, 4 and 8, and 0, which
 // reads QG at run time and serves every other QG, and every QG at head_dim
-// 64, 80, 96, 160 and 256. head_dim D (64, 80, 96, 128, 160 or 256) is a template
-// parameter too. So are ALiBi and blocksparse, so that the variant without either
+// 64, 80, 96, 160, 256 and 384. head_dim D (64, 80, 96, 128, 160, 256 or
+// 384) is a template parameter too. So are ALiBi and blocksparse, so that
+// the variant without either
 // carries no per-score branch for them. ALiBi reads each row's slope by
 // its query head, at every D and QG (the fixed instantiations at D 128,
 // and the runtime one elsewhere). Blocksparse is built for D 128 and QG
@@ -32,9 +34,10 @@
 // skip tests every head's phase from a table of QG entries). The plain variants are built from
 // ragged_paged_attention.cu, those with ALiBi from
 // ragged_paged_attention_alibi.cu and those with blocksparse from
-// ragged_paged_attention_blocksparse.cu: three libraries that nvcc builds
-// in parallel (no model has both options; the wrapper raises for the
-// pair). Each block finds its (sequence, first token) by walking
+// ragged_paged_attention_blocksparse.cu, and the plain ones at head_dim 384
+// (neither option) from ragged_paged_attention_d384.cu: four libraries
+// that nvcc builds in parallel (no model has both options; the wrapper
+// raises for the pair). Each block finds its (sequence, first token) by walking
 // cu_q_lens on the device: the grid is an upper bound on the tile count
 // (ceil(T / tokens) + S) and surplus blocks exit, so the launch needs no
 // host-side value and no synchronisation.
@@ -46,16 +49,18 @@
 // - both products on the tensor cores, mma.sync m16n8k16 bf16 with f32
 //   sums: each warp owns 16 query rows, holds their Q fragments in
 //   registers (one ldmatrix per 16 dimensions, loaded once; at head_dim
-//   160 and 256, where O alone takes 80 and 128 registers a thread, it
-//   reads them from the staged rows at each k16 step instead, and at 256
-//   takes each tile in two 32-key steps), reads K through ldmatrix and V
+//   160, 256 and 384, where O alone takes 80, 128 and 192 registers a
+//   thread, it reads them from the staged rows at each k16 step instead,
+//   at 256 takes each tile in two 32-key steps, and at 384 splits O's
+//   columns over three warps), reads K through ldmatrix and V
 //   through ldmatrix.trans,
 //   and hands P from the S accumulator to the A fragments of P . V in
 //   registers;
 // - bf16 K/V tiles of 64 keys (four 16-key pages) in shared memory at a
 //   padded stride (no bank conflicts for ldmatrix), in a three-stage
 //   cp.async ring: tiles i + 1 and i + 2 load while tile i is multiplied,
-//   behind one barrier a tile (two stages at head_dim 256, for room).
+//   behind one barrier a tile (two stages at head_dim 256 and 384, for
+//   room).
 //   Narrow pages (E4M3, E5M2, int8) are copied raw into a byte stage and
 //   widened to bf16 in one pass before the products;
 // - the online softmax in registers (row max and sum across the four
@@ -133,12 +138,28 @@ namespace {
 // halves of 32 at head_dim 256, so that S takes 16 registers a thread
 // beside O's 128 (D / 8 fragments of four). At 160, O's 80 registers leave
 // room for S's 32 of the whole tile.
+// At head_dim 384 (MiniCPM3's latent cache: 256 + 32 padded to 384) a
+// warp's O for 16 rows would be 192 registers a thread, so O is split by
+// columns: each 16-row group of the tile is served by kColWarps = 3 warps,
+// warp c of a group owning O's columns [128 c, 128 c + 128) (64
+// registers). Each of the three computes the group's whole S from the
+// staged query rows and runs the same online softmax (the same
+// instructions on the same values: bit-equal maxima and sums), and takes
+// P . V for its own columns only: 5/3 of the tensor-core work of one
+// owner, and no exchange through shared memory. Two row groups (32 rows, 6
+// warps) a block: a bf16 stage of 64 keys at a stride of 392 is 100352
+// bytes, 2 x 100352 + 32 staged rows (25088) = 225792 of the 232448 bytes
+// a block may have (narrow pages: 100352 widened + 2 x 49152 raw + 25088 =
+// 223744); whole 64-key steps (S's 32 registers beside O's 64).
 template <int D>
 struct RaggedShape {
-  static constexpr int kWarps = D == 64 ? 4 : 8;
+  static constexpr int kColWarps = D == 384 ? 3 : 1;  // warps a row group
+  static constexpr int kRowGroups = D == 64 ? 4 : D == 384 ? 2 : 8;
+  static constexpr int kWarps = kRowGroups * kColWarps;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRows = 16 * kWarps;  // query rows per block
-  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kRows = 16 * kRowGroups;  // query rows per block
+  static constexpr int kOCols = D / kColWarps;   // O's columns a warp
+  static constexpr int kStages = D == 256 || D == 384 ? 2 : 3;
   static constexpr int kSubKeys = D == 256 ? 32 : attn::kTileKeys;
 };
 constexpr int kKeys = attn::kTileKeys;
@@ -148,7 +169,7 @@ constexpr int kKeys = attn::kTileKeys;
 // of bf16 tiles they are widened into. The query rows (kRows of them at
 // the tiles' stride: the size of one K and V pair) are staged once, before
 // the loop, in the last stage, which the loop fills first (narrow pages:
-// in the widened pair); at head_dim 160 and 256, where they are read at
+// in the widened pair); at head_dim 160, 256 and 384, where they are read at
 // every tile, in a region of their own after the ring.
 template <class Page, int D>
 struct RaggedSmem {
@@ -182,12 +203,14 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kSub = RaggedShape<D>::kSubKeys;
   constexpr int kStride = attn::Tile<D>::kStride;
   constexpr size_t kTileElems = attn::Tile<D>::kBytes / 2;  // one K or V tile
+  constexpr int kColWarps = RaggedShape<D>::kColWarps;
+  constexpr int kOCols = RaggedShape<D>::kOCols;
   const int qg = QG > 0 ? QG : qg_rt;
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stages = smem + L::wide;
   __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem);
-  // The query rows: in their own region (head_dim 160, 256), in the widened
+  // The query rows: in their own region (head_dim 160, 256, 384), in the widened
   // pair, or in the last stage (the first that the loop fills).
   __nv_bfloat16* q_s =
       !attn::QFrags<D>::kHeld ? reinterpret_cast<__nv_bfloat16*>(smem + L::ring)
@@ -221,6 +244,10 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  // This warp's 16 rows (its row group) and its columns of O (all of them
+  // but at head_dim 384).
+  const int rg = warp / kColWarps;
+  const int col0 = (warp % kColWarps) * kOCols;
   const int num_q_heads = num_kv_heads * qg;
   const int ckv = 2 * num_kv_heads;
   const int q_start = cu_q_lens[seq];
@@ -310,7 +337,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   attn::QFrags<D> qf;
-  attn::load_q<D>(qf, q_s + warp * 16 * kStride);
+  attn::load_q<D>(qf, q_s + rg * 16 * kStride);
 
   // This lane's two rows (g and g + 8 of the warp's 16), and the span of
   // token positions of the warp's live rows.
@@ -320,7 +347,7 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   int phase[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + lane / 4 + 8 * r;
+    const int row = rg * 16 + lane / 4 + 8 * r;
     const int f = tile_f0 + row;
     live_row[r] = row < n_rows;
     pos[r] = pos_base + f / qg;
@@ -337,17 +364,17 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     bq[1] = pos[1] / bs.block;
     one_block = bs.block % kKeys == 0;
   }
-  const bool warp_live = warp * 16 < n_rows;
-  const int w_pos_min = pos_base + (tile_f0 + warp * 16) / qg;
-  const int w_pos_max = pos_base + (tile_f0 + min(n_rows - 1, warp * 16 + 15)) / qg;
+  const bool warp_live = rg * 16 < n_rows;
+  const int w_pos_min = pos_base + (tile_f0 + rg * 16) / qg;
+  const int w_pos_max = pos_base + (tile_f0 + min(n_rows - 1, rg * 16 + 15)) / qg;
   const int w_hi = min(kv_hi, w_pos_max + 1);
   const int w_lo = sliding_window > 0 ? max(0, w_pos_min - sliding_window + 1) : 0;
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[kOCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < kOCols / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
   for (int it = 0; tile < kv_hi; ++it) {
     const int cur = tile;
@@ -418,8 +445,8 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
           s[nb][e] = v;
         }
       }
-      attn::softmax_step<D, kSub / 8>(s, m, l, o);
-      attn::pv<D, kSub / 8>(o, s, k_t + kTileElems + sub * kStride);
+      attn::softmax_step<kOCols, kSub / 8>(s, m, l, o);
+      attn::pv<D, kSub / 8, kOCols>(o, s, k_t + kTileElems + sub * kStride + col0);
     }
   }
 
@@ -427,12 +454,12 @@ ragged_paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (!live_row[r]) continue;
-    const int f = tile_f0 + warp * 16 + lane / 4 + 8 * r;
+    const int f = tile_f0 + rg * 16 + lane / 4 + 8 * r;
     const size_t head = size_t(q_start + f / qg) * num_q_heads + kvh * qg + f % qg;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* dst = out + head * D + 2 * (lane % 4);
+    __nv_bfloat16* dst = out + head * D + col0 + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < kOCols / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
           __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
   }
@@ -502,10 +529,12 @@ cudaError_t launch_d(const void* q, const void* kv, const int* kv_lens, const in
 }
 
 // Checks the shape and launches the variant for pages of type Page,
-// head_dim 64, 80, 96, 128, 160 or 256, QG = num_q_heads / num_kv_heads query
+// head_dim 64, 80, 96, 128, 160 or 256 (ONLY_D 0) or ONLY_D alone (384:
+// the library of ragged_paged_attention_d384.cu, built apart so that its
+// compile runs beside the others'), QG = num_q_heads / num_kv_heads query
 // heads per kv head (any), ALiBi (a slope table given) or not and
 // blocksparse (a phase table given) or not.
-template <class Page, bool ALIBI, bool BLOCKSPARSE>
+template <class Page, bool ALIBI, bool BLOCKSPARSE, int ONLY_D = 0>
 int run(const void* q, const void* kv_pages, const void* kv_lens, const void* page_indices,
         const void* cu_q_lens, const void* alibi_slopes, void* out, int num_tokens,
         int num_seqs, int num_q_heads, int num_kv_heads, int head_dim, int page_size,
@@ -528,21 +557,25 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
   launch_d<Page, d, ALIBI, BLOCKSPARSE>(q, kv_pages, lens, pages, cu, slopes, out, num_tokens, \
                                         num_seqs, num_kv_heads, qg, page_size, pages_per_seq,  \
                                         sm_scale, sliding_window, soft_cap, bs, s)
-  switch (head_dim) {
-    case 64:
-      return int(RAGGED_LAUNCH_D(64));
-    case 80:
-      return int(RAGGED_LAUNCH_D(80));
-    case 96:
-      return int(RAGGED_LAUNCH_D(96));
-    case 128:
-      return int(RAGGED_LAUNCH_D(128));
-    case 160:
-      return int(RAGGED_LAUNCH_D(160));
-    case 256:
-      return int(RAGGED_LAUNCH_D(256));
-    default:
-      return int(cudaErrorInvalidValue);
+  if constexpr (ONLY_D != 0) {
+    return head_dim == ONLY_D ? int(RAGGED_LAUNCH_D(ONLY_D)) : int(cudaErrorInvalidValue);
+  } else {
+    switch (head_dim) {
+      case 64:
+        return int(RAGGED_LAUNCH_D(64));
+      case 80:
+        return int(RAGGED_LAUNCH_D(80));
+      case 96:
+        return int(RAGGED_LAUNCH_D(96));
+      case 128:
+        return int(RAGGED_LAUNCH_D(128));
+      case 160:
+        return int(RAGGED_LAUNCH_D(160));
+      case 256:
+        return int(RAGGED_LAUNCH_D(256));
+      default:
+        return int(cudaErrorInvalidValue);
+    }
   }
 #undef RAGGED_LAUNCH_D
 }
@@ -550,7 +583,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 }  // namespace
 
 // One entry point: `name`, for pages of type Page, with ALiBi or not and
-// blocksparse or not. q bf16[T, QH, D] with D = 64, 80, 96, 128, 160 or 256 and QH = QG * KV
+// blocksparse or not, and with only_d 0 (D = 64, 80, 96, 128, 160 or 256)
+// or only_d alone (384). q bf16[T, QH, D] with QH = QG * KV
 // for any QG (with blocksparse: D = 128 and QG in {1, 2, 4, 8}), kv_pages
 // [P, page_size, 2 * KV, D] of the named type,
 // kv_lens i32[S], page_indices i32[S, pages_per_seq], cu_q_lens i32[S + 1],
@@ -560,7 +594,8 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
 // bs_vert (the blocksparse entry points) or null (the others). Returns the
 // CUDA error of the launch (cudaErrorInvalidValue for any other D or QH /
 // KV, or a slope or phase table that does not match the entry).
-#define RAGGED_ENTRY(name, Page, alibi, blocksparse)                                          \
+#define RAGGED_ENTRY(name, Page, alibi, blocksparse) RAGGED_ENTRY_D(name, Page, alibi, blocksparse, 0)
+#define RAGGED_ENTRY_D(name, Page, alibi, blocksparse, only_d)                                \
   extern "C" int name(const void* q, const void* kv_pages, const void* kv_lens,              \
                       const void* page_indices, const void* cu_q_lens,                       \
                       const void* alibi_slopes, void* out, int num_tokens, int num_seqs,     \
@@ -568,7 +603,7 @@ int run(const void* q, const void* kv_pages, const void* kv_lens, const void* pa
                       int pages_per_seq, float sm_scale, int sliding_window,                 \
                       float soft_cap, const void* bs_offsets, int bs_block, int bs_local,    \
                       int bs_vert, void* stream) {                                           \
-    return run<Page, alibi, blocksparse>(                                                    \
+    return run<Page, alibi, blocksparse, only_d>(                                            \
         q, kv_pages, kv_lens, page_indices, cu_q_lens, alibi_slopes, out, num_tokens,        \
         num_seqs, num_q_heads, num_kv_heads, head_dim, page_size, pages_per_seq, sm_scale,   \
         sliding_window, soft_cap, bs_offsets, bs_block, bs_local, bs_vert, stream);          \

@@ -35,3 +35,8 @@ class ForwardBatch(NamedTuple):
     # None for a decoder-only model.
     cross_page_indices: Optional[torch.Tensor] = None  # i32[S, enc_pages]
     cross_kv_lens: Optional[torch.Tensor] = None  # i32[S]
+    # A pure-decode batch's cu_q_lens for the ragged kernel, i32[S + 1] =
+    # arange(S + 1): a head_dim the decode kernel does not take (MLA's
+    # latent 384) attends through the ragged kernel over it. The decode
+    # window's static buffer, so its CUDA graph holds it; None elsewhere.
+    decode_cu_q_lens: Optional[torch.Tensor] = None

@@ -82,7 +82,10 @@ Hooks serve the subclasses, as in the JAX package:
 - ``norm_parametric`` False: every norm a LayerNorm without weight or
   bias, and no norm parameters at all (OLMo);
 - ``qkv_clip``: q, k and v clamped to [-clip, clip] before the reshape
-  to heads (OLMo's clip_qkv), 0.0 meaning off.
+  to heads (OLMo's clip_qkv), 0.0 meaning off;
+- ``branch_norms``: OLMo2's order, no norm before either block, and
+  ``input_norm`` / ``post_norm`` normalizing the attention and MLP outputs
+  before their residual adds (Gemma2's sandwich without the norms before).
 Every hook is a Python choice made at init, so the decode window's CUDA
 graph captures the forward as it stands.
 """
@@ -148,6 +151,8 @@ class LlamaForCausalLM:
     # OLMo: LayerNorms without weight or bias; q, k, v clamped (0.0: off).
     norm_parametric: bool = True
     qkv_clip: float = 0.0
+    # OLMo2: the two norms on the blocks' outputs, none before the blocks.
+    branch_norms: bool = False
     # Gemma: RMSNorm by (offset + w), embeddings times sqrt(hidden), the
     # MLP's activation ("silu" or "gelu_tanh"), soft caps (0.0: off).
     norm_weight_offset: float = 0.0
@@ -481,9 +486,9 @@ class LlamaForCausalLM:
                               self._sin_local[batch.positions])
         sandwich = "post_attn_norm" in lp
         for layer in range(self.num_layers):
-            h = x if self.postnorm_residual else self._norm(
-                x, self._layer_param(lp, "input_norm", layer),
-                self._layer_param(lp, "input_norm_b", layer))
+            h = x if self.postnorm_residual or self.branch_norms else (
+                self._norm(x, self._layer_param(lp, "input_norm", layer),
+                           self._layer_param(lp, "input_norm_b", layer)))
             qkv = self._linear(lp, h, ("wqkv", "wq", "wk", "wv"),
                                ("bqkv", "bq", "bk", "bv"), layer)
             if self.qkv_clip:
@@ -534,6 +539,11 @@ class LlamaForCausalLM:
                 h2 = h if self.single_norm else self._norm(x, *post_norm)
                 x = x + o.to(self.dtype) + self.mlp(lp, h2, layer).to(
                     self.dtype)
+                continue
+            if self.branch_norms:
+                x = x + self._norm(o.to(self.dtype), lp["input_norm"][layer])
+                ff = self.mlp(lp, x, layer).to(self.dtype)
+                x = x + self._norm(ff, *post_norm)
                 continue
             if self.postnorm_residual:
                 x = self._norm(x + o.to(self.dtype),

@@ -11,9 +11,10 @@ partial- and interleaved-rotary families GPT-NeoX (Pythia), Phi (1, 1.5,
 2), StableLM, Persimmon, GPT-J, Cohere, Nemotron, GLM-4 and ChatGLM, the
 learned-position families GPT-2, GPTBigCode (StarCoder) and OPT, and the
 Llama-body families Granite, SmolLM3, DeciLM, StarCoder2, Orion, OLMo,
-EXAONE and InternLM2 so far. Every other architecture the JAX package
-serves raises with the ROADMAP item that holds it (``_WAITING``); any
-other raises too.
+EXAONE, InternLM2, OLMo2 and MiniCPM (dense and MoE), and MiniCPM3 on the
+DeepSeek body's multi-head latent attention so far. Every other
+architecture the JAX package serves raises with the ROADMAP item that
+holds it (``_WAITING``); any other raises too.
 """
 
 from typing import Dict
@@ -42,10 +43,14 @@ from aphrodite_tpu_torch.models.granite import GraniteForCausalLM
 from aphrodite_tpu_torch.models.internlm2 import InternLM2ForCausalLM
 from aphrodite_tpu_torch.models.jais import JAISLMHeadModel
 from aphrodite_tpu_torch.models.llama import LlamaForCausalLM
+from aphrodite_tpu_torch.models.minicpm import (MiniCPM3ForCausalLM,
+                                                MiniCPMForCausalLM,
+                                                minicpm_class)
 from aphrodite_tpu_torch.models.mixtral import MixtralForCausalLM
 from aphrodite_tpu_torch.models.mpt import MPTForCausalLM
 from aphrodite_tpu_torch.models.nemotron import NemotronForCausalLM
 from aphrodite_tpu_torch.models.olmo import OlmoForCausalLM
+from aphrodite_tpu_torch.models.olmo2 import Olmo2ForCausalLM
 from aphrodite_tpu_torch.models.olmoe import OlmoeForCausalLM
 from aphrodite_tpu_torch.models.opt import OPTForCausalLM
 from aphrodite_tpu_torch.models.orion import OrionForCausalLM
@@ -131,6 +136,10 @@ _MODEL_REGISTRY: Dict[str, type] = {
     "OlmoForCausalLM": OlmoForCausalLM,
     "ExaoneForCausalLM": ExaoneForCausalLM,
     "InternLM2ForCausalLM": InternLM2ForCausalLM,
+    "Olmo2ForCausalLM": Olmo2ForCausalLM,
+    # The MoE variant where the config names experts (minicpm_class).
+    "MiniCPMForCausalLM": MiniCPMForCausalLM,
+    "MiniCPM3ForCausalLM": MiniCPM3ForCausalLM,
     # Encoder-decoders, as the JAX registry names them.
     "T5ForConditionalGeneration": T5ForConditionalGeneration,
     "T5WithLMHeadModel": T5ForConditionalGeneration,
@@ -144,9 +153,6 @@ _MODEL_REGISTRY: Dict[str, type] = {
 _DENSE = "the rest of the dense zoo (item 3"
 _MULTIMODAL = "its vision or audio tower (item 10, the multimodal towers)"
 _WAITING = {
-    "Olmo2ForCausalLM": f"{_DENSE}: OLMo2's own forward)",
-    "MiniCPMForCausalLM": f"{_DENSE}: MiniCPM's muP scales)",
-    "MiniCPM3ForCausalLM": f"{_DENSE}: MLA)",
     "SolarForCausalLM": f"{_DENSE}: Solar's bskcn segments)",
     "QWenLMHeadModel": f"{_DENSE}: Qwen v1)",
     "MambaForCausalLM": "the SSMs (item 10)",
@@ -170,10 +176,15 @@ _WAITING = {
                          "Arctic)",
     "DeepseekForCausalLM": "DeepSeek's shared experts and dense first "
                            "layers (item 7, DeepSeek)",
-    "DeepseekV2ForCausalLM": "MLA with its latent cache and the grouped "
-                             "sigmoid router (item 7, DeepSeek V2/V3)",
-    "DeepseekV3ForCausalLM": "MLA with its latent cache and the grouped "
-                             "sigmoid router (item 7, DeepSeek V2/V3)",
+    # MLA with its latent cache is ported (models/deepseek.py, MiniCPM3);
+    # the routed and shared experts are not, nor the ragged kernel at
+    # their latent head_dim of 640.
+    "DeepseekV2ForCausalLM": "the MoE half of the DeepSeek body, its "
+                             "routed and shared experts and grouped router, "
+                             "and head_dim 640 (item 7, DeepSeek V2/V3)",
+    "DeepseekV3ForCausalLM": "the MoE half of the DeepSeek body, its "
+                             "routed and shared experts and grouped router, "
+                             "and head_dim 640 (item 7, DeepSeek V2/V3)",
     "QuantMixtralForCausalLM": "GPTQ/AWQ checkpoints of MoE models (item 7, "
                                "quantized MoE checkpoints)",
     "WhisperForConditionalGeneration": "the audio encoder (item 10, "
@@ -200,6 +211,8 @@ def get_model_class(model_config: ModelConfig) -> type:
             f"architecture {arch!r} is not ported to the PyTorch package "
             f"yet: it waits for {_WAITING[arch]} in ROADMAP.md's module "
             "queue. The JAX package (aphrodite_tpu) serves it.")
+    if arch == "MiniCPMForCausalLM":
+        return minicpm_class(model_config.hf_config)
     if arch not in _MODEL_REGISTRY:
         raise ValueError(
             f"architecture {arch!r} is not ported to the PyTorch package "

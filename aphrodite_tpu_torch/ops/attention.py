@@ -7,7 +7,13 @@ paged KV cache.
 - ``ref_ragged_paged_attention``: the plain PyTorch version. The CPU path
   and the reference the CUDA kernel is held against.
 - ``ragged_paged_attention``: the dispatching wrapper. ``cu_q_lens=None``
-  marks a pure-decode batch and goes to ``paged_decode_attention``. Else
+  marks a pure-decode batch and goes to ``paged_decode_attention``, or, at
+  a head_dim the decode kernel does not take (384: MiniCPM3's latent MLA
+  head), to this kernel over cu_q_lens = arange(S + 1), one token a
+  sequence, as the JAX package routes it (its decode kernel takes only 64
+  and 128); the arange is the decode window's static buffer
+  (``decode_cu_q_lens``), so its CUDA graph holds it and no host value is
+  read. Else
   CPU tensors take the plain version, and CUDA tensors launch the
   hand-written Hopper kernel ``csrc/ragged_paged_attention.cuh`` (which
   replaces the TPU kernel behind aphrodite_tpu/ops/attention.py:
@@ -39,7 +45,10 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.decode_attention import (BLOCKSPARSE_ARGTYPES,
+                                                      DECODE_HEAD_DIMS,
                                                       KERNEL_PAGE_TYPES,
+                                                      RAGGED_HEAD_DIMS,
+                                                      RAGGED_ONLY_HEAD_DIMS,
                                                       attend,
                                                       blocksparse_args,
                                                       check_kernel_inputs,
@@ -98,11 +107,12 @@ def ref_ragged_paged_attention(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(page_type: str, alibi: bool, blocksparse: bool):
-    # The variants with ALiBi and those with blocksparse are libraries of
-    # their own (built in parallel with the plain one).
+def _kernel(page_type: str, alibi: bool, blocksparse: bool, head_dim: int):
+    # The variants with ALiBi, those with blocksparse and those at head_dim
+    # 384 are libraries of their own (built in parallel with the plain one).
     name = ("ragged_paged_attention" + ("_alibi" if alibi else "")
-            + ("_blocksparse" if blocksparse else ""))
+            + ("_blocksparse" if blocksparse else "")
+            + (f"_d{head_dim}" if head_dim in RAGGED_ONLY_HEAD_DIMS else ""))
     fn = getattr(cuda_build.load(name), f"{name}_{page_type}")
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
@@ -126,21 +136,32 @@ def ragged_paged_attention(
     blocksparse: Optional[Tuple[int, int, int]] = None,
     bs_head_offsets: Optional[torch.Tensor] = None,
     bs_on: bool = True,
+    decode_cu_q_lens: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """decode_cu_q_lens: with cu_q_lens None, arange(S + 1) as i32 on q's
+    device (the decode window's static buffer), which a head_dim the
+    decode kernel does not take launches this kernel over; made here if
+    not given."""
     kwargs = dict(sm_scale=sm_scale, sliding_window=sliding_window,
                   soft_cap=soft_cap, alibi_slopes=alibi_slopes,
                   blocksparse=blocksparse, bs_head_offsets=bs_head_offsets,
                   bs_on=bs_on)
     if cu_q_lens is None:
-        return paged_decode_attention(q, kv_pages, kv_lens, page_indices,
-                                      num_seqs, **kwargs)
+        if q.shape[-1] in DECODE_HEAD_DIMS:
+            return paged_decode_attention(q, kv_pages, kv_lens, page_indices,
+                                          num_seqs, **kwargs)
+        cu_q_lens = decode_cu_q_lens
+        if cu_q_lens is None:
+            cu_q_lens = torch.arange(q.shape[0] + 1, dtype=torch.int32,
+                                     device=q.device)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(q, kv_pages, kv_lens,
                                           page_indices, cu_q_lens, **kwargs)
     bs = blocksparse_args(blocksparse, bs_head_offsets, bs_on)
     check_kernel_inputs(q, kv_pages, (kv_lens, page_indices, cu_q_lens),
                         alibi_slopes,
-                        None if bs[0] is None else bs_head_offsets)
+                        None if bs[0] is None else bs_head_offsets,
+                        head_dims=RAGGED_HEAD_DIMS)
     num_tokens, num_q_heads, head_dim = q.shape
     num_seqs_padded = kv_lens.shape[0]
     if (cu_q_lens.shape != (num_seqs_padded + 1,)
@@ -152,7 +173,8 @@ def ragged_paged_attention(
     # them alone.
     out = torch.zeros_like(q)
     page_type = KERNEL_PAGE_TYPES[kv_pages.dtype]
-    err = _kernel(page_type, alibi_slopes is not None, bs[0] is not None)(
+    err = _kernel(page_type, alibi_slopes is not None, bs[0] is not None,
+                  head_dim)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(),
         slopes_ptr(alibi_slopes), out.data_ptr(), num_tokens,

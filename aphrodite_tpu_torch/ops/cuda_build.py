@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("paged_decode_attention", "paged_decode_attention_rel",
                   "ragged_paged_attention",
                   "ragged_paged_attention_alibi",
-                  "ragged_paged_attention_blocksparse", "int4p_matmul",
+                  "ragged_paged_attention_blocksparse",
+                  "ragged_paged_attention_d384", "int4p_matmul",
                   "int4_matmul", "int4p_matmul_w4a8", "gather_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -34,10 +34,11 @@ inside the kernel (every such value is exact in bf16); each page type has
 its own entry point of the same source. Scales never enter: the model
 folds k_scale into q and v_scale into the output (models/llama.py).
 
-Both kernels take head_dim 64, 80, 96, 128, 160 or 256 with any number of
+Both kernels take head_dim 64, 80, 96, 128, 160 or 256 (the ragged kernel
+384 too: ``RAGGED_HEAD_DIMS``) with any number of
 query heads per kv head (the instantiation is chosen at the launch; the decode
 kernel takes more than 16 in a kernel of its own, ``decode_head_groups``),
-and, at every one of those shapes, an optional ALiBi slope table
+and, at every one of those shapes but 384, an optional ALiBi slope table
 f32[QH]: score + slope[h] * (key position - query position), added after
 the soft cap and before the mask, as the JAX package adds it. Or, at
 head_dim 128 with 1, 2, 4 or 8 query heads per kv head and instead of
@@ -80,7 +81,14 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # without ALiBi.
 # Blocksparse is built for head_dim 128 at QH / KV 1, 2, 4 or 8 only
 # (Phi-3-Small's 4).
-KERNEL_HEAD_DIMS = (64, 80, 96, 128, 160, 256)
+DECODE_HEAD_DIMS = (64, 80, 96, 128, 160, 256)
+# The ragged kernel takes 384 too (MiniCPM3's latent MLA head, 256 + 32
+# padded to 384, in a library of its own, without ALiBi or blocksparse),
+# and a pure-decode batch at 384 with it: the JAX package's decode kernel
+# takes only 64 and 128 and sends a pure-decode batch at another head_dim
+# to its ragged kernel over cu_q_lens = arange(S + 1) (ops/attention.py).
+RAGGED_ONLY_HEAD_DIMS = (384,)
+RAGGED_HEAD_DIMS = DECODE_HEAD_DIMS + RAGGED_ONLY_HEAD_DIMS
 BLOCKSPARSE_HEAD_DIM = 128
 BLOCKSPARSE_QUERIES_PER_KV = (1, 2, 4, 8)
 # Up to this QH / KV the decode kernel holds a kv head's query heads as
@@ -466,11 +474,14 @@ def blocksparse_args(blocksparse: Optional[Tuple[int, int, int]],
 
 
 def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
-                        bs_head_offsets=None, rel_bias=None):
+                        bs_head_offsets=None, rel_bias=None,
+                        head_dims=DECODE_HEAD_DIMS):
     """Raise unless the tensors are what the CUDA attention kernels take.
     bs_head_offsets: the phase table of a launch with blocksparse on;
     rel_bias: a T5 table (the decode kernel's), which takes neither ALiBi
-    nor blocksparse beside it."""
+    nor blocksparse beside it; head_dims: the kernel's (the decode
+    kernel's by default, RAGGED_HEAD_DIMS for the ragged one, whose head_dim
+    384 takes neither ALiBi nor blocksparse)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype != torch.bfloat16 or kv_pages.dtype not in KERNEL_PAGE_TYPES:
@@ -480,12 +491,16 @@ def check_kernel_inputs(q, kv_pages, index_tensors, alibi_slopes=None,
             f"{q.dtype} and {kv_pages.dtype}")
     num_q_heads, head_dim = q.shape[1], q.shape[2]
     num_kv_heads = kv_pages.shape[2] // 2
-    if (head_dim not in KERNEL_HEAD_DIMS or kv_pages.shape[3] != head_dim
+    if (head_dim not in head_dims or kv_pages.shape[3] != head_dim
             or num_kv_heads < 1 or num_q_heads % num_kv_heads):
         raise ValueError(
-            f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS} and QH "
+            f"attention kernel takes head_dim in {head_dims} and QH "
             f"a multiple of KV; got q {tuple(q.shape)}, kv pages "
             f"{tuple(kv_pages.shape)}")
+    if alibi_slopes is not None and head_dim in RAGGED_ONLY_HEAD_DIMS:
+        raise ValueError(
+            f"attention kernel takes no ALiBi at head_dim {head_dim} (its "
+            f"library is built without it; ROADMAP.md §2, item 2)")
     qg = num_q_heads // num_kv_heads
     if bs_head_offsets is not None and (
             head_dim != BLOCKSPARSE_HEAD_DIM

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import aphrodite_tpu_torch.models.deepseek as deepseek_mod
 import aphrodite_tpu_torch.models.llama as llama_mod
 from aphrodite_tpu_torch import LLM
 from aphrodite_tpu_torch.models.interface import ForwardBatch
@@ -34,6 +35,15 @@ from aphrodite_tpu_torch.ops.decode_attention import (MASK_VALUE, gather_kv,
 
 REPO = Path(__file__).resolve().parents[2]
 PAGE = 16
+# The modules whose forwards call the attention wrapper: the Llama body's
+# and the MLA body's (MiniCPM3).
+ATTENTION_MODULES = (llama_mod, deepseek_mod)
+
+
+def swap_attention(attention) -> None:
+    """Every model forward's attention wrapper set to `attention`."""
+    for module in ATTENTION_MODULES:
+        module.ragged_paged_attention = attention
 
 
 def plain_f64(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs=None,
@@ -128,7 +138,7 @@ def measure(config, layers, lens, seed):
     kernel = llama_mod.ragged_paged_attention
 
     def logits(attention):
-        llama_mod.ragged_paged_attention = attention
+        swap_attention(attention)
         runner.kv_cache[:, :used] = base
         try:
             with torch.inference_mode():
@@ -137,7 +147,7 @@ def measure(config, layers, lens, seed):
                 return model.compute_logits(
                     params, h[batch.logits_indices])[:len(lens)].float()
         finally:
-            llama_mod.ragged_paged_attention = kernel
+            swap_attention(kernel)
 
     got, f32, f64 = (logits(a) for a in (kernel, ref_ragged_paged_attention,
                                           plain_f64))
@@ -165,7 +175,8 @@ def main() -> None:
                "llama": (chip_smoke.LLAMA_8B, [300, 17, 129]),
                "falcon7b": (chip_smoke.FALCON_7B, [300, 17, 129]),
                "phi2": (chip_smoke.PHI_2, [300, 17, 129]),
-               "stablelm2": (chip_smoke.STABLELM_2_12B, [300, 17, 129])}
+               "stablelm2": (chip_smoke.STABLELM_2_12B, [300, 17, 129]),
+               "minicpm3": (chip_smoke.MINICPM3_4B, [300, 17, 129])}
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", choices=sorted(configs))
     parser.add_argument("layers", type=int, nargs="+")

@@ -30,7 +30,8 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 ATTENTION = ("paged_decode_attention", "paged_decode_attention_rel",
              "ragged_paged_attention", "ragged_paged_attention_alibi",
-             "ragged_paged_attention_blocksparse")
+             "ragged_paged_attention_blocksparse",
+             "ragged_paged_attention_d384")
 
 
 def kernels(library: Path) -> Dict[str, str]:

@@ -11,6 +11,8 @@ them, so going back to the first window only needs the carry put back:
 every later run rewrites the same slots with the same values.
 """
 
+import collections
+import difflib
 import functools
 import pathlib
 import re
@@ -178,6 +180,33 @@ def profile_windows(case: WindowCase, n: int = 3, top: int = 8) -> dict:
                 rest_ms=device_ms - sum(v for _, v in ranked[:top]))
 
 
+def profile_ops(case: WindowCase, n: int = 1) -> Dict[Tuple[str, str],
+                                                    float]:
+    """n eager windows from the first one under torch.profiler with the
+    ops' input shapes recorded: the device milliseconds a window by (op
+    name, input shapes), each op's own kernels (self device time); a
+    kernel launched outside any op (the port's, through ctypes) under its
+    own name. An eager window runs the kernels its graph replays, so the
+    shares hold for a graphed window too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case.restore()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            case.restore()
+            case.eager().numpy()
+    out: Dict[Tuple[str, str], float] = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            key = (e.key, str(e.input_shapes))
+            out[key] = out.get(key, 0.0) + us / 1e3 / n
+    return out
+
+
 def equal_windows(a, b) -> bool:
     """Whether two lists of ``WindowCase.windows`` are equal bit for bit."""
     return len(a) == len(b) and all(
@@ -224,16 +253,17 @@ def _padding() -> None:
     torch.cuda.synchronize()
 
 
-def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
+def kernel_records(run: Callable[[], None]) -> List[str]:
     """The port's kernels that ``run`` launches on the card, by their full
-    traced name (template arguments included), counted by torch.profiler
-    with host and device activity (with device activity alone a card
-    lost kernel records of a replay). Library kernels (PyTorch's,
-    cuBLAS's) are left out. The work is traced between two runs of
-    ``_padding``: a card's trace of a window whose port kernels are its
-    attention launches alone (Falcon-RW-1B, MPT-7B on bf16 weights) came
-    out one launch short in every pair traced, as if the records at an end
-    of the trace were lost, and the padding's records are not counted."""
+    traced name (template arguments included), in the order of their
+    start on the card, as torch.profiler records them with host and device
+    activity (with device activity alone a card lost kernel records of a
+    replay). Library kernels (PyTorch's, cuBLAS's) are left out. The work
+    is traced between two runs of ``_padding``: a card's trace of a window
+    whose port kernels are its attention launches alone (Falcon-RW-1B,
+    MPT-7B on bf16 weights) came out one launch short in every pair
+    traced, as if the records at an end of the trace were lost, and the
+    padding's records are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,15 +275,40 @@ def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
         run()
         torch.cuda.synchronize()
         _padding()
-    counts: Dict[str, int] = {}
     # The profiler's raw records: prof.events() would first build the tree
     # of every host event, seconds for an eager window of tens of
     # thousands of them.
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() == DeviceType.CUDA
-                and kernel_base(e.name()) in ours):
-            counts[e.name()] = counts.get(e.name(), 0) + 1
-    return counts
+    found = [(e.start_ns(), e.name())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and kernel_base(e.name()) in ours]
+    return [name for _, name in sorted(found)]
+
+
+def kernel_counts(run: Callable[[], None]) -> Dict[str, int]:
+    """``kernel_records`` counted by name."""
+    return dict(collections.Counter(kernel_records(run)))
+
+
+def _most(a: Dict[str, int], b: Dict[str, int]) -> Dict[str, int]:
+    """Per kernel, the larger of two traces' counts of the same work."""
+    return {name: max(a.get(name, 0), b.get(name, 0))
+            for name in sorted(set(a) | set(b))}
+
+
+def missing_records(short: List[str], full: List[str]) -> List[List[int]]:
+    """Where the records a trace lacks lay in the order of the other
+    trace of the same window: [position in `full`, records lost] for each
+    run of records `short` lacks (difflib's alignment of the two name
+    sequences)."""
+    out = []
+    ops = difflib.SequenceMatcher(None, short, full,
+                                  autojunk=False).get_opcodes()
+    for tag, i1, i2, j1, j2 in ops:
+        lost = (j2 - j1) - (i2 - i1)
+        if tag in ("insert", "replace") and lost > 0:
+            out.append([j1, lost])
+    return out
 
 
 def trace_launches(runner, key: str, attempts: int = 3,
@@ -272,16 +327,25 @@ def trace_launches(runner, key: str, attempts: int = 3,
     whatever the buffers hold, so the replay's counts are those of every
     replay of the key.
 
-    The profiler on a card now and then drops a kernel record (once one
-    of the 512 int4p_matmul_kernel launches of an 8B window run eagerly),
-    which only ever lowers a count. So a pair whose two traces differ, or
-    whose traces ``accept`` (given the replay's counts) refuses, is traced
-    again from the same buffers, up to ``attempts`` pairs in all: the
-    caller's count of a kernel it knows the window launches is then lower
-    in both traces alike, one record dropped from each. The first pair
-    that agrees (and that ``accept`` takes) is returned, else the last,
-    whose difference the caller reports. ``tries`` is the number of pairs
-    traced, and ``mismatches`` holds, for each pair that differed, each
+    The profiler on a card now and then drops the records of whole
+    launches (both kernels of one decode call, its split and its combine;
+    once one int4p_matmul_kernel launch and its split-K reduce of an
+    eager window), which only ever lowers a count: it never records a
+    kernel that did not run. A dropped record came from one trace alone:
+    a second trace of the same run holds it. So where a pair's two traces
+    differ, or ``accept`` (given the replay's counts) refuses them, each
+    side is traced once more and keeps, per kernel, the larger of its two
+    traces' counts (``_most``); a side that launched fewer kernels shows
+    fewer in both of its traces, so the comparison is as strict as on one
+    trace a side. ``missing`` holds, for each such pair, where the records
+    one side's first trace lacked lay in the other side's order
+    (``missing_records``: [side, position, records lost, records in all]).
+    A pair that still differs is traced again from the same buffers, up to
+    ``attempts`` pairs in all. The first pair that agrees (and that
+    ``accept`` takes) is returned, else the last, whose difference the
+    caller reports. ``tries`` is the number of pairs traced,
+    ``retraced`` the number of pairs whose sides were traced twice, and
+    ``mismatches`` holds, for each pair that differed after that, each
     kernel's replay count less its eager count where they differ.
     ``reset`` (the wrappers' counts set to 0) runs before each eager
     window, so the counts after the call are those of one window.
@@ -298,19 +362,38 @@ def trace_launches(runner, key: str, attempts: int = 3,
         saved = buf.sched.clone(), buf.carry.clone()
     mismatches: List[Dict[str, int]] = []
     pairs: List[Dict[str, Any]] = []
+    missing: List[List[Any]] = []
+    retraced = 0
+
+    def eager_run():
+        with torch.inference_mode():
+            buf.sched.copy_(saved[0])
+            buf.carry.copy_(saved[1])
+            buf.sched[-1] = 0
+        WindowFetch(runner.decode_window(buf, flags, W)).numpy()
+
+    def replay_run():
+        runner.run_window(buf, flags, W).numpy()
+
     try:
         for tries in range(1, attempts + 1):
-            with torch.inference_mode():
-                buf.sched.copy_(saved[0])
-                buf.carry.copy_(saved[1])
-                buf.sched[-1] = 0
             if reset is not None:
                 reset()
-            eager = kernel_counts(lambda: WindowFetch(
-                runner.decode_window(buf, flags, W)).numpy())
+            eager_seq = kernel_records(eager_run)
             wrapper = wrapper_count() if wrapper_count is not None else None
-            replay = kernel_counts(
-                lambda: runner.run_window(buf, flags, W).numpy())
+            replay_seq = kernel_records(replay_run)
+            eager = dict(collections.Counter(eager_seq))
+            replay = dict(collections.Counter(replay_seq))
+            if eager != replay or (accept is not None and not accept(replay)):
+                retraced += 1
+                for side, a, b in (("eager", eager_seq, replay_seq),
+                                   ("replay", replay_seq, eager_seq)):
+                    for at, lost in missing_records(a, b):
+                        missing.append([side, at, lost, len(b)])
+                if reset is not None:
+                    reset()
+                eager = _most(eager, kernel_counts(eager_run))
+                replay = _most(replay, kernel_counts(replay_run))
             pairs.append(dict(eager=eager, replay=replay, wrapper=wrapper))
             if eager == replay and (accept is None or accept(replay)):
                 break
@@ -324,4 +407,5 @@ def trace_launches(runner, key: str, attempts: int = 3,
             buf.carry.copy_(saved[1])
         runner.invalidate_windows()
     return dict(eager=eager, replay=replay, tries=tries,
-                mismatches=mismatches, pairs=pairs, padding=TRACE_PADDING)
+                retraced=retraced, missing=missing, mismatches=mismatches,
+                pairs=pairs, padding=TRACE_PADDING)

@@ -184,8 +184,9 @@ class WindowBuffers:
 
     carry: i32[2S + 1] [token_ids | positions | step_offset], advanced in
     place by every window; sched: i32[S * pps + S + 1] [page table | KV
-    capacity | num_seqs], copied in once per engine step; tensors: the
-    sampling tensors, made from the first tensors copied in."""
+    capacity | num_seqs], copied in once per engine step; rows: i32[S + 1]
+    arange, made once; tensors: the sampling tensors, made from the first
+    tensors copied in."""
 
     def __init__(self, S: int, pages_per_seq: int,
                  device: torch.device) -> None:
@@ -194,6 +195,9 @@ class WindowBuffers:
                                  device=device)
         self.sched = torch.zeros((S * pages_per_seq + S + 1,),
                                  dtype=torch.int32, device=device)
+        # arange(S + 1): the rows' indices, and the cu_q_lens of one token
+        # a row that a head_dim the decode kernel lacks is attended over.
+        self.rows = torch.arange(S + 1, dtype=torch.int32, device=device)
         self.tensors: Optional[SamplingTensors] = None
         # The device tensors last copied into ``tensors``.
         self.tensors_src: Optional[SamplingTensors] = None
@@ -753,7 +757,7 @@ class ModelRunner:
         page_indices = sched[:S * pps].view(S, pps)
         kv_capacity = sched[S * pps:S * pps + S]
         num_seqs = sched[S * pps + S:]
-        rows = torch.arange(S, dtype=torch.int32, device=carry.device)
+        rows = buf.rows[:S]
         valid = rows < num_seqs
         trash = self.trash_slot_base + rows % bs
         token_ids, positions = carry[:S], carry[S:2 * S]
@@ -773,10 +777,12 @@ class ModelRunner:
                 kv_lens=torch.where(valid, pos + 1, 0).int(),
                 page_indices=page_indices,
                 # None marks a pure-decode batch: attention goes to the
-                # decode kernel.
+                # decode kernel (or, at a head_dim it lacks, to the ragged
+                # one over decode_cu_q_lens).
                 cu_q_lens=None,
                 num_seqs=num_seqs,
                 logits_indices=rows,
+                decode_cu_q_lens=buf.rows,
             )
             hidden = self.model.forward(self.params, self.kv_cache, batch,
                                         self.kv_scales)

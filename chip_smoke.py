@@ -1070,6 +1070,93 @@ GRANITE_31_8B = {
 QWEN25_7B_YARN = dict(QWEN25_7B, rope_scaling={
     "type": "yarn", "factor": 4.0,
     "original_max_position_embeddings": 32768})
+# Slice 22's, from their published config.json values. MiniCPM3-4B
+# (openbmb/MiniCPM3-4B): multi-head latent attention, a low-rank q (rank
+# 768) and one shared kv latent (rank 256) with 32 rotary dims, 40 heads
+# of 64 + 32 (values 64), all 62 layers dense SwiGLU, the muP scales, an
+# untied head of 73448 tokens: 4.26 B parameters. Its two LongRoPE factor
+# lists (16 entries each, qk_rope_head_dim / 2) are not in the repository:
+# minicpm3_config draws stand-ins from the seed. Its
+# original_max_position_embeddings is its 32768, so the short factors
+# apply at every served length up to there (the paths serve 4096, to keep
+# the page tables small).
+MINICPM3_LEN = 4096
+
+
+def minicpm3_config(layers: int = 62) -> dict:
+    rng = np.random.default_rng(SEED + 22)
+    scaling = {"type": "longrope", "original_max_position_embeddings": 32768,
+               "short_factor": np.sort(rng.uniform(1.0, 3.0, 16)).tolist(),
+               "long_factor": np.sort(rng.uniform(1.0, 64.0, 16)).tolist()}
+    return {
+        "architectures": ["MiniCPM3ForCausalLM"],
+        "hidden_size": 2560,
+        "intermediate_size": 6400,
+        "num_hidden_layers": layers,
+        "num_attention_heads": 40,
+        "num_key_value_heads": 40,
+        "q_lora_rank": 768,
+        "kv_lora_rank": 256,
+        "qk_nope_head_dim": 64,
+        "qk_rope_head_dim": 32,
+        "v_head_dim": 64,
+        "hidden_act": "silu",
+        "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0,
+        "rope_scaling": scaling,
+        "max_position_embeddings": 32768,
+        "scale_emb": 12,
+        "scale_depth": 1.4,
+        "dim_model_base": 256,
+        "vocab_size": 73448,
+        "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+    }
+
+
+MINICPM3_4B = minicpm3_config()
+# MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16): the Llama topology at MHA, 36
+# heads of 64, with the muP scales and a tied head of 122753 tokens.
+MINICPM_2B = {
+    "architectures": ["MiniCPMForCausalLM"],
+    "hidden_size": 2304,
+    "intermediate_size": 5760,
+    "num_hidden_layers": 40,
+    "num_attention_heads": 36,
+    "num_key_value_heads": 36,
+    "hidden_act": "silu",
+    "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 2048,
+    "scale_emb": 12,
+    "scale_depth": 1.4,
+    "dim_model_base": 256,
+    "vocab_size": 122753,
+    "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16",
+}
+# MiniCPM-MoE-8x2B (openbmb/MiniCPM-MoE-8x2B): MiniCPM-2B's attention with
+# 8 experts of width 5760, top 2 renormalized (Mixtral's routing).
+MINICPM_MOE_8X2B = dict(MINICPM_2B, num_experts=8, num_experts_per_tok=2,
+                        max_position_embeddings=4096)
+# OLMo-2-7B (allenai/OLMo-2-1124-7B): MHA, 32 heads of 128, RMSNorm on
+# each block's output and over the whole q and k projections, an untied
+# head of 100352 tokens.
+OLMO2_7B = {
+    "architectures": ["Olmo2ForCausalLM"],
+    "hidden_size": 4096,
+    "intermediate_size": 11008,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 32,
+    "hidden_act": "silu",
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 500000,
+    "attention_bias": False,
+    "max_position_embeddings": 4096,
+    "vocab_size": 100352,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
 # Slice 19's encoder-decoders, from their published config.json values
 # (google/flan-t5-xxl, google-t5/t5-small, facebook/bart-large-cnn); each
 # runs at full width and all its layers, in bf16 (the dtype is passed).
@@ -1173,7 +1260,9 @@ def with_layers(config: dict, layers: int) -> dict:
 # copies in two and a half rounds); and slice 21's: StableLM-2-12B (QH/KV 4
 # at head_dim 160, whose Q fragments both kernels read from the staged
 # rows at every k16 step) and 20 query heads on one kv head at 160 (the
-# wide form at 160).
+# wide form at 160); and slice 22's: MiniCPM3-4B's latent MLA head (40
+# query heads on one kv head at head_dim 384, the ragged kernel's own
+# library, which a pure-decode batch reaches too: cu_q_lens None).
 ATTN_GEOMETRIES = {
     "baichuan2-13b 40/40 alibi": (40, 40, 128, True),
     "bench-1.4b 16/8": (16, 8, 128, False),
@@ -1196,6 +1285,7 @@ ATTN_GEOMETRIES = {
     "qg20 20/1 d80": (20, 1, 80, False),
     "stablelm-2-12b 32/8 d160": (32, 8, 160, False),
     "qg20 20/1 d160": (20, 1, 160, False),
+    "minicpm3-4b 40/1 d384": (40, 1, 384, False),
 }
 # And with Phi-3-Small's blocksparse mask: (block size, local blocks,
 # vertical stride); query head h has phase h * max(1, stride // QH).
@@ -1687,7 +1777,17 @@ def check_close(errs, name, label, got, want, rows):
           flush=True)
     if not bool((err <= ATTN_TOL * scale).all()):
         fail(f"{name} [{label}] disagrees with its plain version")
-    errs[name] = max(errs[name], float(err.max()))
+    errs[name] = max(errs.get(name, 0.0), float(err.max()))
+
+
+def ragged_kernel_name(head_dim: int) -> str:
+    """The name the ragged kernel goes by in this script's output at a
+    head_dim: its library's ("ragged_paged_attention_d384" at a head_dim
+    built apart, ops/decode_attention.py RAGGED_ONLY_HEAD_DIMS)."""
+    from aphrodite_tpu_torch.ops.decode_attention import RAGGED_ONLY_HEAD_DIMS
+
+    return "ragged_paged_attention" + (
+        f"_d{head_dim}" if head_dim in RAGGED_ONLY_HEAD_DIMS else "")
 
 
 def variant_name(kernel: str, page_type: str, blocksparse=False) -> str:
@@ -1729,11 +1829,20 @@ def kernel_checks(device, name, geometry, errs):
     from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                    ref_ragged_paged_attention)
     from aphrodite_tpu_torch.ops.decode_attention import (
-        paged_decode_attention, ref_paged_decode_attention)
+        RAGGED_ONLY_HEAD_DIMS, paged_decode_attention,
+        ref_paged_decode_attention)
 
     qh, kvh, d, alibi = geometry
     slopes = (torch.from_numpy(get_alibi_slopes(qh)).to(device) if alibi
               else None)
+    # At a head_dim the decode kernel does not take (384) the ragged
+    # kernel's own library takes both kinds of case: a pure-decode batch
+    # goes to it over arange(S + 1) (cu_q_lens None).
+    ragged_name, decode_fn = ragged_kernel_name(d), paged_decode_attention
+    if d in RAGGED_ONLY_HEAD_DIMS:
+        def decode_fn(q, kv, kv_lens, page_indices, num_seqs=None, **kw):
+            return ragged_paged_attention(q, kv, kv_lens, page_indices, None,
+                                          num_seqs, **kw)
 
     def zero_slopes_check(kernel, label, got, fn, case, args, kw):
         if not alibi:
@@ -1763,8 +1872,9 @@ def kernel_checks(device, name, geometry, errs):
          dict(sliding_window=100, soft_cap=30.0)),
     ]
     for page_type in PAGE_TYPES:
-        ragged = variant_name("ragged_paged_attention", page_type)
-        decode = variant_name("paged_decode_attention", page_type)
+        ragged = variant_name(ragged_name, page_type)
+        decode = (ragged if d in RAGGED_ONLY_HEAD_DIMS
+                  else variant_name("paged_decode_attention", page_type))
         errs.setdefault(ragged, 0.0)
         errs.setdefault(decode, 0.0)
         for i, (label, seqs, kw) in enumerate(ragged_cases):
@@ -1806,18 +1916,17 @@ def kernel_checks(device, name, geometry, errs):
             kw = dict(kw, sm_scale=d**-0.5 * case["kv_scale"],
                       alibi_slopes=slopes)
             args = (case["kv_lens"], case["page_indices"])
-            got = paged_decode_attention(case["q"], case["kv"][0], *args,
-                                         case["num_seqs"], **kw)
+            got = decode_fn(case["q"], case["kv"][0], *args,
+                            case["num_seqs"], **kw)
             want = ref_paged_decode_attention(case["q"], case["kv"][0],
                                               *args, **kw)
             check_close(errs, decode, label, got, want, 16)
             if page_type != "bf16":
-                check_equals_bf16_kernel(decode, label, got,
-                                         paged_decode_attention, case, args,
-                                         kw)
+                check_equals_bf16_kernel(decode, label, got, decode_fn, case,
+                                         args, kw)
             if i == 0:
-                zero_slopes_check(decode, label, got, paged_decode_attention,
-                                  case, args, kw)
+                zero_slopes_check(decode, label, got, decode_fn, case, args,
+                                  kw)
 
 
 def blocksparse_checks(device, errs):
@@ -1903,17 +2012,21 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     library call takes the mask as a bool tensor, and the bound counts the
     K/V rows some query head can see and the visible pairs. Prints the
     decode kernel's split plan (split keys, splits, blocks) at each shape,
-    as the wrapper launched it. Returns, per kernel variant, a dict of
-    shape, ms, plain_ms, library_ms, bound_ms, bound_by."""
+    as the wrapper launched it. At a head_dim the decode kernel does not
+    take (384) the decode step goes through the ragged kernel (cu_q_lens
+    None) and is keyed "<variant> decode". Returns, per kernel variant, a
+    dict of shape, ms, plain_ms, library_ms, bound_ms, bound_by."""
     import torch
 
     from aphrodite_tpu_torch.models.layers import get_alibi_slopes
     from aphrodite_tpu_torch.ops.attention import (ragged_paged_attention,
                                                    ref_ragged_paged_attention)
     from aphrodite_tpu_torch.ops.decode_attention import (
-        paged_decode_attention, ref_paged_decode_attention)
+        RAGGED_ONLY_HEAD_DIMS, paged_decode_attention,
+        ref_paged_decode_attention)
 
     qh, kvh, d, alibi = geometry
+    ragged_only = d in RAGGED_ONLY_HEAD_DIMS
     slopes = (torch.from_numpy(get_alibi_slopes(qh)).to(device) if alibi
               else None)
     bs_kw = {}
@@ -1938,6 +2051,12 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
     for kernel, page_type in ((k, p) for k in shapes for p in page_types):
         seqs, padded_seqs, padded_tokens = shapes[kernel]
         variant = variant_name(kernel, page_type, blocksparse)
+        if ragged_only:
+            variant = variant_name(ragged_kernel_name(d), page_type)
+        # The key of this shape's times, and the variant its check's
+        # error is kept under.
+        key = (f"{variant} decode" if ragged_only
+               and kernel == "paged_decode_attention" else variant)
         case = make_attention_case(seqs, qh, kvh, d, padded_seqs=padded_seqs,
                                    padded_tokens=padded_tokens, device=device,
                                    seed=SEED + 20, num_layers=layers,
@@ -1949,6 +2068,10 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
         def call(use_kernel, bs_on=True):
             layer = state["layer"] = (state["layer"] + 1) % layers
             kv = case["kv"][layer]
+            if decode_kernel and ragged_only and use_kernel:
+                return ragged_paged_attention(
+                    case["q"], kv, case["kv_lens"], case["page_indices"],
+                    None, case["num_seqs"], sm_scale=scale)
             if decode_kernel:
                 fn = (paged_decode_attention if use_kernel
                       else ref_paged_decode_attention)
@@ -1986,11 +2109,13 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
         t_ops = flops / BF16_FLOPS * 1e3
         rows_label = (f"decode {len(seqs)} rows" if decode_kernel else
                       f"prefill {sum(q for q, _ in seqs)} tokens")
-        out[variant] = dict(shape=f"{name}, {rows_label}", ms=ms,
-                            plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=max(t_bytes, t_ops),
-                            bound_by="bytes" if t_bytes >= t_ops else
-                            "operations")
+        if decode_kernel and ragged_only:
+            rows_label += " through the ragged kernel"
+        out[key] = dict(shape=f"{name}, {rows_label}", ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else
+                        "operations")
         if blocksparse:
             # The same launch with the layer's gate off: dense attention in
             # the kernel without blocksparse, which reads every K/V row.
@@ -1999,7 +2124,7 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
             print(f"time {variant} [{name}]: the same call with the gate off "
                   f"(the kernel without blocksparse) "
                   f"{out[variant]['gate_off_ms']:.4f} ms", flush=True)
-        if decode_kernel:
+        if decode_kernel and not ragged_only:
             # The split-KV plan the wrapper launched at this shape, as it
             # recorded it (printed only).
             plan = paged_decode_attention.last_plan
@@ -2009,11 +2134,13 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
                   f"{plan['split_keys']} keys over {plan['blocks']} blocks "
                   f"({plan['slots']} per row and kv head) for {sms} SMs, as "
                   "launched", flush=True)
-        bf16_variant = variant_name(kernel, "bf16", blocksparse)
+        bf16_key = (key if page_type == "bf16" else
+                    key.replace(f"_{page_type}", "") if ragged_only else
+                    variant_name(kernel, "bf16", blocksparse))
         beside = ("" if page_type == "bf16" else
-                  f" (bf16 pages, same case: {out[bf16_variant]['ms']:.4f} "
+                  f" (bf16 pages, same case: {out[bf16_key]['ms']:.4f} "
                   "ms)")
-        print(f"time {variant} [{name}]: {len(seqs)} seqs, "
+        print(f"time {key} [{name}]: {len(seqs)} seqs, "
               f"{sum(q for q, _ in seqs)} query tokens, "
               f"{sum(kv for _, kv in seqs)} kv rows: kernel {ms:.4f} ms"
               f"{beside}, plain {plain_ms:.4f} ms, library (sdpa on the "
@@ -2021,8 +2148,8 @@ def kernel_timings(device, name, geometry, prompt_lens, iters, errs,
               f"{', ALiBi as a bf16 bias mask' if alibi else ''}"
               f"{', the blocksparse mask as a bool mask' if blocksparse else ''}"
               ") "
-              f"{library_ms:.4f} ms, bound {out[variant]['bound_ms']:.4f} ms "
-              f"({out[variant]['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
+              f"{library_ms:.4f} ms, bound {out[key]['bound_ms']:.4f} ms "
+              f"({out[key]['bound_by']}: {nbytes} bytes, {flops} FLOPs)",
               flush=True)
         del case, qq, kk, vv, mask
     return out
@@ -3818,7 +3945,7 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
               gguf=None, q4_body=None, w4a8=False, compare_lens=None,
               window_check=False, sampler=None, reference=None,
               max_model_len=None, compare_layers=None,
-              serve_reference=False, f64_floor=False):
+              serve_reference=False, f64_floor=False, mla_latent=None):
     """LLM.generate through the port's entry point, with bf16 weights,
     (quantization="gptq") packed int4 ones, ("int8" or "fp8") per-channel
     8-bit ones quantized at load, or (gguf="q6_k" or "q8_0") a GGUF file
@@ -3856,7 +3983,9 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     engine gets the
     serving phase's word tokenizer, and runs the serving phase's greedy and
     beam requests alone before it is freed (serve_reference_requests; the
-    result under "serve_reference"). Returns the
+    result under "serve_reference"). mla_latent: APHRODITE_MLA_LATENT
+    (the JAX package's switch, read at model build) for this path's model
+    only; "0" serves an MLA model's materialized form. Returns the
     launch counts of the path's kernels in the timed run, by variant name
     (under IN_GRAPH_REPLAYS the part of them that graph replays made), and
     the rates (with the decode windows' graphs, chained windows, carry and
@@ -3867,8 +3996,8 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.attention import ragged_paged_attention
-    from aphrodite_tpu_torch.ops.decode_attention import \
-        paged_decode_attention
+    from aphrodite_tpu_torch.ops.decode_attention import (
+        RAGGED_ONLY_HEAD_DIMS, paged_decode_attention)
     from aphrodite_tpu_torch.ops.quant_matmul import (DENSE_MIN_T,
                                                       INT4_BODY,
                                                       decode_route,
@@ -3931,13 +4060,22 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
                   f"{time.monotonic() - t0:.1f} s", flush=True)
             source = dict(model=path, tokenizer=None)
         t0 = time.monotonic()
-        llm = LLM(**source, dtype="bfloat16", seed=SEED,
-                  kv_cache_dtype=kv_cache_dtype,
-                  quantization_param_path=scales_path,
-                  num_scheduler_steps=num_scheduler_steps, block_size=16,
-                  max_num_batched_tokens=2048,
-                  skip_tokenizer_init=not serve_reference,
-                  max_model_len=max_model_len, device=device)
+        saved_latent = os.environ.get("APHRODITE_MLA_LATENT")
+        if mla_latent is not None:
+            os.environ["APHRODITE_MLA_LATENT"] = mla_latent
+        try:
+            llm = LLM(**source, dtype="bfloat16", seed=SEED,
+                      kv_cache_dtype=kv_cache_dtype,
+                      quantization_param_path=scales_path,
+                      num_scheduler_steps=num_scheduler_steps, block_size=16,
+                      max_num_batched_tokens=2048,
+                      skip_tokenizer_init=not serve_reference,
+                      max_model_len=max_model_len, device=device)
+        finally:
+            if saved_latent is None:
+                os.environ.pop("APHRODITE_MLA_LATENT", None)
+            else:
+                os.environ["APHRODITE_MLA_LATENT"] = saved_latent
         if device == "cuda":
             torch.cuda.synchronize()
         print(f"{label}: engine up in {time.monotonic() - t0:.1f} s, "
@@ -4015,11 +4153,19 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
 
     # Every forward launches one attention kernel per layer, of the cache's
     # page type (the ragged one in prefill and mixed steps, the decode one
-    # in the fused window), of the instantiation of the model's QH / KV,
-    # with ALiBi exactly where the model has slopes, and blocksparse on
-    # exactly the layers whose gate is on.
-    qg = model.num_heads // model.num_kv_heads
-    shape = (f"qg{qg} d{model.head_dim}"
+    # in the fused window, or the ragged one there too at a head_dim the
+    # decode kernel does not take), of the instantiation of the cache's QH
+    # / KV and head_dim (an MLA model's latent cache: all query heads on
+    # one head of head_eff), with ALiBi exactly where the model has
+    # slopes, and blocksparse on exactly the layers whose gate is on.
+    ckv, head_dim = model.kv_cache_shape_suffix
+    qg = model.num_heads // (ckv // 2)
+    ragged_decode = head_dim in RAGGED_ONLY_HEAD_DIMS
+    decode_wrapper = (ragged_paged_attention if ragged_decode
+                      else paged_decode_attention)
+    decode_bases = (("ragged_paged_attention_kernel",) if ragged_decode else
+                    ("paged_decode_kernel", "paged_decode_wide_kernel"))
+    shape = (f"qg{qg} d{head_dim}"
              + (" alibi" if model.alibi_slopes is not None else ""))
     per_forward = {shape: layers}
     if model.blocksparse_params is not None:
@@ -4257,23 +4403,22 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             t_trace = time.monotonic()
             def decode_count(counts):
                 # (Above 16 query heads per kv head the decode kernel's
-                # wide form runs.)
+                # wide form runs; at a head_dim it does not take, the
+                # ragged kernel.)
                 return sum(n for name, n in counts.items()
-                           if kernel_base(name) in (
-                               "paged_decode_kernel",
-                               "paged_decode_wide_kernel"))
+                           if kernel_base(name) in decode_bases)
 
             trace = trace_launches(
                 runner, key, reset=zero_counts,
                 accept=lambda c: decode_count(c) == layers * W_key,
-                wrapper_count=lambda: paged_decode_attention.launches)
+                wrapper_count=lambda: decode_wrapper.launches)
             t_trace = time.monotonic() - t_trace
             window = read_counts()
             check_counts(window, [S] * W_key, f"a window of {key}")
             decode_kernels = decode_count(trace["replay"])
             # Each pair's decode kernels: the wrapper's own count of the
             # eager window beside the eager and replay traces' records (the
-            # record of a fault whose cause is not known: PERF.md §7).
+            # profiler drops a launch's records now and then: ROADMAP §3).
             decode_pairs = [
                 dict(wrapper=p["wrapper"], eager=decode_count(p["eager"]),
                      replay=decode_count(p["replay"]))
@@ -4300,7 +4445,18 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
             traced[key] = dict(replays=k["replays"], launches=by_kernel,
                                trace_s=round(t_trace, 2),
                                traced_pairs=trace["tries"],
+                               retraced_pairs=trace["retraced"],
                                mismatched_pairs=mismatched)
+            if trace["retraced"]:
+                # Where the records one side's first trace lacked lay in
+                # the other side's order, and what each side's second trace
+                # made of it.
+                print(f"{label}: {key}: a first trace lacked records "
+                      f"([side, position, lost, records in all]) "
+                      f"{trace['missing']}; each side traced twice, pairs "
+                      f"{trace['tries']}, decode kernels by pair (the "
+                      f"wrapper's count, the eager and replay sides') "
+                      f"{decode_pairs}", flush=True)
             if trace["tries"] > 1:
                 print(f"{label}: {key}: traced again, the pairs before "
                       f"differed by (replay less eager) {mismatched}; "
@@ -4330,8 +4486,9 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
         fail(f"no decode window of the {label} was a graph replay")
     for name, n in launches.items():
         # (On the history path every decode step is a single step: the
-        # ragged kernel's, held above.)
-        if n <= 0 and not (sampler == "history"
+        # ragged kernel's, held above; so is every decode step at a
+        # head_dim the decode kernel does not take.)
+        if n <= 0 and not ((sampler == "history" or ragged_decode)
                            and name == "paged_decode_attention"):
             fail(f"{name} was never launched on the {label}")
     windows["traced_replays"] = traced
@@ -4434,36 +4591,36 @@ def main_path(device, model_config, prompt_lens, num_scheduler_steps=8,
 
 
 def check_longrope(model, scaling, label):
-    """Fail unless the model rotates by the table of its long factors
-    (served past the original length) with the attention factor, and not
-    by the short factors' table."""
+    """Fail unless the model rotates by the table LongRoPE gives at its
+    served length, over its rotary width (an MLA model's rope dims): past
+    the original length the long factors' table with the attention
+    factor, and not the short factors'; up to it the short factors' table
+    unscaled, and not the long factors'."""
     import math
 
     import torch
 
-    from aphrodite_tpu_torch.models.layers import compute_rope_tables
-
     cos = model._cos.cpu()
+    dim = getattr(model, "rope_dim", model.head_dim)
     orig = scaling["original_max_position_embeddings"]
-    if model.max_position <= orig:
-        fail(f"{label}: served length {model.max_position} is not past the "
-             f"original {orig}")
-    inv_freq = 1.0 / (model.rope_theta**(
-        np.arange(0, model.head_dim, 2, dtype=np.float64) / model.head_dim))
-    inv_freq = inv_freq / np.asarray(scaling["long_factor"], np.float64)
-    factor = math.sqrt(1.0 + math.log(model.max_position / orig)
-                       / math.log(orig))
+    past = model.max_position > orig
+    base = 1.0 / (model.rope_theta**(
+        np.arange(0, dim, 2, dtype=np.float64) / dim))
+    factor = (math.sqrt(1.0 + math.log(model.max_position / orig)
+                        / math.log(orig)) if past else 1.0)
     positions = np.arange(model.max_position, dtype=np.float64)
-    want = torch.tensor(np.cos(positions[:, None] * inv_freq[None, :])
-                        * factor, dtype=torch.float32)
-    short, _ = compute_rope_tables(
-        model.head_dim, model.max_position, base=model.rope_theta,
-        rope_scaling=dict(scaling, original_max_position_embeddings=(
-            model.max_position)))
-    if not torch.equal(cos, want) or torch.equal(cos, short):
-        fail(f"{label}: the rotary table is not the long factors' one")
-    print(f"{label}: LongRoPE, the long factors' table at {model.max_position}"
-          f" positions, attention factor {factor:.6f}", flush=True)
+
+    def table(factors):
+        inv_freq = base / np.asarray(scaling[factors], np.float64)
+        return torch.tensor(np.cos(positions[:, None] * inv_freq[None, :])
+                            * factor, dtype=torch.float32)
+
+    mine, other = ("long_factor", "short_factor")[::1 if past else -1]
+    if not torch.equal(cos, table(mine)) or torch.equal(cos, table(other)):
+        fail(f"{label}: the rotary table is not the {mine}s' one")
+    print(f"{label}: LongRoPE over {dim} dims, the {mine}s' table at "
+          f"{model.max_position} positions (original {orig}), attention "
+          f"factor {factor:.6f}", flush=True)
 
 
 def rerun_alone(llm, label, prompts, params, outs):
@@ -4541,6 +4698,7 @@ def check_window(runner, label, prompt_lens, num_scheduler_steps,
     graphed windows."""
     from aphrodite_tpu_torch.tools.window_check import (WindowCase,
                                                         equal_windows,
+                                                        profile_ops,
                                                         profile_windows)
 
     W = min(num_scheduler_steps, runner.MULTI_STEP_WINDOW)
@@ -4562,6 +4720,41 @@ def check_window(runner, label, prompt_lens, num_scheduler_steps,
     out["profile"] = profile_windows(case)
     print(f"{label}: graphed window profile {json.dumps(out['profile'])}",
           flush=True)
+    if hasattr(runner.model, "kv_rank"):
+        out["mla_glue"] = mla_glue(runner.model, profile_ops(case), label)
+    return out
+
+
+def mla_glue(model, ops, label):
+    """An MLA model's eager window by op (tools/window_check.py
+    profile_ops): the device time of the MLA glue around its attention
+    (the low-rank q and kv products, the two einsums that absorb kv_b,
+    the pads and concatenations) beside the attention kernel's and the
+    window's, and the ops that take the most."""
+    H, NH = model.hidden_size, model.num_heads
+    low_rank = {str([model.q_rank, NH * model.qk_dim]), str([H, model.q_rank]),
+                str([H, model.kv_rank + model.rope_dim])}
+    total = sum(ops.values())
+    parts = {"low-rank products": 0.0, "absorbing einsums": 0.0,
+             "pads and concatenations": 0.0, "attention kernel": 0.0}
+    for (name, shapes), ms in ops.items():
+        if name in ("aten::mm", "aten::addmm") and any(
+                w in shapes for w in low_rank):
+            parts["low-rank products"] += ms
+        elif name == "aten::bmm":
+            parts["absorbing einsums"] += ms
+        elif name in ("aten::constant_pad_nd", "aten::cat"):
+            parts["pads and concatenations"] += ms
+        elif "ragged_paged_attention_kernel" in name:
+            parts["attention kernel"] += ms
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(eager_device_ms=total,
+               parts_ms={k: round(v, 3) for k, v in parts.items()},
+               shares={k: round(v / total, 4) for k, v in parts.items()},
+               top=[[name[:60], shapes[:80], round(ms, 3)]
+                    for (name, shapes), ms in top])
+    print(f"{label}: an eager window by op (device ms; the MLA glue beside "
+          f"the attention kernel) {json.dumps(out)}", flush=True)
     return out
 
 
@@ -4696,6 +4889,7 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
     decided by no rounding."""
     import torch
 
+    import aphrodite_tpu_torch.models.deepseek as deepseek_mod
     import aphrodite_tpu_torch.models.llama as llama_mod
     import aphrodite_tpu_torch.ops.quant_matmul as quant_matmul_mod
     import aphrodite_tpu_torch.quantization.qlinear as qlinear_mod
@@ -4781,7 +4975,7 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         return logits
 
     def plain_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens,
-                        num_seqs, **kw):
+                        num_seqs, decode_cu_q_lens=None, **kw):
         if cu_q_lens is None:
             return ref_paged_decode_attention(q, kv_pages, kv_lens,
                                               page_indices, **kw)
@@ -4855,7 +5049,9 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         return torch.matmul(x.float().flip(-1), w.flip(0))
 
     swaps = {
-        "attention": [(llama_mod, "ragged_paged_attention", plain_attention)],
+        "attention": [(llama_mod, "ragged_paged_attention", plain_attention),
+                      (deepseek_mod, "ragged_paged_attention",
+                       plain_attention)],
         "int4": [(qlinear_mod, "int4p_matmul", plain_int4)],
         "q4": [(qlinear_mod, "int4_matmul", plain_q4)],
         "w4a8": [(qlinear_mod, "int4p_matmul_w4a8", plain_w4a8),
@@ -4874,6 +5070,8 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
         if routed != want_routes:
             fail(f"W4A8 switch routed {routed}, not {want_routes}")
     kernels = [getattr(module, attr) for module, attr, _ in swaps]
+    attention_kernels = [(module, module.ragged_paged_attention)
+                         for module in (llama_mod, deepseek_mod)]
     for module, attr, plain in swaps:
         setattr(module, attr, plain)
     try:
@@ -4887,10 +5085,13 @@ def compare_logits(llm, device, rng, vocab, what, q4_body,
             w4a8_floor = run()
         if f64_floor:
             llama_mod.ragged_paged_attention = plain_f64
+            deepseek_mod.ragged_paged_attention = plain_f64
             attention_floor = run()
     finally:
         for (module, attr, _), kernel in zip(swaps, kernels):
             setattr(module, attr, kernel)
+        for module, kernel in attention_kernels:
+            module.ragged_paged_attention = kernel
     dummy = list(getattr(model, "dummy_token_ids", []))
     if dummy:
         # Tokens the model never samples carry the mask value on both
@@ -5664,7 +5865,7 @@ def compare_encdec_logits(llm, device, rng, vocab, layers=None):
                                           **kw)
 
     def plain_attention(q, kv_pages, kv_lens, page_indices, cu_q_lens,
-                        num_seqs, **kw):
+                        num_seqs, decode_cu_q_lens=None, **kw):
         if cu_q_lens is None:
             return plain_decode(q, kv_pages, kv_lens, page_indices, **kw)
         return ref_ragged_paged_attention(q, kv_pages, kv_lens, page_indices,
@@ -6140,6 +6341,30 @@ def main_paths():
         "granite-3.1-8b, 4 layers": dict(
             model_config=with_layers(GRANITE_31_8B, 4), window_check=True,
             f64_floor=True),
+        # Slice 22: multi-head latent attention and head_dim 384 in the
+        # ragged kernel. MiniCPM3-4B at full width and all 62 layers on its
+        # latent cache (the headline: every attention launch at 40/1 d384
+        # on the ragged kernel, prefill and decode; its window held
+        # graphed against eager), on E4M3 pages at 4 layers (row 3 at
+        # d384), and in its materialized form at 4 layers
+        # (APHRODITE_MLA_LATENT=0: 40/40 at d96 on both kernels as they
+        # were); MiniCPM-2B, MiniCPM-MoE-8x2B and OLMo-2-7B at 4 layers.
+        "minicpm3-4b": dict(model_config=MINICPM3_4B,
+                            max_model_len=MINICPM3_LEN, window_check=True,
+                            f64_floor=True),
+        "minicpm3-4b+fp8_e4m3, 4 layers": dict(
+            model_config=minicpm3_config(4), max_model_len=MINICPM3_LEN,
+            kv_cache_dtype="fp8_e4m3", f64_floor=True),
+        "minicpm3-4b materialized, 4 layers": dict(
+            model_config=minicpm3_config(4), max_model_len=MINICPM3_LEN,
+            mla_latent="0", f64_floor=True),
+        "minicpm-2b, 4 layers": dict(model_config=with_layers(MINICPM_2B, 4),
+                                     f64_floor=True),
+        "minicpm-moe-8x2b, 4 layers": dict(
+            model_config=with_layers(MINICPM_MOE_8X2B, 4),
+            window_check=True),
+        "olmo2-7b, 4 layers": dict(model_config=with_layers(OLMO2_7B, 4),
+                                   f64_floor=True),
     }
     return {name: {"prompt_lens": prompt_lens, **kw}
             for name, kw in paths.items()}
@@ -6254,6 +6479,15 @@ def main() -> None:
         ATTN_GEOMETRIES["stablelm-2-12b 32/8 d160"], prompt_lens, iters=100,
         errs=errs, page_types=("bf16", "e4m3"), layers=4)
     stamp("timings: attention, StableLM-2-12B geometry")
+    # Slice 22's: MiniCPM3-4B's latent head (40/1 at head_dim 384) at its
+    # paths' prompts, on bf16 and E4M3 pages (its 4-layer path's): a
+    # 2048-token prefill and 16 decode rows, both through the ragged
+    # kernel; 16 cache layers of K/V, more than the L2 holds at decode.
+    d384 = "minicpm3-4b 40/1 d384"
+    d384_times = kernel_timings("cuda", d384, ATTN_GEOMETRIES[d384],
+                                prompt_lens, iters=100, errs=errs,
+                                page_types=("bf16", "e4m3"), layers=16)
+    stamp("timings: attention, MiniCPM3-4B geometry")
     rel_bias_times = rel_bias_timings("cuda", errs)
     stamp("timings: attention with the T5 bias")
     int4_points = int4_timings("cuda", iters=200)
@@ -6410,6 +6644,33 @@ def main() -> None:
             launches=sum(by_path.values()), launches_in_graph_replays=0,
             launches_by_path=by_path, max_abs_err=errs[name],
             **rel_bias_times[name]))
+    # The ragged kernel at head_dim 384 (its own library) on the pages the
+    # main paths gave it (bf16 and E4M3; the others are held in the checks
+    # above), with its times at MiniCPM3-4B's geometry: a 2048-token
+    # prefill, and under "decode" the 16 decode rows it takes too.
+    for page_type in ("bf16", "e4m3"):
+        name = variant_name("ragged_paged_attention_d384", page_type)
+        by_shape = on_paths(
+            f"{variant_name('ragged_paged_attention', page_type)} by shape")
+        by_path = {path: counts["qg40 d384"]
+                   for path, counts in by_shape.items()
+                   if counts.get("qg40 d384")}
+        if not sum(by_path.values()):
+            fail(f"{name} was launched on no main path")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aphrodite_tpu_torch/csrc/ragged_paged_attention_d384.cu",
+            replaces=("aphrodite_tpu/ops/attention.py:336" if page_type
+                      == "bf16" else
+                      "aphrodite_tpu/ops/rpa_alibi_kernel.py:832"),
+            option="head_dim 384", page_type=page_type,
+            launches=sum(by_path.values()),
+            launches_in_graph_replays=sum(
+                counts.get("qg40 d384", 0) for counts in on_paths(
+                    f"{variant_name('ragged_paged_attention', page_type)} "
+                    "by shape", IN_GRAPH_REPLAYS).values()),
+            launches_by_path=by_path, max_abs_err=errs[name],
+            **d384_times[name], decode=d384_times[f"{name} decode"]))
     # The packed int4 kernel, one entry per body and implementation: the
     # group-wise body under 64 tokens on the mma.sync kernel (csrc/
     # int4p_matmul.cu) and on the decode body (csrc/decode_gemm.cuh), as

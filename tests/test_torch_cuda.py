@@ -756,6 +756,88 @@ def test_ragged_kernel_tile_edges_on_card(edge, qg, name):
             q, pages.to(torch.bfloat16), *idx, ns, **kw))
 
 
+# head_dim 384 (MiniCPM3's latent MLA head): (query heads per kv head, kv
+# heads). 40 on one is MiniCPM3-4B's; 1, 4 and 7 on two put 32-row tiles
+# on a token's edge, inside its heads and across both kv heads.
+D384_SHAPES = [(40, 1), (1, 2), (4, 2), (7, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", *sorted(NARROW)])
+@pytest.mark.parametrize("qg,kvh", D384_SHAPES,
+                         ids=[f"qg{a}_kv{b}" for a, b in D384_SHAPES])
+@pytest.mark.parametrize("window", [False, True],
+                         ids=["full", "window_cap"])
+@pytest.mark.parametrize("op", ["ragged", "decode"])
+def test_ragged_kernel_head_dim_384_on_card(op, window, qg, kvh, name):
+    """The ragged kernel at head_dim 384 (its own library; O split by
+    columns over three warps a row group) on each page type, with and
+    without a window and a soft cap, against its plain version row by row
+    (ROW_TOL): a ragged batch, and a pure-decode batch (cu_q_lens None),
+    which at 384 launches the ragged kernel over arange(S + 1) and not the
+    decode kernel, as the JAX package routes it. The narrow variants equal
+    the bf16 kernel on the widened pages; padding tokens and dead rows stay
+    zero; each launch is counted under "qg<QG> d384"."""
+    _card_or_skip()
+    rng = np.random.default_rng(3840 + 10 * qg + kvh)
+    extra = dict(sliding_window=700, soft_cap=30.0) if window else {}
+    if op == "ragged":
+        fn, ref, q, pages, args, kw, rows = _attention_case(
+            "ragged", rng, qg, kvh, 384, name, **extra)
+        want = ref(q, pages, *args, **kw)
+    else:
+        lens = rng.integers(1, 400, size=12)
+        lens[:2] = (1200, 1030)
+        arrays = paged_batch(rng, [(1, int(n)) for n in lens], qg * kvh, kvh,
+                             384, padded_seqs=16, padded_tokens=16)
+        q = torch.from_numpy(arrays[0]).cuda().to(torch.bfloat16)
+        values = torch.from_numpy(arrays[1]).cuda()
+        kw = dict(extra, sm_scale=384**-0.5)
+        if name == "bf16":
+            pages = values.to(torch.bfloat16)
+        else:
+            pages = quantize_kv(values, torch.tensor(0.02, device="cuda"),
+                                NARROW[name])
+            kw["sm_scale"] *= 0.02
+        kv_lens, page_idx = (torch.from_numpy(a).cuda() for a in arrays[2:4])
+        ns = torch.tensor([12], dtype=torch.int32, device="cuda")
+        args, rows, fn = (kv_lens, page_idx, None, ns), 12, \
+            ragged_paged_attention
+        want = ref_paged_decode_attention(q, pages, kv_lens, page_idx, **kw)
+    shape = f"qg{qg} d384"
+    before = (ragged_paged_attention.launches_by_shape.get(shape, 0),
+              paged_decode_attention.launches)
+    got = fn(q, pages, *args, **kw)
+    torch.cuda.synchronize()
+    assert (ragged_paged_attention.launches_by_shape[shape],
+            paged_decode_attention.launches) == (before[0] + 1, before[1])
+    assert_rows_close(got[:rows], want[:rows])
+    assert not got[rows:].float().any()
+    if name != "bf16":
+        assert torch.equal(got, fn(q, pages.to(torch.bfloat16), *args, **kw))
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_head_dim_384_refuses_alibi_and_blocksparse():
+    """head_dim 384's library is built without ALiBi and blocksparse: both
+    raise by name before a launch, and the decode kernel takes no 384."""
+    _card_or_skip()
+    idx = torch.ones((4,), dtype=torch.int32, device="cuda")
+    table = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    cu = torch.arange(5, dtype=torch.int32, device="cuda")
+    q = torch.zeros((4, 8, 384), dtype=torch.bfloat16, device="cuda")
+    pages = torch.zeros((3, PS, 2, 384), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="no ALiBi at head_dim 384"):
+        ragged_paged_attention(q, pages, idx, table, cu, idx[:1],
+                               alibi_slopes=torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError, match="blocksparse at head_dim 128"):
+        ragged_paged_attention(
+            q, pages, idx, table, cu, idx[:1], blocksparse=(64, 4, 8),
+            bs_head_offsets=torch.zeros(8, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="head_dim in"):
+        paged_decode_attention(q, pages, idx, table)
+
+
 @pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take():
     _card_or_skip()

@@ -45,7 +45,7 @@ from aphrodite_tpu_torch.loader.weights import (
 from aphrodite_tpu_torch.models.registry import get_model_class
 from aphrodite_tpu_torch.ops.attention import ref_ragged_paged_attention
 from aphrodite_tpu_torch.ops.decode_attention import (
-    KERNEL_HEAD_DIMS, check_kernel_inputs, paged_decode_attention)
+    DECODE_HEAD_DIMS, check_kernel_inputs, paged_decode_attention)
 from tests import gguf_writer as W
 from tests import test_torch_llama as llama_case
 from tests.test_torch_cuda import paged_batch
@@ -105,7 +105,7 @@ def test_kernel_rules_take_head_dim_160():
     """check_kernel_inputs (both wrappers' rules on a card) takes head_dim
     160 at QH/KV 1 to 71, with ALiBi; blocksparse stays at 128, and the
     head_dims beside 160 still raise, naming those the kernels take."""
-    assert 160 in KERNEL_HEAD_DIMS
+    assert 160 in DECODE_HEAD_DIMS
     for qh in (2, 4, 8, 40, 142):
         check_kernel_inputs(*_case(160, qh=qh), ())
         check_kernel_inputs(*_case(160, qh=qh), (),

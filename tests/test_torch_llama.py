@@ -221,10 +221,10 @@ def test_dummy_params_shapes_and_scale():
 
 def test_registry_raises_for_unported_architecture():
     """An architecture the JAX package serves and the port does not yet
-    (OLMo2) raises naming the queue item it waits for; one neither
+    (Solar) raises naming the queue item it waits for; one neither
     serves, the bare "not ported" ValueError."""
     config = ModelConfig(model="unused", dtype="float32",
-                         hf_config=dict(HF, architectures=["Olmo2ForCausalLM"]))
+                         hf_config=dict(HF, architectures=["SolarForCausalLM"]))
     with pytest.raises(NotImplementedError, match="not ported.*item 3"):
         get_model_class(config)
     config = ModelConfig(model="unused", dtype="float32", hf_config=dict(

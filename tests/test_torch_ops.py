@@ -235,6 +235,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "aphrodite_tpu_torch/models/nemotron.py",
             "aphrodite_tpu_torch/models/glm.py",
             "aphrodite_tpu_torch/models/chatglm.py",
+            "aphrodite_tpu_torch/models/deepseek.py",
+            "aphrodite_tpu_torch/models/minicpm.py",
+            "aphrodite_tpu_torch/models/olmo2.py",
+            "aphrodite_tpu_torch/tools/trace_stress.py",
             "aphrodite_tpu_torch/ops/moe.py",
             "aphrodite_tpu_torch/quantization/experts_int8.py",
             "aphrodite_tpu_torch/quantization/__init__.py",

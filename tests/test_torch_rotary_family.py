@@ -617,8 +617,8 @@ def test_registry_serves_the_families_and_names_what_waits():
         jcls = jax_model_class(JaxModelConfig(model="unused",
                                               hf_config=dict(hf)))
         assert cls.__name__ == jcls.__name__
-    for arch, item in (("Olmo2ForCausalLM", "item 3"),
-                       ("MiniCPMForCausalLM", "item 3"),
+    for arch, item in (("SolarForCausalLM", "item 3"),
+                       ("QWenLMHeadModel", "item 3"),
                        ("MambaForCausalLM", "item 10")):
         hf = {"architectures": [arch], "hidden_size": 64,
               "num_attention_heads": 4, "num_hidden_layers": 1,

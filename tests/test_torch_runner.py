@@ -514,6 +514,83 @@ def test_traced_kernel_names_reduce_to_the_port_kernels(name, base):
             "split_reduce_scaled_kernel"} <= ours
 
 
+class _TracedRunner:
+    """What trace_launches reads of a runner: one captured key, its
+    buffers, and windows that run nothing (the traces are given)."""
+
+    def __init__(self):
+        self.buf = types.SimpleNamespace(
+            sched=torch.zeros(5, dtype=torch.int32),
+            carry=torch.zeros(5, dtype=torch.int32))
+
+    def window_keys(self):
+        return {"S8 W2 greedy": (8, 2, None)}
+
+    def window_buffers(self, S):
+        return self.buf
+
+    def has_window_graph(self, buf, flags, W):
+        return True
+
+    def decode_window(self, buf, flags, W):
+        return torch.zeros(1, dtype=torch.int32)
+
+    def run_window(self, buf, flags, W):
+        return window_check.WindowFetch(torch.zeros(1, dtype=torch.int32))
+
+    def invalidate_windows(self):
+        pass
+
+
+WINDOW_RECORDS = ["split", "combine", "gemm"] * 4
+
+
+@pytest.mark.parametrize("replays_short", [1, 2], ids=["one_trace", "both"])
+def test_trace_pairs_retrace_each_side_and_keep_the_most(monkeypatch,
+                                                         replays_short):
+    """A replay trace that lost its last 3 records (the profiler dropping a
+    trace's tail) is healed by the second trace of that side: the pair
+    agrees as the first, `missing` says where the records lay, and each
+    side keeps each kernel's larger count. A replay whose every trace is
+    short (a window that truly launched fewer kernels) still differs in
+    every pair: the comparison is as strict as on one trace a side."""
+    traces = []
+
+    def records(run):
+        # eager, replay, then (after a difference) eager and replay again.
+        n = len(traces)
+        side = "eager" if n % 2 == 0 else "replay"
+        short = side == "replay" and (n % 4 == 1 or replays_short == 2)
+        traces.append(side)
+        run()
+        return WINDOW_RECORDS[:-3] if short else list(WINDOW_RECORDS)
+
+    monkeypatch.setattr(window_check, "kernel_records", records)
+    got = window_check.trace_launches(_TracedRunner(), "S8 W2 greedy")
+    full = {"split": 4, "combine": 4, "gemm": 4}
+    assert got["missing"][0] == ["replay", 9, 3, 12]
+    if replays_short == 1:
+        assert (got["tries"], got["retraced"]) == (1, 1)
+        assert got["eager"] == got["replay"] == full
+        assert got["mismatches"] == []
+    else:
+        assert (got["tries"], got["retraced"]) == (3, 3)
+        assert got["eager"] == full and got["replay"] != full
+        assert len(got["mismatches"]) == 3
+
+
+def test_missing_records_locate_a_lost_tail_and_middle():
+    """missing_records aligns a short trace against a full one by name:
+    [position in the full trace, records lost] for each run lost."""
+    full = ["a", "b", "c", "d", "e", "f", "g"]
+    assert window_check.missing_records(full[:-2], full) == [[5, 2]]
+    assert window_check.missing_records(full[:3] + full[5:], full) == [
+        [3, 2]]
+    assert window_check.missing_records(full, full) == []
+    assert window_check._most({"a": 2, "b": 1}, {"a": 1, "c": 3}) == {
+        "a": 2, "b": 1, "c": 3}
+
+
 def test_decode_ab_runs_chip_smokes_own_paths():
     """decode_ab takes its paths and their arguments from
     chip_smoke.main_paths, so the two cannot drift apart: every default
